@@ -1,0 +1,76 @@
+"""The port stands alone: importing it loads no JAX stack, no file of it
+imports the reference package, its config copy means what the reference's
+means, and its entry points refuse to run on a machine without CUDA unless
+asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tpu_resnet import config as ref_config
+from tpu_resnet_torch import config as port_config
+from tpu_resnet_torch.device import resolve_device
+from tpu_resnet_torch.main import main as port_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, files in os.walk(os.path.join(REPO, "tpu_resnet_torch"))
+    for f in files if f.endswith(".py")) + [
+        "chip_smoke.py", os.path.join("tools", "profile_torch_forward.py")]
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_resnet")
+
+
+def test_import_loads_no_jax_stack():
+    code = ("import sys, tpu_resnet_torch, tpu_resnet_torch.main, "
+            "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert; "
+            "print(sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {FORBIDDEN_ROOTS!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]", out
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_imports_no_reference(rel):
+    with open(os.path.join(REPO, rel)) as f:
+        tree = ast.parse(f.read(), filename=rel)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & set(FORBIDDEN_ROOTS), (rel, roots)
+
+
+@pytest.mark.parametrize("preset", sorted(ref_config.PRESETS))
+def test_config_copy_matches_reference(preset):
+    assert port_config.load_config(preset).to_dict() == \
+        ref_config.load_config(preset).to_dict()
+
+
+def test_config_overrides_match_reference():
+    overrides = ["model.fused_blocks=true", "model.fused_epilogue=on",
+                 "serve.max_batch=8", "train.train_dir=/tmp/x"]
+    assert port_config.load_config("cifar10", "", overrides).to_dict() == \
+        ref_config.load_config("cifar10", "", overrides).to_dict()
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main(["serve", "--preset", "cifar10",
+                   f"train.train_dir={tmp_path}"])
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the port's serve forward pass on a CUDA card.
+
+    python3 tools/profile_torch_forward.py [--batch 1 16] [--iters 20]
+
+Builds CIFAR-10 ResNet-50 as the serve path runs it (``--preset cifar10
+model.fused_blocks=true model.fused_epilogue=on``, bfloat16, seeded random
+weights), then for each batch size runs eval preprocessing and the
+forward pass ``--iters`` times under ``torch.profiler``. Prints one JSON
+line per batch size: wall ms per forward (host clock, ending in a
+synchronize), device-busy ms per forward (sum of the kernels' device
+times; one stream, so they do not overlap), the device's idle share, and
+the kernels by device time with their launches per forward. Then the
+card's name and power limit. Needs CUDA; raises without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from tpu_resnet_torch.config import load_config  # noqa: E402
+from tpu_resnet_torch.device import resolve_device  # noqa: E402
+from tpu_resnet_torch.models import build_model, init_weights  # noqa: E402
+from tpu_resnet_torch.serve.infer import make_serve_infer  # noqa: E402
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile_batch(model, infer, batch: int, iters: int) -> dict:
+    images = np.random.default_rng(0).integers(
+        0, 256, (batch, 32, 32, 3), dtype=np.uint8)
+    for _ in range(5):
+        infer(model, images).cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        infer(model, images).cpu()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            infer(model, images).cpu()
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append({"name": evt.key[:90],
+                            "ms_per_forward": us / 1e3 / iters,
+                            "launches_per_forward": evt.count / iters})
+    kernels.sort(key=lambda k: -k["ms_per_forward"])
+    busy = sum(k["ms_per_forward"] for k in kernels)
+    return {"batch": batch, "iters": iters, "wall_ms_per_forward": wall_ms,
+            "device_busy_ms_per_forward": busy if kernels else None,
+            "device_idle_share": 1 - busy / wall_ms if kernels else None,
+            "images_per_s": batch * 1e3 / wall_ms, "kernels": kernels}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, nargs="+", default=[1, 16])
+    p.add_argument("--iters", type=int, default=20)
+    args = p.parse_args(argv)
+    device = resolve_device("cuda")
+    cfg = load_config("cifar10", "", ["model.fused_blocks=true",
+                                      "model.fused_epilogue=on"])
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    infer = make_serve_infer(cfg, device)
+    for batch in args.batch:
+        print(json.dumps(profile_batch(model, infer, batch, args.iters)),
+              flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

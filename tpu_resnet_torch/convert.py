@@ -1,0 +1,63 @@
+"""Carry the reference's flax variables over to the port's ``state_dict``.
+
+``flax_to_torch`` takes ``{"params": ..., "batch_stats": ...}`` as nested
+dicts of numpy arrays (``jax.tree.map(np.asarray, variables)``) and maps
+each leaf by its path:
+
+- ``<path>/conv/kernel``, HWIO → ``<path>.weight``, OIHW;
+- ``final_dense/kernel``, (in, out) → ``final_dense.weight``, (out, in);
+  ``final_dense/bias`` → ``final_dense.bias``;
+- ``<path>/bn/scale``, ``bias`` → ``<path>.weight``, ``<path>.bias``;
+- batch_stats ``<path>/bn/mean``, ``var`` → ``<path>.running_mean``,
+  ``<path>.running_var``.
+
+The fused blocks keep the plain blocks' tree in both packages, so one
+mapping covers both. An unknown leaf raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def _map_leaf(collection: str, path: Tuple[str, ...],
+              value: np.ndarray) -> Tuple[str, np.ndarray]:
+    *head, parent, leaf = path
+    name = ".".join(head)
+    if collection == "params":
+        if parent == "conv" and leaf == "kernel":
+            return f"{name}.weight", value.transpose(3, 2, 0, 1)
+        if parent == "bn" and leaf in ("scale", "bias"):
+            return f"{name}.{'weight' if leaf == 'scale' else 'bias'}", value
+        if parent == "final_dense" and not head:
+            if leaf == "kernel":
+                return "final_dense.weight", value.T
+            if leaf == "bias":
+                return "final_dense.bias", value
+    if collection == "batch_stats" and parent == "bn" and \
+            leaf in ("mean", "var"):
+        return f"{name}.running_{leaf}", value
+    raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
+
+
+def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``{params, batch_stats}`` (numpy leaves) → ``state_dict``."""
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            name, arr = _map_leaf(collection, path, value)
+            out[name] = torch.tensor(np.ascontiguousarray(arr),
+                                     dtype=torch.float32)
+    return out
