@@ -27,7 +27,8 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_resnet")
 
 def test_import_loads_no_jax_stack():
     code = ("import sys, tpu_resnet_torch, tpu_resnet_torch.main, "
-            "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert; "
+            "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert, "
+            "tpu_resnet_torch.ops.fused_bottleneck; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN_ROOTS!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

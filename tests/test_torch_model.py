@@ -134,12 +134,21 @@ def test_init_weights_distributions():
       "model.resnet_size=16"], ValueError),
     (["model.fused_epilogue=auto"], NotImplementedError),
     (["model.fused_epilogue=sometimes"], ValueError),
-    (["data.dataset=imagenet"], NotImplementedError),
+    (["data.dataset=imagenet", "model.resnet_size=18",
+      "model.fused_blocks=true"], NotImplementedError),
     (["model.name=mlp"], NotImplementedError),
 ])
 def test_build_model_guards(overrides, exc):
     with pytest.raises(exc):
         build_model(load_config("cifar10", "", overrides))
+
+
+@pytest.mark.parametrize("overrides", [
+    [], ["model.fused_blocks=true", "model.fused_epilogue=on"],
+    ["model.resnet_size=34"]])
+def test_build_model_imagenet_preset(overrides):
+    model = build_model(load_config("imagenet", "", overrides))
+    assert model.stem == "imagenet" and model.final_dense.out_features == 1000
 
 
 def test_constructor_and_train_guards():

@@ -2,16 +2,18 @@
 """Device-time breakdown of the port's serve forward pass on a CUDA card.
 
     python3 tools/profile_torch_forward.py [--batch 1 16] [--iters 20]
+        [--preset cifar10|imagenet] [section.field=value ...]
 
-Builds CIFAR-10 ResNet-50 as the serve path runs it (``--preset cifar10
-model.fused_blocks=true model.fused_epilogue=on``, bfloat16, seeded random
-weights), then for each batch size runs eval preprocessing and the
-forward pass ``--iters`` times under ``torch.profiler``. Prints one JSON
-line per batch size: wall ms per forward (host clock, ending in a
-synchronize), device-busy ms per forward (sum of the kernels' device
-times; one stream, so they do not overlap), the device's idle share, and
-the kernels by device time with their launches per forward. Then the
-card's name and power limit. Needs CUDA; raises without it.
+Builds the model as the serve path runs it (``--preset``, default
+``cifar10``, with ``model.fused_blocks=true model.fused_epilogue=on`` and
+then the given overrides; bfloat16, seeded random weights), then for each
+batch size runs eval preprocessing and the forward pass ``--iters`` times
+under ``torch.profiler``. Prints one JSON line per batch size: wall ms
+per forward (host clock, ending in a synchronize), device-busy ms per
+forward (sum of the kernels' device times; one stream, so they do not
+overlap), the device's idle share, and the kernels by device time with
+their launches per forward. Then the card's name and power limit. Needs
+CUDA; raises without it.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_batch(model, infer, batch: int, iters: int) -> dict:
+def profile_batch(model, infer, batch: int, iters: int, size: int) -> dict:
     images = np.random.default_rng(0).integers(
-        0, 256, (batch, 32, 32, 3), dtype=np.uint8)
+        0, 256, (batch, size, size, 3), dtype=np.uint8)
     for _ in range(5):
         infer(model, images).cpu()
     torch.cuda.synchronize()
@@ -77,15 +79,19 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--preset", default="cifar10")
+    p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
-    cfg = load_config("cifar10", "", ["model.fused_blocks=true",
-                                      "model.fused_epilogue=on"])
+    cfg = load_config(args.preset, "", ["model.fused_blocks=true",
+                                        "model.fused_epilogue=on",
+                                        *args.overrides])
     model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     infer = make_serve_infer(cfg, device)
     for batch in args.batch:
-        print(json.dumps(profile_batch(model, infer, batch, args.iters)),
+        print(json.dumps(profile_batch(model, infer, batch, args.iters,
+                                       cfg.data.resolved_image_size)),
               flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -6,9 +6,10 @@ from __future__ import annotations
 import torch
 
 from tpu_resnet_torch.models.resnet import (ResNetV2, cifar_resnet_v2,
-                                            init_weights)
+                                            imagenet_resnet_v2, init_weights)
 
-__all__ = ["ResNetV2", "cifar_resnet_v2", "init_weights", "build_model"]
+__all__ = ["ResNetV2", "cifar_resnet_v2", "imagenet_resnet_v2",
+           "init_weights", "build_model"]
 
 
 def build_model(cfg) -> ResNetV2:
@@ -17,7 +18,7 @@ def build_model(cfg) -> ResNetV2:
     dtype = getattr(torch, cfg.model.compute_dtype)
     if cfg.model.name == "mlp":
         raise NotImplementedError("model.name=mlp is a later slice of the "
-                                  "port; this slice serves the CIFAR ResNet")
+                                  "port; it serves the ResNets")
     if cfg.model.name != "resnet":
         raise ValueError(f"unknown model {cfg.model.name!r}")
     epilogue = cfg.model.fused_epilogue
@@ -29,9 +30,13 @@ def build_model(cfg) -> ResNetV2:
             "model.fused_epilogue=auto needs the autotune harness, a later "
             "slice of the port; use off or on")
     if cfg.data.dataset == "imagenet":
-        raise NotImplementedError(
-            "data.dataset=imagenet (the bottleneck ResNet and its fused "
-            "kernel) is the next slice of the port")
+        # fused_blocks: the bottleneck sizes run their stride-1 identity
+        # blocks of width 64-256 as the fused bottleneck kernel; the
+        # basic-block sizes (18/34) raise NotImplementedError.
+        return imagenet_resnet_v2(
+            cfg.model.resnet_size, cfg.data.num_classes, dtype=dtype,
+            stem_space_to_depth=cfg.model.stem_space_to_depth,
+            fused_blocks=cfg.model.fused_blocks, fused_epilogue=epilogue)
     if cfg.model.fused_blocks and cfg.model.width_multiplier > 1:
         raise ValueError("model.fused_blocks is only measured/tiled for "
                          "width_multiplier=1 (16/32/64-channel stages)")

@@ -1,4 +1,5 @@
-"""Pre-activation ResNet-v2 (CIFAR 6n+2 generator), eval mode, in PyTorch.
+"""Pre-activation ResNet-v2 (CIFAR 6n+2 and ImageNet 18-200 generators),
+eval mode, in PyTorch.
 
 Port of ``tpu_resnet/models/resnet.py``. Module and parameter names follow
 the reference's variable tree (``convert.flax_to_torch`` maps one onto the
@@ -8,9 +9,11 @@ other), so a block means the same thing in both packages:
   ``dtype`` (bfloat16 by default) and the logits come back in float32;
 - BN+ReLU sites run as plain BN (``epilogue="off"``) or as the fused
   scale-bias-ReLU kernel (``"on"``, ``ops/epilogue.py``);
-- with ``fused_blocks`` every stride-1 identity block runs as the fused
-  block kernel (``ops/fused_block.py``); each stage's block0, the
-  stride/projection block, stays on ``F.conv2d``.
+- with ``fused_blocks`` every stride-1 identity basic block runs as the
+  fused block kernel (``ops/fused_block.py``) and every stride-1 identity
+  bottleneck of width 64, 128 or 256 as the fused bottleneck kernel
+  (``ops/fused_bottleneck.py``); each stage's block0, the stride/projection
+  block, and the width-512 bottlenecks stay on ``F.conv2d``.
 
 Activations are NHWC tensors (channels_last storage) throughout, as at the
 reference's public functions. Only eval exists here: ``train=True`` raises.
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
+from tpu_resnet_torch.ops import fused_bottleneck as fbn
 
 _BATCH_NORM_EPSILON = 1e-5
 EPILOGUES = ("off", "on")
@@ -134,19 +138,81 @@ class FusedBuildingBlock(nn.Module):
         return fb.block_fwd(x, w1, w2, s1, b1, s2, b2)
 
 
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1(4f) pre-activation bottleneck. The stride is on the
+    3x3 (v2); the projection, a 1x1 to 4f with the block's stride, convolves
+    the pre-activated input."""
+
+    def __init__(self, in_features: int, filters: int, strides: int,
+                 use_projection: bool, epilogue: str = "off"):
+        super().__init__()
+        self.preact = BatchNormRelu(in_features, epilogue)
+        self.proj = (ConvFixedPadding(in_features, 4 * filters, 1, strides)
+                     if use_projection else None)
+        self.conv1 = ConvFixedPadding(in_features, filters, 1, 1)
+        self.bnrelu1 = BatchNormRelu(filters, epilogue)
+        self.conv2 = ConvFixedPadding(filters, filters, 3, strides)
+        self.bnrelu2 = BatchNormRelu(filters, epilogue)
+        self.conv3 = ConvFixedPadding(filters, 4 * filters, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        x = self.preact(x)
+        if self.proj is not None:
+            shortcut = self.proj(x)
+        x = self.bnrelu1(self.conv1(x))
+        x = self.conv3(self.bnrelu2(self.conv2(x)))
+        return x + shortcut
+
+
+class FusedBottleneckBlock(nn.Module):
+    """A stride-1 identity :class:`BottleneckBlock` run as the fused
+    bottleneck kernel: running statistics folded with the bottleneck's own
+    fold, the 1x1 kernels handed over as matrices (w1 [4f,f], w3 [f,4f]) and
+    the 3x3 as HWIO. Same parameters, same names."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        c4 = 4 * filters
+        self.preact = BatchNormRelu(c4)
+        self.conv1 = ConvFixedPadding(c4, filters, 1, 1)
+        self.bnrelu1 = BatchNormRelu(filters)
+        self.conv2 = ConvFixedPadding(filters, filters, 3, 1)
+        self.bnrelu2 = BatchNormRelu(filters)
+        self.conv3 = ConvFixedPadding(filters, c4, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        folds = []
+        for bn in (self.preact, self.bnrelu1, self.bnrelu2):
+            folds += fbn._fold_bn(bn.weight, bn.bias, bn.running_mean,
+                                  torch.rsqrt(bn.running_var
+                                              + _BATCH_NORM_EPSILON))
+        w1 = self.conv1.weight[:, :, 0, 0].t().contiguous()
+        w2 = self.conv2.weight.permute(2, 3, 1, 0).contiguous()
+        w3 = self.conv3.weight[:, :, 0, 0].t().contiguous()
+        return fbn.bottleneck_fwd(x, w1, w2, w3, *folds)
+
+
 class BlockLayer(nn.Module):
     """A stage: block0 strides and projects; blocks 1.. are stride-1
-    identity blocks, fused when ``fused``."""
+    identity blocks, fused when ``fused`` (bottlenecks only at the widths
+    the fused kernel takes, ``fbn.WIDTHS``: f=512 stays on F.conv2d)."""
 
     def __init__(self, in_features: int, filters: int, blocks: int,
-                 strides: int, fused: bool = False, epilogue: str = "off"):
+                 strides: int, fused: bool = False, epilogue: str = "off",
+                 bottleneck: bool = False):
         super().__init__()
-        self.add_module("block0", BuildingBlock(in_features, filters, strides,
-                                                True, epilogue))
+        block_cls = BottleneckBlock if bottleneck else BuildingBlock
+        fuse = fused and (not bottleneck
+                          or filters in fbn.WIDTHS)
+        fused_cls = FusedBottleneckBlock if bottleneck else FusedBuildingBlock
+        out_features = 4 * filters if bottleneck else filters
+        self.add_module("block0", block_cls(in_features, filters, strides,
+                                            True, epilogue))
         for i in range(1, blocks):
-            self.add_module(f"block{i}", FusedBuildingBlock(filters) if fused
-                            else BuildingBlock(filters, filters, 1, False,
-                                               epilogue))
+            self.add_module(f"block{i}", fused_cls(filters) if fuse
+                            else block_cls(out_features, filters, 1, False,
+                                           epilogue))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.children():
@@ -154,24 +220,78 @@ class BlockLayer(nn.Module):
         return x
 
 
+class ImagenetStem(nn.Module):
+    """The ImageNet 7x7/2 stem conv, one 7x7xCxF parameter (``weight``,
+    OIHW), in either of the reference's two equal forms:
+
+    - space-to-depth (``space_to_depth``, even inputs): the kernel padded to
+      8x8 with a zero leading row and column and rearranged to 4x4x4C, the
+      input rearranged to s2d(2) with channel order (row, column, channel),
+      then a 4x4/1 conv with padding (2, 1);
+    - plain (odd inputs, or ``space_to_depth=False``): 7x7/2 with fixed
+      padding (3, 3)."""
+
+    def __init__(self, in_features: int, filters: int,
+                 space_to_depth: bool = True):
+        super().__init__()
+        self.space_to_depth = space_to_depth
+        self.weight = nn.Parameter(torch.empty(filters, in_features, 7, 7))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if not self.space_to_depth or h % 2 or w % 2:
+            return _conv_nhwc(x, self.weight, 2, 3)
+        f = self.weight.shape[0]
+        k8 = F.pad(self.weight.permute(2, 3, 1, 0), (0, 0, 0, 0, 1, 0, 1, 0))
+        k4 = k8.reshape(4, 2, 4, 2, c, f).permute(0, 2, 1, 3, 4, 5).reshape(
+            4, 4, 4 * c, f).permute(3, 2, 0, 1)
+        xs = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(
+            0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+        xs = F.pad(xs, (0, 0, 2, 1, 2, 1))
+        return _conv_nhwc(xs, k4, 1, 0)
+
+
+def max_pool_same(x: torch.Tensor, window: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """``nn.max_pool(x, (k, k), (s, s), "SAME")`` over NHWC: SAME pads
+    (total // 2, total - total // 2) with -inf, so 112 -> 56 pads (0, 1),
+    not the (1, 1) of ``F.max_pool2d(padding=1)``."""
+    pads = []
+    for n in (x.shape[2], x.shape[1]):   # F.pad order: W, then H
+        total = max((-(-n // stride) - 1) * stride + window - n, 0)
+        pads += [total // 2, total - total // 2]
+    xp = F.pad(x.permute(0, 3, 1, 2), pads, value=float("-inf"))
+    return F.max_pool2d(xp, window, stride).permute(0, 2, 3, 1).contiguous()
+
+
 class ResNetV2(nn.Module):
-    """Pre-activation ResNet-v2 with the CIFAR stem (3x3/1 conv, no
-    max-pool) over NHWC inputs."""
+    """Pre-activation ResNet-v2 over NHWC inputs. ``stem="cifar"``: 3x3/1
+    conv, no max-pool; ``stem="imagenet"``: 7x7/2 conv (space-to-depth by
+    default) and a 3x3/2 SAME max-pool."""
 
     def __init__(self, stage_filters: Sequence[int],
                  stage_blocks: Sequence[int], stage_strides: Sequence[int],
                  num_classes: int, stem_filters: int = 16,
                  dtype: torch.dtype = torch.bfloat16,
-                 fused_blocks: bool = False, fused_epilogue: str = "off"):
+                 fused_blocks: bool = False, fused_epilogue: str = "off",
+                 bottleneck: bool = False, stem: str = "cifar",
+                 stem_space_to_depth: bool = True):
         super().__init__()
         self.dtype = dtype
-        self.initial_conv = ConvFixedPadding(3, stem_filters, 3, 1)
+        if stem == "cifar":
+            self.initial_conv = ConvFixedPadding(3, stem_filters, 3, 1)
+        elif stem == "imagenet":
+            self.initial_conv = ImagenetStem(3, stem_filters,
+                                             stem_space_to_depth)
+        else:
+            raise ValueError(f"unknown stem {stem!r}")
+        self.stem = stem
         prev = stem_filters
         for i, (f, b, s) in enumerate(zip(stage_filters, stage_blocks,
                                           stage_strides)):
             self.add_module(f"block_layer{i + 1}", BlockLayer(
-                prev, f, b, s, fused_blocks, fused_epilogue))
-            prev = f
+                prev, f, b, s, fused_blocks, fused_epilogue, bottleneck))
+            prev = 4 * f if bottleneck else f
         self.final_bnrelu = BatchNormRelu(prev, fused_epilogue)
         self.final_dense = nn.Linear(prev, num_classes)
 
@@ -181,6 +301,8 @@ class ResNetV2(nn.Module):
             raise NotImplementedError("train=True: training is a later "
                                       "slice of the port; eval only")
         x = self.initial_conv(x.to(self.dtype))
+        if self.stem == "imagenet":
+            x = max_pool_same(x)
         for name, layer in self.named_children():
             if name.startswith("block_layer"):
                 x = layer(x)
@@ -217,6 +339,41 @@ def cifar_resnet_v2(resnet_size: int, num_classes: int,
                     fused_blocks=fused_blocks, fused_epilogue=fused_epilogue)
 
 
+# size: (bottleneck, stage_blocks), as the reference's _IMAGENET_PARAMS.
+IMAGENET_PARAMS = {
+    18: (False, (2, 2, 2, 2)),
+    34: (False, (3, 4, 6, 3)),
+    50: (True, (3, 4, 6, 3)),
+    101: (True, (3, 4, 23, 3)),
+    152: (True, (3, 8, 36, 3)),
+    200: (True, (3, 24, 36, 3)),
+}
+
+
+def imagenet_resnet_v2(resnet_size: int, num_classes: int,
+                       dtype: torch.dtype = torch.bfloat16,
+                       stem_space_to_depth: bool = True,
+                       fused_blocks: bool = False,
+                       fused_epilogue: str = "off") -> ResNetV2:
+    """ImageNet ResNet-v2 18/34/50/101/152/200 (stages 64/128/256/512,
+    ImageNet stem). ``fused_blocks`` takes the bottleneck sizes only: the
+    port's basic-block kernel has no plan for 56x56x64 and wider."""
+    if resnet_size not in IMAGENET_PARAMS:
+        raise ValueError(f"invalid resnet_size {resnet_size}; have "
+                         f"{sorted(IMAGENET_PARAMS)}")
+    bottleneck, blocks = IMAGENET_PARAMS[resnet_size]
+    if fused_blocks and not bottleneck:
+        raise NotImplementedError(
+            f"fused_blocks for ImageNet ResNet-{resnet_size} (basic blocks "
+            f"at 56x56x64 and wider) needs a block_fwd for C 64-256, a later "
+            f"slice of the port (ROADMAP Queue 1); use fused_blocks=false")
+    return ResNetV2(stage_filters=(64, 128, 256, 512), stage_blocks=blocks,
+                    stage_strides=(1, 2, 2, 2), num_classes=num_classes,
+                    stem_filters=64, dtype=dtype, fused_blocks=fused_blocks,
+                    fused_epilogue=fused_epilogue, bottleneck=bottleneck,
+                    stem="imagenet", stem_space_to_depth=stem_space_to_depth)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation with the reference's distributions: convs
     variance_scaling(1.0, fan_in, truncated_normal), the dense kernel
@@ -224,7 +381,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     Draws on the CPU; move the model afterwards."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, ConvFixedPadding):
+            if isinstance(m, (ConvFixedPadding, ImagenetStem)):
                 fan_in = m.weight[0].numel()
                 # JAX's truncated_normal scales by the std of a unit normal
                 # truncated to [-2, 2], so the result has variance 1/fan_in.

@@ -38,6 +38,7 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "epilogue": ("tr_sbr", [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
                             _P]),
     "fused_block": ("tr_block_fwd", [_P] * 8 + [_I] * 6 + [_P]),
+    "fused_bottleneck": ("tr_bottleneck_fwd", [_P] * 11 + [_I] * 6 + [_P]),
 }
 
 _lock = threading.Lock()
