@@ -9,13 +9,17 @@ Phases, each printing one JSON line:
    CUDA versions, and the seconds ``nvcc`` took to build the kernels from
    ``tpu_resnet_torch/csrc`` (one compiler per source, started together).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at every shape the two serve paths give it with B=16, in bfloat16 and
-   float32 (float32 oracle with TF32 off): max abs/rel error against the
-   stated tolerance; CUDA-event median times of kernel and plain version,
-   on the device alone (``ms``: calls queued back to back behind a spin)
-   and per call with the host's launch gaps (``call_ms``); and the bound
-   (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, the H100
-   SXM's published peaks).
+   at every shape the two serve paths give it with B=16 and the CIFAR train
+   path gives it with B=128, in bfloat16 and float32 (float32 oracle with
+   TF32 off): max abs/rel error against the stated tolerance; CUDA-event
+   median times of kernel and plain version, on the device alone (``ms``:
+   calls queued back to back behind a spin) and per call with the host's
+   launch gaps (``call_ms``); the bound (bytes at 3.35 TB/s or float32
+   operations at 67 TFLOP/s, the H100 SXM's published peaks); and for
+   ``xent_fwd`` the time of ``F.cross_entropy(reduction="none")``
+   (``library_ms``). ``sbr_bwd``: dx exact, ds/db within
+   1e-5·Σ|g·mask·x| + 1e-6 per channel; ``xent_fwd``/``xent_bwd`` at
+   [128, 10/100/1000] within 1e-5 abs and rel.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
    random weights, checkpointed to a temporary train dir and served by the
@@ -31,11 +35,27 @@ Phases, each printing one JSON line:
    the largest |logit|), and the argmax must agree on every image whose
    plain-version top-1/top-2 margin exceeds twice the measured max |d|
    (random weights with 1000 classes leave many near-ties).
+5. ``train``: CIFAR-10 ResNet-50 at full width, B=128 (``--preset cifar10
+   model.fused_epilogue=on optim.use_pallas_xent=on data.dataset=synthetic
+   data.synthetic_learnable=true``): (a) one float32 train step from one
+   seeded state through the kernels and one through the plain versions:
+   loss, precision and grad_norm within 1e-5 relative, every updated
+   parameter, momentum buffer and running statistic within 1e-5 + 1e-4·
+   |plain|; (b) the port's ``train()`` for 100 steps in bfloat16 with a
+   metrics line per step and a checkpoint every 50, the counters zeroed
+   just before and read just after: 49 ``sbr``, 49 ``sbr_bwd``, 1
+   ``xent_fwd`` and 1 ``xent_bwd`` launches per step and none of the fused
+   blocks; every loss finite and the mean of the last 10 below the mean of
+   the first 10; (c) ``train()`` again to step 120, resuming from 100; (d)
+   ``evaluate`` once on checkpoint 120 (49 ``sbr`` per eval forward),
+   printing its precision and loss; then ms/step, images/s, device-busy ms
+   per step and idle share of the loop's step under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line (times summed over the launches of one
-forward pass of each serve path that runs the kernel, at B=16 in bfloat16,
-the serving dtype; ``launches`` is the count over both serve phases), the
-``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+forward pass of each serve path and one train step that run the kernel, in
+bfloat16; ``launches`` is the count over the phases that drive the main
+paths: both serve phases, and the train and eval runs of the train phase),
+the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line;
 without CUDA the script exits 2.
 """
@@ -44,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -55,11 +76,16 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BATCH = 16
-# (shape, launches per forward pass) on each serve path, at B=BATCH.
+TRAIN_BATCH = 128
+# (shape, launches per forward pass) on each serve path, at B=BATCH, and
+# per step on the CIFAR train path, at B=TRAIN_BATCH.
+TRAIN_SBR = (((TRAIN_BATCH, 32, 32, 16), 17), ((TRAIN_BATCH, 16, 16, 32), 16),
+             ((TRAIN_BATCH, 8, 8, 64), 16))
 SHAPES = {
     "cifar10": {
         "sbr": (((BATCH, 32, 32, 16), 3), ((BATCH, 16, 16, 32), 2),
@@ -78,12 +104,23 @@ SHAPES = {
                            ((BATCH, 28, 28, 512), 3),
                            ((BATCH, 14, 14, 1024), 5)),
     },
+    "cifar10_train": {"sbr": TRAIN_SBR},
 }
-KERNELS = ("sbr", "block_fwd", "bottleneck_fwd")
-# Launches per forward pass of each serve path, every kernel listed.
-PER_FORWARD = {path: {k: sum(n for _, n in shapes.get(k, ()))
-                      for k in KERNELS}
-               for path, shapes in SHAPES.items()}
+# Train-path kernels with their own rows: sbr_bwd at the sbr shapes, the
+# cross-entropy pair at these class counts (launches per step).
+XENT_CLASSES = ((10, 1), (100, 0), (1000, 0))
+KERNELS = ("sbr", "block_fwd", "bottleneck_fwd", "sbr_bwd", "xent_fwd",
+           "xent_bwd")
+# Launches per forward pass of each serve path and per train step, every
+# kernel listed.
+PER_PASS = {path: {k: sum(n for _, n in shapes.get(k, ()))
+                   for k in KERNELS}
+            for path, shapes in SHAPES.items()}
+PER_PASS["cifar10_train"].update(
+    sbr_bwd=sum(n for _, n in TRAIN_SBR), xent_fwd=1, xent_bwd=1)
+TRAIN_OVERRIDES = ["model.fused_epilogue=on", "optim.use_pallas_xent=on",
+                   "data.dataset=synthetic", "data.synthetic_learnable=true"]
+TRAIN_STEPS, RESUME_STEPS = 100, 120
 # |kernel - plain| <= atol + rtol * |plain|, elementwise. sbr rounds
 # exactly as the plain version does; the fused blocks sum their convs in
 # another order than cuDNN/cuBLAS, and in bfloat16 that can move the stored
@@ -100,6 +137,14 @@ TOLERANCE = {
 # through 50 layers, where one-ulp differences compound.
 LOGIT_TOL = 0.05   # max |d| as a fraction of max |plain logit|
 ARGMAX_AGREE = 0.99
+# sbr_bwd's ds/db: |kernel - plain| <= rtol * sum|terms| + atol per channel
+# (float32 sums over B*H*W pixels, in another order); dx is exact.
+SBR_BWD_TOL = (1e-5, 1e-6)
+XENT_TOL = (1e-5, 1e-5)    # xent_fwd/xent_bwd, atol and rtol
+# The float32 train step through the kernels against the plain versions:
+# metrics within STEP_RTOL relative, state within atol + rtol * |plain|.
+STEP_RTOL = 1e-5
+STATE_TOL = (1e-5, 1e-4)
 
 
 def emit(phase: str, **fields) -> None:
@@ -138,12 +183,26 @@ def time_ms(fn, queued: bool, reps: int = 20, inner: int = 10) -> float:
 def bound(kind: str, shape, dtype) -> tuple:
     """(least ms the card could take, what bounds it): each input read
     once, each output written once, operations at the float32 rate."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    if kind in ("xent_fwd", "xent_bwd"):
+        b, c = shape
+        if kind == "xent_fwd":   # logits, labels in; loss out
+            moved = b * c * 4 + 2 * b * 4
+            ops = 4 * b * c + 3 * b   # max, sub, exp, add; log, add, sub
+        else:                    # logits, labels, g in; dx out
+            moved = 2 * b * c * 4 + 2 * b * 4
+            ops = 8 * b * c           # max, sub, exp, add; sub, exp, div..
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
     b, h, w, c = shape
     n = b * h * w * c
-    item = torch.tensor([], dtype=dtype).element_size()
     if kind == "sbr":
         moved = 2 * n * item + 2 * c * 4
         ops = 3 * n                                  # mul, add, max
+    elif kind == "sbr_bwd":   # x, g in, dx out; s, b in, ds, db out
+        moved = 3 * n * item + 4 * c * 4
+        ops = 8 * n   # mul, add, compare; mul (dx); mul, add (ds); add (db)
     elif kind == "block_fwd":
         moved = 2 * n * item + 2 * 9 * c * c * 4 + 4 * c * 4
         ops = 2 * (2 * b * h * w * 9 * c * c) + 6 * n
@@ -184,13 +243,22 @@ def kernel_args(kind: str, shape, dtype, gen) -> tuple:
             randn(f, c, scale=f ** -0.5), *sb(c), *sb(f), *sb(f))
 
 
+def _timed(row, kernel, plain, kind, shape, dtype) -> dict:
+    for key, fn in (("ms", kernel), ("plain_ms", plain)):
+        row[key] = time_ms(fn, queued=True)
+        row["call_" + key] = time_ms(fn, queued=False)
+    row["bound_ms"], row["bound_by"] = bound(kind, shape, dtype)
+    row["bound_us"] = row["bound_ms"] * 1e3
+    return row
+
+
 def kernel_phase(wrappers):
     """Per-shape comparison and timing; returns the per-shape rows."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     cases = [(path, kind, shape, n) for path, kinds in SHAPES.items()
              for kind, shapes in kinds.items() for shape, n in shapes]
-    for path, kind, shape, per_forward in cases:
+    for path, kind, shape, per_pass in cases:
         kernel, plain = wrappers[kind]
         for dtype in (torch.bfloat16, torch.float32):
             args = kernel_args(kind, shape, dtype, gen)
@@ -202,7 +270,7 @@ def kernel_phase(wrappers):
             excess = float((d - atol - rtol * want.float().abs()).max())
             row = {"kernel": kind, "path": path, "shape": list(shape),
                    "dtype": str(dtype).split(".")[1],
-                   "per_forward": per_forward,
+                   "per_pass": per_pass,
                    "max_abs_err": float(d.max()),
                    "max_rel_err": float(d.max() / want.float().abs().max()),
                    "atol": atol, "rtol": rtol}
@@ -211,27 +279,128 @@ def kernel_phase(wrappers):
                   f"{tuple(got.shape)}")
             check(excess <= 0, f"{kind} {shape} {dtype}: error beyond "
                   f"tolerance: {row}")
-            for key, fn in (("ms", kernel), ("plain_ms", plain)):
-                row[key] = time_ms(lambda: fn(*args), queued=True)
-                row["call_" + key] = time_ms(lambda: fn(*args), queued=False)
-            row["bound_ms"], row["bound_by"] = bound(kind, shape, dtype)
-            row["bound_us"] = row["bound_ms"] * 1e3
+            rows.append(_timed(row, lambda: kernel(*args),
+                               lambda: plain(*args), kind, shape, dtype))
+    return rows
+
+
+def train_kernel_phase(ep, sx):
+    """The train path's backward kernels against their plain versions:
+    ``sbr_bwd`` at the three CIFAR train shapes, bfloat16 and float32, and
+    the cross-entropy pair at B=128 for 10, 100 and 1000 classes."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for shape, per_step in TRAIN_SBR:
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bi = torch.randn(c, generator=gen, device="cuda") * 0.5
+            got = ep.scale_bias_relu_bwd(x, sc, bi, g)
+            want = ep.scale_bias_relu_bwd_reference(x, sc, bi, g)
+            torch.cuda.synchronize()
+            gm = torch.where(x.float() * sc + bi > 0, g.float(), 0.0)
+            rtol, atol = SBR_BWD_TOL
+            name = f"sbr_bwd {shape} {dtype}"
+            check(got[0].dtype == dtype and torch.equal(got[0], want[0]),
+                  f"{name}: dx differs from the plain version")
+            excess = 0.0
+            for k, terms in ((1, gm * x.float()), (2, gm)):
+                limit = rtol * terms.abs().sum(dim=(0, 1, 2)) + atol
+                excess = max(excess, float(((got[k] - want[k]).abs()
+                                            / limit).max()))
+            err = max(float((got[k].float() - want[k].float()).abs().max())
+                      for k in range(3))
+            row = {"kernel": "sbr_bwd", "path": "cifar10_train",
+                   "shape": list(shape), "dtype": str(dtype).split(".")[1],
+                   "per_pass": per_step, "max_abs_err": err,
+                   "ds_db_err_over_limit": excess,
+                   "tolerance": "dx exact; ds, db <= 1e-5*sum|terms| + 1e-6"}
+            check(excess <= 1, f"{name}: ds/db beyond tolerance: {row}")
+            rows.append(_timed(
+                row, lambda: ep.scale_bias_relu_bwd(x, sc, bi, g),
+                lambda: ep.scale_bias_relu_bwd_reference(x, sc, bi, g),
+                "sbr_bwd", shape, dtype))
+    atol, rtol = XENT_TOL
+    for classes, per_step in XENT_CLASSES:
+        shape = (TRAIN_BATCH, classes)
+        logits = torch.randn(shape, generator=gen, device="cuda") * 3
+        labels = torch.randint(0, classes, (TRAIN_BATCH,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels64 = labels.long()
+        g = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+        pairs = {
+            "xent_fwd": (lambda: sx.softmax_xent_per_example(logits, labels),
+                         lambda: sx.softmax_xent_per_example_reference(
+                             logits, labels)),
+            "xent_bwd": (lambda: sx.softmax_xent_bwd(logits, labels, g),
+                         lambda: sx.softmax_xent_bwd_reference(logits,
+                                                               labels, g))}
+        for kind, (kernel, plain) in pairs.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            row = {"kernel": kind, "path": "cifar10_train",
+                   "shape": list(shape), "dtype": "float32",
+                   "per_pass": per_step, "max_abs_err": float(d.max()),
+                   "max_rel_err": float(d.max() / want.abs().max()),
+                   "atol": atol, "rtol": rtol}
+            check(got.shape == want.shape and bool(
+                (d <= atol + rtol * want.abs()).all()),
+                f"{kind} {shape}: error beyond tolerance: {row}")
+            _timed(row, kernel, plain, kind, shape, torch.float32)
+            # One PyTorch call computes the forward; none the backward.
+            row["library_ms"] = (time_ms(lambda: F.cross_entropy(
+                logits, labels64, reduction="none"), queued=True)
+                if kind == "xent_fwd" else None)
             rows.append(row)
     return rows
 
 
+def kernel_counters() -> dict:
+    """{kernel: (module, launch counter)} of the port's wrappers."""
+    from tpu_resnet_torch.ops import epilogue as ep
+    from tpu_resnet_torch.ops import fused_block as fb
+    from tpu_resnet_torch.ops import fused_bottleneck as fbn
+    from tpu_resnet_torch.ops import softmax_xent as sx
+    return {"sbr": (ep, "launches"), "block_fwd": (fb, "launches"),
+            "bottleneck_fwd": (fbn, "launches"),
+            "sbr_bwd": (ep, "bwd_launches"), "xent_fwd": (sx, "fwd_launches"),
+            "xent_bwd": (sx, "bwd_launches")}
+
+
+def zero_counts(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
 @contextlib.contextmanager
-def plain_versions(ep, fb, fbn):
-    """Route the model's kernel calls to the plain versions (the oracle
-    run only)."""
-    saved = ep.scale_bias_relu, fb.block_fwd, fbn.bottleneck_fwd
-    ep.scale_bias_relu = ep.scale_bias_relu_reference
-    fb.block_fwd = fb.block_fwd_reference
-    fbn.bottleneck_fwd = fbn.bottleneck_fwd_reference
+def plain_versions():
+    """Route the model's and the train step's kernel calls to the plain
+    versions (the oracle runs only); the plain sbr and cross-entropy are
+    differentiable through their plain backward versions."""
+    from tpu_resnet_torch.ops import epilogue as ep
+    from tpu_resnet_torch.ops import fused_block as fb
+    from tpu_resnet_torch.ops import fused_bottleneck as fbn
+    from tpu_resnet_torch.ops import softmax_xent as sx
+    swaps = ((ep, "scale_bias_relu", ep.scale_bias_relu_reference),
+             (fb, "block_fwd", fb.block_fwd_reference),
+             (fbn, "bottleneck_fwd", fbn.bottleneck_fwd_reference),
+             (sx, "softmax_xent_per_example",
+              sx.softmax_xent_per_example_reference))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        ep.scale_bias_relu, fb.block_fwd, fbn.bottleneck_fwd = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def post(port: int, body: bytes, content_type: str, shape=None) -> tuple:
@@ -267,7 +436,7 @@ SERVE_PATHS = {
 N_IMAGES = 256
 
 
-def serve_phase(path: str, mods, gpu: str) -> dict:
+def serve_phase(path: str, counters, gpu: str) -> dict:
     from tpu_resnet_torch.config import load_config
     from tpu_resnet_torch.models import build_model, init_weights
     from tpu_resnet_torch.serve.infer import make_serve_infer
@@ -276,7 +445,6 @@ def serve_phase(path: str, mods, gpu: str) -> dict:
 
     spec = SERVE_PATHS[path]
     size = spec["size"]
-    counters = dict(zip(KERNELS, mods))
     train_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{path}_")
     cfg = load_config(path, "", [
         "model.fused_blocks=true", "model.fused_epilogue=on",
@@ -305,8 +473,7 @@ def serve_phase(path: str, mods, gpu: str) -> dict:
                         "application/octet-stream", (n, size, size, 3))
 
         batches0 = server.batcher.stats()["batches"]
-        for mod in mods:
-            mod.launches = 0
+        zero_counts(counters)
         served = []  # (images, logits)
         for n, off in spec["octet"]:
             out, _ = octet(n, off)
@@ -320,10 +487,10 @@ def serve_phase(path: str, mods, gpu: str) -> dict:
         served.append((js, np.asarray(out["logits"])))
         lat1 = [octet(1, i)[1] for i in range(spec["lat1"])]
         lat16 = [octet(16, i)[1] for i in range(0, N_IMAGES, 16)]
-        launches = {k: m.launches for k, m in counters.items()}
+        launches = read_counts(counters)
         forwards = server.batcher.stats()["batches"] - batches0
         check(forwards > 0, "no batch ran")
-        want_launches = {k: n * forwards for k, n in PER_FORWARD[path].items()}
+        want_launches = {k: n * forwards for k, n in PER_PASS[path].items()}
         check(launches == want_launches,
               f"{path}: launch counts {launches} over {forwards} forward "
               f"passes, expected {want_launches}")
@@ -337,7 +504,7 @@ def serve_phase(path: str, mods, gpu: str) -> dict:
                 infer(served_model, images[i:i + 16]).float().cpu().numpy()
                 for i in range(0, N_IMAGES, 16)])
 
-        with plain_versions(*mods):
+        with plain_versions():
             ref = [infer(served_model, im).float().cpu().numpy()
                    for im, _ in served]
             ref_all = run_all()
@@ -392,6 +559,229 @@ def serve_phase(path: str, mods, gpu: str) -> dict:
     return result
 
 
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def compare_step(cfg, counters) -> dict:
+    """One float32 train step from one seeded state through the kernels,
+    and one through the plain versions; every metric and updated tensor
+    compared."""
+    from tpu_resnet_torch.data import augment as aug
+    from tpu_resnet_torch.data.cifar import synthetic_data
+    from tpu_resnet_torch.train import schedule as sched_lib
+    from tpu_resnet_torch.train.loop import build_state
+    from tpu_resnet_torch.train.step import make_train_step
+
+    cuda = torch.device("cuda")
+    images, labels = synthetic_data(TRAIN_BATCH, 32, cfg.data.num_classes,
+                                    learnable=True)
+    x = aug.cifar_train_augment(torch.from_numpy(images).to(cuda),
+                                aug.step_generator(0, 0, cuda))
+    y = torch.from_numpy(labels).to(cuda)
+    step_fn = make_train_step(cfg.optim, sched_lib.build_schedule(
+        cfg.optim, cfg.train), cfg.data.num_classes)
+    runs = {}
+    for arm in ("kernels", "plain"):
+        state = build_state(cfg, cuda)
+        zero_counts(counters)
+        with plain_versions() if arm == "plain" else contextlib.nullcontext():
+            m = step_fn(state, x, y)
+        torch.cuda.synchronize()
+        runs[arm] = (state, {k: float(v) for k, v in m.items()},
+                     read_counts(counters))
+    (ks, km, kc), (ps, pm, pc) = runs["kernels"], runs["plain"]
+    check(kc == PER_PASS["cifar10_train"], f"kernel step launches {kc}")
+    check(not any(pc.values()), f"plain step launched kernels: {pc}")
+    out = {"metrics_kernels": km, "metrics_plain": pm}
+    for key in ("loss", "precision", "grad_norm"):
+        out[f"{key}_rel_err"] = _rel(km[key], pm[key])
+        check(out[f"{key}_rel_err"] <= STEP_RTOL,
+              f"f32 step {key}: kernels {km[key]} plain {pm[key]}")
+    atol, rtol = STATE_TOL
+    pairs = [(f"state {n}", t, ps.model.state_dict()[n])
+             for n, t in ks.model.state_dict().items()]
+    kb, pb = ks.momentum_buffers(), ps.momentum_buffers()
+    check(set(kb) == set(pb) and len(kb) > 0, "momentum buffers differ")
+    pairs += [(f"momentum {n}", kb[n], pb[n]) for n in kb]
+    worst = 0.0
+    for name, got, want in pairs:
+        excess = float(((got - want).abs()
+                        / (atol + rtol * want.abs())).max())
+        worst = max(worst, excess)
+        check(excess <= 1, f"f32 step {name}: beyond {atol} + {rtol}|plain|")
+    out.update(tensors_compared=len(pairs), worst_err_over_limit=worst)
+    return out
+
+
+def train_phase(counters, gpu: str) -> dict:
+    """The port's training entry point at full width: the f32 kernel-vs-
+    plain step, 100 bf16 steps through ``train()``, the resume to 120,
+    eval once, and the step's device profile."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.data.cifar import synthetic_data
+    from tpu_resnet_torch.evaluation.evaluator import evaluate
+    from tpu_resnet_torch.tools.profiling import profile_train_step
+    from tpu_resnet_torch.train import checkpoint
+    from tpu_resnet_torch.train.loop import make_loop_step, train
+
+    compared = compare_step(load_config("cifar10", "", [
+        *TRAIN_OVERRIDES, "model.compute_dtype=float32"]), counters)
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = load_config("cifar10", "", [
+            *TRAIN_OVERRIDES, f"train.train_dir={train_dir}",
+            f"train.train_steps={TRAIN_STEPS}", "train.log_every=1",
+            "train.checkpoint_every=50"])
+        runs = {}
+        for total in (TRAIN_STEPS, RESUME_STEPS):
+            cfg.train.train_steps = total
+            zero_counts(counters)
+            t0 = time.monotonic()
+            state = train(cfg, device="cuda")
+            torch.cuda.synchronize()
+            runs[total] = (time.monotonic() - t0, read_counts(counters))
+            check(state.step == total, f"train() stopped at {state.step}")
+        with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        steps = [r["step"] for r in recs]
+        check(steps == list(range(1, RESUME_STEPS + 1)),
+              f"metrics.jsonl steps {steps[:3]}..{steps[-3:]}")
+        losses = [r["loss"] for r in recs]
+        check(all(np.isfinite(losses)), "a logged loss is not finite")
+        first10 = float(np.mean(losses[:10]))
+        last10 = float(np.mean(losses[TRAIN_STEPS - 10:TRAIN_STEPS]))
+        check(last10 < first10, f"loss did not fall: first 10 mean "
+              f"{first10}, last 10 of {TRAIN_STEPS} {last10}")
+        per_step = PER_PASS["cifar10_train"]
+        for total, start in ((TRAIN_STEPS, 0), (RESUME_STEPS, TRAIN_STEPS)):
+            want = {k: n * (total - start) for k, n in per_step.items()}
+            check(runs[total][1] == want, f"train to {total}: launch counts "
+                  f"{runs[total][1]}, expected {want}")
+        saved = checkpoint.all_steps_in(train_dir)
+        check(saved[-2:] == [TRAIN_STEPS, RESUME_STEPS],
+              f"checkpoints {saved}")
+
+        cfg.train.eval_once = True
+        zero_counts(counters)
+        precision = evaluate(cfg, device="cuda")
+        eval_counts = read_counts(counters)
+        with open(os.path.join(train_dir, "eval", "metrics.jsonl")) as f:
+            eval_rec = json.loads(f.readlines()[-1])
+        forwards = -(-cfg.data.eval_examples // cfg.train.eval_batch_size)
+        want = {k: (PER_PASS["cifar10_train"]["sbr"] * forwards
+                    if k == "sbr" else 0) for k in KERNELS}
+        check(eval_counts == want, f"eval launch counts {eval_counts}, "
+              f"expected {want}")
+        check(eval_rec["step"] == RESUME_STEPS and precision is not None
+              and np.isfinite(eval_rec["eval_loss"]), f"eval {eval_rec}")
+
+        images, labels = synthetic_data(TRAIN_BATCH, 32,
+                                        cfg.data.num_classes, learnable=True)
+        prof = profile_train_step(
+            state, make_loop_step(cfg, torch.device("cuda")), images, labels)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    # The loop's speed over the window of steps 2..TRAIN_STEPS (step 1 pays
+    # the builds), from the wall stamps of metrics.jsonl: stalls included.
+    window_s = recs[TRAIN_STEPS - 1]["wall"] - recs[0]["wall"]
+    rates = [r["steps_per_sec"] for r in recs[1:TRAIN_STEPS]
+             if "steps_per_sec" in r]
+    result = {
+        "model": "cifar10 ResNet-50 32x32 fused_blocks=off "
+                 "fused_epilogue=on use_pallas_xent=on bf16, B=128",
+        "f32_step_vs_plain": compared,
+        "steps": RESUME_STEPS, "resumed_from": TRAIN_STEPS,
+        "train_seconds": runs[TRAIN_STEPS][0],
+        "resume_seconds": runs[RESUME_STEPS][0],
+        "launches": {k: runs[TRAIN_STEPS][1][k] + runs[RESUME_STEPS][1][k]
+                     for k in KERNELS},
+        "launches_per_step": per_step,
+        "loss_first10_mean": first10, "loss_last10_mean": last10,
+        "loss_at": {str(s): losses[s - 1] for s in (1, 50, 100, 120)},
+        "precision_last10_mean": float(np.mean(
+            [r["precision"] for r in recs[TRAIN_STEPS - 10:TRAIN_STEPS]])),
+        "loop_window_steps": TRAIN_STEPS - 1, "loop_window_s": window_s,
+        "loop_ms_per_step": 1e3 * window_s / (TRAIN_STEPS - 1),
+        "loop_images_per_s": TRAIN_BATCH * (TRAIN_STEPS - 1) / window_s,
+        "step_ms_median": 1e3 / statistics.median(rates),
+        "eval_precision": precision, "eval_loss": eval_rec["eval_loss"],
+        "eval_forwards": forwards, "eval_launches": eval_counts,
+        "profile": {k: v for k, v in prof.items() if k != "kernels"},
+        "profile_top_kernels": prof["kernels"][:12],
+        "gpu": gpu}
+    emit("train", **result)
+    return result
+
+
+# Each kernel: its source in the port and the TPU kernel body it replaces.
+KERNEL_SOURCES = (
+    ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
+     "tpu_resnet/ops/epilogue.py:110"),
+    ("block_fwd", "tpu_resnet_torch/csrc/fused_block.cu",
+     "tpu_resnet/ops/fused_block.py:87"),
+    ("bottleneck_fwd", "tpu_resnet_torch/csrc/fused_bottleneck.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:154"),
+    ("sbr_bwd", "tpu_resnet_torch/csrc/epilogue.cu",
+     "tpu_resnet/ops/epilogue.py:158"),
+    ("xent_fwd", "tpu_resnet_torch/csrc/softmax_xent.cu",
+     "tpu_resnet/ops/softmax_xent.py:74"),
+    ("xent_bwd", "tpu_resnet_torch/csrc/softmax_xent.cu",
+     "tpu_resnet/ops/softmax_xent.py:88"))
+
+
+def path_times(rows) -> dict:
+    """One kernel's times summed over one pass of each path it runs on (a
+    B=16 forward of a serve path, a B=128 train step)."""
+    by_path = {}
+    for path in dict.fromkeys(r["path"] for r in rows):
+        on_path = [r for r in rows if r["path"] == path]
+        library = [r["library_ms"] * r["per_pass"] for r in on_path
+                   if r.get("library_ms") is not None]
+        by_path[path] = {
+            **{key: sum(r[src] * r["per_pass"] for r in on_path)
+               for key, src in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                                ("call_ms", "call_ms"),
+                                ("plain_call_ms", "call_plain_ms"),
+                                ("bound_ms", "bound_ms"))},
+            "bound_by": on_path[0]["bound_by"],
+            # One F.cross_entropy call computes xent_fwd. No single PyTorch
+            # call computes the others: relu of an affine is two calls at
+            # least, its backward (dx, ds, db) several, the cross-entropy
+            # backward softmax and a one-hot subtraction, the basic block
+            # five or more, the bottleneck seven.
+            "library_ms": sum(library) if library else None}
+    return by_path
+
+
+def kernel_entries(rows, served, trained) -> list:
+    """The ``kernels`` line: each kernel's launches on the main paths, its
+    worst error against the plain version, and its times per path; the
+    entry's own times are the train step's where the kernel runs there,
+    else its one serve path's."""
+    kernels = []
+    for kind, source, replaces in KERNEL_SOURCES:
+        by_path = path_times([
+            r for r in rows if r["kernel"] == kind
+            and r["dtype"] == ("float32" if kind.startswith("xent")
+                               else "bfloat16")])
+        timed = ("cifar10_train" if "cifar10_train" in by_path
+                 else next(iter(by_path)))
+        kernels.append({
+            "name": kind, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": (sum(s["launches"][kind] for s in served)
+                         + trained["launches"][kind]
+                         + trained["eval_launches"][kind]),
+            "launches_per_forward": {s["path"]: s["per_forward"][kind]
+                                     for s in served},
+            "launches_per_step": trained["launches_per_step"][kind],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["kernel"] == kind),
+            **by_path[timed], "timed_path": timed, "by_path": by_path})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -401,6 +791,7 @@ def main() -> int:
     from tpu_resnet_torch.ops import epilogue as ep
     from tpu_resnet_torch.ops import fused_block as fb
     from tpu_resnet_torch.ops import fused_bottleneck as fbn
+    from tpu_resnet_torch.ops import softmax_xent as sx
 
     resolve_device("cuda")  # TF32 off for the float32 oracle
     gpu = subprocess.run(
@@ -414,42 +805,18 @@ def main() -> int:
          cuda=torch.version.cuda, build_seconds=time.monotonic() - t0,
          libraries=sorted(libs))
 
-    mods = (ep, fb, fbn)   # in KERNELS order
     rows = kernel_phase({
         "sbr": (ep.scale_bias_relu, ep.scale_bias_relu_reference),
         "block_fwd": (fb.block_fwd, fb.block_fwd_reference),
         "bottleneck_fwd": (fbn.bottleneck_fwd,
                            fbn.bottleneck_fwd_reference)})
+    rows += train_kernel_phase(ep, sx)
     emit("kernels", gpu=gpu, rows=rows)
-    served = [serve_phase(path, mods, gpu) for path in SERVE_PATHS]
+    counters = kernel_counters()
+    served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
+    trained = train_phase(counters, gpu)
 
-    kernels = []
-    for kind, source, replaces in (
-            ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
-             "tpu_resnet/ops/epilogue.py:110"),
-            ("block_fwd", "tpu_resnet_torch/csrc/fused_block.cu",
-             "tpu_resnet/ops/fused_block.py:87"),
-            ("bottleneck_fwd", "tpu_resnet_torch/csrc/fused_bottleneck.cu",
-             "tpu_resnet/ops/fused_bottleneck.py:154")):
-        mine = [r for r in rows if r["kernel"] == kind
-                and r["dtype"] == "bfloat16"]
-        per_fwd = lambda key: sum(r[key] * r["per_forward"] for r in mine)
-        kernels.append({
-            "name": kind, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": sum(s["launches"][kind] for s in served),
-            "launches_per_forward": {s["path"]: s["per_forward"][kind]
-                                     for s in served},
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-            "call_ms": per_fwd("call_ms"),
-            "plain_call_ms": per_fwd("call_plain_ms"),
-            "bound_ms": per_fwd("bound_ms"),
-            "bound_by": mine[0]["bound_by"],
-            # No single PyTorch call computes any of the three: relu of an
-            # affine is at least two calls, the basic block five or more,
-            # the bottleneck (three convs, three BN-ReLUs, an add) seven.
-            "library_ms": None})
+    kernels = kernel_entries(rows, served, trained)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,15 @@ need a CUDA card and skip without one; on a GPU machine run
 import pytest
 import torch
 
+from tpu_resnet_torch.config import load_config
 from tpu_resnet_torch.device import resolve_device
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
+from tpu_resnet_torch.ops import softmax_xent as sx
+from tpu_resnet_torch.train import schedule as sched_lib
+from tpu_resnet_torch.train.loop import build_state
+from tpu_resnet_torch.train.step import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +104,105 @@ def test_bottleneck_fwd_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 32, 32, 16), (128, 16, 16, 32),
+                                   (128, 8, 8, 64), (3, 5, 7, 24),
+                                   (1, 1, 1, 8)])
+def test_sbr_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """The three CIFAR train shapes, a ragged one (C/N not a power of two)
+    and a single pixel."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x, _, (s, b, _, _) = _inputs(shape, dtype, gen)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x.view(-1)[:64] = 0   # with b = 0 there: pre-activation exactly 0
+    b[:] = torch.where(torch.arange(b.numel(), device="cuda") % 2 == 0, 0.0,
+                       b)
+    before = ep.bwd_launches
+    dx, ds, db = ep.scale_bias_relu_bwd(x, s, b, g)
+    want = ep.scale_bias_relu_bwd_reference(x, s, b, g)
+    torch.cuda.synchronize()
+    assert ep.bwd_launches == before + 1
+    assert dx.dtype == dtype and ds.dtype == db.dtype == torch.float32
+    # dx: one rounding of the same product; ds/db: f32 sums in another order.
+    assert torch.equal(dx, want[0])
+    gm = torch.where(x.float() * s + b > 0, g.float(), 0.0)
+    for got, ref, terms in ((ds, want[1], gm * x.float()), (db, want[2], gm)):
+        scale = terms.abs().sum(dim=(0, 1, 2))
+        assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    again = ep.scale_bias_relu_bwd(x, s, b, g)
+    assert all(torch.equal(p, q) for p, q in zip((dx, ds, db), again))
+
+
+@pytest.mark.parametrize("shape", [(128, 10), (128, 100), (128, 1000),
+                                   (5, 33), (1, 1)])
+def test_xent_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, c = shape
+    logits = torch.randn(shape, generator=gen, device="cuda") * 3
+    labels = torch.randint(0, c, (b,), generator=gen, device="cuda")
+    g = torch.rand(b, generator=gen, device="cuda")
+    before = (sx.fwd_launches, sx.bwd_launches)
+    loss = sx.softmax_xent_per_example(logits, labels)
+    dx = sx.softmax_xent_bwd(logits, labels, g)
+    torch.cuda.synchronize()
+    assert (sx.fwd_launches, sx.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    torch.testing.assert_close(
+        loss, sx.softmax_xent_per_example_reference(logits, labels),
+        atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(
+        dx, sx.softmax_xent_bwd_reference(logits, labels, g),
+        atol=1e-5, rtol=1e-5)
+
+
+def test_xent_autograd_runs_both_kernels(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    logits = torch.randn(16, 10, generator=gen, device="cuda",
+                         requires_grad=True)
+    labels = torch.randint(0, 10, (16,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    before = (sx.fwd_launches, sx.bwd_launches)
+    sx.softmax_xent_mean(logits, labels).backward()
+    want = sx.softmax_xent_bwd_reference(
+        logits.detach(), labels, torch.full((16,), 1 / 16, device="cuda"))
+    assert (sx.fwd_launches, sx.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    torch.testing.assert_close(logits.grad, want, atol=1e-6, rtol=1e-5)
+
+
+def test_train_step_kernels_match_plain(cuda, monkeypatch):
+    """One float32 step of a CIFAR ResNet-14 (13 BN sites) through the
+    kernels and one through the plain versions, from one seeded state."""
+    cfg = load_config("smoke", "", [
+        "model.resnet_size=14", "model.fused_epilogue=on",
+        "optim.use_pallas_xent=on", "train.global_batch_size=32"])
+    step = make_train_step(cfg.optim, sched_lib.build_schedule(
+        cfg.optim, cfg.train), 10)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(32, 32, 32, 3, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (32,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    kernel_state, plain_state = build_state(cfg, cuda), build_state(cfg, cuda)
+    before = (ep.launches, ep.bwd_launches, sx.fwd_launches, sx.bwd_launches)
+    got = step(kernel_state, x, y)
+    torch.cuda.synchronize()
+    assert (ep.launches, ep.bwd_launches, sx.fwd_launches,
+            sx.bwd_launches) == (before[0] + 13, before[1] + 13,
+                                 before[2] + 1, before[3] + 1)
+    monkeypatch.setattr(ep, "scale_bias_relu", ep.scale_bias_relu_reference)
+    monkeypatch.setattr(sx, "softmax_xent_per_example",
+                        sx.softmax_xent_per_example_reference)
+    want = step(plain_state, x, y)
+    for key in ("loss", "precision", "grad_norm"):
+        torch.testing.assert_close(got[key], want[key], atol=0, rtol=1e-5)
+    for (name, a), b in zip(kernel_state.model.state_dict().items(),
+                            plain_state.model.state_dict().values()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+    for name, buf in kernel_state.momentum_buffers().items():
+        torch.testing.assert_close(buf, plain_state.momentum_buffers()[name],
+                                   atol=1e-5, rtol=1e-4, msg=name)
+
+
 def test_kernels_reject_strided_input(cuda):
     gen = torch.Generator(device="cuda").manual_seed(2)
     x, (w1, w2), (s1, b1, s2, b2) = _inputs((2, 8, 8, 16), torch.float32,
@@ -106,6 +210,12 @@ def test_kernels_reject_strided_input(cuda):
     strided = x.permute(0, 2, 1, 3)
     with pytest.raises(ValueError, match="contiguous"):
         ep.scale_bias_relu(strided, s1, b1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ep.scale_bias_relu_bwd(x, s1, b1, strided)
+    with pytest.raises(ValueError, match="contiguous"):
+        sx.softmax_xent_per_example(
+            torch.randn(10, 8, device="cuda").t(),
+            torch.zeros(8, dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         fb.block_fwd(strided, w1, w2, s1, b1, s2, b2)
     args = list(_bottleneck_inputs((2, 8, 8, 256), torch.float32, gen))

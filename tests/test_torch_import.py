@@ -21,14 +21,17 @@ PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "tpu_resnet_torch"))
     for f in files if f.endswith(".py")) + [
-        "chip_smoke.py", os.path.join("tools", "profile_torch_forward.py")]
+        "chip_smoke.py", os.path.join("tools", "profile_torch_forward.py"),
+        os.path.join("tools", "profile_torch_train.py")]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_resnet")
 
 
 def test_import_loads_no_jax_stack():
     code = ("import sys, tpu_resnet_torch, tpu_resnet_torch.main, "
             "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert, "
-            "tpu_resnet_torch.ops.fused_bottleneck; "
+            "tpu_resnet_torch.ops.fused_bottleneck, "
+            "tpu_resnet_torch.train.loop, "
+            "tpu_resnet_torch.evaluation.evaluator; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN_ROOTS!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

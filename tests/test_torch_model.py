@@ -156,6 +156,8 @@ def test_constructor_and_train_guards():
         cifar_resnet_v2(16, 10, width_multiplier=2, fused_blocks=True)
     with pytest.raises(ValueError, match="6n\\+2"):
         cifar_resnet_v2(15, 10)
-    model = cifar_resnet_v2(8, 10)
+    model = cifar_resnet_v2(8, 10, dtype=torch.float32)
+    assert model(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 10)
+    fused = cifar_resnet_v2(14, 10, fused_blocks=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        model(torch.zeros(1, 32, 32, 3), train=True)
+        fused(torch.zeros(1, 32, 32, 3), train=True)

@@ -1,0 +1,341 @@
+"""The port's training path against the reference on the CPU: the ResNet in
+training mode, the train step over three steps from one converted state,
+the schedules and the L2 term; then the port's loop itself (resume repeats
+the uninterrupted stream bit for bit, metrics, pruning, eval, serving a
+trained checkpoint, SIGTERM) and the guards of this slice."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_resnet.models.resnet import cifar_resnet_v2 as ref_cifar
+from tpu_resnet.train import schedule as ref_sched
+from tpu_resnet.train.state import TrainState as RefState
+from tpu_resnet.train.state import build_optimizer as ref_build_optimizer
+from tpu_resnet.train.step import l2_weight_penalty as ref_l2
+from tpu_resnet.data import augment as ref_aug
+from tpu_resnet.data import cifar as ref_cifar_data
+from tpu_resnet.data import pipeline as ref_pipeline
+from tpu_resnet.train.step import make_eval_step as ref_make_eval_step
+from tpu_resnet.train.step import make_train_step as ref_make_train_step
+from tpu_resnet_torch import convert
+from tpu_resnet_torch.config import load_config
+from tpu_resnet_torch.evaluation.evaluator import evaluate
+from tpu_resnet_torch.main import main as port_main
+from tpu_resnet_torch.models import cifar_resnet_v2
+from tpu_resnet_torch.resilience.shutdown import Preempted
+from tpu_resnet_torch.serve.backend import CheckpointBackend
+from tpu_resnet_torch.train import checkpoint
+from tpu_resnet_torch.train import schedule as sched
+from tpu_resnet_torch.train.loop import train
+from tpu_resnet_torch.train.state import create_state
+from tpu_resnet_torch.train.step import (check_step_config,
+                                         l2_weight_penalty, make_train_step)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _randomize(variables, seed):
+    """BN parameters and statistics off their init values."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        name = jax.tree_util.keystr(path)
+        a = np.asarray(a, np.float32)
+        if "'scale'" in name or "'var'" in name:
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        if "'bn'" in name or ("final_dense" in name and "'bias'" in name):
+            return rng.normal(0, 0.2, a.shape).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _reference_variables(size, seed=1):
+    model = ref_cifar(size, 10, dtype=jnp.float32)
+    variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)),
+                           train=False)
+    return _randomize(jax.device_get(variables), seed)
+
+
+def _port_model(variables, size, **kw):
+    model = cifar_resnet_v2(size, 10, dtype=torch.float32, **kw)
+    model.load_state_dict(convert.flax_to_torch(variables), strict=True)
+    return model
+
+
+def _batch(seed, b=8):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, b).astype(np.int32))
+
+
+def _close(got, want, what, atol=1e-5, rtol=1e-4):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), atol=atol,
+                               rtol=rtol, err_msg=what)
+
+
+@pytest.mark.parametrize("epilogue", ["off", "on"])
+def test_train_mode_forward_matches_reference(epilogue):
+    variables = _reference_variables(14)
+    x, _ = _batch(0)
+    ref = ref_cifar(14, 10, dtype=jnp.float32, fused_epilogue=epilogue)
+    want, updates = ref.apply(variables, jnp.asarray(x), train=True,
+                              mutable=["batch_stats"])
+    port = _port_model(variables, 14, fused_epilogue=epilogue)
+    got = port(torch.from_numpy(x), train=True)
+    assert got.dtype == torch.float32 and got.requires_grad
+    # float32 end to end; batch moments and convs summed in another order.
+    _close(got.detach().numpy(), want, "logits", atol=1e-5, rtol=1e-5)
+    stats = convert.flax_to_torch({"batch_stats": jax.device_get(
+        updates["batch_stats"])})
+    buffers = dict(port.named_buffers())
+    assert set(stats) == set(buffers)
+    for name, value in stats.items():
+        _close(buffers[name].numpy(), value.numpy(), name, atol=1e-5,
+               rtol=1e-5)
+
+
+def _optim_cfg(epilogue, label_smoothing):
+    cfg = load_config("cifar10", "", [
+        f"model.fused_epilogue={epilogue}", "optim.use_pallas_xent=on",
+        f"optim.label_smoothing={label_smoothing}", "model.resnet_size=8",
+        "optim.boundaries=[2]", "optim.values=[0.1,0.05]"])
+    return cfg
+
+
+@pytest.mark.parametrize("epilogue, label_smoothing", [
+    ("off", 0.0), ("on", 0.0), ("on", 0.1)])
+def test_train_step_matches_reference(epilogue, label_smoothing):
+    """Three steps of each from one state (BN moved off its init, a random
+    momentum trace); the schedule's boundary falls inside them."""
+    size = 8
+    cfg = _optim_cfg(epilogue, label_smoothing)
+    variables = _reference_variables(size)
+    rng = np.random.default_rng(7)
+    trace = jax.tree_util.tree_map(
+        lambda a: (rng.normal(size=a.shape) * 0.01).astype(np.float32),
+        jax.device_get(variables["params"]))
+
+    ref_model = ref_cifar(size, 10, dtype=jnp.float32,
+                          fused_epilogue=epilogue)
+    schedule = ref_sched.build_schedule(cfg.optim, cfg.train)
+    tx = ref_build_optimizer(cfg.optim, schedule)
+    state = RefState.create(variables["params"], variables["batch_stats"], tx)
+    state = state.replace(opt_state=(state.opt_state[0]._replace(
+        trace=jax.tree_util.tree_map(jnp.asarray, trace)),
+        *state.opt_state[1:]))
+    ref_step = jax.jit(ref_make_train_step(ref_model, cfg.optim, schedule,
+                                           10))
+
+    port = _port_model(variables, size, fused_epilogue=epilogue)
+    port_state = create_state(port, cfg.optim)
+    port_state.load_momentum_buffers(convert.flax_opt_state_to_torch(trace))
+    port_step = make_train_step(cfg.optim, sched.build_schedule(
+        cfg.optim, cfg.train), 10)
+
+    for i in range(3):
+        x, y = _batch(10 + i)
+        state, want = ref_step(state, jnp.asarray(x), jnp.asarray(y))
+        got = port_step(port_state, torch.from_numpy(x), torch.from_numpy(y))
+        for key in ("loss", "precision", "learning_rate", "grad_norm"):
+            _close(float(got[key]), float(want[key]), f"step {i} {key}")
+    assert port_state.step == int(state.step) == 3
+    want = convert.flax_to_torch(jax.device_get(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    got = port_state.model.state_dict()
+    assert set(got) == set(want)
+    for name in want:
+        _close(got[name].numpy(), want[name].numpy(), name)
+    want_m = convert.flax_opt_state_to_torch(jax.device_get(
+        state.opt_state[0].trace))
+    got_m = port_state.momentum_buffers()
+    assert set(got_m) == set(want_m)
+    for name in want_m:
+        _close(got_m[name].numpy(), want_m[name].numpy(), f"momentum {name}")
+
+
+@pytest.mark.parametrize("include_bn", [True, False])
+def test_l2_penalty_matches_reference(include_bn):
+    variables = _reference_variables(8)
+    want = ref_l2(variables["params"], include_bn)
+    with torch.no_grad():
+        got = l2_weight_penalty(_port_model(variables, 8), include_bn)
+    _close(got.item(), float(want), "penalty", atol=0, rtol=1e-6)
+
+
+SCHEDULES = [
+    ("cifar_piecewise", (), ()), ("cifar_piecewise", (3, 7), (0.5, 0.2, 0.1)),
+    ("imagenet_warmup", (), ()), ("imagenet_warmup", (10, 20, 30), ()),
+    ("constant", (), ()), ("cosine", (), ())]
+
+
+@pytest.mark.parametrize("name, boundaries, values", SCHEDULES)
+def test_schedules_match_reference(name, boundaries, values):
+    cfg = load_config("cifar10", "", [f"optim.schedule={name}"])
+    cfg.optim.boundaries, cfg.optim.values = boundaries, values
+    cfg.optim.warmup_steps = 8
+    cfg.train.train_steps = 40
+    ref = ref_sched.build_schedule(cfg.optim, cfg.train)
+    port = sched.build_schedule(cfg.optim, cfg.train)
+    edge = {"cifar_piecewise": boundaries[0] if boundaries else 40_000,
+            "imagenet_warmup": 8, "constant": 5, "cosine": 8}[name]
+    for step in (0, 1, edge - 1, edge, edge + 1, 25, 40, 90_000):
+        _close(port(step), float(ref(jnp.int32(step))), f"{name} @ {step}",
+               atol=0, rtol=1e-6)
+
+
+# ---------------------------------------------------------------- the loop
+def _loop_cfg(train_dir, *extra):
+    return load_config("smoke", "", [
+        "optim.use_pallas_xent=on", "model.fused_epilogue=on",
+        "data.synthetic_learnable=true", "data.synthetic_train_examples=64",
+        "data.synthetic_eval_examples=40", "train.eval_batch_size=16",
+        "train.global_batch_size=8", "train.log_every=1",
+        "train.checkpoint_every=3", "train.keep_checkpoints=2",
+        "train.train_steps=12", f"train.train_dir={train_dir}", *extra])
+
+
+def _losses(train_dir):
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        return [(r["step"], r["loss"]) for r in map(json.loads, f)]
+
+
+def test_resume_repeats_the_uninterrupted_run(tmp_path):
+    """Stopped at 6 and resumed to 12, the losses equal a 12-step run's
+    bit for bit (data order, augmentation and optimizer state resume)."""
+    whole, split = tmp_path / "whole", tmp_path / "split"
+    train(_loop_cfg(whole), device="cpu")
+    train(_loop_cfg(split, "train.train_steps=6"), device="cpu")
+    state = train(_loop_cfg(split), device="cpu")
+    assert state.step == 12
+    assert _losses(split) == _losses(whole)
+    assert [s for s, _ in _losses(whole)] == list(range(1, 13))
+
+
+def test_metrics_checkpoints_eval_and_serve(tmp_path):
+    cfg = _loop_cfg(tmp_path)
+    train(cfg, device="cpu")
+    with open(tmp_path / "metrics.jsonl") as f:
+        rec = json.loads(f.readline())
+    assert {"step", "wall", "loss", "precision", "learning_rate",
+            "grad_norm"} <= set(rec)
+    assert checkpoint.all_steps_in(str(tmp_path)) == [9, 12]
+    saved = checkpoint.restore(str(tmp_path), 12)
+    assert saved["step"] == 12 and saved["opt_state"]
+    assert set(saved["opt_state"]) == set(saved["params"])
+
+    cfg.train.eval_once = True
+    precision = evaluate(cfg, device="cpu")
+    with open(tmp_path / "eval" / "best_precision.json") as f:
+        best = json.load(f)
+    assert best == {"best_precision": precision, "step": 12}
+    assert 0.0 <= precision <= 1.0
+
+    backend = CheckpointBackend(cfg, torch.device("cpu"))
+    assert backend.model_step == 12
+    logits = backend.infer(np.zeros((2, 32, 32, 3), np.uint8))
+    assert logits.shape == (2, 10) and np.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("epilogue", ["off", "on"])
+def test_eval_pass_matches_reference(tmp_path, epilogue):
+    """``eval --once`` on a checkpoint of converted reference weights reads
+    the reference eval step's precision and loss over the same split."""
+    cfg = _loop_cfg(tmp_path, f"model.fused_epilogue={epilogue}",
+                    "model.compute_dtype=float32", "model.resnet_size=8")
+    variables = _reference_variables(8, seed=4)
+    checkpoint.save(str(tmp_path), 5, _port_model(variables, 8,
+                                                  fused_epilogue=epilogue))
+    cfg.train.eval_once = True
+    got = evaluate(cfg, device="cpu")
+    with open(tmp_path / "eval" / "metrics.jsonl") as f:
+        got_loss = json.loads(f.readline())["eval_loss"]
+
+    ref_step = jax.jit(ref_make_eval_step(
+        ref_cifar(8, 10, dtype=jnp.float32, fused_epilogue=epilogue), 10,
+        ref_aug.cifar_eval_preprocess))
+
+    state = RefState(step=jnp.int32(5), params=variables["params"],
+                     batch_stats=variables["batch_stats"], opt_state=())
+    images, labels = ref_cifar_data.load_split(cfg.data, train=False)
+    correct = loss = count = 0
+    for im, lab in ref_pipeline.eval_batches(images, labels, 16):
+        c, ls, n = ref_step(state, jnp.asarray(im), jnp.asarray(lab))
+        correct, loss = correct + int(c), loss + float(ls)
+        count += int(n)
+    assert count == 40
+    assert got == correct / count
+    _close(got_loss, loss / count, "eval loss", atol=1e-5, rtol=1e-5)
+
+
+def test_sigterm_stops_with_a_final_checkpoint(tmp_path):
+    cmd = [sys.executable, "-m", "tpu_resnet_torch", "train", "--device",
+           "cpu", "--preset", "smoke", "optim.use_pallas_xent=off",
+           "train.train_steps=100000", "train.log_every=1",
+           "train.checkpoint_every=100000", f"train.train_dir={tmp_path}"]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + 120
+        metrics = tmp_path / "metrics.jsonl"
+        while not (metrics.exists() and metrics.read_text().count("\n") >= 2):
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.2)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 42
+    finally:
+        proc.kill()
+    steps = checkpoint.all_steps_in(str(tmp_path))
+    assert len(steps) == 1 and steps[0] >= 2
+
+
+def test_preempted_in_process(tmp_path, monkeypatch):
+    """A stop request between steps saves the step it stopped at."""
+    from tpu_resnet_torch.resilience import shutdown
+    monkeypatch.setattr(shutdown.ShutdownCoordinator, "requested",
+                        property(lambda self: os.path.exists(
+                            tmp_path / "3")))
+    with pytest.raises(Preempted) as e:
+        train(_loop_cfg(tmp_path, "train.checkpoint_every=3"), device="cpu")
+    assert e.value.step == 3
+    assert checkpoint.latest_step_in(str(tmp_path)) == 3
+
+
+@pytest.mark.parametrize("overrides, exc, match", [
+    (["optim.use_pallas_xent=auto"], NotImplementedError, "on or off"),
+    (["optim.use_pallas_xent=maybe"], ValueError, "auto|on|off"),
+    (["model.fused_blocks=true"], NotImplementedError, "next slice"),
+    (["mesh.data=4"], NotImplementedError, "one device"),
+    (["data.device_resident=on"], NotImplementedError, "device-resident"),
+    (["data.dataset=imagenet"], NotImplementedError, "later slice"),
+])
+def test_train_guards(tmp_path, overrides, exc, match):
+    cfg = _loop_cfg(tmp_path, *overrides)
+    with pytest.raises(exc, match=match):
+        train(cfg, device="cpu")
+
+
+def test_check_step_config_passes_the_slice():
+    check_step_config(load_config("cifar10", "", [
+        "model.fused_epilogue=on", "optim.use_pallas_xent=on"]))
+
+
+def test_train_and_eval_need_cuda_unless_asked_for_cpu(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cmd in (["train"], ["eval", "--once"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_main([*cmd, "--preset", "smoke",
+                       "optim.use_pallas_xent=on",
+                       f"train.train_dir={tmp_path}"])

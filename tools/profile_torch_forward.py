@@ -27,7 +27,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -36,13 +35,7 @@ from tpu_resnet_torch.config import load_config  # noqa: E402
 from tpu_resnet_torch.device import resolve_device  # noqa: E402
 from tpu_resnet_torch.models import build_model, init_weights  # noqa: E402
 from tpu_resnet_torch.serve.infer import make_serve_infer  # noqa: E402
-
-
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
+from tpu_resnet_torch.tools.profiling import device_profile  # noqa: E402
 
 
 def profile_batch(model, infer, batch: int, iters: int, size: int) -> dict:
@@ -55,24 +48,16 @@ def profile_batch(model, infer, batch: int, iters: int, size: int) -> dict:
     for _ in range(iters):
         infer(model, images).cpu()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            infer(model, images).cpu()
-        torch.cuda.synchronize()
-    kernels = []
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append({"name": evt.key[:90],
-                            "ms_per_forward": us / 1e3 / iters,
-                            "launches_per_forward": evt.count / iters})
-    kernels.sort(key=lambda k: -k["ms_per_forward"])
-    busy = sum(k["ms_per_forward"] for k in kernels)
+    prof = device_profile(lambda: infer(model, images).cpu(), iters)
+    busy = prof["device_busy_ms"]
     return {"batch": batch, "iters": iters, "wall_ms_per_forward": wall_ms,
-            "device_busy_ms_per_forward": busy if kernels else None,
-            "device_idle_share": 1 - busy / wall_ms if kernels else None,
-            "images_per_s": batch * 1e3 / wall_ms, "kernels": kernels}
+            "device_busy_ms_per_forward": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall_ms,
+            "images_per_s": batch * 1e3 / wall_ms,
+            "kernels": [{"name": k["name"],
+                         "ms_per_forward": k["ms_per_call"],
+                         "launches_per_forward": k["launches_per_call"]}
+                        for k in prof["kernels"]]}
 
 
 def main(argv=None) -> int:

@@ -13,6 +13,11 @@ each leaf by its path:
 
 The fused blocks keep the plain blocks' tree in both packages, so one
 mapping covers both. An unknown leaf raises.
+
+``flax_opt_state_to_torch`` maps optax's momentum trace (the params tree's
+shape, ``opt_state[0].trace`` of ``optax.sgd(lr, momentum)``) onto the
+port's momentum buffers by the same rules, so a whole train state carries
+across (``TrainState.load_momentum_buffers``).
 """
 
 from __future__ import annotations
@@ -52,12 +57,22 @@ def _map_leaf(collection: str, path: Tuple[str, ...],
     raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
 
 
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+
+
+def flax_opt_state_to_torch(trace: Mapping) -> Dict[str, torch.Tensor]:
+    """optax momentum trace (params-shaped, numpy leaves) → {parameter
+    name: momentum buffer}."""
+    return {name: _to_tensor(arr) for name, arr in (
+        _map_leaf("params", path, value) for path, value in _leaves(trace))}
+
+
 def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``{params, batch_stats}`` (numpy leaves) → ``state_dict``."""
     out = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
             name, arr = _map_leaf(collection, path, value)
-            out[name] = torch.tensor(np.ascontiguousarray(arr),
-                                     dtype=torch.float32)
+            out[name] = _to_tensor(arr)
     return out

@@ -1,5 +1,5 @@
-"""Pre-activation ResNet-v2 (CIFAR 6n+2 and ImageNet 18-200 generators),
-eval mode, in PyTorch.
+"""Pre-activation ResNet-v2 (CIFAR 6n+2 and ImageNet 18-200 generators)
+in PyTorch.
 
 Port of ``tpu_resnet/models/resnet.py``. Module and parameter names follow
 the reference's variable tree (``convert.flax_to_torch`` maps one onto the
@@ -16,7 +16,10 @@ other), so a block means the same thing in both packages:
   block, and the width-512 bottlenecks stay on ``F.conv2d``.
 
 Activations are NHWC tensors (channels_last storage) throughout, as at the
-reference's public functions. Only eval exists here: ``train=True`` raises.
+reference's public functions. ``forward(x, train=True)`` normalises with the
+batch moments and updates the running statistics in place (flax's EMA,
+momentum 0.997, biased variance); the fused blocks are eval only and raise
+in training.
 """
 
 from __future__ import annotations
@@ -32,8 +35,12 @@ from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
 
+_BATCH_NORM_MOMENTUM = 0.997
 _BATCH_NORM_EPSILON = 1e-5
 EPILOGUES = ("off", "on")
+_FUSED_TRAIN = ("training through the fused blocks is a later slice of the "
+                "port (fused-block CIFAR training, ROADMAP Queue 1); use "
+                "model.fused_blocks=false")
 
 
 def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
@@ -48,9 +55,16 @@ def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
 class BatchNormRelu(nn.Module):
     """BN (float32 parameters and running statistics) then ReLU.
 
-    ``epilogue="off"`` is flax's inference BN: (x - mean) * gamma *
+    ``epilogue="off"`` is flax's ``nn.BatchNorm``: (x - mean) * gamma *
     rsqrt(var + eps) + beta in float32, cast to x's dtype. ``"on"`` folds
-    the statistics into a scale/bias and runs the fused epilogue kernel."""
+    the statistics into a scale/bias and runs the fused epilogue kernel,
+    differentiable through its backward kernel.
+
+    Training (reference ``models/resnet.py`` BatchNormRelu): batch moments
+    in float32 over (B, H, W), variance ``max(E[x²] - E[x]², 0)``;
+    gradients flow through both back to x. The running statistics update
+    in place as ``ra = 0.997·ra + 0.003·batch`` (not ``nn.BatchNorm2d``'s
+    momentum 0.1 and unbiased variance)."""
 
     def __init__(self, features: int, epilogue: str = "off"):
         super().__init__()
@@ -68,11 +82,27 @@ class BatchNormRelu(nn.Module):
         return fb._fold(self.weight, self.bias, self.running_mean,
                         self.running_var, _BATCH_NORM_EPSILON)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch_moments(self, x: torch.Tensor):
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp_min(torch.square(xf).mean(dim=(0, 1, 2))
+                              - torch.square(mean), 0.0)
+        with torch.no_grad():
+            m = _BATCH_NORM_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, var
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean, var = self._batch_moments(x)
+        else:
+            mean, var = self.running_mean, self.running_var
         if self.epilogue == "on":
-            return ep.scale_bias_relu(x, *self.folded())
-        mul = self.weight * torch.rsqrt(self.running_var + _BATCH_NORM_EPSILON)
-        y = (x.float() - self.running_mean) * mul + self.bias
+            return ep.scale_bias_relu(x, *fb._fold(
+                self.weight, self.bias, mean, var, _BATCH_NORM_EPSILON))
+        mul = torch.rsqrt(var + _BATCH_NORM_EPSILON) * self.weight
+        y = (x.float() - mean) * mul + self.bias
         return torch.relu(y.to(x.dtype))
 
 
@@ -109,12 +139,12 @@ class BuildingBlock(nn.Module):
         self.bnrelu1 = BatchNormRelu(filters, epilogue)
         self.conv2 = ConvFixedPadding(filters, filters, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shortcut = x
-        x = self.preact(x)
+        x = self.preact(x, train)
         if self.proj is not None:
             shortcut = self.proj(x)
-        x = self.conv2(self.bnrelu1(self.conv1(x)))
+        x = self.conv2(self.bnrelu1(self.conv1(x), train))
         return x + shortcut
 
 
@@ -130,7 +160,9 @@ class FusedBuildingBlock(nn.Module):
         self.bnrelu1 = BatchNormRelu(filters)
         self.conv2 = ConvFixedPadding(filters, filters, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(_FUSED_TRAIN)
         s1, b1 = self.preact.folded()
         s2, b2 = self.bnrelu1.folded()
         w1 = self.conv1.weight.permute(2, 3, 1, 0).contiguous()
@@ -155,13 +187,13 @@ class BottleneckBlock(nn.Module):
         self.bnrelu2 = BatchNormRelu(filters, epilogue)
         self.conv3 = ConvFixedPadding(filters, 4 * filters, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shortcut = x
-        x = self.preact(x)
+        x = self.preact(x, train)
         if self.proj is not None:
             shortcut = self.proj(x)
-        x = self.bnrelu1(self.conv1(x))
-        x = self.conv3(self.bnrelu2(self.conv2(x)))
+        x = self.bnrelu1(self.conv1(x), train)
+        x = self.conv3(self.bnrelu2(self.conv2(x), train))
         return x + shortcut
 
 
@@ -181,7 +213,9 @@ class FusedBottleneckBlock(nn.Module):
         self.bnrelu2 = BatchNormRelu(filters)
         self.conv3 = ConvFixedPadding(filters, c4, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(_FUSED_TRAIN)
         folds = []
         for bn in (self.preact, self.bnrelu1, self.bnrelu2):
             folds += fbn._fold_bn(bn.weight, bn.bias, bn.running_mean,
@@ -214,9 +248,9 @@ class BlockLayer(nn.Module):
                             else block_cls(out_features, filters, 1, False,
                                            epilogue))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for block in self.children():
-            x = block(x)
+            x = block(x, train)
         return x
 
 
@@ -296,17 +330,15 @@ class ResNetV2(nn.Module):
         self.final_dense = nn.Linear(prev, num_classes)
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        """x float [B,H,W,3] → logits float32 [B,num_classes]."""
-        if train:
-            raise NotImplementedError("train=True: training is a later "
-                                      "slice of the port; eval only")
+        """x float [B,H,W,3] → logits float32 [B,num_classes]. ``train``:
+        batch-moment BN, running statistics updated in place."""
         x = self.initial_conv(x.to(self.dtype))
         if self.stem == "imagenet":
             x = max_pool_same(x)
         for name, layer in self.named_children():
             if name.startswith("block_layer"):
-                x = layer(x)
-        x = self.final_bnrelu(x)
+                x = layer(x, train)
+        x = self.final_bnrelu(x, train)
         # Global spatial mean (accumulated in float32, as jnp.mean does for
         # bfloat16), then the dense layer in the compute dtype.
         x = x.float().mean(dim=(1, 2)).to(self.dtype)

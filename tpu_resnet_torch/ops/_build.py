@@ -33,12 +33,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's entry point: (symbol, argtypes).
-SIGNATURES: Dict[str, Tuple[str, List]] = {
-    "epilogue": ("tr_sbr", [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
-                            _P]),
-    "fused_block": ("tr_block_fwd", [_P] * 8 + [_I] * 6 + [_P]),
-    "fused_bottleneck": ("tr_bottleneck_fwd", [_P] * 11 + [_I] * 6 + [_P]),
+_L = ctypes.c_longlong
+# C signatures of each library's entry points: {library: {symbol: argtypes}}.
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "epilogue": {
+        "tr_sbr": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+        "tr_sbr_bwd": [_P] * 7 + [_L, _I, _I, _I, _I, _P],
+    },
+    "fused_block": {"tr_block_fwd": [_P] * 8 + [_I] * 6 + [_P]},
+    "fused_bottleneck": {"tr_bottleneck_fwd": [_P] * 11 + [_I] * 6 + [_P]},
+    "softmax_xent": {
+        "tr_xent_fwd": [_P, _P, _P, _I, _I, _I, _P],
+        "tr_xent_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -94,15 +101,15 @@ def build_all(names=tuple(SIGNATURES)) -> Dict[str, str]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built on first use), with the
-    argument types of its entry point set."""
+    argument types of its entry points set."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(build_all((name,))[name])
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib
 

@@ -1,8 +1,11 @@
 """Graceful shutdown: SIGTERM/SIGINT become a stop request.
 
-Copy of ``ShutdownCoordinator`` from ``tpu_resnet/resilience/shutdown.py``.
-The handler only sets a flag (and logs); the serve loop that waits on
-:attr:`ShutdownCoordinator.event` drains the server. A second signal while
+Copy of ``ShutdownCoordinator`` and ``Preempted`` from
+``tpu_resnet/resilience/shutdown.py``. The handler only sets a flag (and
+logs); the serve loop that waits on :attr:`ShutdownCoordinator.event`
+drains the server, and the train loop stops at the next step, saves a
+final checkpoint and raises :class:`Preempted` (the CLI exits
+``resilience.preempt_exit_code``, 42). A second signal while
 the first is being honored restores the original handlers and raises
 ``KeyboardInterrupt``, so an operator is never trapped behind a slow drain.
 """
@@ -16,6 +19,20 @@ import time
 from typing import Optional
 
 log = logging.getLogger("tpu_resnet_torch")
+
+
+class Preempted(Exception):
+    """Raised by ``train()`` after a graceful stop: the final checkpoint is
+    on disk. Carries the stop step and the final state."""
+
+    def __init__(self, step: int, state=None, signum: Optional[int] = None):
+        self.step = int(step)
+        self.state = state
+        self.signum = signum
+        name = signal.Signals(signum).name if signum is not None else "?"
+        super().__init__(
+            f"training preempted by {name} at step {step}; final "
+            f"checkpoint saved — restart to resume")
 
 
 class ShutdownCoordinator:

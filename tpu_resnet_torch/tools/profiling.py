@@ -1,0 +1,89 @@
+"""Device time on a CUDA card, from ``torch.profiler``.
+
+:func:`device_profile` runs a callable ``iters`` times under the profiler
+and sums the kernels' own device times by name; one stream, so the kernels
+do not overlap and their sum is the time the device was busy.
+:func:`profile_train_step` times the train loop's step that way
+(``tools/profile_torch_train.py`` and ``chip_smoke.py`` print it).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+# The port's kernels on the CIFAR train path, by a substring of their names.
+TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
+                 "sbr_bwd_sum": "sbr_bwd_sum_kernel",
+                 "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel"}
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_profile(fn: Callable[[], object], iters: int) -> Dict:
+    """{"device_busy_ms": device ms per call, "kernels": [{"name",
+    "ms_per_call", "launches_per_call"}, ...] by device time}; busy is None
+    when the profiler saw no device time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        # A user range (e.g. the optimizer's step) is not a kernel.
+        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            kernels.append({"name": evt.key[:90],
+                            "ms_per_call": us / 1e3 / iters,
+                            "launches_per_call": evt.count / iters})
+    kernels.sort(key=lambda k: -k["ms_per_call"])
+    busy = sum(k["ms_per_call"] for k in kernels)
+    return {"device_busy_ms": busy if kernels else None, "kernels": kernels}
+
+
+def profile_train_step(state, step_fn, images, labels, iters: int = 20
+                       ) -> Dict:
+    """Wall and device time per step of ``step_fn(state, images, labels)``
+    (the loop's step: host-to-device copy of the uint8 batch included)
+    after 5 warm-up steps: the host clock over ``iters`` steps ending in a
+    synchronize, then ``iters`` more under the profiler."""
+    device = next(state.model.parameters()).device
+    lab = torch.from_numpy(labels).to(device)
+
+    def one_step():
+        return step_fn(state, torch.from_numpy(images).to(device), lab)
+
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        one_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    prof = device_profile(one_step, iters)
+    busy = prof["device_busy_ms"]
+    ours = {}
+    for name, key in TRAIN_KERNELS.items():
+        rows = [k for k in prof["kernels"] if key in k["name"]]
+        ours[name] = {"ms_per_step": sum(k["ms_per_call"] for k in rows),
+                      "launches_per_step": sum(k["launches_per_call"]
+                                               for k in rows)}
+    batch = len(images)
+    return {"batch": batch, "iters": iters, "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall_ms,
+            "images_per_s": batch * 1e3 / wall_ms,
+            "launches_per_step": sum(k["launches_per_call"]
+                                     for k in prof["kernels"]),
+            "port_kernels": ours, "kernels": prof["kernels"][:30]}

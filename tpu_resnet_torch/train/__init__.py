@@ -1,1 +1,2 @@
-"""Checkpoints (the training loop is a later slice)."""
+"""Training: schedules, train state, steps, the loop, checkpoints and
+metrics."""

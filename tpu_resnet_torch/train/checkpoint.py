@@ -1,17 +1,21 @@
 """The port's checkpoint format: ``<train_dir>/<step>/state.pt``.
 
 One file per step, holding ``{"params": {name: tensor}, "batch_stats":
-{name: tensor}, "step": int}`` with the model's ``state_dict`` names
-(parameters under ``params``, BN running statistics under
-``batch_stats``), all on the CPU. A save writes a temporary file in the
-step directory and renames it, so a reader sees a whole file or none;
-only step directories that hold ``state.pt`` count as checkpoints.
+{name: tensor}, "opt_state": {name: momentum buffer}, "step": int}`` with
+the model's ``state_dict`` names (parameters under ``params``, BN running
+statistics under ``batch_stats``, momentum buffers by parameter name under
+``opt_state``), all on the CPU. A save writes a temporary file in the step
+directory and renames it, so a reader sees a whole file or none; only step
+directories that hold ``state.pt`` count as checkpoints. Readers that serve
+(``load_state``) take ``params`` and ``batch_stats`` only, so a trained
+checkpoint serves as it is.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import shutil
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -26,9 +30,11 @@ def load_state(model: nn.Module, state: Dict) -> nn.Module:
     return model
 
 
-def save(train_dir: str, step: int, model: nn.Module) -> str:
-    """Atomically write ``model``'s state as checkpoint ``step``; returns
-    the file's path."""
+def save(train_dir: str, step: int, model: nn.Module,
+         opt_state: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """Atomically write ``model``'s state (and ``opt_state``, momentum
+    buffers by parameter name) as checkpoint ``step``; returns the file's
+    path."""
     step_dir = os.path.join(train_dir, str(int(step)))
     os.makedirs(step_dir, exist_ok=True)
     path = os.path.join(step_dir, STATE_FILE)
@@ -37,24 +43,67 @@ def save(train_dir: str, step: int, model: nn.Module) -> str:
         "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
         "batch_stats": {n: b.detach().cpu()
                         for n, b in model.named_buffers()},
+        "opt_state": {n: t.detach().cpu()
+                      for n, t in (opt_state or {}).items()},
         "step": int(step)}, tmp)
     os.replace(tmp, path)
     return path
 
 
+def all_steps_in(train_dir: str) -> List[int]:
+    """Steps with a complete checkpoint, ascending."""
+    if not os.path.isdir(train_dir):
+        return []
+    return sorted(int(d) for d in os.listdir(train_dir) if d.isdigit()
+                  and os.path.isfile(os.path.join(train_dir, d, STATE_FILE)))
+
+
 def latest_step_in(train_dir: str) -> Optional[int]:
     """Newest step with a complete checkpoint, or None."""
-    if not os.path.isdir(train_dir):
-        return None
-    steps = [int(d) for d in os.listdir(train_dir) if d.isdigit()
-             and os.path.isfile(os.path.join(train_dir, d, STATE_FILE))]
-    return max(steps) if steps else None
+    steps = all_steps_in(train_dir)
+    return steps[-1] if steps else None
 
 
 def restore(train_dir: str, step: int) -> Dict:
     """Checkpoint ``step`` as saved (tensors on the CPU)."""
     path = os.path.join(train_dir, str(int(step)), STATE_FILE)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class CheckpointManager:
+    """The trainer's view of a train dir: save a train state, keep the
+    newest ``keep`` checkpoints, restore the newest for resume."""
+
+    def __init__(self, directory: str, keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step_in(self.directory)
+
+    def save(self, state) -> str:
+        """Checkpoint ``state`` (a ``TrainState``) at its step, then prune
+        to the newest ``keep``."""
+        path = save(self.directory, state.step, state.model,
+                    state.momentum_buffers())
+        if self.keep > 0:
+            for old in all_steps_in(self.directory)[:-self.keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)),
+                              ignore_errors=True)
+        return path
+
+    def restore(self, state):
+        """Load the newest checkpoint into ``state``: parameters, running
+        statistics, momentum buffers and step."""
+        step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        saved = restore(self.directory, step)
+        load_state(state.model, saved)
+        state.load_momentum_buffers(saved.get("opt_state", {}))
+        state.step = int(saved["step"])
+        return state
 
 
 class CheckpointPoller:

@@ -1,0 +1,157 @@
+"""Train and eval steps on one device (port of ``tpu_resnet/train/step.py``).
+
+Step semantics, as the reference's:
+- loss = mean softmax cross-entropy + weight_decay · Σ sum(w²)/2 over the
+  parameters (BN scale/bias and the dense bias included unless
+  ``optim.weight_decay_on_bn=false``), in float32;
+- BN running statistics update inside the forward (``train=True``);
+- the learning rate is ``schedule(step)`` read before the step moves;
+- metrics: loss, precision (argmax == label), learning_rate and grad_norm,
+  the global L2 norm of the full gradient, penalty included.
+
+Loss dispatch (reference :147–162): ``optim.use_pallas_xent=on`` with no
+label smoothing runs the CUDA cross-entropy kernels for CUDA tensors
+(``ops/softmax_xent.py``); ``off``, label smoothing or a CPU tensor runs
+the plain chain :func:`softmax_xent`. ``auto`` raises: it needs the
+autotune harness, a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_resnet_torch.ops import softmax_xent as sx
+from tpu_resnet_torch.train.state import TrainState
+
+XENT_MODES = {"true": "on", "1": "on", "yes": "on",
+              "false": "off", "0": "off", "no": "off"}
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 num_classes: int, label_smoothing: float = 0.0
+                 ) -> torch.Tensor:
+    """Mean softmax cross-entropy on integer labels: one-hot (smoothed),
+    then ``-Σ onehot · log_softmax`` per example."""
+    onehot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
+    if label_smoothing:
+        onehot = (onehot * (1 - label_smoothing)
+                  + label_smoothing / num_classes)
+    return -(onehot * F.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def l2_weight_penalty(model: nn.Module, include_bn: bool) -> torch.Tensor:
+    """Σ sum(w²)/2 over the parameters in float32; ``include_bn=False``
+    drops the 1-D ones (BN scale/bias, the dense bias)."""
+    terms = [torch.square(p.float()).sum() / 2 for p in model.parameters()
+             if include_bn or p.dim() > 1]
+    return torch.stack(terms).sum()
+
+
+def xent_mode(optim_cfg) -> str:
+    mode = str(optim_cfg.use_pallas_xent).lower()
+    mode = XENT_MODES.get(mode, mode)
+    if mode not in ("on", "off", "auto"):
+        raise ValueError(f"optim.use_pallas_xent must be auto|on|off, got "
+                         f"{optim_cfg.use_pallas_xent!r}")
+    if mode == "auto":
+        raise NotImplementedError(
+            "optim.use_pallas_xent=auto needs the autotune harness, a later "
+            "slice of the port; use on or off")
+    return mode
+
+
+def check_step_config(cfg) -> None:
+    """The single-device part of the reference's step-config gate, plus
+    what this slice of the port does not train."""
+    partition = getattr(cfg.mesh, "partition", "replicated")
+    if partition not in ("replicated", "zero1"):
+        raise ValueError(f"mesh.partition must be replicated|zero1, got "
+                         f"{partition!r}")
+    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
+        raise NotImplementedError(
+            f"the port trains on one device (mesh.data={cfg.mesh.data}, "
+            f"mesh.model={cfg.mesh.model}); data parallelism over NCCL is a "
+            f"later slice (ROADMAP Queue 1)")
+    if cfg.data.dataset == "imagenet":
+        raise NotImplementedError(
+            "training on data.dataset=imagenet needs its TFRecord/JPEG input "
+            "pipeline, a later slice of the port (ImageNet training, ROADMAP "
+            "Queue 1)")
+    if cfg.model.fused_blocks:
+        raise NotImplementedError(
+            "model.fused_blocks=true in training needs the fused-block "
+            "backward kernels, the next slice of the port (fused-block CIFAR "
+            "training, ROADMAP Queue 1); use model.fused_blocks=false")
+    xent_mode(cfg.optim)
+
+
+def make_train_step(optim_cfg, schedule: Callable[[int], float],
+                    num_classes: int,
+                    augment_fn: Optional[Callable] = None):
+    """Returns ``train_step(state, images, labels) -> metrics``, which
+    updates ``state`` in place. ``images`` are raw uint8 with
+    ``augment_fn(images, step)`` applied on their device, or pre-processed
+    floats (``augment_fn=None``). Metrics are 0-dim tensors on the device
+    (no host sync) except ``learning_rate``."""
+    use_kernel = (xent_mode(optim_cfg) == "on"
+                  and optim_cfg.label_smoothing == 0.0)
+
+    def loss_fn(model: nn.Module, images, labels):
+        logits = model(images, train=True)
+        x = logits.float()
+        if use_kernel and x.device.type == "cuda":
+            xent = sx.softmax_xent_mean(x, labels)
+        else:
+            xent = softmax_xent(x, labels, num_classes,
+                                optim_cfg.label_smoothing)
+        penalty = optim_cfg.weight_decay * l2_weight_penalty(
+            model, optim_cfg.weight_decay_on_bn)
+        return xent + penalty, logits
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if augment_fn is not None:
+            images = augment_fn(images, state.step)
+        lr = schedule(state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, logits = loss_fn(state.model, images, labels)
+        loss.backward()
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        grad_norm = torch.sqrt(torch.stack(
+            [torch.square(g.float()).sum() for g in grads]).sum())
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            precision = (logits.argmax(-1) == labels).float().mean()
+        return {"loss": loss.detach(), "precision": precision,
+                "learning_rate": lr, "grad_norm": grad_norm}
+
+    return train_step
+
+
+def make_eval_step(num_classes: int,
+                   preprocess_fn: Optional[Callable] = None):
+    """``eval_step(model, images, labels) -> (correct, loss_sum, valid)``
+    as 0-dim device tensors; labels < 0 are padding."""
+
+    @torch.inference_mode()
+    def eval_step(model: nn.Module, images: torch.Tensor,
+                  labels: torch.Tensor):
+        if preprocess_fn is not None:
+            images = preprocess_fn(images)
+        logits = model(images, train=False).float()
+        valid = labels >= 0
+        safe = torch.clamp_min(labels.long(), 0)
+        onehot = F.one_hot(safe, num_classes).to(logits.dtype)
+        per_ex = -(onehot * F.log_softmax(logits, dim=-1)).sum(-1)
+        correct = (logits.argmax(-1) == safe) & valid
+        return (correct.sum(), (per_ex * valid.float()).sum(), valid.sum())
+
+    return eval_step
