@@ -222,3 +222,137 @@ def test_kernels_reject_strided_input(cuda):
     args[0] = args[0].permute(0, 2, 1, 3)
     with pytest.raises(ValueError, match="contiguous"):
         fbn.bottleneck_fwd(*args)
+
+
+# ------------------------------------------- the fused block's training
+_VEC_NAMES = ("g1", "b1", "g2", "b2", "m1", "i1", "m2", "i2")
+
+
+def _block_train_inputs(shape, dtype, gen):
+    """x, gy, w1, w2 and the eight BN vectors on a coarse dyadic grid, as
+    chip_smoke.py draws them: conv1's output and convT(gy, w2) are exact in
+    float32 in any summation order, so kernel and plain version share their
+    masks [z > 0]."""
+    c = shape[-1]
+
+    def grid(size, lo, hi, step):
+        return torch.randint(lo, hi + 1, size, generator=gen,
+                             device="cuda").float() * step
+
+    vec = {"g1": grid((c,), 4, 12, 1 / 8), "b1": grid((c,), -4, 4, 1 / 8),
+           "g2": grid((c,), 4, 12, 1 / 8), "b2": grid((c,), -4, 4, 1 / 8),
+           "m1": grid((c,), -4, 4, 1 / 8), "i1": 2.0 ** grid((c,), -1, 1, 1),
+           "m2": grid((c,), -8, 8, 1 / 8), "i2": 2.0 ** grid((c,), -2, 0, 1)}
+    return (grid(shape, -8, 8, 0.25).to(dtype), grid(shape, -16, 16, 0.125),
+            grid((3, 3, c, c), -4, 4, 1 / 32),
+            grid((3, 3, c, c), -4, 4, 1 / 32),
+            tuple(vec[k] for k in _VEC_NAMES))
+
+
+def _sums_close(got, want, scale):
+    """float32 sums in another order: within 1e-5 * Σ|terms| + 1e-6."""
+    for g, w, s in zip(got, want, scale):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert bool(((g - w).abs() <= 1e-5 * s + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32, 32, 16), (3, 16, 16, 32),
+                                   (5, 8, 8, 64), (2, 7, 5, 16)])
+def test_block_train_kernels_match_plain(cuda, shape, dtype):
+    """block_stats and the three backward passes at the three widths, a
+    single image, odd batches and a ragged plane; each called twice."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
+    with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
+        t = fb.train_bwd_pass1_reference(x, gy, w1, w2, *vecs)[:2]
+        u = fb.train_bwd_pass2_reference(x, gy, w1, w2, *vecs, *t)[:2]
+    cases = (("stats_launches", (x, w1, vecs[0], vecs[1]), fb.block_stats,
+              fb.block_stats_reference),
+             ("bwd1_launches", (x, gy, w1, w2, *vecs), fb.block_bwd1,
+              fb.train_bwd_pass1_reference),
+             ("bwd2_launches", (x, gy, w1, w2, *vecs, *t), fb.block_bwd2,
+              fb.train_bwd_pass2_reference))
+    for counter, args, kernel, plain in cases:
+        before = getattr(fb, counter)
+        got, again = kernel(*args), kernel(*args)
+        with torch.backends.cudnn.flags(enabled=False):
+            want = plain(*args)
+            scale = plain(*args, magnitudes=True)
+        torch.cuda.synchronize()
+        assert getattr(fb, counter) == before + 2
+        _sums_close(got, want, scale)
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+    before = fb.bwd3_launches
+    dx, again = (fb.block_bwd3(x, gy, w1, w2, *vecs, *t, *u)
+                 for _ in range(2))
+    with torch.backends.cudnn.flags(enabled=False):
+        want = fb.train_bwd_pass3_reference(x, gy, w1, w2, *vecs, *t, *u)
+    torch.cuda.synchronize()
+    assert fb.bwd3_launches == before + 2 and dx.dtype == dtype
+    assert torch.equal(dx, again)
+    # block_fwd's tolerance: f32 sums in another order; bf16 one ulp.
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(dx.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_block_train_wrappers_reject_bad_input(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, gy, w1, w2, vecs = _block_train_inputs((2, 8, 8, 16), torch.float32,
+                                              gen)
+    strided = x.permute(0, 2, 1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.block_stats(strided, w1, vecs[0], vecs[1])
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.block_bwd1(x, gy.permute(0, 2, 1, 3), w1, w2, *vecs)
+    with pytest.raises(ValueError, match="w2 must be float32"):
+        fb.block_bwd1(x, gy, w1, w2[:, :, :8], *vecs)
+    with pytest.raises(ValueError, match="t1 must be float32"):
+        fb.block_bwd2(x, gy, w1, w2, *vecs, vecs[0][:8], vecs[0])
+    with pytest.raises(ValueError, match="gy must be float32"):
+        fb.block_bwd3(x, gy.to(torch.bfloat16), w1, w2, *vecs, *vecs[:4])
+    with pytest.raises(ValueError, match="kernels for C"):
+        fb.block_stats(torch.zeros(2, 8, 8, 24, device="cuda"),
+                       torch.zeros(3, 3, 24, 24, device="cuda"),
+                       torch.ones(24, device="cuda"),
+                       torch.zeros(24, device="cuda"))
+
+
+def test_fused_train_step_kernels_match_plain(cuda, monkeypatch):
+    """One float32 step of a fused CIFAR ResNet-14 (3 fused blocks, 7 BN
+    sites outside them) through the kernels, with the launch table, and one
+    through the plain versions, from one seeded state."""
+    cfg = load_config("smoke", "", [
+        "model.resnet_size=14", "model.fused_blocks=true",
+        "model.fused_epilogue=on", "optim.use_pallas_xent=on",
+        "train.global_batch_size=32"])
+    step = make_train_step(cfg.optim, sched_lib.build_schedule(
+        cfg.optim, cfg.train), 10)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(32, 32, 32, 3, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (32,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    kernel_state, plain_state = build_state(cfg, cuda), build_state(cfg, cuda)
+    names = ("launches", "stats_launches", "bwd1_launches", "bwd2_launches",
+             "bwd3_launches")
+    before = [getattr(fb, n) for n in names] + [
+        ep.launches, ep.bwd_launches, sx.fwd_launches, sx.bwd_launches]
+    got = step(kernel_state, x, y)
+    torch.cuda.synchronize()
+    after = [getattr(fb, n) for n in names] + [
+        ep.launches, ep.bwd_launches, sx.fwd_launches, sx.bwd_launches]
+    assert [a - b for a, b in zip(after, before)] == [3] * 5 + [7, 7, 1, 1]
+    monkeypatch.setattr(fb, "block_train_apply",
+                        fb.block_train_apply_reference)
+    monkeypatch.setattr(ep, "scale_bias_relu", ep.scale_bias_relu_reference)
+    monkeypatch.setattr(sx, "softmax_xent_per_example",
+                        sx.softmax_xent_per_example_reference)
+    want = step(plain_state, x, y)
+    for key in ("loss", "precision", "grad_norm"):
+        torch.testing.assert_close(got[key], want[key], atol=0, rtol=1e-5)
+    for (name, a), b in zip(kernel_state.model.state_dict().items(),
+                            plain_state.model.state_dict().values()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+    for name, buf in kernel_state.momentum_buffers().items():
+        torch.testing.assert_close(buf, plain_state.momentum_buffers()[name],
+                                   atol=1e-5, rtol=1e-4, msg=name)

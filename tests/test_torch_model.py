@@ -12,7 +12,8 @@ from tpu_resnet.models import build_model as ref_build_model
 from tpu_resnet.models.resnet import cifar_resnet_v2 as ref_cifar
 from tpu_resnet_torch import convert
 from tpu_resnet_torch.config import load_config
-from tpu_resnet_torch.models import build_model, cifar_resnet_v2, init_weights
+from tpu_resnet_torch.models import (build_model, cifar_resnet_v2,
+                                     imagenet_resnet_v2, init_weights)
 
 SIZE = 14   # n=2: block0 (projection) + block1 (fusable) per stage
 BATCH = 4
@@ -159,5 +160,7 @@ def test_constructor_and_train_guards():
     model = cifar_resnet_v2(8, 10, dtype=torch.float32)
     assert model(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 10)
     fused = cifar_resnet_v2(14, 10, fused_blocks=True)
+    assert fused(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 10)
+    bottleneck = imagenet_resnet_v2(50, 10, fused_blocks=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        fused(torch.zeros(1, 32, 32, 3), train=True)
+        bottleneck(torch.zeros(1, 32, 32, 3), train=True)

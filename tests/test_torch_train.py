@@ -31,7 +31,7 @@ from tpu_resnet_torch import convert
 from tpu_resnet_torch.config import load_config
 from tpu_resnet_torch.evaluation.evaluator import evaluate
 from tpu_resnet_torch.main import main as port_main
-from tpu_resnet_torch.models import cifar_resnet_v2
+from tpu_resnet_torch.models import cifar_resnet_v2, imagenet_resnet_v2
 from tpu_resnet_torch.resilience.shutdown import Preempted
 from tpu_resnet_torch.serve.backend import CheckpointBackend
 from tpu_resnet_torch.train import checkpoint
@@ -211,13 +211,17 @@ def _losses(train_dir):
         return [(r["step"], r["loss"]) for r in map(json.loads, f)]
 
 
-def test_resume_repeats_the_uninterrupted_run(tmp_path):
+@pytest.mark.parametrize("model", [
+    [], ["model.fused_blocks=true", "model.resnet_size=14"]],
+    ids=["unfused", "fused"])
+def test_resume_repeats_the_uninterrupted_run(tmp_path, model):
     """Stopped at 6 and resumed to 12, the losses equal a 12-step run's
-    bit for bit (data order, augmentation and optimizer state resume)."""
+    bit for bit (data order, augmentation and optimizer state resume),
+    with and without the fused blocks (ResNet-14: one per stage)."""
     whole, split = tmp_path / "whole", tmp_path / "split"
-    train(_loop_cfg(whole), device="cpu")
-    train(_loop_cfg(split, "train.train_steps=6"), device="cpu")
-    state = train(_loop_cfg(split), device="cpu")
+    train(_loop_cfg(whole, *model), device="cpu")
+    train(_loop_cfg(split, *model, "train.train_steps=6"), device="cpu")
+    state = train(_loop_cfg(split, *model), device="cpu")
     assert state.step == 12
     assert _losses(split) == _losses(whole)
     assert [s for s, _ in _losses(whole)] == list(range(1, 13))
@@ -315,15 +319,20 @@ def test_preempted_in_process(tmp_path, monkeypatch):
 @pytest.mark.parametrize("overrides, exc, match", [
     (["optim.use_pallas_xent=auto"], NotImplementedError, "on or off"),
     (["optim.use_pallas_xent=maybe"], ValueError, "auto|on|off"),
-    (["model.fused_blocks=true"], NotImplementedError, "next slice"),
+    ("fused ImageNet bottleneck", NotImplementedError, "ImageNet training"),
     (["mesh.data=4"], NotImplementedError, "one device"),
     (["data.device_resident=on"], NotImplementedError, "device-resident"),
     (["data.dataset=imagenet"], NotImplementedError, "later slice"),
 ])
 def test_train_guards(tmp_path, overrides, exc, match):
-    cfg = _loop_cfg(tmp_path, *overrides)
+    """What the port does not train yet raises; a string case is a guard of
+    the model itself (the fused bottleneck in training)."""
     with pytest.raises(exc, match=match):
-        train(cfg, device="cpu")
+        if isinstance(overrides, str):
+            model = imagenet_resnet_v2(50, 10, fused_blocks=True)
+            model(torch.zeros(2, 32, 32, 3), train=True)
+        else:
+            train(_loop_cfg(tmp_path, *overrides), device="cpu")
 
 
 def test_check_step_config_passes_the_slice():

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_train.py [--batch 128] [--iters 20]
         [--preset cifar10] [section.field=value ...]
+    python3 tools/profile_torch_train.py model.fused_blocks=true
 
 Builds the train state as ``python -m tpu_resnet_torch train`` does
 (``--preset``, default ``cifar10``, with ``model.fused_epilogue=on
@@ -16,6 +17,8 @@ device-busy ms per step (the kernels' device times summed; one stream, so
 they do not overlap), the device's idle share, images/s, the port's
 kernels' device ms and launches per step, and the kernels by device time.
 Then the card's name and power limit. Needs CUDA; raises without it.
+``model.fused_blocks=true`` profiles the fused-block train step (the live-BN
+fused block kernels in place of 21 basic blocks).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def main(argv=None) -> int:
                              args.iters)
     out["model"] = (f"{cfg.data.dataset} resnet-{cfg.model.resnet_size} "
                     f"{cfg.model.compute_dtype} fused_epilogue="
-                    f"{cfg.model.fused_epilogue}")
+                    f"{cfg.model.fused_epilogue} fused_blocks="
+                    f"{cfg.model.fused_blocks}")
     print(json.dumps(out), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -18,8 +18,9 @@ other), so a block means the same thing in both packages:
 Activations are NHWC tensors (channels_last storage) throughout, as at the
 reference's public functions. ``forward(x, train=True)`` normalises with the
 batch moments and updates the running statistics in place (flax's EMA,
-momentum 0.997, biased variance); the fused blocks are eval only and raise
-in training.
+momentum 0.997, biased variance). A fused basic block trains through the
+live-BN fused kernels (``fb.block_train_apply``); the fused bottleneck is
+eval only and raises in training (ImageNet training is a later slice).
 """
 
 from __future__ import annotations
@@ -38,9 +39,6 @@ from tpu_resnet_torch.ops import fused_bottleneck as fbn
 _BATCH_NORM_MOMENTUM = 0.997
 _BATCH_NORM_EPSILON = 1e-5
 EPILOGUES = ("off", "on")
-_FUSED_TRAIN = ("training through the fused blocks is a later slice of the "
-                "port (fused-block CIFAR training, ROADMAP Queue 1); use "
-                "model.fused_blocks=false")
 
 
 def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
@@ -87,11 +85,15 @@ class BatchNormRelu(nn.Module):
         mean = xf.mean(dim=(0, 1, 2))
         var = torch.clamp_min(torch.square(xf).mean(dim=(0, 1, 2))
                               - torch.square(mean), 0.0)
-        with torch.no_grad():
-            m = _BATCH_NORM_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.update_running(mean, var)
         return mean, var
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's EMA of the batch moments, in place."""
+        m = _BATCH_NORM_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
@@ -150,8 +152,11 @@ class BuildingBlock(nn.Module):
 
 class FusedBuildingBlock(nn.Module):
     """A stride-1 identity :class:`BuildingBlock` run as the fused block
-    kernel: running statistics folded to scale/bias, weights handed over
-    in the kernel's HWIO layout. Same parameters, same names."""
+    kernels, weights handed over in their HWIO layout. Eval folds the
+    running statistics to scale/bias (``fb.block_fwd``); training
+    normalises with the batch moments (``fb.block_train_apply``) and
+    updates the running statistics from them, as the reference's
+    FusedBuildingBlock does. Same parameters, same names."""
 
     def __init__(self, filters: int):
         super().__init__()
@@ -161,12 +166,17 @@ class FusedBuildingBlock(nn.Module):
         self.conv2 = ConvFixedPadding(filters, filters, 3, 1)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_FUSED_TRAIN)
-        s1, b1 = self.preact.folded()
-        s2, b2 = self.bnrelu1.folded()
         w1 = self.conv1.weight.permute(2, 3, 1, 0).contiguous()
         w2 = self.conv2.weight.permute(2, 3, 1, 0).contiguous()
+        if train:
+            y, (m1, v1, m2, v2) = fb.block_train_apply(
+                x, w1, w2, self.preact.weight, self.preact.bias,
+                self.bnrelu1.weight, self.bnrelu1.bias, _BATCH_NORM_EPSILON)
+            self.preact.update_running(m1, v1)
+            self.bnrelu1.update_running(m2, v2)
+            return y
+        s1, b1 = self.preact.folded()
+        s2, b2 = self.bnrelu1.folded()
         return fb.block_fwd(x, w1, w2, s1, b1, s2, b2)
 
 
@@ -215,7 +225,10 @@ class FusedBottleneckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError(_FUSED_TRAIN)
+            raise NotImplementedError(
+                "training through the fused bottleneck is ImageNet training, "
+                "a later slice of the port (ROADMAP Queue 1); use "
+                "model.fused_blocks=false")
         folds = []
         for bn in (self.preact, self.bnrelu1, self.bnrelu2):
             folds += fbn._fold_bn(bn.weight, bn.bias, bn.running_mean,

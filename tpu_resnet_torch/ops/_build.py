@@ -41,6 +41,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_sbr_bwd": [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     },
     "fused_block": {"tr_block_fwd": [_P] * 8 + [_I] * 6 + [_P]},
+    "fused_block_train": {
+        "tr_block_stats": [_P] * 6 + [_I] * 6 + [_P],
+        "tr_block_bwd1": [_P] * 14 + [_I] * 6 + [_P],
+        "tr_block_bwd2": [_P] * 16 + [_I] * 6 + [_P],
+        "tr_block_bwd3": [_P] * 17 + [_I] * 6 + [_P],
+    },
     "fused_bottleneck": {"tr_bottleneck_fwd": [_P] * 11 + [_I] * 6 + [_P]},
     "softmax_xent": {
         "tr_xent_fwd": [_P, _P, _P, _I, _I, _I, _P],

@@ -15,10 +15,18 @@ from typing import Callable, Dict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-# The port's kernels on the CIFAR train path, by a substring of their names.
+# The port's kernels on the CIFAR train paths, by a substring of their names
+# (``train_sum`` is the fixed-order sum launch of the fused block's stats and
+# first two backward passes).
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
-                 "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel"}
+                 "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
+                 "block_fwd": "block_fwd_kernel",
+                 "block_stats": "block_stats_kernel",
+                 "block_bwd1": "block_bwd1_kernel",
+                 "block_bwd2": "block_bwd2_kernel",
+                 "block_bwd3": "block_bwd3_kernel",
+                 "train_sum": "train_sum_kernel"}
 
 
 def _device_us(evt) -> float:

@@ -66,7 +66,8 @@ def xent_mode(optim_cfg) -> str:
 
 def check_step_config(cfg) -> None:
     """The single-device part of the reference's step-config gate, plus
-    what this slice of the port does not train."""
+    what the port does not train yet. ``model.fused_blocks=true`` trains
+    the CIFAR models through the live-BN fused block kernels."""
     partition = getattr(cfg.mesh, "partition", "replicated")
     if partition not in ("replicated", "zero1"):
         raise ValueError(f"mesh.partition must be replicated|zero1, got "
@@ -81,11 +82,6 @@ def check_step_config(cfg) -> None:
             "training on data.dataset=imagenet needs its TFRecord/JPEG input "
             "pipeline, a later slice of the port (ImageNet training, ROADMAP "
             "Queue 1)")
-    if cfg.model.fused_blocks:
-        raise NotImplementedError(
-            "model.fused_blocks=true in training needs the fused-block "
-            "backward kernels, the next slice of the port (fused-block CIFAR "
-            "training, ROADMAP Queue 1); use model.fused_blocks=false")
     xent_mode(cfg.optim)
 
 
