@@ -24,7 +24,12 @@ Phases, each printing one JSON line:
    ``block_bwd3``) at the three B=128 stage shapes, on inputs from a coarse
    dyadic grid (so conv1's output and the masks are exact in both): every
    sum within 1e-5·Σ|terms| + 1e-6 per element, dx within ``block_fwd``'s
-   tolerance, two calls bit for bit equal.
+   tolerance, two calls bit for bit equal. The same for the fused
+   bottleneck's training kernels (``bottleneck_stats_a``,
+   ``bottleneck_stats_b``, ``bottleneck_bwd1`` .. ``bottleneck_bwd4``) at
+   the three ImageNet ResNet-50 stage shapes with B=128, dx within
+   ``bottleneck_fwd``'s tolerance; ``sbr``, ``sbr_bwd``, ``bottleneck_fwd``
+   and the cross-entropy pair also at the ImageNet train path's shapes.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
    random weights, checkpointed to a temporary train dir and served by the
@@ -66,12 +71,23 @@ Phases, each printing one JSON line:
    ``block_fwd``, 21 each of ``block_stats``, ``block_bwd1``,
    ``block_bwd2``, ``block_bwd3``, 7 ``sbr``, 7 ``sbr_bwd``, 1 ``xent_fwd``
    and 1 ``xent_bwd``; eval 21 ``block_fwd`` and 7 ``sbr`` per forward.
+7. ``train`` for ImageNet ResNet-50 at 224x224, full depth and width,
+   B=128 (``--preset imagenet model.fused_blocks=true
+   model.fused_epilogue=on optim.use_pallas_xent=on``): (a) as in 6, at
+   B=``IMAGENET_GATE_BATCH``; (b) the loop's own step (``build_state`` +
+   ``make_loop_step``, as ``train()`` builds them; the ImageNet input
+   pipeline is not ported) for ``IMAGENET_STEPS`` bfloat16 steps on a few
+   seeded uint8 batches repeated, the counters zeroed just before and read
+   just after: 10 ``bottleneck_fwd``, 10 of each of the six bottleneck
+   training kernels, 19 ``sbr``, 19 ``sbr_bwd``, 1 ``xent_fwd`` and 1
+   ``xent_bwd`` per step; every loss finite and the mean of the last 5
+   below the first 5's; (c) the step's profile. No eval.
 
 Then one ``{"kernels": [...]}`` line (times summed over the launches of one
 forward pass of each serve path and one train step that run the kernel, in
 bfloat16; ``launches`` is the count over the phases that drive the main
-paths: both serve phases, and the train and eval runs of both train
-phases),
+paths: both serve phases, the train and eval runs of both CIFAR train
+phases and the ImageNet train steps),
 the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line;
 without CUDA the script exits 2.
@@ -99,8 +115,25 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BATCH = 16
 TRAIN_BATCH = 128
+
+
+def imagenet_shapes(b: int) -> dict:
+    """ImageNet ResNet-50 at 224x224, batch b: (shape, launches per forward
+    pass or train step) of ``sbr`` (19 BN+ReLU sites: 6 unfused blocks and
+    the final one) and of ``bottleneck_fwd`` (the 10 stride-1 identity
+    bottlenecks of width 64/128/256)."""
+    return {"sbr": (((b, 56, 56, 64), 3), ((b, 56, 56, 256), 1),
+                    ((b, 56, 56, 128), 1), ((b, 28, 28, 128), 1),
+                    ((b, 28, 28, 512), 1), ((b, 28, 28, 256), 1),
+                    ((b, 14, 14, 256), 1), ((b, 14, 14, 1024), 1),
+                    ((b, 14, 14, 512), 1), ((b, 7, 7, 512), 5),
+                    ((b, 7, 7, 2048), 3)),
+            "bottleneck_fwd": (((b, 56, 56, 256), 2), ((b, 28, 28, 512), 3),
+                               ((b, 14, 14, 1024), 5))}
+
+
 # (shape, launches per forward pass) on each serve path, at B=BATCH, and
-# per step on the CIFAR train path, at B=TRAIN_BATCH.
+# per step on the train paths, at B=TRAIN_BATCH.
 TRAIN_SBR = (((TRAIN_BATCH, 32, 32, 16), 17), ((TRAIN_BATCH, 16, 16, 32), 16),
              ((TRAIN_BATCH, 8, 8, 64), 16))
 SHAPES = {
@@ -110,30 +143,28 @@ SHAPES = {
         "block_fwd": (((BATCH, 32, 32, 16), 7), ((BATCH, 16, 16, 32), 7),
                       ((BATCH, 8, 8, 64), 7)),
     },
-    "imagenet": {   # ResNet-50 at 224x224
-        "sbr": (((BATCH, 56, 56, 64), 3), ((BATCH, 56, 56, 256), 1),
-                ((BATCH, 56, 56, 128), 1), ((BATCH, 28, 28, 128), 1),
-                ((BATCH, 28, 28, 512), 1), ((BATCH, 28, 28, 256), 1),
-                ((BATCH, 14, 14, 256), 1), ((BATCH, 14, 14, 1024), 1),
-                ((BATCH, 14, 14, 512), 1), ((BATCH, 7, 7, 512), 5),
-                ((BATCH, 7, 7, 2048), 3)),
-        "bottleneck_fwd": (((BATCH, 56, 56, 256), 2),
-                           ((BATCH, 28, 28, 512), 3),
-                           ((BATCH, 14, 14, 1024), 5)),
-    },
+    "imagenet": imagenet_shapes(BATCH),
     "cifar10_train": {"sbr": TRAIN_SBR},
     # model.fused_blocks=true: 7 fused blocks per stage, B=TRAIN_BATCH.
     "cifar10_fused_train": {"block_fwd": (((TRAIN_BATCH, 32, 32, 16), 7),
                                           ((TRAIN_BATCH, 16, 16, 32), 7),
                                           ((TRAIN_BATCH, 8, 8, 64), 7))},
+    # ImageNet ResNet-50 training through the 10 fused bottlenecks.
+    "imagenet_fused_train": imagenet_shapes(TRAIN_BATCH),
 }
-# Train-path kernels with their own rows: sbr_bwd at the sbr shapes, the
-# cross-entropy pair at these class counts (launches per step), the fused
-# block's training kernels at the block_fwd shapes of the fused train path.
-XENT_CLASSES = ((10, 1), (100, 0), (1000, 0))
+# Train-path kernels with their own rows: sbr_bwd at the train paths' sbr
+# shapes, the cross-entropy pair at these (path, class count, launches per
+# step), the fused block's training kernels at the block_fwd shapes of the
+# fused CIFAR train path, the fused bottleneck's at the bottleneck_fwd
+# shapes of the ImageNet train path.
+XENT_CLASSES = (("cifar10_train", 10, 1), ("cifar10_train", 100, 0),
+                ("imagenet_fused_train", 1000, 1))
 BLOCK_TRAIN = ("block_stats", "block_bwd1", "block_bwd2", "block_bwd3")
+BOTTLENECK_TRAIN = ("bottleneck_stats_a", "bottleneck_stats_b",
+                    "bottleneck_bwd1", "bottleneck_bwd2", "bottleneck_bwd3",
+                    "bottleneck_bwd4")
 KERNELS = ("sbr", "block_fwd", "bottleneck_fwd", "sbr_bwd", "xent_fwd",
-           "xent_bwd", *BLOCK_TRAIN)
+           "xent_bwd", *BLOCK_TRAIN, *BOTTLENECK_TRAIN)
 # Launches per forward pass of each serve path and per train step, every
 # kernel listed.
 PER_PASS = {path: {k: sum(n for _, n in shapes.get(k, ()))
@@ -146,6 +177,12 @@ PER_PASS["cifar10_train"].update(
 PER_PASS["cifar10_fused_train"].update(
     sbr=7, sbr_bwd=7, xent_fwd=1, xent_bwd=1,
     **{k: PER_PASS["cifar10_fused_train"]["block_fwd"] for k in BLOCK_TRAIN})
+# The ImageNet train step: each fused bottleneck runs bottleneck_fwd and the
+# six training kernels once; the 19 sbr sites each run sbr_bwd.
+PER_PASS["imagenet_fused_train"].update(
+    sbr_bwd=PER_PASS["imagenet_fused_train"]["sbr"], xent_fwd=1, xent_bwd=1,
+    **{k: PER_PASS["imagenet_fused_train"]["bottleneck_fwd"]
+       for k in BOTTLENECK_TRAIN})
 TRAIN_OVERRIDES = ["model.fused_epilogue=on", "optim.use_pallas_xent=on",
                    "data.dataset=synthetic", "data.synthetic_learnable=true"]
 # Each train path: its overrides and the launches of one eval forward.
@@ -157,6 +194,11 @@ TRAIN_PATHS = {
                             "eval_per_forward": PER_PASS["cifar10"]},
 }
 TRAIN_STEPS, RESUME_STEPS = 100, 120
+# The ImageNet train phase: the loop's step on a fixed set of seeded uint8
+# 224x224 batches, repeated; the float32 step gate at IMAGENET_GATE_BATCH.
+IMAGENET_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
+                      "optim.use_pallas_xent=on"]
+IMAGENET_STEPS, IMAGENET_BATCHES, IMAGENET_GATE_BATCH = 30, 2, 32
 # |kernel - plain| <= atol + rtol * |plain|, elementwise. sbr rounds
 # exactly as the plain version does; the fused blocks sum their convs in
 # another order than cuDNN/cuBLAS, and in bfloat16 that can move the stored
@@ -261,6 +303,26 @@ def bound(kind: str, shape, dtype) -> tuple:
                  + (weights * 9 * c * c + vecs * c + sums) * 4
                  + (n * item if kind == "block_bwd3" else 0))
         ops = products * 2 * b * h * w * 9 * c * c
+    elif kind in BOTTLENECK_TRAIN:   # c = 4f; centre rows only
+        f = c // 4
+        ff = f * f
+        # flops per pixel; floats of weights (w1 4f², w2 9f², w3 4f²), of
+        # BN vectors and correction sums in, and of sums and weight
+        # gradients out; x (and gy, float32) in, dx out.
+        flops, weights, vecs, sums = {
+            "bottleneck_stats_a": (8 * ff, 4 * ff, 4 * c, 2 * f),
+            "bottleneck_stats_b": (26 * ff, 13 * ff, 4 * c + 4 * f, 2 * f),
+            "bottleneck_bwd1": (42 * ff, 17 * ff, 4 * c + 8 * f,
+                                2 * f + 4 * ff),
+            "bottleneck_bwd2": (70 * ff, 17 * ff, 4 * c + 10 * f,
+                                2 * f + 9 * ff),
+            "bottleneck_bwd3": (68 * ff, 17 * ff, 4 * c + 12 * f,
+                                2 * c + 4 * ff),
+            "bottleneck_bwd4": (60 * ff, 17 * ff, 6 * c + 12 * f, 0)}[kind]
+        moved = (n * item + (0 if "stats" in kind else 4 * n)
+                 + (weights + vecs + sums) * 4
+                 + (n * item if kind == "bottleneck_bwd4" else 0))
+        ops = flops * b * h * w
     else:   # bottleneck_fwd: c = 4f
         f = c // 4
         moved = 2 * n * item + (2 * c * f + 9 * f * f + 2 * c + 4 * f) * 4
@@ -298,10 +360,12 @@ def kernel_args(kind: str, shape, dtype, gen) -> tuple:
             randn(f, c, scale=f ** -0.5), *sb(c), *sb(f), *sb(f))
 
 
-def _timed(row, kernel, plain, kind, shape, dtype) -> dict:
+def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 20,
+           inner: int = 10) -> dict:
     for key, fn in (("ms", kernel), ("plain_ms", plain)):
-        row[key] = time_ms(fn, queued=True)
-        row["call_" + key] = time_ms(fn, queued=False)
+        row[key] = time_ms(fn, queued=True, reps=reps, inner=inner)
+        row["call_" + key] = time_ms(fn, queued=False, reps=reps,
+                                     inner=inner)
     row["bound_ms"], row["bound_by"] = bound(kind, shape, dtype)
     row["bound_us"] = row["bound_ms"] * 1e3
     return row
@@ -340,12 +404,16 @@ def kernel_phase(wrappers):
 
 
 def train_kernel_phase(ep, sx):
-    """The train path's backward kernels against their plain versions:
-    ``sbr_bwd`` at the three CIFAR train shapes, bfloat16 and float32, and
-    the cross-entropy pair at B=128 for 10, 100 and 1000 classes."""
+    """The train paths' backward kernels against their plain versions:
+    ``sbr_bwd`` at the CIFAR and ImageNet train paths' sbr shapes, bfloat16
+    and float32, and the cross-entropy pair at B=128 for 10, 100 and 1000
+    classes."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for shape, per_step in TRAIN_SBR:
+    sbr_cases = [(path, shape, n)
+                 for path in ("cifar10_train", "imagenet_fused_train")
+                 for shape, n in SHAPES[path]["sbr"]]
+    for path, shape, per_step in sbr_cases:
         c = shape[-1]
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -367,7 +435,7 @@ def train_kernel_phase(ep, sx):
                                             / limit).max()))
             err = max(float((got[k].float() - want[k].float()).abs().max())
                       for k in range(3))
-            row = {"kernel": "sbr_bwd", "path": "cifar10_train",
+            row = {"kernel": "sbr_bwd", "path": path,
                    "shape": list(shape), "dtype": str(dtype).split(".")[1],
                    "per_pass": per_step, "max_abs_err": err,
                    "ds_db_err_over_limit": excess,
@@ -378,7 +446,7 @@ def train_kernel_phase(ep, sx):
                 lambda: ep.scale_bias_relu_bwd_reference(x, sc, bi, g),
                 "sbr_bwd", shape, dtype))
     atol, rtol = XENT_TOL
-    for classes, per_step in XENT_CLASSES:
+    for path, classes, per_step in XENT_CLASSES:
         shape = (TRAIN_BATCH, classes)
         logits = torch.randn(shape, generator=gen, device="cuda") * 3
         labels = torch.randint(0, classes, (TRAIN_BATCH,), generator=gen,
@@ -396,7 +464,7 @@ def train_kernel_phase(ep, sx):
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             d = (got - want).abs()
-            row = {"kernel": kind, "path": "cifar10_train",
+            row = {"kernel": kind, "path": path,
                    "shape": list(shape), "dtype": "float32",
                    "per_pass": per_step, "max_abs_err": float(d.max()),
                    "max_rel_err": float(d.max() / want.abs().max()),
@@ -511,6 +579,107 @@ def block_train_kernel_phase(fb):
     return rows
 
 
+def bottleneck_train_args(shape, dtype, gen) -> tuple:
+    """Seeded inputs of the fused bottleneck's training kernels on a coarse
+    dyadic grid: x in steps of 1/4 (|x| <= 2), gy of 1/8, weights of 1/32
+    (|w| <= 1/8 or 1/16), betas of 1/16, means of 1/4 or 1/8, gammas and
+    1/sigma powers of 2. c1, chat, mid and mhat are then exact in float32
+    whatever the summation order, so kernel and plain version share their
+    masks [m > 0] and the sums and dx differ only by rounding. Returns x,
+    gy, w1, w2, w3 and the twelve BN vectors (g, be, mu, 1/sigma of BN1,
+    BN2, BN3)."""
+    c4 = shape[-1]
+    f = c4 // 4
+
+    def grid(size, lo, hi, step):
+        return torch.randint(lo, hi + 1, size, generator=gen,
+                             device="cuda").float() * step
+
+    def pow2(n, lo, hi):
+        return 2.0 ** grid((n,), lo, hi, 1)
+
+    vecs = (pow2(c4, -1, 0), grid((c4,), -4, 4, 1 / 16),
+            grid((c4,), -2, 2, 1 / 4), pow2(c4, -1, 0),
+            pow2(f, -1, 0), grid((f,), -4, 4, 1 / 16),
+            grid((f,), -8, 8, 1 / 8), pow2(f, -3, -2),
+            pow2(f, -1, 0), grid((f,), -4, 4, 1 / 16),
+            grid((f,), -8, 8, 1 / 8), pow2(f, -1, 0))
+    return (grid(shape, -8, 8, 1 / 4).to(dtype), grid(shape, -16, 16, 1 / 8),
+            grid((c4, f), -4, 4, 1 / 32), grid((3, 3, f, f), -2, 2, 1 / 32),
+            grid((f, c4), -4, 4, 1 / 32), *vecs)
+
+
+def bottleneck_train_kernel_phase(fbn):
+    """The fused bottleneck's six training kernels against their plain
+    versions at the three ImageNet B=128 stage shapes, bfloat16 and
+    float32, on the dyadic grid of :func:`bottleneck_train_args`: every sum
+    within 1e-5 * sum|terms| + 1e-6, dx within ``bottleneck_fwd``'s
+    tolerance, two calls bit for bit equal. The oracle's convolutions run
+    with cuDNN off. Fewer timing repetitions: each call takes
+    milliseconds."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for shape, per_step in SHAPES["imagenet_fused_train"]["bottleneck_fwd"]:
+        for dtype in (torch.bfloat16, torch.float32):
+            base = bottleneck_train_args(shape, dtype, gen)
+            x, gy, w1, w2, w3, *vecs = base
+            with torch.backends.cudnn.flags(enabled=False):
+                t3 = fbn.train_bwd_pass1_reference(*base)[:2]
+                t2 = fbn.train_bwd_pass2_reference(*base, *t3)[:2]
+                t1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2)[:2]
+            calls = {
+                "bottleneck_stats_a": ((x, w1, *vecs[:4]),
+                                       fbn.bottleneck_stats_a,
+                                       fbn.bottleneck_stats_a_reference),
+                "bottleneck_stats_b": ((x, w1, w2, *vecs[:8]),
+                                       fbn.bottleneck_stats_b,
+                                       fbn.bottleneck_stats_b_reference),
+                "bottleneck_bwd1": (base, fbn.bottleneck_bwd1,
+                                    fbn.train_bwd_pass1_reference),
+                "bottleneck_bwd2": ((*base, *t3), fbn.bottleneck_bwd2,
+                                    fbn.train_bwd_pass2_reference),
+                "bottleneck_bwd3": ((*base, *t3, *t2), fbn.bottleneck_bwd3,
+                                    fbn.train_bwd_pass3_reference),
+                "bottleneck_bwd4": ((*base, *t3, *t2, *t1),
+                                    fbn.bottleneck_bwd4,
+                                    fbn.train_bwd_pass4_reference)}
+            for kind, (args, kernel, plain) in calls.items():
+                got, again = kernel(*args), kernel(*args)
+                with torch.backends.cudnn.flags(enabled=False):
+                    want = plain(*args)
+                    scale = (plain(*args, magnitudes=True)
+                             if kind != "bottleneck_bwd4" else None)
+                torch.cuda.synchronize()
+                name = f"{kind} {shape} {dtype}"
+                if kind == "bottleneck_bwd4":
+                    got, again, want = (got,), (again,), (want,)
+                check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                      f"{name}: two calls differ")
+                err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+                row = {"kernel": kind, "path": "imagenet_fused_train",
+                       "shape": list(shape),
+                       "dtype": str(dtype).split(".")[1],
+                       "per_pass": per_step, "max_abs_err": err}
+                if kind == "bottleneck_bwd4":
+                    atol, rtol = TOLERANCE[("bottleneck_fwd", dtype)]
+                    d = (got[0].float() - want[0].float()).abs()
+                    excess = float((d / (atol + rtol * want[0].float().abs()))
+                                   .max())
+                    check(got[0].dtype == dtype,
+                          f"{name}: dx is {got[0].dtype}")
+                    row.update(atol=atol, rtol=rtol)
+                else:
+                    excess = _sum_excess(got, want, scale)
+                    row["tolerance"] = "sums <= 1e-5*sum|terms| + 1e-6"
+                row["err_over_limit"] = excess
+                check(excess <= 1, f"{name}: beyond tolerance: {row}")
+                rows.append(_timed(row, lambda: kernel(*args),
+                                   lambda: plain(*args), kind, shape, dtype,
+                                   reps=5, inner=2))
+    return rows
+
+
 def kernel_counters() -> dict:
     """{kernel: (module, launch counter)} of the port's wrappers."""
     from tpu_resnet_torch.ops import epilogue as ep
@@ -524,7 +693,13 @@ def kernel_counters() -> dict:
             "block_stats": (fb, "stats_launches"),
             "block_bwd1": (fb, "bwd1_launches"),
             "block_bwd2": (fb, "bwd2_launches"),
-            "block_bwd3": (fb, "bwd3_launches")}
+            "block_bwd3": (fb, "bwd3_launches"),
+            "bottleneck_stats_a": (fbn, "stats_a_launches"),
+            "bottleneck_stats_b": (fbn, "stats_b_launches"),
+            "bottleneck_bwd1": (fbn, "bwd1_launches"),
+            "bottleneck_bwd2": (fbn, "bwd2_launches"),
+            "bottleneck_bwd3": (fbn, "bwd3_launches"),
+            "bottleneck_bwd4": (fbn, "bwd4_launches")}
 
 
 def zero_counts(counters) -> None:
@@ -549,6 +724,8 @@ def plain_versions():
              (fb, "block_fwd", fb.block_fwd_reference),
              (fb, "block_train_apply", fb.block_train_apply_reference),
              (fbn, "bottleneck_fwd", fbn.bottleneck_fwd_reference),
+             (fbn, "bottleneck_train_apply",
+              fbn.bottleneck_train_apply_reference),
              (sx, "softmax_xent_per_example",
               sx.softmax_xent_per_example_reference))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -721,22 +898,42 @@ def _rel(got: float, want: float) -> float:
     return abs(got - want) / max(abs(want), 1e-30)
 
 
-def step_arms(cfg, counters, arms) -> dict:
-    """One float32 train step per arm from one seeded state and batch:
-    ``arms`` maps a name to a context factory the step runs under.
-    Returns {name: (state, metrics, launch counts)}."""
+def imagenet_batches(n: int, batch: int, classes: int, size: int) -> list:
+    """``n`` seeded (uint8 [batch,size,size,3], int32 labels in
+    0..classes-1) batches: what the ImageNet input pipeline hands the
+    device."""
+    rng = np.random.default_rng(5)
+    return [(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8),
+             rng.integers(0, classes, batch).astype(np.int32))
+            for _ in range(n)]
+
+
+def step_batch(cfg, batch: int) -> tuple:
+    """One seeded augmented batch (x, labels) on the card for the float32
+    step gate: CIFAR synthetic data, or seeded uint8 ImageNet images."""
     from tpu_resnet_torch.data import augment as aug
     from tpu_resnet_torch.data.cifar import synthetic_data
+
+    cuda = torch.device("cuda")
+    size, classes = cfg.data.resolved_image_size, cfg.data.num_classes
+    if cfg.data.dataset == "imagenet":
+        images, labels = imagenet_batches(1, batch, classes, size)[0]
+    else:
+        images, labels = synthetic_data(batch, size, classes, learnable=True)
+    x = aug.get_train_augment(cfg.data.dataset)(
+        torch.from_numpy(images).to(cuda), aug.step_generator(0, 0, cuda))
+    return x, torch.from_numpy(labels).to(cuda)
+
+
+def step_arms(cfg, counters, arms, x, y) -> dict:
+    """One float32 train step per arm from one seeded state and batch (x,
+    y): ``arms`` maps a name to a context factory the step runs under.
+    Returns {name: (state, metrics, launch counts)}."""
     from tpu_resnet_torch.train import schedule as sched_lib
     from tpu_resnet_torch.train.loop import build_state
     from tpu_resnet_torch.train.step import make_train_step
 
     cuda = torch.device("cuda")
-    images, labels = synthetic_data(TRAIN_BATCH, 32, cfg.data.num_classes,
-                                    learnable=True)
-    x = aug.cifar_train_augment(torch.from_numpy(images).to(cuda),
-                                aug.step_generator(0, 0, cuda))
-    y = torch.from_numpy(labels).to(cuda)
     step_fn = make_train_step(cfg.optim, sched_lib.build_schedule(
         cfg.optim, cfg.train), cfg.data.num_classes)
     runs = {}
@@ -748,6 +945,7 @@ def step_arms(cfg, counters, arms) -> dict:
         torch.cuda.synchronize()
         runs[arm] = (state, {k: float(v) for k, v in m.items()},
                      read_counts(counters))
+        del state
     return runs
 
 
@@ -781,7 +979,8 @@ def plain_native_convs():
         yield
 
 
-def compare_step(cfg, counters, path: str) -> dict:
+def compare_step(cfg, counters, path: str, batch: int = TRAIN_BATCH
+                 ) -> dict:
     """One float32 train step from one seeded state through the kernels,
     and one through the plain versions; every metric and updated tensor
     compared against the step limits (``STEP_RTOL``, ``STATE_TOL``), and the
@@ -801,14 +1000,15 @@ def compare_step(cfg, counters, path: str) -> dict:
     whole gradient, it moves with a few flipped masks: 1.4-8x the
     control's over four weight seeds on an H100)."""
     arms = {"kernels": contextlib.nullcontext, "plain": plain_versions}
-    fused = PER_PASS[path]["block_fwd"] > 0
+    fused = (PER_PASS[path]["block_fwd"] + PER_PASS[path]["bottleneck_fwd"]
+             > 0)
     if fused:
         arms["control"] = plain_native_convs
-    runs = step_arms(cfg, counters, arms)
+    runs = step_arms(cfg, counters, arms, *step_batch(cfg, batch))
     (_, km, kc), (_, pm, pc) = runs["kernels"], runs["plain"]
     check(kc == PER_PASS[path], f"kernel step launches {kc}")
     check(not any(pc.values()), f"plain step launched kernels: {pc}")
-    out = {"metrics_kernels": km, "metrics_plain": pm,
+    out = {"batch": batch, "metrics_kernels": km, "metrics_plain": pm,
            **step_diff(runs["kernels"], runs["plain"])}
     out["step_limits_held"] = (
         all(out[f"{k}_rel_err"] <= STEP_RTOL
@@ -933,6 +1133,73 @@ def train_phase(path: str, counters, gpu: str) -> dict:
     return result
 
 
+def imagenet_train_phase(counters, gpu: str) -> dict:
+    """ImageNet ResNet-50 training at 224x224, full depth and width, B=128,
+    bf16, through the 10 fused bottlenecks (``IMAGENET_OVERRIDES``): the
+    float32 kernel-vs-plain step gate (B=IMAGENET_GATE_BATCH), then the
+    loop's own step (``build_state`` + ``make_loop_step``, as ``train()``
+    builds them) for IMAGENET_STEPS steps on IMAGENET_BATCHES seeded uint8
+    batches repeated, the counters zeroed just before and read just after;
+    every loss finite and the mean of the last 5 below the first 5's; then
+    the step's device profile."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.tools.profiling import profile_train_step
+    from tpu_resnet_torch.train.loop import build_state, make_loop_step
+
+    path = "imagenet_fused_train"
+    compared = compare_step(load_config("imagenet", "", [
+        *IMAGENET_OVERRIDES, "model.compute_dtype=float32"]), counters, path,
+        IMAGENET_GATE_BATCH)
+    cfg = load_config("imagenet", "", IMAGENET_OVERRIDES)
+    size, classes = cfg.data.resolved_image_size, cfg.data.num_classes
+    check(size == 224 and classes == 1000 and cfg.model.resnet_size == 50,
+          f"imagenet preset: {size}x{size}, {classes} classes, "
+          f"ResNet-{cfg.model.resnet_size}")
+    cuda = torch.device("cuda")
+    state = build_state(cfg, cuda)
+    step_fn = make_loop_step(cfg, cuda)
+    host = imagenet_batches(IMAGENET_BATCHES, TRAIN_BATCH, classes, size)
+    batches = [(torch.from_numpy(im).to(cuda), torch.from_numpy(lb).to(cuda))
+               for im, lb in host]
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.monotonic()
+    losses = [step_fn(state, *batches[i % IMAGENET_BATCHES])["loss"]
+              for i in range(IMAGENET_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = read_counts(counters)
+    losses = [float(v) for v in losses]
+    want = {k: n * IMAGENET_STEPS for k, n in PER_PASS[path].items()}
+    check(counts == want, f"{path}: launch counts {counts} over "
+          f"{IMAGENET_STEPS} steps, expected {want}")
+    check(state.step == IMAGENET_STEPS, f"state at step {state.step}")
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last5 < first5, f"loss did not fall: first 5 mean {first5}, "
+          f"last 5 {last5}")
+    prof = profile_train_step(state, step_fn, *host[0], iters=10)
+    result = {
+        "path": path,
+        "model": f"imagenet ResNet-50 {size}x{size} fused_blocks=on "
+                 f"fused_epilogue=on use_pallas_xent=on "
+                 f"{cfg.model.compute_dtype}, B={TRAIN_BATCH}",
+        "params": sum(p.numel() for p in state.model.parameters()),
+        "f32_step_vs_plain": compared,
+        "steps": IMAGENET_STEPS, "batches": IMAGENET_BATCHES,
+        "train_seconds": seconds,
+        "loop_ms_per_step_first_included": 1e3 * seconds / IMAGENET_STEPS,
+        "launches": counts, "launches_per_step": PER_PASS[path],
+        "eval_launches": {k: 0 for k in KERNELS},
+        "loss_first5_mean": first5, "loss_last5_mean": last5,
+        "losses": losses,
+        "profile": {k: v for k, v in prof.items() if k != "kernels"},
+        "profile_top_kernels": prof["kernels"][:16],
+        "gpu": gpu}
+    emit("train", **result)
+    return result
+
+
 # Each kernel: its source in the port and the TPU kernel body it replaces.
 KERNEL_SOURCES = (
     ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
@@ -954,7 +1221,19 @@ KERNEL_SOURCES = (
     ("block_bwd2", "tpu_resnet_torch/csrc/fused_block_train.cu",
      "tpu_resnet/ops/fused_block.py:409"),
     ("block_bwd3", "tpu_resnet_torch/csrc/fused_block_train.cu",
-     "tpu_resnet/ops/fused_block.py:433"))
+     "tpu_resnet/ops/fused_block.py:433"),
+    ("bottleneck_stats_a", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:445"),
+    ("bottleneck_stats_b", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:464"),
+    ("bottleneck_bwd1", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:644"),
+    ("bottleneck_bwd2", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:678"),
+    ("bottleneck_bwd3", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:729"),
+    ("bottleneck_bwd4", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:754"))
 
 
 def path_times(rows) -> dict:
@@ -977,7 +1256,8 @@ def path_times(rows) -> dict:
             # least, its backward (dx, ds, db) several, the cross-entropy
             # backward softmax and a one-hot subtraction, the basic block
             # five or more, the bottleneck seven; no call returns the fused
-            # block's training sums and weight-gradient products.
+            # block's or the fused bottleneck's training sums and
+            # weight-gradient products.
             "library_ms": sum(library) if library else None}
     return by_path
 
@@ -994,7 +1274,8 @@ def kernel_entries(rows, served, trained) -> list:
             r for r in rows if r["kernel"] == kind
             and r["dtype"] == ("float32" if kind.startswith("xent")
                                else "bfloat16")])
-        timed = next((p for p in ("cifar10_fused_train", "cifar10_train")
+        timed = next((p for p in ("imagenet_fused_train",
+                                  "cifar10_fused_train", "cifar10_train")
                       if p in by_path), next(iter(by_path)))
         kernels.append({
             "name": kind, "route": "cuda", "source": source,
@@ -1042,10 +1323,12 @@ def main() -> int:
                            fbn.bottleneck_fwd_reference)})
     rows += train_kernel_phase(ep, sx)
     rows += block_train_kernel_phase(fb)
+    rows += bottleneck_train_kernel_phase(fbn)
     emit("kernels", gpu=gpu, rows=rows)
     counters = kernel_counters()
     served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
+    trained.append(imagenet_train_phase(counters, gpu))
 
     kernels = kernel_entries(rows, served, trained)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,7 @@ from tpu_resnet_torch.ops import fused_block as fb
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
 from tpu_resnet_torch.ops import softmax_xent as sx
 from tpu_resnet_torch.train import schedule as sched_lib
-from tpu_resnet_torch.train.loop import build_state
+from tpu_resnet_torch.train.loop import build_state, make_loop_step
 from tpu_resnet_torch.train.step import make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -356,3 +356,118 @@ def test_fused_train_step_kernels_match_plain(cuda, monkeypatch):
     for name, buf in kernel_state.momentum_buffers().items():
         torch.testing.assert_close(buf, plain_state.momentum_buffers()[name],
                                    atol=1e-5, rtol=1e-4, msg=name)
+
+
+# ------------------------------------------- the fused bottleneck's training
+def _bottleneck_train_inputs(shape, dtype, gen):
+    """x, gy, w1, w2, w3 and the twelve BN vectors on a coarse dyadic grid,
+    as chip_smoke.py draws them: gammas and 1/σ are powers of two, so c1,
+    ĉ, mid and m̂ are exact in float32 in any summation order and kernel and
+    plain version share their masks [m > 0]."""
+    c4 = shape[-1]
+    f = c4 // 4
+
+    def grid(size, lo, hi, step):
+        return torch.randint(lo, hi + 1, size, generator=gen,
+                             device="cuda").float() * step
+
+    def pow2(n, lo, hi):
+        return 2.0 ** grid((n,), lo, hi, 1)
+
+    vecs = (pow2(c4, -1, 0), grid((c4,), -4, 4, 1 / 16),
+            grid((c4,), -2, 2, 1 / 4), pow2(c4, -1, 0),
+            pow2(f, -1, 0), grid((f,), -4, 4, 1 / 16),
+            grid((f,), -8, 8, 1 / 8), pow2(f, -3, -2),
+            pow2(f, -1, 0), grid((f,), -4, 4, 1 / 16),
+            grid((f,), -8, 8, 1 / 8), pow2(f, -1, 0))
+    return (grid(shape, -8, 8, 1 / 4).to(dtype), grid(shape, -16, 16, 1 / 8),
+            grid((c4, f), -4, 4, 1 / 32), grid((3, 3, f, f), -2, 2, 1 / 32),
+            grid((f, c4), -4, 4, 1 / 32), vecs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 56, 56, 256), (2, 28, 28, 512),
+                                   (2, 14, 14, 1024), (1, 9, 5, 256)])
+def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
+    """The two moment passes and the four backward passes at the three
+    ResNet-50 stage shapes and a ragged one; each called twice."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, gy, w1, w2, w3, vecs = _bottleneck_train_inputs(shape, dtype, gen)
+    base = (x, gy, w1, w2, w3, *vecs)
+    with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
+        t3 = fbn.train_bwd_pass1_reference(*base)[:2]
+        t2 = fbn.train_bwd_pass2_reference(*base, *t3)[:2]
+        t1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2)[:2]
+    cases = (("stats_a_launches", (x, w1, *vecs[:4]), fbn.bottleneck_stats_a,
+              fbn.bottleneck_stats_a_reference),
+             ("stats_b_launches", (x, w1, w2, *vecs[:8]),
+              fbn.bottleneck_stats_b, fbn.bottleneck_stats_b_reference),
+             ("bwd1_launches", base, fbn.bottleneck_bwd1,
+              fbn.train_bwd_pass1_reference),
+             ("bwd2_launches", (*base, *t3), fbn.bottleneck_bwd2,
+              fbn.train_bwd_pass2_reference),
+             ("bwd3_launches", (*base, *t3, *t2), fbn.bottleneck_bwd3,
+              fbn.train_bwd_pass3_reference))
+    for counter, args, kernel, plain in cases:
+        before = getattr(fbn, counter)
+        got, again = kernel(*args), kernel(*args)
+        with torch.backends.cudnn.flags(enabled=False):
+            want = plain(*args)
+            scale = plain(*args, magnitudes=True)
+        torch.cuda.synchronize()
+        assert getattr(fbn, counter) == before + 2, counter
+        _sums_close(got, want, scale)
+        assert all(torch.equal(p, q) for p, q in zip(got, again)), counter
+    before = fbn.bwd4_launches
+    args = (*base, *t3, *t2, *t1)
+    dx, again = fbn.bottleneck_bwd4(*args), fbn.bottleneck_bwd4(*args)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = fbn.train_bwd_pass4_reference(*args)
+    torch.cuda.synchronize()
+    assert fbn.bwd4_launches == before + 2 and dx.dtype == dtype
+    assert torch.equal(dx, again)
+    # bottleneck_fwd's tolerance: f32 sums in another order; bf16 one ulp.
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(dx.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_bottleneck_train_wrappers_reject_bad_input(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x, gy, w1, w2, w3, vecs = _bottleneck_train_inputs(
+        (2, 8, 8, 256), torch.float32, gen)
+    with pytest.raises(ValueError, match="contiguous"):
+        fbn.bottleneck_stats_a(x.permute(0, 2, 1, 3), w1, *vecs[:4])
+    with pytest.raises(ValueError, match="w3 must be float32"):
+        fbn.bottleneck_bwd1(x, gy, w1, w2, w3[:, :8], *vecs)
+    with pytest.raises(ValueError, match="t3a must be float32"):
+        fbn.bottleneck_bwd2(x, gy, w1, w2, w3, *vecs, vecs[0], vecs[4])
+    with pytest.raises(ValueError, match="gy must be float32"):
+        fbn.bottleneck_bwd4(x, gy.to(torch.bfloat16), w1, w2, w3, *vecs,
+                            *vecs[4:8], *vecs[:2])
+    with pytest.raises(ValueError, match="kernels for f"):
+        fbn.bottleneck_stats_a(torch.zeros(2, 8, 8, 128, device="cuda"),
+                               torch.zeros(128, 32, device="cuda"),
+                               *(torch.ones(128, device="cuda"),) * 4)
+
+
+def test_imagenet_fused_train_step_launches(cuda):
+    """One bf16 step of ImageNet ResNet-50 at 64x64 through the loop's step:
+    each of the seven bottleneck kernels 10 times, a finite loss."""
+    cfg = load_config("imagenet", "", [
+        "model.fused_blocks=true", "model.fused_epilogue=on",
+        "optim.use_pallas_xent=on", "train.global_batch_size=4",
+        "data.image_size=64"])
+    state = build_state(cfg, cuda)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    images = torch.randint(0, 256, (4, 64, 64, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (4,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    names = ("launches", "stats_a_launches", "stats_b_launches",
+             "bwd1_launches", "bwd2_launches", "bwd3_launches",
+             "bwd4_launches")
+    before = [getattr(fbn, n) for n in names]
+    m = make_loop_step(cfg, cuda)(state, images, labels)
+    torch.cuda.synchronize()
+    assert [getattr(fbn, n) - b for n, b in zip(names, before)] == [10] * 7
+    assert bool(torch.isfinite(m["loss"]))

@@ -162,5 +162,4 @@ def test_constructor_and_train_guards():
     fused = cifar_resnet_v2(14, 10, fused_blocks=True)
     assert fused(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 10)
     bottleneck = imagenet_resnet_v2(50, 10, fused_blocks=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        bottleneck(torch.zeros(1, 32, 32, 3), train=True)
+    assert bottleneck(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 10)

@@ -322,15 +322,23 @@ def test_preempted_in_process(tmp_path, monkeypatch):
     ("fused ImageNet bottleneck", NotImplementedError, "ImageNet training"),
     (["mesh.data=4"], NotImplementedError, "one device"),
     (["data.device_resident=on"], NotImplementedError, "device-resident"),
-    (["data.dataset=imagenet"], NotImplementedError, "later slice"),
+    (["data.dataset=imagenet", "model.resnet_size=18", "data.image_size=32"],
+     NotImplementedError, "later slice"),
 ])
 def test_train_guards(tmp_path, overrides, exc, match):
-    """What the port does not train yet raises; a string case is a guard of
-    the model itself (the fused bottleneck in training)."""
+    """What the port does not train yet raises. ImageNet training gets past
+    the step's and the model's gates (the string case: ResNet-50 through
+    the fused bottlenecks, whose training forward runs) and stops at the
+    missing input pipeline."""
     with pytest.raises(exc, match=match):
         if isinstance(overrides, str):
             model = imagenet_resnet_v2(50, 10, fused_blocks=True)
-            model(torch.zeros(2, 32, 32, 3), train=True)
+            assert model(torch.zeros(2, 32, 32, 3), train=True).shape == (
+                2, 10)
+            train(load_config("imagenet", "", [
+                "model.fused_blocks=true", "model.fused_epilogue=on",
+                "optim.use_pallas_xent=on", "data.image_size=32",
+                f"train.train_dir={tmp_path}"]), device="cpu")
         else:
             train(_loop_cfg(tmp_path, *overrides), device="cpu")
 

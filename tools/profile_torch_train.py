@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's CIFAR train step on a CUDA card.
+"""Device-time breakdown of the port's train step on a CUDA card.
 
     python3 tools/profile_torch_train.py [--batch 128] [--iters 20]
         [--preset cifar10] [section.field=value ...]
     python3 tools/profile_torch_train.py model.fused_blocks=true
+    python3 tools/profile_torch_train.py --preset imagenet \
+        model.fused_blocks=true
 
 Builds the train state as ``python -m tpu_resnet_torch train`` does
 (``--preset``, default ``cifar10``, with ``model.fused_epilogue=on
-optim.use_pallas_xent=on data.dataset=synthetic`` and then the given
-overrides; bfloat16, seeded weights) and runs the loop's step on one seeded
-uint8 batch: the host-to-device copy, augmentation on the card, forward,
-backward and the SGD update. After 5 warm-up steps it times ``--iters``
-steps with the host clock (ending in a synchronize), then runs ``--iters``
-more under ``torch.profiler``. Prints one JSON line: wall ms per step,
-device-busy ms per step (the kernels' device times summed; one stream, so
-they do not overlap), the device's idle share, images/s, the port's
-kernels' device ms and launches per step, and the kernels by device time.
-Then the card's name and power limit. Needs CUDA; raises without it.
-``model.fused_blocks=true`` profiles the fused-block train step (the live-BN
-fused block kernels in place of 21 basic blocks).
+optim.use_pallas_xent=on`` and then the given overrides; bfloat16, seeded
+weights) and runs the loop's step on one seeded uint8 batch: the
+host-to-device copy, augmentation on the card, forward, backward and the
+SGD update. The CIFAR presets train on ``data.dataset=synthetic``; the
+``imagenet`` preset keeps its dataset (ImageNet ResNet, 1000 classes) and
+is fed seeded uint8 224x224 images with labels in 0..999, what the input
+pipeline hands the device. After 5 warm-up steps it times ``--iters`` steps
+with the host clock (ending in a synchronize), then runs ``--iters`` more
+under ``torch.profiler``. Prints the model line, then one JSON line: wall
+ms per step, device-busy ms per step (the kernels' device times summed; one
+stream, so they do not overlap), the device's idle share, images/s, the
+port's kernels' device ms and launches per step, and the kernels by device
+time. Then the card's name and power limit. Needs CUDA; raises without it.
+``model.fused_blocks=true`` profiles the fused train step (the live-BN
+fused blocks, or with ``--preset imagenet`` the fused bottlenecks).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -48,19 +55,29 @@ def main(argv=None) -> int:
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
+    data = [] if args.preset == "imagenet" else ["data.dataset=synthetic"]
     cfg = load_config(args.preset, "", [
-        "model.fused_epilogue=on", "optim.use_pallas_xent=on",
-        "data.dataset=synthetic", f"train.global_batch_size={args.batch}",
-        *args.overrides])
-    images, labels = synthetic_data(args.batch, cfg.data.resolved_image_size,
-                                    cfg.data.num_classes, learnable=True)
-    out = profile_train_step(build_state(cfg, device),
-                             make_loop_step(cfg, device), images, labels,
-                             args.iters)
-    out["model"] = (f"{cfg.data.dataset} resnet-{cfg.model.resnet_size} "
-                    f"{cfg.model.compute_dtype} fused_epilogue="
-                    f"{cfg.model.fused_epilogue} fused_blocks="
-                    f"{cfg.model.fused_blocks}")
+        "model.fused_epilogue=on", "optim.use_pallas_xent=on", *data,
+        f"train.global_batch_size={args.batch}", *args.overrides])
+    size, classes = cfg.data.resolved_image_size, cfg.data.num_classes
+    if cfg.data.dataset == "imagenet":
+        rng = np.random.default_rng(0)
+        images = rng.integers(0, 256, (args.batch, size, size, 3),
+                              dtype=np.uint8)
+        labels = rng.integers(0, classes, args.batch).astype(np.int32)
+    else:
+        images, labels = synthetic_data(args.batch, size, classes,
+                                        learnable=True)
+    state = build_state(cfg, device)
+    model = (f"{cfg.data.dataset} ResNet-{cfg.model.resnet_size} "
+             f"({state.model.stem} stem) {size}x{size} {classes} "
+             f"classes {cfg.model.compute_dtype} fused_epilogue="
+             f"{cfg.model.fused_epilogue} fused_blocks="
+             f"{cfg.model.fused_blocks}, B={args.batch}")
+    print(f"model: {model}", flush=True)
+    out = profile_train_step(state, make_loop_step(cfg, device), images,
+                             labels, args.iters)
+    out["model"] = model
     print(json.dumps(out), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -11,9 +11,11 @@ def train_batches(data_cfg, local_batch: int, seed: int = 0,
     ``start_step``."""
     if data_cfg.dataset == "imagenet":
         raise NotImplementedError(
-            "data.dataset=imagenet for training needs the TFRecord/JPEG "
-            "pipeline, a later slice of the port (ImageNet training, ROADMAP "
-            "Queue 1)")
+            "ImageNet training (data.dataset=imagenet) needs the ImageNet "
+            "input pipeline (TFRecord reader, JPEG decode and crop), a later "
+            "slice of the port (ROADMAP Queue 1); the train step itself runs "
+            "(train.loop.build_state + make_loop_step on uint8 224x224 "
+            "batches)")
     from tpu_resnet_torch.data.cifar import load_split
     from tpu_resnet_torch.data.pipeline import ShardedBatcher
 

@@ -11,6 +11,11 @@ offsets and flips as arguments and the tests feed it the reference's.
 
 CIFAR eval: ``tf.image.per_image_standardization``, with the population
 standard deviation and TF's ``max(std, 1/sqrt(num_elements))`` floor.
+
+ImageNet training (reference ``imagenet_train_augment``; the host has
+already random-resized and cropped to 224x224): uint8 → [0, 1], a p=0.5
+horizontal flip, minus the VGG means. As for CIFAR, the draw and the pure
+function of the flip mask (:func:`flip_mean_subtract`) are apart.
 """
 
 from __future__ import annotations
@@ -79,9 +84,29 @@ def cifar_train_augment(images: torch.Tensor,
         crop_flip(images.float(), off_h, off_w, flip))
 
 
+def flip_mean_subtract(images: torch.Tensor,
+                       flip: torch.Tensor) -> torch.Tensor:
+    """uint8 [B,H,W,3] → float32 in [0, 1], each image's columns mirrored
+    where ``flip[i]`` (bool [B]), minus the VGG means."""
+    x = images.float() / 255.0
+    x = torch.where(flip.to(images.device)[:, None, None, None], x.flip(2), x)
+    return x - torch.tensor(VGG_MEANS_01, device=images.device)
+
+
+def imagenet_train_augment(images: torch.Tensor,
+                           generator: torch.Generator) -> torch.Tensor:
+    """uint8 [B,224,224,3], already resized and cropped → a random
+    horizontal flip drawn from ``generator`` (on the images' device), in
+    [0, 1] minus the VGG means."""
+    flip = torch.rand(images.shape[0], generator=generator,
+                      device=images.device) < 0.5
+    return flip_mean_subtract(images, flip)
+
+
 def get_train_augment(dataset: str):
-    """The training augmentation ``fn(images, generator)`` for a dataset
-    (the CIFAR-shaped ones; ImageNet training is a later slice)."""
+    """The training augmentation ``fn(images, generator)`` for a dataset."""
+    if dataset == "imagenet":
+        return imagenet_train_augment
     if dataset in ("cifar10", "cifar100", "synthetic"):
         return cifar_train_augment
     raise ValueError(f"no training augmentation for dataset {dataset!r}")

@@ -19,8 +19,8 @@ Activations are NHWC tensors (channels_last storage) throughout, as at the
 reference's public functions. ``forward(x, train=True)`` normalises with the
 batch moments and updates the running statistics in place (flax's EMA,
 momentum 0.997, biased variance). A fused basic block trains through the
-live-BN fused kernels (``fb.block_train_apply``); the fused bottleneck is
-eval only and raises in training (ImageNet training is a later slice).
+live-BN fused kernels (``fb.block_train_apply``), a fused bottleneck
+through the live-BN fused bottleneck kernels (``fbn.bottleneck_train_apply``).
 """
 
 from __future__ import annotations
@@ -209,9 +209,12 @@ class BottleneckBlock(nn.Module):
 
 class FusedBottleneckBlock(nn.Module):
     """A stride-1 identity :class:`BottleneckBlock` run as the fused
-    bottleneck kernel: running statistics folded with the bottleneck's own
-    fold, the 1x1 kernels handed over as matrices (w1 [4f,f], w3 [f,4f]) and
-    the 3x3 as HWIO. Same parameters, same names."""
+    bottleneck kernels, the 1x1 kernels handed over as matrices (w1 [4f,f],
+    w3 [f,4f]) and the 3x3 as HWIO. Eval folds the running statistics with
+    the bottleneck's own fold (``fbn.bottleneck_fwd``); training normalises
+    with the batch moments (``fbn.bottleneck_train_apply``) and updates the
+    three running statistics from them, as the reference's
+    FusedBottleneckBlock does. Same parameters, same names."""
 
     def __init__(self, filters: int):
         super().__init__()
@@ -224,19 +227,23 @@ class FusedBottleneckBlock(nn.Module):
         self.conv3 = ConvFixedPadding(filters, c4, 1, 1)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "training through the fused bottleneck is ImageNet training, "
-                "a later slice of the port (ROADMAP Queue 1); use "
-                "model.fused_blocks=false")
-        folds = []
-        for bn in (self.preact, self.bnrelu1, self.bnrelu2):
-            folds += fbn._fold_bn(bn.weight, bn.bias, bn.running_mean,
-                                  torch.rsqrt(bn.running_var
-                                              + _BATCH_NORM_EPSILON))
         w1 = self.conv1.weight[:, :, 0, 0].t().contiguous()
         w2 = self.conv2.weight.permute(2, 3, 1, 0).contiguous()
         w3 = self.conv3.weight[:, :, 0, 0].t().contiguous()
+        bns = (self.preact, self.bnrelu1, self.bnrelu2)
+        if train:
+            y, moments = fbn.bottleneck_train_apply(
+                x, w1, w2, w3, *(p for bn in bns for p in (bn.weight,
+                                                           bn.bias)),
+                _BATCH_NORM_EPSILON)
+            for i, bn in enumerate(bns):
+                bn.update_running(*moments[2 * i:2 * i + 2])
+            return y
+        folds = []
+        for bn in bns:
+            folds += fbn._fold_bn(bn.weight, bn.bias, bn.running_mean,
+                                  torch.rsqrt(bn.running_var
+                                              + _BATCH_NORM_EPSILON))
         return fbn.bottleneck_fwd(x, w1, w2, w3, *folds)
 
 

@@ -48,6 +48,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_block_bwd3": [_P] * 17 + [_I] * 6 + [_P],
     },
     "fused_bottleneck": {"tr_bottleneck_fwd": [_P] * 11 + [_I] * 6 + [_P]},
+    "fused_bottleneck_train": {
+        "tr_bottleneck_train": [_I, _P] + [_I] * 6 + [_P],
+        "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P],
+    },
     "softmax_xent": {
         "tr_xent_fwd": [_P, _P, _P, _I, _I, _I, _P],
         "tr_xent_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],

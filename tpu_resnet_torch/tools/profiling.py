@@ -15,9 +15,11 @@ from typing import Callable, Dict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-# The port's kernels on the CIFAR train paths, by a substring of their names
+# The port's kernels on the train paths, by a substring of their names
 # (``train_sum`` is the fixed-order sum launch of the fused block's stats and
-# first two backward passes).
+# first two backward passes; the fused bottleneck's training passes run a
+# row kernel each, ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum``
+# adds their partial rows in order).
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
@@ -26,7 +28,16 @@ TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "block_bwd1": "block_bwd1_kernel",
                  "block_bwd2": "block_bwd2_kernel",
                  "block_bwd3": "block_bwd3_kernel",
-                 "train_sum": "train_sum_kernel"}
+                 "train_sum": "train_sum_kernel",
+                 "bottleneck_fwd": "bottleneck_fwd_kernel",
+                 "bottleneck_stats_a": "bottleneck_stats_a_kernel",
+                 "bottleneck_stats_b": "bottleneck_stats_b_kernel",
+                 "bottleneck_bwd1": "bottleneck_bwd1_kernel",
+                 "bottleneck_bwd2": "bottleneck_bwd2_kernel",
+                 "bottleneck_bwd3": "bottleneck_bwd3_kernel",
+                 "bottleneck_bwd4": "bottleneck_bwd4_kernel",
+                 "bottleneck_wgrad": "bottleneck_wgrad_kernel",
+                 "bottleneck_sum": "bottleneck_sum_kernel"}
 
 
 def _device_us(evt) -> float:

@@ -67,7 +67,10 @@ def xent_mode(optim_cfg) -> str:
 def check_step_config(cfg) -> None:
     """The single-device part of the reference's step-config gate, plus
     what the port does not train yet. ``model.fused_blocks=true`` trains
-    the CIFAR models through the live-BN fused block kernels."""
+    the CIFAR models through the live-BN fused block kernels and the
+    ImageNet ResNets through the live-BN fused bottleneck kernels. A
+    dataset's missing input pipeline is refused where the batches are read
+    (``data.train_batches``), not here."""
     partition = getattr(cfg.mesh, "partition", "replicated")
     if partition not in ("replicated", "zero1"):
         raise ValueError(f"mesh.partition must be replicated|zero1, got "
@@ -77,11 +80,6 @@ def check_step_config(cfg) -> None:
             f"the port trains on one device (mesh.data={cfg.mesh.data}, "
             f"mesh.model={cfg.mesh.model}); data parallelism over NCCL is a "
             f"later slice (ROADMAP Queue 1)")
-    if cfg.data.dataset == "imagenet":
-        raise NotImplementedError(
-            "training on data.dataset=imagenet needs its TFRecord/JPEG input "
-            "pipeline, a later slice of the port (ImageNet training, ROADMAP "
-            "Queue 1)")
     xent_mode(cfg.optim)
 
 
