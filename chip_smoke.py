@@ -83,11 +83,32 @@ Phases, each printing one JSON line:
    ``xent_bwd`` per step; every loss finite and the mean of the last 5
    below the first 5's; (c) the step's profile. No eval.
 
+8. ``autotune``: (a) ``ep.probe_epilogue(include_add=True)`` in bfloat16 at
+   every ``model_epilogue_shapes`` shape of the ``cifar10`` and
+   ``imagenet`` presets with B=128 (3 and 11 shapes), the counters zeroed
+   just before and read just after: ``sbr_add`` and ``sbr`` launched
+   ``iters + 1`` times per shape, every decision with finite times and
+   ``use_pallas == (speedup >= 1)``; (b) the slice's path, ``train
+   --preset cifar10 data.dataset=synthetic data.synthetic_learnable=true
+   model.fused_epilogue=auto`` on the preset's defaults
+   (``optim.use_pallas_xent=auto``, ``data.device_resident=auto``) for
+   ``AUTO_STEPS`` steps in a fresh train dir: the log names the
+   device-resident input, ``autotune.json`` lists the three CIFAR shapes
+   and ``xent|128x10``, the launches per step equal the BN sites whose
+   shape chose the kernel (``sbr``, ``sbr_bwd``) and 1 or 0 of each xent
+   kernel as chosen, the loss falls, and ``evaluate`` runs once.
+
+The ``kernels`` phase also holds ``sbr_add`` (``tr_sbr_add``) against its
+plain version at the 14 probe shapes, bfloat16 and float32: the forward
+bit for bit, and through autograd dx bit for bit, dr == g, ds/db within
+``sbr_bwd``'s limits.
+
 Then one ``{"kernels": [...]}`` line (times summed over the launches of one
 forward pass of each serve path and one train step that run the kernel, in
-bfloat16; ``launches`` is the count over the phases that drive the main
-paths: both serve phases, the train and eval runs of both CIFAR train
-phases and the ImageNet train steps),
+bfloat16; for ``sbr_add`` over one call at each probe shape;
+``launches`` is the count over the phases that drive the main paths: both
+serve phases, the train and eval runs of both CIFAR train phases, the
+ImageNet train steps and both parts of the autotune phase),
 the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line;
 without CUDA the script exits 2.
@@ -97,6 +118,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -164,7 +186,7 @@ BOTTLENECK_TRAIN = ("bottleneck_stats_a", "bottleneck_stats_b",
                     "bottleneck_bwd1", "bottleneck_bwd2", "bottleneck_bwd3",
                     "bottleneck_bwd4")
 KERNELS = ("sbr", "block_fwd", "bottleneck_fwd", "sbr_bwd", "xent_fwd",
-           "xent_bwd", *BLOCK_TRAIN, *BOTTLENECK_TRAIN)
+           "xent_bwd", *BLOCK_TRAIN, *BOTTLENECK_TRAIN, "sbr_add")
 # Launches per forward pass of each serve path and per train step, every
 # kernel listed.
 PER_PASS = {path: {k: sum(n for _, n in shapes.get(k, ()))
@@ -199,6 +221,12 @@ TRAIN_STEPS, RESUME_STEPS = 100, 120
 IMAGENET_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
                       "optim.use_pallas_xent=on"]
 IMAGENET_STEPS, IMAGENET_BATCHES, IMAGENET_GATE_BATCH = 30, 2, 32
+# The autotune phase: the probe's timed calls per arm, and the steps of the
+# slice's own train path (model.fused_epilogue=auto on the cifar10
+# preset's defaults).
+PROBE_ITERS, AUTO_STEPS = 30, 30
+AUTO_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_learnable=true",
+                  "model.fused_epilogue=auto"]
 # |kernel - plain| <= atol + rtol * |plain|, elementwise. sbr rounds
 # exactly as the plain version does; the fused blocks sum their convs in
 # another order than cuDNN/cuBLAS, and in bfloat16 that can move the stored
@@ -283,6 +311,9 @@ def bound(kind: str, shape, dtype) -> tuple:
     if kind == "sbr":
         moved = 2 * n * item + 2 * c * 4
         ops = 3 * n                                  # mul, add, max
+    elif kind == "sbr_add":   # x, r in, y out; s, b in
+        moved = 3 * n * item + 2 * c * 4
+        ops = 4 * n                                  # mul, add, max, add
     elif kind == "sbr_bwd":   # x, g in, dx out; s, b in, ds, db out
         moved = 3 * n * item + 4 * c * 4
         ops = 8 * n   # mul, add, compare; mul (dx); mul, add (ds); add (db)
@@ -699,7 +730,8 @@ def kernel_counters() -> dict:
             "bottleneck_bwd1": (fbn, "bwd1_launches"),
             "bottleneck_bwd2": (fbn, "bwd2_launches"),
             "bottleneck_bwd3": (fbn, "bwd3_launches"),
-            "bottleneck_bwd4": (fbn, "bwd4_launches")}
+            "bottleneck_bwd4": (fbn, "bwd4_launches"),
+            "sbr_add": (ep, "add_launches")}
 
 
 def zero_counts(counters) -> None:
@@ -921,7 +953,7 @@ def step_batch(cfg, batch: int) -> tuple:
     else:
         images, labels = synthetic_data(batch, size, classes, learnable=True)
     x = aug.get_train_augment(cfg.data.dataset)(
-        torch.from_numpy(images).to(cuda), aug.step_generator(0, 0, cuda))
+        torch.from_numpy(images).to(cuda), aug.step_key(0, 0))
     return x, torch.from_numpy(labels).to(cuda)
 
 
@@ -1200,6 +1232,210 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     return result
 
 
+def probe_shapes() -> dict:
+    """{path: BN+ReLU shapes} of the cifar10 and imagenet presets' models
+    at B=TRAIN_BATCH, as ``ep.model_epilogue_shapes`` gives them: where the
+    reference's autotune probes (and so reaches ``_sbr_add_kernel``)."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.ops import epilogue as ep
+    return {f"{preset}_probe": ep.model_epilogue_shapes(
+        load_config(preset), TRAIN_BATCH) for preset in ("cifar10",
+                                                         "imagenet")}
+
+
+def sbr_add_kernel_phase(ep):
+    """``sbr_add`` against its plain version at every probe shape, bfloat16
+    and float32: the forward bit for bit; through autograd, dx bit for bit,
+    dr == g and ds/db within ``SBR_BWD_TOL`` of the plain backward. Times
+    are the forward's (the kernel's) against the plain forward's."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for path, shapes in probe_shapes().items():
+        for shape in shapes:
+            c = shape[-1]
+            for dtype in (torch.bfloat16, torch.float32):
+                def randn():
+                    return torch.randn(shape, generator=gen,
+                                       device="cuda").to(dtype)
+                x, r, g = randn(), randn(), randn()
+                sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+                bi = torch.randn(c, generator=gen, device="cuda") * 0.5
+                name = f"sbr_add {shape} {dtype}"
+                got = ep.scale_bias_relu_add(x, sc, bi, r)
+                want = ep.scale_bias_relu_add_reference(x, sc, bi, r)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and torch.equal(got, want),
+                      f"{name}: forward differs from the plain version")
+                err = float((got.float() - want.float()).abs().max())
+                del got, want
+                grads = []
+                for fn in (ep.scale_bias_relu_add,
+                           ep.scale_bias_relu_add_reference):
+                    leaves = [t.clone().requires_grad_(True)
+                              for t in (x, sc, bi, r)]
+                    fn(*leaves).backward(g)
+                    grads.append([t.grad for t in leaves])
+                    del leaves
+                (dx, ds, db, dr), (wdx, wds, wdb, wdr) = grads
+                check(torch.equal(dx, wdx), f"{name}: dx differs")
+                check(torch.equal(dr, g) and torch.equal(wdr, g),
+                      f"{name}: dr is not g")
+                gm = torch.where(x.float() * sc + bi > 0, g.float(), 0.0)
+                rtol, atol = SBR_BWD_TOL
+                excess = 0.0
+                for got_s, ref, terms in ((ds, wds, gm * x.float()),
+                                          (db, wdb, gm)):
+                    limit = rtol * terms.abs().sum(dim=(0, 1, 2)) + atol
+                    excess = max(excess, float(((got_s - ref).abs()
+                                                / limit).max()))
+                del grads, dx, wdx, dr, wdr, gm
+                row = {"kernel": "sbr_add", "path": path,
+                       "shape": list(shape),
+                       "dtype": str(dtype).split(".")[1], "per_pass": 1,
+                       "max_abs_err": err, "ds_db_err_over_limit": excess,
+                       "tolerance": "forward, dx exact; dr == g; ds, db "
+                                    "<= 1e-5*sum|terms| + 1e-6"}
+                check(excess <= 1, f"{name}: ds/db beyond tolerance: {row}")
+                with torch.no_grad():
+                    rows.append(_timed(
+                        row, lambda: ep.scale_bias_relu_add(x, sc, bi, r),
+                        lambda: ep.scale_bias_relu_add_reference(
+                            x, sc, bi, r), "sbr_add", shape, dtype))
+                del x, r, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+class LogRecords(logging.Handler):
+    """Keeps the messages logged through it."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def autotune_phase(counters, gpu: str) -> dict:
+    """The autotune harness on the card: (a) ``probe_epilogue`` with the
+    residual-add variant at every probe shape, its launches counted; (b)
+    the slice's ``auto`` train path through ``train()`` and ``evaluate``,
+    each launch count checked against the decisions it made."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.evaluation.evaluator import evaluate
+    from tpu_resnet_torch.ops import autotune
+    from tpu_resnet_torch.ops import epilogue as ep
+    from tpu_resnet_torch.ops import softmax_xent as sx
+    from tpu_resnet_torch.train.loop import train
+
+    # (a) the probe: the only route to _sbr_add_kernel in the reference.
+    autotune.reset()
+    shapes = [s for ss in probe_shapes().values() for s in ss]
+    zero_counts(counters)
+    t0 = time.monotonic()
+    decisions = []
+    for shape in shapes:
+        decisions += ep.probe_epilogue(shape, torch.bfloat16,
+                                       iters=PROBE_ITERS, force=True,
+                                       include_add=True, device="cuda")
+    torch.cuda.synchronize()
+    probe_seconds = time.monotonic() - t0
+    probe_counts = read_counts(counters)
+    calls = len(shapes) * (PROBE_ITERS + 1)
+    want = {k: 0 for k in KERNELS}
+    want.update(sbr=calls, sbr_add=calls, sbr_bwd=2 * calls)
+    check(probe_counts == want, f"probe launch counts {probe_counts}, "
+          f"expected {want}")
+    for d in decisions:
+        check(np.isfinite(d.pallas_us) and np.isfinite(d.xla_us)
+              and d.pallas_us > 0 and d.xla_us > 0
+              and d.use_pallas == (d.speedup >= 1.0) and d.error is None,
+              f"inconsistent decision {d}")
+    probed = [d.to_dict() for d in decisions]
+    torch.cuda.empty_cache()
+
+    # (b) the slice's train path on the preset's defaults.
+    autotune.reset()
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_auto_")
+    records = LogRecords()
+    logger = logging.getLogger("tpu_resnet_torch")
+    logger.addHandler(records)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        cfg = load_config("cifar10", "", [
+            *AUTO_OVERRIDES, f"train.train_dir={train_dir}",
+            f"train.train_steps={AUTO_STEPS}", "train.log_every=1",
+            f"train.checkpoint_every={AUTO_STEPS}"])
+        check(cfg.optim.use_pallas_xent == "auto"
+              and cfg.data.device_resident == "auto"
+              and cfg.train.global_batch_size == TRAIN_BATCH,
+              "the cifar10 preset's defaults are not auto, B=128")
+        zero_counts(counters)
+        t0 = time.monotonic()
+        state = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        train_seconds = time.monotonic() - t0
+        counts = read_counts(counters)
+        check(state.step == AUTO_STEPS, f"train() stopped at {state.step}")
+        check(any("input device-resident" in m for m in records.messages),
+              "the train log does not name the device-resident input")
+        with open(os.path.join(train_dir, autotune.AUTOTUNE_FILE)) as f:
+            table = json.load(f)["decisions"]
+        want_keys = {f"{ep.OP_SBR}|{ep.sbr_key(s)}"
+                     for s, _ in TRAIN_SBR} | {f"{sx.OP_XENT}|{TRAIN_BATCH}x10"}
+        check(set(table) == want_keys, f"autotune.json lists {sorted(table)}"
+              f", expected {sorted(want_keys)}")
+        kernel_sites = sum(n for s, n in TRAIN_SBR
+                           if table[f"{ep.OP_SBR}|{ep.sbr_key(s)}"]
+                           ["use_pallas"])
+        xent = int(table[f"{sx.OP_XENT}|{TRAIN_BATCH}x10"]["use_pallas"])
+        per_step = {k: 0 for k in KERNELS}
+        per_step.update(sbr=kernel_sites, sbr_bwd=kernel_sites,
+                        xent_fwd=xent, xent_bwd=xent)
+        want = {k: n * AUTO_STEPS for k, n in per_step.items()}
+        check(counts == want, f"auto train launch counts {counts}, "
+              f"expected {want}")
+        with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        check(len(losses) == AUTO_STEPS and all(np.isfinite(losses)),
+              f"losses {losses}")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(
+            losses[-5:]))
+        check(last5 < first5, f"loss did not fall: first 5 mean {first5}, "
+              f"last 5 {last5}")
+        cfg.train.eval_once = True
+        zero_counts(counters)
+        precision = evaluate(cfg, device="cuda")
+        eval_counts = read_counts(counters)
+        with open(os.path.join(train_dir, "eval", "metrics.jsonl")) as f:
+            eval_rec = json.loads(f.readlines()[-1])
+        check(precision is not None and np.isfinite(eval_rec["eval_loss"])
+              and eval_rec["step"] == AUTO_STEPS, f"eval {eval_rec}")
+    finally:
+        logger.removeHandler(records)
+        logger.setLevel(level)
+        shutil.rmtree(train_dir, ignore_errors=True)
+        autotune.reset()
+    result = {
+        "path": "cifar10_auto_train",
+        "model": "cifar10 ResNet-50 32x32 fused_epilogue=auto "
+                 "use_pallas_xent=auto device_resident=auto bf16, B=128",
+        "probe_shapes": [list(s) for s in shapes],
+        "probe_iters": PROBE_ITERS, "probe_seconds": probe_seconds,
+        "probe_launches": probe_counts, "probe_decisions": probed,
+        "train_decisions": table, "steps": AUTO_STEPS,
+        "train_seconds": train_seconds,
+        "launches": {k: probe_counts[k] + counts[k] for k in KERNELS},
+        "train_launches": counts, "launches_per_step": per_step,
+        "loss_first5_mean": first5, "loss_last5_mean": last5,
+        "eval_precision": precision, "eval_loss": eval_rec["eval_loss"],
+        "eval_launches": eval_counts, "gpu": gpu}
+    emit("autotune", **result)
+    return result
+
+
 # Each kernel: its source in the port and the TPU kernel body it replaces.
 KERNEL_SOURCES = (
     ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
@@ -1233,7 +1469,9 @@ KERNEL_SOURCES = (
     ("bottleneck_bwd3", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
      "tpu_resnet/ops/fused_bottleneck.py:729"),
     ("bottleneck_bwd4", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
-     "tpu_resnet/ops/fused_bottleneck.py:754"))
+     "tpu_resnet/ops/fused_bottleneck.py:754"),
+    ("sbr_add", "tpu_resnet_torch/csrc/epilogue.cu",
+     "tpu_resnet/ops/epilogue.py:116"))
 
 
 def path_times(rows) -> dict:
@@ -1324,11 +1562,13 @@ def main() -> int:
     rows += train_kernel_phase(ep, sx)
     rows += block_train_kernel_phase(fb)
     rows += bottleneck_train_kernel_phase(fbn)
+    rows += sbr_add_kernel_phase(ep)
     emit("kernels", gpu=gpu, rows=rows)
     counters = kernel_counters()
     served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
+    trained.append(autotune_phase(counters, gpu))
 
     kernels = kernel_entries(rows, served, trained)
     print(json.dumps({"kernels": kernels}), flush=True)

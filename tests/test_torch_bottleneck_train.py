@@ -340,7 +340,8 @@ def test_rn50_train_steps_match_reference():
 # ------------------------------------------------------------ input, gates
 def test_imagenet_train_augment_matches_reference():
     """The pure part (flip, [0, 1], VGG means) given the reference's own
-    flip mask; the port's draw gives a bool per image."""
+    flip mask, and the whole augmentation from the same key: the port
+    draws the reference's flips."""
     images = np.random.default_rng(3).integers(0, 256, (4, 8, 6, 3),
                                                dtype=np.uint8)
     rng = jax.random.PRNGKey(5)
@@ -351,8 +352,9 @@ def test_imagenet_train_augment_matches_reference():
                                  torch.from_numpy(flip))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     drawn = aug.get_train_augment("imagenet")(
-        torch.from_numpy(images), aug.step_generator(0, 1, "cpu"))
+        torch.from_numpy(images), np.asarray(rng))
     assert drawn.shape == (4, 8, 6, 3) and drawn.dtype == torch.float32
+    np.testing.assert_array_equal(drawn.numpy(), np.asarray(want))
 
 
 def test_check_step_config_accepts_imagenet():

@@ -9,12 +9,13 @@ import torch
 
 from tpu_resnet_torch.config import load_config
 from tpu_resnet_torch.device import resolve_device
+from tpu_resnet_torch.ops import autotune
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
 from tpu_resnet_torch.ops import softmax_xent as sx
 from tpu_resnet_torch.train import schedule as sched_lib
-from tpu_resnet_torch.train.loop import build_state, make_loop_step
+from tpu_resnet_torch.train.loop import build_state, build_step, make_loop_step
 from tpu_resnet_torch.train.step import make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -471,3 +472,85 @@ def test_imagenet_fused_train_step_launches(cuda):
     torch.cuda.synchronize()
     assert [getattr(fbn, n) - b for n, b in zip(names, before)] == [10] * 7
     assert bool(torch.isfinite(m["loss"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 32, 32, 16), (16, 56, 56, 256),
+                                   (3, 5, 7, 24), (1, 1, 1, 8)])
+def test_sbr_add_kernel_matches_plain(cuda, shape, dtype):
+    """tr_sbr_add: forward bit for bit (the plain version's roundings);
+    backward dx bit for bit, dr == g, ds/db within sbr_bwd's limits."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, _, (s, b, _, _) = _inputs(shape, dtype, gen)
+    r = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    before = ep.add_launches
+    got = ep.scale_bias_relu_add(x, s, b, r)
+    want = ep.scale_bias_relu_add_reference(x, s, b, r)
+    torch.cuda.synchronize()
+    assert ep.add_launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    grads = []
+    for fn in (ep.scale_bias_relu_add, ep.scale_bias_relu_add_reference):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, s, b, r)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    (dx, ds, db, dr), (wdx, wds, wdb, wdr) = grads
+    assert torch.equal(dx, wdx) and torch.equal(dr, g) and torch.equal(wdr, g)
+    gm = torch.where(x.float() * s + b > 0, g.float(), 0.0)
+    for got_s, ref, terms in ((ds, wds, gm * x.float()), (db, wdb, gm)):
+        scale = terms.abs().sum(dim=(0, 1, 2))
+        assert bool(((got_s - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_probes_on_the_card(cuda):
+    """probe_epilogue and the xent probe time both arms on the card: finite
+    times, use_pallas == (speedup >= 1), iters + 1 kernel launches each."""
+    autotune.reset()
+    try:
+        before = (ep.launches, ep.add_launches)
+        decisions = ep.probe_epilogue((128, 16, 16, 32), torch.bfloat16,
+                                      iters=4, force=True)
+        torch.cuda.synchronize()
+        assert (ep.launches - before[0], ep.add_launches - before[1]) == (
+            5, 5)
+        xent = sx.ensure_xent_probe(128, 10, iters=4)
+        for d in (*decisions, xent):
+            assert d.pallas_us > 0 and d.xla_us > 0
+            assert d.use_pallas == (d.speedup >= 1.0)
+    finally:
+        autotune.reset()
+
+
+def test_auto_step_launches_follow_the_decisions(cuda, tmp_path):
+    """The loop's step under fused_epilogue=auto and use_pallas_xent=auto
+    (CIFAR ResNet-8, B=16): the probes' launches are not counted, and a
+    step launches sbr and sbr_bwd once per BN site whose shape chose the
+    kernel, the xent pair once if it was chosen."""
+    autotune.reset()
+    try:
+        cfg = load_config("cifar10", "", [
+            "model.resnet_size=8", "model.fused_epilogue=auto",
+            "train.global_batch_size=16", f"train.train_dir={tmp_path}"])
+        state = build_state(cfg, cuda)
+        counts = (ep.launches, ep.bwd_launches, sx.fwd_launches)
+        step = build_step(cfg, cuda)
+        assert (ep.launches, ep.bwd_launches, sx.fwd_launches) == counts
+        assert (tmp_path / autotune.AUTOTUNE_FILE).exists()
+        sites = {(16, 32, 32, 16): 3, (16, 16, 16, 32): 2, (16, 8, 8, 64): 2}
+        kernel_sites = sum(n for shape, n in sites.items()
+                           if autotune.use_kernel(ep.OP_SBR,
+                                                  ep.sbr_key(shape)))
+        xent = int(autotune.use_kernel(sx.OP_XENT, "16x10"))
+        images = torch.randint(0, 256, (16, 32, 32, 3), device="cuda",
+                               dtype=torch.uint8)
+        labels = torch.randint(0, 10, (16,), device="cuda")
+        m = step(state, images, labels)
+        torch.cuda.synchronize()
+        assert (ep.launches - counts[0], ep.bwd_launches - counts[1],
+                sx.fwd_launches - counts[2]) == (kernel_sites, kernel_sites,
+                                                 xent)
+        assert bool(torch.isfinite(m["loss"]))
+    finally:
+        autotune.reset()

@@ -136,11 +136,10 @@ def test_standardization_matches_the_reference():
 def test_augmentation_repeats_for_the_same_seed_and_step():
     images = torch.from_numpy(np.random.default_rng(3).integers(
         0, 256, (8, 32, 32, 3), dtype=np.uint8))
-    cpu = torch.device("cpu")
-    a = aug.cifar_train_augment(images, aug.step_generator(0, 7, cpu))
-    b = aug.cifar_train_augment(images, aug.step_generator(0, 7, cpu))
-    c = aug.cifar_train_augment(images, aug.step_generator(0, 8, cpu))
-    d = aug.cifar_train_augment(images, aug.step_generator(1, 7, cpu))
+    a = aug.cifar_train_augment(images, aug.step_key(0, 7))
+    b = aug.cifar_train_augment(images, aug.step_key(0, 7))
+    c = aug.cifar_train_augment(images, aug.step_key(0, 8))
+    d = aug.cifar_train_augment(images, aug.step_key(1, 7))
     assert a.dtype == torch.float32 and a.shape == (8, 32, 32, 3)
     assert torch.equal(a, b)
     assert not torch.equal(a, c) and not torch.equal(a, d)

@@ -133,7 +133,9 @@ def test_init_weights_distributions():
 @pytest.mark.parametrize("overrides, exc", [
     (["model.width_multiplier=2", "model.fused_blocks=true",
       "model.resnet_size=16"], ValueError),
-    (["model.fused_epilogue=auto"], NotImplementedError),
+    (["model.fused_epilogue=auto", "data.dataset=imagenet",
+      "model.resnet_size=34", "model.fused_blocks=true"],
+     NotImplementedError),
     (["model.fused_epilogue=sometimes"], ValueError),
     (["data.dataset=imagenet", "model.resnet_size=18",
       "model.fused_blocks=true"], NotImplementedError),

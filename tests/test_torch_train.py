@@ -36,7 +36,7 @@ from tpu_resnet_torch.resilience.shutdown import Preempted
 from tpu_resnet_torch.serve.backend import CheckpointBackend
 from tpu_resnet_torch.train import checkpoint
 from tpu_resnet_torch.train import schedule as sched
-from tpu_resnet_torch.train.loop import train
+from tpu_resnet_torch.train.loop import build_state, train
 from tpu_resnet_torch.train.state import create_state
 from tpu_resnet_torch.train.step import (check_step_config,
                                          l2_weight_penalty, make_train_step)
@@ -317,19 +317,28 @@ def test_preempted_in_process(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides, exc, match", [
-    (["optim.use_pallas_xent=auto"], NotImplementedError, "on or off"),
+    (["optim.use_pallas_xent=auto", "model.fused_epilogue=auto"], None,
+     None),
     (["optim.use_pallas_xent=maybe"], ValueError, "auto|on|off"),
     ("fused ImageNet bottleneck", NotImplementedError, "ImageNet training"),
     (["mesh.data=4"], NotImplementedError, "one device"),
-    (["data.device_resident=on"], NotImplementedError, "device-resident"),
+    (["data.device_resident=on", "data.dataset=imagenet",
+      "model.resnet_size=18", "data.image_size=32"], ValueError,
+     "unsupported for dataset 'imagenet'"),
     (["data.dataset=imagenet", "model.resnet_size=18", "data.image_size=32"],
      NotImplementedError, "later slice"),
 ])
 def test_train_guards(tmp_path, overrides, exc, match):
-    """What the port does not train yet raises. ImageNet training gets past
-    the step's and the model's gates (the string case: ResNet-50 through
-    the fused bottlenecks, whose training forward runs) and stops at the
-    missing input pipeline."""
+    """What the port does not train yet raises, and the ``auto`` policies
+    train (``exc`` None). ImageNet training gets past the step's and the
+    model's gates (the string case: ResNet-50 through the fused
+    bottlenecks, whose training forward runs) and stops at the missing
+    input pipeline; ``data.device_resident=on`` refuses ImageNet with the
+    reference's ValueError."""
+    if exc is None:
+        state = train(_loop_cfg(tmp_path, *overrides), device="cpu")
+        assert state.step == 12
+        return
     with pytest.raises(exc, match=match):
         if isinstance(overrides, str):
             model = imagenet_resnet_v2(50, 10, fused_blocks=True)
@@ -356,3 +365,97 @@ def test_train_and_eval_need_cuda_unless_asked_for_cpu(monkeypatch,
             port_main([*cmd, "--preset", "smoke",
                        "optim.use_pallas_xent=on",
                        f"train.train_dir={tmp_path}"])
+
+
+# ------------------------------------------------------ remat, torn files
+@pytest.mark.parametrize("overrides", [
+    [], ["model.fused_blocks=true", "model.resnet_size=14"],
+    ["model.fused_epilogue=on"]], ids=["unfused", "fused", "epilogue"])
+def test_remat_step_equals_the_plain_step(overrides):
+    """``model.remat``: one CPU step recomputing each block in the backward
+    pass gives the loss, gradients and running statistics of the step
+    without it, bit for bit; the recompute does not move the running
+    statistics a second time."""
+    results = []
+    for remat in (False, True):
+        cfg = load_config("smoke", "", [
+            "model.compute_dtype=float32", "train.global_batch_size=8",
+            *overrides, f"model.remat={str(remat).lower()}"])
+        state = build_state(cfg, torch.device("cpu"))
+        assert all(layer.remat == remat for name, layer in
+                   state.model.named_children()
+                   if name.startswith("block_layer"))
+        step = make_train_step(cfg.optim, lambda s: 0.1,
+                               cfg.data.num_classes)
+        x, y = (torch.from_numpy(a) for a in _batch(3))
+        m = step(state, x, y)
+        grads = {n: p.grad.clone() for n, p in
+                 state.model.named_parameters()}
+        results.append((float(m["loss"]), grads,
+                        {n: b.clone() for n, b in
+                         state.model.named_buffers()}))
+    (loss0, g0, b0), (loss1, g1, b1) = results
+    assert loss0 == loss1
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+    for n in b0:
+        assert torch.equal(b0[n], b1[n]), n
+    init = build_state(load_config("smoke", "", overrides),
+                       torch.device("cpu")).model
+    moved = [n for n, b in init.named_buffers()
+             if not torch.equal(b, b1[n])]
+    assert moved   # the statistics did move, once
+
+
+def _truncate(path):
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+
+
+def test_resume_falls_back_past_a_torn_newest_checkpoint(tmp_path):
+    """The newest ``state.pt`` cut in half: the trainer resumes from the
+    newest restorable step, discards the torn one, and reaches the
+    uninterrupted run's losses."""
+    train(_loop_cfg(tmp_path / "whole"), device="cpu")
+    cfg = _loop_cfg(tmp_path / "torn", "train.train_steps=9")
+    train(cfg, device="cpu")
+    assert checkpoint.all_steps_in(str(tmp_path / "torn")) == [6, 9]
+    _truncate(tmp_path / "torn" / "9" / checkpoint.STATE_FILE)
+    state = create_state(cifar_resnet_v2(8, 10), cfg.optim)
+    mgr = checkpoint.CheckpointManager(str(tmp_path / "torn"))
+    assert mgr.restore(state).step == 6
+    assert checkpoint.all_steps_in(str(tmp_path / "torn")) == [6, 9]
+    train(_loop_cfg(tmp_path / "torn"), device="cpu")
+    assert _losses(tmp_path / "torn")[-3:] == _losses(tmp_path / "whole")[-3:]
+
+
+def test_restore_raises_when_no_checkpoint_loads(tmp_path):
+    cfg = _loop_cfg(tmp_path, "train.train_steps=3")
+    train(cfg, device="cpu")
+    _truncate(tmp_path / "3" / checkpoint.STATE_FILE)
+    state = create_state(cifar_resnet_v2(8, 10), cfg.optim)
+    with pytest.raises(RuntimeError, match="no restorable checkpoint"):
+        checkpoint.CheckpointManager(str(tmp_path)).restore(state)
+
+
+def test_eval_retries_then_skips_a_torn_checkpoint(tmp_path, monkeypatch):
+    """``eval --once`` on a torn newest step retries
+    ``resilience.eval_restore_retries`` times with backoff, then skips it
+    and logs; a whole step evaluates."""
+    cfg = _loop_cfg(tmp_path, "train.train_steps=3",
+                    "resilience.eval_restore_retries=2",
+                    "resilience.eval_restore_backoff_sec=0")
+    train(cfg, device="cpu")
+    path = tmp_path / "3" / checkpoint.STATE_FILE
+    whole = path.read_bytes()
+    _truncate(path)
+    loads = []
+    real = checkpoint.restore
+    monkeypatch.setattr(checkpoint, "restore",
+                        lambda *a: loads.append(a) or real(*a))
+    cfg.train.eval_once = True
+    assert evaluate(cfg, device="cpu") is None
+    assert len(loads) == 2
+    assert not (tmp_path / "eval" / "best_precision.json").exists()
+    path.write_bytes(whole)
+    assert evaluate(cfg, device="cpu") is not None

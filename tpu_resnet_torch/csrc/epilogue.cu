@@ -16,6 +16,17 @@
 // __fadd_rn, no contraction into an FMA), as the plain PyTorch version
 // rounds them, so the two agree bit for bit.
 //
+// Residual-add variant (tr_sbr_add): y = relu(x * s[c] + b[c]) + r, with r
+// of x's shape and type, summed in f32 and stored in x's type. Replaces:
+// tpu_resnet/ops/epilogue.py::_sbr_add_kernel (through _sbr_add_call, the
+// forward of scale_bias_relu_add), which the reference reaches through its
+// autotune probe (probe_epilogue(include_add=True)) and
+// scale_bias_relu_add_auto. Bound: device memory, x and r read once and y
+// written once (3 elements x type size), five operations per element. The
+// same one-pass grid-stride loop as tr_sbr with a second 16-byte load; the
+// add is __fadd_rn too, so it agrees bit for bit with the plain version.
+// Its backward is tr_sbr_bwd's, with dr = g.
+//
 // Backward (tr_sbr_bwd), given g = dL/dy:
 //   mask = [x*s + b > 0]   dx = g*mask*s (in x's type)
 //   ds = sum over B,H,W of g*mask*x     db = sum of g*mask  (f32, [C])
@@ -64,6 +75,36 @@ __global__ void sbr_kernel(const T* __restrict__ x, const float* __restrict__ s,
       const float v = __fadd_rn(__fmul_rn(tr::to_f32(in[j]), __ldg(s + c0 + j)),
                                 __ldg(b + c0 + j));
       out[j] = tr::from_f32<T>(fmaxf(v, 0.f));
+    }
+    yv[i] = packed;
+  }
+}
+
+template <typename T>
+__global__ void sbr_add_kernel(const T* __restrict__ x,
+                               const float* __restrict__ s,
+                               const float* __restrict__ b,
+                               const T* __restrict__ r, T* __restrict__ y,
+                               long long nvec, int C) {
+  constexpr int N = Vec<T>::N;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const uint4* rv = reinterpret_cast<const uint4*>(r);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < nvec; i += stride) {
+    const uint4 xraw = __ldg(xv + i);
+    const uint4 rraw = __ldg(rv + i);
+    const T* in = reinterpret_cast<const T*>(&xraw);
+    const T* res = reinterpret_cast<const T*>(&rraw);
+    uint4 packed;
+    T* out = reinterpret_cast<T*>(&packed);
+    const int c0 = (int)((i * N) % C);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float v = __fadd_rn(__fmul_rn(tr::to_f32(in[j]), __ldg(s + c0 + j)),
+                                __ldg(b + c0 + j));
+      out[j] = tr::from_f32<T>(__fadd_rn(fmaxf(v, 0.f), tr::to_f32(res[j])));
     }
     yv[i] = packed;
   }
@@ -200,6 +241,23 @@ cudaError_t launch(const void* x, const void* s, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_add(const void* x, const void* s, const void* b,
+                       const void* r, void* y, long long n, int C,
+                       cudaStream_t stream) {
+  constexpr int N = Vec<T>::N;
+  if (C % N != 0 || n % C != 0) return cudaErrorInvalidValue;
+  const long long nvec = n / N;
+  if (nvec == 0) return cudaSuccess;
+  long long blocks = (nvec + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  sbr_add_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(s),
+      static_cast<const float*>(b), static_cast<const T*>(r),
+      static_cast<T*>(y), nvec, C);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: n elements of `dtype` (tr::DType), NHWC-contiguous with C channels,
@@ -215,6 +273,24 @@ extern "C" int tr_sbr(const void* x, const void* s, const void* b, void* y,
       return launch<float>(x, s, b, y, n, C, st);
     case tr::kBFloat16:
       return launch<__nv_bfloat16>(x, s, b, y, n, C, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// y = relu(x * s + b) + r. x, r, y: n elements of `dtype`, NHWC-contiguous
+// with C channels, 16-byte aligned; s, b: C floats.
+extern "C" int tr_sbr_add(const void* x, const void* s, const void* b,
+                          const void* r, void* y, long long n, int C,
+                          int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case tr::kFloat32:
+      return launch_add<float>(x, s, b, r, y, n, C, st);
+    case tr::kBFloat16:
+      return launch_add<__nv_bfloat16>(x, s, b, r, y, n, C, st);
     default:
       return cudaErrorInvalidValue;
   }

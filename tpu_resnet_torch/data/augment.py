@@ -3,19 +3,22 @@
 
 CIFAR training (reference ``cifar_train_augment``): a symmetric 2-pixel
 zero pad to 36x36, a per-image random 32x32 crop, a p=0.5 horizontal flip
-and per-image standardization. The random draws come from a
-``torch.Generator`` on the images' device (:func:`step_generator`, seeded
-from ``(seed, step)``), so a resumed run repeats its augmentation; torch's
-numbers differ from ``jax.random``'s, so :func:`crop_flip` takes the
-offsets and flips as arguments and the tests feed it the reference's.
+and per-image standardization. The random draws are the reference's own:
+the train step's key is ``fold_in(split(PRNGKey(train.seed))[1], step)``
+(:func:`step_key`, as ``tpu_resnet/train/loop.py`` and ``train/step.py``
+derive it), and :func:`cifar_draws` splits it into the crop offsets and
+flips exactly as the reference does, with ``data/prng.py``'s numpy copy of
+``jax.random``. The draws are B numbers made on the host; :func:`crop_flip`
+applies them on the images' device.
 
 CIFAR eval: ``tf.image.per_image_standardization``, with the population
 standard deviation and TF's ``max(std, 1/sqrt(num_elements))`` floor.
 
 ImageNet training (reference ``imagenet_train_augment``; the host has
 already random-resized and cropped to 224x224): uint8 → [0, 1], a p=0.5
-horizontal flip, minus the VGG means. As for CIFAR, the draw and the pure
-function of the flip mask (:func:`flip_mean_subtract`) are apart.
+horizontal flip drawn from the step key, minus the VGG means. As for
+CIFAR, the draw (:func:`imagenet_flips`) and the pure function of the flip
+mask (:func:`flip_mean_subtract`) are apart.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import math
 
 import numpy as np
 import torch
+
+from tpu_resnet_torch.data import prng
 
 # CIFAR training's zero pad on each side of H and W; crops start at
 # offsets in [0, 2·CIFAR_PAD].
@@ -41,14 +46,26 @@ def per_image_standardization(images: torch.Tensor) -> torch.Tensor:
     return (images - mean) / torch.clamp_min(std, 1.0 / math.sqrt(n))
 
 
-def step_generator(seed: int, step: int,
-                   device: torch.device) -> torch.Generator:
-    """A generator on ``device`` seeded from ``(seed, step)`` alone."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(
-        2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
-    return gen
+def step_key(seed: int, step: int) -> np.ndarray:
+    """The reference train step's augmentation key:
+    ``fold_in(split(PRNGKey(seed))[1], step)``."""
+    return prng.fold_in(prng.split(prng.prng_key(seed))[1], step)
+
+
+def cifar_draws(key: np.ndarray, b: int):
+    """The reference's CIFAR draws from ``key`` for a batch of ``b``:
+    (off_h, off_w) int32 [b] in [0, 2·CIFAR_PAD] and flip bool [b]."""
+    crop_key, flip_key = prng.split(key)
+    h_key, w_key = prng.split(crop_key)
+    span = 2 * CIFAR_PAD + 1
+    return (prng.randint(h_key, (b,), 0, span),
+            prng.randint(w_key, (b,), 0, span),
+            prng.bernoulli(flip_key, 0.5, (b, 1, 1, 1)).reshape(b))
+
+
+def imagenet_flips(key: np.ndarray, b: int) -> np.ndarray:
+    """The reference's ImageNet flip draw from ``key``: bool [b]."""
+    return prng.bernoulli(key, 0.5, (b, 1, 1, 1)).reshape(b)
 
 
 def crop_flip(images: torch.Tensor, off_h: torch.Tensor, off_w: torch.Tensor,
@@ -70,16 +87,12 @@ def crop_flip(images: torch.Tensor, off_h: torch.Tensor, off_w: torch.Tensor,
 
 
 def cifar_train_augment(images: torch.Tensor,
-                        generator: torch.Generator) -> torch.Tensor:
+                        key: np.ndarray) -> torch.Tensor:
     """uint8 [B,32,32,3] → standardized float32: 2-pixel zero pad, random
-    32x32 crop, random horizontal flip, per-image standardization; the
-    draws come from ``generator`` (on the images' device)."""
-    b = images.shape[0]
-    dev = images.device
-    span = 2 * CIFAR_PAD + 1
-    off_h = torch.randint(0, span, (b,), generator=generator, device=dev)
-    off_w = torch.randint(0, span, (b,), generator=generator, device=dev)
-    flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    32x32 crop, random horizontal flip, per-image standardization, with
+    the reference's draws from ``key`` (:func:`cifar_draws`)."""
+    off_h, off_w, flip = (torch.from_numpy(a) for a in
+                          cifar_draws(key, images.shape[0]))
     return per_image_standardization(
         crop_flip(images.float(), off_h, off_w, flip))
 
@@ -94,17 +107,16 @@ def flip_mean_subtract(images: torch.Tensor,
 
 
 def imagenet_train_augment(images: torch.Tensor,
-                           generator: torch.Generator) -> torch.Tensor:
+                           key: np.ndarray) -> torch.Tensor:
     """uint8 [B,224,224,3], already resized and cropped → a random
-    horizontal flip drawn from ``generator`` (on the images' device), in
-    [0, 1] minus the VGG means."""
-    flip = torch.rand(images.shape[0], generator=generator,
-                      device=images.device) < 0.5
-    return flip_mean_subtract(images, flip)
+    horizontal flip drawn from ``key`` (:func:`imagenet_flips`), in [0, 1]
+    minus the VGG means."""
+    return flip_mean_subtract(
+        images, torch.from_numpy(imagenet_flips(key, images.shape[0])))
 
 
 def get_train_augment(dataset: str):
-    """The training augmentation ``fn(images, generator)`` for a dataset."""
+    """The training augmentation ``fn(images, key)`` for a dataset."""
     if dataset == "imagenet":
         return imagenet_train_augment
     if dataset in ("cifar10", "cifar100", "synthetic"):

@@ -5,7 +5,9 @@ a new checkpoint, load it, run the eval split, write ``Precision`` /
 and the best so far to ``<train_dir>/eval/best_precision.json``, sleep
 ``train.eval_interval_secs``, repeat; ``train.eval_once`` evaluates the
 newest checkpoint and returns. The whole eval split is evaluated; the short
-last batch is padded and masked out.
+last batch is padded and masked out. A checkpoint that does not load is
+retried ``resilience.eval_restore_retries`` times with backoff, then
+skipped and logged, as the reference's evaluator does.
 """
 
 from __future__ import annotations
@@ -65,13 +67,13 @@ def evaluate(cfg, device: Optional[str] = None) -> Optional[float]:
                 log.info("no checkpoint yet in %s", cfg.train.train_dir)
             elif step != last_seen:
                 last_seen = step
-                try:
-                    saved = checkpoint.restore(cfg.train.train_dir, step)
-                except FileNotFoundError:
-                    # Saves are atomic renames: a step that vanished between
-                    # the poll and the read was pruned by the trainer.
-                    log.warning("checkpoint step %d was pruned before it "
-                                "could be read; skipping it", step)
+                saved = checkpoint.restore_with_retry(
+                    cfg.train.train_dir, step,
+                    retries=cfg.resilience.eval_restore_retries,
+                    backoff_sec=cfg.resilience.eval_restore_backoff_sec)
+                if saved is None:
+                    log.error("skipping eval of checkpoint step %d: restore "
+                              "failed repeatedly", step)
                 else:
                     checkpoint.load_state(model, saved)
                     t0 = time.perf_counter()

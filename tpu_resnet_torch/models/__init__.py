@@ -25,10 +25,6 @@ def build_model(cfg) -> ResNetV2:
     if epilogue not in ("off", "on", "auto"):
         raise ValueError(f"model.fused_epilogue must be off|on|auto, "
                          f"got {epilogue!r}")
-    if epilogue == "auto":
-        raise NotImplementedError(
-            "model.fused_epilogue=auto needs the autotune harness, a later "
-            "slice of the port; use off or on")
     if cfg.data.dataset == "imagenet":
         # fused_blocks: the bottleneck sizes run their stride-1 identity
         # blocks of width 64-256 as the fused bottleneck kernel; the
@@ -36,11 +32,12 @@ def build_model(cfg) -> ResNetV2:
         return imagenet_resnet_v2(
             cfg.model.resnet_size, cfg.data.num_classes, dtype=dtype,
             stem_space_to_depth=cfg.model.stem_space_to_depth,
-            fused_blocks=cfg.model.fused_blocks, fused_epilogue=epilogue)
+            fused_blocks=cfg.model.fused_blocks, fused_epilogue=epilogue,
+            remat=cfg.model.remat)
     if cfg.model.fused_blocks and cfg.model.width_multiplier > 1:
         raise ValueError("model.fused_blocks is only measured/tiled for "
                          "width_multiplier=1 (16/32/64-channel stages)")
     return cifar_resnet_v2(cfg.model.resnet_size, cfg.data.num_classes,
                            width_multiplier=cfg.model.width_multiplier,
                            dtype=dtype, fused_blocks=cfg.model.fused_blocks,
-                           fused_epilogue=epilogue)
+                           fused_epilogue=epilogue, remat=cfg.model.remat)

@@ -7,8 +7,11 @@ other), so a block means the same thing in both packages:
 
 - parameters are float32; convolutions and the dense layer compute in
   ``dtype`` (bfloat16 by default) and the logits come back in float32;
-- BN+ReLU sites run as plain BN (``epilogue="off"``) or as the fused
-  scale-bias-ReLU kernel (``"on"``, ``ops/epilogue.py``);
+- BN+ReLU sites run as plain BN (``epilogue="off"``), as the fused
+  scale-bias-ReLU kernel (``"on"``, ``ops/epilogue.py``), or fold the same
+  way and take the kernel only at shapes where the timed A/B chose it
+  (``"auto"``, ``ep.scale_bias_relu_auto``; an unprobed shape runs the
+  plain version);
 - with ``fused_blocks`` every stride-1 identity basic block runs as the
   fused block kernel (``ops/fused_block.py``) and every stride-1 identity
   bottleneck of width 64, 128 or 256 as the fused bottleneck kernel
@@ -21,16 +24,23 @@ batch moments and updates the running statistics in place (flax's EMA,
 momentum 0.997, biased variance). A fused basic block trains through the
 live-BN fused kernels (``fb.block_train_apply``), a fused bottleneck
 through the live-BN fused bottleneck kernels (``fbn.bottleneck_train_apply``).
+
+``remat`` recomputes each block's forward in the backward pass instead of
+keeping its activations (``torch.utils.checkpoint``, the reference's
+``nn.remat`` per block); the recompute leaves the running statistics as
+the first forward set them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
@@ -38,7 +48,7 @@ from tpu_resnet_torch.ops import fused_bottleneck as fbn
 
 _BATCH_NORM_MOMENTUM = 0.997
 _BATCH_NORM_EPSILON = 1e-5
-EPILOGUES = ("off", "on")
+EPILOGUES = ("off", "on", "auto")
 
 
 def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
@@ -56,7 +66,9 @@ class BatchNormRelu(nn.Module):
     ``epilogue="off"`` is flax's ``nn.BatchNorm``: (x - mean) * gamma *
     rsqrt(var + eps) + beta in float32, cast to x's dtype. ``"on"`` folds
     the statistics into a scale/bias and runs the fused epilogue kernel,
-    differentiable through its backward kernel.
+    differentiable through its backward kernel; ``"auto"`` folds the same
+    way and runs the kernel where ``autotune`` chose it for x's shape, the
+    plain version elsewhere (reference ``BatchNormRelu``, :113-118).
 
     Training (reference ``models/resnet.py`` BatchNormRelu): batch moments
     in float32 over (B, H, W), variance ``max(E[x²] - E[x]², 0)``;
@@ -74,6 +86,7 @@ class BatchNormRelu(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.frozen = False   # set while a remat recompute runs
 
     def folded(self):
         """(scale, bias) of the inference BN."""
@@ -90,7 +103,10 @@ class BatchNormRelu(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """flax's EMA of the batch moments, in place."""
+        """flax's EMA of the batch moments, in place (not while
+        ``frozen``)."""
+        if self.frozen:
+            return
         m = _BATCH_NORM_MOMENTUM
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -100,9 +116,11 @@ class BatchNormRelu(nn.Module):
             mean, var = self._batch_moments(x)
         else:
             mean, var = self.running_mean, self.running_var
-        if self.epilogue == "on":
-            return ep.scale_bias_relu(x, *fb._fold(
-                self.weight, self.bias, mean, var, _BATCH_NORM_EPSILON))
+        if self.epilogue != "off":
+            sbr = (ep.scale_bias_relu if self.epilogue == "on"
+                   else ep.scale_bias_relu_auto)
+            return sbr(x, *fb._fold(self.weight, self.bias, mean, var,
+                                    _BATCH_NORM_EPSILON))
         mul = torch.rsqrt(var + _BATCH_NORM_EPSILON) * self.weight
         y = (x.float() - mean) * mul + self.bias
         return torch.relu(y.to(x.dtype))
@@ -247,15 +265,45 @@ class FusedBottleneckBlock(nn.Module):
         return fbn.bottleneck_fwd(x, w1, w2, w3, *folds)
 
 
+@contextlib.contextmanager
+def _frozen_running_stats(block: nn.Module):
+    bns = [m for m in block.modules() if isinstance(m, BatchNormRelu)]
+    for bn in bns:
+        bn.frozen = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.frozen = False
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x, train=True)`` under ``torch.utils.checkpoint``: the
+    backward reruns the forward with the running statistics frozen, so they
+    move once per step, as without remat."""
+    calls = []
+
+    def run(inp):
+        calls.append(None)
+        if len(calls) == 1:
+            return block(inp, True)
+        with _frozen_running_stats(block):
+            return block(inp, True)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class BlockLayer(nn.Module):
     """A stage: block0 strides and projects; blocks 1.. are stride-1
     identity blocks, fused when ``fused`` (bottlenecks only at the widths
-    the fused kernel takes, ``fbn.WIDTHS``: f=512 stays on F.conv2d)."""
+    the fused kernel takes, ``fbn.WIDTHS``: f=512 stays on F.conv2d).
+    ``remat``: each block recomputed in the backward pass."""
 
     def __init__(self, in_features: int, filters: int, blocks: int,
                  strides: int, fused: bool = False, epilogue: str = "off",
-                 bottleneck: bool = False):
+                 bottleneck: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         block_cls = BottleneckBlock if bottleneck else BuildingBlock
         fuse = fused and (not bottleneck
                           or filters in fbn.WIDTHS)
@@ -269,8 +317,9 @@ class BlockLayer(nn.Module):
                                            epilogue))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        remat = self.remat and train and torch.is_grad_enabled()
         for block in self.children():
-            x = block(x, train)
+            x = _remat_block(block, x) if remat else block(x, train)
         return x
 
 
@@ -329,7 +378,7 @@ class ResNetV2(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  fused_blocks: bool = False, fused_epilogue: str = "off",
                  bottleneck: bool = False, stem: str = "cifar",
-                 stem_space_to_depth: bool = True):
+                 stem_space_to_depth: bool = True, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         if stem == "cifar":
@@ -344,7 +393,8 @@ class ResNetV2(nn.Module):
         for i, (f, b, s) in enumerate(zip(stage_filters, stage_blocks,
                                           stage_strides)):
             self.add_module(f"block_layer{i + 1}", BlockLayer(
-                prev, f, b, s, fused_blocks, fused_epilogue, bottleneck))
+                prev, f, b, s, fused_blocks, fused_epilogue, bottleneck,
+                remat))
             prev = 4 * f if bottleneck else f
         self.final_bnrelu = BatchNormRelu(prev, fused_epilogue)
         self.final_dense = nn.Linear(prev, num_classes)
@@ -371,7 +421,8 @@ def cifar_resnet_v2(resnet_size: int, num_classes: int,
                     width_multiplier: int = 1,
                     dtype: torch.dtype = torch.bfloat16,
                     fused_blocks: bool = False,
-                    fused_epilogue: str = "off") -> ResNetV2:
+                    fused_epilogue: str = "off",
+                    remat: bool = False) -> ResNetV2:
     """6n+2 CIFAR ResNet-v2 ('ResNet-50' on CIFAR: n=8, stages 16/32/64).
     With ``width_multiplier`` > 1 the Wide-ResNet 6n+4 depth is accepted."""
     if resnet_size % 6 == 2:
@@ -388,7 +439,8 @@ def cifar_resnet_v2(resnet_size: int, num_classes: int,
     return ResNetV2(stage_filters=(16 * w, 32 * w, 64 * w),
                     stage_blocks=(n, n, n), stage_strides=(1, 2, 2),
                     num_classes=num_classes, stem_filters=16, dtype=dtype,
-                    fused_blocks=fused_blocks, fused_epilogue=fused_epilogue)
+                    fused_blocks=fused_blocks, fused_epilogue=fused_epilogue,
+                    remat=remat)
 
 
 # size: (bottleneck, stage_blocks), as the reference's _IMAGENET_PARAMS.
@@ -406,7 +458,8 @@ def imagenet_resnet_v2(resnet_size: int, num_classes: int,
                        dtype: torch.dtype = torch.bfloat16,
                        stem_space_to_depth: bool = True,
                        fused_blocks: bool = False,
-                       fused_epilogue: str = "off") -> ResNetV2:
+                       fused_epilogue: str = "off",
+                       remat: bool = False) -> ResNetV2:
     """ImageNet ResNet-v2 18/34/50/101/152/200 (stages 64/128/256/512,
     ImageNet stem). ``fused_blocks`` takes the bottleneck sizes only: the
     port's basic-block kernel has no plan for 56x56x64 and wider."""
@@ -423,7 +476,8 @@ def imagenet_resnet_v2(resnet_size: int, num_classes: int,
                     stage_strides=(1, 2, 2, 2), num_classes=num_classes,
                     stem_filters=64, dtype=dtype, fused_blocks=fused_blocks,
                     fused_epilogue=fused_epilogue, bottleneck=bottleneck,
-                    stem="imagenet", stem_space_to_depth=stem_space_to_depth)
+                    stem="imagenet", stem_space_to_depth=stem_space_to_depth,
+                    remat=remat)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -38,6 +38,7 @@ _L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "epilogue": {
         "tr_sbr": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+        "tr_sbr_add": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
         "tr_sbr_bwd": [_P] * 7 + [_L, _I, _I, _I, _I, _P],
     },
     "fused_block": {"tr_block_fwd": [_P] * 8 + [_I] * 6 + [_P]},

@@ -1,5 +1,6 @@
-"""Fused BN+ReLU conv epilogue: ``relu(x * scale + bias)`` over NHWC, and
-its backward.
+"""Fused BN+ReLU conv epilogues over NHWC: ``relu(x * scale + bias)``, the
+residual-add variant ``relu(x * scale + bias) + r``, their backward, and
+the timed A/B (autotune) that ``model.fused_epilogue=auto`` dispatches on.
 
 ``scale``/``bias`` are the folded BN affine (scale = gamma/sqrt(var+eps),
 bias = beta - mean*scale). The math runs in float32 and the result is
@@ -15,17 +16,37 @@ the kernels or the call raises; a CPU tensor takes the plain versions,
 backward in plain PyTorch) and :func:`scale_bias_relu_bwd_reference`.
 ``launches`` and ``bwd_launches`` count the kernel launches, so a run can
 show that its path went through the kernels.
+
+:func:`scale_bias_relu_add` (``tr_sbr_add``, the reference's
+``_sbr_add_kernel``) is differentiable the same way: its backward is
+``tr_sbr_bwd`` with ``dr = g``, as the reference's ``_sbr_add_bwd``;
+``add_launches`` counts its launches. As in the reference, no model site
+calls it: it is reached through :func:`scale_bias_relu_add_auto` and the
+probe (:func:`probe_epilogue` with ``include_add``).
+
+Autotune (reference :255-361): :func:`probe_epilogue` times value and
+gradient of each op, kernel against plain version, at one shape and
+records the decision under ``OP_SBR``/``OP_SBR_ADD`` and :func:`sbr_key`;
+:func:`probe_model_epilogues` does so for every BN+ReLU shape of a
+configured ResNet (:func:`model_epilogue_shapes`). The ``*_auto`` entry
+points take the kernel only where a probe chose it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import zlib
+from typing import List, Tuple
 
 import torch
 
-from tpu_resnet_torch.ops import _build
+from tpu_resnet_torch.ops import _build, autotune
+
+# Autotune op ids: the keys the decisions persist under (the reference's).
+OP_SBR = "epilogue_sbr"
+OP_SBR_ADD = "epilogue_sbr_add"
 
 launches = 0      # tr_sbr launches (CUDA tensors only)
+add_launches = 0  # tr_sbr_add launches
 bwd_launches = 0  # tr_sbr_bwd calls (two launches each: sums, then their sum)
 _BWD_MAX_BLOCKS = 4 * 132   # partial-sum rows of one backward call
 
@@ -101,6 +122,42 @@ def _sbr_kernel(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+def _sbr_add_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   residual: torch.Tensor) -> torch.Tensor:
+    return (scale_bias_relu_math(x.float(), scale, bias)
+            + residual.float()).to(x.dtype)
+
+
+def _sbr_add_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    residual: torch.Tensor) -> torch.Tensor:
+    """The add variant's forward: CPU → plain version, CUDA →
+    ``tr_sbr_add``, else raise."""
+    global add_launches
+    c = _check(x, scale, bias)
+    if (residual.shape != x.shape or residual.dtype != x.dtype
+            or residual.device != x.device):
+        raise ValueError(f"residual must match x ({x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}), got "
+                         f"{residual.dtype} {tuple(residual.shape)} on "
+                         f"{residual.device}")
+    if x.device.type == "cpu":
+        return _sbr_add_plain(x, scale, bias, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"scale_bias_relu_add runs on cpu or cuda, not "
+                         f"{x.device}")
+    _check_cuda("scale_bias_relu_add", x=x, residual=residual, scale=scale,
+                bias=bias)
+    y = torch.empty_like(x)
+    fn = _build.library("epilogue").tr_sbr_add
+    err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             residual.data_ptr(), y.data_ptr(), x.numel(), c,
+             _build.DTYPE_CODES[x.dtype], x.device.index,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "scale_bias_relu_add")
+    add_launches += 1
+    return y
+
+
 def scale_bias_relu_bwd(x: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, g: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -167,3 +224,147 @@ def scale_bias_relu_reference(x: torch.Tensor, scale: torch.Tensor,
     :func:`scale_bias_relu_bwd_reference`: the CPU path, the tests' and the
     chip smoke's oracle."""
     return _ScaleBiasRelu.apply(x, scale, bias, True)
+
+
+class _ScaleBiasReluAdd(torch.autograd.Function):
+    """relu(x*s+b) + r with the reference's custom VJP (``_sbr_add_bwd``):
+    the sbr backward for x, s, b and ``dr = g``; ``plain`` as in
+    :class:`_ScaleBiasRelu`."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual, plain: bool):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.plain = plain
+        return (_sbr_add_plain if plain else _sbr_add_kernel)(
+            x, scale, bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        bwd = (scale_bias_relu_bwd_reference if ctx.plain
+               else scale_bias_relu_bwd)
+        g = g.contiguous()
+        dx, ds, db = bwd(x, scale, bias, g)
+        return dx, ds, db, g, None
+
+
+def scale_bias_relu_add(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor,
+                        residual: torch.Tensor) -> torch.Tensor:
+    """``relu(x * scale + bias) + residual``, residual of x's shape and
+    dtype, summed in float32 and returned in x's dtype. Differentiable in
+    all four (kernels on CUDA, plain on the CPU)."""
+    return _ScaleBiasReluAdd.apply(x, scale, bias, residual, False)
+
+
+def scale_bias_relu_add_reference(x: torch.Tensor, scale: torch.Tensor,
+                                  bias: torch.Tensor,
+                                  residual: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scale_bias_relu_add` on any device,
+    differentiable through the plain backward."""
+    return _ScaleBiasReluAdd.apply(x, scale, bias, residual, True)
+
+
+# ---------------------------------------------------------------- autotune
+def sbr_key(shape) -> str:
+    return autotune.shape_key(*shape)
+
+
+def scale_bias_relu_auto(x: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """The kernel where a probe chose it for x's shape, else the plain
+    version."""
+    if autotune.use_kernel(OP_SBR, sbr_key(x.shape)):
+        return scale_bias_relu(x, scale, bias)
+    return scale_bias_relu_reference(x, scale, bias)
+
+
+def scale_bias_relu_add_auto(x: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor,
+                             residual: torch.Tensor) -> torch.Tensor:
+    if autotune.use_kernel(OP_SBR_ADD, sbr_key(x.shape)):
+        return scale_bias_relu_add(x, scale, bias, residual)
+    return scale_bias_relu_add_reference(x, scale, bias, residual)
+
+
+def _value_and_grad(fn):
+    """``fn``'s output and the gradient of its float32 sum w.r.t. every
+    argument: the training hot path that a probe times."""
+    def run(*args):
+        y = fn(*args)
+        return y, torch.autograd.grad(y.float().sum(), args)
+    return run
+
+
+def probe_epilogue(shape, dtype: torch.dtype = torch.float32,
+                   iters: int = 50, force: bool = False,
+                   include_add: bool = True,
+                   device="cuda") -> List[autotune.Decision]:
+    """Time value and gradient of :func:`scale_bias_relu` (and, with
+    ``include_add``, :func:`scale_bias_relu_add`) against their plain
+    versions at one (B,H,W,C) shape on seeded inputs, recording the
+    decisions. Each op's kernel arm launches its forward ``iters + 1``
+    times. Returns the decisions."""
+    key = autotune.shape_key(*shape)
+    gen = torch.Generator(device=device).manual_seed(zlib.crc32(
+        key.encode()))
+    c = shape[-1]
+
+    def leaf(t):
+        return t.requires_grad_(True)
+
+    x = leaf(torch.randn(shape, generator=gen, device=device).to(dtype))
+    r = leaf(torch.randn(shape, generator=gen, device=device).to(dtype))
+    s = leaf(torch.rand(c, generator=gen, device=device) + 0.5)
+    b = leaf(torch.randn(c, generator=gen, device=device))
+    out = [autotune.probe(
+        OP_SBR, key, _value_and_grad(scale_bias_relu),
+        _value_and_grad(scale_bias_relu_reference), (x, s, b), iters=iters,
+        force=force)]
+    if include_add:
+        out.append(autotune.probe(
+            OP_SBR_ADD, key, _value_and_grad(scale_bias_relu_add),
+            _value_and_grad(scale_bias_relu_add_reference), (x, s, b, r),
+            iters=iters, force=force))
+    return out
+
+
+def model_epilogue_shapes(cfg, local_batch: int) -> List[tuple]:
+    """The (B,H,W,C) shapes of a configured ResNet's BN+ReLU sites, as the
+    reference derives them from the stage geometry: per stage the block
+    width f and, for bottlenecks, 4f and the downsampling block0's first
+    site at the input resolution."""
+    size = cfg.data.resolved_image_size
+    w = cfg.model.width_multiplier
+    shapes = set()
+    if cfg.data.dataset == "imagenet":
+        from tpu_resnet_torch.models.resnet import IMAGENET_PARAMS
+
+        bottleneck, _ = IMAGENET_PARAMS[cfg.model.resnet_size]
+        hw, prev_hw = size // 4, None   # stem /2, max-pool /2
+        for f in (64, 128, 256, 512):
+            shapes.add((local_batch, hw, hw, f))
+            if bottleneck:
+                shapes.add((local_batch, hw, hw, 4 * f))
+                if prev_hw is not None:
+                    shapes.add((local_batch, prev_hw, prev_hw, f))
+            prev_hw, hw = hw, max(1, hw // 2)
+    else:
+        hw = size
+        for f in (16 * w, 32 * w, 64 * w):
+            shapes.add((local_batch, hw, hw, f))
+            hw = max(1, hw // 2)
+    return sorted(shapes)
+
+
+def probe_model_epilogues(cfg, local_batch: int, iters: int = 30,
+                          device="cuda") -> List[autotune.Decision]:
+    """Probe ``OP_SBR`` at every shape of :func:`model_epilogue_shapes` in
+    the model's compute dtype: the ``model.fused_epilogue=auto`` setup
+    pass. Returns the decisions."""
+    dtype = getattr(torch, cfg.model.compute_dtype)
+    out = []
+    for shape in model_epilogue_shapes(cfg, local_batch):
+        out.extend(probe_epilogue(shape, dtype=dtype, iters=iters,
+                                  include_add=False, device=device))
+    return out

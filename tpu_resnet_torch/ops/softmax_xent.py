@@ -15,13 +15,20 @@ takes its mean, the train step's loss with ``optim.use_pallas_xent=on``.
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor takes
 the plain versions beside them. ``fwd_launches``/``bwd_launches`` count the
 kernel launches.
+
+:func:`ensure_xent_probe` is the autotune A/B of ``optim.use_pallas_xent=
+auto`` (reference :213-236): the gradient through the mean loss, kernel
+pair against the train step's plain chain (:func:`softmax_xent_reference`),
+at one (B, classes) head shape.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_resnet_torch.ops import _build
+from tpu_resnet_torch.ops import _build, autotune
+
+OP_XENT = "xent"   # the autotune op id (the reference's)
 
 fwd_launches = 0  # tr_xent_fwd launches (CUDA tensors only)
 bwd_launches = 0  # tr_xent_bwd launches
@@ -153,3 +160,38 @@ def softmax_xent_mean(logits: torch.Tensor,
     """Mean loss over the batch: the train step's loss with
     ``optim.use_pallas_xent=on``."""
     return softmax_xent_per_example(logits, labels).mean()
+
+
+def softmax_xent_reference(logits: torch.Tensor,
+                           labels: torch.Tensor) -> torch.Tensor:
+    """The plain arm of the A/B: the mean loss as the train step's plain
+    chain computes it (``-Σ onehot · log_softmax``), differentiated by
+    PyTorch. Not ``torch.logsumexp``: on the card its calls did not queue
+    behind the probe's spin (PERF.md §6)."""
+    x = logits.float()
+    onehot = torch.nn.functional.one_hot(labels.long(), x.shape[1])
+    return -(onehot * torch.log_softmax(x, dim=1)).sum(1).mean()
+
+
+def ensure_xent_probe(batch: int, classes: int,
+                      dtype: torch.dtype = torch.float32, iters: int = 100,
+                      device="cuda") -> autotune.Decision:
+    """The recorded decision at (batch, classes), probing first if there
+    is none: the gradient through the mean loss, :func:`softmax_xent_mean`
+    against :func:`softmax_xent_reference`, on seeded logits."""
+    key = autotune.shape_key(batch, classes)
+    existing = autotune.decision(OP_XENT, key)
+    if existing is not None:
+        return existing
+    gen = torch.Generator(device=device).manual_seed(classes)
+    logits = torch.randn(batch, classes, generator=gen, device=device,
+                         dtype=dtype).requires_grad_(True)
+    labels = torch.randint(0, classes, (batch,), generator=gen,
+                           device=device)
+
+    def grad_of(loss_fn):
+        return lambda x, lab: torch.autograd.grad(loss_fn(x, lab), x)
+
+    return autotune.probe(OP_XENT, key, grad_of(softmax_xent_mean),
+                          grad_of(softmax_xent_reference), (logits, labels),
+                          iters=iters)

@@ -13,14 +13,18 @@ checkpoint serves as it is.
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
+import time
 from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
 
 STATE_FILE = "state.pt"
+
+log = logging.getLogger("tpu_resnet_torch")
 
 
 def load_state(model: nn.Module, state: Dict) -> nn.Module:
@@ -93,17 +97,40 @@ class CheckpointManager:
                               ignore_errors=True)
         return path
 
-    def restore(self, state):
-        """Load the newest checkpoint into ``state``: parameters, running
-        statistics, momentum buffers and step."""
-        step = self.latest_step()
-        if step is None:
+    def restore(self, state, discard_failed: bool = False):
+        """Load the newest restorable checkpoint into ``state``:
+        parameters, running statistics, momentum buffers and step. A step
+        that fails to load (a torn or corrupt file) is logged and the next
+        older one tried, as the reference's fallback does; if none loads,
+        raise with the newest error. ``discard_failed`` (the trainer's
+        resume, which will reach those steps again and save over them)
+        deletes the steps that failed once an older one loaded."""
+        steps = all_steps_in(self.directory)[::-1]
+        if not steps:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        saved = restore(self.directory, step)
-        load_state(state.model, saved)
-        state.load_momentum_buffers(saved.get("opt_state", {}))
-        state.step = int(saved["step"])
-        return state
+        failed, first_err = [], None
+        for step in steps:
+            try:
+                saved = restore(self.directory, step)
+                load_state(state.model, saved)
+                state.load_momentum_buffers(saved.get("opt_state", {}))
+            except Exception as e:  # noqa: BLE001 - any unreadable step
+                first_err = first_err or e
+                failed.append(step)
+                log.warning("checkpoint step %d failed to restore (%s: %s)",
+                            step, type(e).__name__, e)
+                continue
+            state.step = int(saved["step"])
+            if failed:
+                log.warning("restored step %d instead of %s", step, failed)
+                if discard_failed:
+                    for bad in failed:
+                        shutil.rmtree(os.path.join(self.directory, str(bad)),
+                                      ignore_errors=True)
+            return state
+        raise RuntimeError(
+            f"no restorable checkpoint in {self.directory}: all of {steps} "
+            f"failed; newest error: {type(first_err).__name__}: {first_err}")
 
 
 class CheckpointPoller:
@@ -122,3 +149,25 @@ class CheckpointPoller:
 
     def mark_seen(self, step: int) -> None:
         self.last_seen = int(step)
+
+
+def restore_with_retry(train_dir: str, step: int, retries: int = 3,
+                       backoff_sec: float = 0.5) -> Optional[Dict]:
+    """Checkpoint ``step`` as saved, with up to ``retries`` attempts and
+    exponential backoff between them; None when every attempt failed (the
+    caller skips the step and logs it, as the reference's evaluator
+    does)."""
+    attempts = max(1, retries)
+    for attempt in range(attempts):
+        try:
+            return restore(train_dir, step)
+        except Exception as e:  # noqa: BLE001 - any unreadable step
+            wait = backoff_sec * 2 ** attempt
+            last = attempt + 1 == attempts
+            log.warning("restore of checkpoint step %d failed (attempt "
+                        "%d/%d, %s: %s)%s", step, attempt + 1, attempts,
+                        type(e).__name__, e,
+                        "" if last else f"; retrying in {wait:.1f}s")
+            if not last:
+                time.sleep(wait)
+    return None

@@ -2,9 +2,15 @@
 ``train()``), on one device, one step per dispatch:
 
 - build the model (seeded from ``train.seed``), schedule and train state,
-  and resume from the newest checkpoint in ``train.train_dir``;
-- stream batches in the reference's order through a background thread,
-  copy each to the device and augment it there;
+  and resume from the newest restorable checkpoint in ``train.train_dir``;
+- under ``model.fused_epilogue=auto`` / ``optim.use_pallas_xent=auto`` on
+  CUDA, run the timed A/B probes (``ops/autotune.py``) before the first
+  step, keep their launches out of the kernels' counters, and write the
+  decisions to ``<train_dir>/autotune.json``;
+- feed batches in the reference's order: from the device-resident split
+  where ``data/device_data.should_use`` says so (the default for
+  CIFAR/synthetic), else streamed through a background thread and copied
+  to the device; augment them there with the reference's draws;
 - log every ``train.log_every`` steps (loss, precision, lr, grad_norm,
   steps/s, images/s) to the logger and ``metrics.jsonl``;
 - checkpoint every ``train.checkpoint_every`` steps and at the end;
@@ -12,14 +18,15 @@
   and raise ``Preempted`` (the CLI exits 42).
 
 The reference loop's other features are not in this slice (ROADMAP lists
-them): multi-step dispatch, device-resident data, staged and
-double-buffered transfer, spans, telemetry, MFU and memory ledgers, the NaN
-sentinel, the watchdog, fault injection and elastic resume. Their knobs are
-accepted and logged as ignored; ``data.device_resident=on`` raises.
+them): multi-step dispatch, staged and double-buffered transfer, spans,
+telemetry, MFU and memory ledgers, the NaN sentinel, the watchdog, fault
+injection and elastic resume. Their knobs are accepted and logged as
+ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Optional
 
@@ -27,9 +34,14 @@ import torch
 
 from tpu_resnet_torch import data as data_lib
 from tpu_resnet_torch.data import augment as aug_lib
+from tpu_resnet_torch.data import device_data
+from tpu_resnet_torch.data.cifar import load_split
 from tpu_resnet_torch.data.pipeline import BackgroundIterator
 from tpu_resnet_torch.device import resolve_device
 from tpu_resnet_torch.models import build_model, init_weights
+from tpu_resnet_torch.ops import autotune
+from tpu_resnet_torch.ops import epilogue as ep
+from tpu_resnet_torch.ops import softmax_xent as sx
 from tpu_resnet_torch.resilience.shutdown import (Preempted,
                                                   ShutdownCoordinator)
 from tpu_resnet_torch.train import schedule as sched_lib
@@ -65,42 +77,75 @@ def build_state(cfg, device: torch.device) -> TrainState:
 
 def make_loop_step(cfg, device: torch.device):
     """The loop's ``train_step(state, uint8 images, labels)``: the dataset's
-    augmentation on ``device``, drawn from a generator seeded from
-    ``(train.seed, step)``, then the train step."""
+    augmentation on ``device`` with the reference's draws for
+    ``(train.seed, step)`` (``aug_lib.step_key``), then the train step
+    (whose ``use_pallas_xent=auto`` probe runs here)."""
     augment = aug_lib.get_train_augment(cfg.data.dataset)
     seed = cfg.train.seed
 
     def augment_fn(images, step):
-        return augment(images, aug_lib.step_generator(seed, step, device))
+        return augment(images, aug_lib.step_key(seed, step))
 
     return make_train_step(cfg.optim,
                            sched_lib.build_schedule(cfg.optim, cfg.train),
-                           cfg.data.num_classes, augment_fn)
+                           cfg.data.num_classes, augment_fn, device=device,
+                           xent_probe_batch=cfg.train.global_batch_size)
+
+
+# The launch counters that the autotune probes move.
+PROBED_COUNTERS = ((ep, "launches"), (ep, "add_launches"),
+                   (ep, "bwd_launches"), (sx, "fwd_launches"),
+                   (sx, "bwd_launches"))
+
+
+@contextlib.contextmanager
+def probe_launches_uncounted():
+    """Give the probed kernels' launch counters back their values on exit,
+    so that they count the steps only."""
+    saved = [getattr(mod, attr) for mod, attr in PROBED_COUNTERS]
+    try:
+        yield
+    finally:
+        for (mod, attr), n in zip(PROBED_COUNTERS, saved):
+            setattr(mod, attr, n)
+
+
+def build_step(cfg, device: torch.device):
+    """The loop's step, after the ``auto`` probes: under
+    ``model.fused_epilogue=auto`` on CUDA every BN+ReLU shape of the model
+    is probed, and the cross-entropy probe runs as the step is built. The
+    decisions are written to the train dir when there are any."""
+    with probe_launches_uncounted():
+        if cfg.model.fused_epilogue == "auto" and device.type == "cuda":
+            ep.probe_model_epilogues(cfg, cfg.train.global_batch_size,
+                                     device=device)
+        train_step = make_loop_step(cfg, device)
+    if autotune.decisions():
+        log.info("autotune decisions in %s",
+                 autotune.dump(cfg.train.train_dir))
+    return train_step
 
 
 def train(cfg, device: Optional[str] = None) -> TrainState:
     """Run training to ``cfg.train.train_steps``; returns the final state."""
     device = resolve_device(device)
     check_step_config(cfg)
-    if cfg.data.device_resident == "on":
-        raise NotImplementedError(
-            "data.device_resident=on: the device-resident input path is a "
-            "later slice of the port (its order comes from jax.random, which "
-            "torch cannot reproduce); use off or auto, which stream")
+    resident = device_data.should_use(cfg.data)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(cfg.train.train_dir,
                              keep=cfg.train.keep_checkpoints)
     if ckpt.latest_step() is not None:
-        ckpt.restore(state)
+        ckpt.restore(state, discard_failed=True)
         log.info("resumed from step %d in %s", state.step,
                  cfg.train.train_dir)
-    train_step = make_loop_step(cfg, device)
+    train_step = build_step(cfg, device)
     total = cfg.train.train_steps
     batch = cfg.train.global_batch_size
     log.info("training %s-%d/%s to step %d on %s | params %.2fM | batch %d "
-             "| input streaming (data.device_resident=%s)",
+             "| input %s (data.device_resident=%s)",
              cfg.model.name, cfg.model.resnet_size, cfg.data.dataset, total,
              device, param_count(state.model) / 1e6, batch,
+             "device-resident" if resident else "streaming",
              cfg.data.device_resident)
     log.info("this slice ignores: %s", ", ".join(
         f"{k}={_knob(cfg, k)}" for k in IGNORED_KNOBS))
@@ -109,24 +154,33 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
     meter = ThroughputMeter(batch)
     shutdown = ShutdownCoordinator(
         enabled=cfg.resilience.graceful_shutdown).install()
-    host_iter = None
+    host_iter = ds = None
     step = state.step
     try:
-        host_iter = BackgroundIterator(
-            data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
-                                   start_step=step),
-            capacity=cfg.data.prefetch + 2, external_stop=shutdown.event)
+        if resident:
+            ds = device_data.DeviceDataset(
+                *load_split(cfg.data, train=True), batch, device,
+                seed=cfg.train.seed)
+        else:
+            host_iter = BackgroundIterator(
+                data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
+                                       start_step=step),
+                capacity=cfg.data.prefetch + 2, external_stop=shutdown.event)
         meter.rate(step)
         first = True
         while step < total and not shutdown.requested:
-            try:
-                images, labels = next(host_iter)
-            except StopIteration:
-                if shutdown.requested:
-                    break
-                raise
-            m = train_step(state, torch.from_numpy(images).to(device),
-                           torch.from_numpy(labels).to(device))
+            if ds is not None:
+                images, labels = ds.batch_at(step)
+            else:
+                try:
+                    host = next(host_iter)
+                except StopIteration:
+                    if shutdown.requested:
+                        break
+                    raise
+                images, labels = (torch.from_numpy(a).to(device)
+                                  for a in host)
+            m = train_step(state, images, labels)
             step = state.step
             if first:
                 # The first step pays the kernel builds and cuDNN's plan

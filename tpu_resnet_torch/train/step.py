@@ -12,8 +12,11 @@ Step semantics, as the reference's:
 Loss dispatch (reference :147–162): ``optim.use_pallas_xent=on`` with no
 label smoothing runs the CUDA cross-entropy kernels for CUDA tensors
 (``ops/softmax_xent.py``); ``off``, label smoothing or a CPU tensor runs
-the plain chain :func:`softmax_xent`. ``auto`` raises: it needs the
-autotune harness, a later slice.
+the plain chain :func:`softmax_xent`. ``auto`` with no label smoothing on
+CUDA takes the decision of the timed A/B at (B, classes)
+(``sx.ensure_xent_probe``, run when the step is built); on the CPU, or
+with label smoothing, it takes the plain chain, as the reference's
+``auto`` does off the TPU.
 """
 
 from __future__ import annotations
@@ -57,10 +60,6 @@ def xent_mode(optim_cfg) -> str:
     if mode not in ("on", "off", "auto"):
         raise ValueError(f"optim.use_pallas_xent must be auto|on|off, got "
                          f"{optim_cfg.use_pallas_xent!r}")
-    if mode == "auto":
-        raise NotImplementedError(
-            "optim.use_pallas_xent=auto needs the autotune harness, a later "
-            "slice of the port; use on or off")
     return mode
 
 
@@ -85,14 +84,22 @@ def check_step_config(cfg) -> None:
 
 def make_train_step(optim_cfg, schedule: Callable[[int], float],
                     num_classes: int,
-                    augment_fn: Optional[Callable] = None):
+                    augment_fn: Optional[Callable] = None,
+                    device=None, xent_probe_batch: Optional[int] = None):
     """Returns ``train_step(state, images, labels) -> metrics``, which
     updates ``state`` in place. ``images`` are raw uint8 with
     ``augment_fn(images, step)`` applied on their device, or pre-processed
     floats (``augment_fn=None``). Metrics are 0-dim tensors on the device
-    (no host sync) except ``learning_rate``."""
-    use_kernel = (xent_mode(optim_cfg) == "on"
-                  and optim_cfg.label_smoothing == 0.0)
+    (no host sync) except ``learning_rate``. Under
+    ``use_pallas_xent=auto`` on a CUDA ``device`` the cross-entropy A/B
+    runs here, at (``xent_probe_batch``, ``num_classes``)."""
+    mode = xent_mode(optim_cfg)
+    use_kernel = mode in ("on", "auto") and optim_cfg.label_smoothing == 0.0
+    if use_kernel and mode == "auto":
+        use_kernel = (device is not None
+                      and torch.device(device).type == "cuda"
+                      and sx.ensure_xent_probe(xent_probe_batch, num_classes,
+                                               device=device).use_pallas)
 
     def loss_fn(model: nn.Module, images, labels):
         logits = model(images, train=True)
