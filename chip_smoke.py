@@ -98,17 +98,47 @@ Phases, each printing one JSON line:
    shape chose the kernel (``sbr``, ``sbr_bwd``) and 1 or 0 of each xent
    kernel as chosen, the loss falls, and ``evaluate`` runs once.
 
+9. ``ab``: the twins of the reference's A/B tools
+   (``tpu_resnet_torch.tools.fused_block_ab`` and ``fused_bottleneck_ab``)
+   through their per-shape functions, at the reference's shapes (B=128,
+   the three CIFAR stages, the three ResNet-50 stages) in bfloat16: one
+   ``fwd_bwd`` call of ``AB_LENGTH`` chained blocks per shape, the counters
+   zeroed just before and read just after (``AB_LENGTH`` launches of
+   ``block_fwd`` and ``block_bwd``, or of ``bottleneck_fwd`` and
+   ``bottleneck_bwd``, and nothing else); then the four arms' µs per block
+   and speedups (``run_shape``, ``AB_REPS`` timed calls per arm).
+10. ``grad``: the gradient, in the input images and every parameter, of an
+   eval-mode fused model on seeded weights (BN moved off its init), float32,
+   B=``GRAD_BATCH``: CIFAR-10 ResNet-50 and ImageNet ResNet-50 at 224x224
+   (``--preset cifar10|imagenet model.fused_blocks=true
+   model.fused_epilogue=on``). Through the kernels against the plain
+   versions, normwise per tensor: the worst within ``GRAD_RTOL``'s floor
+   or ``CONTROL_FACTOR`` times the control's worst (the plain versions on
+   PyTorch's own convolutions), never beyond its ceiling; the counters
+   read one forward and its backward: 21 ``block_fwd`` + 7 ``sbr`` + 21
+   ``block_bwd`` + 7 ``sbr_bwd`` (CIFAR), 10 ``bottleneck_fwd`` + 19
+   ``sbr`` + 10 ``bottleneck_bwd`` + 19 ``sbr_bwd`` (ImageNet).
+
 The ``kernels`` phase also holds ``sbr_add`` (``tr_sbr_add``) against its
 plain version at the 14 probe shapes, bfloat16 and float32: the forward
 bit for bit, and through autograd dx bit for bit, dr == g, ds/db within
-``sbr_bwd``'s limits.
+``sbr_bwd``'s limits; and the folded blocks' gradients, ``block_bwd`` at
+the three CIFAR B=128 stage shapes and ``bottleneck_bwd`` at the three
+ResNet-50 B=128 stage shapes, bfloat16 and float32, on the dyadic grids of
+the training kernels, and again at the grad phase's B=``GRAD_BATCH``
+shapes: every sum and weight gradient within 1e-5·Σ|terms| + 1e-6, dx
+within ``block_fwd``'s or ``bottleneck_fwd``'s tolerance, two calls bit for
+bit equal.
 
-Then one ``{"kernels": [...]}`` line (times summed over the launches of one
-forward pass of each serve path and one train step that run the kernel, in
-bfloat16; for ``sbr_add`` over one call at each probe shape;
-``launches`` is the count over the phases that drive the main paths: both
-serve phases, the train and eval runs of both CIFAR train phases, the
-ImageNet train steps and both parts of the autotune phase),
+Then one ``{"kernels": [...]}`` line of the 19 kernels (times summed over
+the launches of one forward pass of each serve path and one train step that
+run the kernel, in bfloat16; for ``sbr_add`` over one call at each probe
+shape, for ``block_bwd`` and ``bottleneck_bwd`` over one call at each A/B
+shape, and per path also over one backward of the grad phase;
+``launches`` is the count over the phases that drive the main paths:
+both serve phases, the train and eval runs of both CIFAR train phases, the
+ImageNet train steps, both parts of the autotune phase, the ``ab`` phase's
+counted calls and the ``grad`` phase),
 the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line;
 without CUDA the script exits 2.
@@ -132,6 +162,10 @@ import urllib.request
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# The port beside this script, however Python was started (``-I``, or from
+# another directory).
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -186,7 +220,8 @@ BOTTLENECK_TRAIN = ("bottleneck_stats_a", "bottleneck_stats_b",
                     "bottleneck_bwd1", "bottleneck_bwd2", "bottleneck_bwd3",
                     "bottleneck_bwd4")
 KERNELS = ("sbr", "block_fwd", "bottleneck_fwd", "sbr_bwd", "xent_fwd",
-           "xent_bwd", *BLOCK_TRAIN, *BOTTLENECK_TRAIN, "sbr_add")
+           "xent_bwd", *BLOCK_TRAIN, *BOTTLENECK_TRAIN, "sbr_add",
+           "block_bwd", "bottleneck_bwd")
 # Launches per forward pass of each serve path and per train step, every
 # kernel listed.
 PER_PASS = {path: {k: sum(n for _, n in shapes.get(k, ()))
@@ -227,6 +262,26 @@ IMAGENET_STEPS, IMAGENET_BATCHES, IMAGENET_GATE_BATCH = 30, 2, 32
 PROBE_ITERS, AUTO_STEPS = 30, 30
 AUTO_OVERRIDES = ["data.dataset=synthetic", "data.synthetic_learnable=true",
                   "model.fused_epilogue=auto"]
+# The A/B phase: blocks chained per call and timed calls per arm.
+AB_LENGTH, AB_REPS = 2, 2
+# The eval-mode gradient phase: each preset's fused model in float32, and
+# the launches of one forward and its backward.
+GRAD_BATCH = 16
+GRAD_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
+                  "model.compute_dtype=float32"]
+# The grad phase's block_bwd and bottleneck_bwd shapes, with their launches
+# per backward.
+GRAD_SHAPES = {
+    "cifar10": (((GRAD_BATCH, 32, 32, 16), 7), ((GRAD_BATCH, 16, 16, 32), 7),
+                ((GRAD_BATCH, 8, 8, 64), 7)),
+    "imagenet": imagenet_shapes(GRAD_BATCH)["bottleneck_fwd"]}
+# The gradient's gate, normwise per tensor: the floor, and the ceiling
+# that CONTROL_FACTOR times the control's distance may not pass.
+GRAD_RTOL = (1e-3, 1e-2)
+GRAD_PER_BACKWARD = {
+    "cifar10": {"block_fwd": 21, "sbr": 7, "block_bwd": 21, "sbr_bwd": 7},
+    "imagenet": {"bottleneck_fwd": 10, "sbr": 19, "bottleneck_bwd": 10,
+                 "sbr_bwd": 19}}
 # |kernel - plain| <= atol + rtol * |plain|, elementwise. sbr rounds
 # exactly as the plain version does; the fused blocks sum their convs in
 # another order than cuDNN/cuBLAS, and in bfloat16 that can move the stored
@@ -354,6 +409,20 @@ def bound(kind: str, shape, dtype) -> tuple:
                  + (weights + vecs + sums) * 4
                  + (n * item if kind == "bottleneck_bwd4" else 0))
         ops = flops * b * h * w
+    elif kind == "block_bwd":
+        # x, gy (float32) in, dx out; w1, w2 and the four folded vectors in,
+        # dw1, dw2 and the four sums out; five 3x3 products (the c1
+        # recompute, two convT, dw1, dw2).
+        moved = 2 * n * item + 4 * n + (4 * 9 * c * c + 8 * c) * 4
+        ops = 5 * 2 * b * h * w * 9 * c * c
+    elif kind == "bottleneck_bwd":   # c = 4f
+        # x, gy (float32) in, dx out; the three weights (17f² floats) and
+        # six folded vectors in, their gradients out; 94f² flops per pixel
+        # (c1 8, mid 18, gy·W3ᵀ 8, convT 18, dc1·W1ᵀ 8, dW1 8, dW3 8, dw2
+        # 18).
+        f = c // 4
+        moved = 2 * n * item + 4 * n + (2 * 17 * f * f + 4 * (c + 2 * f)) * 4
+        ops = 94 * f * f * b * h * w
     else:   # bottleneck_fwd: c = 4f
         f = c // 4
         moved = 2 * n * item + (2 * c * f + 9 * f * f + 2 * c + 4 * f) * 4
@@ -711,6 +780,85 @@ def bottleneck_train_kernel_phase(fbn):
     return rows
 
 
+def _bwd_rows(kind, path, shape, dtype, args, kernel, plain, per_pass,
+              fwd_kind, **timing) -> dict:
+    """One row of a folded block's gradient: two kernel calls bit for bit
+    equal, dx within ``fwd_kind``'s tolerance, every sum and weight
+    gradient within 1e-5 * sum|terms| + 1e-6 (the oracle's convolutions with
+    cuDNN off)."""
+    got, again = kernel(*args), kernel(*args)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = plain(*args)
+        scale = plain(*args, magnitudes=True)
+    torch.cuda.synchronize()
+    name = f"{kind} {shape} {dtype}"
+    check(all(torch.equal(p, q) for p, q in zip(got, again)),
+          f"{name}: two calls differ")
+    check(got[0].dtype == dtype and all(t.dtype == torch.float32
+                                        for t in got[1:]),
+          f"{name}: output types {[t.dtype for t in got]}")
+    atol, rtol = TOLERANCE[(fwd_kind, dtype)]
+    d = (got[0].float() - want[0].float()).abs()
+    dx_excess = float((d / (atol + rtol * want[0].float().abs())).max())
+    excess = _sum_excess(got[1:], want[1:], scale[1:])
+    row = {"kernel": kind, "path": path, "shape": list(shape),
+           "dtype": str(dtype).split(".")[1], "per_pass": per_pass,
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want)),
+           "dx_err_over_limit": dx_excess, "err_over_limit": excess,
+           "atol": atol, "rtol": rtol,
+           "tolerance": "dx as the forward; sums and weight gradients "
+                        "<= 1e-5*sum|terms| + 1e-6"}
+    check(dx_excess <= 1 and excess <= 1, f"{name}: beyond tolerance: {row}")
+    del got, again, want, scale
+    return _timed(row, lambda: kernel(*args), lambda: plain(*args), kind,
+                  shape, dtype, **timing)
+
+
+def fused_bwd_kernel_phase(fb, fbn):
+    """The folded blocks' gradients against their plain versions:
+    ``block_bwd`` at the three CIFAR stage shapes and ``bottleneck_bwd`` at
+    the three ResNet-50 stage shapes, at B=128 (the A/B tools' shapes, one
+    call per shape and pass) and at B=GRAD_BATCH (the grad phase's, with
+    its launches per backward), bfloat16 and float32, on the dyadic grids
+    of :func:`block_train_args` and :func:`bottleneck_train_args` (the
+    folded scales and biases taken from their gammas, betas and powers of
+    2, so that c1 and mid and with them the masks are exact)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    ab = [(shape, 1) for shape, _ in SHAPES["cifar10_fused_train"]
+          ["block_fwd"]]
+    for path, shapes in (("cifar10_ab", ab),
+                         ("cifar10_grad", GRAD_SHAPES["cifar10"])):
+        for shape, per_pass in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                a = block_train_args(shape, dtype, gen)
+                args = (a["x"], a["gy"], a["w1"], a["w2"], a["g1"], a["b1"],
+                        a["g2"], a["b2"])
+                rows.append(_bwd_rows(
+                    "block_bwd", path, shape, dtype, args, fb.block_bwd,
+                    fb.block_bwd_reference, per_pass, "block_fwd"))
+    ab = [(shape, 1) for shape, _ in SHAPES["imagenet_fused_train"]
+          ["bottleneck_fwd"]]
+    for path, shapes in (("imagenet_ab", ab),
+                         ("imagenet_grad", GRAD_SHAPES["imagenet"])):
+        for shape, per_pass in shapes:
+            for dtype in (torch.bfloat16, torch.float32):
+                x, gy, w1, w2, w3, *v = bottleneck_train_args(shape, dtype,
+                                                              gen)
+                # s1 = g1, b1 = be1; s2 = i2 (1/8 or 1/4, so that mid stays
+                # on the grid), b2 = be2; s3 = g3, b3 = be3.
+                args = (x, gy, w1, w2, w3, v[0], v[1], v[7], v[5], v[8],
+                        v[9])
+                rows.append(_bwd_rows(
+                    "bottleneck_bwd", path, shape, dtype, args,
+                    fbn.bottleneck_bwd, fbn.bottleneck_bwd_reference,
+                    per_pass, "bottleneck_fwd", reps=5, inner=2))
+                del x, gy, args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_counters() -> dict:
     """{kernel: (module, launch counter)} of the port's wrappers."""
     from tpu_resnet_torch.ops import epilogue as ep
@@ -731,7 +879,9 @@ def kernel_counters() -> dict:
             "bottleneck_bwd2": (fbn, "bwd2_launches"),
             "bottleneck_bwd3": (fbn, "bwd3_launches"),
             "bottleneck_bwd4": (fbn, "bwd4_launches"),
-            "sbr_add": (ep, "add_launches")}
+            "sbr_add": (ep, "add_launches"),
+            "block_bwd": (fb, "bwd_launches"),
+            "bottleneck_bwd": (fbn, "bwd_launches")}
 
 
 def zero_counts(counters) -> None:
@@ -754,8 +904,10 @@ def plain_versions():
     from tpu_resnet_torch.ops import softmax_xent as sx
     swaps = ((ep, "scale_bias_relu", ep.scale_bias_relu_reference),
              (fb, "block_fwd", fb.block_fwd_reference),
+             (fb, "block_apply", fb.block_apply_reference),
              (fb, "block_train_apply", fb.block_train_apply_reference),
              (fbn, "bottleneck_fwd", fbn.bottleneck_fwd_reference),
+             (fbn, "bottleneck_apply", fbn.bottleneck_apply_reference),
              (fbn, "bottleneck_train_apply",
               fbn.bottleneck_train_apply_reference),
              (sx, "softmax_xent_per_example",
@@ -1436,6 +1588,159 @@ def autotune_phase(counters, gpu: str) -> dict:
     return result
 
 
+def ab_phase(counters, gpu: str) -> list:
+    """The twins of the reference's A/B tools on the card, through their
+    per-shape functions, at the reference's shapes in bfloat16: per shape,
+    one ``fwd_bwd`` call of ``AB_LENGTH`` chained blocks with the counters
+    zeroed just before and read just after (``AB_LENGTH`` launches of the
+    block's forward and gradient kernels and nothing else, every gradient
+    finite), then the four arms' times (``run_shape``, ``AB_REPS`` timed
+    calls per arm), listing under ``host_paced`` each arm whose device spin
+    did not hold (its time took in the host's gaps). One result per
+    tool."""
+    from tpu_resnet_torch.tools import fused_block_ab, fused_bottleneck_ab
+
+    cuda = torch.device("cuda")
+    tools = (("cifar10_ab", fused_block_ab, fused_block_ab.SHAPES,
+              ("block_fwd", "block_bwd")),
+             ("imagenet_ab", fused_bottleneck_ab,
+              [(b, h, h, 4 * f) for b, h, f in fused_bottleneck_ab.SHAPES],
+              ("bottleneck_fwd", "bottleneck_bwd")))
+    results = []
+    for path, tool, shapes, kinds in tools:
+        per_call = {k: AB_LENGTH if k in kinds else 0 for k in KERNELS}
+        total = {k: 0 for k in KERNELS}
+        by_shape, host_paced = {}, []
+        t0 = time.monotonic()
+        for shape in shapes:
+            x0, arms = tool.make_arms(shape, AB_LENGTH, torch.bfloat16, cuda)
+            zero_counts(counters)
+            grads = arms["fwd_bwd"][0](x0)
+            torch.cuda.synchronize()
+            counts = read_counts(counters)
+            check(counts == per_call, f"{path} {shape}: fwd_bwd launches "
+                  f"{counts}, expected {per_call}")
+            check(all(bool(torch.isfinite(g).all()) for g in grads),
+                  f"{path} {shape}: a gradient is not finite")
+            total = {k: total[k] + counts[k] for k in KERNELS}
+            del x0, arms, grads
+            key = tool.shape_key(shape)
+            by_shape[key] = tool.run_shape(shape, AB_LENGTH, AB_REPS,
+                                           torch.bfloat16, cuda)
+            host_paced += [f"{key} {arm} {side}"
+                           for arm, e in by_shape[key].items()
+                           for side, flag in (("kernel", "pallas"),
+                                              ("plain", "xla"))
+                           if e[f"{flag}_host_paced"]]
+            torch.cuda.empty_cache()
+        result = {
+            "path": path, "tool": tool.__name__, "length": AB_LENGTH,
+            "reps": AB_REPS, "dtype": "bfloat16",
+            "shapes": [list(s) for s in shapes], "seconds":
+            time.monotonic() - t0, "launches": total,
+            "eval_launches": {k: 0 for k in KERNELS},
+            "launches_per_step": per_call, "by_shape": by_shape,
+            "host_paced": host_paced, "gpu": gpu}
+        emit("ab", **result)
+        results.append(result)
+    return results
+
+
+def _spread_bn(model, gen) -> None:
+    """BN parameters and running statistics off their init (scales and
+    variances in [0.5, 1.5), biases and means of std 0.2), so that every
+    fold is its own affine."""
+    from tpu_resnet_torch.models.resnet import BatchNormRelu
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNormRelu):
+                for t, kind in ((m.weight, 1), (m.running_var, 1),
+                                (m.bias, 0), (m.running_mean, 0)):
+                    t.copy_(torch.rand(t.shape, generator=gen) + 0.5 if kind
+                            else torch.randn(t.shape, generator=gen) * 0.2)
+
+
+def _grad_rel(got, want) -> list:
+    """Each tensor's normwise distance ||got - want|| / ||want||."""
+    return [float((g - w).norm() / w.norm().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def grad_phase(preset: str, counters, gpu: str) -> dict:
+    """The gradient of an eval-mode fused model (``GRAD_OVERRIDES`` on
+    ``preset``, seeded weights, BN off its init, float32, B=GRAD_BATCH) in
+    the input images and every parameter, of Σ logits·cotangent: through
+    the kernels with the counters zeroed just before the forward and read
+    just after the backward (``GRAD_PER_BACKWARD``), through the plain
+    versions, and through the control (the plain versions on PyTorch's own
+    convolutions). Gated normwise per tensor, as the port's tests gate
+    gradients: the worst ||got - plain|| / ||plain|| within ``GRAD_RTOL``'s
+    floor or ``CONTROL_FACTOR`` times the control's worst (the fused blocks
+    sum in another order, and a recomputed mask [a > 0] flips where a lies
+    within rounding of 0), and never beyond its ceiling, so that a zeroed
+    (1.0) or sign-flipped (2.0) tensor fails whatever the control reads."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.models import build_model, init_weights
+
+    cfg = load_config(preset, "", GRAD_OVERRIDES)
+    size, classes = cfg.data.resolved_image_size, cfg.data.num_classes
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(6))
+    _spread_bn(model, torch.Generator().manual_seed(7))
+    model = model.to("cuda").eval()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(GRAD_BATCH, size, size, 3, generator=gen, device="cuda")
+    cot = torch.randn(GRAD_BATCH, classes, generator=gen, device="cuda")
+    names = ["input"] + [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+
+    def grads():
+        leaf = x.clone().requires_grad_()
+        logits = model(leaf, train=False)
+        return torch.autograd.grad((logits.float() * cot).sum(),
+                                   [leaf, *params])
+
+    zero_counts(counters)
+    got = grads()
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    want = {k: GRAD_PER_BACKWARD[preset].get(k, 0) for k in KERNELS}
+    check(counts == want, f"{preset} grad: launch counts {counts}, expected "
+          f"{want}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{preset} grad: a gradient is not finite")
+    zero_counts(counters)
+    with plain_versions():
+        plain = grads()
+    with plain_native_convs():
+        control = grads()
+    torch.cuda.synchronize()
+    check(not any(read_counts(counters).values()),
+          f"{preset} grad: the plain arms launched kernels")
+    rel, control_rel = _grad_rel(got, plain), _grad_rel(control, plain)
+    worst, control_worst = max(rel), max(control_rel)
+    floor, ceiling = GRAD_RTOL
+    limit = min(max(CONTROL_FACTOR * control_worst, floor), ceiling)
+    result = {
+        "path": f"{preset}_grad",
+        "model": f"{preset} ResNet-50 {size}x{size} fused_blocks=on "
+                 f"fused_epilogue=on float32 eval mode, B={GRAD_BATCH}",
+        "tensors_compared": len(got), "launches": counts,
+        "eval_launches": {k: 0 for k in KERNELS}, "launches_per_step": want,
+        "worst_rel": worst, "control_worst_rel": control_worst,
+        "limit": limit, "tensors_over_floor": sum(r > floor for r in rel),
+        "worst_tensors": sorted(zip(rel, names), reverse=True)[:5],
+        "control_worst_tensors":
+            sorted(zip(control_rel, names), reverse=True)[:3],
+        "control_factor": CONTROL_FACTOR, "grad_rtol": GRAD_RTOL,
+        "gpu": gpu}
+    check(worst <= limit, f"{preset} grad: a tensor beyond {limit} "
+          f"normwise: {result}")
+    emit("grad", **result)
+    del model, got, plain, control
+    torch.cuda.empty_cache()
+    return result
+
+
 # Each kernel: its source in the port and the TPU kernel body it replaces.
 KERNEL_SOURCES = (
     ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
@@ -1471,7 +1776,11 @@ KERNEL_SOURCES = (
     ("bottleneck_bwd4", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
      "tpu_resnet/ops/fused_bottleneck.py:754"),
     ("sbr_add", "tpu_resnet_torch/csrc/epilogue.cu",
-     "tpu_resnet/ops/epilogue.py:116"))
+     "tpu_resnet/ops/epilogue.py:116"),
+    ("block_bwd", "tpu_resnet_torch/csrc/fused_block_train.cu",
+     "tpu_resnet/ops/fused_block.py:252"),
+    ("bottleneck_bwd", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:241"))
 
 
 def path_times(rows) -> dict:
@@ -1495,7 +1804,7 @@ def path_times(rows) -> dict:
             # backward softmax and a one-hot subtraction, the basic block
             # five or more, the bottleneck seven; no call returns the fused
             # block's or the fused bottleneck's training sums and
-            # weight-gradient products.
+            # weight-gradient products, or their folded gradients.
             "library_ms": sum(library) if library else None}
     return by_path
 
@@ -1563,12 +1872,16 @@ def main() -> int:
     rows += block_train_kernel_phase(fb)
     rows += bottleneck_train_kernel_phase(fbn)
     rows += sbr_add_kernel_phase(ep)
+    rows += fused_bwd_kernel_phase(fb, fbn)
     emit("kernels", gpu=gpu, rows=rows)
     counters = kernel_counters()
     served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(autotune_phase(counters, gpu))
+    trained += ab_phase(counters, gpu)
+    trained += [grad_phase(preset, counters, gpu)
+                for preset in ("cifar10", "imagenet")]
 
     kernels = kernel_entries(rows, served, trained)
     print(json.dumps({"kernels": kernels}), flush=True)

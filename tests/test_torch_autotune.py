@@ -48,6 +48,15 @@ def _timer(times):
     return lambda fn, args, iters: next(seq)
 
 
+def test_timed_us_on_cpu_is_host_time_and_not_flagged():
+    """On CPU tensors ``timed_us`` times the host and flags nothing;
+    ``_timed_us`` (the probe's timer) is its time alone."""
+    x = torch.ones(64)
+    us, host_paced = autotune.timed_us(torch.exp, (x,), 3)
+    assert us > 0 and host_paced is False
+    assert autotune._timed_us(torch.exp, (x,), 3) > 0
+
+
 @pytest.mark.parametrize("plain_us, kernel_us, threshold", [
     (10.0, 5.0, 1.0), (5.0, 10.0, 1.0), (7.0, 7.0, 1.0),
     (10.3, 10.0, 1.05), (10.6, 10.0, 1.05)],

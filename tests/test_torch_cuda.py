@@ -9,6 +9,7 @@ import torch
 
 from tpu_resnet_torch.config import load_config
 from tpu_resnet_torch.device import resolve_device
+from tpu_resnet_torch.models import build_model, init_weights
 from tpu_resnet_torch.ops import autotune
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
@@ -554,3 +555,111 @@ def test_auto_step_launches_follow_the_decisions(cuda, tmp_path):
         assert bool(torch.isfinite(m["loss"]))
     finally:
         autotune.reset()
+
+
+# ------------------------------------------- the folded blocks' gradients
+def _bwd_close(got, again, want, scale, dtype):
+    """Two calls bit-equal; dx within the forward's tolerance (f32 sums in
+    another order; bf16 one ulp); sums and weight gradients within
+    1e-5 * Σ|terms| + 1e-6."""
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    assert got[0].dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
+                               rtol=tol)
+    _sums_close(got[1:], want[1:], scale[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32, 32, 16), (3, 16, 16, 32),
+                                   (5, 8, 8, 64), (2, 7, 5, 16)])
+def test_block_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """The folded block's gradient at the three widths and a ragged plane,
+    on the dyadic grid (the gammas and betas as the folded scales and
+    biases, so c1 and the masks are exact); called twice."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
+    args = (x, gy, w1, w2, *vecs[:4])
+    before = fb.bwd_launches
+    got, again = fb.block_bwd(*args), fb.block_bwd(*args)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = fb.block_bwd_reference(*args)
+        scale = fb.block_bwd_reference(*args, magnitudes=True)
+    torch.cuda.synchronize()
+    assert fb.bwd_launches == before + 2
+    _bwd_close(got, again, want, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 56, 56, 256), (2, 28, 28, 512),
+                                   (2, 14, 14, 1024), (1, 9, 5, 256)])
+def test_bottleneck_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """The folded bottleneck's gradient at the three ResNet-50 stage shapes
+    and a ragged one, on the dyadic grid: s1 = γ1, s2 = 1/σ2 (1/8 or 1/4,
+    so mid stays exact), s3 = γ3 and the betas as biases; called twice."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, gy, w1, w2, w3, v = _bottleneck_train_inputs(shape, dtype, gen)
+    args = (x, gy, w1, w2, w3, v[0], v[1], v[7], v[5], v[8], v[9])
+    before = fbn.bwd_launches
+    got, again = fbn.bottleneck_bwd(*args), fbn.bottleneck_bwd(*args)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = fbn.bottleneck_bwd_reference(*args)
+        scale = fbn.bottleneck_bwd_reference(*args, magnitudes=True)
+    torch.cuda.synchronize()
+    assert fbn.bwd_launches == before + 2
+    _bwd_close(got, again, want, scale, dtype)
+
+
+@pytest.mark.parametrize("preset, overrides, blocks", [
+    ("cifar10", ["model.resnet_size=14"], 3),
+    ("imagenet", ["data.image_size=64"], 10)], ids=["cifar10", "imagenet"])
+def test_eval_mode_fused_model_grad_matches_plain(cuda, monkeypatch, preset,
+                                                  overrides, blocks):
+    """The regression of the eval path: the input gradient of an eval-mode
+    fused model on the card goes through the gradient kernels (one launch
+    per fused block) and equals the plain-version model's, normwise within
+    1e-3. A fused block that cut the graph leaves the input unreachable."""
+    cfg = load_config(preset, "", ["model.fused_blocks=true",
+                                   "model.fused_epilogue=on",
+                                   "model.compute_dtype=float32", *overrides])
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    size = cfg.data.resolved_image_size
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(2, size, size, 3, generator=gen, device="cuda")
+    cot = torch.randn(2, cfg.data.num_classes, generator=gen, device="cuda")
+
+    def input_grad():
+        leaf = x.clone().requires_grad_()
+        return torch.autograd.grad((model(leaf) * cot).sum(), leaf)[0]
+
+    mod = fb if preset == "cifar10" else fbn
+    before = mod.bwd_launches
+    got = input_grad()
+    torch.cuda.synchronize()
+    assert mod.bwd_launches == before + blocks
+    monkeypatch.setattr(fb, "block_apply", fb.block_apply_reference)
+    monkeypatch.setattr(fbn, "bottleneck_apply",
+                        fbn.bottleneck_apply_reference)
+    monkeypatch.setattr(ep, "scale_bias_relu", ep.scale_bias_relu_reference)
+    want = input_grad()
+    assert float((got - want).norm() / want.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("synchronising", [False, True],
+                         ids=["queued", "synchronising"])
+def test_timed_us_flags_a_timing_the_spin_could_not_hold(cuda,
+                                                         synchronising):
+    """``autotune.timed_us`` reports device time behind its spin; a call
+    that waits for the device (here a synchronise) cannot queue behind the
+    spin, and its time is flagged host-paced."""
+    x = torch.randn(1 << 20, device="cuda")
+
+    def fn(t):
+        y = t * 2
+        if synchronising:
+            torch.cuda.synchronize()
+        return y
+
+    us, host_paced = autotune.timed_us(fn, (x,), 4)
+    assert us > 0 and host_paced is synchronising

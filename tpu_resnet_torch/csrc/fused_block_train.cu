@@ -1,8 +1,8 @@
-// Fused ResNet-v2 basic block with live batch-norm statistics: the conv1
-// moments of the training forward and the three backward passes. Stride 1,
-// equal in/out channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32,
-// w1 and w2 HWIO f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is
-// f32.
+// Fused ResNet-v2 basic block: the conv1 moments of the training forward,
+// the three backward passes with live batch-norm statistics, and the one
+// backward pass with folded (frozen) batch norm. Stride 1, equal in/out
+// channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32, w1 and w2 HWIO
+// f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is f32.
 //
 // Replaces, in tpu_resnet/ops/fused_block.py (block_train_apply, which every
 // stride-1 identity block of the CIFAR ResNet runs in training when
@@ -17,9 +17,20 @@
 //                   dw1 = sum r1-patch^T dc1,
 //                   with dz1 = convT(dc1, w1)*[z1>0];
 //   tr_block_bwd3   pass3: dx = gy + g1*i1*(dz1 - U1/n - z1hat*(U2/n)).
-// The backward recomputes the chain from x and the saved moments (m, i =
-// 1/sigma): z1hat = (x-m1)*i1, z1 = g1*z1hat + b1, r1 = relu(z1), c1 =
-// conv(r1, w1), z2hat = (c1-m2)*i2, z2 = g2*z2hat + b2, r2 = relu(z2). Each
+// and (block_apply, the folded-BN block under a gradient: the eval-mode
+// model differentiated, tools/fused_block_ab.py's fwd_bwd arm):
+//   tr_block_bwd    _block_bwd_kernel: with a1 = x*s1 + b1, r1 = relu(a1),
+//                   c1 = conv(r1, w1), a2 = c1*s2 + b2, r2 = relu(a2):
+//                   da2 = convT(gy, w2)*[a2>0], dc1 = da2*s2,
+//                   da1 = convT(dc1, w1)*[a1>0], dx = gy + da1*s1,
+//                   dw1 = sum r1-patch^T dc1, dw2 = sum r2-patch^T gy,
+//                   ds1 = sum da1*x, db1 = sum da1, ds2 = sum da2*c1,
+//                   db2 = sum da2.
+// The live-BN backward recomputes the chain from x and the saved moments (m,
+// i = 1/sigma): z1hat = (x-m1)*i1, z1 = g1*z1hat + b1, r1 = relu(z1), c1 =
+// conv(r1, w1), z2hat = (c1-m2)*i2, z2 = g2*z2hat + b2, r2 = relu(z2); the
+// frozen one from the folded affines, a = v*s + b, as block_fwd
+// (csrc/fused_block.cu) and the reference kernel round them. Each
 // elementwise formula is rounded as written (__fmul_rn, __fadd_rn, no FMA
 // contraction), as the plain PyTorch version rounds it, so a mask [z > 0]
 // matches the plain version's wherever the conv sums do.
@@ -28,7 +39,8 @@
 // every CIFAR stage at B=128, 9.0 us at 67 TFLOP/s f32) for B*H*W*C elements
 // moved: tens to hundreds of operations per byte, off the tensor cores. The
 // stats kernel runs one product, bwd1 three (conv1, convT of gy, dw2), bwd2
-// four (conv1, two convT, dw1), bwd3 three.
+// four (conv1, two convT, dw1), bwd3 three, the frozen bwd five (conv1, two
+// convT, dw1, dw2).
 //
 // Design: one thread block per image, as block_fwd (csrc/fused_block.cu).
 // The recomputed planes live in shared memory, f32, zero-haloed, with a pixel
@@ -45,6 +57,11 @@
 //          needs only its own z2hat); A = r1 again; dz1 from convT(B); dw1
 //          from A and B.                                         2 planes
 //   bwd3:  as bwd2 without the second r1; dx from convT(B), x and gy in A.
+//   bwd:   A = r1; Z = c1, B = r2; A = gy; dw2 from B and A; da2 from
+//          convT(A) and the mask r2 > 0, ds2 and db2 with c1 from Z, and
+//          B = dc1 in place; A = r1 again; dw1 from A and B; da1 from
+//          convT(B) and the mask from x, dx with gy read from device
+//          memory, ds1 and db1.                     2 planes + Z: 226.8 KB
 // Neither plane touches device memory. At 16x16x32 and 8x8x64 all fit with
 // room to spare.
 //
@@ -67,15 +84,17 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kCO = 8;  // output channels per item
 constexpr int kMaxSmem = 232448;
-enum Mode : int { kStats = 0, kBwd1 = 1, kBwd2 = 2, kBwd3 = 3 };
+enum Mode : int { kStats = 0, kBwd1 = 1, kBwd2 = 2, kBwd3 = 3, kBwd = 4 };
 
 struct Args {
   const void* x;
   const float* gy;
   const float* w1;
   const float* w2;
-  const float* s1;  // stats: folded BN1 scale and bias
+  const float* s1;  // stats, bwd: folded BN1 scale and bias
   const float* sb1;
+  const float* s2;  // bwd: folded BN2 scale and bias
+  const float* sb2;
   const float* g1;  // backward: BN gammas, betas, means, 1/sigma
   const float* b1;
   const float* g2;
@@ -88,7 +107,7 @@ struct Args {
   const float* t2;
   const float* u1;  // pass 2's sums (bwd3)
   const float* u2;
-  void* dx;
+  void* dx;     // bwd3, bwd
   float* part;  // [B][row_len] partial rows
   float* out;   // [row_len] the batch's sums
   int H, W;
@@ -96,7 +115,9 @@ struct Args {
 };
 
 __host__ __device__ constexpr int row_len(int mode, int C) {
-  return mode == kStats ? 2 * C : 2 * C + 9 * C * C;
+  return mode == kStats ? 2 * C
+         : mode == kBwd ? 4 * C + 18 * C * C
+                        : 2 * C + 9 * C * C;
 }
 
 // One rounding each, never contracted into an FMA.
@@ -219,7 +240,32 @@ __device__ __forceinline__ int cell(int p, int W, int WP, int CP) {
   return ((py + 1) * WP + p - py * W + 1) * CP;
 }
 
-// The shared body of the four kernels; MODE picks the pass.
+// A block's two channel sums: thread t holds channels co0..co0+7 of group
+// t % G in sa and sb; channel c adds the threads of its group in thread
+// order. Writes out[c] (sa's) and out[C + c] (sb's); `red` is the free
+// shared memory, 2 * kThreads * kCO floats.
+template <int C>
+__device__ __forceinline__ void channel_sums(const float (&sa)[kCO],
+                                             const float (&sb)[kCO],
+                                             float* red, float* out) {
+  constexpr int G = C / kCO;
+  __syncthreads();  // the planes are free: reuse them
+#pragma unroll
+  for (int j = 0; j < kCO; ++j) {
+    red[threadIdx.x * kCO + j] = sa[j];
+    red[(kThreads + threadIdx.x) * kCO + j] = sb[j];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < 2 * C; k += kThreads) {
+    const int which = k / C, c = k % C, g = c / kCO, j = c % kCO;
+    float s = 0.f;
+    for (int r = g; r < kThreads; r += G)
+      s += red[(which * kThreads + r) * kCO + j];
+    out[k] = s;
+  }
+}
+
+// The shared body of the four live-BN kernels; MODE picks the pass.
 template <typename T, int C, int MODE>
 __device__ __forceinline__ void train_body(const Args& a) {
   constexpr int CP = C + 1;
@@ -360,25 +406,100 @@ __device__ __forceinline__ void train_body(const Args& a) {
     }
   }
 
-  if constexpr (MODE != kBwd3) {
-    // The channel sums: thread t holds channels co0..co0+7 of group t % G;
-    // channel c adds the threads of its group in thread order.
-    __syncthreads();  // the planes are free: reuse them
-    float* red = smem;  // [2][kThreads][kCO]
+  if constexpr (MODE != kBwd3) channel_sums<C>(sa, sb, smem, prow);
+}
+
+// Kernel 7 (tr_block_bwd): the VJP of the folded-BN block, one pass per
+// image; see the plan at the top. Row: [ds1, db1, ds2, db2 (C each), dw1,
+// dw2 (9C^2 each, HWIO)].
+template <typename T, int C>
+__device__ __forceinline__ void frozen_bwd_body(const Args& a) {
+  constexpr int CP = C + 1;
+  constexpr int G = C / kCO;
+  constexpr int L = row_len(kBwd, C);
+  extern __shared__ float smem[];
+  const int H = a.H, W = a.W, WP = W + 2, HW = H * W;
+  const int plane = (H + 2) * WP * CP;
+  float* A = smem;
+  float* Bp = smem + plane;
+  float* Z = smem + 2 * plane;  // c1, unpadded
+  const long long base = (long long)blockIdx.x * HW * C;
+  const T* xi = static_cast<const T*>(a.x) + base;
+  const float* gyi = a.gy + base;
+  float* prow = a.part + (long long)blockIdx.x * L;
+  const int co0 = (threadIdx.x % G) * kCO;  // this thread's channel group
+  float ds1[kCO], db1[kCO], ds2[kCO], db2[kCO];
+#pragma unroll
+  for (int j = 0; j < kCO; ++j) ds1[j] = db1[j] = ds2[j] = db2[j] = 0.f;
+  float acc[kCO];
+  auto load_r1 = [&]() {  // A <- r1 = relu(x*s1 + b1)
+    for (int i = threadIdx.x; i < HW * C; i += kThreads) {
+      const int c = i % C;
+      A[cell(i / C, W, WP, CP) + c] = fmaxf(
+          add(mul(tr::to_f32(xi[i]), __ldg(a.s1 + c)), __ldg(a.sb1 + c)),
+          0.f);
+    }
+  };
+
+  for (int i = threadIdx.x; i < 2 * plane; i += kThreads) smem[i] = 0.f;
+  __syncthreads();
+  load_r1();
+  __syncthreads();
+  // c1 = conv(r1, w1) into Z; B <- r2 = relu(c1*s2 + b2).
+  for (int t = threadIdx.x; t < HW * G; t += kThreads) {
+    const int p = t / G, py = p / W;
+    conv_point<C, CP>(A, a.w1, py, p - py * W, WP, co0, acc);
+    float* dst = Bp + cell(p, W, WP, CP) + co0;
 #pragma unroll
     for (int j = 0; j < kCO; ++j) {
-      red[threadIdx.x * kCO + j] = sa[j];
-      red[(kThreads + threadIdx.x) * kCO + j] = sb[j];
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < 2 * C; k += kThreads) {
-      const int which = k / C, c = k % C, g = c / kCO, j = c % kCO;
-      float s = 0.f;
-      for (int r = g; r < kThreads; r += G)
-        s += red[(which * kThreads + r) * kCO + j];
-      prow[k] = s;
+      const int c = co0 + j;
+      Z[p * CP + c] = acc[j];
+      dst[j] = fmaxf(add(mul(acc[j], __ldg(a.s2 + c)), __ldg(a.sb2 + c)),
+                     0.f);
     }
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < HW * C; i += kThreads)
+    A[cell(i / C, W, WP, CP) + i % C] = gyi[i];  // A <- gy
+  __syncthreads();
+  wgrad<C, CP>(Bp, A, H, W, WP, prow + 4 * C + 9 * C * C);  // dw2: r2p, gy
+  __syncthreads();
+  // da2 = convT(gy, w2)*[a2 > 0]; dc1 = da2*s2, in place of r2.
+  for (int t = threadIdx.x; t < HW * G; t += kThreads) {
+    const int p = t / G, py = p / W;
+    convT_point<C, CP>(A, a.w2, py, p - py * W, WP, co0, acc);
+    float* bc = Bp + cell(p, W, WP, CP) + co0;
+#pragma unroll
+    for (int j = 0; j < kCO; ++j) {
+      const int c = co0 + j;
+      const float da = bc[j] > 0.f ? acc[j] : 0.f;  // r2 > 0 iff a2 > 0
+      db2[j] += da;
+      ds2[j] = fmaf(da, Z[p * CP + c], ds2[j]);
+      bc[j] = mul(da, __ldg(a.s2 + c));
+    }
+  }
+  __syncthreads();
+  load_r1();
+  __syncthreads();
+  wgrad<C, CP>(A, Bp, H, W, WP, prow + 4 * C);  // dw1: r1p, dc1
+  // da1 = convT(dc1, w1)*[a1 > 0]; dx = gy + da1*s1.
+  for (int t = threadIdx.x; t < HW * G; t += kThreads) {
+    const int p = t / G, py = p / W;
+    convT_point<C, CP>(Bp, a.w1, py, p - py * W, WP, co0, acc);
+#pragma unroll
+    for (int j = 0; j < kCO; ++j) {
+      const int c = co0 + j;
+      const long long e = (long long)p * C + c;
+      const float v = tr::to_f32(xi[e]), s1 = __ldg(a.s1 + c);
+      const float da = add(mul(v, s1), __ldg(a.sb1 + c)) > 0.f ? acc[j] : 0.f;
+      db1[j] += da;
+      ds1[j] = fmaf(da, v, ds1[j]);
+      static_cast<T*>(a.dx)[base + e] = tr::from_f32<T>(add(gyi[e],
+                                                            mul(da, s1)));
+    }
+  }
+  channel_sums<C>(ds1, db1, smem, prow);
+  channel_sums<C>(ds2, db2, smem, prow + 2 * C);
 }
 
 template <typename T, int C>
@@ -397,6 +518,10 @@ template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) block_bwd3_kernel(const Args a) {
   train_body<T, C, kBwd3>(a);
 }
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads) block_bwd_kernel(const Args a) {
+  frozen_bwd_body<T, C>(a);
+}
 
 // out[k] = sum over rows, in row order, of part[row][k].
 __global__ void train_sum_kernel(const float* __restrict__ part,
@@ -411,7 +536,8 @@ __global__ void train_sum_kernel(const float* __restrict__ part,
 size_t smem_bytes(int mode, int H, int W, int C) {
   const size_t plane = (size_t)(H + 2) * (W + 2) * (C + 1) * sizeof(float);
   size_t s = mode == kStats ? plane : 2 * plane;
-  if (mode == kBwd1) s += (size_t)H * W * (C + 1) * sizeof(float);
+  if (mode == kBwd1 || mode == kBwd)
+    s += (size_t)H * W * (C + 1) * sizeof(float);
   const size_t red = 2ull * kThreads * kCO * sizeof(float);
   return s > red ? s : red;
 }
@@ -423,6 +549,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   if constexpr (MODE == kStats) kernel = &block_stats_kernel<T, C>;
   if constexpr (MODE == kBwd1) kernel = &block_bwd1_kernel<T, C>;
   if constexpr (MODE == kBwd2) kernel = &block_bwd2_kernel<T, C>;
+  if constexpr (MODE == kBwd) kernel = &block_bwd_kernel<T, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -477,11 +604,12 @@ int run(Args a, int B, int H, int W, int C, int dtype, int device,
 
 }  // namespace
 
-// Common to all four: x [B,H,W,C] of `dtype` (tr::DType) and gy [B,H,W,C]
+// Common to all five: x [B,H,W,C] of `dtype` (tr::DType) and gy [B,H,W,C]
 // f32, contiguous; w1, w2 [3,3,C,C] f32 HWIO, 16-byte aligned; vectors C
 // floats; C is 16, 32 or 64. part: B * row_len floats of scratch, row_len =
-// 2C (stats) or 2C + 9C^2 (bwd1, bwd2); out: row_len floats. Each returns
-// the cudaError_t of its launches on `stream` (two, but bwd3's one).
+// 2C (stats), 2C + 9C^2 (bwd1, bwd2) or 4C + 18C^2 (bwd); out: row_len
+// floats. Each returns the cudaError_t of its launches on `stream` (two, but
+// bwd3's one).
 
 // out = [sum c1 (C), sum c1^2 (C)], c1 = conv3x3(relu(s1*x + b1), w1).
 extern "C" int tr_block_stats(const void* x, const void* w1, const void* s1,
@@ -554,4 +682,27 @@ extern "C" int tr_block_bwd3(TR_BWD_ARGS, const void* t1, const void* t2,
   a.u2 = static_cast<const float*>(u2);
   a.dx = dx;
   return run<kBwd3>(a, B, H, W, C, dtype, device, stream);
+}
+
+// The frozen-BN backward: out = [ds1, db1, ds2, db2 (C each), dw1, dw2 (9C^2
+// each, HWIO)] and dx [B,H,W,C] of `dtype`, given the folded BN vectors s1,
+// b1, s2, b2.
+extern "C" int tr_block_bwd(const void* x, const void* gy, const void* w1,
+                            const void* w2, const void* s1, const void* b1,
+                            const void* s2, const void* b2, void* part,
+                            void* out, void* dx, int B, int H, int W, int C,
+                            int dtype, int device, void* stream) {
+  Args a = {};
+  a.x = x;
+  a.gy = static_cast<const float*>(gy);
+  a.w1 = static_cast<const float*>(w1);
+  a.w2 = static_cast<const float*>(w2);
+  a.s1 = static_cast<const float*>(s1);
+  a.sb1 = static_cast<const float*>(b1);
+  a.s2 = static_cast<const float*>(s2);
+  a.sb2 = static_cast<const float*>(b2);
+  a.part = static_cast<float*>(part);
+  a.out = static_cast<float*>(out);
+  a.dx = dx;
+  return run<kBwd>(a, B, H, W, C, dtype, device, stream);
 }

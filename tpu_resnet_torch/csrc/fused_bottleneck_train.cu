@@ -1,5 +1,6 @@
-// Fused ResNet-v2 bottleneck with live batch-norm statistics: the two moment
-// passes of the training forward and the four backward passes. Stride 1,
+// Fused ResNet-v2 bottleneck: with live batch-norm statistics, the two moment
+// passes of the training forward and the four backward passes; with folded
+// (frozen) batch norm, the one backward pass. Stride 1,
 // identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or bf16), gy f32 of
 // x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32 [F,4F], BN vectors
 // f32 ([4F] for BN1, [F] for BN2 and BN3). All arithmetic is f32.
@@ -16,6 +17,11 @@
 //   mode 4 bwd3     pass3: T1a = sum dm1, T1b = sum dm1*x1hat, and dc1 for
 //                   dw1 = sum p1^T dc1;
 //   mode 5 bwd4     pass4: dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n)).
+// and (bottleneck_apply, the folded-BN bottleneck under a gradient: the
+// eval-mode model differentiated, tools/fused_bottleneck_ab.py's fwd_bwd arm):
+//   mode 6 bwd      _bwd_kernel: dx, the six BN sums and the operands p3, p2,
+//                   dmid, dc1 of dW3 = sum p3^T gy, dw2 = sum p2-patch^T dmid,
+//                   dW1 = sum p1^T dc1, in one pass.
 // The chain, recomputed from x and the saved moments (i = 1/sigma), as the
 // reference's _chain_train / _chain_train_full:
 //   x1hat = (x-mu1)*i1, m1 = g1*x1hat + be1, p1 = relu(m1), c1 = p1 . W1,
@@ -24,7 +30,13 @@
 //   p3 = relu(m3);
 // and the backward: dm3 = (gy . W3^T)*[m3>0], dmid = g3*i3*(dm3 - T3a/n -
 // mhat*(T3b/n)) (0 outside the image), dm2 = convT(dmid, w2)*[m2>0], dc1 =
-// g2*i2*(dm2 - T2a/n - chat*(T2b/n)), dm1 = (dc1 . W1^T)*[m1>0]. Every
+// g2*i2*(dm2 - T2a/n - chat*(T2b/n)), dm1 = (dc1 . W1^T)*[m1>0]. Mode 6 runs
+// the same chain on the folded affines, as the reference's _chain_fwd and
+// _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2 + b2, m3 = mid*s3 + b3, and with
+// no correction terms dmid = dm3*s3, dc1 = dm2*s2, dx = gy + dm1*s1; its
+// sums are db = sum dm and ds = sum dm*v, v the BN's input (x, c1, mid).
+// The kernel reads s, b where the live modes read g, be; where they hold a
+// normalised value (chat, mhat, x1hat) it holds the raw one. Every
 // elementwise formula rounds as written (__fmul_rn, __fadd_rn, no FMA
 // contraction), as the plain PyTorch version does, so a mask [m > 0] agrees
 // with the plain version's wherever the products do. stats_a normalises as
@@ -32,7 +44,8 @@
 //
 // Bound: arithmetic. Per centre pixel, c1 is 8F^2 flops, mid 18F^2, gy . W3^T
 // 8F^2, convT 18F^2, dc1 . W1^T 8F^2 and each weight gradient 8F^2 (dw1,
-// dw3) or 18F^2 (dw2): 8, 26, 42, 70, 68 and 60 F^2 for the six, against
+// dw3) or 18F^2 (dw2): 8, 26, 42, 70, 68 and 60 F^2 for the six, and 94F^2
+// for mode 6 with its three weight gradients, against
 // ~2*4F elements moved, on f32 FMAs (67 TFLOP/s on an H100). H*W*F^2 is the
 // same at every ResNet-50 stage, so each pass has one bound per launch at
 // all three stages (0.20 to 1.72 ms at B=128).
@@ -41,7 +54,8 @@
 // rows), as bottleneck_fwd (csrc/fused_bottleneck.cu), with its register-
 // tiled products (tile_fma.cuh). The band recomputes the chain on its rows
 // and a halo: none for stats_a, one row for stats_b and bwd1 (the 3x3 needs
-// p2 at +-1), two for bwd2-4 (convT needs dmid at +-1, hence mid at +-1 and
+// p2 at +-1), two for bwd2-4 and mode 6 (convT needs dmid at +-1, hence mid
+// at +-1 and
 // p2 at +-2); halo rows are recomputed by both neighbours, as the TPU kernel
 // does. Phases, each a product into registers with an elementwise epilogue:
 //   A  c1 over the E = R + 2*halo rows: p2 into shared memory (zero rows
@@ -53,6 +67,8 @@
 //   D  dp2 = convT(dmid) over the R centre rows: dm2, then dc1 in place of
 //      chat;
 //   E  dc1 . W1^T in four tiles of F output channels: dm1, then T1 or dx.
+// Mode 6 runs all five phases: C gives dmid and the BN3 sums on the centre
+// rows, D dc1 and the BN2 sums, E dx and the BN1 sums.
 // Neither intermediate is written to device memory except the one operand
 // each weight gradient needs (p3, p2 and dmid, dc1: [B,H,W,F] f32 scratch).
 // The A operand of a reduce phase (x or gy, 4F channels) streams from device
@@ -66,7 +82,9 @@
 // into a fixed number of chunks chosen from the shapes, one block per (tile,
 // chunk); A is p3 (dw3), p2 shifted by the tap with SAME zero padding (dw2,
 // one grid slice per tap) or p1 = relu(g1*x1hat + be1) computed from x as it
-// is loaded (dw1); B is gy, dmid or dc1.
+// is loaded (dw1); B is gy, dmid or dc1. Mode 6's dW1 passes (g1, be1, mu1,
+// i1) = (s1, b1, 0, 1): bn_relu rounds g*((v-0)*1) + be, and v-0 and v*1
+// are exact, so p1 is relu(x*s1 + b1) bit for bit.
 //
 // Sums without atomics: the row kernel writes one row of channel sums per
 // block, the weight-gradient kernel one partial product per chunk, and
@@ -91,7 +109,8 @@ enum Mode : int {
   kBwd1 = 2,
   kBwd2 = 3,
   kBwd3 = 4,
-  kBwd4 = 5
+  kBwd4 = 5,
+  kBwd = 6  // the frozen-BN backward
 };
 enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2 };
 
@@ -107,9 +126,12 @@ struct Args {
   const float* t[6];   // T3a T3b T2a T2b T1a T1b
   float* part;        // [blocks][row_len] channel sums
   float* out;         // [row_len] their sum
-  float* s0;          // [B,H,W,F] scratch: p3 (bwd1), p2 (bwd2), dc1 (bwd3)
-  float* s1;          // [B,H,W,F] scratch: dmid (bwd2)
-  void* dx;           // [B,H,W,4F] (bwd4)
+  float* s0;          // [B,H,W,F] scratch: p3 (bwd1), p2 (bwd2, bwd),
+                      // dc1 (bwd3)
+  float* s1;          // [B,H,W,F] scratch: dmid (bwd2, bwd)
+  void* dx;           // [B,H,W,4F] (bwd4, bwd)
+  float* s2;          // [B,H,W,F] scratch: p3 (bwd)
+  float* s3;          // [B,H,W,F] scratch: dc1 (bwd)
   int H, W, R, bands;
   float n;  // B*H*W
 };
@@ -118,7 +140,10 @@ __host__ __device__ constexpr int halo(int mode) {
   return mode == kStatsA ? 0 : mode <= kBwd1 ? 1 : 2;
 }
 __host__ __device__ constexpr int row_len(int mode, int F) {
-  return mode == kBwd4 ? 0 : mode == kBwd3 ? 8 * F : 2 * F;
+  return mode == kBwd    ? 12 * F
+         : mode == kBwd4 ? 0
+         : mode == kBwd3 ? 8 * F
+                         : 2 * F;
 }
 
 // Shared memory, in floats: region 0 holds p2 [E][W+2][F], later the staged
@@ -420,8 +445,11 @@ __device__ __forceinline__ void train_body(const Args& a) {
           float o[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            o[q] = bn_relu(at(v, q), __ldg(mu1 + c + q), __ldg(i1 + c + q),
-                           __ldg(g1 + c + q), __ldg(be1 + c + q));
+            o[q] = MODE == kBwd
+                       ? sbr(at(v, q), __ldg(g1 + c + q), __ldg(be1 + c + q))
+                       : bn_relu(at(v, q), __ldg(mu1 + c + q),
+                                 __ldg(i1 + c + q), __ldg(g1 + c + q),
+                                 __ldg(be1 + c + q));
           return f4(o);
         },
         [&](int m, int h, int c, float4 v) {
@@ -430,7 +458,9 @@ __device__ __forceinline__ void train_body(const Args& a) {
           float ch[4], p[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            ch[q] = mul(sub(at(v, q), __ldg(mu2 + c + q)), __ldg(i2 + c + q));
+            ch[q] = MODE == kBwd ? at(v, q)
+                                 : mul(sub(at(v, q), __ldg(mu2 + c + q)),
+                                       __ldg(i2 + c + q));
             p[q] = inside ? fmaxf(add(mul(__ldg(g2 + c + q), ch[q]),
                                       __ldg(be2 + c + q)),
                                   0.f)
@@ -441,7 +471,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
             const int ce = e - HALO;
             if (ce >= 0 && ce < R && inside) {
               store4(reg2 + (ce * W + px) * F + c, f4(ch));
-              if (MODE == kBwd2)
+              if (MODE == kBwd2 || MODE == kBwd)
                 store4(a.s0 + (pix0 + (long long)g * W + px) * F + c, f4(p));
             }
           }
@@ -465,8 +495,10 @@ __device__ __forceinline__ void train_body(const Args& a) {
                      float mh[4];
 #pragma unroll
                      for (int q = 0; q < 4; ++q)
-                       mh[q] = mul(sub(at(v, q), __ldg(mu3 + c + q)),
-                                   __ldg(i3 + c + q));
+                       mh[q] = MODE == kBwd
+                                   ? at(v, q)
+                                   : mul(sub(at(v, q), __ldg(mu3 + c + q)),
+                                         __ldg(i3 + c + q));
                      store4(reg1 + (e * WP + m % W + 1) * F + c, f4(mh));
                    }
                  });
@@ -483,8 +515,9 @@ __device__ __forceinline__ void train_body(const Args& a) {
         [&](int m, int h, int c, float4 v) {
           const int e = m / W, px = m % W, g = g0 + e;
           const bool inside = g >= 0 && g < H;
+          const bool centre = inside && e >= 1 && e <= R;  // HALO 2 modes
           float* mp = reg1 + (e * WP + px + 1) * F + c;
-          float o[4];
+          float o[4], p3[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float mh = mp[q];
@@ -493,6 +526,10 @@ __device__ __forceinline__ void train_body(const Args& a) {
             if constexpr (MODE == kBwd1) {
               if (inside) sum2(h, q, dm3, mh);
               o[q] = fmaxf(m3, 0.f);  // p3
+            } else if constexpr (MODE == kBwd) {
+              if (centre) sum2(h, q, dm3, mh);
+              p3[q] = fmaxf(m3, 0.f);
+              o[q] = inside ? mul(dm3, __ldg(g3 + c + q)) : 0.f;  // dmid
             } else {
               o[q] = inside
                          ? mul(mul(__ldg(g3 + c + q), __ldg(i3 + c + q)),
@@ -506,13 +543,16 @@ __device__ __forceinline__ void train_body(const Args& a) {
             if (inside) store4(a.s0 + so, f4(o));
           } else {
             store4(mp, f4(o));
-            if (MODE == kBwd2 && inside && e >= 1 && e <= R)
+            if ((MODE == kBwd2 || MODE == kBwd) && centre)
               store4(a.s1 + so, f4(o));
+            if (MODE == kBwd && centre) store4(a.s2 + so, f4(p3));
           }
         });
   }
   if constexpr (MODE == kBwd1 || MODE == kStatsA || MODE == kStatsB)
     flush_sums<F>(sa, sb, reg0, prow, prow + F);
+  if constexpr (MODE == kBwd)
+    flush_sums<F>(sa, sb, reg0, prow + 10 * F, prow + 11 * F);
 
   // D. dp2 = convT(dmid) over the R centre rows: dm2, then T2 or dc1.
   if constexpr (MODE >= kBwd2) {
@@ -534,6 +574,9 @@ __device__ __forceinline__ void train_body(const Args& a) {
             const float dm2 = m2 > 0.f ? at(v, q) : 0.f;
             if constexpr (MODE == kBwd2) {
               sum2(h, q, dm2, ch);
+            } else if constexpr (MODE == kBwd) {
+              sum2(h, q, dm2, ch);
+              o[q] = mul(dm2, __ldg(g2 + c + q));
             } else {
               o[q] = mul(mul(__ldg(g2 + c + q), __ldg(i2 + c + q)),
                          sub(sub(dm2, __fdiv_rn(__ldg(a.t[2] + c + q), n)),
@@ -542,11 +585,15 @@ __device__ __forceinline__ void train_body(const Args& a) {
           }
           if constexpr (MODE != kBwd2) {
             store4(cp, f4(o));  // dc1, in place of chat
-            if (MODE == kBwd3)
-              store4(a.s0 + (pix0 + (long long)g * W + px) * F + c, f4(o));
+            if (MODE == kBwd3 || MODE == kBwd)
+              store4((MODE == kBwd ? a.s3 : a.s0) +
+                         (pix0 + (long long)g * W + px) * F + c,
+                     f4(o));
           }
         });
     if constexpr (MODE == kBwd2) flush_sums<F>(sa, sb, reg0, prow, prow + F);
+    if constexpr (MODE == kBwd)
+      flush_sums<F>(sa, sb, reg0, prow + 8 * F, prow + 9 * F);
   }
 
   // E. dp1 = dc1 . W1^T, in four tiles of F channels: dm1, then T1 or dx.
@@ -565,16 +612,21 @@ __device__ __forceinline__ void train_body(const Args& a) {
             const float4 xv = load4(static_cast<const T*>(a.x) + o);
             float d[4];
             float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
-            if constexpr (MODE == kBwd4) gv = load4(a.gy + o);
+            if constexpr (MODE != kBwd3) gv = load4(a.gy + o);
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              const float xh = mul(sub(at(xv, q), __ldg(mu1 + cc + q)),
-                                   __ldg(i1 + cc + q));
+              const float xh = MODE == kBwd
+                                   ? at(xv, q)
+                                   : mul(sub(at(xv, q), __ldg(mu1 + cc + q)),
+                                         __ldg(i1 + cc + q));
               const float m1 =
                   add(mul(__ldg(g1 + cc + q), xh), __ldg(be1 + cc + q));
               const float dm1 = m1 > 0.f ? at(v, q) : 0.f;
               if constexpr (MODE == kBwd3) {
                 sum2(h, q, dm1, xh);
+              } else if constexpr (MODE == kBwd) {
+                sum2(h, q, dm1, xh);
+                d[q] = add(at(gv, q), mul(dm1, __ldg(g1 + cc + q)));
               } else {
                 d[q] = add(at(gv, q),
                            mul(mul(__ldg(g1 + cc + q), __ldg(i1 + cc + q)),
@@ -584,10 +636,10 @@ __device__ __forceinline__ void train_body(const Args& a) {
                                                      n)))));
               }
             }
-            if constexpr (MODE == kBwd4)
+            if constexpr (MODE != kBwd3)
               store4(static_cast<T*>(a.dx) + o, f4(d));
           });
-      if constexpr (MODE == kBwd3)
+      if constexpr (MODE == kBwd3 || MODE == kBwd)
         flush_sums<F>(sa, sb, reg0, prow + nt * F, prow + C4 + nt * F);
     }
   }
@@ -605,6 +657,7 @@ TR_ROW_KERNEL(bottleneck_bwd1_kernel, kBwd1)
 TR_ROW_KERNEL(bottleneck_bwd2_kernel, kBwd2)
 TR_ROW_KERNEL(bottleneck_bwd3_kernel, kBwd3)
 TR_ROW_KERNEL(bottleneck_bwd4_kernel, kBwd4)
+TR_ROW_KERNEL(bottleneck_bwd_kernel, kBwd)
 #undef TR_ROW_KERNEL
 
 template <typename T, int F, int MODE>
@@ -614,7 +667,8 @@ auto row_kernel() {
   else if constexpr (MODE == kBwd1) return bottleneck_bwd1_kernel<T, F>;
   else if constexpr (MODE == kBwd2) return bottleneck_bwd2_kernel<T, F>;
   else if constexpr (MODE == kBwd3) return bottleneck_bwd3_kernel<T, F>;
-  else return bottleneck_bwd4_kernel<T, F>;
+  else if constexpr (MODE == kBwd4) return bottleneck_bwd4_kernel<T, F>;
+  else return bottleneck_bwd_kernel<T, F>;
 }
 
 // out[k] = sum over rows, in row order, of part[row][k].
@@ -722,6 +776,8 @@ cudaError_t dispatch_mode(int mode, const Args& a, int B, int F, int device,
       return dispatch_f<T, kBwd3>(a, B, F, device, st);
     case kBwd4:
       return dispatch_f<T, kBwd4>(a, B, F, device, st);
+    case kBwd:
+      return dispatch_f<T, kBwd>(a, B, F, device, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -840,20 +896,23 @@ cudaError_t launch_wgrad(int amode, const WArgs& w, int splits, float* out,
 
 }  // namespace
 
-// p[30], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
+// p[32], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
 // g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, T2a, T2b,
-// T1a, T1b, part, out, s0, s1, dx (see Args). x, gy, dx [B,H,W,4F], s0, s1
-// [B,H,W,F]; x and dx of `dtype` (tr::DType), the rest f32; all contiguous
-// and 16-byte aligned. part holds B*H*row_len floats, row_len = 2F (modes
-// 0-3), 8F (mode 4) or 0 (mode 5); out row_len floats: [sum a (F or 4F),
-// sum b]. F is 64, 128 or 256. Returns the cudaError_t of the launches on
-// `stream` (the row kernel and, but for mode 5, the sum of its rows).
+// T1a, T1b, part, out, s0, s1, dx, s2, s3 (see Args); mode 6 takes the
+// folded s1, b1, s2, b2, s3, b3 in the places of g1, be1, g2, be2, g3, be3.
+// x, gy, dx [B,H,W,4F], s0..s3 [B,H,W,F]; x and dx of `dtype` (tr::DType),
+// the rest f32; all contiguous and 16-byte aligned. part holds B*H*row_len
+// floats, row_len = 2F (modes 0-3), 8F (mode 4), 0 (mode 5) or 12F (mode
+// 6); out row_len floats: [sum a (F or 4F), sum b], for mode 6 [db1, ds1
+// (4F each), db2, ds2, db3, ds3 (F each)], db = sum dm and ds = sum dm*v.
+// F is 64, 128 or 256. Returns the cudaError_t of the launches on `stream`
+// (the row kernel and, but for mode 5, the sum of its rows).
 extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
                                    int H, int W, int F, int dtype, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || mode < kStatsA || mode > kBwd4)
+  if (B < 1 || H < 1 || W < 1 || mode < kStatsA || mode > kBwd)
     return cudaErrorInvalidValue;
   Args a = {};
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
@@ -871,6 +930,8 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
   a.s0 = static_cast<float*>(const_cast<void*>(p[27]));
   a.s1 = static_cast<float*>(const_cast<void*>(p[28]));
   a.dx = const_cast<void*>(p[29]);
+  a.s2 = static_cast<float*>(const_cast<void*>(p[30]));
+  a.s3 = static_cast<float*>(const_cast<void*>(p[31]));
   a.H = H;
   a.W = W;
   a.n = (float)((long long)B * H * W);

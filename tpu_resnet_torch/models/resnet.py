@@ -171,7 +171,8 @@ class BuildingBlock(nn.Module):
 class FusedBuildingBlock(nn.Module):
     """A stride-1 identity :class:`BuildingBlock` run as the fused block
     kernels, weights handed over in their HWIO layout. Eval folds the
-    running statistics to scale/bias (``fb.block_fwd``); training
+    running statistics to scale/bias (``fb.block_apply``: ``block_fwd``,
+    and ``block_bwd`` when a gradient is taken); training
     normalises with the batch moments (``fb.block_train_apply``) and
     updates the running statistics from them, as the reference's
     FusedBuildingBlock does. Same parameters, same names."""
@@ -195,7 +196,7 @@ class FusedBuildingBlock(nn.Module):
             return y
         s1, b1 = self.preact.folded()
         s2, b2 = self.bnrelu1.folded()
-        return fb.block_fwd(x, w1, w2, s1, b1, s2, b2)
+        return fb.block_apply(x, w1, w2, s1, b1, s2, b2)
 
 
 class BottleneckBlock(nn.Module):
@@ -229,7 +230,8 @@ class FusedBottleneckBlock(nn.Module):
     """A stride-1 identity :class:`BottleneckBlock` run as the fused
     bottleneck kernels, the 1x1 kernels handed over as matrices (w1 [4f,f],
     w3 [f,4f]) and the 3x3 as HWIO. Eval folds the running statistics with
-    the bottleneck's own fold (``fbn.bottleneck_fwd``); training normalises
+    the bottleneck's own fold (``fbn.bottleneck_apply``: ``bottleneck_fwd``,
+    and ``bottleneck_bwd`` when a gradient is taken); training normalises
     with the batch moments (``fbn.bottleneck_train_apply``) and updates the
     three running statistics from them, as the reference's
     FusedBottleneckBlock does. Same parameters, same names."""
@@ -262,7 +264,7 @@ class FusedBottleneckBlock(nn.Module):
             folds += fbn._fold_bn(bn.weight, bn.bias, bn.running_mean,
                                   torch.rsqrt(bn.running_var
                                               + _BATCH_NORM_EPSILON))
-        return fbn.bottleneck_fwd(x, w1, w2, w3, *folds)
+        return fbn.bottleneck_apply(x, w1, w2, w3, *folds)
 
 
 @contextlib.contextmanager

@@ -47,6 +47,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_block_bwd1": [_P] * 14 + [_I] * 6 + [_P],
         "tr_block_bwd2": [_P] * 16 + [_I] * 6 + [_P],
         "tr_block_bwd3": [_P] * 17 + [_I] * 6 + [_P],
+        "tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P],
     },
     "fused_bottleneck": {"tr_bottleneck_fwd": [_P] * 11 + [_I] * 6 + [_P]},
     "fused_bottleneck_train": {

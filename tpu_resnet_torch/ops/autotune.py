@@ -118,12 +118,15 @@ SPIN_CYCLES = (2_000_000, 4_000_000_000)
 SPIN_ATTEMPTS = 3
 
 
-def _timed_us(fn: Callable, args: tuple, iters: int) -> float:
+def timed_us(fn: Callable, args: tuple, iters: int) -> Tuple[float, bool]:
     """Mean microseconds per call of ``fn(*args)`` over ``iters`` calls
-    back to back, after one warm-up call. On the card the calls queue
-    behind a device spin sized from the warm-up call's host time; a spin
-    that ended before the host had enqueued the last call (the events then
-    took in the host's gaps) is lengthened and the timing repeated."""
+    back to back, after one warm-up call, and whether the time is
+    host-paced. On the card the calls queue behind a device spin sized from
+    the warm-up call's host time; a spin that ended before the host had
+    enqueued the last call (the events then took in the host's gaps) is
+    lengthened and the timing repeated. If no attempt's spin held, the last
+    time is returned with ``True``: it is the host's pace, not the
+    device's. On the CPU the time is the host's and the flag False."""
     t0 = time.perf_counter()
     fn(*args)
     enqueue_s = time.perf_counter() - t0
@@ -131,9 +134,10 @@ def _timed_us(fn: Callable, args: tuple, iters: int) -> float:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn(*args)
-        return (time.perf_counter() - t0) * 1e6 / iters
+        return (time.perf_counter() - t0) * 1e6 / iters, False
     lo, hi = SPIN_CYCLES
     cycles = iters * enqueue_s * SPIN_CYCLES_PER_S
+    host_paced = True
     for _ in range(SPIN_ATTEMPTS):
         cycles = min(max(cycles, lo), hi)
         spin, start, end = (torch.cuda.Event(enable_timing=True)
@@ -150,13 +154,19 @@ def _timed_us(fn: Callable, args: tuple, iters: int) -> float:
         torch.cuda.synchronize()
         spin_ms = spin.elapsed_time(start)
         if enqueue_ms < spin_ms:
+            host_paced = False
             break
         cycles *= 2 * enqueue_ms / max(spin_ms, 1e-3)
-    else:
+    if host_paced:
         log.warning("autotune: %d calls took %.1f ms to enqueue, longer than "
                     "the spin (%.1f ms); timed with the host's gaps", iters,
                     enqueue_ms, spin_ms)
-    return start.elapsed_time(end) * 1e3 / iters
+    return start.elapsed_time(end) * 1e3 / iters, host_paced
+
+
+def _timed_us(fn: Callable, args: tuple, iters: int) -> float:
+    """:func:`timed_us`'s time alone (the probe's timer)."""
+    return timed_us(fn, args, iters)[0]
 
 
 def probe(op: str, key: str, kernel_fn: Callable, plain_fn: Callable,

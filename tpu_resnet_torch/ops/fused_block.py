@@ -1,5 +1,6 @@
-"""The ResNet-v2 basic block as fused kernels: the forward with folded BN,
-and the training forward and backward with live batch statistics.
+"""The ResNet-v2 basic block as fused kernels: the forward with folded BN
+and its gradient, and the training forward and backward with live batch
+statistics.
 
 Forward with folded BN (``tpu_resnet/ops/fused_block.py::_block_kernel``):
 
@@ -11,6 +12,14 @@ float32 and y stored in x's dtype. x and y are NHWC, the weights HWIO
 launches the CUDA kernel (``csrc/fused_block.cu``) for a CUDA tensor and
 raises if it cannot; for a CPU tensor it computes the plain version,
 :func:`block_fwd_reference`. ``launches`` counts the kernel launches.
+
+Its gradient (``_block_bwd_kernel``, ``csrc/fused_block_train.cu``
+``tr_block_bwd``): :func:`block_bwd` → (dx, dw1, dw2, ds1, db1, ds2, db2)
+from x, gy (float32) and the parameters, recomputing the chain; one pass,
+no batch-wide sum before dx, since folded BN has none.
+:func:`block_apply` is the differentiable folded block (the reference's
+custom-VJP ``block_apply``): forward :func:`block_fwd`, backward
+:func:`block_bwd`, saving only x and the parameters.
 
 Training (port of the reference's ``block_train_fwd`` and
 ``_train_bwd_calls``, ``csrc/fused_block_train.cu``):
@@ -30,8 +39,9 @@ Training (port of the reference's ``block_train_fwd`` and
 Each wrapper launches its kernel for CUDA tensors, computes its plain
 version (``*_reference``) for CPU tensors and raises otherwise, and counts
 its launches (``stats_launches``, ``bwd1_launches``, ``bwd2_launches``,
-``bwd3_launches``). The plain versions keep float64 inputs in float64 (the
-gradient check); every other input computes in float32.
+``bwd3_launches``, ``bwd_launches``). The plain versions keep float64
+inputs in float64 (the gradient check); every other input computes in
+float32.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ stats_launches = 0  # block_stats calls (two launches each: sums, their sum)
 bwd1_launches = 0   # block_bwd1 calls (two launches each)
 bwd2_launches = 0   # block_bwd2 calls (two launches each)
 bwd3_launches = 0   # block_bwd3 launches
+bwd_launches = 0    # block_bwd calls (two launches each)
 
 CHANNELS = (16, 32, 64)  # the kernels' compiled widths
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
@@ -110,12 +121,13 @@ def block_fwd_reference(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
 def smem_bytes(h: int, w: int, c: int, kind: str = "block_fwd") -> int:
     """Shared memory one image takes in a kernel: zero-haloed f32 planes
     with a pixel stride of C+1 words (two for block_fwd and the backward
-    passes, one for block_stats), block_bwd1 one unpadded plane more, and
-    at least the 32 KB of the channel-sum reduction."""
+    passes, one for block_stats), block_bwd1 and block_bwd one unpadded
+    plane more, and at least the 32 KB of the channel-sum reduction."""
     plane = (h + 2) * (w + 2) * (c + 1) * 4
     if kind == "block_fwd":
         return 2 * plane
-    extra = h * w * (c + 1) * 4 if kind == "block_bwd1" else 0
+    extra = (h * w * (c + 1) * 4 if kind in ("block_bwd1", "block_bwd")
+             else 0)
     return max((1 if kind == "block_stats" else 2) * plane + extra,
                2 * 512 * 8 * 4)
 
@@ -194,6 +206,83 @@ def block_fwd(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
             b1, s2, b2, y)
     launches += 1
     return y
+
+
+# ------------------------------------------------------- its gradient
+def block_bwd_reference(x, gy, w1, w2, s1, b1, s2, b2, *,
+                        magnitudes: bool = False):
+    """Plain version of :func:`block_bwd`, the reference's
+    ``_block_bwd_kernel``: (dx in x's dtype, dw1, dw2, ds1, db1, ds2, db2).
+    ``magnitudes``: each sum and weight gradient of |term| instead (the
+    scale of the card's tolerance)."""
+    f = _mag(magnitudes)
+    xf = _fp(x)
+    gyf = _fp(gy)
+    w1f, w2f = w1.to(xf.dtype), w2.to(xf.dtype)
+    a1 = xf * s1 + b1
+    r1 = torch.clamp_min(a1, 0.0)
+    c1 = _conv3x3(r1, w1f)
+    a2 = c1 * s2 + b2
+    r2 = torch.clamp_min(a2, 0.0)
+    da2 = torch.where(a2 > 0, _conv3x3_t(gyf, w2f), 0.0)
+    dc1 = da2 * s2
+    da1 = torch.where(a1 > 0, _conv3x3_t(dc1, w1f), 0.0)
+    dx = (gyf + da1 * s1).to(x.dtype)
+    return (dx, _wgrad(r1, f(dc1)), _wgrad(r2, f(gyf)),
+            (f(da1) * f(xf)).sum(_SUM_DIMS), f(da1).sum(_SUM_DIMS),
+            (f(da2) * f(c1)).sum(_SUM_DIMS), f(da2).sum(_SUM_DIMS))
+
+
+def block_bwd(x, gy, w1, w2, s1, b1, s2, b2):
+    """The gradient of :func:`block_fwd` given gy = dL/dy: (dx in x's dtype,
+    dw1, dw2 [3,3,C,C], ds1, db1, ds2, db2 [C] float32). Arguments as
+    :func:`block_fwd`; gy [B,H,W,C] is taken in float32 (exact from
+    bfloat16)."""
+    global bwd_launches
+    gy = _fp(gy).contiguous()
+    c = _check_x(x, "block_bwd")
+    _check_f32("block_bwd", x, gy=gy, w1=w1, w2=w2, s1=s1, b1=b1, s2=s2,
+               b2=b2)
+    if x.device.type == "cpu":
+        return block_bwd_reference(x, gy, w1, w2, s1, b1, s2, b2)
+    part, out = _sums_out(x, 2 * c + 18 * c * c)
+    dx = torch.empty_like(x)
+    _launch("block_bwd", "fused_block_train", "tr_block_bwd", x, x, gy, w1,
+            w2, s1, b1, s2, b2, part, out, dx)
+    bwd_launches += 1
+    k = 4 * c + 9 * c * c
+    return (dx, out[4 * c:k].view(3, 3, c, c), out[k:].view(3, 3, c, c),
+            out[:c], out[c:2 * c], out[2 * c:3 * c], out[3 * c:4 * c])
+
+
+class _BlockApply(torch.autograd.Function):
+    """The folded-BN block with the reference's custom VJP; ``plain``
+    picks the plain versions on any device (the chip smoke's oracle), else
+    the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, s1, b1, s2, b2, plain: bool):
+        ctx.save_for_backward(x, w1, w2, s1, b1, s2, b2)
+        ctx.plain = plain
+        fwd = block_fwd_reference if plain else block_fwd
+        return fwd(x, w1, w2, s1, b1, s2, b2)
+
+    @staticmethod
+    def backward(ctx, gy):
+        bwd = block_bwd_reference if ctx.plain else block_bwd
+        x, *params = ctx.saved_tensors
+        return (*bwd(x, gy, *params), None)
+
+
+def block_apply(x, w1, w2, s1, b1, s2, b2):
+    """Differentiable fused block with folded BN: :func:`block_fwd`, and
+    :func:`block_bwd` for its gradient in x and all six parameters."""
+    return _BlockApply.apply(x, w1, w2, s1, b1, s2, b2, False)
+
+
+def block_apply_reference(x, w1, w2, s1, b1, s2, b2):
+    """:func:`block_apply` through the plain versions on any device."""
+    return _BlockApply.apply(x, w1, w2, s1, b1, s2, b2, True)
 
 
 # ------------------------------------------------------- conv1's moments

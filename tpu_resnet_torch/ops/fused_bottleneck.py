@@ -1,5 +1,6 @@
 """The ResNet-v2 bottleneck block as fused kernels: the forward with folded
-BN, and the training forward and backward with live batch statistics.
+BN and its gradient, and the training forward and backward with live batch
+statistics.
 
 Forward with folded BN (``tpu_resnet/ops/fused_bottleneck.py::_fwd_kernel``):
 
@@ -11,6 +12,15 @@ float32 and y stored in x's dtype. x and y are NHWC [B,H,W,4f]; the 1x1
 kernels are matrices, W1 [4f,f] and W3 [f,4f], the 3x3 is HWIO [3,3,f,f], all
 float32; the folded BN scale/bias pairs are float32 [4f], [f], [f].
 :func:`bottleneck_fwd` launches ``csrc/fused_bottleneck.cu``.
+
+Its gradient (``_bwd_kernel``; mode 6 of ``csrc/fused_bottleneck_train.cu``
+``tr_bottleneck_train``, then ``tr_bottleneck_wgrad``):
+:func:`bottleneck_bwd` → (dx, dw1, dw2, dw3, ds1, db1, ds2, db2, ds3, db3)
+from x, gy (float32) and the parameters, in one row pass (folded BN has no
+batch-wide sum before dx) and the three weight-gradient products.
+:func:`bottleneck_apply` is the differentiable folded bottleneck (the
+reference's custom-VJP ``bottleneck_apply``), saving only x and the
+parameters.
 
 Training (port of the reference's ``bottleneck_train_fwd`` and
 ``_train_bwd_calls``, ``csrc/fused_bottleneck_train.cu``):
@@ -31,8 +41,9 @@ Training (port of the reference's ``bottleneck_train_fwd`` and
 Each wrapper launches its kernel for CUDA tensors, computes its plain version
 (``*_reference``) for CPU tensors and raises otherwise, and counts its
 launches (``launches``, ``stats_a_launches``, ``stats_b_launches``,
-``bwd1_launches`` .. ``bwd4_launches``). The plain versions keep float64
-inputs in float64 (the gradient check); every other input computes in
+``bwd1_launches`` .. ``bwd4_launches``, ``bwd_launches``). The plain
+versions keep float64 inputs in float64 (the gradient check); every other
+input computes in
 float32.
 """
 
@@ -55,6 +66,7 @@ bwd1_launches = 0     # bottleneck_bwd1 calls (four launches each)
 bwd2_launches = 0     # bottleneck_bwd2 calls (four launches each)
 bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
 bwd4_launches = 0     # bottleneck_bwd4 launches
+bwd_launches = 0      # bottleneck_bwd calls (eight launches each)
 
 WIDTHS = (64, 128, 256)  # the kernel's compiled bottleneck widths f
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
@@ -261,7 +273,7 @@ def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t):
 
 # ------------------------------------------------------- training: kernels
 _PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS, "part",
-         "out", "s0", "s1", "dx")   # tr_bottleneck_train's pointer order
+         "out", "s0", "s1", "dx", "s2", "s3")  # tr_bottleneck_train's order
 _WGRAD_BLOCKS = 528   # blocks a weight-gradient launch aims at (4 per SM)
 
 
@@ -583,3 +595,105 @@ def bottleneck_train_apply_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
     y, *moments = _BottleneckTrain.apply(x, w1, w2, w3, g1, be1, g2, be2, g3,
                                          be3, eps, True)
     return y, tuple(moments)
+
+
+# ------------------------------------------------------- folded: gradient
+def bottleneck_bwd_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *,
+                             magnitudes: bool = False):
+    """Plain version of :func:`bottleneck_bwd`, the reference's
+    ``_bwd_kernel``: (dx in x's dtype, dw1 [4f,f], dw2 [3,3,f,f], dw3 [f,4f],
+    ds1, db1, ds2, db2, ds3, db3). ``magnitudes``: each sum and weight
+    gradient of |term| instead."""
+    f = _mag(magnitudes)
+    xf = _fp(x)
+    gyf = _fp(gy)
+    w1f, w2f, w3f = (w.to(xf.dtype) for w in (w1, w2, w3))
+    m1 = xf * s1 + b1
+    p1 = torch.clamp_min(m1, 0.0)
+    c1 = torch.einsum("bhwc,cf->bhwf", p1, w1f)
+    m2 = c1 * s2 + b2
+    p2 = torch.clamp_min(m2, 0.0)
+    mid = _conv3x3(p2, w2f)
+    m3 = mid * s3 + b3
+    p3 = torch.clamp_min(m3, 0.0)
+    dm3 = torch.where(m3 > 0, torch.einsum("bhwc,fc->bhwf", gyf, w3f), 0.0)
+    dmid = dm3 * s3
+    dm2 = torch.where(m2 > 0, _conv3x3_t(dmid, w2f), 0.0)
+    dc1 = dm2 * s2
+    dm1 = torch.where(m1 > 0, torch.einsum("bhwf,cf->bhwc", dc1, w1f), 0.0)
+    dx = (gyf + dm1 * s1).to(x.dtype)
+    return (dx, torch.einsum("bhwc,bhwf->cf", p1, f(dc1)),
+            _wgrad(p2, f(dmid)), torch.einsum("bhwf,bhwc->fc", p3, f(gyf)),
+            *[t for dm, v in ((dm1, xf), (dm2, c1), (dm3, mid))
+              for t in ((f(dm) * f(v)).sum(_SUM_DIMS), f(dm).sum(_SUM_DIMS))])
+
+
+def bottleneck_bwd(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+    """The gradient of :func:`bottleneck_fwd` given gy = dL/dy: (dx in x's
+    dtype, dw1 [4f,f], dw2 [3,3,f,f], dw3 [f,4f], ds1, db1 [4f], ds2, db2,
+    ds3, db3 [f], float32). Arguments as :func:`bottleneck_fwd`; gy is taken
+    in float32 (exact from bfloat16)."""
+    global bwd_launches
+    kind = "bottleneck_bwd"
+    gy = _fp(gy).contiguous()
+    args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    _check(*args)
+    if tuple(gy.shape) != tuple(x.shape) or gy.device != x.device:
+        raise ValueError(f"{kind}: gy must be {list(x.shape)} on {x.device}, "
+                         f"got {list(gy.shape)} on {gy.device}")
+    if x.device.type == "cpu":
+        return bottleneck_bwd_reference(x, gy, *args[1:])
+    if x.device.type != "cuda":
+        raise ValueError(f"{kind} runs on cpu or cuda, not {x.device}")
+    f = x.shape[-1] // 4
+    if f not in WIDTHS:
+        raise ValueError(f"{kind} has kernels for f in {WIDTHS}, got {f}")
+    p2, dmid, p3, dc1 = (_scratch(x) for _ in range(4))
+    dx = torch.empty_like(x)
+    # The folded vectors in the places of the live modes' gammas and betas.
+    out = _rows(kind, 6, 12 * f, x, gy=gy, s0=p2, s1=dmid, s2=p3, s3=dc1,
+                dx=dx, g1=s1, be1=b1, g2=s2, be2=b2, g3=s3, be3=b3,
+                **_bwd_tensors(w1, w2, w3, (), ()))
+    dw3 = _weight_grad(kind, 0, p3, gy, f, 4 * f, x, 1)
+    dw2 = _weight_grad(kind, 1, p2, dmid, f, f, x, 9)
+    # p1 = relu(g*((x - 0)*1) + be) with (g, be) = (s1, b1): relu(x*s1 + b1)
+    # bit for bit.
+    dw1 = _weight_grad(kind, 2, x, dc1, 4 * f, f, x, 1,
+                       (s1, b1, torch.zeros_like(s1), torch.ones_like(s1)))
+    bwd_launches += 1
+    return (dx, dw1.view(4 * f, f), dw2.view(3, 3, f, f), dw3.view(f, 4 * f),
+            out[4 * f:8 * f], out[:4 * f], out[9 * f:10 * f],
+            out[8 * f:9 * f], out[11 * f:], out[10 * f:11 * f])
+
+
+class _BottleneckApply(torch.autograd.Function):
+    """The folded-BN bottleneck with the reference's custom VJP; ``plain``
+    picks the plain versions on any device (the chip smoke's oracle), else
+    the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, plain: bool):
+        ctx.save_for_backward(x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+        ctx.plain = plain
+        fwd = bottleneck_fwd_reference if plain else bottleneck_fwd
+        return fwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+
+    @staticmethod
+    def backward(ctx, gy):
+        bwd = bottleneck_bwd_reference if ctx.plain else bottleneck_bwd
+        x, *params = ctx.saved_tensors
+        return (*bwd(x, gy, *params), None)
+
+
+def bottleneck_apply(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+    """Differentiable fused bottleneck with folded BN: :func:`bottleneck_fwd`,
+    and :func:`bottleneck_bwd` for its gradient in x and all nine
+    parameters."""
+    return _BottleneckApply.apply(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
+                                  False)
+
+
+def bottleneck_apply_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+    """:func:`bottleneck_apply` through the plain versions on any device."""
+    return _BottleneckApply.apply(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
+                                  True)
