@@ -28,7 +28,11 @@ Phases, each printing one JSON line:
    bottleneck's training kernels (``bottleneck_stats_a``,
    ``bottleneck_stats_b``, ``bottleneck_bwd1`` .. ``bottleneck_bwd4``) at
    the three ImageNet ResNet-50 stage shapes with B=128, dx within
-   ``bottleneck_fwd``'s tolerance; ``sbr``, ``sbr_bwd``, ``bottleneck_fwd``
+   ``bottleneck_fwd``'s tolerance, the handed-over dmid and dc1 held like
+   the sums (``bottleneck_bwd3`` fed the plain pass 2's dmid,
+   ``bottleneck_bwd4`` the plain pass 3's dc1; both also carry
+   ``tc_bound_ms``, their operations at the TF32 tensor cores' rate over
+   the three terms of the split); ``sbr``, ``sbr_bwd``, ``bottleneck_fwd``
    and the cross-entropy pair also at the ImageNet train path's shapes.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
@@ -169,6 +173,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# The three-term TF32 split (csrc/mma_tf32x3.cuh) issues three tensor-core
+# products per float32 product: 495 TFLOP/s of TF32 over three.
+TF32X3_FLOP_PER_S = 495e12 / 3
 BATCH = 16
 TRAIN_BATCH = 128
 
@@ -346,9 +353,11 @@ def time_ms(fn, queued: bool, reps: int = 20, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(kind: str, shape, dtype) -> tuple:
+def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
+          ) -> tuple:
     """(least ms the card could take, what bounds it): each input read
-    once, each output written once, operations at the float32 rate."""
+    once, each output written once, operations at ``flop_per_s`` (the
+    float32 rate unless given)."""
     item = torch.tensor([], dtype=dtype).element_size()
     if kind in ("xent_fwd", "xent_bwd"):
         b, c = shape
@@ -358,7 +367,7 @@ def bound(kind: str, shape, dtype) -> tuple:
         else:                    # logits, labels, g in; dx out
             moved = 2 * b * c * 4 + 2 * b * 4
             ops = 8 * b * c           # max, sub, exp, add; sub, exp, div..
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / flop_per_s
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
     b, h, w, c = shape
@@ -393,20 +402,23 @@ def bound(kind: str, shape, dtype) -> tuple:
         f = c // 4
         ff = f * f
         # flops per pixel; floats of weights (w1 4f², w2 9f², w3 4f²), of
-        # BN vectors and correction sums in, and of sums and weight
-        # gradients out; x (and gy, float32) in, dx out.
-        flops, weights, vecs, sums = {
-            "bottleneck_stats_a": (8 * ff, 4 * ff, 4 * c, 2 * f),
-            "bottleneck_stats_b": (26 * ff, 13 * ff, 4 * c + 4 * f, 2 * f),
+        # BN vectors and correction sums in, and of sums, weight gradients
+        # and handed-over tensors out; x in, then gy (float32) or the
+        # float32 [B,H,W,f] tensor handed over (dmid for bwd3, dc1 and gy
+        # for bwd4: n bytes is f floats a pixel), and dx out. bwd3: c1 8f²,
+        # convT 18f², dc1·W1ᵀ 8f², dw1 8f²; bwd4: dc1·W1ᵀ.
+        flops, weights, vecs, sums, moved_f32 = {
+            "bottleneck_stats_a": (8 * ff, 4 * ff, 4 * c, 2 * f, 0),
+            "bottleneck_stats_b": (26 * ff, 13 * ff, 4 * c + 4 * f, 2 * f,
+                                   0),
             "bottleneck_bwd1": (42 * ff, 17 * ff, 4 * c + 8 * f,
-                                2 * f + 4 * ff),
+                                2 * f + 4 * ff, 4 * n),
             "bottleneck_bwd2": (70 * ff, 17 * ff, 4 * c + 10 * f,
-                                2 * f + 9 * ff),
-            "bottleneck_bwd3": (68 * ff, 17 * ff, 4 * c + 12 * f,
-                                2 * c + 4 * ff),
-            "bottleneck_bwd4": (60 * ff, 17 * ff, 6 * c + 12 * f, 0)}[kind]
-        moved = (n * item + (0 if "stats" in kind else 4 * n)
-                 + (weights + vecs + sums) * 4
+                                2 * f + 9 * ff, 4 * n + n),
+            "bottleneck_bwd3": (42 * ff, 13 * ff, 4 * c + 6 * f,
+                                2 * c + 4 * ff, 2 * n),
+            "bottleneck_bwd4": (8 * ff, 4 * ff, 6 * c, 0, 4 * n + n)}[kind]
+        moved = (n * item + moved_f32 + (weights + vecs + sums) * 4
                  + (n * item if kind == "bottleneck_bwd4" else 0))
         ops = flops * b * h * w
     elif kind == "block_bwd":
@@ -429,9 +441,13 @@ def bound(kind: str, shape, dtype) -> tuple:
         # 1x1 reduce, 3x3, 1x1 expand; three scale-bias-ReLUs; residual add
         ops = 2 * b * h * w * (2 * c * f + 9 * f * f) + b * h * w * (
             3 * (c + 2 * f) + c)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# The kernels whose products run on the tensor cores (three-term TF32).
+TENSOR_CORE_KERNELS = ("bottleneck_bwd3", "bottleneck_bwd4")
 
 
 def kernel_args(kind: str, shape, dtype, gen) -> tuple:
@@ -468,6 +484,9 @@ def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 20,
                                      inner=inner)
     row["bound_ms"], row["bound_by"] = bound(kind, shape, dtype)
     row["bound_us"] = row["bound_ms"] * 1e3
+    if kind in TENSOR_CORE_KERNELS:
+        row["tc_bound_ms"], row["tc_bound_by"] = bound(
+            kind, shape, dtype, TF32X3_FLOP_PER_S)
     return row
 
 
@@ -713,10 +732,12 @@ def bottleneck_train_kernel_phase(fbn):
     """The fused bottleneck's six training kernels against their plain
     versions at the three ImageNet B=128 stage shapes, bfloat16 and
     float32, on the dyadic grid of :func:`bottleneck_train_args`: every sum
-    within 1e-5 * sum|terms| + 1e-6, dx within ``bottleneck_fwd``'s
-    tolerance, two calls bit for bit equal. The oracle's convolutions run
-    with cuDNN off. Fewer timing repetitions: each call takes
-    milliseconds."""
+    and each handed-over tensor (dmid, dc1) within 1e-5 * sum|terms| +
+    1e-6, dx within ``bottleneck_fwd``'s tolerance, two calls bit for bit
+    equal. ``bottleneck_bwd3`` takes the plain pass 2's dmid and
+    ``bottleneck_bwd4`` the plain pass 3's dc1, so each kernel is checked
+    on its own. The oracle's convolutions run with cuDNN off. Fewer timing
+    repetitions: each call takes milliseconds."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for shape, per_step in SHAPES["imagenet_fused_train"]["bottleneck_fwd"]:
@@ -725,29 +746,31 @@ def bottleneck_train_kernel_phase(fbn):
             x, gy, w1, w2, w3, *vecs = base
             with torch.backends.cudnn.flags(enabled=False):
                 t3 = fbn.train_bwd_pass1_reference(*base)[:2]
-                t2 = fbn.train_bwd_pass2_reference(*base, *t3)[:2]
-                t1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2)[:2]
+                *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
+                *t1, _, dc1 = fbn.train_bwd_pass3_reference(
+                    *base, *t3, *t2, dmid=dmid)
             calls = {
-                "bottleneck_stats_a": ((x, w1, *vecs[:4]),
+                "bottleneck_stats_a": ((x, w1, *vecs[:4]), {},
                                        fbn.bottleneck_stats_a,
                                        fbn.bottleneck_stats_a_reference),
-                "bottleneck_stats_b": ((x, w1, w2, *vecs[:8]),
+                "bottleneck_stats_b": ((x, w1, w2, *vecs[:8]), {},
                                        fbn.bottleneck_stats_b,
                                        fbn.bottleneck_stats_b_reference),
-                "bottleneck_bwd1": (base, fbn.bottleneck_bwd1,
+                "bottleneck_bwd1": (base, {}, fbn.bottleneck_bwd1,
                                     fbn.train_bwd_pass1_reference),
-                "bottleneck_bwd2": ((*base, *t3), fbn.bottleneck_bwd2,
+                "bottleneck_bwd2": ((*base, *t3), {}, fbn.bottleneck_bwd2,
                                     fbn.train_bwd_pass2_reference),
-                "bottleneck_bwd3": ((*base, *t3, *t2), fbn.bottleneck_bwd3,
+                "bottleneck_bwd3": ((*base, *t3, *t2), {"dmid": dmid},
+                                    fbn.bottleneck_bwd3,
                                     fbn.train_bwd_pass3_reference),
-                "bottleneck_bwd4": ((*base, *t3, *t2, *t1),
+                "bottleneck_bwd4": ((*base, *t3, *t2, *t1), {"dc1": dc1},
                                     fbn.bottleneck_bwd4,
                                     fbn.train_bwd_pass4_reference)}
-            for kind, (args, kernel, plain) in calls.items():
-                got, again = kernel(*args), kernel(*args)
+            for kind, (args, kw, kernel, plain) in calls.items():
+                got, again = kernel(*args, **kw), kernel(*args, **kw)
                 with torch.backends.cudnn.flags(enabled=False):
-                    want = plain(*args)
-                    scale = (plain(*args, magnitudes=True)
+                    want = plain(*args, **kw)
+                    scale = (plain(*args, **kw, magnitudes=True)
                              if kind != "bottleneck_bwd4" else None)
                 torch.cuda.synchronize()
                 name = f"{kind} {shape} {dtype}"
@@ -774,9 +797,11 @@ def bottleneck_train_kernel_phase(fbn):
                     row["tolerance"] = "sums <= 1e-5*sum|terms| + 1e-6"
                 row["err_over_limit"] = excess
                 check(excess <= 1, f"{name}: beyond tolerance: {row}")
-                rows.append(_timed(row, lambda: kernel(*args),
-                                   lambda: plain(*args), kind, shape, dtype,
-                                   reps=5, inner=2))
+                rows.append(_timed(row, lambda: kernel(*args, **kw),
+                                   lambda: plain(*args, **kw), kind, shape,
+                                   dtype, reps=5, inner=2))
+            del base, x, gy, args, kw, calls, dmid, dc1, got, again, want
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1771,9 +1796,9 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/fused_bottleneck.py:644"),
     ("bottleneck_bwd2", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
      "tpu_resnet/ops/fused_bottleneck.py:678"),
-    ("bottleneck_bwd3", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_bwd3", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:729"),
-    ("bottleneck_bwd4", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_bwd4", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:754"),
     ("sbr_add", "tpu_resnet_torch/csrc/epilogue.cu",
      "tpu_resnet/ops/epilogue.py:116"),
@@ -1797,6 +1822,9 @@ def path_times(rows) -> dict:
                                 ("call_ms", "call_ms"),
                                 ("plain_call_ms", "call_plain_ms"),
                                 ("bound_ms", "bound_ms"))},
+            **({"tc_bound_ms": sum(r["tc_bound_ms"] * r["per_pass"]
+                                   for r in on_path)}
+               if "tc_bound_ms" in on_path[0] else {}),
             "bound_by": on_path[0]["bound_by"],
             # One F.cross_entropy call computes xent_fwd. No single PyTorch
             # call computes the others: relu of an affine is two calls at

@@ -115,13 +115,14 @@ def test_train_bwd_passes_match_reference(passes):
             be3, m3, i3)
     sums = [t(ref[k]) for k in ("t3a", "t3b", "t2a", "t2b", "t1a", "t1b")]
     outs = {1: fbn.bottleneck_bwd1(*base),
-            2: fbn.bottleneck_bwd2(*base, *sums[:2]),
-            3: fbn.bottleneck_bwd3(*base, *sums[:4])}
+            2: fbn.bottleneck_bwd2(*base, *sums[:2])}
+    # Each pass takes what the one before it handed over.
+    outs[3] = fbn.bottleneck_bwd3(*base, *sums[:4], dmid=outs[2][3])
     for k, names in ((1, ("t3a", "t3b", "dw3")), (2, ("t2a", "t2b", "dw2")),
                      (3, ("t1a", "t1b", "dw1"))):
         for name, got in zip(names, outs[k]):
             _close(got, ref[name], f"pass {k} {name}", atol=1e-4, rtol=1e-4)
-    dx = fbn.bottleneck_bwd4(*base, *sums)
+    dx = fbn.bottleneck_bwd4(*base, *sums, dc1=outs[3][3])
     assert dx.dtype == torch.float32
     _close(dx, ref["dx"], "pass 4 dx", atol=1e-4, rtol=1e-4)
 

@@ -392,39 +392,42 @@ def _bottleneck_train_inputs(shape, dtype, gen):
                                    (2, 14, 14, 1024), (1, 9, 5, 256)])
 def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
     """The two moment passes and the four backward passes at the three
-    ResNet-50 stage shapes and a ragged one; each called twice."""
+    ResNet-50 stage shapes and a ragged one; each called twice. Passes 3
+    and 4 take the plain pass 2's dmid and pass 3's dc1, which are held
+    like the sums where a pass returns them."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     x, gy, w1, w2, w3, vecs = _bottleneck_train_inputs(shape, dtype, gen)
     base = (x, gy, w1, w2, w3, *vecs)
     with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
         t3 = fbn.train_bwd_pass1_reference(*base)[:2]
-        t2 = fbn.train_bwd_pass2_reference(*base, *t3)[:2]
-        t1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2)[:2]
-    cases = (("stats_a_launches", (x, w1, *vecs[:4]), fbn.bottleneck_stats_a,
-              fbn.bottleneck_stats_a_reference),
-             ("stats_b_launches", (x, w1, w2, *vecs[:8]),
+        *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
+        *t1, _, dc1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2,
+                                                    dmid=dmid)
+    cases = (("stats_a_launches", (x, w1, *vecs[:4]), {},
+              fbn.bottleneck_stats_a, fbn.bottleneck_stats_a_reference),
+             ("stats_b_launches", (x, w1, w2, *vecs[:8]), {},
               fbn.bottleneck_stats_b, fbn.bottleneck_stats_b_reference),
-             ("bwd1_launches", base, fbn.bottleneck_bwd1,
+             ("bwd1_launches", base, {}, fbn.bottleneck_bwd1,
               fbn.train_bwd_pass1_reference),
-             ("bwd2_launches", (*base, *t3), fbn.bottleneck_bwd2,
+             ("bwd2_launches", (*base, *t3), {}, fbn.bottleneck_bwd2,
               fbn.train_bwd_pass2_reference),
-             ("bwd3_launches", (*base, *t3, *t2), fbn.bottleneck_bwd3,
-              fbn.train_bwd_pass3_reference))
-    for counter, args, kernel, plain in cases:
+             ("bwd3_launches", (*base, *t3, *t2), {"dmid": dmid},
+              fbn.bottleneck_bwd3, fbn.train_bwd_pass3_reference))
+    for counter, args, kw, kernel, plain in cases:
         before = getattr(fbn, counter)
-        got, again = kernel(*args), kernel(*args)
+        got, again = kernel(*args, **kw), kernel(*args, **kw)
         with torch.backends.cudnn.flags(enabled=False):
-            want = plain(*args)
-            scale = plain(*args, magnitudes=True)
+            want = plain(*args, **kw)
+            scale = plain(*args, **kw, magnitudes=True)
         torch.cuda.synchronize()
         assert getattr(fbn, counter) == before + 2, counter
         _sums_close(got, want, scale)
         assert all(torch.equal(p, q) for p, q in zip(got, again)), counter
     before = fbn.bwd4_launches
     args = (*base, *t3, *t2, *t1)
-    dx, again = fbn.bottleneck_bwd4(*args), fbn.bottleneck_bwd4(*args)
+    dx, again = (fbn.bottleneck_bwd4(*args, dc1=dc1) for _ in range(2))
     with torch.backends.cudnn.flags(enabled=False):
-        want = fbn.train_bwd_pass4_reference(*args)
+        want = fbn.train_bwd_pass4_reference(*args, dc1=dc1)
     torch.cuda.synchronize()
     assert fbn.bwd4_launches == before + 2 and dx.dtype == dtype
     assert torch.equal(dx, again)
@@ -443,9 +446,19 @@ def test_bottleneck_train_wrappers_reject_bad_input(cuda):
         fbn.bottleneck_bwd1(x, gy, w1, w2, w3[:, :8], *vecs)
     with pytest.raises(ValueError, match="t3a must be float32"):
         fbn.bottleneck_bwd2(x, gy, w1, w2, w3, *vecs, vecs[0], vecs[4])
+    dc1 = torch.zeros(2, 8, 8, 64, device="cuda")
     with pytest.raises(ValueError, match="gy must be float32"):
         fbn.bottleneck_bwd4(x, gy.to(torch.bfloat16), w1, w2, w3, *vecs,
-                            *vecs[4:8], *vecs[:2])
+                            *vecs[4:8], *vecs[:2], dc1=dc1)
+    with pytest.raises(ValueError, match="dc1 must be float32"):
+        fbn.bottleneck_bwd4(x, gy, w1, w2, w3, *vecs, *vecs[4:8], *vecs[:2],
+                            dc1=dc1[..., :32])
+    with pytest.raises(ValueError, match="dmid must be float32"):
+        fbn.bottleneck_bwd3(x, gy, w1, w2, w3, *vecs, *vecs[4:8],
+                            dmid=dc1.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fbn.bottleneck_bwd3(x, gy, w1, w2, w3, *vecs, *vecs[4:8],
+                            dmid=dc1.permute(0, 2, 1, 3))
     with pytest.raises(ValueError, match="kernels for f"):
         fbn.bottleneck_stats_a(torch.zeros(2, 8, 8, 128, device="cuda"),
                                torch.zeros(128, 32, device="cuda"),

@@ -1,0 +1,594 @@
+// Fused ResNet-v2 bottleneck with live batch-norm statistics: backward passes
+// 3 and 4, on the tensor cores. Stride 1, identity shortcut, 3x3 SAME; x is
+// NHWC [B,H,W,4F] (f32 or bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32
+// HWIO [3,3,F,F], BN vectors f32 ([4F] for BN1, [F] for BN2), and the
+// tensors the pass before hands over, dmid and dc1, f32 [B,H,W,F].
+//
+// Replaces, in tpu_resnet/ops/fused_bottleneck.py (_train_bwd_calls, which
+// every stride-1 identity bottleneck of width 64, 128 or 256 runs in
+// training when model.fused_blocks=true: 10 blocks of ImageNet ResNet-50):
+//   mode 0 bwd3  pass3 (:729): T1a = sum dm1, T1b = sum dm1*x1hat, and dc1
+//                for dw1 = sum p1^T dc1 (tr_bottleneck_wgrad, in
+//                fused_bottleneck_train.cu, computes dw1);
+//   mode 1 bwd4  pass4 (:754): dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n)).
+// The reference recomputes the chain from x in every pass, with a halo of
+// two rows: its VMEM keeps nothing between calls. On this card each pass
+// reads what the pass before it wrote: pass 3 takes pass 2's dmid, pass 4
+// takes pass 3's dc1. Per pixel (i = 1/sigma, as the reference's
+// _chain_train):
+//   bwd3  x1hat = (x-mu1)*i1, p1 = relu(g1*x1hat + be1), c1 = p1 . W1,
+//         chat = (c1-mu2)*i2, m2 = g2*chat + be2; dp2 = convT(dmid, w2), the
+//         sum over the 9 taps of dmid shifted by the tap times w2t[tap] (w2
+//         flipped in space, in/out swapped); dm2 = dp2*[m2>0], dc1 =
+//         g2*i2*(dm2 - T2a/n - chat*(T2b/n)), stored; dp1 = dc1 . W1^T, m1 =
+//         g1*x1hat + be1, dm1 = dp1*[m1>0], and the two sums.
+//   bwd4  dp1 = dc1 . W1^T, dm1 as in bwd3, dx in x's dtype.
+// Every elementwise formula rounds as written (__fmul_rn, __fadd_rn,
+// __fsub_rn, __fdiv_rn, no FMA contraction), as the plain PyTorch version
+// does, so a mask [m > 0] agrees with the plain version's wherever the
+// products do.
+//
+// Bound: per pixel bwd3 does 34F^2 flops (c1 8F^2, convT 18F^2, dp1 8F^2;
+// dw1's 8F^2 is the weight-gradient kernel's) and bwd4 8F^2, against 4F
+// items of x plus 8F bytes (bwd3) or 4F items of x in and out plus 20F
+// bytes (bwd4): operations for bwd3; for bwd4 bytes at F=64 and operations
+// above.
+//
+// Design. Tiles of 64 consecutive pixels of the [B*H*W] pixel matrix,
+// whatever W, so a 14-pixel image row leaves no tile half empty; as many
+// blocks as the card holds at once, each walking the tiles with a fixed
+// stride. Each product runs on mma.sync m16n8k8 in TF32 with the three-term
+// split (mma_tf32x3.cuh), 256 threads, 2x4 warps, a warp owning 32 pixels x
+// F/4 channels; each k-step's three products start from zero and join the
+// running f32 sum rounding to nearest (the tensor cores' own accumulation
+// truncates, and over K = 9F that bias broke the sums' tolerance). K streams through a ring of three shared buffers by
+// cp.async, 16 bytes a thread, A and the weight chunk alike (the weights
+// come from L2; they need no region of their own): for c1 the tile's x
+// (BN1 and ReLU applied as the fragments are read), for convT the tap's
+// shifted dmid rows straight from device memory (zero fill outside the
+// image: no halo is recomputed; at 14^2 the whole dmid plane fits in the
+// 50 MB L2), for dp1 the tile's dc1, which stays in shared memory ([64][F],
+// where chat was) and is read in place. bwd4 loads the tile's dc1 there and
+// runs the dp1 product alone.
+//
+// Sums without atomics: each block adds its tiles' channel sums in tile
+// order (a warp's rows by shuffles in a fixed pattern, then the two warps of
+// a column in order), writes one row, and bottleneck_sum_kernel adds the
+// rows in block order. Two calls agree bit for bit.
+
+#include <algorithm>
+
+#include "mma_tf32x3.cuh"
+#include "row_sums.cuh"
+#include "tile_fma.cuh"
+
+namespace {
+
+using namespace tr;
+
+enum Mode : int { kBwd3 = 0, kBwd4 = 1 };
+
+constexpr int kTC = 256;    // threads per block
+constexpr int kBM = 64;     // pixels per tile
+constexpr int kBK = 32;     // K per staged chunk
+constexpr int kStages = 3;  // the cp.async ring
+constexpr int kWarpsN = 4;  // warps across channels; 2 across pixels
+constexpr int kMT = 2;      // 16-pixel mma tiles per warp: 32 pixels
+
+// Shared memory, in bytes: the ring (each stage an A chunk [64][32 + pad]
+// and a weight chunk [32][F + 8] f32), chat then dc1 [64][F + 4] f32, BN1's
+// vectors [4F] float4 (g1, be1, mu1, i1), then for bwd3 the block's sums
+// [8F] f32 and for bwd4 [4F] float4 (g1*i1, T1a/n, T1b/n). The pads keep
+// the fragment reads free of bank conflicts.
+template <int F>
+struct Plan {
+  static constexpr int WN = F / kWarpsN;  // channels per warp
+  static constexpr int NT = WN / 8;       // 8-channel mma tiles per warp
+  static constexpr int BS = F + 8;        // weight chunk row stride, floats
+  static constexpr int CS = F + 4;        // chat / dc1 row stride, floats
+  static constexpr int A_BYTES = kBM * (kBK + 4) * 4;
+  static constexpr int STAGE = A_BYTES + kBK * BS * 4;
+  static constexpr int C_OFF = kStages * STAGE;
+  static constexpr int E0_OFF = C_OFF + kBM * CS * 4;
+  static constexpr int X_OFF = E0_OFF + 4 * F * 16;
+  static constexpr int SMEM_BWD3 = X_OFF + 8 * F * 4;
+  static constexpr int SMEM_BWD4 = X_OFF + 4 * F * 16;
+  static_assert(SMEM_BWD3 <= kMaxSmem && SMEM_BWD4 <= kMaxSmem, "smem");
+  static_assert(F % kBK == 0 && NT >= 1, "tile");
+};
+
+struct TcArgs {
+  const void* x;      // [P][4F]
+  const float* gy;    // [P][4F] (bwd4)
+  const float* w1;    // [4F][F]
+  const float* w2t;   // [9F][F] (bwd3)
+  const float* w1t;   // [F][4F]
+  const float *g1, *be1, *mu1, *i1;  // [4F]
+  const float *g2, *be2, *mu2, *i2;  // [F] (bwd3)
+  const float *t2a, *t2b;            // [F] (bwd3)
+  const float *t1a, *t1b;            // [4F] (bwd4)
+  const float* dmid;  // [P][F] (bwd3)
+  float* dc1;         // [P][F]: bwd3 writes it, bwd4 reads it
+  void* dx;           // [P][4F] (bwd4)
+  float* part;        // [gridDim.x][8F] (bwd3)
+  int P, H, W;
+  float n;  // B*H*W
+};
+
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+// relu(g*((v-mu)*i) + be), p = (g, be, mu, i): BN1 and its ReLU.
+__device__ __forceinline__ float bn_relu(float v, float4 p) {
+  return fmaxf(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y), 0.f);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// acc += A . Bm over `chunks` chunks of kBK: issue(c, stage) starts the
+// thread's cp.async copies of chunk c into a ring stage, frag(stage, c, kk,
+// mi, big, small) gives the split A fragment of mma tile mi at k-step kk;
+// the weight chunk sits after the stage's A chunk. Leaves the ring idle
+// (every copy landed, every thread past its last read).
+template <int F, class Issue, class Frag>
+__device__ __forceinline__ void tc_gemm(float (&acc)[kMT][Plan<F>::NT][4],
+                                        int chunks, unsigned char* ring,
+                                        Issue issue, Frag frag) {
+  using PL = Plan<F>;
+  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) % kWarpsN;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < PL::NT; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) issue(s, ring + s * PL::STAGE);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();  // chunk c's copies (this thread's)
+    __syncthreads();               // everyone's; stage c-1 is free again
+    const int next = c + kStages - 1;
+    if (next < chunks) issue(next, ring + (next % kStages) * PL::STAGE);
+    cp_async_commit();
+    const unsigned char* st = ring + (c % kStages) * PL::STAGE;
+    const float* bs = reinterpret_cast<const float*>(st + PL::A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t a_big[kMT][4], a_small[kMT][4];
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+        frag(st, c, kk, mi, a_big[mi], a_small[mi]);
+#pragma unroll
+      for (int ni = 0; ni < PL::NT; ++ni) {
+        const int col = wn * PL::WN + ni * 8 + g;
+        const Split b0 = split(bs[(kk + t) * PL::BS + col]);
+        const Split b1 = split(bs[(kk + t + 4) * PL::BS + col]);
+        const uint32_t b_big[2] = {b0.big, b1.big};
+        const uint32_t b_small[2] = {b0.small, b1.small};
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+          // One k-step's three products from zero, added rounding to
+          // nearest (see the design note).
+          float step[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_x3(step, a_big[mi], a_small[mi], b_big, b_small);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[mi][ni][q] = __fadd_rn(acc[mi][ni][q], step[q]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+template <typename T, int F, int MODE>
+__device__ __forceinline__ void tc_body(const TcArgs& a) {
+  using PL = Plan<F>;
+  constexpr int C4 = 4 * F;
+  constexpr int NT = PL::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* cbuf = reinterpret_cast<float*>(smem + PL::C_OFF);
+  float4* e0 = reinterpret_cast<float4*>(smem + PL::E0_OFF);
+  float* sums = reinterpret_cast<float*>(smem + PL::X_OFF);  // bwd3
+  float4* e1 = reinterpret_cast<float4*>(smem + PL::X_OFF);  // bwd4
+  float* red = reinterpret_cast<float*>(smem);  // the idle ring, [2][2][F]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int g = lane >> 2, t = lane & 3;
+  const float n = a.n;
+  const T* xg = static_cast<const T*>(a.x);
+
+  for (int c = tid; c < C4; c += kTC) {
+    e0[c] = make_float4(a.g1[c], a.be1[c], a.mu1[c], a.i1[c]);
+    if constexpr (MODE == kBwd4) {
+      e1[c] = make_float4(mul(a.g1[c], a.i1[c]), __fdiv_rn(a.t1a[c], n),
+                          __fdiv_rn(a.t1b[c], n), 0.f);
+    } else {
+      sums[c] = 0.f;
+      sums[C4 + c] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // The thread's share of a weight chunk: kBK rows of F floats from a
+  // row-major matrix with row stride ld.
+  auto issue_w = [&](unsigned char* st, const float* src, int ld) {
+    float* bs = reinterpret_cast<float*>(st + PL::A_BYTES);
+    constexpr int SEGS = F / 4;
+#pragma unroll
+    for (int q = 0; q < kBK * SEGS / kTC; ++q) {
+      const int idx = tid + q * kTC, k = idx / SEGS, s = idx % SEGS;
+      cp_async16(bs + k * PL::BS + s * 4, src + (long long)k * ld + s * 4,
+                 true);
+    }
+  };
+  // A fragments from f32 rows of stride rs: rows r, r+8 at columns k, k+4.
+  auto frag_rows = [&](const float* base, int rs, int k, int mi,
+                       uint32_t(&big)[4], uint32_t(&small)[4]) {
+    const int r = wm * 32 + mi * 16 + g;
+    const float v[4] = {base[r * rs + k], base[(r + 8) * rs + k],
+                        base[r * rs + k + 4], base[(r + 8) * rs + k + 4]};
+    split4(v, big, small);
+  };
+
+  float acc[kMT][NT][4];
+  const int tiles = (a.P + kBM - 1) / kBM;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long p0 = (long long)tile * kBM;
+    if constexpr (MODE == kBwd3) {
+      // c1 = p1 . W1; the A chunks are raw x, BN1 and ReLU applied as the
+      // fragments are read.
+      constexpr int ARS = kBK + 16 / (int)sizeof(T);  // A row stride, items
+      constexpr int ASEG = kBK * (int)sizeof(T) / 16;  // 16 B per row chunk
+      tc_gemm<F>(
+          acc, C4 / kBK, ring,
+          [&](int c, unsigned char* st) {
+            T* as = reinterpret_cast<T*>(st);
+#pragma unroll
+            for (int q = 0; q < kBM * ASEG / kTC; ++q) {
+              const int idx = tid + q * kTC, r = idx / ASEG, s = idx % ASEG;
+              const long long p = p0 + r;
+              const bool ok = p < a.P;
+              cp_async16(as + r * ARS + s * (16 / (int)sizeof(T)),
+                         xg + (ok ? p : 0) * C4 + c * kBK +
+                             s * (16 / (int)sizeof(T)),
+                         ok);
+            }
+            issue_w(st, a.w1 + (long long)c * kBK * F, F);
+          },
+          [&](const unsigned char* st, int c, int kk, int mi,
+              uint32_t(&big)[4], uint32_t(&small)[4]) {
+            const T* as = reinterpret_cast<const T*>(st);
+            const int r = wm * 32 + mi * 16 + g, k = kk + t;
+            const float4 pa = e0[c * kBK + k], pb = e0[c * kBK + k + 4];
+            const float v[4] = {bn_relu(to_f32(as[r * ARS + k]), pa),
+                                bn_relu(to_f32(as[(r + 8) * ARS + k]), pa),
+                                bn_relu(to_f32(as[r * ARS + k + 4]), pb),
+                                bn_relu(to_f32(as[(r + 8) * ARS + k + 4]), pb)};
+            split4(v, big, small);
+          });
+      // chat into the tile's buffer.
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int col = wn * PL::WN + ni * 8 + 2 * t;
+          const float2 mu = load2(a.mu2 + col), iv = load2(a.i2 + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* cp = cbuf + (wm * 32 + mi * 16 + g + 8 * h) * PL::CS + col;
+            cp[0] = mul(sub(acc[mi][ni][2 * h], mu.x), iv.x);
+            cp[1] = mul(sub(acc[mi][ni][2 * h + 1], mu.y), iv.y);
+          }
+        }
+
+      // dp2 = convT(dmid): per chunk one tap's shifted rows of dmid.
+      int rb[2], ry[2], rx[2];  // the thread's two A rows: image, y, x
+      bool rv[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const long long p = p0 + ((tid + q * kTC) >> 3);
+        rv[q] = p < a.P;
+        const long long hw = (long long)a.H * a.W;
+        const int rem = (int)(p % hw);
+        rb[q] = (int)(p / hw);
+        ry[q] = rem / a.W;
+        rx[q] = rem % a.W;
+      }
+      tc_gemm<F>(
+          acc, 9 * F / kBK, ring,
+          [&](int c, unsigned char* st) {
+            float* as = reinterpret_cast<float*>(st);
+            const int k0 = c * kBK, tap = k0 / F, ci0 = k0 % F;
+            const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int idx = tid + q * kTC, r = idx >> 3, s = idx & 7;
+              const int y = ry[q] + dy, xx = rx[q] + dx;
+              const bool ok =
+                  rv[q] && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+              const long long pix =
+                  ok ? ((long long)rb[q] * a.H + y) * a.W + xx : 0;
+              cp_async16(as + r * (kBK + 4) + s * 4,
+                         a.dmid + pix * F + ci0 + s * 4, ok);
+            }
+            issue_w(st, a.w2t + (long long)k0 * F, F);
+          },
+          [&](const unsigned char* st, int, int kk, int mi, uint32_t(&big)[4],
+              uint32_t(&small)[4]) {
+            frag_rows(reinterpret_cast<const float*>(st), kBK + 4, kk + t, mi,
+                      big, small);
+          });
+      // dm2, then dc1 in place of chat, and to device memory.
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int col = wn * PL::WN + ni * 8 + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = wm * 32 + mi * 16 + g + 8 * h;
+            const long long p = p0 + row;
+            float* cp = cbuf + row * PL::CS + col;
+            float d[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int cc = col + j;
+              const float g2 = __ldg(a.g2 + cc), ch = cp[j];
+              const float m2 = add(mul(g2, ch), __ldg(a.be2 + cc));
+              const float dm2 = m2 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
+              d[j] = p < a.P
+                         ? mul(mul(g2, __ldg(a.i2 + cc)),
+                               sub(sub(dm2, __fdiv_rn(__ldg(a.t2a + cc), n)),
+                                   mul(ch, __fdiv_rn(__ldg(a.t2b + cc), n))))
+                         : 0.f;
+              cp[j] = d[j];
+            }
+            if (p < a.P) store2(a.dc1 + p * F + col, d[0], d[1]);
+          }
+        }
+    } else {
+      // The tile's dc1, from pass 3.
+      constexpr int SEGS = F / 4;
+#pragma unroll
+      for (int q = 0; q < kBM * SEGS / kTC; ++q) {
+        const int idx = tid + q * kTC, r = idx / SEGS, s = idx % SEGS;
+        const long long p = p0 + r;
+        const bool ok = p < a.P;
+        cp_async16(cbuf + r * PL::CS + s * 4, a.dc1 + (ok ? p : 0) * F + s * 4,
+                   ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    // dp1 = dc1 . W1^T in four rounds of F output channels: dm1, then the
+    // sums (bwd3) or dx (bwd4).
+    for (int n0 = 0; n0 < C4; n0 += F) {
+      tc_gemm<F>(
+          acc, F / kBK, ring,
+          [&](int c, unsigned char* st) {
+            issue_w(st, a.w1t + (long long)c * kBK * C4 + n0, C4);
+          },
+          [&](const unsigned char*, int c, int kk, int mi, uint32_t(&big)[4],
+              uint32_t(&small)[4]) {
+            frag_rows(cbuf, PL::CS, c * kBK + kk + t, mi, big, small);
+          });
+      float sa[NT][2], sb[NT][2];
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        sa[ni][0] = sa[ni][1] = sb[ni][0] = sb[ni][1] = 0.f;
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long p = p0 + wm * 32 + mi * 16 + g + 8 * h;
+          const bool ok = p < a.P;
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) {
+            const int cc = n0 + wn * PL::WN + ni * 8 + 2 * t;
+            const float2 xv =
+                ok ? load2(xg + p * C4 + cc) : make_float2(0.f, 0.f);
+            float d[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float4 pr = e0[cc + j];
+              const float xh = mul(sub(j ? xv.y : xv.x, pr.z), pr.w);
+              const float m1 = add(mul(pr.x, xh), pr.y);
+              const float dm1 =
+                  ok && m1 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
+              if constexpr (MODE == kBwd3) {
+                sa[ni][j] += dm1;
+                sb[ni][j] = fmaf(dm1, xh, sb[ni][j]);
+              } else {
+                const float4 q1 = e1[cc + j];
+                d[j] = mul(q1.x, sub(sub(dm1, q1.y), mul(xh, q1.z)));
+              }
+            }
+            if constexpr (MODE == kBwd4) {
+              if (ok) {
+                const float2 gv = load2(a.gy + p * C4 + cc);
+                store2(static_cast<T*>(a.dx) + p * C4 + cc, add(gv.x, d[0]),
+                       add(gv.y, d[1]));
+              }
+            }
+          }
+        }
+      if constexpr (MODE == kBwd3) {
+        // The warp's 32 rows by shuffles (lanes of one t hold one column
+        // pair), then the two warps of a column in order.
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float u = sa[ni][j], v = sb[ni][j];
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {
+              u += __shfl_xor_sync(0xffffffffu, u, o);
+              v += __shfl_xor_sync(0xffffffffu, v, o);
+            }
+            if (g == 0) {
+              const int col = wn * PL::WN + ni * 8 + 2 * t + j;
+              red[(wm * 2) * F + col] = u;
+              red[(wm * 2 + 1) * F + col] = v;
+            }
+          }
+        __syncthreads();
+        for (int k = tid; k < 2 * F; k += kTC) {
+          const int which = k / F, col = k % F;
+          sums[which * C4 + n0 + col] +=
+              red[which * F + col] + red[(2 + which) * F + col];
+        }
+        __syncthreads();  // red lives in the ring the next product fills
+      }
+    }
+  }
+  if constexpr (MODE == kBwd3) {
+    for (int k = tid; k < 2 * C4; k += kTC)
+      a.part[(long long)blockIdx.x * 2 * C4 + k] = sums[k];
+  }
+}
+
+// One entry point per pass, so that a profile names it.
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC) bottleneck_bwd3_kernel(const TcArgs a) {
+  tc_body<T, F, kBwd3>(a);
+}
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC) bottleneck_bwd4_kernel(const TcArgs a) {
+  tc_body<T, F, kBwd4>(a);
+}
+
+template <typename T, int F, int MODE>
+cudaError_t launch(const TcArgs& a, float* out, int part_rows, int device,
+                   cudaStream_t st) {
+  auto kernel = MODE == kBwd3 ? bottleneck_bwd3_kernel<T, F>
+                              : bottleneck_bwd4_kernel<T, F>;
+  const int smem = MODE == kBwd3 ? Plan<F>::SMEM_BWD3 : Plan<F>::SMEM_BWD4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTC,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // As many blocks as run at once (and as part has rows for), each walking
+  // the tiles; the sums' order depends only on the shapes and the card.
+  const long long tiles = (a.P + kBM - 1) / kBM;
+  const int blocks = (int)std::min<long long>(
+      {tiles, (long long)per_sm * sms,
+       MODE == kBwd3 ? (long long)part_rows : tiles});
+  kernel<<<blocks, kTC, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || MODE == kBwd4) return err;
+  return sum_rows(a.part, out, blocks, 8 * F, st);
+}
+
+template <typename T, int MODE>
+cudaError_t dispatch_f(const TcArgs& a, float* out, int part_rows, int F,
+                       int device, cudaStream_t st) {
+  switch (F) {
+    case 64:
+      return launch<T, 64, MODE>(a, out, part_rows, device, st);
+    case 128:
+      return launch<T, 128, MODE>(a, out, part_rows, device, st);
+    case 256:
+      return launch<T, 256, MODE>(a, out, part_rows, device, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_mode(int mode, const TcArgs& a, float* out,
+                          int part_rows, int F, int device, cudaStream_t st) {
+  return mode == kBwd3
+             ? dispatch_f<T, kBwd3>(a, out, part_rows, F, device, st)
+             : dispatch_f<T, kBwd4>(a, out, part_rows, F, device, st);
+}
+
+}  // namespace
+
+// p[22], null where a mode does not read it: x, gy, w1, w2t, w1t, g1, be1,
+// mu1, i1, g2, be2, mu2, i2, T2a, T2b, T1a, T1b, dmid, dc1, dx, part, out
+// (see TcArgs). x, gy, dx [B,H,W,4F], dmid, dc1 [B,H,W,F]; x and dx of
+// `dtype` (tr::DType), the rest f32; all contiguous and 16-byte aligned.
+// Mode 0 (bwd3) reads dmid and writes dc1 and out = [T1a, T1b] (8F floats),
+// through part (part_rows*8F floats; the kernel runs at most part_rows
+// blocks); mode 1 (bwd4) reads dc1 and writes dx (part_rows unread). F is 64, 128 or 256.
+// Returns the cudaError_t of the launches on `stream` (the kernel and, for
+// mode 0, the sum of its rows).
+extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
+                                int W, int F, int part_rows, int dtype,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B < 1 || H < 1 || W < 1 || (mode != kBwd3 && mode != kBwd4) ||
+      (mode == kBwd3 && part_rows < 1))
+    return cudaErrorInvalidValue;
+  const auto f = [](const void* q) { return static_cast<const float*>(q); };
+  TcArgs a = {};
+  a.x = p[0];
+  a.gy = f(p[1]);
+  a.w1 = f(p[2]);
+  a.w2t = f(p[3]);
+  a.w1t = f(p[4]);
+  a.g1 = f(p[5]);
+  a.be1 = f(p[6]);
+  a.mu1 = f(p[7]);
+  a.i1 = f(p[8]);
+  a.g2 = f(p[9]);
+  a.be2 = f(p[10]);
+  a.mu2 = f(p[11]);
+  a.i2 = f(p[12]);
+  a.t2a = f(p[13]);
+  a.t2b = f(p[14]);
+  a.t1a = f(p[15]);
+  a.t1b = f(p[16]);
+  a.dmid = f(p[17]);
+  a.dc1 = static_cast<float*>(const_cast<void*>(p[18]));
+  a.dx = const_cast<void*>(p[19]);
+  a.part = static_cast<float*>(const_cast<void*>(p[20]));
+  float* out = static_cast<float*>(const_cast<void*>(p[21]));
+  a.P = B * H * W;
+  a.H = H;
+  a.W = W;
+  a.n = (float)((long long)B * H * W);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case tr::kFloat32:
+      return dispatch_mode<float>(mode, a, out, part_rows, F, device, st);
+    case tr::kBFloat16:
+      return dispatch_mode<__nv_bfloat16>(mode, a, out, part_rows, F, device,
+                                          st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}

@@ -1,9 +1,11 @@
 // Fused ResNet-v2 bottleneck: with live batch-norm statistics, the two moment
-// passes of the training forward and the four backward passes; with folded
-// (frozen) batch norm, the one backward pass. Stride 1,
-// identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or bf16), gy f32 of
-// x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32 [F,4F], BN vectors
-// f32 ([4F] for BN1, [F] for BN2 and BN3). All arithmetic is f32.
+// passes of the training forward and the first two backward passes (passes 3
+// and 4 live in fused_bottleneck_tc.cu, and take dw1 from this file's
+// weight-gradient kernel); with folded (frozen) batch norm, the one backward
+// pass. Stride 1, identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or
+// bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
+// [F,4F], BN vectors f32 ([4F] for BN1, [F] for BN2 and BN3). All
+// arithmetic is f32.
 //
 // Replaces, in tpu_resnet/ops/fused_bottleneck.py (bottleneck_train_apply,
 // which every stride-1 identity bottleneck of width 64, 128 or 256 runs in
@@ -13,10 +15,7 @@
 //   mode 2 bwd1     _train_bwd_calls pass1: T3a = sum dm3, T3b = sum dm3*mhat,
 //                   and p3 for dw3 = sum p3^T gy;
 //   mode 3 bwd2     pass2: T2a = sum dm2, T2b = sum dm2*chat, and p2, dmid for
-//                   dw2 = sum p2-patch^T dmid;
-//   mode 4 bwd3     pass3: T1a = sum dm1, T1b = sum dm1*x1hat, and dc1 for
-//                   dw1 = sum p1^T dc1;
-//   mode 5 bwd4     pass4: dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n)).
+//                   dw2 = sum p2-patch^T dmid (dmid is handed on to pass 3);
 // and (bottleneck_apply, the folded-BN bottleneck under a gradient: the
 // eval-mode model differentiated, tools/fused_bottleneck_ab.py's fwd_bwd arm):
 //   mode 6 bwd      _bwd_kernel: dx, the six BN sums and the operands p3, p2,
@@ -29,12 +28,12 @@
 //   image), mid = conv3x3(p2, w2), mhat = (mid-mu3)*i3, m3 = g3*mhat + be3,
 //   p3 = relu(m3);
 // and the backward: dm3 = (gy . W3^T)*[m3>0], dmid = g3*i3*(dm3 - T3a/n -
-// mhat*(T3b/n)) (0 outside the image), dm2 = convT(dmid, w2)*[m2>0], dc1 =
-// g2*i2*(dm2 - T2a/n - chat*(T2b/n)), dm1 = (dc1 . W1^T)*[m1>0]. Mode 6 runs
-// the same chain on the folded affines, as the reference's _chain_fwd and
-// _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2 + b2, m3 = mid*s3 + b3, and with
-// no correction terms dmid = dm3*s3, dc1 = dm2*s2, dx = gy + dm1*s1; its
-// sums are db = sum dm and ds = sum dm*v, v the BN's input (x, c1, mid).
+// mhat*(T3b/n)) (0 outside the image), dm2 = convT(dmid, w2)*[m2>0]. Mode 6
+// runs the same chain on to dm1 = (dc1 . W1^T)*[m1>0] on the folded affines,
+// as the reference's _chain_fwd and _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2
+// + b2, m3 = mid*s3 + b3, and with no correction terms dmid = dm3*s3, dc1 =
+// dm2*s2, dx = gy + dm1*s1; its sums are db = sum dm and ds = sum dm*v, v
+// the BN's input (x, c1, mid).
 // The kernel reads s, b where the live modes read g, be; where they hold a
 // normalised value (chat, mhat, x1hat) it holds the raw one. Every
 // elementwise formula rounds as written (__fmul_rn, __fadd_rn, no FMA
@@ -44,8 +43,8 @@
 //
 // Bound: arithmetic. Per centre pixel, c1 is 8F^2 flops, mid 18F^2, gy . W3^T
 // 8F^2, convT 18F^2, dc1 . W1^T 8F^2 and each weight gradient 8F^2 (dw1,
-// dw3) or 18F^2 (dw2): 8, 26, 42, 70, 68 and 60 F^2 for the six, and 94F^2
-// for mode 6 with its three weight gradients, against
+// dw3) or 18F^2 (dw2): 8, 26, 42 and 70 F^2 for the four live modes, and
+// 94F^2 for mode 6 with its three weight gradients, against
 // ~2*4F elements moved, on f32 FMAs (67 TFLOP/s on an H100). H*W*F^2 is the
 // same at every ResNet-50 stage, so each pass has one bound per launch at
 // all three stages (0.20 to 1.72 ms at B=128).
@@ -54,19 +53,19 @@
 // rows), as bottleneck_fwd (csrc/fused_bottleneck.cu), with its register-
 // tiled products (tile_fma.cuh). The band recomputes the chain on its rows
 // and a halo: none for stats_a, one row for stats_b and bwd1 (the 3x3 needs
-// p2 at +-1), two for bwd2-4 and mode 6 (convT needs dmid at +-1, hence mid
-// at +-1 and
-// p2 at +-2); halo rows are recomputed by both neighbours, as the TPU kernel
-// does. Phases, each a product into registers with an elementwise epilogue:
+// p2 at +-1), two for bwd2 and mode 6 (convT needs dmid at +-1, hence mid at
+// +-1 and p2 at +-2); halo rows are recomputed by both neighbours, as the
+// TPU kernel does. Phases, each a product into registers with an
+// elementwise epilogue:
 //   A  c1 over the E = R + 2*halo rows: p2 into shared memory (zero rows
 //      outside the image, zero side columns), chat of the centre rows;
 //   B  mid = conv3x3(p2) over E-2 rows: mhat into shared memory (or, for
 //      stats_b, the sums);
 //   C  gy . W3^T over the same rows: dm3, then dmid in place of mhat (zeroed
 //      outside the image, where the correction terms are not zero);
-//   D  dp2 = convT(dmid) over the R centre rows: dm2, then dc1 in place of
-//      chat;
-//   E  dc1 . W1^T in four tiles of F output channels: dm1, then T1 or dx.
+//   D  dp2 = convT(dmid) over the R centre rows: dm2 and T2, or (mode 6)
+//      dc1 in place of chat;
+//   E  (mode 6) dc1 . W1^T in four tiles of F output channels: dm1, dx.
 // Mode 6 runs all five phases: C gives dmid and the BN3 sums on the centre
 // rows, D dc1 and the BN2 sums, E dx and the BN1 sums.
 // Neither intermediate is written to device memory except the one operand
@@ -88,15 +87,19 @@
 //
 // Sums without atomics: the row kernel writes one row of channel sums per
 // block, the weight-gradient kernel one partial product per chunk, and
-// bottleneck_sum_kernel adds them in block order. Inside a block each channel sum adds
-// the thread's pixels in order, then the threads in order. Two calls agree
+// bottleneck_sum_kernel (row_sums.cuh) adds them in block order. Inside a
+// block each channel sum adds the thread's pixels in order, then the threads
+// in order. Two calls agree
 // bit for bit.
 //
 // Known limit, the first thing to make fast: every product runs on f32 FMAs;
 // the recomputed halo costs up to 5x the centre rows' c1 at F=256 (R=1).
+// fused_bottleneck_tc.cu shows the way out: tensor cores, and a pass that
+// reads what the pass before it wrote.
 
 #include <algorithm>
 
+#include "row_sums.cuh"
 #include "tile_fma.cuh"
 
 namespace {
@@ -108,8 +111,6 @@ enum Mode : int {
   kStatsB = 1,
   kBwd1 = 2,
   kBwd2 = 3,
-  kBwd3 = 4,
-  kBwd4 = 5,
   kBwd = 6  // the frozen-BN backward
 };
 enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2 };
@@ -123,13 +124,12 @@ struct Args {
   const float* w3t;   // [4F,F]: W3 transposed
   const float* w1t;   // [F,4F]: W1 transposed
   const float* v[12];  // g1 be1 mu1 i1 ([4F]) g2 be2 mu2 i2 g3 be3 mu3 i3
-  const float* t[6];   // T3a T3b T2a T2b T1a T1b
+  const float* t[2];   // T3a T3b (bwd2)
   float* part;        // [blocks][row_len] channel sums
   float* out;         // [row_len] their sum
-  float* s0;          // [B,H,W,F] scratch: p3 (bwd1), p2 (bwd2, bwd),
-                      // dc1 (bwd3)
-  float* s1;          // [B,H,W,F] scratch: dmid (bwd2, bwd)
-  void* dx;           // [B,H,W,4F] (bwd4, bwd)
+  float* s0;          // [B,H,W,F] scratch: p3 (bwd1), p2 (bwd2, bwd)
+  float* s1;          // [B,H,W,F]: dmid (bwd2, bwd)
+  void* dx;           // [B,H,W,4F] (bwd)
   float* s2;          // [B,H,W,F] scratch: p3 (bwd)
   float* s3;          // [B,H,W,F] scratch: dc1 (bwd)
   int H, W, R, bands;
@@ -140,10 +140,7 @@ __host__ __device__ constexpr int halo(int mode) {
   return mode == kStatsA ? 0 : mode <= kBwd1 ? 1 : 2;
 }
 __host__ __device__ constexpr int row_len(int mode, int F) {
-  return mode == kBwd    ? 12 * F
-         : mode == kBwd4 ? 0
-         : mode == kBwd3 ? 8 * F
-                         : 2 * F;
+  return mode == kBwd ? 12 * F : 2 * F;
 }
 
 // Shared memory, in floats: region 0 holds p2 [E][W+2][F], later the staged
@@ -574,21 +571,14 @@ __device__ __forceinline__ void train_body(const Args& a) {
             const float dm2 = m2 > 0.f ? at(v, q) : 0.f;
             if constexpr (MODE == kBwd2) {
               sum2(h, q, dm2, ch);
-            } else if constexpr (MODE == kBwd) {
+            } else {
               sum2(h, q, dm2, ch);
               o[q] = mul(dm2, __ldg(g2 + c + q));
-            } else {
-              o[q] = mul(mul(__ldg(g2 + c + q), __ldg(i2 + c + q)),
-                         sub(sub(dm2, __fdiv_rn(__ldg(a.t[2] + c + q), n)),
-                             mul(ch, __fdiv_rn(__ldg(a.t[3] + c + q), n))));
             }
           }
-          if constexpr (MODE != kBwd2) {
+          if constexpr (MODE == kBwd) {
             store4(cp, f4(o));  // dc1, in place of chat
-            if (MODE == kBwd3 || MODE == kBwd)
-              store4((MODE == kBwd ? a.s3 : a.s0) +
-                         (pix0 + (long long)g * W + px) * F + c,
-                     f4(o));
+            store4(a.s3 + (pix0 + (long long)g * W + px) * F + c, f4(o));
           }
         });
     if constexpr (MODE == kBwd2) flush_sums<F>(sa, sb, reg0, prow, prow + F);
@@ -596,8 +586,8 @@ __device__ __forceinline__ void train_body(const Args& a) {
       flush_sums<F>(sa, sb, reg0, prow + 8 * F, prow + 9 * F);
   }
 
-  // E. dp1 = dc1 . W1^T, in four tiles of F channels: dm1, then T1 or dx.
-  if constexpr (MODE >= kBwd3) {
+  // E. dp1 = dc1 . W1^T, in four tiles of F channels: dm1, then dx.
+  if constexpr (MODE == kBwd) {
     const float n = a.n;
     for (int nt = 0; nt < 4; ++nt) {
       __syncthreads();
@@ -610,37 +600,20 @@ __device__ __forceinline__ void train_body(const Args& a) {
                                 nt * F + c;
             const int cc = nt * F + c;
             const float4 xv = load4(static_cast<const T*>(a.x) + o);
+            const float4 gv = load4(a.gy + o);
             float d[4];
-            float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
-            if constexpr (MODE != kBwd3) gv = load4(a.gy + o);
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              const float xh = MODE == kBwd
-                                   ? at(xv, q)
-                                   : mul(sub(at(xv, q), __ldg(mu1 + cc + q)),
-                                         __ldg(i1 + cc + q));
+              const float xh = at(xv, q);
               const float m1 =
                   add(mul(__ldg(g1 + cc + q), xh), __ldg(be1 + cc + q));
               const float dm1 = m1 > 0.f ? at(v, q) : 0.f;
-              if constexpr (MODE == kBwd3) {
-                sum2(h, q, dm1, xh);
-              } else if constexpr (MODE == kBwd) {
-                sum2(h, q, dm1, xh);
-                d[q] = add(at(gv, q), mul(dm1, __ldg(g1 + cc + q)));
-              } else {
-                d[q] = add(at(gv, q),
-                           mul(mul(__ldg(g1 + cc + q), __ldg(i1 + cc + q)),
-                               sub(sub(dm1,
-                                       __fdiv_rn(__ldg(a.t[4] + cc + q), n)),
-                                   mul(xh, __fdiv_rn(__ldg(a.t[5] + cc + q),
-                                                     n)))));
-              }
+              sum2(h, q, dm1, xh);
+              d[q] = add(at(gv, q), mul(dm1, __ldg(g1 + cc + q)));
             }
-            if constexpr (MODE != kBwd3)
-              store4(static_cast<T*>(a.dx) + o, f4(d));
+            store4(static_cast<T*>(a.dx) + o, f4(d));
           });
-      if constexpr (MODE == kBwd3 || MODE == kBwd)
-        flush_sums<F>(sa, sb, reg0, prow + nt * F, prow + C4 + nt * F);
+      flush_sums<F>(sa, sb, reg0, prow + nt * F, prow + C4 + nt * F);
     }
   }
 }
@@ -655,8 +628,6 @@ TR_ROW_KERNEL(bottleneck_stats_a_kernel, kStatsA)
 TR_ROW_KERNEL(bottleneck_stats_b_kernel, kStatsB)
 TR_ROW_KERNEL(bottleneck_bwd1_kernel, kBwd1)
 TR_ROW_KERNEL(bottleneck_bwd2_kernel, kBwd2)
-TR_ROW_KERNEL(bottleneck_bwd3_kernel, kBwd3)
-TR_ROW_KERNEL(bottleneck_bwd4_kernel, kBwd4)
 TR_ROW_KERNEL(bottleneck_bwd_kernel, kBwd)
 #undef TR_ROW_KERNEL
 
@@ -666,27 +637,7 @@ auto row_kernel() {
   else if constexpr (MODE == kStatsB) return bottleneck_stats_b_kernel<T, F>;
   else if constexpr (MODE == kBwd1) return bottleneck_bwd1_kernel<T, F>;
   else if constexpr (MODE == kBwd2) return bottleneck_bwd2_kernel<T, F>;
-  else if constexpr (MODE == kBwd3) return bottleneck_bwd3_kernel<T, F>;
-  else if constexpr (MODE == kBwd4) return bottleneck_bwd4_kernel<T, F>;
   else return bottleneck_bwd_kernel<T, F>;
-}
-
-// out[k] = sum over rows, in row order, of part[row][k].
-__global__ void bottleneck_sum_kernel(const float* __restrict__ part,
-                           float* __restrict__ out, int rows, long long L) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= L) return;
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += part[(long long)r * L + k];
-  out[k] = s;
-}
-
-cudaError_t sum_rows(const float* part, float* out, int rows, long long L,
-                     cudaStream_t st) {
-  if (L == 0) return cudaSuccess;
-  bottleneck_sum_kernel<<<(unsigned)((L + 255) / 256), 256, 0, st>>>(
-      part, out, rows, L);
-  return cudaGetLastError();
 }
 
 // Chunks (BM pixels x kKC x F) a block of band R multiplies through.
@@ -700,7 +651,7 @@ long long block_work(int mode, int R, int W) {
   if (mode >= kStatsB) w += tiles(E - 2) * 9 * F / kKC;
   if (mode >= kBwd1) w += tiles(E - 2) * 4 * F / kKC;
   if (mode >= kBwd2) w += tiles(R) * 9 * F / kKC;
-  if (mode >= kBwd3) w += 4 * tiles(R) * F / kKC;
+  if (mode == kBwd) w += 4 * tiles(R) * F / kKC;
   return w;
 }
 
@@ -772,10 +723,6 @@ cudaError_t dispatch_mode(int mode, const Args& a, int B, int F, int device,
       return dispatch_f<T, kBwd1>(a, B, F, device, st);
     case kBwd2:
       return dispatch_f<T, kBwd2>(a, B, F, device, st);
-    case kBwd3:
-      return dispatch_f<T, kBwd3>(a, B, F, device, st);
-    case kBwd4:
-      return dispatch_f<T, kBwd4>(a, B, F, device, st);
     case kBwd:
       return dispatch_f<T, kBwd>(a, B, F, device, st);
     default:
@@ -896,17 +843,17 @@ cudaError_t launch_wgrad(int amode, const WArgs& w, int splits, float* out,
 
 }  // namespace
 
-// p[32], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
-// g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, T2a, T2b,
-// T1a, T1b, part, out, s0, s1, dx, s2, s3 (see Args); mode 6 takes the
-// folded s1, b1, s2, b2, s3, b3 in the places of g1, be1, g2, be2, g3, be3.
+// p[28], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
+// g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, part,
+// out, s0, s1, dx, s2, s3 (see Args); mode 6 takes the folded s1, b1, s2,
+// b2, s3, b3 in the places of g1, be1, g2, be2, g3, be3.
 // x, gy, dx [B,H,W,4F], s0..s3 [B,H,W,F]; x and dx of `dtype` (tr::DType),
 // the rest f32; all contiguous and 16-byte aligned. part holds B*H*row_len
-// floats, row_len = 2F (modes 0-3), 8F (mode 4), 0 (mode 5) or 12F (mode
-// 6); out row_len floats: [sum a (F or 4F), sum b], for mode 6 [db1, ds1
-// (4F each), db2, ds2, db3, ds3 (F each)], db = sum dm and ds = sum dm*v.
-// F is 64, 128 or 256. Returns the cudaError_t of the launches on `stream`
-// (the row kernel and, but for mode 5, the sum of its rows).
+// floats, row_len = 2F (modes 0-3) or 12F (mode 6); out row_len floats:
+// [sum a, sum b (F each)], for mode 6 [db1, ds1 (4F each), db2, ds2, db3,
+// ds3 (F each)], db = sum dm and ds = sum dm*v. F is 64, 128 or 256.
+// Returns the cudaError_t of the launches on `stream` (the row kernel and
+// the sum of its rows).
 extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
                                    int H, int W, int F, int dtype, int device,
                                    void* stream) {
@@ -924,14 +871,14 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
   a.w3t = f(p[5]);
   a.w1t = f(p[6]);
   for (int i = 0; i < 12; ++i) a.v[i] = f(p[7 + i]);
-  for (int i = 0; i < 6; ++i) a.t[i] = f(p[19 + i]);
-  a.part = static_cast<float*>(const_cast<void*>(p[25]));
-  a.out = static_cast<float*>(const_cast<void*>(p[26]));
-  a.s0 = static_cast<float*>(const_cast<void*>(p[27]));
-  a.s1 = static_cast<float*>(const_cast<void*>(p[28]));
-  a.dx = const_cast<void*>(p[29]);
-  a.s2 = static_cast<float*>(const_cast<void*>(p[30]));
-  a.s3 = static_cast<float*>(const_cast<void*>(p[31]));
+  for (int i = 0; i < 2; ++i) a.t[i] = f(p[19 + i]);
+  a.part = static_cast<float*>(const_cast<void*>(p[21]));
+  a.out = static_cast<float*>(const_cast<void*>(p[22]));
+  a.s0 = static_cast<float*>(const_cast<void*>(p[23]));
+  a.s1 = static_cast<float*>(const_cast<void*>(p[24]));
+  a.dx = const_cast<void*>(p[25]);
+  a.s2 = static_cast<float*>(const_cast<void*>(p[26]));
+  a.s3 = static_cast<float*>(const_cast<void*>(p[27]));
   a.H = H;
   a.W = W;
   a.n = (float)((long long)B * H * W);

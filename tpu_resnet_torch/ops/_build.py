@@ -54,6 +54,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_bottleneck_train": [_I, _P] + [_I] * 6 + [_P],
         "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P],
     },
+    "fused_bottleneck_tc": {"tr_bottleneck_tc": [_I, _P] + [_I] * 7 + [_P]},
     "softmax_xent": {
         "tr_xent_fwd": [_P, _P, _P, _I, _I, _I, _P],
         "tr_xent_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -23,7 +23,8 @@ reference's custom-VJP ``bottleneck_apply``), saving only x and the
 parameters.
 
 Training (port of the reference's ``bottleneck_train_fwd`` and
-``_train_bwd_calls``, ``csrc/fused_bottleneck_train.cu``):
+``_train_bwd_calls``, ``csrc/fused_bottleneck_train.cu`` and, for backward
+passes 3 and 4, ``csrc/fused_bottleneck_tc.cu``):
 
 - :func:`bottleneck_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance); :func:`bottleneck_stats_a` gives the sums of
@@ -33,8 +34,11 @@ Training (port of the reference's ``bottleneck_train_fwd`` and
   with the three folds. Returns ``(y, (m1, v1, m2, v2, m3, v3))``.
 - the backward, four passes from x, gy (float32) and the saved moments:
   :func:`bottleneck_bwd1` → (T3a, T3b, dw3), :func:`bottleneck_bwd2` → (T2a,
-  T2b, dw2), :func:`bottleneck_bwd3` → (T1a, T1b, dw1), :func:`bottleneck_bwd4`
-  → dx; dγ_i = T_i b, dβ_i = T_i a.
+  T2b, dw2, dmid), :func:`bottleneck_bwd3` (``dmid=``) → (T1a, T1b, dw1,
+  dc1), :func:`bottleneck_bwd4` (``dc1=``) → dx; dγ_i = T_i b, dβ_i = T_i a.
+  Each pass reads what the pass before it wrote, where the reference
+  recomputes the chain from x: pass 3 takes pass 2's dmid, pass 4 pass 3's
+  dc1 ([B,H,W,f] float32 each).
 - :func:`bottleneck_train_apply` is differentiable in x, the three weights
   and the six BN parameters; the moments it returns get no gradient.
 
@@ -65,7 +69,7 @@ stats_b_launches = 0  # bottleneck_stats_b calls (two launches each)
 bwd1_launches = 0     # bottleneck_bwd1 calls (four launches each)
 bwd2_launches = 0     # bottleneck_bwd2 calls (four launches each)
 bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
-bwd4_launches = 0     # bottleneck_bwd4 launches
+bwd4_launches = 0     # bottleneck_bwd4 calls (one launch each)
 bwd_launches = 0      # bottleneck_bwd calls (eight launches each)
 
 WIDTHS = (64, 128, 256)  # the kernel's compiled bottleneck widths f
@@ -238,42 +242,75 @@ def train_bwd_pass1_reference(x, gy, w1, w2, w3, *vecs,
             torch.einsum("bhwf,bhwc->fc", f(r["p3"]), f(r["gy"])))
 
 
+def _corrected_magnitude(gi, dm_mag, ta, tb, hat, n):
+    """Σ|terms| of g·i·(dm − Ta/n − v̂·(Tb/n)), given dm's own Σ|terms|:
+    the scale the card's tolerance holds dmid and dc1 to."""
+    return gi.abs() * (dm_mag + ta.abs() / n + hat.abs() * (tb.abs() / n))
+
+
 def train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t,
                               magnitudes: bool = False):
     """Plain version of :func:`bottleneck_bwd2`, given T3a, T3b after the
-    twelve vectors: (T2a = Σdm2, T2b = Σdm2·ĉ, dw2 = Σ p2-patchᵀ·dmid)."""
+    twelve vectors: (T2a = Σdm2, T2b = Σdm2·ĉ, dw2 = Σ p2-patchᵀ·dmid,
+    dmid [B,H,W,f], contiguous), dmid for pass 3. ``magnitudes``: each sum of |term|,
+    and dmid's Σ|terms|."""
     f = _mag(magnitudes)
     r = _bwd_chain(x, gy, w1, w2, w3, vecs_t[:12], vecs_t[12:])
     dm2 = f(r["dm2"])
+    dmid = r["dmid"]
+    if magnitudes:
+        g3, i3 = vecs_t[8], vecs_t[11]
+        dm3 = torch.where(r["p3"] > 0, torch.einsum(
+            "bhwc,fc->bhwf", r["gy"].abs(), w3.to(r["gy"].dtype).abs()), 0.0)
+        dmid = _corrected_magnitude(g3 * i3, dm3, *vecs_t[12:14], r["mhat"],
+                                    _n(x))
     return (dm2.sum(_SUM_DIMS), (dm2 * f(r["chat"])).sum(_SUM_DIMS),
-            _wgrad(f(r["p2"]), f(r["dmid"])))
+            _wgrad(f(r["p2"]), f(r["dmid"])), dmid.contiguous())
 
 
-def train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t,
+def train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t, dmid,
                               magnitudes: bool = False):
-    """Plain version of :func:`bottleneck_bwd3`, given T3a, T3b, T2a, T2b:
-    (T1a = Σdm1, T1b = Σdm1·x̂1, dw1 = Σ p1ᵀ·dc1)."""
+    """Plain version of :func:`bottleneck_bwd3`, given T3a, T3b, T2a, T2b
+    and pass 2's dmid: (T1a = Σdm1, T1b = Σdm1·x̂1, dw1 = Σ p1ᵀ·dc1, dc1
+    [B,H,W,f], contiguous), dc1 for pass 4; c1 and the masks from x, as the kernel.
+    ``magnitudes``: each sum of |term|, and dc1's Σ|terms|."""
+    g1, be1, mu1, i1, g2, be2, mu2, i2 = vecs_t[:8]
+    t2a, t2b = vecs_t[14:16]
     f = _mag(magnitudes)
-    r = _bwd_chain(x, gy, w1, w2, w3, vecs_t[:12], vecs_t[12:])
-    dm1 = f(r["dm1"])
-    return (dm1.sum(_SUM_DIMS), (dm1 * f(r["x1hat"])).sum(_SUM_DIMS),
-            torch.einsum("bhwc,bhwf->cf", f(r["p1"]), f(r["dc1"])))
-
-
-def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t):
-    """Plain version of :func:`bottleneck_bwd4`, given T3a .. T1b: dx in x's
-    dtype."""
-    g1, i1 = vecs_t[0], vecs_t[3]
-    t1a, t1b = vecs_t[16:18]
-    r = _bwd_chain(x, gy, w1, w2, w3, vecs_t[:12], vecs_t[12:16])
+    x1hat, m1, p1, chat, m2, _ = _chain(x, w1, g1, be1, mu1, i1, g2, be2,
+                                        mu2, i2)
     n = _n(x)
-    return (r["gy"] + g1 * i1 * (r["dm1"] - t1a / n - r["x1hat"] * (t1b / n))
+    w2f = w2.to(dmid.dtype)
+    dm2 = torch.where(m2 > 0, _conv3x3_t(dmid, w2f), 0.0)
+    dc1 = g2 * i2 * (dm2 - t2a / n - chat * (t2b / n))
+    dm1 = f(torch.where(m1 > 0, torch.einsum(
+        "bhwf,cf->bhwc", dc1, w1.to(dc1.dtype)), 0.0))
+    out = (dm1.sum(_SUM_DIMS), (dm1 * f(x1hat)).sum(_SUM_DIMS),
+           torch.einsum("bhwc,bhwf->cf", f(p1), f(dc1)))
+    if magnitudes:
+        dm2 = torch.where(m2 > 0, _conv3x3_t(dmid.abs(), w2f.abs()), 0.0)
+        dc1 = _corrected_magnitude(g2 * i2, dm2, t2a, t2b, chat, n)
+    return (*out, dc1.contiguous())
+
+
+def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1):
+    """Plain version of :func:`bottleneck_bwd4`, given T3a .. T1b and pass
+    3's dc1: dx in x's dtype."""
+    g1, be1, mu1, i1 = vecs_t[:4]
+    t1a, t1b = vecs_t[16:18]
+    x1hat = (_fp(x) - mu1) * i1
+    m1 = g1 * x1hat + be1
+    dm1 = torch.where(m1 > 0, torch.einsum(
+        "bhwf,cf->bhwc", dc1, w1.to(dc1.dtype)), 0.0)
+    n = _n(x)
+    return (_fp(gy) + g1 * i1 * (dm1 - t1a / n - x1hat * (t1b / n))
             ).to(x.dtype)
 
 
 # ------------------------------------------------------- training: kernels
-_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS, "part",
-         "out", "s0", "s1", "dx", "s2", "s3")  # tr_bottleneck_train's order
+# tr_bottleneck_train's pointer order.
+_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, "t3a", "t3b",
+         "part", "out", "s0", "s1", "dx", "s2", "s3")
 _WGRAD_BLOCKS = 528   # blocks a weight-gradient launch aims at (4 per SM)
 
 
@@ -367,6 +404,45 @@ def _scratch(x):
                        device=x.device)
 
 
+def _check_handoff(kind, name, t, x) -> None:
+    """The tensor the pass before hands over: float32 [B,H,W,f] on x's
+    device."""
+    shape = (*x.shape[:3], x.shape[-1] // 4)
+    if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape
+            or t.dtype != torch.float32 or t.device != x.device):
+        got = (f"{t.dtype} {list(t.shape)} on {t.device}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"{kind}: {name} must be float32 {list(shape)} on "
+                         f"{x.device} (the previous pass's output), got "
+                         f"{got}")
+
+
+_TC_PTRS = ("x", "gy", "w1", "w2t", "w1t", "g1", "be1", "mu1", "i1", "g2",
+            "be2", "mu2", "i2", "t2a", "t2b", "t1a", "t1b", "dmid", "dc1",
+            "dx", "part", "out")   # tr_bottleneck_tc's order
+_TC_PIXELS = 64          # csrc/fused_bottleneck_tc.cu kBM
+_TC_PART_ROWS = 1024     # most blocks (rows of partial sums) a launch runs
+
+
+def _tc(kind, mode, x, **tensors):
+    """One launch of ``csrc/fused_bottleneck_tc.cu`` (mode 0 bwd3, 1 bwd4),
+    and for bwd3 the sum of its rows: returns [T1a, T1b] (8f) or None."""
+    b, h, w, c4 = x.shape
+    out, rows = None, 0
+    if mode == 0:
+        rows = min(_TC_PART_ROWS, -(-b * h * w // _TC_PIXELS))
+        tensors["part"] = torch.empty(rows * 2 * c4, dtype=torch.float32,
+                                      device=x.device)
+        out = tensors["out"] = torch.empty(2 * c4, dtype=torch.float32,
+                                           device=x.device)
+    ptrs = _pointers(kind, _TC_PTRS, {"x": x, **tensors})
+    err = _build.library("fused_bottleneck_tc").tr_bottleneck_tc(
+        mode, ptrs, b, h, w, c4 // 4, rows, _build.DTYPE_CODES[x.dtype],
+        x.device.index, _stream(x))
+    _build.check(err, kind)
+    return out
+
+
 def bottleneck_stats_a(x, w1, g1, be1, mu1, i1):
     """(Σc1, Σc1²) float32 [f] of the 1x1 reduce's output c1 = relu(g1·(x−
     μ1)·i1 + be1)·W1, recomputed and never stored (the reference's
@@ -400,7 +476,8 @@ def bottleneck_stats_b(x, w1, w2, g1, be1, mu1, i1, g2, be2, mu2, i2):
 
 
 def _bwd_tensors(w1, w2, w3, vecs, ts):
-    """The row kernel's weights (and their transposed forms) and vectors."""
+    """The backward kernels' weights (and their transposed forms), vectors
+    and correction sums, by their pointer names."""
     return {"w1": w1, "w2": w2, "w3t": w3.t().contiguous(),
             "w2t": w2.flip(0, 1).transpose(2, 3).contiguous(),
             "w1t": w1.t().contiguous(), **dict(zip(_VECS, vecs)),
@@ -428,8 +505,9 @@ def bottleneck_bwd1(x, gy, w1, w2, w3, *vecs):
 
 
 def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t):
-    """Backward pass 2: (T2a, T2b [f], dw2 [3,3,f,f]) float32, given pass
-    1's T3a, T3b after the vectors; arguments as :func:`bottleneck_bwd1`."""
+    """Backward pass 2: (T2a, T2b [f], dw2 [3,3,f,f], dmid [B,H,W,f])
+    float32, given pass 1's T3a, T3b after the vectors; arguments as
+    :func:`bottleneck_bwd1`. dmid is pass 3's input."""
     global bwd2_launches
     kind = "bottleneck_bwd2"
     vecs, ts = vecs_t[:12], vecs_t[12:]
@@ -443,41 +521,53 @@ def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t):
                 **_bwd_tensors(w1, w2, w3, vecs, ts))
     dw2 = _weight_grad(kind, 1, p2, dmid, f, f, x, 9)
     bwd2_launches += 1
-    return out[:f], out[f:], dw2.view(3, 3, f, f)
+    return out[:f], out[f:], dw2.view(3, 3, f, f), dmid
 
 
-def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t):
-    """Backward pass 3: (T1a, T1b [4f], dw1 [4f,f]) float32, given T3a, T3b,
-    T2a, T2b; arguments as :func:`bottleneck_bwd1`."""
+def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
+    """Backward pass 3: (T1a, T1b [4f], dw1 [4f,f], dc1 [B,H,W,f]) float32,
+    given T3a, T3b, T2a, T2b and ``dmid=``, pass 2's dmid (required: no
+    path recomputes it); arguments as :func:`bottleneck_bwd1`. dc1 is pass
+    4's input. On CUDA: one pass of ``csrc/fused_bottleneck_tc.cu`` (c1 from
+    x, convT of dmid, dc1, dc1·W1ᵀ and the sums, on the tensor cores), the
+    sum of its rows, then dw1 (``tr_bottleneck_wgrad`` and its sum): four
+    launches."""
     global bwd3_launches
     kind = "bottleneck_bwd3"
     vecs, ts = vecs_t[:12], vecs_t[12:]
     f = _check_train(kind, x, gy, {"w1": w1, "w2": w2, "w3": w3}, vecs, ts)
     if len(ts) != 4:
         raise ValueError(f"{kind}: needs T3a .. T2b after the twelve vectors")
+    _check_handoff(kind, "dmid", dmid, x)
     if x.device.type == "cpu":
-        return train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t)
+        return train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t,
+                                         dmid=dmid)
     dc1 = _scratch(x)
-    out = _rows(kind, 4, 8 * f, x, gy=gy, s0=dc1,
-                **_bwd_tensors(w1, w2, w3, vecs, ts))
+    out = _tc(kind, 0, x, dmid=dmid, dc1=dc1,
+              **_bwd_tensors(w1, w2, w3, vecs, ts))
     dw1 = _weight_grad(kind, 2, x, dc1, 4 * f, f, x, 1, vecs[:4])
     bwd3_launches += 1
-    return out[:4 * f], out[4 * f:], dw1.view(4 * f, f)
+    return out[:4 * f], out[4 * f:], dw1.view(4 * f, f), dc1
 
 
-def bottleneck_bwd4(x, gy, w1, w2, w3, *vecs_t):
-    """Backward pass 4: dx in x's dtype, given T3a .. T1b; arguments as
-    :func:`bottleneck_bwd1`."""
+def bottleneck_bwd4(x, gy, w1, w2, w3, *vecs_t, dc1):
+    """Backward pass 4: dx in x's dtype, given T3a .. T1b and ``dc1=``, pass
+    3's dc1 (required: no path recomputes it); arguments as
+    :func:`bottleneck_bwd1`. On CUDA one launch of
+    ``csrc/fused_bottleneck_tc.cu``: dc1·W1ᵀ on the tensor cores, then
+    dx."""
     global bwd4_launches
     kind = "bottleneck_bwd4"
     vecs, ts = vecs_t[:12], vecs_t[12:]
     _check_train(kind, x, gy, {"w1": w1, "w2": w2, "w3": w3}, vecs, ts)
     if len(ts) != 6:
         raise ValueError(f"{kind}: needs T3a .. T1b after the twelve vectors")
+    _check_handoff(kind, "dc1", dc1, x)
     if x.device.type == "cpu":
-        return train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t)
+        return train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1=dc1)
     dx = torch.empty_like(x)
-    _rows(kind, 5, 0, x, gy=gy, dx=dx, **_bwd_tensors(w1, w2, w3, vecs, ts))
+    _tc(kind, 1, x, gy=gy, dc1=dc1, dx=dx,
+        **_bwd_tensors(w1, w2, w3, vecs, ts))
     bwd4_launches += 1
     return dx
 
@@ -521,6 +611,11 @@ def bottleneck_train_fwd_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
 
 def _train_bwd(passes, x, gy, w1, w2, w3, g1, be1, g2, be2, g3, be3, moments,
                eps):
+    """The four passes in order, each handing the next what it wrote: dmid
+    (pass 2 to 3), dc1 (3 to 4), float32 [B,H,W,f] each, freed when the
+    block's backward returns (dmid as soon as pass 3 has run). That is at
+    most 2 × 103 MB more than the recomputing passes held, at 56² and
+    B=128."""
     p1, p2, p3, p4 = passes
     mu1, v1, mu2, v2, mu3, v3 = moments
     i1, i2, i3 = (torch.rsqrt(v + eps) for v in (v1, v2, v3))
@@ -528,9 +623,10 @@ def _train_bwd(passes, x, gy, w1, w2, w3, g1, be1, g2, be2, g3, be3, moments,
     args = (x, gyf, w1, w2, w3, g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3,
             mu3, i3)
     t3a, t3b, dw3 = p1(*args)
-    t2a, t2b, dw2 = p2(*args, t3a, t3b)
-    t1a, t1b, dw1 = p3(*args, t3a, t3b, t2a, t2b)
-    dx = p4(*args, t3a, t3b, t2a, t2b, t1a, t1b)
+    t2a, t2b, dw2, dmid = p2(*args, t3a, t3b)
+    t1a, t1b, dw1, dc1 = p3(*args, t3a, t3b, t2a, t2b, dmid=dmid)
+    del dmid
+    dx = p4(*args, t3a, t3b, t2a, t2b, t1a, t1b, dc1=dc1)
     # dγ_i = T_i b, dβ_i = T_i a: the correction sums.
     return dx, dw1, dw2, dw3, t1b, t1a, t2b, t2a, t3b, t3a
 

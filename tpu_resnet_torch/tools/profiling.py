@@ -18,8 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 # The port's kernels on the train paths, by a substring of their names
 # (``train_sum`` is the fixed-order sum launch of the fused block's stats and
 # first two backward passes; the fused bottleneck's training passes run a
-# row kernel each, ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum``
-# adds their partial rows in order).
+# kernel each (a row kernel, or for backward passes 3 and 4 a tensor-core
+# kernel), ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum`` adds
+# their partial rows in order).
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
