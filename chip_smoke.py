@@ -28,11 +28,13 @@ Phases, each printing one JSON line:
    bottleneck's training kernels (``bottleneck_stats_a``,
    ``bottleneck_stats_b``, ``bottleneck_bwd1`` .. ``bottleneck_bwd4``) at
    the three ImageNet ResNet-50 stage shapes with B=128, dx within
-   ``bottleneck_fwd``'s tolerance, the handed-over dmid and dc1 held like
-   the sums (``bottleneck_bwd3`` fed the plain pass 2's dmid,
-   ``bottleneck_bwd4`` the plain pass 3's dc1; both also carry
-   ``tc_bound_ms``, their operations at the TF32 tensor cores' rate over
-   the three terms of the split); ``sbr``, ``sbr_bwd``, ``bottleneck_fwd``
+   ``bottleneck_fwd``'s tolerance, the handed-over p2, mid, dm3, dmid and
+   dc1 held like the sums, pass 1's masks [m2 > 0] and [m3 > 0] equal to
+   the plain pass's (``bottleneck_bwd2`` fed the plain pass 1's p2, mid and
+   dm3, ``bottleneck_bwd3`` the plain pass 2's dmid, ``bottleneck_bwd4``
+   the plain pass 3's dc1; the four passes also carry ``tc_bound_ms``,
+   their operations at the TF32 tensor cores' rate over the three terms of
+   the split); ``sbr``, ``sbr_bwd``, ``bottleneck_fwd``
    and the cross-entropy pair also at the ImageNet train path's shapes.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
@@ -402,19 +404,21 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         f = c // 4
         ff = f * f
         # flops per pixel; floats of weights (w1 4f², w2 9f², w3 4f²), of
-        # BN vectors and correction sums in, and of sums, weight gradients
-        # and handed-over tensors out; x in, then gy (float32) or the
-        # float32 [B,H,W,f] tensor handed over (dmid for bwd3, dc1 and gy
-        # for bwd4: n bytes is f floats a pixel), and dx out. bwd3: c1 8f²,
-        # convT 18f², dc1·W1ᵀ 8f², dw1 8f²; bwd4: dc1·W1ᵀ.
+        # BN vectors and correction sums in, and of sums and weight
+        # gradients out; x in, then the float32 tensors: gy, and the
+        # [B,H,W,f] tensors handed over (n bytes is f floats a pixel: bwd1
+        # writes p2, mid, dm3; bwd2 reads them and writes dmid; bwd3 reads
+        # dmid, writes dc1; bwd4 reads dc1 and gy), and dx out. bwd1: c1
+        # 8f², mid 18f², gy·W3ᵀ 8f², dw3 8f²; bwd2: c1, convT 18f², dw2
+        # 18f²; bwd3: c1, convT, dc1·W1ᵀ 8f², dw1 8f²; bwd4: dc1·W1ᵀ.
         flops, weights, vecs, sums, moved_f32 = {
             "bottleneck_stats_a": (8 * ff, 4 * ff, 4 * c, 2 * f, 0),
             "bottleneck_stats_b": (26 * ff, 13 * ff, 4 * c + 4 * f, 2 * f,
                                    0),
             "bottleneck_bwd1": (42 * ff, 17 * ff, 4 * c + 8 * f,
-                                2 * f + 4 * ff, 4 * n),
-            "bottleneck_bwd2": (70 * ff, 17 * ff, 4 * c + 10 * f,
-                                2 * f + 9 * ff, 4 * n + n),
+                                2 * f + 4 * ff, 4 * n + 3 * n),
+            "bottleneck_bwd2": (44 * ff, 13 * ff, 4 * c + 9 * f,
+                                2 * f + 9 * ff, 3 * n + n),
             "bottleneck_bwd3": (42 * ff, 13 * ff, 4 * c + 6 * f,
                                 2 * c + 4 * ff, 2 * n),
             "bottleneck_bwd4": (8 * ff, 4 * ff, 6 * c, 0, 4 * n + n)}[kind]
@@ -447,7 +451,8 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
 
 
 # The kernels whose products run on the tensor cores (three-term TF32).
-TENSOR_CORE_KERNELS = ("bottleneck_bwd3", "bottleneck_bwd4")
+TENSOR_CORE_KERNELS = ("bottleneck_bwd1", "bottleneck_bwd2",
+                       "bottleneck_bwd3", "bottleneck_bwd4")
 
 
 def kernel_args(kind: str, shape, dtype, gen) -> tuple:
@@ -732,11 +737,13 @@ def bottleneck_train_kernel_phase(fbn):
     """The fused bottleneck's six training kernels against their plain
     versions at the three ImageNet B=128 stage shapes, bfloat16 and
     float32, on the dyadic grid of :func:`bottleneck_train_args`: every sum
-    and each handed-over tensor (dmid, dc1) within 1e-5 * sum|terms| +
-    1e-6, dx within ``bottleneck_fwd``'s tolerance, two calls bit for bit
-    equal. ``bottleneck_bwd3`` takes the plain pass 2's dmid and
-    ``bottleneck_bwd4`` the plain pass 3's dc1, so each kernel is checked
-    on its own. The oracle's convolutions run with cuDNN off. Fewer timing
+    and each handed-over tensor (p2, mid, dm3, dmid, dc1) within 1e-5 *
+    sum|terms| + 1e-6, pass 1's masks [m2 > 0] (p2 > 0) and [m3 > 0] (from
+    mid) equal to the plain pass's, dx within ``bottleneck_fwd``'s
+    tolerance, two calls bit for bit equal. ``bottleneck_bwd2`` takes the
+    plain pass 1's p2, mid and dm3, ``bottleneck_bwd3`` the plain pass 2's
+    dmid and ``bottleneck_bwd4`` the plain pass 3's dc1, so each kernel is
+    checked on its own. The oracle's convolutions run with cuDNN off. Fewer timing
     repetitions: each call takes milliseconds."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -745,8 +752,10 @@ def bottleneck_train_kernel_phase(fbn):
             base = bottleneck_train_args(shape, dtype, gen)
             x, gy, w1, w2, w3, *vecs = base
             with torch.backends.cudnn.flags(enabled=False):
-                t3 = fbn.train_bwd_pass1_reference(*base)[:2]
-                *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
+                *t3, _, p2, mid, dm3 = fbn.train_bwd_pass1_reference(*base)
+                h1 = {"p2": p2, "mid": mid, "dm3": dm3}
+                *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3,
+                                                             **h1)
                 *t1, _, dc1 = fbn.train_bwd_pass3_reference(
                     *base, *t3, *t2, dmid=dmid)
             calls = {
@@ -758,7 +767,7 @@ def bottleneck_train_kernel_phase(fbn):
                                        fbn.bottleneck_stats_b_reference),
                 "bottleneck_bwd1": (base, {}, fbn.bottleneck_bwd1,
                                     fbn.train_bwd_pass1_reference),
-                "bottleneck_bwd2": ((*base, *t3), {}, fbn.bottleneck_bwd2,
+                "bottleneck_bwd2": ((*base, *t3), h1, fbn.bottleneck_bwd2,
                                     fbn.train_bwd_pass2_reference),
                 "bottleneck_bwd3": ((*base, *t3, *t2), {"dmid": dmid},
                                     fbn.bottleneck_bwd3,
@@ -795,12 +804,21 @@ def bottleneck_train_kernel_phase(fbn):
                 else:
                     excess = _sum_excess(got, want, scale)
                     row["tolerance"] = "sums <= 1e-5*sum|terms| + 1e-6"
+                if kind == "bottleneck_bwd1":
+                    g3, be3, mu3, i3 = vecs[8:]
+                    check(torch.equal(got[3] > 0, want[3] > 0)
+                          and torch.equal(
+                              g3 * ((got[4] - mu3) * i3) + be3 > 0,
+                              g3 * ((want[4] - mu3) * i3) + be3 > 0),
+                          f"{name}: masks [m2 > 0], [m3 > 0] differ from "
+                          f"the plain pass's")
                 row["err_over_limit"] = excess
                 check(excess <= 1, f"{name}: beyond tolerance: {row}")
                 rows.append(_timed(row, lambda: kernel(*args, **kw),
                                    lambda: plain(*args, **kw), kind, shape,
                                    dtype, reps=5, inner=2))
-            del base, x, gy, args, kw, calls, dmid, dc1, got, again, want
+            del (base, x, gy, args, kw, calls, h1, p2, mid, dm3, dmid, dc1,
+                 got, again, want)
             torch.cuda.empty_cache()
     return rows
 
@@ -1792,9 +1810,9 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/fused_bottleneck.py:445"),
     ("bottleneck_stats_b", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
      "tpu_resnet/ops/fused_bottleneck.py:464"),
-    ("bottleneck_bwd1", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_bwd1", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:644"),
-    ("bottleneck_bwd2", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_bwd2", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:678"),
     ("bottleneck_bwd3", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:729"),

@@ -1,6 +1,6 @@
-"""The fused bottleneck's backward passes 2 -> 3 -> 4 hand over what they
-wrote (dmid, then dc1) instead of recomputing the chain from x, as the
-reference's ``_train_bwd_calls`` does. On the CPU, on the cases of
+"""The fused bottleneck's backward passes 1 -> 2 -> 3 -> 4 hand over what
+they wrote (p2, mid and dm3, then dmid, then dc1) instead of recomputing
+the chain from x, as the reference's ``_train_bwd_calls`` does. On the CPU, on the cases of
 tests/test_torch_bottleneck_train.py: the plain passes with the handoffs
 against the recompute-from-x chain (``_bwd_chain``) bit for bit, the
 wrappers against the reference's passes (Pallas in interpret mode) and the
@@ -25,7 +25,8 @@ SUM = (0, 1, 2)
 
 def _base(f, bhw, seed):
     """x, gy, the weights and the twelve BN vectors (moments from the
-    port's training forward), and pass 1's sums."""
+    port's training forward), pass 1's sums and its handoffs {p2, mid,
+    dm3}."""
     x, gy, w1, w2, w3, g1, be1, g2, be2, g3, be3 = map(
         torch.from_numpy, _inputs(f, bhw, seed))
     _, (m1, v1, m2, v2, m3, v3) = fbn.bottleneck_train_fwd(
@@ -33,17 +34,23 @@ def _base(f, bhw, seed):
     i1, i2, i3 = (torch.rsqrt(v + EPS) for v in (v1, v2, v3))
     base = (x, gy, w1, w2, w3, g1, be1, m1, i1, g2, be2, m2, i2, g3, be3,
             m3, i3)
-    return base, fbn.train_bwd_pass1_reference(*base)[:2]
+    t3a, t3b, _, p2, mid, dm3 = fbn.train_bwd_pass1_reference(*base)
+    return base, (t3a, t3b), {"p2": p2, "mid": mid, "dm3": dm3}
 
 
 @pytest.mark.parametrize("f, bhw, row_tile", CASES, ids=IDS)
 def test_handed_over_passes_equal_the_recompute_chain(f, bhw, row_tile):
-    """Passes 2, 3 and 4 from dmid and dc1 give, bit for bit, what the
-    chain recomputed from x gives for every output of every pass."""
-    base, t3 = _base(f, bhw, seed=f + 3)
+    """Pass 1's p2, mid and dm3, and passes 2, 3 and 4 from them, dmid and
+    dc1, give bit for bit what the chain recomputed from x gives for every
+    output of every pass."""
+    base, t3, h1 = _base(f, bhw, seed=f + 3)
     x, gy, w1, w2, w3, *vecs = base
     g1, i1 = vecs[0], vecs[3]
-    t2a, t2b, dw2, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
+    r = fbn._bwd_chain(x, gy, w1, w2, w3, vecs)
+    for name, got in h1.items():
+        assert torch.equal(got, r[name]), name
+        assert got.is_contiguous(), name
+    t2a, t2b, dw2, dmid = fbn.train_bwd_pass2_reference(*base, *t3, **h1)
     r = fbn._bwd_chain(x, gy, w1, w2, w3, vecs, t3)
     want = (r["dm2"].sum(SUM), (r["dm2"] * r["chat"]).sum(SUM),
             _wgrad(r["p2"], r["dmid"]), r["dmid"])
@@ -71,15 +78,18 @@ def test_handed_over_passes_equal_the_recompute_chain(f, bhw, row_tile):
 
 @pytest.mark.parametrize("f, bhw, row_tile", CASES, ids=IDS)
 def test_handed_over_magnitudes_bound_the_tensors(f, bhw, row_tile):
-    """The scales the card's tolerance holds dmid and dc1 to: Σ|terms| of
-    each element, never below the element itself."""
-    base, t3 = _base(f, bhw, seed=f + 4)
-    *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
-    scale2 = fbn.train_bwd_pass2_reference(*base, *t3, magnitudes=True)[3]
+    """The scales the card's tolerance holds p2, mid, dm3, dmid and dc1 to:
+    Σ|terms| of each element, never below the element itself."""
+    base, t3, h1 = _base(f, bhw, seed=f + 4)
+    scale1 = fbn.train_bwd_pass1_reference(*base, magnitudes=True)[3:]
+    *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3, **h1)
+    scale2 = fbn.train_bwd_pass2_reference(*base, *t3, **h1,
+                                           magnitudes=True)[3]
     dc1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2, dmid=dmid)[3]
     scale3 = fbn.train_bwd_pass3_reference(*base, *t3, *t2, dmid=dmid,
                                            magnitudes=True)[3]
-    for name, t, s in (("dmid", dmid, scale2), ("dc1", dc1, scale3)):
+    for name, t, s in (*zip(h1, h1.values(), scale1), ("dmid", dmid, scale2),
+                       ("dc1", dc1, scale3)):
         assert s.shape == t.shape, name
         assert bool((s * (1 + 1e-6) >= t.abs()).all()), name
         assert float(s.max()) > 0, name
@@ -118,16 +128,19 @@ def test_handed_over_wrappers_match_reference_passes(reference):
     base = (_t(x), _t(gy), w1, w2, w3, g1, be1, m1, i1, g2, be2, m2, i2, g3,
             be3, m3, i3)
     sums = [_t(ref[k]) for k in ("t3a", "t3b", "t2a", "t2b", "t1a", "t1b")]
-    t2a, t2b, dw2, dmid = fbn.bottleneck_bwd2(*base, *sums[:2])
+    t3a, t3b, dw3, p2, mid, dm3 = fbn.bottleneck_bwd1(*base)
+    t2a, t2b, dw2, dmid = fbn.bottleneck_bwd2(*base, *sums[:2], p2=p2,
+                                              mid=mid, dm3=dm3)
     t1a, t1b, dw1, dc1 = fbn.bottleneck_bwd3(*base, *sums[:4], dmid=dmid)
     dx = fbn.bottleneck_bwd4(*base, *sums, dc1=dc1)
-    for name, got in (("t2a", t2a), ("t2b", t2b), ("dw2", dw2), ("t1a", t1a),
+    for name, got in (("t3a", t3a), ("t3b", t3b), ("dw3", dw3), ("t2a", t2a),
+                      ("t2b", t2b), ("dw2", dw2), ("t1a", t1a),
                       ("t1b", t1b), ("dw1", dw1), ("dx", dx)):
         _close(got, ref[name], name, atol=1e-4, rtol=1e-4)
 
 
 def test_train_bwd_matches_jax_vjp(reference):
-    """``bottleneck_train_bwd`` (four passes, two handoffs) on the port's
+    """``bottleneck_train_bwd`` (four passes, three handoffs) on the port's
     own moments against ``jax.vjp`` of the reference's
     ``bottleneck_train_apply``: all ten gradients, the moments' cotangent
     dropped."""
@@ -151,25 +164,29 @@ def test_train_bwd_matches_jax_vjp(reference):
 
 
 @pytest.mark.parametrize("what", ["missing", "shape", "dtype", "device"])
-@pytest.mark.parametrize("kind", ["bottleneck_bwd3", "bottleneck_bwd4"])
+@pytest.mark.parametrize("kind", ["bottleneck_bwd2", "bottleneck_bwd3",
+                                  "bottleneck_bwd4"])
 def test_wrappers_refuse_a_missing_or_malformed_handoff(kind, what):
-    """No path recomputes dmid or dc1: without one, or with one of the
-    wrong shape, type or device, the wrapper raises."""
-    base, t3 = _base(64, (1, 3, 4), seed=9)
-    *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
+    """No path recomputes p2, mid, dm3, dmid or dc1: without one, or with
+    one of the wrong shape, type or device, the wrapper raises."""
+    base, t3, h1 = _base(64, (1, 3, 4), seed=9)
+    *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3, **h1)
     *t1, _, dc1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2, dmid=dmid)
-    if kind == "bottleneck_bwd3":
-        call, name, good = (lambda **kw: fbn.bottleneck_bwd3(
-            *base, *t3, *t2, **kw)), "dmid", dmid
-    else:
-        call, name, good = (lambda **kw: fbn.bottleneck_bwd4(
-            *base, *t3, *t2, *t1, **kw)), "dc1", dc1
-    call(**{name: good})   # the well-formed handoff passes
-    if what == "missing":
-        with pytest.raises(TypeError, match=name):
-            call()
-        return
-    bad = {"shape": good[..., :32], "dtype": good.double(),
-           "device": torch.empty(good.shape, device="meta")}[what]
-    with pytest.raises(ValueError, match=f"{name} must be float32"):
-        call(**{name: bad})
+    call, good = {
+        "bottleneck_bwd2": (lambda **kw: fbn.bottleneck_bwd2(
+            *base, *t3, **kw), h1),
+        "bottleneck_bwd3": (lambda **kw: fbn.bottleneck_bwd3(
+            *base, *t3, *t2, **kw), {"dmid": dmid}),
+        "bottleneck_bwd4": (lambda **kw: fbn.bottleneck_bwd4(
+            *base, *t3, *t2, *t1, **kw), {"dc1": dc1})}[kind]
+    call(**good)   # the well-formed handoffs pass
+    for name, t in good.items():
+        others = {k: v for k, v in good.items() if k != name}
+        if what == "missing":
+            with pytest.raises(TypeError, match=name):
+                call(**others)
+            continue
+        bad = {"shape": t[..., :32], "dtype": t.double(),
+               "device": torch.empty(t.shape, device="meta")}[what]
+        with pytest.raises(ValueError, match=f"{name} must be float32"):
+            call(**others, **{name: bad})

@@ -114,9 +114,10 @@ def test_train_bwd_passes_match_reference(passes):
     base = (t(x), t(gy), w1, w2, w3, g1, be1, m1, i1, g2, be2, m2, i2, g3,
             be3, m3, i3)
     sums = [t(ref[k]) for k in ("t3a", "t3b", "t2a", "t2b", "t1a", "t1b")]
-    outs = {1: fbn.bottleneck_bwd1(*base),
-            2: fbn.bottleneck_bwd2(*base, *sums[:2])}
     # Each pass takes what the one before it handed over.
+    outs = {1: fbn.bottleneck_bwd1(*base)}
+    p2, mid, dm3 = outs[1][3:]
+    outs[2] = fbn.bottleneck_bwd2(*base, *sums[:2], p2=p2, mid=mid, dm3=dm3)
     outs[3] = fbn.bottleneck_bwd3(*base, *sums[:4], dmid=outs[2][3])
     for k, names in ((1, ("t3a", "t3b", "dw3")), (2, ("t2a", "t2b", "dw2")),
                      (3, ("t1a", "t1b", "dw1"))):

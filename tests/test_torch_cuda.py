@@ -392,15 +392,17 @@ def _bottleneck_train_inputs(shape, dtype, gen):
                                    (2, 14, 14, 1024), (1, 9, 5, 256)])
 def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
     """The two moment passes and the four backward passes at the three
-    ResNet-50 stage shapes and a ragged one; each called twice. Passes 3
-    and 4 take the plain pass 2's dmid and pass 3's dc1, which are held
-    like the sums where a pass returns them."""
+    ResNet-50 stage shapes and a ragged one; each called twice. Passes 2, 3
+    and 4 take the plain pass 1's p2, mid and dm3, pass 2's dmid and pass
+    3's dc1, which are held like the sums where a pass returns them; pass
+    1's masks [m2 > 0] and [m3 > 0] equal the plain pass's."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     x, gy, w1, w2, w3, vecs = _bottleneck_train_inputs(shape, dtype, gen)
     base = (x, gy, w1, w2, w3, *vecs)
     with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
-        t3 = fbn.train_bwd_pass1_reference(*base)[:2]
-        *t2, _, dmid = fbn.train_bwd_pass2_reference(*base, *t3)
+        *t3, _, p2, mid, dm3 = fbn.train_bwd_pass1_reference(*base)
+        *t2, _, dmid = fbn.train_bwd_pass2_reference(
+            *base, *t3, p2=p2, mid=mid, dm3=dm3)
         *t1, _, dc1 = fbn.train_bwd_pass3_reference(*base, *t3, *t2,
                                                     dmid=dmid)
     cases = (("stats_a_launches", (x, w1, *vecs[:4]), {},
@@ -409,7 +411,8 @@ def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
               fbn.bottleneck_stats_b, fbn.bottleneck_stats_b_reference),
              ("bwd1_launches", base, {}, fbn.bottleneck_bwd1,
               fbn.train_bwd_pass1_reference),
-             ("bwd2_launches", (*base, *t3), {}, fbn.bottleneck_bwd2,
+             ("bwd2_launches", (*base, *t3),
+              {"p2": p2, "mid": mid, "dm3": dm3}, fbn.bottleneck_bwd2,
               fbn.train_bwd_pass2_reference),
              ("bwd3_launches", (*base, *t3, *t2), {"dmid": dmid},
               fbn.bottleneck_bwd3, fbn.train_bwd_pass3_reference))
@@ -423,6 +426,11 @@ def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
         assert getattr(fbn, counter) == before + 2, counter
         _sums_close(got, want, scale)
         assert all(torch.equal(p, q) for p, q in zip(got, again)), counter
+        if counter == "bwd1_launches":
+            g3, be3, mu3, i3 = vecs[8:]
+            assert torch.equal(got[3] > 0, want[3] > 0)
+            assert torch.equal(g3 * ((got[4] - mu3) * i3) + be3 > 0,
+                               g3 * ((want[4] - mu3) * i3) + be3 > 0)
     before = fbn.bwd4_launches
     args = (*base, *t3, *t2, *t1)
     dx, again = (fbn.bottleneck_bwd4(*args, dc1=dc1) for _ in range(2))
@@ -444,9 +452,16 @@ def test_bottleneck_train_wrappers_reject_bad_input(cuda):
         fbn.bottleneck_stats_a(x.permute(0, 2, 1, 3), w1, *vecs[:4])
     with pytest.raises(ValueError, match="w3 must be float32"):
         fbn.bottleneck_bwd1(x, gy, w1, w2, w3[:, :8], *vecs)
-    with pytest.raises(ValueError, match="t3a must be float32"):
-        fbn.bottleneck_bwd2(x, gy, w1, w2, w3, *vecs, vecs[0], vecs[4])
     dc1 = torch.zeros(2, 8, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="t3a must be float32"):
+        fbn.bottleneck_bwd2(x, gy, w1, w2, w3, *vecs, vecs[0], vecs[4],
+                            p2=dc1, mid=dc1, dm3=dc1)
+    with pytest.raises(ValueError, match="mid must be float32"):
+        fbn.bottleneck_bwd2(x, gy, w1, w2, w3, *vecs, *vecs[4:6], p2=dc1,
+                            mid=dc1[..., :32], dm3=dc1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fbn.bottleneck_bwd2(x, gy, w1, w2, w3, *vecs, *vecs[4:6], p2=dc1,
+                            mid=dc1, dm3=dc1.permute(0, 2, 1, 3))
     with pytest.raises(ValueError, match="gy must be float32"):
         fbn.bottleneck_bwd4(x, gy.to(torch.bfloat16), w1, w2, w3, *vecs,
                             *vecs[4:8], *vecs[:2], dc1=dc1)

@@ -1,38 +1,50 @@
-// Fused ResNet-v2 bottleneck with live batch-norm statistics: backward passes
-// 3 and 4, on the tensor cores. Stride 1, identity shortcut, 3x3 SAME; x is
-// NHWC [B,H,W,4F] (f32 or bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32
-// HWIO [3,3,F,F], BN vectors f32 ([4F] for BN1, [F] for BN2), and the
-// tensors the pass before hands over, dmid and dc1, f32 [B,H,W,F].
+// Fused ResNet-v2 bottleneck with live batch-norm statistics: the four
+// backward passes, on the tensor cores. Stride 1, identity shortcut, 3x3
+// SAME; x is NHWC [B,H,W,4F] (f32 or bf16), gy f32 of x's shape, W1 f32
+// [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32 [F,4F], BN vectors f32 ([4F] for
+// BN1, [F] for BN2 and BN3), and the tensors a pass hands the next, f32
+// [B,H,W,F]: p2, mid, dm3 (pass 1 to 2), dmid (2 to 3), dc1 (3 to 4).
 //
 // Replaces, in tpu_resnet/ops/fused_bottleneck.py (_train_bwd_calls, which
 // every stride-1 identity bottleneck of width 64, 128 or 256 runs in
 // training when model.fused_blocks=true: 10 blocks of ImageNet ResNet-50):
+//   mode 2 bwd1  pass1 (:644): T3a = sum dm3, T3b = sum dm3*mhat, and p2,
+//                mid, dm3 for pass 2 (dw3 = sum p3^T gy is
+//                tr_bottleneck_wgrad's, in fused_bottleneck_train.cu, with
+//                p3 from mid);
+//   mode 3 bwd2  pass2 (:678): dmid, T2a = sum dm2, T2b = sum dm2*chat (dw2
+//                = sum p2-patch^T dmid is tr_bottleneck_wgrad's);
 //   mode 0 bwd3  pass3 (:729): T1a = sum dm1, T1b = sum dm1*x1hat, and dc1
-//                for dw1 = sum p1^T dc1 (tr_bottleneck_wgrad, in
-//                fused_bottleneck_train.cu, computes dw1);
+//                for dw1 = sum p1^T dc1 (tr_bottleneck_wgrad's);
 //   mode 1 bwd4  pass4 (:754): dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n)).
 // The reference recomputes the chain from x in every pass, with a halo of
-// two rows: its VMEM keeps nothing between calls. On this card each pass
-// reads what the pass before it wrote: pass 3 takes pass 2's dmid, pass 4
-// takes pass 3's dc1. Per pixel (i = 1/sigma, as the reference's
-// _chain_train):
-//   bwd3  x1hat = (x-mu1)*i1, p1 = relu(g1*x1hat + be1), c1 = p1 . W1,
-//         chat = (c1-mu2)*i2, m2 = g2*chat + be2; dp2 = convT(dmid, w2), the
-//         sum over the 9 taps of dmid shifted by the tap times w2t[tap] (w2
-//         flipped in space, in/out swapped); dm2 = dp2*[m2>0], dc1 =
-//         g2*i2*(dm2 - T2a/n - chat*(T2b/n)), stored; dp1 = dc1 . W1^T, m1 =
-//         g1*x1hat + be1, dm1 = dp1*[m1>0], and the two sums.
+// one or two rows: its VMEM keeps nothing between calls. On this card each
+// pass reads what the pass before it wrote, and recomputes only c1, a 1x1
+// product on the tile's own pixels. Per pixel (i = 1/sigma, as the
+// reference's _chain_train):
+//   c1    x1hat = (x-mu1)*i1, p1 = relu(g1*x1hat + be1), c1 = p1 . W1,
+//         chat = (c1-mu2)*i2, m2 = g2*chat + be2;
+//   bwd1  launch 1: c1, then p2 = relu(m2), stored; launch 2: mid =
+//         conv3x3(p2, w2), the sum over the 9 taps of p2 shifted by the tap
+//         times w2[tap], stored; mhat = (mid-mu3)*i3, m3 = g3*mhat + be3;
+//         dp3 = gy . W3^T, dm3 = dp3*[m3>0], stored, and the two sums;
+//   bwd2  launch 1: dmid = g3*i3*(dm3 - T3a/n - mhat*(T3b/n)), stored;
+//         launch 2: c1, dp2 = convT(dmid, w2) (the taps over w2t, w2 flipped
+//         in space, in/out swapped), dm2 = dp2*[m2>0], and the two sums;
+//   bwd3  c1, dp2 and dm2 as bwd2, dc1 = g2*i2*(dm2 - T2a/n - chat*(T2b/n)),
+//         stored; dp1 = dc1 . W1^T, m1 = g1*x1hat + be1, dm1 = dp1*[m1>0],
+//         and the two sums;
 //   bwd4  dp1 = dc1 . W1^T, dm1 as in bwd3, dx in x's dtype.
 // Every elementwise formula rounds as written (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn, no FMA contraction), as the plain PyTorch version
 // does, so a mask [m > 0] agrees with the plain version's wherever the
-// products do.
+// products do; c1 runs the same code in every pass, so p2 and the masks
+// [m2 > 0] of passes 2 and 3 agree bit for bit.
 //
-// Bound: per pixel bwd3 does 34F^2 flops (c1 8F^2, convT 18F^2, dp1 8F^2;
-// dw1's 8F^2 is the weight-gradient kernel's) and bwd4 8F^2, against 4F
-// items of x plus 8F bytes (bwd3) or 4F items of x in and out plus 20F
-// bytes (bwd4): operations for bwd3; for bwd4 bytes at F=64 and operations
-// above.
+// Bound, per pixel (flops; dw's products are the weight-gradient kernel's):
+// bwd1 34F^2 (c1 8, mid 18, dp3 8; dw3 8 more), bwd2 26F^2 (c1 8, convT 18;
+// dw2 18 more), bwd3 34F^2 (c1, convT, dp1 8; dw1 8 more), bwd4 8F^2,
+// against a few times 4F items moved: operations, but for bwd4 at F=64.
 //
 // Design. Tiles of 64 consecutive pixels of the [B*H*W] pixel matrix,
 // whatever W, so a 14-pixel image row leaves no tile half empty; as many
@@ -41,15 +53,18 @@
 // split (mma_tf32x3.cuh), 256 threads, 2x4 warps, a warp owning 32 pixels x
 // F/4 channels; each k-step's three products start from zero and join the
 // running f32 sum rounding to nearest (the tensor cores' own accumulation
-// truncates, and over K = 9F that bias broke the sums' tolerance). K streams through a ring of three shared buffers by
-// cp.async, 16 bytes a thread, A and the weight chunk alike (the weights
-// come from L2; they need no region of their own): for c1 the tile's x
-// (BN1 and ReLU applied as the fragments are read), for convT the tap's
-// shifted dmid rows straight from device memory (zero fill outside the
-// image: no halo is recomputed; at 14^2 the whole dmid plane fits in the
-// 50 MB L2), for dp1 the tile's dc1, which stays in shared memory ([64][F],
-// where chat was) and is read in place. bwd4 loads the tile's dc1 there and
-// runs the dp1 product alone.
+// truncates, and over K = 9F that bias broke the sums' tolerance). K
+// streams through a ring of three shared buffers by cp.async, 16 bytes a
+// thread, A and the weight chunk alike (the weights come from L2; they need
+// no region of their own): for c1 the tile's x (BN1 and ReLU applied as the
+// fragments are read), for gy . W3^T the tile's gy, for the 3x3 products
+// (mid, convT) the tap's shifted p2 or dmid rows straight from device memory
+// (zero fill outside the image: no halo is recomputed; at 14^2 the whole
+// plane fits in the 50 MB L2), for dc1 . W1^T the tile's dc1 in shared
+// memory. A value an epilogue needs after the next product waits in the
+// tile buffer [64][F + 4]: mhat (bwd1), chat then dc1 (bwd2, bwd3). bwd2's
+// dmid is its own elementwise launch: T3a and T3b are sums over the whole
+// batch, and the convT reads dmid at neighbouring pixels.
 //
 // Sums without atomics: each block adds its tiles' channel sums in tile
 // order (a warp's rows by shuffles in a fixed pattern, then the two warps of
@@ -66,7 +81,9 @@ namespace {
 
 using namespace tr;
 
-enum Mode : int { kBwd3 = 0, kBwd4 = 1 };
+// Modes 0-3 are tr_bottleneck_tc's (one backward pass each); bwd1 runs
+// kP2 and then kBwd1's tile pass.
+enum Mode : int { kBwd3 = 0, kBwd4 = 1, kBwd1 = 2, kBwd2 = 3, kP2 = 4 };
 
 constexpr int kTC = 256;    // threads per block
 constexpr int kBM = 64;     // pixels per tile
@@ -76,41 +93,75 @@ constexpr int kWarpsN = 4;  // warps across channels; 2 across pixels
 constexpr int kMT = 2;      // 16-pixel mma tiles per warp: 32 pixels
 
 // Shared memory, in bytes: the ring (each stage an A chunk [64][32 + pad]
-// and a weight chunk [32][F + 8] f32), chat then dc1 [64][F + 4] f32, BN1's
-// vectors [4F] float4 (g1, be1, mu1, i1), then for bwd3 the block's sums
-// [8F] f32 and for bwd4 [4F] float4 (g1*i1, T1a/n, T1b/n). The pads keep
-// the fragment reads free of bank conflicts.
+// and a weight chunk [32][F + 8] f32); the tile buffer [64][F + 4] f32 (all
+// but kP2); BN1's vectors [4F] float4 (g1, be1, mu1, i1; the modes that
+// read x); then the block's sums, [2F] f32 (bwd1, bwd2) or [8F] (bwd3), or
+// for bwd4 [4F] float4 (g1*i1, T1a/n, T1b/n). The pads keep the fragment
+// reads free of bank conflicts.
 template <int F>
 struct Plan {
   static constexpr int WN = F / kWarpsN;  // channels per warp
   static constexpr int NT = WN / 8;       // 8-channel mma tiles per warp
   static constexpr int BS = F + 8;        // weight chunk row stride, floats
-  static constexpr int CS = F + 4;        // chat / dc1 row stride, floats
+  static constexpr int CS = F + 4;        // tile buffer row stride, floats
   static constexpr int A_BYTES = kBM * (kBK + 4) * 4;
   static constexpr int STAGE = A_BYTES + kBK * BS * 4;
-  static constexpr int C_OFF = kStages * STAGE;
-  static constexpr int E0_OFF = C_OFF + kBM * CS * 4;
-  static constexpr int X_OFF = E0_OFF + 4 * F * 16;
-  static constexpr int SMEM_BWD3 = X_OFF + 8 * F * 4;
-  static constexpr int SMEM_BWD4 = X_OFF + 4 * F * 16;
-  static_assert(SMEM_BWD3 <= kMaxSmem && SMEM_BWD4 <= kMaxSmem, "smem");
+  static constexpr int RING = kStages * STAGE;
+  static constexpr int C_BYTES = kBM * CS * 4;
+  static constexpr int E0_BYTES = 4 * F * 16;
+  static constexpr int SMEM_P2 = RING + E0_BYTES;
+  static constexpr int SMEM_BWD1 = RING + C_BYTES + 2 * F * 4;
+  static constexpr int SMEM_BWD2 = RING + C_BYTES + E0_BYTES + 2 * F * 4;
+  static constexpr int SMEM_BWD3 = RING + C_BYTES + E0_BYTES + 8 * F * 4;
+  static constexpr int SMEM_BWD4 = RING + C_BYTES + E0_BYTES + 4 * F * 16;
+  static_assert(SMEM_P2 <= kMaxSmem && SMEM_BWD1 <= kMaxSmem &&
+                    SMEM_BWD2 <= kMaxSmem && SMEM_BWD3 <= kMaxSmem &&
+                    SMEM_BWD4 <= kMaxSmem,
+                "smem");
   static_assert(F % kBK == 0 && NT >= 1, "tile");
+  __host__ __device__ static constexpr int e0_off(int mode) {
+    return mode == kP2 ? RING : RING + C_BYTES;
+  }
+  __host__ __device__ static constexpr int sums_off(int mode) {
+    return mode == kBwd1 ? RING + C_BYTES : RING + C_BYTES + E0_BYTES;
+  }
+  __host__ __device__ static constexpr int smem(int mode) {
+    return mode == kP2     ? SMEM_P2
+           : mode == kBwd1 ? SMEM_BWD1
+           : mode == kBwd2 ? SMEM_BWD2
+           : mode == kBwd3 ? SMEM_BWD3
+                           : SMEM_BWD4;
+  }
 };
+// The largest width, in bytes: every mode fits one block of 256 threads on
+// an SM.
+static_assert(Plan<256>::SMEM_P2 == 145408 && Plan<256>::SMEM_BWD1 == 197632 &&
+                  Plan<256>::SMEM_BWD2 == 214016 &&
+                  Plan<256>::SMEM_BWD3 == 220160 &&
+                  Plan<256>::SMEM_BWD4 == 228352,
+              "the plan at F = 256");
 
 struct TcArgs {
-  const void* x;      // [P][4F]
-  const float* gy;    // [P][4F] (bwd4)
+  const void* x;      // [P][4F] (not bwd1's tile pass)
+  const float* gy;    // [P][4F] (bwd1, bwd4)
   const float* w1;    // [4F][F]
-  const float* w2t;   // [9F][F] (bwd3)
+  const float* w2;    // [9F][F] (bwd1)
+  const float* w2t;   // [9F][F] (bwd2, bwd3)
+  const float* w3t;   // [4F][F]: W3 transposed (bwd1)
   const float* w1t;   // [F][4F]
   const float *g1, *be1, *mu1, *i1;  // [4F]
-  const float *g2, *be2, *mu2, *i2;  // [F] (bwd3)
+  const float *g2, *be2, *mu2, *i2;  // [F]
+  const float *g3, *be3, *mu3, *i3;  // [F] (bwd1, bwd2)
+  const float *t3a, *t3b;            // [F] (bwd2)
   const float *t2a, *t2b;            // [F] (bwd3)
   const float *t1a, *t1b;            // [4F] (bwd4)
-  const float* dmid;  // [P][F] (bwd3)
+  float* p2;          // [P][F]: bwd1 writes it, for pass 2's dw2
+  float* mid;         // [P][F]: bwd1 writes it, bwd2 reads it
+  float* dm3;         // [P][F]: bwd1 writes it, bwd2 reads it
+  float* dmid;        // [P][F]: bwd2 writes it, bwd3 reads it
   float* dc1;         // [P][F]: bwd3 writes it, bwd4 reads it
   void* dx;           // [P][4F] (bwd4)
-  float* part;        // [gridDim.x][8F] (bwd3)
+  float* part;        // [gridDim.x][2F or 8F] (bwd1, bwd2, bwd3)
   int P, H, W;
   float n;  // B*H*W
 };
@@ -124,7 +175,7 @@ __device__ __forceinline__ float add(float a, float b) {
 __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
-// relu(g*((v-mu)*i) + be), p = (g, be, mu, i): BN1 and its ReLU.
+// relu(g*((v-mu)*i) + be), p = (g, be, mu, i): a BN and its ReLU.
 __device__ __forceinline__ float bn_relu(float v, float4 p) {
   return fmaxf(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y), 0.f);
 }
@@ -203,17 +254,59 @@ __device__ __forceinline__ void tc_gemm(float (&acc)[kMT][Plan<F>::NT][4],
   __syncthreads();
 }
 
+// Adds a tile's channel sums, sa and sb over the thread's column pairs, to
+// first[col] and second[col] for the F columns: a warp's 32 rows by shuffles
+// (lanes of one t hold one column pair) in a fixed pattern, then the two
+// warps of a column in order. red: 4F floats of the idle ring.
+template <int F>
+__device__ __forceinline__ void add_tile_sums(float (&sa)[Plan<F>::NT][2],
+                                              float (&sb)[Plan<F>::NT][2],
+                                              float* red, float* first,
+                                              float* second) {
+  using PL = Plan<F>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < PL::NT; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float u = sa[ni][j], v = sb[ni][j];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        u += __shfl_xor_sync(0xffffffffu, u, o);
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      }
+      if (g == 0) {
+        const int col = wn * PL::WN + ni * 8 + 2 * t + j;
+        red[(wm * 2) * F + col] = u;
+        red[(wm * 2 + 1) * F + col] = v;
+      }
+    }
+  __syncthreads();
+  for (int k = tid; k < 2 * F; k += kTC) {
+    const int which = k / F, col = k % F;
+    (which ? second : first)[col] +=
+        red[which * F + col] + red[(2 + which) * F + col];
+  }
+  __syncthreads();  // red lives in the ring the next product fills
+}
+
 template <typename T, int F, int MODE>
 __device__ __forceinline__ void tc_body(const TcArgs& a) {
   using PL = Plan<F>;
   constexpr int C4 = 4 * F;
   constexpr int NT = PL::NT;
+  constexpr bool kReadsX = MODE != kBwd1;
+  constexpr int NSUM = MODE == kBwd3 ? 2 * C4 : MODE == kBwd4 || MODE == kP2
+                                                    ? 0
+                                                    : 2 * F;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
-  float* cbuf = reinterpret_cast<float*>(smem + PL::C_OFF);
-  float4* e0 = reinterpret_cast<float4*>(smem + PL::E0_OFF);
-  float* sums = reinterpret_cast<float*>(smem + PL::X_OFF);  // bwd3
-  float4* e1 = reinterpret_cast<float4*>(smem + PL::X_OFF);  // bwd4
+  float* cbuf = reinterpret_cast<float*>(smem + PL::RING);
+  float4* e0 = reinterpret_cast<float4*>(smem + PL::e0_off(MODE));
+  float* sums = reinterpret_cast<float*>(smem + PL::sums_off(MODE));
+  float4* e1 = reinterpret_cast<float4*>(smem + PL::sums_off(MODE));  // bwd4
   float* red = reinterpret_cast<float*>(smem);  // the idle ring, [2][2][F]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
@@ -221,16 +314,15 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   const float n = a.n;
   const T* xg = static_cast<const T*>(a.x);
 
-  for (int c = tid; c < C4; c += kTC) {
-    e0[c] = make_float4(a.g1[c], a.be1[c], a.mu1[c], a.i1[c]);
-    if constexpr (MODE == kBwd4) {
-      e1[c] = make_float4(mul(a.g1[c], a.i1[c]), __fdiv_rn(a.t1a[c], n),
-                          __fdiv_rn(a.t1b[c], n), 0.f);
-    } else {
-      sums[c] = 0.f;
-      sums[C4 + c] = 0.f;
+  if constexpr (kReadsX) {
+    for (int c = tid; c < C4; c += kTC) {
+      e0[c] = make_float4(a.g1[c], a.be1[c], a.mu1[c], a.i1[c]);
+      if constexpr (MODE == kBwd4)
+        e1[c] = make_float4(mul(a.g1[c], a.i1[c]), __fdiv_rn(a.t1a[c], n),
+                            __fdiv_rn(a.t1b[c], n), 0.f);
     }
   }
+  for (int k = tid; k < NSUM; k += kTC) sums[k] = 0.f;
   __syncthreads();
 
   // The thread's share of a weight chunk: kBK rows of F floats from a
@@ -253,61 +345,102 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
                         base[r * rs + k + 4], base[(r + 8) * rs + k + 4]};
     split4(v, big, small);
   };
+  auto frag_stage = [&](const unsigned char* st, int, int kk, int mi,
+                        uint32_t(&big)[4], uint32_t(&small)[4]) {
+    frag_rows(reinterpret_cast<const float*>(st), kBK + 4, kk + t, mi, big,
+              small);
+  };
 
   float acc[kMT][NT][4];
+  float sa[NT][2], sb[NT][2];  // the thread's share of a tile's sums
+  auto zero_sums = [&] {
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+      sa[ni][0] = sa[ni][1] = sb[ni][0] = sb[ni][1] = 0.f;
+  };
+  // The position of each of the thread's two A rows in a chunk: image, y,
+  // x, inside P.
+  int rb[2], ry[2], rx[2];
+  bool rv[2];
+  long long p0 = 0;
+
+  // c1 = p1 . W1 on the tile; the A chunks are raw x, BN1 and ReLU applied
+  // as the fragments are read.
+  auto gemm_c1 = [&] {
+    constexpr int ARS = kBK + 16 / (int)sizeof(T);  // A row stride, items
+    constexpr int ASEG = kBK * (int)sizeof(T) / 16;  // 16 B per row chunk
+    tc_gemm<F>(
+        acc, C4 / kBK, ring,
+        [&](int c, unsigned char* st) {
+          T* as = reinterpret_cast<T*>(st);
+#pragma unroll
+          for (int q = 0; q < kBM * ASEG / kTC; ++q) {
+            const int idx = tid + q * kTC, r = idx / ASEG, s = idx % ASEG;
+            const long long p = p0 + r;
+            const bool ok = p < a.P;
+            cp_async16(as + r * ARS + s * (16 / (int)sizeof(T)),
+                       xg + (ok ? p : 0) * C4 + c * kBK +
+                           s * (16 / (int)sizeof(T)),
+                       ok);
+          }
+          issue_w(st, a.w1 + (long long)c * kBK * F, F);
+        },
+        [&](const unsigned char* st, int c, int kk, int mi, uint32_t(&big)[4],
+            uint32_t(&small)[4]) {
+          const T* as = reinterpret_cast<const T*>(st);
+          const int r = wm * 32 + mi * 16 + g, k = kk + t;
+          const float4 pa = e0[c * kBK + k], pb = e0[c * kBK + k + 4];
+          const float v[4] = {bn_relu(to_f32(as[r * ARS + k]), pa),
+                              bn_relu(to_f32(as[(r + 8) * ARS + k]), pa),
+                              bn_relu(to_f32(as[r * ARS + k + 4]), pb),
+                              bn_relu(to_f32(as[(r + 8) * ARS + k + 4]), pb)};
+          split4(v, big, small);
+        });
+  };
+  // A 3x3 SAME product on the tile: per chunk one tap's shifted rows of src
+  // [P][F] (zero outside the image), times wsrc [9F][F].
+  auto gemm_3x3 = [&](const float* src, const float* wsrc) {
+    tc_gemm<F>(
+        acc, 9 * F / kBK, ring,
+        [&](int c, unsigned char* st) {
+          float* as = reinterpret_cast<float*>(st);
+          const int k0 = c * kBK, tap = k0 / F, ci0 = k0 % F;
+          const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int idx = tid + q * kTC, r = idx >> 3, s = idx & 7;
+            const int y = ry[q] + dy, xx = rx[q] + dx;
+            const bool ok = rv[q] && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
+            const long long pix =
+                ok ? ((long long)rb[q] * a.H + y) * a.W + xx : 0;
+            cp_async16(as + r * (kBK + 4) + s * 4, src + pix * F + ci0 + s * 4,
+                       ok);
+          }
+          issue_w(st, wsrc + (long long)k0 * F, F);
+        },
+        frag_stage);
+  };
+  // chat = (c1-mu2)*i2 into the tile buffer.
+  auto store_chat = [&] {
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const int col = wn * PL::WN + ni * 8 + 2 * t;
+        const float2 mu = load2(a.mu2 + col), iv = load2(a.i2 + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* cp = cbuf + (wm * 32 + mi * 16 + g + 8 * h) * PL::CS + col;
+          cp[0] = mul(sub(acc[mi][ni][2 * h], mu.x), iv.x);
+          cp[1] = mul(sub(acc[mi][ni][2 * h + 1], mu.y), iv.y);
+        }
+      }
+  };
+
   const int tiles = (a.P + kBM - 1) / kBM;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long p0 = (long long)tile * kBM;
-    if constexpr (MODE == kBwd3) {
-      // c1 = p1 . W1; the A chunks are raw x, BN1 and ReLU applied as the
-      // fragments are read.
-      constexpr int ARS = kBK + 16 / (int)sizeof(T);  // A row stride, items
-      constexpr int ASEG = kBK * (int)sizeof(T) / 16;  // 16 B per row chunk
-      tc_gemm<F>(
-          acc, C4 / kBK, ring,
-          [&](int c, unsigned char* st) {
-            T* as = reinterpret_cast<T*>(st);
-#pragma unroll
-            for (int q = 0; q < kBM * ASEG / kTC; ++q) {
-              const int idx = tid + q * kTC, r = idx / ASEG, s = idx % ASEG;
-              const long long p = p0 + r;
-              const bool ok = p < a.P;
-              cp_async16(as + r * ARS + s * (16 / (int)sizeof(T)),
-                         xg + (ok ? p : 0) * C4 + c * kBK +
-                             s * (16 / (int)sizeof(T)),
-                         ok);
-            }
-            issue_w(st, a.w1 + (long long)c * kBK * F, F);
-          },
-          [&](const unsigned char* st, int c, int kk, int mi,
-              uint32_t(&big)[4], uint32_t(&small)[4]) {
-            const T* as = reinterpret_cast<const T*>(st);
-            const int r = wm * 32 + mi * 16 + g, k = kk + t;
-            const float4 pa = e0[c * kBK + k], pb = e0[c * kBK + k + 4];
-            const float v[4] = {bn_relu(to_f32(as[r * ARS + k]), pa),
-                                bn_relu(to_f32(as[(r + 8) * ARS + k]), pa),
-                                bn_relu(to_f32(as[r * ARS + k + 4]), pb),
-                                bn_relu(to_f32(as[(r + 8) * ARS + k + 4]), pb)};
-            split4(v, big, small);
-          });
-      // chat into the tile's buffer.
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) {
-          const int col = wn * PL::WN + ni * 8 + 2 * t;
-          const float2 mu = load2(a.mu2 + col), iv = load2(a.i2 + col);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float* cp = cbuf + (wm * 32 + mi * 16 + g + 8 * h) * PL::CS + col;
-            cp[0] = mul(sub(acc[mi][ni][2 * h], mu.x), iv.x);
-            cp[1] = mul(sub(acc[mi][ni][2 * h + 1], mu.y), iv.y);
-          }
-        }
-
-      // dp2 = convT(dmid): per chunk one tap's shifted rows of dmid.
-      int rb[2], ry[2], rx[2];  // the thread's two A rows: image, y, x
-      bool rv[2];
+    p0 = (long long)tile * kBM;
+    if constexpr (MODE == kBwd1 || MODE == kBwd2 || MODE == kBwd3) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const long long p = p0 + ((tid + q * kTC) >> 3);
@@ -318,58 +451,154 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
         ry[q] = rem / a.W;
         rx[q] = rem % a.W;
       }
-      tc_gemm<F>(
-          acc, 9 * F / kBK, ring,
-          [&](int c, unsigned char* st) {
-            float* as = reinterpret_cast<float*>(st);
-            const int k0 = c * kBK, tap = k0 / F, ci0 = k0 % F;
-            const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              const int idx = tid + q * kTC, r = idx >> 3, s = idx & 7;
-              const int y = ry[q] + dy, xx = rx[q] + dx;
-              const bool ok =
-                  rv[q] && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
-              const long long pix =
-                  ok ? ((long long)rb[q] * a.H + y) * a.W + xx : 0;
-              cp_async16(as + r * (kBK + 4) + s * 4,
-                         a.dmid + pix * F + ci0 + s * 4, ok);
-            }
-            issue_w(st, a.w2t + (long long)k0 * F, F);
-          },
-          [&](const unsigned char* st, int, int kk, int mi, uint32_t(&big)[4],
-              uint32_t(&small)[4]) {
-            frag_rows(reinterpret_cast<const float*>(st), kBK + 4, kk + t, mi,
-                      big, small);
-          });
-      // dm2, then dc1 in place of chat, and to device memory.
+    }
+
+    if constexpr (MODE == kP2) {
+      // p2 = relu(g2*chat + be2), to device memory.
+      gemm_c1();
 #pragma unroll
       for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) {
           const int col = wn * PL::WN + ni * 8 + 2 * t;
+          const float4 b0 = make_float4(__ldg(a.g2 + col), __ldg(a.be2 + col),
+                                        __ldg(a.mu2 + col), __ldg(a.i2 + col));
+          const float4 b1 =
+              make_float4(__ldg(a.g2 + col + 1), __ldg(a.be2 + col + 1),
+                          __ldg(a.mu2 + col + 1), __ldg(a.i2 + col + 1));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long p = p0 + wm * 32 + mi * 16 + g + 8 * h;
+            if (p < a.P)
+              store2(a.p2 + p * F + col, bn_relu(acc[mi][ni][2 * h], b0),
+                     bn_relu(acc[mi][ni][2 * h + 1], b1));
+          }
+        }
+    } else if constexpr (MODE == kBwd1) {
+      // mid = conv3x3(p2, w2): stored, and mhat into the tile buffer.
+      gemm_3x3(a.p2, a.w2);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int col = wn * PL::WN + ni * 8 + 2 * t;
+          const float2 mu = load2(a.mu3 + col), iv = load2(a.i3 + col);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = wm * 32 + mi * 16 + g + 8 * h;
             const long long p = p0 + row;
             float* cp = cbuf + row * PL::CS + col;
+            const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+            cp[0] = mul(sub(v0, mu.x), iv.x);
+            cp[1] = mul(sub(v1, mu.y), iv.y);
+            if (p < a.P) store2(a.mid + p * F + col, v0, v1);
+          }
+        }
+      // dp3 = gy . W3^T; the A chunks are the tile's gy rows.
+      tc_gemm<F>(
+          acc, C4 / kBK, ring,
+          [&](int c, unsigned char* st) {
+            float* as = reinterpret_cast<float*>(st);
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int idx = tid + q * kTC, r = idx >> 3, s = idx & 7;
+              const long long p = p0 + r;
+              const bool ok = p < a.P;
+              cp_async16(as + r * (kBK + 4) + s * 4,
+                         a.gy + (ok ? p : 0) * C4 + c * kBK + s * 4, ok);
+            }
+            issue_w(st, a.w3t + (long long)c * kBK * F, F);
+          },
+          frag_stage);
+      // dm3, stored, and the sums.
+      zero_sums();
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int col = wn * PL::WN + ni * 8 + 2 * t;
+          const float2 gv = load2(a.g3 + col), bv = load2(a.be3 + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = wm * 32 + mi * 16 + g + 8 * h;
+            const long long p = p0 + row;
+            const bool ok = p < a.P;
+            const float* cp = cbuf + row * PL::CS + col;
             float d[2];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              const int cc = col + j;
-              const float g2 = __ldg(a.g2 + cc), ch = cp[j];
-              const float m2 = add(mul(g2, ch), __ldg(a.be2 + cc));
-              const float dm2 = m2 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
-              d[j] = p < a.P
-                         ? mul(mul(g2, __ldg(a.i2 + cc)),
-                               sub(sub(dm2, __fdiv_rn(__ldg(a.t2a + cc), n)),
-                                   mul(ch, __fdiv_rn(__ldg(a.t2b + cc), n))))
-                         : 0.f;
-              cp[j] = d[j];
+              const float mh = cp[j];
+              const float m3 = add(mul(j ? gv.y : gv.x, mh), j ? bv.y : bv.x);
+              d[j] = ok && m3 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
+              sa[ni][j] += d[j];
+              sb[ni][j] = fmaf(d[j], mh, sb[ni][j]);
             }
-            if (p < a.P) store2(a.dc1 + p * F + col, d[0], d[1]);
+            if (ok) store2(a.dm3 + p * F + col, d[0], d[1]);
           }
         }
+      add_tile_sums<F>(sa, sb, red, sums, sums + F);
+    } else if constexpr (MODE == kBwd2 || MODE == kBwd3) {
+      gemm_c1();
+      store_chat();
+      // dp2 = convT(dmid).
+      gemm_3x3(a.dmid, a.w2t);
+      if constexpr (MODE == kBwd2) {
+        // dm2 and the sums.
+        zero_sums();
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) {
+            const int col = wn * PL::WN + ni * 8 + 2 * t;
+            const float2 gv = load2(a.g2 + col), bv = load2(a.be2 + col);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = wm * 32 + mi * 16 + g + 8 * h;
+              const bool ok = p0 + row < a.P;
+              const float* cp = cbuf + row * PL::CS + col;
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const float ch = cp[j];
+                const float m2 =
+                    add(mul(j ? gv.y : gv.x, ch), j ? bv.y : bv.x);
+                const float dm2 =
+                    ok && m2 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
+                sa[ni][j] += dm2;
+                sb[ni][j] = fmaf(dm2, ch, sb[ni][j]);
+              }
+            }
+          }
+        add_tile_sums<F>(sa, sb, red, sums, sums + F);
+      } else {
+        // dm2, then dc1 in place of chat, and to device memory.
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) {
+            const int col = wn * PL::WN + ni * 8 + 2 * t;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = wm * 32 + mi * 16 + g + 8 * h;
+              const long long p = p0 + row;
+              float* cp = cbuf + row * PL::CS + col;
+              float d[2];
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int cc = col + j;
+                const float g2 = __ldg(a.g2 + cc), ch = cp[j];
+                const float m2 = add(mul(g2, ch), __ldg(a.be2 + cc));
+                const float dm2 = m2 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
+                d[j] = p < a.P
+                           ? mul(mul(g2, __ldg(a.i2 + cc)),
+                                 sub(sub(dm2, __fdiv_rn(__ldg(a.t2a + cc), n)),
+                                     mul(ch, __fdiv_rn(__ldg(a.t2b + cc), n))))
+                           : 0.f;
+                cp[j] = d[j];
+              }
+              if (p < a.P) store2(a.dc1 + p * F + col, d[0], d[1]);
+            }
+          }
+      }
     } else {
       // The tile's dc1, from pass 3.
       constexpr int SEGS = F / 4;
@@ -386,94 +615,79 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
       __syncthreads();
     }
 
-    // dp1 = dc1 . W1^T in four rounds of F output channels: dm1, then the
-    // sums (bwd3) or dx (bwd4).
-    for (int n0 = 0; n0 < C4; n0 += F) {
-      tc_gemm<F>(
-          acc, F / kBK, ring,
-          [&](int c, unsigned char* st) {
-            issue_w(st, a.w1t + (long long)c * kBK * C4 + n0, C4);
-          },
-          [&](const unsigned char*, int c, int kk, int mi, uint32_t(&big)[4],
-              uint32_t(&small)[4]) {
-            frag_rows(cbuf, PL::CS, c * kBK + kk + t, mi, big, small);
-          });
-      float sa[NT][2], sb[NT][2];
+    if constexpr (MODE == kBwd3 || MODE == kBwd4) {
+      // dp1 = dc1 . W1^T in four rounds of F output channels: dm1, then the
+      // sums (bwd3) or dx (bwd4).
+      for (int n0 = 0; n0 < C4; n0 += F) {
+        tc_gemm<F>(
+            acc, F / kBK, ring,
+            [&](int c, unsigned char* st) {
+              issue_w(st, a.w1t + (long long)c * kBK * C4 + n0, C4);
+            },
+            [&](const unsigned char*, int c, int kk, int mi,
+                uint32_t(&big)[4], uint32_t(&small)[4]) {
+              frag_rows(cbuf, PL::CS, c * kBK + kk + t, mi, big, small);
+            });
+        zero_sums();
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-        sa[ni][0] = sa[ni][1] = sb[ni][0] = sb[ni][1] = 0.f;
+        for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
+          for (int h = 0; h < 2; ++h) {
+            const long long p = p0 + wm * 32 + mi * 16 + g + 8 * h;
+            const bool ok = p < a.P;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long p = p0 + wm * 32 + mi * 16 + g + 8 * h;
-          const bool ok = p < a.P;
+            for (int ni = 0; ni < NT; ++ni) {
+              const int cc = n0 + wn * PL::WN + ni * 8 + 2 * t;
+              const float2 xv =
+                  ok ? load2(xg + p * C4 + cc) : make_float2(0.f, 0.f);
+              float d[2];
 #pragma unroll
-          for (int ni = 0; ni < NT; ++ni) {
-            const int cc = n0 + wn * PL::WN + ni * 8 + 2 * t;
-            const float2 xv =
-                ok ? load2(xg + p * C4 + cc) : make_float2(0.f, 0.f);
-            float d[2];
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const float4 pr = e0[cc + j];
-              const float xh = mul(sub(j ? xv.y : xv.x, pr.z), pr.w);
-              const float m1 = add(mul(pr.x, xh), pr.y);
-              const float dm1 =
-                  ok && m1 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
-              if constexpr (MODE == kBwd3) {
-                sa[ni][j] += dm1;
-                sb[ni][j] = fmaf(dm1, xh, sb[ni][j]);
-              } else {
-                const float4 q1 = e1[cc + j];
-                d[j] = mul(q1.x, sub(sub(dm1, q1.y), mul(xh, q1.z)));
+              for (int j = 0; j < 2; ++j) {
+                const float4 pr = e0[cc + j];
+                const float xh = mul(sub(j ? xv.y : xv.x, pr.z), pr.w);
+                const float m1 = add(mul(pr.x, xh), pr.y);
+                const float dm1 =
+                    ok && m1 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
+                if constexpr (MODE == kBwd3) {
+                  sa[ni][j] += dm1;
+                  sb[ni][j] = fmaf(dm1, xh, sb[ni][j]);
+                } else {
+                  const float4 q1 = e1[cc + j];
+                  d[j] = mul(q1.x, sub(sub(dm1, q1.y), mul(xh, q1.z)));
+                }
               }
-            }
-            if constexpr (MODE == kBwd4) {
-              if (ok) {
-                const float2 gv = load2(a.gy + p * C4 + cc);
-                store2(static_cast<T*>(a.dx) + p * C4 + cc, add(gv.x, d[0]),
-                       add(gv.y, d[1]));
+              if constexpr (MODE == kBwd4) {
+                if (ok) {
+                  const float2 gv = load2(a.gy + p * C4 + cc);
+                  store2(static_cast<T*>(a.dx) + p * C4 + cc, add(gv.x, d[0]),
+                         add(gv.y, d[1]));
+                }
               }
             }
           }
-        }
-      if constexpr (MODE == kBwd3) {
-        // The warp's 32 rows by shuffles (lanes of one t hold one column
-        // pair), then the two warps of a column in order.
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float u = sa[ni][j], v = sb[ni][j];
-#pragma unroll
-            for (int o = 4; o < 32; o <<= 1) {
-              u += __shfl_xor_sync(0xffffffffu, u, o);
-              v += __shfl_xor_sync(0xffffffffu, v, o);
-            }
-            if (g == 0) {
-              const int col = wn * PL::WN + ni * 8 + 2 * t + j;
-              red[(wm * 2) * F + col] = u;
-              red[(wm * 2 + 1) * F + col] = v;
-            }
-          }
-        __syncthreads();
-        for (int k = tid; k < 2 * F; k += kTC) {
-          const int which = k / F, col = k % F;
-          sums[which * C4 + n0 + col] +=
-              red[which * F + col] + red[(2 + which) * F + col];
-        }
-        __syncthreads();  // red lives in the ring the next product fills
+        if constexpr (MODE == kBwd3)
+          add_tile_sums<F>(sa, sb, red, sums + n0, sums + C4 + n0);
       }
     }
   }
-  if constexpr (MODE == kBwd3) {
-    for (int k = tid; k < 2 * C4; k += kTC)
-      a.part[(long long)blockIdx.x * 2 * C4 + k] = sums[k];
-  }
+  for (int k = tid; k < NSUM; k += kTC)
+    a.part[(long long)blockIdx.x * NSUM + k] = sums[k];
 }
 
-// One entry point per pass, so that a profile names it.
+// One entry point per launch, so that a profile names it.
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_bwd1_p2_kernel(const TcArgs a) {
+  tc_body<T, F, kP2>(a);
+}
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC) bottleneck_bwd1_kernel(const TcArgs a) {
+  tc_body<T, F, kBwd1>(a);
+}
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC) bottleneck_bwd2_kernel(const TcArgs a) {
+  tc_body<T, F, kBwd2>(a);
+}
 template <typename T, int F>
 __global__ void __launch_bounds__(kTC) bottleneck_bwd3_kernel(const TcArgs a) {
   tc_body<T, F, kBwd3>(a);
@@ -483,12 +697,49 @@ __global__ void __launch_bounds__(kTC) bottleneck_bwd4_kernel(const TcArgs a) {
   tc_body<T, F, kBwd4>(a);
 }
 
+// bwd2's first launch, elementwise over [P][F], four channels a thread:
+// dmid = g3*i3*(dm3 - T3a/n - mhat*(T3b/n)), mhat = (mid-mu3)*i3.
+template <int F>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_bwd2_dmid_kernel(const TcArgs a) {
+  const long long total = (long long)a.P * (F / 4);
+  const float n = a.n;
+  for (long long i = (long long)blockIdx.x * kTC + threadIdx.x; i < total;
+       i += (long long)gridDim.x * kTC) {
+    const int c = (int)(i % (F / 4)) * 4;
+    const float4 d = load4(a.dm3 + i * 4), m = load4(a.mid + i * 4);
+    const float dv[4] = {d.x, d.y, d.z, d.w}, mv[4] = {m.x, m.y, m.z, m.w};
+    float o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int cc = c + q;
+      const float i3 = __ldg(a.i3 + cc);
+      const float mh = mul(sub(mv[q], __ldg(a.mu3 + cc)), i3);
+      o[q] = mul(mul(__ldg(a.g3 + cc), i3),
+                 sub(sub(dv[q], __fdiv_rn(__ldg(a.t3a + cc), n)),
+                     mul(mh, __fdiv_rn(__ldg(a.t3b + cc), n))));
+    }
+    store4(a.dmid + i * 4, make_float4(o[0], o[1], o[2], o[3]));
+  }
+}
+
 template <typename T, int F, int MODE>
-cudaError_t launch(const TcArgs& a, float* out, int part_rows, int device,
-                   cudaStream_t st) {
-  auto kernel = MODE == kBwd3 ? bottleneck_bwd3_kernel<T, F>
-                              : bottleneck_bwd4_kernel<T, F>;
-  const int smem = MODE == kBwd3 ? Plan<F>::SMEM_BWD3 : Plan<F>::SMEM_BWD4;
+auto tc_kernel() {
+  if constexpr (MODE == kP2) return bottleneck_bwd1_p2_kernel<T, F>;
+  else if constexpr (MODE == kBwd1) return bottleneck_bwd1_kernel<T, F>;
+  else if constexpr (MODE == kBwd2) return bottleneck_bwd2_kernel<T, F>;
+  else if constexpr (MODE == kBwd3) return bottleneck_bwd3_kernel<T, F>;
+  else return bottleneck_bwd4_kernel<T, F>;
+}
+
+// One tile pass: as many blocks as run at once, at most `limit` (the rows
+// of partial sums there is room for), each walking the tiles; the sums'
+// order depends only on the shapes and the card. Sets *blocks.
+template <typename T, int F, int MODE>
+cudaError_t run_tiles(const TcArgs& a, long long limit, int device,
+                      cudaStream_t st, int* blocks) {
+  auto kernel = tc_kernel<T, F, MODE>();
+  constexpr int smem = Plan<F>::smem(MODE);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -499,84 +750,132 @@ cudaError_t launch(const TcArgs& a, float* out, int part_rows, int device,
                                                       smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // As many blocks as run at once (and as part has rows for), each walking
-  // the tiles; the sums' order depends only on the shapes and the card.
   const long long tiles = (a.P + kBM - 1) / kBM;
-  const int blocks = (int)std::min<long long>(
-      {tiles, (long long)per_sm * sms,
-       MODE == kBwd3 ? (long long)part_rows : tiles});
-  kernel<<<blocks, kTC, smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || MODE == kBwd4) return err;
-  return sum_rows(a.part, out, blocks, 8 * F, st);
+  *blocks = (int)std::min<long long>({tiles, (long long)per_sm * sms, limit});
+  kernel<<<*blocks, kTC, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T, int MODE>
-cudaError_t dispatch_f(const TcArgs& a, float* out, int part_rows, int F,
-                       int device, cudaStream_t st) {
+template <int F>
+cudaError_t run_dmid(const TcArgs& a, int device, cudaStream_t st) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)a.P * (F / 4);
+  const int blocks =
+      (int)std::min<long long>((items + kTC - 1) / kTC, 16LL * sms);
+  bottleneck_bwd2_dmid_kernel<F><<<blocks, kTC, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The launches of one pass: bwd1 the p2 pass, its tile pass and the sum of
+// its rows; bwd2 dmid, its tile pass and the sum; bwd3 its pass and the
+// sum; bwd4 its pass.
+template <typename T, int F>
+cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
+                   int device, cudaStream_t st) {
+  const long long every = (a.P + kBM - 1) / kBM;
+  int blocks = 0;
+  cudaError_t err = cudaSuccess;
+  switch (mode) {
+    case kBwd1:
+      err = run_tiles<T, F, kP2>(a, every, device, st, &blocks);
+      if (err != cudaSuccess) return err;
+      // The tile pass reads no x: one instantiation serves both types.
+      err = run_tiles<float, F, kBwd1>(a, part_rows, device, st, &blocks);
+      if (err != cudaSuccess) return err;
+      return sum_rows(a.part, out, blocks, 2 * F, st);
+    case kBwd2:
+      err = run_dmid<F>(a, device, st);
+      if (err != cudaSuccess) return err;
+      err = run_tiles<T, F, kBwd2>(a, part_rows, device, st, &blocks);
+      if (err != cudaSuccess) return err;
+      return sum_rows(a.part, out, blocks, 2 * F, st);
+    case kBwd3:
+      err = run_tiles<T, F, kBwd3>(a, part_rows, device, st, &blocks);
+      if (err != cudaSuccess) return err;
+      return sum_rows(a.part, out, blocks, 8 * F, st);
+    default:
+      return run_tiles<T, F, kBwd4>(a, every, device, st, &blocks);
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_f(int mode, const TcArgs& a, float* out, int part_rows,
+                       int F, int device, cudaStream_t st) {
   switch (F) {
     case 64:
-      return launch<T, 64, MODE>(a, out, part_rows, device, st);
+      return launch<T, 64>(mode, a, out, part_rows, device, st);
     case 128:
-      return launch<T, 128, MODE>(a, out, part_rows, device, st);
+      return launch<T, 128>(mode, a, out, part_rows, device, st);
     case 256:
-      return launch<T, 256, MODE>(a, out, part_rows, device, st);
+      return launch<T, 256>(mode, a, out, part_rows, device, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_mode(int mode, const TcArgs& a, float* out,
-                          int part_rows, int F, int device, cudaStream_t st) {
-  return mode == kBwd3
-             ? dispatch_f<T, kBwd3>(a, out, part_rows, F, device, st)
-             : dispatch_f<T, kBwd4>(a, out, part_rows, F, device, st);
-}
-
 }  // namespace
 
-// p[22], null where a mode does not read it: x, gy, w1, w2t, w1t, g1, be1,
-// mu1, i1, g2, be2, mu2, i2, T2a, T2b, T1a, T1b, dmid, dc1, dx, part, out
-// (see TcArgs). x, gy, dx [B,H,W,4F], dmid, dc1 [B,H,W,F]; x and dx of
-// `dtype` (tr::DType), the rest f32; all contiguous and 16-byte aligned.
-// Mode 0 (bwd3) reads dmid and writes dc1 and out = [T1a, T1b] (8F floats),
-// through part (part_rows*8F floats; the kernel runs at most part_rows
-// blocks); mode 1 (bwd4) reads dc1 and writes dx (part_rows unread). F is 64, 128 or 256.
-// Returns the cudaError_t of the launches on `stream` (the kernel and, for
-// mode 0, the sum of its rows).
+// p[33], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
+// g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, T2a, T2b,
+// T1a, T1b, p2, mid, dm3, dmid, dc1, dx, part, out (see TcArgs). x, gy, dx
+// [B,H,W,4F], p2, mid, dm3, dmid, dc1 [B,H,W,F]; x and dx of `dtype`
+// (tr::DType), the rest f32; all contiguous and 16-byte aligned.
+// Mode 2 (bwd1) writes p2, mid, dm3 and out = [T3a, T3b] (2F floats); mode 3
+// (bwd2) reads mid, dm3 and writes dmid and out = [T2a, T2b] (2F); mode 0
+// (bwd3) reads dmid and writes dc1 and out = [T1a, T1b] (8F); each through
+// part (part_rows rows of out's length; the tile pass runs at most part_rows
+// blocks). Mode 1 (bwd4) reads dc1 and writes dx (part_rows unread). F is
+// 64, 128 or 256. Returns the cudaError_t of the launches on `stream`:
+// three for bwd1 and bwd2, two for bwd3, one for bwd4 (see launch()).
 extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
                                 int W, int F, int part_rows, int dtype,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || (mode != kBwd3 && mode != kBwd4) ||
-      (mode == kBwd3 && part_rows < 1))
+  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kBwd2 ||
+      (mode != kBwd4 && part_rows < 1))
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
+  const auto w = [](const void* q) {
+    return static_cast<float*>(const_cast<void*>(q));
+  };
   TcArgs a = {};
   a.x = p[0];
   a.gy = f(p[1]);
   a.w1 = f(p[2]);
-  a.w2t = f(p[3]);
-  a.w1t = f(p[4]);
-  a.g1 = f(p[5]);
-  a.be1 = f(p[6]);
-  a.mu1 = f(p[7]);
-  a.i1 = f(p[8]);
-  a.g2 = f(p[9]);
-  a.be2 = f(p[10]);
-  a.mu2 = f(p[11]);
-  a.i2 = f(p[12]);
-  a.t2a = f(p[13]);
-  a.t2b = f(p[14]);
-  a.t1a = f(p[15]);
-  a.t1b = f(p[16]);
-  a.dmid = f(p[17]);
-  a.dc1 = static_cast<float*>(const_cast<void*>(p[18]));
-  a.dx = const_cast<void*>(p[19]);
-  a.part = static_cast<float*>(const_cast<void*>(p[20]));
-  float* out = static_cast<float*>(const_cast<void*>(p[21]));
+  a.w2 = f(p[3]);
+  a.w2t = f(p[4]);
+  a.w3t = f(p[5]);
+  a.w1t = f(p[6]);
+  a.g1 = f(p[7]);
+  a.be1 = f(p[8]);
+  a.mu1 = f(p[9]);
+  a.i1 = f(p[10]);
+  a.g2 = f(p[11]);
+  a.be2 = f(p[12]);
+  a.mu2 = f(p[13]);
+  a.i2 = f(p[14]);
+  a.g3 = f(p[15]);
+  a.be3 = f(p[16]);
+  a.mu3 = f(p[17]);
+  a.i3 = f(p[18]);
+  a.t3a = f(p[19]);
+  a.t3b = f(p[20]);
+  a.t2a = f(p[21]);
+  a.t2b = f(p[22]);
+  a.t1a = f(p[23]);
+  a.t1b = f(p[24]);
+  a.p2 = w(p[25]);
+  a.mid = w(p[26]);
+  a.dm3 = w(p[27]);
+  a.dmid = w(p[28]);
+  a.dc1 = w(p[29]);
+  a.dx = const_cast<void*>(p[30]);
+  a.part = w(p[31]);
+  float* out = w(p[32]);
   a.P = B * H * W;
   a.H = H;
   a.W = W;
@@ -584,10 +883,10 @@ extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tr::kFloat32:
-      return dispatch_mode<float>(mode, a, out, part_rows, F, device, st);
+      return dispatch_f<float>(mode, a, out, part_rows, F, device, st);
     case tr::kBFloat16:
-      return dispatch_mode<__nv_bfloat16>(mode, a, out, part_rows, F, device,
-                                          st);
+      return dispatch_f<__nv_bfloat16>(mode, a, out, part_rows, F, device,
+                                       st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,6 +1,6 @@
 // Fused ResNet-v2 bottleneck: with live batch-norm statistics, the two moment
-// passes of the training forward and the first two backward passes (passes 3
-// and 4 live in fused_bottleneck_tc.cu, and take dw1 from this file's
+// passes of the training forward (the four backward passes live in
+// fused_bottleneck_tc.cu, and take dw1, dw2, dw3 from this file's
 // weight-gradient kernel); with folded (frozen) batch norm, the one backward
 // pass. Stride 1, identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or
 // bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
@@ -12,65 +12,54 @@
 // training when model.fused_blocks=true: 10 blocks of ImageNet ResNet-50):
 //   mode 0 stats_a  _stats_a_kernel: sum c1, sum c1^2, c1 = p1 . W1;
 //   mode 1 stats_b  _stats_b_kernel: sum mid, sum mid^2, mid = conv3x3(p2);
-//   mode 2 bwd1     _train_bwd_calls pass1: T3a = sum dm3, T3b = sum dm3*mhat,
-//                   and p3 for dw3 = sum p3^T gy;
-//   mode 3 bwd2     pass2: T2a = sum dm2, T2b = sum dm2*chat, and p2, dmid for
-//                   dw2 = sum p2-patch^T dmid (dmid is handed on to pass 3);
 // and (bottleneck_apply, the folded-BN bottleneck under a gradient: the
 // eval-mode model differentiated, tools/fused_bottleneck_ab.py's fwd_bwd arm):
 //   mode 6 bwd      _bwd_kernel: dx, the six BN sums and the operands p3, p2,
 //                   dmid, dc1 of dW3 = sum p3^T gy, dw2 = sum p2-patch^T dmid,
 //                   dW1 = sum p1^T dc1, in one pass.
 // The chain, recomputed from x and the saved moments (i = 1/sigma), as the
-// reference's _chain_train / _chain_train_full:
+// reference's _chain_train:
 //   x1hat = (x-mu1)*i1, m1 = g1*x1hat + be1, p1 = relu(m1), c1 = p1 . W1,
 //   chat = (c1-mu2)*i2, m2 = g2*chat + be2, p2 = relu(m2) (0 outside the
-//   image), mid = conv3x3(p2, w2), mhat = (mid-mu3)*i3, m3 = g3*mhat + be3,
-//   p3 = relu(m3);
-// and the backward: dm3 = (gy . W3^T)*[m3>0], dmid = g3*i3*(dm3 - T3a/n -
-// mhat*(T3b/n)) (0 outside the image), dm2 = convT(dmid, w2)*[m2>0]. Mode 6
-// runs the same chain on to dm1 = (dc1 . W1^T)*[m1>0] on the folded affines,
-// as the reference's _chain_fwd and _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2
-// + b2, m3 = mid*s3 + b3, and with no correction terms dmid = dm3*s3, dc1 =
-// dm2*s2, dx = gy + dm1*s1; its sums are db = sum dm and ds = sum dm*v, v
-// the BN's input (x, c1, mid).
-// The kernel reads s, b where the live modes read g, be; where they hold a
-// normalised value (chat, mhat, x1hat) it holds the raw one. Every
-// elementwise formula rounds as written (__fmul_rn, __fadd_rn, no FMA
-// contraction), as the plain PyTorch version does, so a mask [m > 0] agrees
-// with the plain version's wherever the products do. stats_a normalises as
-// the reference's _stats_a_kernel rounds it: (g1*(x-mu1))*i1 + be1.
+//   image), mid = conv3x3(p2, w2).
+// Mode 6 runs the chain on the folded affines, as the reference's _chain_fwd
+// and _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2 + b2, m3 = mid*s3 + b3, p3 =
+// relu(m3); then dm3 = (gy . W3^T)*[m3>0], dmid = dm3*s3 (0 outside the
+// image), dm2 = convT(dmid, w2)*[m2>0], dc1 = dm2*s2, dm1 = (dc1 . W1^T)*
+// [m1>0], dx = gy + dm1*s1; its sums are db = sum dm and ds = sum dm*v, v
+// the BN's input (x, c1, mid). The kernel reads s, b where the live modes
+// read g, be. Every elementwise formula rounds as written (__fmul_rn,
+// __fadd_rn, no FMA contraction), as the plain PyTorch version does, so a
+// mask [m > 0] agrees with the plain version's wherever the products do.
+// stats_a normalises as the reference's _stats_a_kernel rounds it:
+// (g1*(x-mu1))*i1 + be1.
 //
 // Bound: arithmetic. Per centre pixel, c1 is 8F^2 flops, mid 18F^2, gy . W3^T
-// 8F^2, convT 18F^2, dc1 . W1^T 8F^2 and each weight gradient 8F^2 (dw1,
-// dw3) or 18F^2 (dw2): 8, 26, 42 and 70 F^2 for the four live modes, and
-// 94F^2 for mode 6 with its three weight gradients, against
-// ~2*4F elements moved, on f32 FMAs (67 TFLOP/s on an H100). H*W*F^2 is the
-// same at every ResNet-50 stage, so each pass has one bound per launch at
-// all three stages (0.20 to 1.72 ms at B=128).
+// 8F^2, convT 18F^2, dc1 . W1^T 8F^2 and each weight gradient 8F^2 (dW1,
+// dW3) or 18F^2 (dw2): 8 and 26 F^2 for the two moment modes, and 94F^2 for
+// mode 6 with its three weight gradients, against ~2*4F elements moved, on
+// f32 FMAs (67 TFLOP/s on an H100). H*W*F^2 is the same at every ResNet-50
+// stage, so each mode has one bound per launch at all three stages.
 //
 // Design: the row kernel. One thread block per (image, band of R output
 // rows), as bottleneck_fwd (csrc/fused_bottleneck.cu), with its register-
 // tiled products (tile_fma.cuh). The band recomputes the chain on its rows
-// and a halo: none for stats_a, one row for stats_b and bwd1 (the 3x3 needs
-// p2 at +-1), two for bwd2 and mode 6 (convT needs dmid at +-1, hence mid at
-// +-1 and p2 at +-2); halo rows are recomputed by both neighbours, as the
-// TPU kernel does. Phases, each a product into registers with an
-// elementwise epilogue:
+// and a halo: none for stats_a, one row for stats_b (the 3x3 needs p2 at
+// +-1), two for mode 6 (convT needs dmid at +-1, hence mid at +-1 and p2 at
+// +-2); halo rows are recomputed by both neighbours, as the TPU kernel does.
+// Phases, each a product into registers with an elementwise epilogue:
 //   A  c1 over the E = R + 2*halo rows: p2 into shared memory (zero rows
-//      outside the image, zero side columns), chat of the centre rows;
-//   B  mid = conv3x3(p2) over E-2 rows: mhat into shared memory (or, for
-//      stats_b, the sums);
-//   C  gy . W3^T over the same rows: dm3, then dmid in place of mhat (zeroed
-//      outside the image, where the correction terms are not zero);
-//   D  dp2 = convT(dmid) over the R centre rows: dm2 and T2, or (mode 6)
-//      dc1 in place of chat;
-//   E  (mode 6) dc1 . W1^T in four tiles of F output channels: dm1, dx.
-// Mode 6 runs all five phases: C gives dmid and the BN3 sums on the centre
-// rows, D dc1 and the BN2 sums, E dx and the BN1 sums.
-// Neither intermediate is written to device memory except the one operand
-// each weight gradient needs (p3, p2 and dmid, dc1: [B,H,W,F] f32 scratch).
-// The A operand of a reduce phase (x or gy, 4F channels) streams from device
+//      outside the image, zero side columns), c1 of the centre rows;
+//   B  mid = conv3x3(p2) over E-2 rows: the sums (stats_b) or mid into
+//      shared memory;
+//   C  gy . W3^T over the same rows: dm3, then dmid in place of mid (zeroed
+//      outside the image) and the BN3 sums on the centre rows;
+//   D  dp2 = convT(dmid) over the R centre rows: dm2, the BN2 sums, and dc1
+//      in place of c1;
+//   E  dc1 . W1^T in four tiles of F output channels: dm1, the BN1 sums, dx.
+// Neither intermediate is written to device memory except the operands the
+// weight gradients need (p3, p2 and dmid, dc1: [B,H,W,F] f32 scratch). The
+// A operand of a reduce phase (x or gy, 4F channels) streams from device
 // memory in chunks staged through a shared buffer that is free in that
 // phase. R is picked per launch from {4, 2, 1} for the least estimated time,
 // among those whose buffers fit in shared memory.
@@ -79,18 +68,18 @@
 // product whose long dimension is the pixels. bottleneck_wgrad_kernel tiles
 // the output into 64x64 blocks (a thread owns 4x4) and splits the pixels
 // into a fixed number of chunks chosen from the shapes, one block per (tile,
-// chunk); A is p3 (dw3), p2 shifted by the tap with SAME zero padding (dw2,
-// one grid slice per tap) or p1 = relu(g1*x1hat + be1) computed from x as it
-// is loaded (dw1); B is gy, dmid or dc1. Mode 6's dW1 passes (g1, be1, mu1,
-// i1) = (s1, b1, 0, 1): bn_relu rounds g*((v-0)*1) + be, and v-0 and v*1
-// are exact, so p1 is relu(x*s1 + b1) bit for bit.
+// chunk); A is rows of an f32 matrix (mode 6's dW3), p2 shifted by the tap
+// with SAME zero padding (dw2, one grid slice per tap) or relu(g*((v-mu)*i)
+// + be) computed from v as it is loaded: p1 from x (dW1), or, in the live
+// backward, p3 from mid (dw3). B is gy, dmid or dc1. Mode 6's dW1 passes
+// (g1, be1, mu1, i1) = (s1, b1, 0, 1): bn_relu rounds g*((v-0)*1) + be, and
+// v-0 and v*1 are exact, so p1 is relu(x*s1 + b1) bit for bit.
 //
 // Sums without atomics: the row kernel writes one row of channel sums per
 // block, the weight-gradient kernel one partial product per chunk, and
 // bottleneck_sum_kernel (row_sums.cuh) adds them in block order. Inside a
 // block each channel sum adds the thread's pixels in order, then the threads
-// in order. Two calls agree
-// bit for bit.
+// in order. Two calls agree bit for bit.
 //
 // Known limit, the first thing to make fast: every product runs on f32 FMAs;
 // the recomputed halo costs up to 5x the centre rows' c1 at F=256 (R=1).
@@ -109,8 +98,6 @@ using namespace tr;
 enum Mode : int {
   kStatsA = 0,
   kStatsB = 1,
-  kBwd1 = 2,
-  kBwd2 = 3,
   kBwd = 6  // the frozen-BN backward
 };
 enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2 };
@@ -124,29 +111,27 @@ struct Args {
   const float* w3t;   // [4F,F]: W3 transposed
   const float* w1t;   // [F,4F]: W1 transposed
   const float* v[12];  // g1 be1 mu1 i1 ([4F]) g2 be2 mu2 i2 g3 be3 mu3 i3
-  const float* t[2];   // T3a T3b (bwd2)
   float* part;        // [blocks][row_len] channel sums
   float* out;         // [row_len] their sum
-  float* s0;          // [B,H,W,F] scratch: p3 (bwd1), p2 (bwd2, bwd)
-  float* s1;          // [B,H,W,F]: dmid (bwd2, bwd)
+  float* s0;          // [B,H,W,F] scratch: p2 (bwd)
+  float* s1;          // [B,H,W,F] scratch: dmid (bwd)
   void* dx;           // [B,H,W,4F] (bwd)
   float* s2;          // [B,H,W,F] scratch: p3 (bwd)
   float* s3;          // [B,H,W,F] scratch: dc1 (bwd)
   int H, W, R, bands;
-  float n;  // B*H*W
 };
 
 __host__ __device__ constexpr int halo(int mode) {
-  return mode == kStatsA ? 0 : mode <= kBwd1 ? 1 : 2;
+  return mode == kStatsA ? 0 : mode == kStatsB ? 1 : 2;
 }
 __host__ __device__ constexpr int row_len(int mode, int F) {
   return mode == kBwd ? 12 * F : 2 * F;
 }
 
 // Shared memory, in floats: region 0 holds p2 [E][W+2][F], later the staged
-// gy chunks and the channel-sum reduction; region 1 mhat, then dmid, [E-2]
-// [W+2][F] (first the staged x chunks); region 2 chat, then dc1, [R][W][F];
-// region 3 two staged weight chunks.
+// gy chunks and the channel-sum reduction; region 1 (mode 6) mid, then dmid,
+// [E-2][W+2][F] (first the staged x chunks); region 2 (mode 6) c1, then dc1,
+// [R][W][F]; region 3 two staged weight chunks.
 struct Layout {
   int o1, o2, o3, total;
 };
@@ -157,9 +142,9 @@ __host__ __device__ inline Layout layout(int mode, int R, int W) {
   int s0 = mode == kStatsA ? 0 : E * WP * F;
   s0 = s0 > stage ? s0 : stage;
   s0 = s0 > red ? s0 : red;
-  int s1 = mode >= kBwd1 ? (E - 2) * WP * F : 0;
+  int s1 = mode == kBwd ? (E - 2) * WP * F : 0;
   s1 = s1 > stage ? s1 : stage;
-  const int s2 = mode >= kBwd2 ? R * W * F : 0;
+  const int s2 = mode == kBwd ? R * W * F : 0;
   return {s0, s0 + s1, s0 + s1 + s2, s0 + s1 + s2 + 2 * kKC * F};
 }
 
@@ -386,8 +371,8 @@ __device__ __forceinline__ void train_body(const Args& a) {
   const int E = R + 2 * HALO;
   const Layout L = layout<F>(MODE, R, W);
   float* reg0 = smem;            // p2; staged gy; reduction
-  float* reg1 = smem + L.o1;     // staged x; mhat -> dmid
-  float* reg2 = smem + L.o2;     // chat -> dc1
+  float* reg1 = smem + L.o1;     // staged x; mid -> dmid
+  float* reg2 = smem + L.o2;     // c1 -> dc1
   float* bbuf = smem + L.o3;
   const int tid = threadIdx.x;
   const int img = blockIdx.x / a.bands;
@@ -397,7 +382,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
   float* prow = a.part + (long long)blockIdx.x * row_len(MODE, F);
   const float *g1 = a.v[0], *be1 = a.v[1], *mu1 = a.v[2], *i1 = a.v[3];
   const float *g2 = a.v[4], *be2 = a.v[5], *mu2 = a.v[6], *i2 = a.v[7];
-  const float *g3 = a.v[8], *be3 = a.v[9], *mu3 = a.v[10], *i3 = a.v[11];
+  const float *g3 = a.v[8], *be3 = a.v[9];
   float sa[kTN], sb[kTN];  // the thread's channel sums
 #pragma unroll
   for (int j = 0; j < kTN; ++j) sa[j] = sb[j] = 0.f;
@@ -464,12 +449,11 @@ __device__ __forceinline__ void train_body(const Args& a) {
                           : 0.f;
           }
           store4(reg0 + (e * WP + px + 1) * F + c, f4(p));
-          if constexpr (MODE >= kBwd2) {
+          if constexpr (MODE == kBwd) {
             const int ce = e - HALO;
             if (ce >= 0 && ce < R && inside) {
               store4(reg2 + (ce * W + px) * F + c, f4(ch));
-              if (MODE == kBwd2 || MODE == kBwd)
-                store4(a.s0 + (pix0 + (long long)g * W + px) * F + c, f4(p));
+              store4(a.s0 + (pix0 + (long long)g * W + px) * F + c, f4(p));
             }
           }
         });
@@ -479,7 +463,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
   if constexpr (MODE >= kStatsB) {
     __syncthreads();
     // dmid's side columns, once phase A's x chunks have left region 1.
-    if (MODE >= kBwd2) zero_sides(reg1, E - 2);
+    if (MODE == kBwd) zero_sides(reg1, E - 2);
     conv_rows<F>(reg0, E - 2, W, a.w2, bbuf,
                  [&](int m, int h, int c, float4 v) {
                    const int e = m / W;
@@ -489,30 +473,22 @@ __device__ __forceinline__ void train_body(const Args& a) {
                      for (int q = 0; q < 4; ++q)
                        sum2(h, q, at(v, q), at(v, q));
                    } else {
-                     float mh[4];
-#pragma unroll
-                     for (int q = 0; q < 4; ++q)
-                       mh[q] = MODE == kBwd
-                                   ? at(v, q)
-                                   : mul(sub(at(v, q), __ldg(mu3 + c + q)),
-                                         __ldg(i3 + c + q));
-                     store4(reg1 + (e * WP + m % W + 1) * F + c, f4(mh));
+                     store4(reg1 + (e * WP + m % W + 1) * F + c, v);
                    }
                  });
   }
 
-  // C. dp3 = gy . W3^T over the rows of mhat: dm3, then T3 or dmid.
-  if constexpr (MODE >= kBwd1) {
+  // C. dp3 = gy . W3^T over the rows of mid: dm3, then dmid.
+  if constexpr (MODE == kBwd) {
     __syncthreads();
     const int g0 = r0 - (HALO - 1);
-    const float n = a.n;
     reduce_rows<F>(
         a.gy + pix0 * C4, g0, E - 2, H, W, a.w3t, reg0, bbuf,
         [](float4 v, int) { return v; },
         [&](int m, int h, int c, float4 v) {
           const int e = m / W, px = m % W, g = g0 + e;
           const bool inside = g >= 0 && g < H;
-          const bool centre = inside && e >= 1 && e <= R;  // HALO 2 modes
+          const bool centre = inside && e >= 1 && e <= R;
           float* mp = reg1 + (e * WP + px + 1) * F + c;
           float o[4], p3[4];
 #pragma unroll
@@ -520,47 +496,31 @@ __device__ __forceinline__ void train_body(const Args& a) {
             const float mh = mp[q];
             const float m3 = add(mul(__ldg(g3 + c + q), mh), __ldg(be3 + c + q));
             const float dm3 = m3 > 0.f ? at(v, q) : 0.f;
-            if constexpr (MODE == kBwd1) {
-              if (inside) sum2(h, q, dm3, mh);
-              o[q] = fmaxf(m3, 0.f);  // p3
-            } else if constexpr (MODE == kBwd) {
-              if (centre) sum2(h, q, dm3, mh);
-              p3[q] = fmaxf(m3, 0.f);
-              o[q] = inside ? mul(dm3, __ldg(g3 + c + q)) : 0.f;  // dmid
-            } else {
-              o[q] = inside
-                         ? mul(mul(__ldg(g3 + c + q), __ldg(i3 + c + q)),
-                               sub(sub(dm3, __fdiv_rn(__ldg(a.t[0] + c + q), n)),
-                                   mul(mh, __fdiv_rn(__ldg(a.t[1] + c + q), n))))
-                         : 0.f;  // dmid
-            }
+            if (centre) sum2(h, q, dm3, mh);
+            p3[q] = fmaxf(m3, 0.f);
+            o[q] = inside ? mul(dm3, __ldg(g3 + c + q)) : 0.f;  // dmid
           }
           const long long so = (pix0 + (long long)g * W + px) * F + c;
-          if constexpr (MODE == kBwd1) {
-            if (inside) store4(a.s0 + so, f4(o));
-          } else {
-            store4(mp, f4(o));
-            if ((MODE == kBwd2 || MODE == kBwd) && centre)
-              store4(a.s1 + so, f4(o));
-            if (MODE == kBwd && centre) store4(a.s2 + so, f4(p3));
+          store4(mp, f4(o));
+          if (centre) {
+            store4(a.s1 + so, f4(o));
+            store4(a.s2 + so, f4(p3));
           }
         });
-  }
-  if constexpr (MODE == kBwd1 || MODE == kStatsA || MODE == kStatsB)
-    flush_sums<F>(sa, sb, reg0, prow, prow + F);
-  if constexpr (MODE == kBwd)
     flush_sums<F>(sa, sb, reg0, prow + 10 * F, prow + 11 * F);
+  } else {
+    flush_sums<F>(sa, sb, reg0, prow, prow + F);
+  }
 
-  // D. dp2 = convT(dmid) over the R centre rows: dm2, then T2 or dc1.
-  if constexpr (MODE >= kBwd2) {
+  // D. dp2 = convT(dmid) over the R centre rows: dm2, then dc1.
+  if constexpr (MODE == kBwd) {
     __syncthreads();
-    const float n = a.n;
     conv_rows<F>(
         reg1, R, W, a.w2t, bbuf, [&](int m, int h, int c, float4 v) {
           const int e = m / W, px = m % W, g = r0 + e;
           float* cp = reg2 + (e * W + px) * F + c;
           if (g >= H) {
-            if (MODE != kBwd2) store4(cp, make_float4(0.f, 0.f, 0.f, 0.f));
+            store4(cp, make_float4(0.f, 0.f, 0.f, 0.f));
             return;
           }
           float o[4];
@@ -569,26 +529,17 @@ __device__ __forceinline__ void train_body(const Args& a) {
             const float ch = cp[q];
             const float m2 = add(mul(__ldg(g2 + c + q), ch), __ldg(be2 + c + q));
             const float dm2 = m2 > 0.f ? at(v, q) : 0.f;
-            if constexpr (MODE == kBwd2) {
-              sum2(h, q, dm2, ch);
-            } else {
-              sum2(h, q, dm2, ch);
-              o[q] = mul(dm2, __ldg(g2 + c + q));
-            }
+            sum2(h, q, dm2, ch);
+            o[q] = mul(dm2, __ldg(g2 + c + q));
           }
-          if constexpr (MODE == kBwd) {
-            store4(cp, f4(o));  // dc1, in place of chat
-            store4(a.s3 + (pix0 + (long long)g * W + px) * F + c, f4(o));
-          }
+          store4(cp, f4(o));  // dc1, in place of c1
+          store4(a.s3 + (pix0 + (long long)g * W + px) * F + c, f4(o));
         });
-    if constexpr (MODE == kBwd2) flush_sums<F>(sa, sb, reg0, prow, prow + F);
-    if constexpr (MODE == kBwd)
-      flush_sums<F>(sa, sb, reg0, prow + 8 * F, prow + 9 * F);
+    flush_sums<F>(sa, sb, reg0, prow + 8 * F, prow + 9 * F);
   }
 
   // E. dp1 = dc1 . W1^T, in four tiles of F channels: dm1, then dx.
   if constexpr (MODE == kBwd) {
-    const float n = a.n;
     for (int nt = 0; nt < 4; ++nt) {
       __syncthreads();
       expand_rows<F>(
@@ -626,8 +577,6 @@ __device__ __forceinline__ void train_body(const Args& a) {
   }
 TR_ROW_KERNEL(bottleneck_stats_a_kernel, kStatsA)
 TR_ROW_KERNEL(bottleneck_stats_b_kernel, kStatsB)
-TR_ROW_KERNEL(bottleneck_bwd1_kernel, kBwd1)
-TR_ROW_KERNEL(bottleneck_bwd2_kernel, kBwd2)
 TR_ROW_KERNEL(bottleneck_bwd_kernel, kBwd)
 #undef TR_ROW_KERNEL
 
@@ -635,8 +584,6 @@ template <typename T, int F, int MODE>
 auto row_kernel() {
   if constexpr (MODE == kStatsA) return bottleneck_stats_a_kernel<T, F>;
   else if constexpr (MODE == kStatsB) return bottleneck_stats_b_kernel<T, F>;
-  else if constexpr (MODE == kBwd1) return bottleneck_bwd1_kernel<T, F>;
-  else if constexpr (MODE == kBwd2) return bottleneck_bwd2_kernel<T, F>;
   else return bottleneck_bwd_kernel<T, F>;
 }
 
@@ -648,10 +595,10 @@ long long block_work(int mode, int R, int W) {
     return (long long)(rows * W + Tile<F>::BM - 1) / Tile<F>::BM;
   };
   long long w = tiles(mode == kStatsA ? R : E) * 4 * F / kKC;
-  if (mode >= kStatsB) w += tiles(E - 2) * 9 * F / kKC;
-  if (mode >= kBwd1) w += tiles(E - 2) * 4 * F / kKC;
-  if (mode >= kBwd2) w += tiles(R) * 9 * F / kKC;
-  if (mode == kBwd) w += 4 * tiles(R) * F / kKC;
+  if (mode != kStatsA) w += tiles(E - 2) * 9 * F / kKC;
+  if (mode == kBwd)
+    w += tiles(E - 2) * 4 * F / kKC + tiles(R) * 9 * F / kKC +
+         4 * tiles(R) * F / kKC;
   return w;
 }
 
@@ -719,10 +666,6 @@ cudaError_t dispatch_mode(int mode, const Args& a, int B, int F, int device,
       return dispatch_f<T, kStatsA>(a, B, F, device, st);
     case kStatsB:
       return dispatch_f<T, kStatsB>(a, B, F, device, st);
-    case kBwd1:
-      return dispatch_f<T, kBwd1>(a, B, F, device, st);
-    case kBwd2:
-      return dispatch_f<T, kBwd2>(a, B, F, device, st);
     case kBwd:
       return dispatch_f<T, kBwd>(a, B, F, device, st);
     default:
@@ -735,9 +678,9 @@ constexpr int kWT = 64;  // output tile edge
 constexpr int kWK = 16;  // pixels per staged chunk
 
 struct WArgs {
-  const void* a;  // kRows: f32 [P][Ka]; kShifted: f32 [B,H,W,Ka]; kBnRelu: x
+  const void* a;  // kRows: f32 [P][Ka]; kShifted: f32 [B,H,W,Ka]; kBnRelu: v
   const float* b;                      // f32 [P][Nb]
-  const float *g1, *be1, *mu1, *i1;    // kBnRelu: BN1 ([Ka])
+  const float *g1, *be1, *mu1, *i1;    // kBnRelu: the BN ([Ka])
   float* part;                         // [splits][taps][Ka][Nb]
   int P, Ka, Nb, H, W, chunk;          // chunk: pixels per split
 };
@@ -843,13 +786,13 @@ cudaError_t launch_wgrad(int amode, const WArgs& w, int splits, float* out,
 
 }  // namespace
 
-// p[28], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
-// g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, part,
-// out, s0, s1, dx, s2, s3 (see Args); mode 6 takes the folded s1, b1, s2,
-// b2, s3, b3 in the places of g1, be1, g2, be2, g3, be3.
+// p[26], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
+// g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, part, out, s0, s1,
+// dx, s2, s3 (see Args); mode 6 takes the folded s1, b1, s2, b2, s3, b3 in
+// the places of g1, be1, g2, be2, g3, be3.
 // x, gy, dx [B,H,W,4F], s0..s3 [B,H,W,F]; x and dx of `dtype` (tr::DType),
 // the rest f32; all contiguous and 16-byte aligned. part holds B*H*row_len
-// floats, row_len = 2F (modes 0-3) or 12F (mode 6); out row_len floats:
+// floats, row_len = 2F (modes 0, 1) or 12F (mode 6); out row_len floats:
 // [sum a, sum b (F each)], for mode 6 [db1, ds1 (4F each), db2, ds2, db3,
 // ds3 (F each)], db = sum dm and ds = sum dm*v. F is 64, 128 or 256.
 // Returns the cudaError_t of the launches on `stream` (the row kernel and
@@ -859,7 +802,8 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || mode < kStatsA || mode > kBwd)
+  if (B < 1 || H < 1 || W < 1 ||
+      (mode != kStatsA && mode != kStatsB && mode != kBwd))
     return cudaErrorInvalidValue;
   Args a = {};
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
@@ -871,17 +815,15 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
   a.w3t = f(p[5]);
   a.w1t = f(p[6]);
   for (int i = 0; i < 12; ++i) a.v[i] = f(p[7 + i]);
-  for (int i = 0; i < 2; ++i) a.t[i] = f(p[19 + i]);
-  a.part = static_cast<float*>(const_cast<void*>(p[21]));
-  a.out = static_cast<float*>(const_cast<void*>(p[22]));
-  a.s0 = static_cast<float*>(const_cast<void*>(p[23]));
-  a.s1 = static_cast<float*>(const_cast<void*>(p[24]));
-  a.dx = const_cast<void*>(p[25]);
-  a.s2 = static_cast<float*>(const_cast<void*>(p[26]));
-  a.s3 = static_cast<float*>(const_cast<void*>(p[27]));
+  a.part = static_cast<float*>(const_cast<void*>(p[19]));
+  a.out = static_cast<float*>(const_cast<void*>(p[20]));
+  a.s0 = static_cast<float*>(const_cast<void*>(p[21]));
+  a.s1 = static_cast<float*>(const_cast<void*>(p[22]));
+  a.dx = const_cast<void*>(p[23]);
+  a.s2 = static_cast<float*>(const_cast<void*>(p[24]));
+  a.s3 = static_cast<float*>(const_cast<void*>(p[25]));
   a.H = H;
   a.W = W;
-  a.n = (float)((long long)B * H * W);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tr::kFloat32:
@@ -895,8 +837,9 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
 
 // out[taps][Ka][Nb] = sum over the P = B*H*W pixels of A^T b, A by `amode`:
 // 0 f32 rows [P][Ka]; 1 f32 [B,H,W,Ka] shifted by each of the 9 taps of a
-// 3x3 with SAME zero padding; 2 relu(g1*((x-mu1)*i1) + be1) of x [P][Ka] of
-// `dtype`. p[8]: a, b [P][Nb] f32, g1, be1, mu1, i1 (amode 2), part
+// 3x3 with SAME zero padding; 2 relu(g*((v-mu)*i) + be) of v [P][Ka] of
+// `dtype` (p1 from x, p3 from mid). p[8]: a, b [P][Nb] f32, g, be, mu, i
+// (amode 2), part
 // (splits*taps*Ka*Nb floats), out. Ka and Nb are multiples of 64. The pixels
 // go in `splits` chunks, added in order by a second launch.
 extern "C" int tr_bottleneck_wgrad(int amode, const void* const* p, int P,

@@ -23,8 +23,9 @@ reference's custom-VJP ``bottleneck_apply``), saving only x and the
 parameters.
 
 Training (port of the reference's ``bottleneck_train_fwd`` and
-``_train_bwd_calls``, ``csrc/fused_bottleneck_train.cu`` and, for backward
-passes 3 and 4, ``csrc/fused_bottleneck_tc.cu``):
+``_train_bwd_calls``: the moment passes in ``csrc/fused_bottleneck_train.cu``,
+the four backward passes in ``csrc/fused_bottleneck_tc.cu``, their weight
+gradients in the former's ``tr_bottleneck_wgrad``):
 
 - :func:`bottleneck_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance); :func:`bottleneck_stats_a` gives the sums of
@@ -33,12 +34,13 @@ passes 3 and 4, ``csrc/fused_bottleneck_tc.cu``):
   BN3's (single-pass variances clamped at 0); then :func:`bottleneck_fwd`
   with the three folds. Returns ``(y, (m1, v1, m2, v2, m3, v3))``.
 - the backward, four passes from x, gy (float32) and the saved moments:
-  :func:`bottleneck_bwd1` → (T3a, T3b, dw3), :func:`bottleneck_bwd2` → (T2a,
-  T2b, dw2, dmid), :func:`bottleneck_bwd3` (``dmid=``) → (T1a, T1b, dw1,
-  dc1), :func:`bottleneck_bwd4` (``dc1=``) → dx; dγ_i = T_i b, dβ_i = T_i a.
+  :func:`bottleneck_bwd1` → (T3a, T3b, dw3, p2, mid, dm3),
+  :func:`bottleneck_bwd2` (``p2=, mid=, dm3=``) → (T2a, T2b, dw2, dmid),
+  :func:`bottleneck_bwd3` (``dmid=``) → (T1a, T1b, dw1, dc1),
+  :func:`bottleneck_bwd4` (``dc1=``) → dx; dγ_i = T_i b, dβ_i = T_i a.
   Each pass reads what the pass before it wrote, where the reference
-  recomputes the chain from x: pass 3 takes pass 2's dmid, pass 4 pass 3's
-  dc1 ([B,H,W,f] float32 each).
+  recomputes the chain from x: pass 2 takes pass 1's p2, mid and dm3, pass 3
+  pass 2's dmid, pass 4 pass 3's dc1 ([B,H,W,f] float32 each).
 - :func:`bottleneck_train_apply` is differentiable in x, the three weights
   and the six BN parameters; the moments it returns get no gradient.
 
@@ -66,8 +68,8 @@ from tpu_resnet_torch.ops.fused_block import (_conv3x3, _conv3x3_t,
 launches = 0  # kernel launches by bottleneck_fwd (CUDA tensors only)
 stats_a_launches = 0  # bottleneck_stats_a calls (two launches each)
 stats_b_launches = 0  # bottleneck_stats_b calls (two launches each)
-bwd1_launches = 0     # bottleneck_bwd1 calls (four launches each)
-bwd2_launches = 0     # bottleneck_bwd2 calls (four launches each)
+bwd1_launches = 0     # bottleneck_bwd1 calls (five launches each)
+bwd2_launches = 0     # bottleneck_bwd2 calls (five launches each)
 bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
 bwd4_launches = 0     # bottleneck_bwd4 calls (one launch each)
 bwd_launches = 0      # bottleneck_bwd calls (eight launches each)
@@ -207,15 +209,17 @@ def bottleneck_stats_b_reference(x, w1, w2, g1, be1, mu1, i1, g2, be2, mu2,
 
 
 def _bwd_chain(x, gy, w1, w2, w3, vecs, t=()) -> dict:
-    """The chain through p3 and dm3, and as far down the backward as the
-    correction sums ``t`` (T3a, T3b[, T2a, T2b]) reach: dmid and dm2, then
-    dc1 and dm1, as the reference's ``_train_bwd_calls`` computes them."""
+    """The chain through mid (raw), p3 and dm3, and as far down the backward
+    as the correction sums ``t`` (T3a, T3b[, T2a, T2b]) reach: dmid and dm2,
+    then dc1 and dm1, as the reference's ``_train_bwd_calls`` computes
+    them."""
     g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3 = vecs
     r = dict(zip(("x1hat", "m1", "p1", "chat", "m2", "p2"),
                  _chain(x, w1, g1, be1, mu1, i1, g2, be2, mu2, i2)))
     gyf = r["gy"] = _fp(gy)
     n = _n(x)
-    r["mhat"] = (_conv3x3(r["p2"], w2.to(gyf.dtype)) - mu3) * i3
+    r["mid"] = _conv3x3(r["p2"], w2.to(gyf.dtype))
+    r["mhat"] = (r["mid"] - mu3) * i3
     m3 = g3 * r["mhat"] + be3
     r["p3"] = torch.clamp_min(m3, 0.0)
     r["dm3"] = torch.where(m3 > 0, torch.einsum(
@@ -234,12 +238,24 @@ def _bwd_chain(x, gy, w1, w2, w3, vecs, t=()) -> dict:
 def train_bwd_pass1_reference(x, gy, w1, w2, w3, *vecs,
                               magnitudes: bool = False):
     """Plain version of :func:`bottleneck_bwd1`: (T3a = Σdm3, T3b =
-    Σdm3·m̂, dw3 = Σ p3ᵀ·gy). ``magnitudes``: each sum of |term| instead."""
+    Σdm3·m̂, dw3 = Σ p3ᵀ·gy, and for pass 2 p2, mid (raw, before BN3) and
+    dm3, [B,H,W,f] contiguous). ``magnitudes``: each sum of |term|
+    instead, and each handed tensor's Σ|terms|."""
     f = _mag(magnitudes)
     r = _bwd_chain(x, gy, w1, w2, w3, vecs)
     dm3 = f(r["dm3"])
-    return (dm3.sum(_SUM_DIMS), (dm3 * f(r["mhat"])).sum(_SUM_DIMS),
+    sums = (dm3.sum(_SUM_DIMS), (dm3 * f(r["mhat"])).sum(_SUM_DIMS),
             torch.einsum("bhwf,bhwc->fc", f(r["p3"]), f(r["gy"])))
+    p2, mid, dm3 = r["p2"], r["mid"], r["dm3"]
+    if magnitudes:
+        g2, be2, mu2, i2 = vecs[4:8]
+        w1a, w2a, w3a = (w.to(r["gy"].dtype).abs() for w in (w1, w2, w3))
+        c1 = torch.einsum("bhwc,cf->bhwf", r["p1"], w1a)
+        p2 = (g2 * i2).abs() * (c1 + mu2.abs()) + be2.abs()
+        mid = _conv3x3(r["p2"].abs(), w2a)
+        dm3 = torch.where(r["p3"] > 0, torch.einsum(
+            "bhwc,fc->bhwf", r["gy"].abs(), w3a), 0.0)
+    return (*sums, p2.contiguous(), mid.contiguous(), dm3.contiguous())
 
 
 def _corrected_magnitude(gi, dm_mag, ta, tb, hat, n):
@@ -248,24 +264,29 @@ def _corrected_magnitude(gi, dm_mag, ta, tb, hat, n):
     return gi.abs() * (dm_mag + ta.abs() / n + hat.abs() * (tb.abs() / n))
 
 
-def train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t,
+def train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3,
                               magnitudes: bool = False):
     """Plain version of :func:`bottleneck_bwd2`, given T3a, T3b after the
-    twelve vectors: (T2a = Σdm2, T2b = Σdm2·ĉ, dw2 = Σ p2-patchᵀ·dmid,
-    dmid [B,H,W,f], contiguous), dmid for pass 3. ``magnitudes``: each sum of |term|,
-    and dmid's Σ|terms|."""
+    twelve vectors and pass 1's p2, mid and dm3: (T2a = Σdm2, T2b = Σdm2·ĉ,
+    dw2 = Σ p2-patchᵀ·dmid, dmid [B,H,W,f], contiguous), dmid for pass 3;
+    ĉ and the masks [m2 > 0] from x, as the kernel. ``magnitudes``: each
+    sum of |term|, and dmid's Σ|terms|."""
+    g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3 = vecs_t[:12]
+    t3a, t3b = vecs_t[12:14]
     f = _mag(magnitudes)
-    r = _bwd_chain(x, gy, w1, w2, w3, vecs_t[:12], vecs_t[12:])
-    dm2 = f(r["dm2"])
-    dmid = r["dmid"]
+    n = _n(x)
+    mhat = (mid - mu3) * i3
+    dmid = g3 * i3 * (dm3 - t3a / n - mhat * (t3b / n))
+    _, _, _, chat, m2, _ = _chain(x, w1, g1, be1, mu1, i1, g2, be2, mu2, i2)
+    dm2 = f(torch.where(m2 > 0, _conv3x3_t(dmid, w2.to(dmid.dtype)), 0.0))
+    out = (dm2.sum(_SUM_DIMS), (dm2 * f(chat)).sum(_SUM_DIMS),
+           _wgrad(f(p2), f(dmid)))
     if magnitudes:
-        g3, i3 = vecs_t[8], vecs_t[11]
-        dm3 = torch.where(r["p3"] > 0, torch.einsum(
-            "bhwc,fc->bhwf", r["gy"].abs(), w3.to(r["gy"].dtype).abs()), 0.0)
-        dmid = _corrected_magnitude(g3 * i3, dm3, *vecs_t[12:14], r["mhat"],
-                                    _n(x))
-    return (dm2.sum(_SUM_DIMS), (dm2 * f(r["chat"])).sum(_SUM_DIMS),
-            _wgrad(f(r["p2"]), f(r["dmid"])), dmid.contiguous())
+        gyf = _fp(gy)
+        dm3 = torch.where(g3 * mhat + be3 > 0, torch.einsum(
+            "bhwc,fc->bhwf", gyf.abs(), w3.to(gyf.dtype).abs()), 0.0)
+        dmid = _corrected_magnitude(g3 * i3, dm3, t3a, t3b, mhat, n)
+    return (*out, dmid.contiguous())
 
 
 def train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t, dmid,
@@ -309,8 +330,8 @@ def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1):
 
 # ------------------------------------------------------- training: kernels
 # tr_bottleneck_train's pointer order.
-_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, "t3a", "t3b",
-         "part", "out", "s0", "s1", "dx", "s2", "s3")
+_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, "part", "out",
+         "s0", "s1", "dx", "s2", "s3")
 _WGRAD_BLOCKS = 528   # blocks a weight-gradient launch aims at (4 per SM)
 
 
@@ -417,23 +438,29 @@ def _check_handoff(kind, name, t, x) -> None:
                          f"{got}")
 
 
-_TC_PTRS = ("x", "gy", "w1", "w2t", "w1t", "g1", "be1", "mu1", "i1", "g2",
-            "be2", "mu2", "i2", "t2a", "t2b", "t1a", "t1b", "dmid", "dc1",
-            "dx", "part", "out")   # tr_bottleneck_tc's order
+_TC_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS,
+            "p2", "mid", "dm3", "dmid", "dc1", "dx", "part",
+            "out")   # tr_bottleneck_tc's order
 _TC_PIXELS = 64          # csrc/fused_bottleneck_tc.cu kBM
 _TC_PART_ROWS = 1024     # most blocks (rows of partial sums) a launch runs
+# tr_bottleneck_tc's mode of each pass, and the length of its sums.
+_TC_MODES = {"bottleneck_bwd1": (2, 2), "bottleneck_bwd2": (3, 2),
+             "bottleneck_bwd3": (0, 8), "bottleneck_bwd4": (1, 0)}
 
 
-def _tc(kind, mode, x, **tensors):
-    """One launch of ``csrc/fused_bottleneck_tc.cu`` (mode 0 bwd3, 1 bwd4),
-    and for bwd3 the sum of its rows: returns [T1a, T1b] (8f) or None."""
+def _tc(kind, x, **tensors):
+    """One pass of ``csrc/fused_bottleneck_tc.cu`` (its tile launches and
+    the sum of its rows): returns its sums ([T3a, T3b] 2f, [T2a, T2b] 2f,
+    [T1a, T1b] 8f) or, for bwd4, None."""
     b, h, w, c4 = x.shape
+    mode, per_f = _TC_MODES[kind]
     out, rows = None, 0
-    if mode == 0:
+    if per_f:
         rows = min(_TC_PART_ROWS, -(-b * h * w // _TC_PIXELS))
-        tensors["part"] = torch.empty(rows * 2 * c4, dtype=torch.float32,
-                                      device=x.device)
-        out = tensors["out"] = torch.empty(2 * c4, dtype=torch.float32,
+        tensors["part"] = torch.empty(rows * per_f * c4 // 4,
+                                      dtype=torch.float32, device=x.device)
+        out = tensors["out"] = torch.empty(per_f * c4 // 4,
+                                           dtype=torch.float32,
                                            device=x.device)
     ptrs = _pointers(kind, _TC_PTRS, {"x": x, **tensors})
     err = _build.library("fused_bottleneck_tc").tr_bottleneck_tc(
@@ -486,39 +513,53 @@ def _bwd_tensors(w1, w2, w3, vecs, ts):
 
 def bottleneck_bwd1(x, gy, w1, w2, w3, *vecs):
     """Backward pass 1 (the reference's ``_train_bwd_calls`` pass1): (T3a,
-    T3b [f], dw3 [f,4f]) float32. x [B,H,W,4f] float32/bfloat16, gy its
+    T3b [f], dw3 [f,4f], p2, mid, dm3 [B,H,W,f]) float32; p2, mid (before
+    BN3) and dm3 are pass 2's inputs. x [B,H,W,4f] float32/bfloat16, gy its
     shape in float32, w1 [4f,f], w2 [3,3,f,f], w3 [f,4f] and the twelve BN
     vectors g1, be1, μ1, i1 [4f], g2, be2, μ2, i2, g3, be3, μ3, i3 [f]
-    float32 (μ, i: the saved means and 1/σ)."""
+    float32 (μ, i: the saved means and 1/σ). On CUDA, five launches: the p2
+    pass and the mid/dm3 pass of ``csrc/fused_bottleneck_tc.cu`` (c1, the
+    3x3 and gy·W3ᵀ on the tensor cores), the sum of its rows, then dw3
+    (``tr_bottleneck_wgrad``, p3 from mid, and its sum)."""
     global bwd1_launches
     kind = "bottleneck_bwd1"
     ws = {"w1": w1, "w2": w2, "w3": w3}
     f = _check_train(kind, x, gy, ws, vecs)
     if x.device.type == "cpu":
         return train_bwd_pass1_reference(x, gy, w1, w2, w3, *vecs)
-    p3 = _scratch(x)
-    out = _rows(kind, 2, 2 * f, x, gy=gy, s0=p3,
-                **_bwd_tensors(w1, w2, w3, vecs, ()))
-    dw3 = _weight_grad(kind, 0, p3, gy, f, 4 * f, x, 1)
+    p2, mid, dm3 = _scratch(x), _scratch(x), _scratch(x)
+    out = _tc(kind, x, gy=gy, p2=p2, mid=mid, dm3=dm3,
+              **_bwd_tensors(w1, w2, w3, vecs, ()))
+    # p3 = relu(g3·((mid − μ3)·i3) + be3), rounded as the tile pass rounds
+    # m3.
+    dw3 = _weight_grad(kind, 2, mid, gy, f, 4 * f, x, 1, vecs[8:])
     bwd1_launches += 1
-    return out[:f], out[f:], dw3.view(f, 4 * f)
+    return out[:f], out[f:], dw3.view(f, 4 * f), p2, mid, dm3
 
 
-def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t):
+def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3):
     """Backward pass 2: (T2a, T2b [f], dw2 [3,3,f,f], dmid [B,H,W,f])
-    float32, given pass 1's T3a, T3b after the vectors; arguments as
-    :func:`bottleneck_bwd1`. dmid is pass 3's input."""
+    float32, given pass 1's T3a, T3b after the vectors and ``p2=``,
+    ``mid=``, ``dm3=``, pass 1's tensors (required: no path recomputes
+    them); arguments as :func:`bottleneck_bwd1`. dmid is pass 3's input. On
+    CUDA, five launches of which ``csrc/fused_bottleneck_tc.cu`` runs three:
+    dmid, the tile pass (c1 from x, convT of dmid, dm2 and the sums, on the
+    tensor cores) and the sum of its rows; then dw2 (``tr_bottleneck_wgrad``
+    on p2 and dmid, and its sum)."""
     global bwd2_launches
     kind = "bottleneck_bwd2"
     vecs, ts = vecs_t[:12], vecs_t[12:]
     f = _check_train(kind, x, gy, {"w1": w1, "w2": w2, "w3": w3}, vecs, ts)
     if len(ts) != 2:
         raise ValueError(f"{kind}: needs T3a, T3b after the twelve vectors")
+    for name, t in (("p2", p2), ("mid", mid), ("dm3", dm3)):
+        _check_handoff(kind, name, t, x)
     if x.device.type == "cpu":
-        return train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t)
-    p2, dmid = _scratch(x), _scratch(x)
-    out = _rows(kind, 3, 2 * f, x, gy=gy, s0=p2, s1=dmid,
-                **_bwd_tensors(w1, w2, w3, vecs, ts))
+        return train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t, p2=p2,
+                                         mid=mid, dm3=dm3)
+    dmid = _scratch(x)
+    out = _tc(kind, x, mid=mid, dm3=dm3, dmid=dmid,
+              **_bwd_tensors(w1, w2, w3, vecs, ts))
     dw2 = _weight_grad(kind, 1, p2, dmid, f, f, x, 9)
     bwd2_launches += 1
     return out[:f], out[f:], dw2.view(3, 3, f, f), dmid
@@ -543,7 +584,7 @@ def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
         return train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t,
                                          dmid=dmid)
     dc1 = _scratch(x)
-    out = _tc(kind, 0, x, dmid=dmid, dc1=dc1,
+    out = _tc(kind, x, dmid=dmid, dc1=dc1,
               **_bwd_tensors(w1, w2, w3, vecs, ts))
     dw1 = _weight_grad(kind, 2, x, dc1, 4 * f, f, x, 1, vecs[:4])
     bwd3_launches += 1
@@ -566,7 +607,7 @@ def bottleneck_bwd4(x, gy, w1, w2, w3, *vecs_t, dc1):
     if x.device.type == "cpu":
         return train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1=dc1)
     dx = torch.empty_like(x)
-    _tc(kind, 1, x, gy=gy, dc1=dc1, dx=dx,
+    _tc(kind, x, gy=gy, dc1=dc1, dx=dx,
         **_bwd_tensors(w1, w2, w3, vecs, ts))
     bwd4_launches += 1
     return dx
@@ -611,22 +652,23 @@ def bottleneck_train_fwd_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
 
 def _train_bwd(passes, x, gy, w1, w2, w3, g1, be1, g2, be2, g3, be3, moments,
                eps):
-    """The four passes in order, each handing the next what it wrote: dmid
-    (pass 2 to 3), dc1 (3 to 4), float32 [B,H,W,f] each, freed when the
-    block's backward returns (dmid as soon as pass 3 has run). That is at
-    most 2 × 103 MB more than the recomputing passes held, at 56² and
-    B=128."""
-    p1, p2, p3, p4 = passes
+    """The four passes in order, each handing the next what it wrote: p2,
+    mid, dm3 (pass 1 to 2), dmid (2 to 3), dc1 (3 to 4), float32 [B,H,W,f]
+    each, each dropped as soon as the pass that reads it has run. At most
+    four are alive at once (p2, mid, dm3 and dmid while pass 2 runs): 4 ×
+    103 MB more than the recomputing passes held, at 56² and B=128."""
+    pass1, pass2, pass3, pass4 = passes
     mu1, v1, mu2, v2, mu3, v3 = moments
     i1, i2, i3 = (torch.rsqrt(v + eps) for v in (v1, v2, v3))
     gyf = _fp(gy).contiguous()
     args = (x, gyf, w1, w2, w3, g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3,
             mu3, i3)
-    t3a, t3b, dw3 = p1(*args)
-    t2a, t2b, dw2, dmid = p2(*args, t3a, t3b)
-    t1a, t1b, dw1, dc1 = p3(*args, t3a, t3b, t2a, t2b, dmid=dmid)
+    t3a, t3b, dw3, p2, mid, dm3 = pass1(*args)
+    t2a, t2b, dw2, dmid = pass2(*args, t3a, t3b, p2=p2, mid=mid, dm3=dm3)
+    del p2, mid, dm3
+    t1a, t1b, dw1, dc1 = pass3(*args, t3a, t3b, t2a, t2b, dmid=dmid)
     del dmid
-    dx = p4(*args, t3a, t3b, t2a, t2b, t1a, t1b, dc1=dc1)
+    dx = pass4(*args, t3a, t3b, t2a, t2b, t1a, t1b, dc1=dc1)
     # dγ_i = T_i b, dβ_i = T_i a: the correction sums.
     return dx, dw1, dw2, dw3, t1b, t1a, t2b, t2a, t3b, t3a
 

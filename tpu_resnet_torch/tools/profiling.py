@@ -17,10 +17,12 @@ from torch.profiler import ProfilerActivity, profile
 
 # The port's kernels on the train paths, by a substring of their names
 # (``train_sum`` is the fixed-order sum launch of the fused block's stats and
-# first two backward passes; the fused bottleneck's training passes run a
-# kernel each (a row kernel, or for backward passes 3 and 4 a tensor-core
-# kernel), ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum`` adds
-# their partial rows in order).
+# first two backward passes; the fused bottleneck's moment passes run a row
+# kernel each, its backward passes tensor-core kernels (passes 1 and 2 two
+# each: ``bottleneck_bwd1_p2_kernel`` and ``bottleneck_bwd1_kernel``,
+# ``bottleneck_bwd2_dmid_kernel`` and ``bottleneck_bwd2_kernel``),
+# ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum`` adds their
+# partial rows in order).
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
@@ -33,8 +35,8 @@ TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "bottleneck_fwd": "bottleneck_fwd_kernel",
                  "bottleneck_stats_a": "bottleneck_stats_a_kernel",
                  "bottleneck_stats_b": "bottleneck_stats_b_kernel",
-                 "bottleneck_bwd1": "bottleneck_bwd1_kernel",
-                 "bottleneck_bwd2": "bottleneck_bwd2_kernel",
+                 "bottleneck_bwd1": "bottleneck_bwd1_",
+                 "bottleneck_bwd2": "bottleneck_bwd2_",
                  "bottleneck_bwd3": "bottleneck_bwd3_kernel",
                  "bottleneck_bwd4": "bottleneck_bwd4_kernel",
                  "bottleneck_wgrad": "bottleneck_wgrad_kernel",
