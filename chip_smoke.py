@@ -32,9 +32,11 @@ Phases, each printing one JSON line:
    dc1 held like the sums, pass 1's masks [m2 > 0] and [m3 > 0] equal to
    the plain pass's (``bottleneck_bwd2`` fed the plain pass 1's p2, mid and
    dm3, ``bottleneck_bwd3`` the plain pass 2's dmid, ``bottleneck_bwd4``
-   the plain pass 3's dc1; the four passes also carry ``tc_bound_ms``,
-   their operations at the TF32 tensor cores' rate over the three terms of
-   the split); ``sbr``, ``sbr_bwd``, ``bottleneck_fwd``
+   the plain pass 3's dc1; the kernels on the tensor cores,
+   ``bottleneck_fwd``, ``bottleneck_stats_b`` and the four passes, also
+   carry ``tc_bound_ms``, their operations at the TF32 tensor cores' rate
+   over the three terms of the split); ``sbr``, ``sbr_bwd``,
+   ``bottleneck_fwd``
    and the cross-entropy pair also at the ImageNet train path's shapes.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
@@ -406,7 +408,8 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         # flops per pixel; floats of weights (w1 4f², w2 9f², w3 4f²), of
         # BN vectors and correction sums in, and of sums and weight
         # gradients out; x in, then the float32 tensors: gy, and the
-        # [B,H,W,f] tensors handed over (n bytes is f floats a pixel: bwd1
+        # [B,H,W,f] tensors handed over (n bytes is f floats a pixel:
+        # stats_b's first launch writes p2, its second reads it; bwd1
         # writes p2, mid, dm3; bwd2 reads them and writes dmid; bwd3 reads
         # dmid, writes dc1; bwd4 reads dc1 and gy), and dx out. bwd1: c1
         # 8f², mid 18f², gy·W3ᵀ 8f², dw3 8f²; bwd2: c1, convT 18f², dw2
@@ -414,7 +417,7 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         flops, weights, vecs, sums, moved_f32 = {
             "bottleneck_stats_a": (8 * ff, 4 * ff, 4 * c, 2 * f, 0),
             "bottleneck_stats_b": (26 * ff, 13 * ff, 4 * c + 4 * f, 2 * f,
-                                   0),
+                                   2 * n),
             "bottleneck_bwd1": (42 * ff, 17 * ff, 4 * c + 8 * f,
                                 2 * f + 4 * ff, 4 * n + 3 * n),
             "bottleneck_bwd2": (44 * ff, 13 * ff, 4 * c + 9 * f,
@@ -441,7 +444,10 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         ops = 94 * f * f * b * h * w
     else:   # bottleneck_fwd: c = 4f
         f = c // 4
-        moved = 2 * n * item + (2 * c * f + 9 * f * f + 2 * c + 4 * f) * 4
+        # x in, y out, the weights and folds in, and p2 ([B,H,W,f] float32,
+        # n bytes) written by the first launch and read by the second.
+        moved = (2 * n * item + 2 * n
+                 + (2 * c * f + 9 * f * f + 2 * c + 4 * f) * 4)
         # 1x1 reduce, 3x3, 1x1 expand; three scale-bias-ReLUs; residual add
         ops = 2 * b * h * w * (2 * c * f + 9 * f * f) + b * h * w * (
             3 * (c + 2 * f) + c)
@@ -451,7 +457,8 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
 
 
 # The kernels whose products run on the tensor cores (three-term TF32).
-TENSOR_CORE_KERNELS = ("bottleneck_bwd1", "bottleneck_bwd2",
+TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_b",
+                       "bottleneck_bwd1", "bottleneck_bwd2",
                        "bottleneck_bwd3", "bottleneck_bwd4")
 
 
@@ -1790,7 +1797,7 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/epilogue.py:110"),
     ("block_fwd", "tpu_resnet_torch/csrc/fused_block.cu",
      "tpu_resnet/ops/fused_block.py:87"),
-    ("bottleneck_fwd", "tpu_resnet_torch/csrc/fused_bottleneck.cu",
+    ("bottleneck_fwd", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:154"),
     ("sbr_bwd", "tpu_resnet_torch/csrc/epilogue.cu",
      "tpu_resnet/ops/epilogue.py:158"),
@@ -1808,7 +1815,7 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/fused_block.py:433"),
     ("bottleneck_stats_a", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
      "tpu_resnet/ops/fused_bottleneck.py:445"),
-    ("bottleneck_stats_b", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_stats_b", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:464"),
     ("bottleneck_bwd1", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:644"),

@@ -17,6 +17,7 @@ from tpu_resnet_torch import convert
 from tpu_resnet_torch.models.resnet import (BottleneckBlock,
                                             FusedBottleneckBlock)
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
+from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 
 
 def _inputs(shape, seed=0):
@@ -98,6 +99,25 @@ def test_zero_halo_rows_are_not_relu_b2():
     r = got - a[0]
     assert not np.allclose(r[:, 0], r[:, 2], atol=1e-3)
     np.testing.assert_allclose(r[:, 1], r[:, 4], atol=1e-5)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, seed", [((2, 8, 8, 32), 6),
+                                         ((1, 6, 5, 64), 7)])
+def test_folded_chain_is_the_live_chain_at_mean_0_inv_1(shape, seed,
+                                                        x_dtype):
+    """The live chain with (μ, i) = (0, 1) and the folds (s, b) in the
+    places of (γ, β) gives the folded forward's p2 bit for bit: v − 0 and
+    v·1 are exact. The forward's first launch on the card computes its p2
+    so, in the code of the live passes' p2."""
+    x, w1, _, _, s1, b1, s2, b2, _, _ = _torch(_inputs(shape, seed), x_dtype)
+    got = fbn._chain(x, w1, s1, b1, 0, 1, s2, b2, 0, 1)[-1]
+    p1 = scale_bias_relu_math(x.float(), s1, b1)
+    want = scale_bias_relu_math(torch.einsum("bhwc,cf->bhwf", p1, w1), s2,
+                                b2)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert bool((want == 0).any()) and bool((want > 0).any())
 
 
 def test_fold_bn_matches_reference():

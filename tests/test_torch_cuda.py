@@ -88,19 +88,21 @@ def _bottleneck_inputs(shape, dtype, gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 56, 56, 256), (2, 28, 28, 512),
                                    (2, 14, 14, 1024), (1, 9, 5, 256),
-                                   (3, 7, 7, 512), (16, 28, 28, 512),
-                                   (16, 14, 14, 1024)])
+                                   (3, 7, 7, 512), (3, 9, 5, 1024),
+                                   (16, 28, 28, 512), (16, 14, 14, 1024)])
 def test_bottleneck_fwd_kernel_matches_plain(cuda, shape, dtype):
-    """The three ResNet-50 stage shapes at B=2 (bands of one row), ragged
-    bands at odd sizes, and B=16 at stages 2 and 3 (bands of four and two
-    rows on an H100)."""
+    """The three ResNet-50 stage shapes at B=2, pixel counts that are not a
+    multiple of the 64-pixel tile (45, 147, 135), and B=16 at stages 2 and
+    3 (16·14² = 49 tiles of 64 for 132 SMs: the 32-pixel tiles); two calls
+    bit for bit equal."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     args = _bottleneck_inputs(shape, dtype, gen)
     before = fbn.launches
-    got = fbn.bottleneck_fwd(*args)
+    got, again = fbn.bottleneck_fwd(*args), fbn.bottleneck_fwd(*args)
     want = fbn.bottleneck_fwd_reference(*args)
     torch.cuda.synchronize()
-    assert fbn.launches == before + 1
+    assert fbn.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
     # f32: another summation order than cuBLAS/cuDNN; bf16: one stored ulp.
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -389,10 +391,12 @@ def _bottleneck_train_inputs(shape, dtype, gen):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 56, 56, 256), (2, 28, 28, 512),
-                                   (2, 14, 14, 1024), (1, 9, 5, 256)])
+                                   (2, 14, 14, 1024), (1, 9, 5, 256),
+                                   (3, 7, 7, 1024)])
 def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
     """The two moment passes and the four backward passes at the three
-    ResNet-50 stage shapes and a ragged one; each called twice. Passes 2, 3
+    ResNet-50 stage shapes and two ragged ones (45 and 147 pixels, not a
+    multiple of the 64-pixel tile); each called twice. Passes 2, 3
     and 4 take the plain pass 1's p2, mid and dm3, pass 2's dmid and pass
     3's dc1, which are held like the sums where a pass returns them; pass
     1's masks [m2 > 0] and [m3 > 0] equal the plain pass's."""
@@ -450,6 +454,8 @@ def test_bottleneck_train_wrappers_reject_bad_input(cuda):
         (2, 8, 8, 256), torch.float32, gen)
     with pytest.raises(ValueError, match="contiguous"):
         fbn.bottleneck_stats_a(x.permute(0, 2, 1, 3), w1, *vecs[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        fbn.bottleneck_stats_b(x.permute(0, 2, 1, 3), w1, w2, *vecs[:8])
     with pytest.raises(ValueError, match="w3 must be float32"):
         fbn.bottleneck_bwd1(x, gy, w1, w2, w3[:, :8], *vecs)
     dc1 = torch.zeros(2, 8, 8, 64, device="cuda")

@@ -1,13 +1,21 @@
-// Fused ResNet-v2 bottleneck with live batch-norm statistics: the four
-// backward passes, on the tensor cores. Stride 1, identity shortcut, 3x3
-// SAME; x is NHWC [B,H,W,4F] (f32 or bf16), gy f32 of x's shape, W1 f32
-// [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32 [F,4F], BN vectors f32 ([4F] for
-// BN1, [F] for BN2 and BN3), and the tensors a pass hands the next, f32
-// [B,H,W,F]: p2, mid, dm3 (pass 1 to 2), dmid (2 to 3), dc1 (3 to 4).
+// Fused ResNet-v2 bottleneck on the tensor cores: the forward with folded
+// batch norm, and with live batch-norm statistics the second moment pass
+// and the four backward passes. Stride 1, identity shortcut, 3x3 SAME; x is
+// NHWC [B,H,W,4F] (f32 or bf16), y (the forward's output) of x's shape and
+// type, gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
+// [F,4F], BN vectors f32 ([4F] for BN1, [F] for BN2 and BN3), and the
+// tensors a launch hands the next, f32 [B,H,W,F]: p2 (the first launch of
+// fwd, stats_b and bwd1 to the second), mid, dm3 (pass 1 to 2), dmid (2 to
+// 3), dc1 (3 to 4).
 //
-// Replaces, in tpu_resnet/ops/fused_bottleneck.py (_train_bwd_calls, which
-// every stride-1 identity bottleneck of width 64, 128 or 256 runs in
-// training when model.fused_blocks=true: 10 blocks of ImageNet ResNet-50):
+// Replaces, in tpu_resnet/ops/fused_bottleneck.py (every stride-1 identity
+// bottleneck of width 64, 128 or 256 runs these when model.fused_blocks=true:
+// 10 blocks of ImageNet ResNet-50):
+//   mode 5 fwd     _fwd_kernel (:154): y = x + p3 . W3 on the folded affines
+//                  (s, b) of the three BNs (serving; in training with the
+//                  live moments folded);
+//   mode 4 stats_b _stats_b_kernel (:464): sum mid, sum mid^2;
+// and in _train_bwd_calls:
 //   mode 2 bwd1  pass1 (:644): T3a = sum dm3, T3b = sum dm3*mhat, and p2,
 //                mid, dm3 for pass 2 (dw3 = sum p3^T gy is
 //                tr_bottleneck_wgrad's, in fused_bottleneck_train.cu, with
@@ -17,16 +25,22 @@
 //   mode 0 bwd3  pass3 (:729): T1a = sum dm1, T1b = sum dm1*x1hat, and dc1
 //                for dw1 = sum p1^T dc1 (tr_bottleneck_wgrad's);
 //   mode 1 bwd4  pass4 (:754): dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n)).
-// The reference recomputes the chain from x in every pass, with a halo of
+// The reference recomputes the chain from x in every kernel, with a halo of
 // one or two rows: its VMEM keeps nothing between calls. On this card each
-// pass reads what the pass before it wrote, and recomputes only c1, a 1x1
-// product on the tile's own pixels. Per pixel (i = 1/sigma, as the
+// launch reads what the launch before it wrote, and recomputes only c1, a
+// 1x1 product on the tile's own pixels. Per pixel (i = 1/sigma, as the
 // reference's _chain_train):
 //   c1    x1hat = (x-mu1)*i1, p1 = relu(g1*x1hat + be1), c1 = p1 . W1,
 //         chat = (c1-mu2)*i2, m2 = g2*chat + be2;
-//   bwd1  launch 1: c1, then p2 = relu(m2), stored; launch 2: mid =
-//         conv3x3(p2, w2), the sum over the 9 taps of p2 shifted by the tap
-//         times w2[tap], stored; mhat = (mid-mu3)*i3, m3 = g3*mhat + be3;
+//   p2    launch 1 of fwd, stats_b and bwd1: c1, then p2 = relu(m2), stored.
+//         fwd passes its folds as (g, be, mu, i) = (s, b, 0, 1): v - 0 and
+//         v * 1 are exact, so p1 = relu(x*s1 + b1) and p2 = relu(c1*s2 + b2)
+//         bit for bit, the reference's folded chain;
+//   fwd   launch 2: mid = conv3x3(p2, w2), the sum over the 9 taps of p2
+//         shifted by the tap times w2[tap]; p3 = relu(s3*mid + b3); y = x +
+//         p3 . W3 in x's dtype;
+//   stats_b launch 2: mid, and the two sums;
+//   bwd1  launch 2: mid, stored; mhat = (mid-mu3)*i3, m3 = g3*mhat + be3;
 //         dp3 = gy . W3^T, dm3 = dp3*[m3>0], stored, and the two sums;
 //   bwd2  launch 1: dmid = g3*i3*(dm3 - T3a/n - mhat*(T3b/n)), stored;
 //         launch 2: c1, dp2 = convT(dmid, w2) (the taps over w2t, w2 flipped
@@ -38,33 +52,37 @@
 // Every elementwise formula rounds as written (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn, no FMA contraction), as the plain PyTorch version
 // does, so a mask [m > 0] agrees with the plain version's wherever the
-// products do; c1 runs the same code in every pass, so p2 and the masks
-// [m2 > 0] of passes 2 and 3 agree bit for bit.
+// products do; p2 and c1 run the same code in every pass, so stats_b's and
+// bwd1's p2 and the masks [m2 > 0] of passes 2 and 3 agree bit for bit.
 //
 // Bound, per pixel (flops; dw's products are the weight-gradient kernel's):
-// bwd1 34F^2 (c1 8, mid 18, dp3 8; dw3 8 more), bwd2 26F^2 (c1 8, convT 18;
-// dw2 18 more), bwd3 34F^2 (c1, convT, dp1 8; dw1 8 more), bwd4 8F^2,
-// against a few times 4F items moved: operations, but for bwd4 at F=64.
+// fwd 34F^2 (c1 8, mid 18, p3 . W3 8), stats_b 26F^2 (c1, mid), bwd1 34F^2
+// (c1 8, mid 18, dp3 8; dw3 8 more), bwd2 26F^2 (c1 8, convT 18; dw2 18
+// more), bwd3 34F^2 (c1, convT, dp1 8; dw1 8 more), bwd4 8F^2, against a few
+// times 4F items moved: operations, but for bwd4 at F=64.
 //
 // Design. Tiles of 64 consecutive pixels of the [B*H*W] pixel matrix,
 // whatever W, so a 14-pixel image row leaves no tile half empty; as many
 // blocks as the card holds at once, each walking the tiles with a fixed
-// stride. Each product runs on mma.sync m16n8k8 in TF32 with the three-term
-// split (mma_tf32x3.cuh), 256 threads, 2x4 warps, a warp owning 32 pixels x
-// F/4 channels; each k-step's three products start from zero and join the
-// running f32 sum rounding to nearest (the tensor cores' own accumulation
-// truncates, and over K = 9F that bias broke the sums' tolerance). K
-// streams through a ring of three shared buffers by cp.async, 16 bytes a
-// thread, A and the weight chunk alike (the weights come from L2; they need
-// no region of their own): for c1 the tile's x (BN1 and ReLU applied as the
-// fragments are read), for gy . W3^T the tile's gy, for the 3x3 products
-// (mid, convT) the tap's shifted p2 or dmid rows straight from device memory
-// (zero fill outside the image: no halo is recomputed; at 14^2 the whole
-// plane fits in the 50 MB L2), for dc1 . W1^T the tile's dc1 in shared
-// memory. A value an epilogue needs after the next product waits in the
-// tile buffer [64][F + 4]: mhat (bwd1), chat then dc1 (bwd2, bwd3). bwd2's
-// dmid is its own elementwise launch: T3a and T3b are sums over the whole
-// batch, and the convT reads dmid at neighbouring pixels.
+// stride. fwd's launches take 32-pixel tiles where 64-pixel ones would leave
+// SMs idle (B=16 at 14^2: 49 tiles for 132 SMs). Each product runs on
+// mma.sync m16n8k8 in TF32 with the three-term split (mma_tf32x3.cuh), 256
+// threads, 2x4 warps, a warp owning 32 (or 16) pixels x F/4 channels; each
+// k-step's three products start from zero and join the running f32 sum
+// rounding to nearest (the tensor cores' own accumulation truncates, and
+// over K = 9F that bias broke the sums' tolerance). K streams through a
+// ring of three shared buffers by cp.async, 16 bytes a thread, A and the
+// weight chunk alike (the weights come from L2; they need no region of
+// their own): for c1 the tile's x (BN1 and ReLU applied as the fragments are
+// read), for gy . W3^T the tile's gy, for the 3x3 products (mid, convT) the
+// tap's shifted p2 or dmid rows straight from device memory (zero fill
+// outside the image: SAME pads p2 itself with zeros, not relu(b2), and no
+// halo is recomputed; at 14^2 the whole plane fits in the 50 MB L2), for
+// p3 . W3 and dc1 . W1^T the tile buffer, in four rounds of F output
+// channels. A value an epilogue or a later product needs waits in the tile
+// buffer [BM][F + 4]: p3 (fwd), mhat (bwd1), chat then dc1 (bwd2, bwd3).
+// bwd2's dmid is its own elementwise launch: T3a and T3b are sums over the
+// whole batch, and the convT reads dmid at neighbouring pixels.
 //
 // Sums without atomics: each block adds its tiles' channel sums in tile
 // order (a warp's rows by shuffles in a fixed pattern, then the two warps of
@@ -81,87 +99,115 @@ namespace {
 
 using namespace tr;
 
-// Modes 0-3 are tr_bottleneck_tc's (one backward pass each); bwd1 runs
-// kP2 and then kBwd1's tile pass.
-enum Mode : int { kBwd3 = 0, kBwd4 = 1, kBwd1 = 2, kBwd2 = 3, kP2 = 4 };
+// Modes 0-5 are tr_bottleneck_tc's (one pass or kernel each). The rest are
+// first launches: p2 on the live moments (bwd1, stats_b) or on the folded
+// affines (fwd), each its own entry point so that a profile books it to its
+// kernel.
+enum Mode : int {
+  kBwd3 = 0,
+  kBwd4 = 1,
+  kBwd1 = 2,
+  kBwd2 = 3,
+  kStatsB = 4,
+  kFwd = 5,
+  kP2 = 6,
+  kStatsBP2 = 7,
+  kFwdP2 = 8
+};
+__host__ __device__ constexpr bool p2_mode(int mode) { return mode >= kP2; }
 
 constexpr int kTC = 256;    // threads per block
-constexpr int kBM = 64;     // pixels per tile
 constexpr int kBK = 32;     // K per staged chunk
 constexpr int kStages = 3;  // the cp.async ring
 constexpr int kWarpsN = 4;  // warps across channels; 2 across pixels
-constexpr int kMT = 2;      // 16-pixel mma tiles per warp: 32 pixels
+constexpr int kMT = 2;      // 16-pixel mma tiles per warp: 64-pixel tiles
 
-// Shared memory, in bytes: the ring (each stage an A chunk [64][32 + pad]
-// and a weight chunk [32][F + 8] f32); the tile buffer [64][F + 4] f32 (all
-// but kP2); BN1's vectors [4F] float4 (g1, be1, mu1, i1; the modes that
-// read x); then the block's sums, [2F] f32 (bwd1, bwd2) or [8F] (bwd3), or
-// for bwd4 [4F] float4 (g1*i1, T1a/n, T1b/n). The pads keep the fragment
-// reads free of bank conflicts.
-template <int F>
+// Shared memory, in bytes, for tiles of BM = 32*MT pixels: the ring (each
+// stage an A chunk [BM][32 + pad] and a weight chunk [32][F + 8] f32); the
+// tile buffer [BM][F + 4] f32 (bwd1-4, fwd); BN1's vectors [4F] float4 (g1,
+// be1, mu1, i1; the launches that recompute c1); then the block's sums, [2F]
+// f32 (bwd1, bwd2, stats_b) or [8F] (bwd3), or for bwd4 [4F] float4 (g1*i1,
+// T1a/n, T1b/n). The pads keep the fragment reads free of bank conflicts.
+template <int F, int MT = kMT>
 struct Plan {
+  static constexpr int BM = 32 * MT;      // pixels per tile
   static constexpr int WN = F / kWarpsN;  // channels per warp
   static constexpr int NT = WN / 8;       // 8-channel mma tiles per warp
   static constexpr int BS = F + 8;        // weight chunk row stride, floats
   static constexpr int CS = F + 4;        // tile buffer row stride, floats
-  static constexpr int A_BYTES = kBM * (kBK + 4) * 4;
+  static constexpr int A_BYTES = BM * (kBK + 4) * 4;
   static constexpr int STAGE = A_BYTES + kBK * BS * 4;
   static constexpr int RING = kStages * STAGE;
-  static constexpr int C_BYTES = kBM * CS * 4;
+  static constexpr int C_BYTES = BM * CS * 4;
   static constexpr int E0_BYTES = 4 * F * 16;
   static constexpr int SMEM_P2 = RING + E0_BYTES;
+  static constexpr int SMEM_FWD = RING + C_BYTES;
+  static constexpr int SMEM_STATS_B = RING + 2 * F * 4;
   static constexpr int SMEM_BWD1 = RING + C_BYTES + 2 * F * 4;
   static constexpr int SMEM_BWD2 = RING + C_BYTES + E0_BYTES + 2 * F * 4;
   static constexpr int SMEM_BWD3 = RING + C_BYTES + E0_BYTES + 8 * F * 4;
   static constexpr int SMEM_BWD4 = RING + C_BYTES + E0_BYTES + 4 * F * 16;
-  static_assert(SMEM_P2 <= kMaxSmem && SMEM_BWD1 <= kMaxSmem &&
+  static_assert(SMEM_P2 <= kMaxSmem && SMEM_FWD <= kMaxSmem &&
+                    SMEM_STATS_B <= kMaxSmem && SMEM_BWD1 <= kMaxSmem &&
                     SMEM_BWD2 <= kMaxSmem && SMEM_BWD3 <= kMaxSmem &&
                     SMEM_BWD4 <= kMaxSmem,
                 "smem");
-  static_assert(F % kBK == 0 && NT >= 1, "tile");
+  static_assert(F % kBK == 0 && NT >= 1 && (MT == 1 || MT == 2), "tile");
   __host__ __device__ static constexpr int e0_off(int mode) {
-    return mode == kP2 ? RING : RING + C_BYTES;
+    return p2_mode(mode) ? RING : RING + C_BYTES;
   }
   __host__ __device__ static constexpr int sums_off(int mode) {
-    return mode == kBwd1 ? RING + C_BYTES : RING + C_BYTES + E0_BYTES;
+    return mode == kStatsB  ? RING
+           : mode == kBwd1 ? RING + C_BYTES
+                           : RING + C_BYTES + E0_BYTES;
   }
   __host__ __device__ static constexpr int smem(int mode) {
-    return mode == kP2     ? SMEM_P2
-           : mode == kBwd1 ? SMEM_BWD1
-           : mode == kBwd2 ? SMEM_BWD2
-           : mode == kBwd3 ? SMEM_BWD3
-                           : SMEM_BWD4;
+    return p2_mode(mode)      ? SMEM_P2
+           : mode == kFwd     ? SMEM_FWD
+           : mode == kStatsB  ? SMEM_STATS_B
+           : mode == kBwd1    ? SMEM_BWD1
+           : mode == kBwd2    ? SMEM_BWD2
+           : mode == kBwd3    ? SMEM_BWD3
+                              : SMEM_BWD4;
   }
 };
 // The largest width, in bytes: every mode fits one block of 256 threads on
 // an SM.
-static_assert(Plan<256>::SMEM_P2 == 145408 && Plan<256>::SMEM_BWD1 == 197632 &&
+static_assert(Plan<256>::SMEM_P2 == 145408 && Plan<256>::SMEM_FWD == 195584 &&
+                  Plan<256>::SMEM_STATS_B == 131072 &&
+                  Plan<256>::SMEM_BWD1 == 197632 &&
                   Plan<256>::SMEM_BWD2 == 214016 &&
                   Plan<256>::SMEM_BWD3 == 220160 &&
-                  Plan<256>::SMEM_BWD4 == 228352,
+                  Plan<256>::SMEM_BWD4 == 228352 &&
+                  Plan<256, 1>::SMEM_P2 == 131584 &&
+                  Plan<256, 1>::SMEM_FWD == 148480,
               "the plan at F = 256");
 
 struct TcArgs {
-  const void* x;      // [P][4F] (not bwd1's tile pass)
+  const void* x;      // [P][4F] (not the tile passes of bwd1, stats_b)
   const float* gy;    // [P][4F] (bwd1, bwd4)
   const float* w1;    // [4F][F]
-  const float* w2;    // [9F][F] (bwd1)
+  const float* w2;    // [9F][F] (fwd, stats_b, bwd1)
   const float* w2t;   // [9F][F] (bwd2, bwd3)
   const float* w3t;   // [4F][F]: W3 transposed (bwd1)
   const float* w1t;   // [F][4F]
+  const float* w3;    // [F][4F] (fwd)
+  // BN1-3; fwd reads its folds (s, b) as (g, be) and no mu, i.
   const float *g1, *be1, *mu1, *i1;  // [4F]
   const float *g2, *be2, *mu2, *i2;  // [F]
-  const float *g3, *be3, *mu3, *i3;  // [F] (bwd1, bwd2)
+  const float *g3, *be3, *mu3, *i3;  // [F] (fwd, bwd1, bwd2)
   const float *t3a, *t3b;            // [F] (bwd2)
   const float *t2a, *t2b;            // [F] (bwd3)
   const float *t1a, *t1b;            // [4F] (bwd4)
-  float* p2;          // [P][F]: bwd1 writes it, for pass 2's dw2
+  float* p2;          // [P][F]: the first launch writes it, the 3x3 reads it
+                      // (and bwd1 returns it, for pass 2's dw2)
   float* mid;         // [P][F]: bwd1 writes it, bwd2 reads it
   float* dm3;         // [P][F]: bwd1 writes it, bwd2 reads it
   float* dmid;        // [P][F]: bwd2 writes it, bwd3 reads it
   float* dc1;         // [P][F]: bwd3 writes it, bwd4 reads it
   void* dx;           // [P][4F] (bwd4)
-  float* part;        // [gridDim.x][2F or 8F] (bwd1, bwd2, bwd3)
+  void* y;            // [P][4F] (fwd)
+  float* part;        // [gridDim.x][2F or 8F] (stats_b, bwd1-3)
   int P, H, W;
   float n;  // B*H*W
 };
@@ -198,15 +244,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // mi, big, small) gives the split A fragment of mma tile mi at k-step kk;
 // the weight chunk sits after the stage's A chunk. Leaves the ring idle
 // (every copy landed, every thread past its last read).
-template <int F, class Issue, class Frag>
-__device__ __forceinline__ void tc_gemm(float (&acc)[kMT][Plan<F>::NT][4],
+template <int F, int MT, class Issue, class Frag>
+__device__ __forceinline__ void tc_gemm(float (&acc)[MT][Plan<F>::NT][4],
                                         int chunks, unsigned char* ring,
                                         Issue issue, Frag frag) {
-  using PL = Plan<F>;
+  using PL = Plan<F, MT>;
   const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) % kWarpsN;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
     for (int ni = 0; ni < PL::NT; ++ni)
 #pragma unroll
@@ -226,9 +272,9 @@ __device__ __forceinline__ void tc_gemm(float (&acc)[kMT][Plan<F>::NT][4],
     const float* bs = reinterpret_cast<const float*>(st + PL::A_BYTES);
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t a_big[kMT][4], a_small[kMT][4];
+      uint32_t a_big[MT][4], a_small[MT][4];
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
         frag(st, c, kk, mi, a_big[mi], a_small[mi]);
 #pragma unroll
       for (int ni = 0; ni < PL::NT; ++ni) {
@@ -238,7 +284,7 @@ __device__ __forceinline__ void tc_gemm(float (&acc)[kMT][Plan<F>::NT][4],
         const uint32_t b_big[2] = {b0.big, b1.big};
         const uint32_t b_small[2] = {b0.small, b1.small};
 #pragma unroll
-        for (int mi = 0; mi < kMT; ++mi) {
+        for (int mi = 0; mi < MT; ++mi) {
           // One k-step's three products from zero, added rounding to
           // nearest (see the design note).
           float step[4] = {0.f, 0.f, 0.f, 0.f};
@@ -292,15 +338,19 @@ __device__ __forceinline__ void add_tile_sums(float (&sa)[Plan<F>::NT][2],
   __syncthreads();  // red lives in the ring the next product fills
 }
 
-template <typename T, int F, int MODE>
+template <typename T, int F, int MODE, int MT = kMT>
 __device__ __forceinline__ void tc_body(const TcArgs& a) {
-  using PL = Plan<F>;
+  using PL = Plan<F, MT>;
   constexpr int C4 = 4 * F;
   constexpr int NT = PL::NT;
-  constexpr bool kReadsX = MODE != kBwd1;
-  constexpr int NSUM = MODE == kBwd3 ? 2 * C4 : MODE == kBwd4 || MODE == kP2
-                                                    ? 0
-                                                    : 2 * F;
+  constexpr int BM = PL::BM;
+  // The launches that recompute c1 keep BN1's vectors in shared memory.
+  constexpr bool kBn1 =
+      p2_mode(MODE) || MODE == kBwd2 || MODE == kBwd3 || MODE == kBwd4;
+  constexpr int NSUM = MODE == kBwd3 ? 2 * C4
+                       : MODE == kBwd1 || MODE == kBwd2 || MODE == kStatsB
+                           ? 2 * F
+                           : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
   float* cbuf = reinterpret_cast<float*>(smem + PL::RING);
@@ -311,12 +361,16 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int g = lane >> 2, t = lane & 3;
+  const int row0 = wm * 16 * MT;  // the warp's first row in the tile
   const float n = a.n;
   const T* xg = static_cast<const T*>(a.x);
 
-  if constexpr (kReadsX) {
+  if constexpr (kBn1) {
     for (int c = tid; c < C4; c += kTC) {
-      e0[c] = make_float4(a.g1[c], a.be1[c], a.mu1[c], a.i1[c]);
+      if constexpr (MODE == kFwdP2)  // the folds (s1, b1) as (s1, b1, 0, 1)
+        e0[c] = make_float4(a.g1[c], a.be1[c], 0.f, 1.f);
+      else
+        e0[c] = make_float4(a.g1[c], a.be1[c], a.mu1[c], a.i1[c]);
       if constexpr (MODE == kBwd4)
         e1[c] = make_float4(mul(a.g1[c], a.i1[c]), __fdiv_rn(a.t1a[c], n),
                             __fdiv_rn(a.t1b[c], n), 0.f);
@@ -340,7 +394,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   // A fragments from f32 rows of stride rs: rows r, r+8 at columns k, k+4.
   auto frag_rows = [&](const float* base, int rs, int k, int mi,
                        uint32_t(&big)[4], uint32_t(&small)[4]) {
-    const int r = wm * 32 + mi * 16 + g;
+    const int r = row0 + mi * 16 + g;
     const float v[4] = {base[r * rs + k], base[(r + 8) * rs + k],
                         base[r * rs + k + 4], base[(r + 8) * rs + k + 4]};
     split4(v, big, small);
@@ -351,17 +405,17 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
               small);
   };
 
-  float acc[kMT][NT][4];
+  float acc[MT][NT][4];
   float sa[NT][2], sb[NT][2];  // the thread's share of a tile's sums
   auto zero_sums = [&] {
 #pragma unroll
     for (int ni = 0; ni < NT; ++ni)
       sa[ni][0] = sa[ni][1] = sb[ni][0] = sb[ni][1] = 0.f;
   };
-  // The position of each of the thread's two A rows in a chunk: image, y,
+  // The position of each of the thread's MT A rows in a chunk: image, y,
   // x, inside P.
-  int rb[2], ry[2], rx[2];
-  bool rv[2];
+  int rb[MT], ry[MT], rx[MT];
+  bool rv[MT];
   long long p0 = 0;
 
   // c1 = p1 . W1 on the tile; the A chunks are raw x, BN1 and ReLU applied
@@ -369,13 +423,15 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   auto gemm_c1 = [&] {
     constexpr int ARS = kBK + 16 / (int)sizeof(T);  // A row stride, items
     constexpr int ASEG = kBK * (int)sizeof(T) / 16;  // 16 B per row chunk
-    tc_gemm<F>(
+    constexpr int AQ = (BM * ASEG + kTC - 1) / kTC;  // copies per thread
+    tc_gemm<F, MT>(
         acc, C4 / kBK, ring,
         [&](int c, unsigned char* st) {
           T* as = reinterpret_cast<T*>(st);
 #pragma unroll
-          for (int q = 0; q < kBM * ASEG / kTC; ++q) {
+          for (int q = 0; q < AQ; ++q) {
             const int idx = tid + q * kTC, r = idx / ASEG, s = idx % ASEG;
+            if (BM * ASEG % kTC != 0 && idx >= BM * ASEG) break;
             const long long p = p0 + r;
             const bool ok = p < a.P;
             cp_async16(as + r * ARS + s * (16 / (int)sizeof(T)),
@@ -388,7 +444,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
         [&](const unsigned char* st, int c, int kk, int mi, uint32_t(&big)[4],
             uint32_t(&small)[4]) {
           const T* as = reinterpret_cast<const T*>(st);
-          const int r = wm * 32 + mi * 16 + g, k = kk + t;
+          const int r = row0 + mi * 16 + g, k = kk + t;
           const float4 pa = e0[c * kBK + k], pb = e0[c * kBK + k + 4];
           const float v[4] = {bn_relu(to_f32(as[r * ARS + k]), pa),
                               bn_relu(to_f32(as[(r + 8) * ARS + k]), pa),
@@ -400,14 +456,14 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   // A 3x3 SAME product on the tile: per chunk one tap's shifted rows of src
   // [P][F] (zero outside the image), times wsrc [9F][F].
   auto gemm_3x3 = [&](const float* src, const float* wsrc) {
-    tc_gemm<F>(
+    tc_gemm<F, MT>(
         acc, 9 * F / kBK, ring,
         [&](int c, unsigned char* st) {
           float* as = reinterpret_cast<float*>(st);
           const int k0 = c * kBK, tap = k0 / F, ci0 = k0 % F;
           const int dy = tap / 3 - 1, dx = tap % 3 - 1;
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
+          for (int q = 0; q < MT; ++q) {
             const int idx = tid + q * kTC, r = idx >> 3, s = idx & 7;
             const int y = ry[q] + dy, xx = rx[q] + dx;
             const bool ok = rv[q] && y >= 0 && y < a.H && xx >= 0 && xx < a.W;
@@ -420,29 +476,43 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
         },
         frag_stage);
   };
+  // Output channels n0 .. n0+F of the tile buffer [BM][F] times wt [F][4F]
+  // (p3 . W3, dc1 . W1^T): one of four rounds.
+  auto gemm_expand = [&](const float* wt, int n0) {
+    tc_gemm<F, MT>(
+        acc, F / kBK, ring,
+        [&](int c, unsigned char* st) {
+          issue_w(st, wt + (long long)c * kBK * C4 + n0, C4);
+        },
+        [&](const unsigned char*, int c, int kk, int mi, uint32_t(&big)[4],
+            uint32_t(&small)[4]) {
+          frag_rows(cbuf, PL::CS, c * kBK + kk + t, mi, big, small);
+        });
+  };
   // chat = (c1-mu2)*i2 into the tile buffer.
   auto store_chat = [&] {
 #pragma unroll
-    for (int mi = 0; mi < kMT; ++mi)
+    for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni) {
         const int col = wn * PL::WN + ni * 8 + 2 * t;
         const float2 mu = load2(a.mu2 + col), iv = load2(a.i2 + col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float* cp = cbuf + (wm * 32 + mi * 16 + g + 8 * h) * PL::CS + col;
+          float* cp = cbuf + (row0 + mi * 16 + g + 8 * h) * PL::CS + col;
           cp[0] = mul(sub(acc[mi][ni][2 * h], mu.x), iv.x);
           cp[1] = mul(sub(acc[mi][ni][2 * h + 1], mu.y), iv.y);
         }
       }
   };
 
-  const int tiles = (a.P + kBM - 1) / kBM;
+  const int tiles = (a.P + BM - 1) / BM;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    p0 = (long long)tile * kBM;
-    if constexpr (MODE == kBwd1 || MODE == kBwd2 || MODE == kBwd3) {
+    p0 = (long long)tile * BM;
+    if constexpr (MODE == kBwd1 || MODE == kBwd2 || MODE == kBwd3 ||
+                  MODE == kFwd || MODE == kStatsB) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
+      for (int q = 0; q < MT; ++q) {
         const long long p = p0 + ((tid + q * kTC) >> 3);
         rv[q] = p < a.P;
         const long long hw = (long long)a.H * a.W;
@@ -453,39 +523,102 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
       }
     }
 
-    if constexpr (MODE == kP2) {
-      // p2 = relu(g2*chat + be2), to device memory.
+    if constexpr (p2_mode(MODE)) {
+      // p2 = relu(g2*chat + be2), to device memory (fwd: relu(s2*c1 + b2)).
       gemm_c1();
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) {
           const int col = wn * PL::WN + ni * 8 + 2 * t;
-          const float4 b0 = make_float4(__ldg(a.g2 + col), __ldg(a.be2 + col),
-                                        __ldg(a.mu2 + col), __ldg(a.i2 + col));
-          const float4 b1 =
-              make_float4(__ldg(a.g2 + col + 1), __ldg(a.be2 + col + 1),
-                          __ldg(a.mu2 + col + 1), __ldg(a.i2 + col + 1));
+          float4 b0 = make_float4(__ldg(a.g2 + col), __ldg(a.be2 + col), 0.f,
+                                  1.f);
+          float4 b1 = make_float4(__ldg(a.g2 + col + 1),
+                                  __ldg(a.be2 + col + 1), 0.f, 1.f);
+          if constexpr (MODE != kFwdP2) {
+            b0.z = __ldg(a.mu2 + col);
+            b0.w = __ldg(a.i2 + col);
+            b1.z = __ldg(a.mu2 + col + 1);
+            b1.w = __ldg(a.i2 + col + 1);
+          }
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const long long p = p0 + wm * 32 + mi * 16 + g + 8 * h;
+            const long long p = p0 + row0 + mi * 16 + g + 8 * h;
             if (p < a.P)
               store2(a.p2 + p * F + col, bn_relu(acc[mi][ni][2 * h], b0),
                      bn_relu(acc[mi][ni][2 * h + 1], b1));
           }
         }
+    } else if constexpr (MODE == kStatsB) {
+      // mid = conv3x3(p2, w2), and the sums of mid and mid^2 over the
+      // tile's pixels.
+      gemm_3x3(a.p2, a.w2);
+      zero_sums();
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const bool ok = p0 + row0 + mi * 16 + g + 8 * h < a.P;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float v = ok ? acc[mi][ni][2 * h + j] : 0.f;
+              sa[ni][j] += v;
+              sb[ni][j] = fmaf(v, v, sb[ni][j]);
+            }
+          }
+      add_tile_sums<F>(sa, sb, red, sums, sums + F);
+    } else if constexpr (MODE == kFwd) {
+      // mid = conv3x3(p2, w2), then p3 = relu(s3*mid + b3) into the tile
+      // buffer.
+      gemm_3x3(a.p2, a.w2);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          const int col = wn * PL::WN + ni * 8 + 2 * t;
+          const float2 sv = load2(a.g3 + col), bv = load2(a.be3 + col);
+          const float4 b0 = make_float4(sv.x, bv.x, 0.f, 1.f);
+          const float4 b1 = make_float4(sv.y, bv.y, 0.f, 1.f);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* cp = cbuf + (row0 + mi * 16 + g + 8 * h) * PL::CS + col;
+            cp[0] = bn_relu(acc[mi][ni][2 * h], b0);
+            cp[1] = bn_relu(acc[mi][ni][2 * h + 1], b1);
+          }
+        }
+      // y = x + p3 . W3 in four rounds of F output channels.
+      for (int n0 = 0; n0 < C4; n0 += F) {
+        gemm_expand(a.w3, n0);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long p = p0 + row0 + mi * 16 + g + 8 * h;
+            if (p >= a.P) continue;
+#pragma unroll
+            for (int ni = 0; ni < NT; ++ni) {
+              const int cc = n0 + wn * PL::WN + ni * 8 + 2 * t;
+              const float2 xv = load2(xg + p * C4 + cc);
+              store2(static_cast<T*>(a.y) + p * C4 + cc,
+                     add(xv.x, acc[mi][ni][2 * h]),
+                     add(xv.y, acc[mi][ni][2 * h + 1]));
+            }
+          }
+      }
     } else if constexpr (MODE == kBwd1) {
       // mid = conv3x3(p2, w2): stored, and mhat into the tile buffer.
       gemm_3x3(a.p2, a.w2);
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) {
           const int col = wn * PL::WN + ni * 8 + 2 * t;
           const float2 mu = load2(a.mu3 + col), iv = load2(a.i3 + col);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int row = wm * 32 + mi * 16 + g + 8 * h;
+            const int row = row0 + mi * 16 + g + 8 * h;
             const long long p = p0 + row;
             float* cp = cbuf + row * PL::CS + col;
             const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
@@ -495,12 +628,12 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
           }
         }
       // dp3 = gy . W3^T; the A chunks are the tile's gy rows.
-      tc_gemm<F>(
+      tc_gemm<F, MT>(
           acc, C4 / kBK, ring,
           [&](int c, unsigned char* st) {
             float* as = reinterpret_cast<float*>(st);
 #pragma unroll
-            for (int q = 0; q < 2; ++q) {
+            for (int q = 0; q < MT; ++q) {
               const int idx = tid + q * kTC, r = idx >> 3, s = idx & 7;
               const long long p = p0 + r;
               const bool ok = p < a.P;
@@ -513,14 +646,14 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
       // dm3, stored, and the sums.
       zero_sums();
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) {
           const int col = wn * PL::WN + ni * 8 + 2 * t;
           const float2 gv = load2(a.g3 + col), bv = load2(a.be3 + col);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int row = wm * 32 + mi * 16 + g + 8 * h;
+            const int row = row0 + mi * 16 + g + 8 * h;
             const long long p = p0 + row;
             const bool ok = p < a.P;
             const float* cp = cbuf + row * PL::CS + col;
@@ -546,14 +679,14 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
         // dm2 and the sums.
         zero_sums();
 #pragma unroll
-        for (int mi = 0; mi < kMT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
           for (int ni = 0; ni < NT; ++ni) {
             const int col = wn * PL::WN + ni * 8 + 2 * t;
             const float2 gv = load2(a.g2 + col), bv = load2(a.be2 + col);
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int row = wm * 32 + mi * 16 + g + 8 * h;
+              const int row = row0 + mi * 16 + g + 8 * h;
               const bool ok = p0 + row < a.P;
               const float* cp = cbuf + row * PL::CS + col;
 #pragma unroll
@@ -572,13 +705,13 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
       } else {
         // dm2, then dc1 in place of chat, and to device memory.
 #pragma unroll
-        for (int mi = 0; mi < kMT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
           for (int ni = 0; ni < NT; ++ni) {
             const int col = wn * PL::WN + ni * 8 + 2 * t;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int row = wm * 32 + mi * 16 + g + 8 * h;
+              const int row = row0 + mi * 16 + g + 8 * h;
               const long long p = p0 + row;
               float* cp = cbuf + row * PL::CS + col;
               float d[2];
@@ -603,7 +736,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
       // The tile's dc1, from pass 3.
       constexpr int SEGS = F / 4;
 #pragma unroll
-      for (int q = 0; q < kBM * SEGS / kTC; ++q) {
+      for (int q = 0; q < BM * SEGS / kTC; ++q) {
         const int idx = tid + q * kTC, r = idx / SEGS, s = idx % SEGS;
         const long long p = p0 + r;
         const bool ok = p < a.P;
@@ -619,21 +752,13 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
       // dp1 = dc1 . W1^T in four rounds of F output channels: dm1, then the
       // sums (bwd3) or dx (bwd4).
       for (int n0 = 0; n0 < C4; n0 += F) {
-        tc_gemm<F>(
-            acc, F / kBK, ring,
-            [&](int c, unsigned char* st) {
-              issue_w(st, a.w1t + (long long)c * kBK * C4 + n0, C4);
-            },
-            [&](const unsigned char*, int c, int kk, int mi,
-                uint32_t(&big)[4], uint32_t(&small)[4]) {
-              frag_rows(cbuf, PL::CS, c * kBK + kk + t, mi, big, small);
-            });
+        gemm_expand(a.w1t, n0);
         zero_sums();
 #pragma unroll
-        for (int mi = 0; mi < kMT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const long long p = p0 + wm * 32 + mi * 16 + g + 8 * h;
+            const long long p = p0 + row0 + mi * 16 + g + 8 * h;
             const bool ok = p < a.P;
 #pragma unroll
             for (int ni = 0; ni < NT; ++ni) {
@@ -674,7 +799,30 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
     a.part[(long long)blockIdx.x * NSUM + k] = sums[k];
 }
 
-// One entry point per launch, so that a profile names it.
+// One entry point per launch, so that a profile names it. fwd's tile pass
+// asks for one block per SM at F >= 128 (left free, ptxas held the 32-pixel
+// one at F=256 to 128 registers and spilled 116 bytes) and two at F=64
+// (with one, more registers cost it blocks per SM: 56^2 at B=128 took 2.32
+// ms a launch against 1.89).
+template <typename T, int F, int MT>
+__global__ void __launch_bounds__(kTC) bottleneck_fwd_p2_kernel(const TcArgs a) {
+  tc_body<T, F, kFwdP2, MT>(a);
+}
+template <typename T, int F, int MT>
+__global__ void __launch_bounds__(kTC, F == 64 ? 2 : 1)
+    bottleneck_fwd_kernel(const TcArgs a) {
+  tc_body<T, F, kFwd, MT>(a);
+}
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_stats_b_p2_kernel(const TcArgs a) {
+  tc_body<T, F, kStatsBP2>(a);
+}
+template <typename T, int F>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_stats_b_kernel(const TcArgs a) {
+  tc_body<T, F, kStatsB>(a);
+}
 template <typename T, int F>
 __global__ void __launch_bounds__(kTC)
     bottleneck_bwd1_p2_kernel(const TcArgs a) {
@@ -723,9 +871,14 @@ __global__ void __launch_bounds__(kTC)
   }
 }
 
-template <typename T, int F, int MODE>
+template <typename T, int F, int MODE, int MT>
 auto tc_kernel() {
-  if constexpr (MODE == kP2) return bottleneck_bwd1_p2_kernel<T, F>;
+  if constexpr (MODE == kFwdP2) return bottleneck_fwd_p2_kernel<T, F, MT>;
+  else if constexpr (MODE == kFwd) return bottleneck_fwd_kernel<T, F, MT>;
+  else if constexpr (MODE == kStatsBP2)
+    return bottleneck_stats_b_p2_kernel<T, F>;
+  else if constexpr (MODE == kStatsB) return bottleneck_stats_b_kernel<T, F>;
+  else if constexpr (MODE == kP2) return bottleneck_bwd1_p2_kernel<T, F>;
   else if constexpr (MODE == kBwd1) return bottleneck_bwd1_kernel<T, F>;
   else if constexpr (MODE == kBwd2) return bottleneck_bwd2_kernel<T, F>;
   else if constexpr (MODE == kBwd3) return bottleneck_bwd3_kernel<T, F>;
@@ -735,11 +888,11 @@ auto tc_kernel() {
 // One tile pass: as many blocks as run at once, at most `limit` (the rows
 // of partial sums there is room for), each walking the tiles; the sums'
 // order depends only on the shapes and the card. Sets *blocks.
-template <typename T, int F, int MODE>
+template <typename T, int F, int MODE, int MT = kMT>
 cudaError_t run_tiles(const TcArgs& a, long long limit, int device,
                       cudaStream_t st, int* blocks) {
-  auto kernel = tc_kernel<T, F, MODE>();
-  constexpr int smem = Plan<F>::smem(MODE);
+  auto kernel = tc_kernel<T, F, MODE, MT>();
+  constexpr int smem = Plan<F, MT>::smem(MODE);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -750,7 +903,7 @@ cudaError_t run_tiles(const TcArgs& a, long long limit, int device,
                                                       smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = (a.P + kBM - 1) / kBM;
+  const long long tiles = (a.P + Plan<F, MT>::BM - 1) / Plan<F, MT>::BM;
   *blocks = (int)std::min<long long>({tiles, (long long)per_sm * sms, limit});
   kernel<<<*blocks, kTC, smem, st>>>(a);
   return cudaGetLastError();
@@ -769,18 +922,44 @@ cudaError_t run_dmid(const TcArgs& a, int device, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The launches of one pass: bwd1 the p2 pass, its tile pass and the sum of
-// its rows; bwd2 dmid, its tile pass and the sum; bwd3 its pass and the
-// sum; bwd4 its pass.
+// fwd's two launches, in 64-pixel tiles or, where those would leave SMs
+// idle, 32-pixel ones.
+template <typename T, int F>
+cudaError_t run_fwd(const TcArgs& a, int device, cudaStream_t st) {
+  int sms = 0, blocks = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if ((a.P + Plan<F>::BM - 1) / Plan<F>::BM < sms) {
+    err = run_tiles<T, F, kFwdP2, 1>(a, a.P, device, st, &blocks);
+    if (err != cudaSuccess) return err;
+    return run_tiles<T, F, kFwd, 1>(a, a.P, device, st, &blocks);
+  }
+  err = run_tiles<T, F, kFwdP2>(a, a.P, device, st, &blocks);
+  if (err != cudaSuccess) return err;
+  return run_tiles<T, F, kFwd>(a, a.P, device, st, &blocks);
+}
+
+// The launches of one mode: fwd the p2 pass and its tile pass; stats_b and
+// bwd1 the p2 pass, the tile pass and the sum of its rows; bwd2 dmid, its
+// tile pass and the sum; bwd3 its pass and the sum; bwd4 its pass.
 template <typename T, int F>
 cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
                    int device, cudaStream_t st) {
-  const long long every = (a.P + kBM - 1) / kBM;
   int blocks = 0;
   cudaError_t err = cudaSuccess;
   switch (mode) {
+    case kFwd:
+      return run_fwd<T, F>(a, device, st);
+    case kStatsB:
+      err = run_tiles<T, F, kStatsBP2>(a, a.P, device, st, &blocks);
+      if (err != cudaSuccess) return err;
+      // The tile pass reads no x: one instantiation serves both types.
+      err = run_tiles<float, F, kStatsB>(a, part_rows, device, st, &blocks);
+      if (err != cudaSuccess) return err;
+      return sum_rows(a.part, out, blocks, 2 * F, st);
     case kBwd1:
-      err = run_tiles<T, F, kP2>(a, every, device, st, &blocks);
+      err = run_tiles<T, F, kP2>(a, a.P, device, st, &blocks);
       if (err != cudaSuccess) return err;
       // The tile pass reads no x: one instantiation serves both types.
       err = run_tiles<float, F, kBwd1>(a, part_rows, device, st, &blocks);
@@ -797,7 +976,7 @@ cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
       if (err != cudaSuccess) return err;
       return sum_rows(a.part, out, blocks, 8 * F, st);
     default:
-      return run_tiles<T, F, kBwd4>(a, every, device, st, &blocks);
+      return run_tiles<T, F, kBwd4>(a, a.P, device, st, &blocks);
   }
 }
 
@@ -818,25 +997,29 @@ cudaError_t dispatch_f(int mode, const TcArgs& a, float* out, int part_rows,
 
 }  // namespace
 
-// p[33], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
+// p[35], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
 // g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, T2a, T2b,
-// T1a, T1b, p2, mid, dm3, dmid, dc1, dx, part, out (see TcArgs). x, gy, dx
-// [B,H,W,4F], p2, mid, dm3, dmid, dc1 [B,H,W,F]; x and dx of `dtype`
-// (tr::DType), the rest f32; all contiguous and 16-byte aligned.
-// Mode 2 (bwd1) writes p2, mid, dm3 and out = [T3a, T3b] (2F floats); mode 3
-// (bwd2) reads mid, dm3 and writes dmid and out = [T2a, T2b] (2F); mode 0
-// (bwd3) reads dmid and writes dc1 and out = [T1a, T1b] (8F); each through
-// part (part_rows rows of out's length; the tile pass runs at most part_rows
-// blocks). Mode 1 (bwd4) reads dc1 and writes dx (part_rows unread). F is
-// 64, 128 or 256. Returns the cudaError_t of the launches on `stream`:
-// three for bwd1 and bwd2, two for bwd3, one for bwd4 (see launch()).
+// T1a, T1b, p2, mid, dm3, dmid, dc1, dx, part, out, w3, y (see TcArgs). x,
+// gy, dx, y [B,H,W,4F], p2, mid, dm3, dmid, dc1 [B,H,W,F]; x, dx and y of
+// `dtype` (tr::DType), the rest f32; all contiguous and 16-byte aligned.
+// Mode 5 (fwd) takes the folds s1, b1, s2, b2, s3, b3 in the places of g1,
+// be1, g2, be2, g3, be3, writes p2 (scratch) and y. Mode 4 (stats_b) writes
+// p2 (scratch) and out = [sum mid, sum mid^2] (2F floats); mode 2 (bwd1)
+// writes p2, mid, dm3 and out = [T3a, T3b] (2F); mode 3 (bwd2) reads mid,
+// dm3 and writes dmid and out = [T2a, T2b] (2F); mode 0 (bwd3) reads dmid
+// and writes dc1 and out = [T1a, T1b] (8F); each through part (part_rows
+// rows of out's length; the tile pass runs at most part_rows blocks). Mode
+// 1 (bwd4) reads dc1 and writes dx (part_rows unread by modes 1 and 5). F
+// is 64, 128 or 256. Returns the cudaError_t of the launches on `stream`:
+// three for stats_b, bwd1 and bwd2, two for fwd and bwd3, one for bwd4 (see
+// launch()).
 extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
                                 int W, int F, int part_rows, int dtype,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kBwd2 ||
-      (mode != kBwd4 && part_rows < 1))
+  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kFwd ||
+      (mode != kBwd4 && mode != kFwd && part_rows < 1))
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
   const auto w = [](const void* q) {
@@ -876,6 +1059,8 @@ extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
   a.dx = const_cast<void*>(p[30]);
   a.part = w(p[31]);
   float* out = w(p[32]);
+  a.w3 = f(p[33]);
+  a.y = const_cast<void*>(p[34]);
   a.P = B * H * W;
   a.H = H;
   a.W = W;

@@ -1,8 +1,8 @@
-// Fused ResNet-v2 bottleneck: with live batch-norm statistics, the two moment
-// passes of the training forward (the four backward passes live in
-// fused_bottleneck_tc.cu, and take dw1, dw2, dw3 from this file's
-// weight-gradient kernel); with folded (frozen) batch norm, the one backward
-// pass. Stride 1, identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or
+// Fused ResNet-v2 bottleneck: with live batch-norm statistics, the first
+// moment pass of the training forward (the second and the four backward
+// passes live in fused_bottleneck_tc.cu, and the backward passes take dw1,
+// dw2, dw3 from this file's weight-gradient kernel); with folded (frozen)
+// batch norm, the one backward pass. Stride 1, identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or
 // bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
 // [F,4F], BN vectors f32 ([4F] for BN1, [F] for BN2 and BN3). All
 // arithmetic is f32.
@@ -11,17 +11,14 @@
 // which every stride-1 identity bottleneck of width 64, 128 or 256 runs in
 // training when model.fused_blocks=true: 10 blocks of ImageNet ResNet-50):
 //   mode 0 stats_a  _stats_a_kernel: sum c1, sum c1^2, c1 = p1 . W1;
-//   mode 1 stats_b  _stats_b_kernel: sum mid, sum mid^2, mid = conv3x3(p2);
 // and (bottleneck_apply, the folded-BN bottleneck under a gradient: the
 // eval-mode model differentiated, tools/fused_bottleneck_ab.py's fwd_bwd arm):
 //   mode 6 bwd      _bwd_kernel: dx, the six BN sums and the operands p3, p2,
 //                   dmid, dc1 of dW3 = sum p3^T gy, dw2 = sum p2-patch^T dmid,
 //                   dW1 = sum p1^T dc1, in one pass.
 // The chain, recomputed from x and the saved moments (i = 1/sigma), as the
-// reference's _chain_train:
-//   x1hat = (x-mu1)*i1, m1 = g1*x1hat + be1, p1 = relu(m1), c1 = p1 . W1,
-//   chat = (c1-mu2)*i2, m2 = g2*chat + be2, p2 = relu(m2) (0 outside the
-//   image), mid = conv3x3(p2, w2).
+// reference's _chain_train: x1hat = (x-mu1)*i1, m1 = g1*x1hat + be1, p1 =
+// relu(m1), c1 = p1 . W1.
 // Mode 6 runs the chain on the folded affines, as the reference's _chain_fwd
 // and _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2 + b2, m3 = mid*s3 + b3, p3 =
 // relu(m3); then dm3 = (gy . W3^T)*[m3>0], dmid = dm3*s3 (0 outside the
@@ -36,22 +33,21 @@
 //
 // Bound: arithmetic. Per centre pixel, c1 is 8F^2 flops, mid 18F^2, gy . W3^T
 // 8F^2, convT 18F^2, dc1 . W1^T 8F^2 and each weight gradient 8F^2 (dW1,
-// dW3) or 18F^2 (dw2): 8 and 26 F^2 for the two moment modes, and 94F^2 for
-// mode 6 with its three weight gradients, against ~2*4F elements moved, on
+// dW3) or 18F^2 (dw2): 8F^2 for stats_a, and 94F^2 for mode 6 with its
+// three weight gradients, against ~2*4F elements moved, on
 // f32 FMAs (67 TFLOP/s on an H100). H*W*F^2 is the same at every ResNet-50
 // stage, so each mode has one bound per launch at all three stages.
 //
 // Design: the row kernel. One thread block per (image, band of R output
-// rows), as bottleneck_fwd (csrc/fused_bottleneck.cu), with its register-
-// tiled products (tile_fma.cuh). The band recomputes the chain on its rows
-// and a halo: none for stats_a, one row for stats_b (the 3x3 needs p2 at
-// +-1), two for mode 6 (convT needs dmid at +-1, hence mid at +-1 and p2 at
-// +-2); halo rows are recomputed by both neighbours, as the TPU kernel does.
-// Phases, each a product into registers with an elementwise epilogue:
-//   A  c1 over the E = R + 2*halo rows: p2 into shared memory (zero rows
-//      outside the image, zero side columns), c1 of the centre rows;
-//   B  mid = conv3x3(p2) over E-2 rows: the sums (stats_b) or mid into
-//      shared memory;
+// rows), with register-tiled products (tile_fma.cuh). The band recomputes
+// the chain on its rows and a halo: none for stats_a, two for mode 6 (convT
+// needs dmid at +-1, hence mid at +-1 and p2 at +-2); halo rows are
+// recomputed by both neighbours, as the TPU kernel does. Phases, each a
+// product into registers with an elementwise epilogue:
+//   A  c1 over the E = R + 2*halo rows: the sums (stats_a), or p2 into
+//      shared memory (zero rows outside the image, zero side columns) and
+//      c1 of the centre rows;
+//   B  mid = conv3x3(p2) over E-2 rows, into shared memory;
 //   C  gy . W3^T over the same rows: dm3, then dmid in place of mid (zeroed
 //      outside the image) and the BN3 sums on the centre rows;
 //   D  dp2 = convT(dmid) over the R centre rows: dm2, the BN2 sums, and dc1
@@ -97,7 +93,6 @@ using namespace tr;
 
 enum Mode : int {
   kStatsA = 0,
-  kStatsB = 1,
   kBwd = 6  // the frozen-BN backward
 };
 enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2 };
@@ -122,7 +117,7 @@ struct Args {
 };
 
 __host__ __device__ constexpr int halo(int mode) {
-  return mode == kStatsA ? 0 : mode == kStatsB ? 1 : 2;
+  return mode == kStatsA ? 0 : 2;
 }
 __host__ __device__ constexpr int row_len(int mode, int F) {
   return mode == kBwd ? 12 * F : 2 * F;
@@ -381,7 +376,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
   const T* xi = static_cast<const T*>(a.x) + pix0 * C4;
   float* prow = a.part + (long long)blockIdx.x * row_len(MODE, F);
   const float *g1 = a.v[0], *be1 = a.v[1], *mu1 = a.v[2], *i1 = a.v[3];
-  const float *g2 = a.v[4], *be2 = a.v[5], *mu2 = a.v[6], *i2 = a.v[7];
+  const float *g2 = a.v[4], *be2 = a.v[5];
   const float *g3 = a.v[8], *be3 = a.v[9];
   float sa[kTN], sb[kTN];  // the thread's channel sums
 #pragma unroll
@@ -427,54 +422,36 @@ __device__ __forceinline__ void train_body(const Args& a) {
           float o[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            o[q] = MODE == kBwd
-                       ? sbr(at(v, q), __ldg(g1 + c + q), __ldg(be1 + c + q))
-                       : bn_relu(at(v, q), __ldg(mu1 + c + q),
-                                 __ldg(i1 + c + q), __ldg(g1 + c + q),
-                                 __ldg(be1 + c + q));
+            o[q] = sbr(at(v, q), __ldg(g1 + c + q), __ldg(be1 + c + q));
           return f4(o);
         },
         [&](int m, int h, int c, float4 v) {
           const int e = m / W, px = m % W, g = r0 - HALO + e;
           const bool inside = g >= 0 && g < H;
-          float ch[4], p[4];
+          float p[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            ch[q] = MODE == kBwd ? at(v, q)
-                                 : mul(sub(at(v, q), __ldg(mu2 + c + q)),
-                                       __ldg(i2 + c + q));
-            p[q] = inside ? fmaxf(add(mul(__ldg(g2 + c + q), ch[q]),
+          for (int q = 0; q < 4; ++q)
+            p[q] = inside ? fmaxf(add(mul(__ldg(g2 + c + q), at(v, q)),
                                       __ldg(be2 + c + q)),
                                   0.f)
                           : 0.f;
-          }
           store4(reg0 + (e * WP + px + 1) * F + c, f4(p));
-          if constexpr (MODE == kBwd) {
-            const int ce = e - HALO;
-            if (ce >= 0 && ce < R && inside) {
-              store4(reg2 + (ce * W + px) * F + c, f4(ch));
-              store4(a.s0 + (pix0 + (long long)g * W + px) * F + c, f4(p));
-            }
+          const int ce = e - HALO;
+          if (ce >= 0 && ce < R && inside) {
+            store4(reg2 + (ce * W + px) * F + c, v);  // c1
+            store4(a.s0 + (pix0 + (long long)g * W + px) * F + c, f4(p));
           }
         });
   }
 
   // B. mid = conv3x3(p2) over E-2 rows.
-  if constexpr (MODE >= kStatsB) {
+  if constexpr (MODE == kBwd) {
     __syncthreads();
     // dmid's side columns, once phase A's x chunks have left region 1.
-    if (MODE == kBwd) zero_sides(reg1, E - 2);
+    zero_sides(reg1, E - 2);
     conv_rows<F>(reg0, E - 2, W, a.w2, bbuf,
                  [&](int m, int h, int c, float4 v) {
-                   const int e = m / W;
-                   if constexpr (MODE == kStatsB) {
-                     if (r0 + e >= H) return;
-#pragma unroll
-                     for (int q = 0; q < 4; ++q)
-                       sum2(h, q, at(v, q), at(v, q));
-                   } else {
-                     store4(reg1 + (e * WP + m % W + 1) * F + c, v);
-                   }
+                   store4(reg1 + ((m / W) * WP + m % W + 1) * F + c, v);
                  });
   }
 
@@ -576,14 +553,12 @@ __device__ __forceinline__ void train_body(const Args& a) {
     train_body<T, F, MODE>(a);                                    \
   }
 TR_ROW_KERNEL(bottleneck_stats_a_kernel, kStatsA)
-TR_ROW_KERNEL(bottleneck_stats_b_kernel, kStatsB)
 TR_ROW_KERNEL(bottleneck_bwd_kernel, kBwd)
 #undef TR_ROW_KERNEL
 
 template <typename T, int F, int MODE>
 auto row_kernel() {
   if constexpr (MODE == kStatsA) return bottleneck_stats_a_kernel<T, F>;
-  else if constexpr (MODE == kStatsB) return bottleneck_stats_b_kernel<T, F>;
   else return bottleneck_bwd_kernel<T, F>;
 }
 
@@ -594,12 +569,10 @@ long long block_work(int mode, int R, int W) {
   auto tiles = [&](int rows) {
     return (long long)(rows * W + Tile<F>::BM - 1) / Tile<F>::BM;
   };
-  long long w = tiles(mode == kStatsA ? R : E) * 4 * F / kKC;
-  if (mode != kStatsA) w += tiles(E - 2) * 9 * F / kKC;
-  if (mode == kBwd)
-    w += tiles(E - 2) * 4 * F / kKC + tiles(R) * 9 * F / kKC +
+  if (mode == kStatsA) return tiles(R) * 4 * F / kKC;
+  return tiles(E) * 4 * F / kKC + tiles(E - 2) * 9 * F / kKC +
+         tiles(E - 2) * 4 * F / kKC + tiles(R) * 9 * F / kKC +
          4 * tiles(R) * F / kKC;
-  return w;
 }
 
 template <typename T, int F, int MODE>
@@ -664,8 +637,6 @@ cudaError_t dispatch_mode(int mode, const Args& a, int B, int F, int device,
   switch (mode) {
     case kStatsA:
       return dispatch_f<T, kStatsA>(a, B, F, device, st);
-    case kStatsB:
-      return dispatch_f<T, kStatsB>(a, B, F, device, st);
     case kBwd:
       return dispatch_f<T, kBwd>(a, B, F, device, st);
     default:
@@ -792,7 +763,7 @@ cudaError_t launch_wgrad(int amode, const WArgs& w, int splits, float* out,
 // the places of g1, be1, g2, be2, g3, be3.
 // x, gy, dx [B,H,W,4F], s0..s3 [B,H,W,F]; x and dx of `dtype` (tr::DType),
 // the rest f32; all contiguous and 16-byte aligned. part holds B*H*row_len
-// floats, row_len = 2F (modes 0, 1) or 12F (mode 6); out row_len floats:
+// floats, row_len = 2F (mode 0) or 12F (mode 6); out row_len floats:
 // [sum a, sum b (F each)], for mode 6 [db1, ds1 (4F each), db2, ds2, db3,
 // ds3 (F each)], db = sum dm and ds = sum dm*v. F is 64, 128 or 256.
 // Returns the cudaError_t of the launches on `stream` (the row kernel and
@@ -802,8 +773,7 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 ||
-      (mode != kStatsA && mode != kStatsB && mode != kBwd))
+  if (B < 1 || H < 1 || W < 1 || (mode != kStatsA && mode != kBwd))
     return cudaErrorInvalidValue;
   Args a = {};
   const auto f = [](const void* q) { return static_cast<const float*>(q); };

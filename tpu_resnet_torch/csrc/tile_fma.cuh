@@ -1,8 +1,9 @@
-// Register-tiled float32 matrix products for the bottleneck kernels
-// (fused_bottleneck.cu, fused_bottleneck_train.cu): 256 threads, each owning
-// 4 pixels x 8 channels of an [pixels x F] output tile, the K dimension
-// staged through shared memory in chunks of 32 rows. Also the 16-byte loads
-// and stores of f32 and bf16 and the scale-bias-ReLU both kernels share.
+// Register-tiled float32 matrix products for the bottleneck's row kernels
+// (fused_bottleneck_train.cu): 256 threads, each owning 4 pixels x 8
+// channels of an [pixels x F] output tile, the K dimension staged through
+// shared memory in chunks of 32 rows. Also the 16-byte loads and stores of
+// f32 and bf16, the scale-bias-ReLU and the shared-memory limit the
+// bottleneck's kernels share.
 #pragma once
 
 #include "common.cuh"

@@ -49,7 +49,6 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_block_bwd3": [_P] * 17 + [_I] * 6 + [_P],
         "tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P],
     },
-    "fused_bottleneck": {"tr_bottleneck_fwd": [_P] * 11 + [_I] * 6 + [_P]},
     "fused_bottleneck_train": {
         "tr_bottleneck_train": [_I, _P] + [_I] * 6 + [_P],
         "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P],

@@ -11,7 +11,9 @@ for stride 1 and an identity shortcut, the 3x3 SAME, all arithmetic in
 float32 and y stored in x's dtype. x and y are NHWC [B,H,W,4f]; the 1x1
 kernels are matrices, W1 [4f,f] and W3 [f,4f], the 3x3 is HWIO [3,3,f,f], all
 float32; the folded BN scale/bias pairs are float32 [4f], [f], [f].
-:func:`bottleneck_fwd` launches ``csrc/fused_bottleneck.cu``.
+:func:`bottleneck_fwd` launches ``csrc/fused_bottleneck_tc.cu`` twice: p2
+into a [B,H,W,f] float32 scratch, then the 3x3, p3 and the expand with the
+residual, on the tensor cores.
 
 Its gradient (``_bwd_kernel``; mode 6 of ``csrc/fused_bottleneck_train.cu``
 ``tr_bottleneck_train``, then ``tr_bottleneck_wgrad``):
@@ -23,16 +25,18 @@ reference's custom-VJP ``bottleneck_apply``), saving only x and the
 parameters.
 
 Training (port of the reference's ``bottleneck_train_fwd`` and
-``_train_bwd_calls``: the moment passes in ``csrc/fused_bottleneck_train.cu``,
-the four backward passes in ``csrc/fused_bottleneck_tc.cu``, their weight
-gradients in the former's ``tr_bottleneck_wgrad``):
+``_train_bwd_calls``: the first moment pass in
+``csrc/fused_bottleneck_train.cu``, the second and the four backward passes
+in ``csrc/fused_bottleneck_tc.cu``, their weight gradients in the former's
+``tr_bottleneck_wgrad``):
 
 - :func:`bottleneck_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance); :func:`bottleneck_stats_a` gives the sums of
   the 1x1 reduce's output c1, finished into BN2's moments, and
   :func:`bottleneck_stats_b` those of the 3x3's output mid, finished into
   BN3's (single-pass variances clamped at 0); then :func:`bottleneck_fwd`
-  with the three folds. Returns ``(y, (m1, v1, m2, v2, m3, v3))``.
+  with the three folds, which recomputes p2 on the folded chain, as the
+  reference does. Returns ``(y, (m1, v1, m2, v2, m3, v3))``.
 - the backward, four passes from x, gy (float32) and the saved moments:
   :func:`bottleneck_bwd1` → (T3a, T3b, dw3, p2, mid, dm3),
   :func:`bottleneck_bwd2` (``p2=, mid=, dm3=``) → (T2a, T2b, dw2, dmid),
@@ -65,18 +69,16 @@ from tpu_resnet_torch.ops.fused_block import (_conv3x3, _conv3x3_t,
                                               _finish_moments, _fp, _mag, _n,
                                               _wgrad)
 
-launches = 0  # kernel launches by bottleneck_fwd (CUDA tensors only)
+launches = 0  # bottleneck_fwd calls on CUDA tensors (two launches each)
 stats_a_launches = 0  # bottleneck_stats_a calls (two launches each)
-stats_b_launches = 0  # bottleneck_stats_b calls (two launches each)
+stats_b_launches = 0  # bottleneck_stats_b calls (three launches each)
 bwd1_launches = 0     # bottleneck_bwd1 calls (five launches each)
 bwd2_launches = 0     # bottleneck_bwd2 calls (five launches each)
 bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
 bwd4_launches = 0     # bottleneck_bwd4 calls (one launch each)
 bwd_launches = 0      # bottleneck_bwd calls (eight launches each)
 
-WIDTHS = (64, 128, 256)  # the kernel's compiled bottleneck widths f
-_SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
-_THREADS, _KC = 256, 32  # csrc/fused_bottleneck.cu kThreads, kKC
+WIDTHS = (64, 128, 256)  # the kernels' compiled bottleneck widths f
 
 
 def _fold_bn(g, be, mean, inv):
@@ -95,15 +97,6 @@ def bottleneck_fwd_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
     p3 = scale_bias_relu_math(_conv3x3(p2, w2.to(xf.dtype)), s3, b3)
     r = torch.einsum("bhwf,fc->bhwc", p3, w3.to(xf.dtype))
     return (xf + r).to(x.dtype)
-
-
-def smem_bytes(w: int, f: int, rows: int) -> int:
-    """Shared memory the kernel takes for a band of ``rows`` output rows of
-    width ``w``: p2 with its halo, p3 (or the reduce's two staged chunks of
-    relu(s1*x+b1)), and two staged weight chunks, all float32."""
-    bm = 4 * _THREADS * 8 // f
-    return 4 * ((rows + 2) * (w + 2) * f + max(rows * w * f, 2 * bm * _KC)
-                + 2 * _KC * f)
 
 
 def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3) -> None:
@@ -131,8 +124,11 @@ def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3) -> None:
 def bottleneck_fwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3) -> torch.Tensor:
     """Fused v2 bottleneck forward: x [B,H,W,4f] float32/bfloat16; w1 [4f,f],
     w2 [3,3,f,f], w3 [f,4f] float32; s1, b1 [4f], s2, b2, s3, b3 [f] float32
-    (folded BN). On CUDA, f must be one of :data:`WIDTHS`. Returns the block
-    output in x's dtype."""
+    (folded BN). On CUDA, f must be one of :data:`WIDTHS`; two launches of
+    ``csrc/fused_bottleneck_tc.cu``: p2 = relu(s2·(relu(s1·x + b1)·W1) + b2)
+    into a [B,H,W,f] float32 scratch, then the 3x3 over p2 (zero outside
+    the image, no halo), p3 and x + p3·W3, on the tensor cores. Returns the
+    block output in x's dtype."""
     global launches
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
     _check(*args)
@@ -141,27 +137,16 @@ def bottleneck_fwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"bottleneck_fwd runs on cpu or cuda, not "
                          f"{x.device}")
-    b, h, w, c4 = x.shape
-    f = c4 // 4
+    f = x.shape[-1] // 4
     if f not in WIDTHS:
         raise ValueError(f"fused bottleneck has kernels for f in {WIDTHS}, "
                          f"got {f}")
-    if smem_bytes(w, f, 1) > _SMEM_LIMIT:
-        raise ValueError(f"fused bottleneck at width {w}, f={f} needs "
-                         f"{smem_bytes(w, f, 1)} bytes of shared memory, "
-                         f"more than {_SMEM_LIMIT}")
-    names = ("x", "w1", "w2", "w3", "s1", "b1", "s2", "b2", "s3", "b3")
-    for name, t in zip(names, args):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     y = torch.empty_like(x)
-    fn = _build.library("fused_bottleneck").tr_bottleneck_fwd
-    err = fn(*(t.data_ptr() for t in args), y.data_ptr(), b, h, w, f,
-             _build.DTYPE_CODES[x.dtype], x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "bottleneck_fwd")
+    if x.numel() == 0:
+        return y
+    # The folds in the places of the live BNs' gammas and betas.
+    _tc("bottleneck_fwd", x, w1=w1, w2=w2, w3=w3, g1=s1, be1=b1, g2=s2,
+        be2=b2, g3=s3, be3=b3, p2=_scratch(x), y=y)
     launches += 1
     return y
 
@@ -440,18 +425,19 @@ def _check_handoff(kind, name, t, x) -> None:
 
 _TC_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS,
             "p2", "mid", "dm3", "dmid", "dc1", "dx", "part",
-            "out")   # tr_bottleneck_tc's order
-_TC_PIXELS = 64          # csrc/fused_bottleneck_tc.cu kBM
+            "out", "w3", "y")   # tr_bottleneck_tc's order
+_TC_PIXELS = 64          # csrc/fused_bottleneck_tc.cu: pixels per tile
 _TC_PART_ROWS = 1024     # most blocks (rows of partial sums) a launch runs
-# tr_bottleneck_tc's mode of each pass, and the length of its sums.
-_TC_MODES = {"bottleneck_bwd1": (2, 2), "bottleneck_bwd2": (3, 2),
+# tr_bottleneck_tc's mode of each kernel, and the length of its sums.
+_TC_MODES = {"bottleneck_fwd": (5, 0), "bottleneck_stats_b": (4, 2),
+             "bottleneck_bwd1": (2, 2), "bottleneck_bwd2": (3, 2),
              "bottleneck_bwd3": (0, 8), "bottleneck_bwd4": (1, 0)}
 
 
 def _tc(kind, x, **tensors):
-    """One pass of ``csrc/fused_bottleneck_tc.cu`` (its tile launches and
-    the sum of its rows): returns its sums ([T3a, T3b] 2f, [T2a, T2b] 2f,
-    [T1a, T1b] 8f) or, for bwd4, None."""
+    """One call of ``csrc/fused_bottleneck_tc.cu`` (its tile launches and
+    the sum of their rows): returns its sums ([Σmid, Σmid²] 2f, [T3a, T3b]
+    2f, [T2a, T2b] 2f, [T1a, T1b] 8f) or, for fwd and bwd4, None."""
     b, h, w, c4 = x.shape
     mode, per_f = _TC_MODES[kind]
     out, rows = None, 0
@@ -487,17 +473,20 @@ def bottleneck_stats_a(x, w1, g1, be1, mu1, i1):
 
 
 def bottleneck_stats_b(x, w1, w2, g1, be1, mu1, i1, g2, be2, mu2, i2):
-    """(Σmid, Σmid²) float32 [f] of the 3x3's output mid = conv3x3(p2, w2),
-    recomputed with a one-row halo (the reference's ``_stats_b_kernel``);
-    BN2's vectors are [f]."""
+    """(Σmid, Σmid²) float32 [f] of the 3x3's output mid = conv3x3(p2, w2)
+    (the reference's ``_stats_b_kernel``); BN2's vectors are [f]. On CUDA,
+    three launches of ``csrc/fused_bottleneck_tc.cu``: p2 into a [B,H,W,f]
+    float32 scratch (the code of :func:`bottleneck_bwd1`'s p2), the 3x3 over
+    p2 (zero outside the image, no halo) and the tile sums on the tensor
+    cores, then the sum of their rows."""
     global stats_b_launches
     vecs = (g1, be1, mu1, i1, g2, be2, mu2, i2)
-    f = _check_train("bottleneck_stats_b", x, None, {"w1": w1, "w2": w2},
-                     vecs)
+    kind = "bottleneck_stats_b"
+    f = _check_train(kind, x, None, {"w1": w1, "w2": w2}, vecs)
     if x.device.type == "cpu":
         return bottleneck_stats_b_reference(x, w1, w2, *vecs)
-    out = _rows("bottleneck_stats_b", 1, 2 * f, x, w1=w1, w2=w2,
-                **dict(zip(_VECS, vecs)))
+    out = _tc(kind, x, w1=w1, w2=w2, p2=_scratch(x),
+              **dict(zip(_VECS, vecs)))
     stats_b_launches += 1
     return out[:f], out[f:]
 

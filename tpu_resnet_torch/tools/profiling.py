@@ -17,12 +17,15 @@ from torch.profiler import ProfilerActivity, profile
 
 # The port's kernels on the train paths, by a substring of their names
 # (``train_sum`` is the fixed-order sum launch of the fused block's stats and
-# first two backward passes; the fused bottleneck's moment passes run a row
-# kernel each, its backward passes tensor-core kernels (passes 1 and 2 two
-# each: ``bottleneck_bwd1_p2_kernel`` and ``bottleneck_bwd1_kernel``,
-# ``bottleneck_bwd2_dmid_kernel`` and ``bottleneck_bwd2_kernel``),
-# ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum`` adds their
-# partial rows in order).
+# first two backward passes; the fused bottleneck's first moment pass runs a
+# row kernel, its forward, second moment pass and backward passes
+# tensor-core kernels, two for each of the forward, the second moment pass
+# and passes 1 and 2: ``bottleneck_fwd_p2_kernel`` and
+# ``bottleneck_fwd_kernel``, ``bottleneck_stats_b_p2_kernel`` and
+# ``bottleneck_stats_b_kernel``, ``bottleneck_bwd1_p2_kernel`` and
+# ``bottleneck_bwd1_kernel``, ``bottleneck_bwd2_dmid_kernel`` and
+# ``bottleneck_bwd2_kernel``; ``bottleneck_wgrad`` for dw1..3, and
+# ``bottleneck_sum`` adds their partial rows in order).
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
@@ -32,9 +35,9 @@ TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "block_bwd2": "block_bwd2_kernel",
                  "block_bwd3": "block_bwd3_kernel",
                  "train_sum": "train_sum_kernel",
-                 "bottleneck_fwd": "bottleneck_fwd_kernel",
+                 "bottleneck_fwd": "bottleneck_fwd_",
                  "bottleneck_stats_a": "bottleneck_stats_a_kernel",
-                 "bottleneck_stats_b": "bottleneck_stats_b_kernel",
+                 "bottleneck_stats_b": "bottleneck_stats_b_",
                  "bottleneck_bwd1": "bottleneck_bwd1_",
                  "bottleneck_bwd2": "bottleneck_bwd2_",
                  "bottleneck_bwd3": "bottleneck_bwd3_kernel",
