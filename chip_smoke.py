@@ -7,7 +7,10 @@ Phases, each printing one JSON line:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the seconds ``nvcc`` took to build the kernels from
-   ``tpu_resnet_torch/csrc`` (one compiler per source, started together).
+   ``tpu_resnet_torch/csrc`` (one compiler per source, started together);
+   then a ``jpeg_libs`` line: which of ``nvjpeg.h``, ``libnvjpeg.so*`` and
+   ``jpeglib.h`` the CUDA toolkit's and the system's include and library
+   directories hold (what an ImageNet input pipeline could decode with).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at every shape the two serve paths give it with B=16 and the CIFAR train
    path gives it with B=128, in bfloat16 and float32 (float32 oracle with
@@ -32,12 +35,21 @@ Phases, each printing one JSON line:
    dc1 held like the sums, pass 1's masks [m2 > 0] and [m3 > 0] equal to
    the plain pass's (``bottleneck_bwd2`` fed the plain pass 1's p2, mid and
    dm3, ``bottleneck_bwd3`` the plain pass 2's dmid, ``bottleneck_bwd4``
-   the plain pass 3's dc1; the kernels on the tensor cores,
-   ``bottleneck_fwd``, ``bottleneck_stats_b`` and the four passes, also
-   carry ``tc_bound_ms``, their operations at the TF32 tensor cores' rate
-   over the three terms of the split); ``sbr``, ``sbr_bwd``,
-   ``bottleneck_fwd``
-   and the cross-entropy pair also at the ImageNet train path's shapes.
+   the plain pass 3's dc1; passes 1-3 and ``bottleneck_bwd`` time their
+   weight-gradient products with them and say so, ``includes``); and
+   ``bottleneck_wgrad`` (``_weight_grad``, the weight-gradient products of
+   passes 1-3 and of ``bottleneck_bwd``) alone at the three stage shapes in
+   each of its modes, dw3, dw2 and dw1 as the train step calls them (dw1
+   on bfloat16 and float32 x) and the folded gradient's dW3 from p3, within
+   1e-5·Σ|terms| + 1e-6 of the plain einsum or ``_wgrad``, two calls bit
+   for bit equal, with ``library_ms``, one PyTorch call on the operand
+   made beforehand (``torch.matmul(a.t(), b)``, or
+   ``torch.nn.grad.conv2d_weight`` for dw2; TF32 off). The kernels on the
+   tensor cores (``bottleneck_fwd``, the two moment passes, the four
+   passes and ``bottleneck_wgrad``) also carry ``tc_bound_ms``, their
+   operations at the TF32 tensor cores' rate over the three terms of the
+   split. ``sbr``, ``sbr_bwd``, ``bottleneck_fwd`` and the cross-entropy
+   pair also at the ImageNet train path's shapes.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
    random weights, checkpointed to a temporary train dir and served by the
@@ -87,9 +99,10 @@ Phases, each printing one JSON line:
    pipeline is not ported) for ``IMAGENET_STEPS`` bfloat16 steps on a few
    seeded uint8 batches repeated, the counters zeroed just before and read
    just after: 10 ``bottleneck_fwd``, 10 of each of the six bottleneck
-   training kernels, 19 ``sbr``, 19 ``sbr_bwd``, 1 ``xent_fwd`` and 1
-   ``xent_bwd`` per step; every loss finite and the mean of the last 5
-   below the first 5's; (c) the step's profile. No eval.
+   training kernels, 30 ``bottleneck_wgrad``, 19 ``sbr``, 19 ``sbr_bwd``,
+   1 ``xent_fwd`` and 1 ``xent_bwd`` per step; every loss finite and the
+   mean of the last 5 below the first 5's; (c) the step's profile. No
+   eval.
 
 8. ``autotune``: (a) ``ep.probe_epilogue(include_add=True)`` in bfloat16 at
    every ``model_epilogue_shapes`` shape of the ``cifar10`` and
@@ -113,7 +126,8 @@ Phases, each printing one JSON line:
    ``fwd_bwd`` call of ``AB_LENGTH`` chained blocks per shape, the counters
    zeroed just before and read just after (``AB_LENGTH`` launches of
    ``block_fwd`` and ``block_bwd``, or of ``bottleneck_fwd`` and
-   ``bottleneck_bwd``, and nothing else); then the four arms' µs per block
+   ``bottleneck_bwd`` and three times as many of ``bottleneck_wgrad``, and
+   nothing else); then the four arms' µs per block
    and speedups (``run_shape``, ``AB_REPS`` timed calls per arm).
 10. ``grad``: the gradient, in the input images and every parameter, of an
    eval-mode fused model on seeded weights (BN moved off its init), float32,
@@ -125,7 +139,8 @@ Phases, each printing one JSON line:
    PyTorch's own convolutions), never beyond its ceiling; the counters
    read one forward and its backward: 21 ``block_fwd`` + 7 ``sbr`` + 21
    ``block_bwd`` + 7 ``sbr_bwd`` (CIFAR), 10 ``bottleneck_fwd`` + 19
-   ``sbr`` + 10 ``bottleneck_bwd`` + 19 ``sbr_bwd`` (ImageNet).
+   ``sbr`` + 10 ``bottleneck_bwd`` + 30 ``bottleneck_wgrad`` + 19
+   ``sbr_bwd`` (ImageNet).
 
 The ``kernels`` phase also holds ``sbr_add`` (``tr_sbr_add``) against its
 plain version at the 14 probe shapes, bfloat16 and float32: the forward
@@ -138,7 +153,7 @@ shapes: every sum and weight gradient within 1e-5·Σ|terms| + 1e-6, dx
 within ``block_fwd``'s or ``bottleneck_fwd``'s tolerance, two calls bit for
 bit equal.
 
-Then one ``{"kernels": [...]}`` line of the 19 kernels (times summed over
+Then one ``{"kernels": [...]}`` line of the 20 kernels (times summed over
 the launches of one forward pass of each serve path and one train step that
 run the kernel, in bfloat16; for ``sbr_add`` over one call at each probe
 shape, for ``block_bwd`` and ``bottleneck_bwd`` over one call at each A/B
@@ -232,7 +247,7 @@ BOTTLENECK_TRAIN = ("bottleneck_stats_a", "bottleneck_stats_b",
                     "bottleneck_bwd4")
 KERNELS = ("sbr", "block_fwd", "bottleneck_fwd", "sbr_bwd", "xent_fwd",
            "xent_bwd", *BLOCK_TRAIN, *BOTTLENECK_TRAIN, "sbr_add",
-           "block_bwd", "bottleneck_bwd")
+           "block_bwd", "bottleneck_bwd", "bottleneck_wgrad")
 # Launches per forward pass of each serve path and per train step, every
 # kernel listed.
 PER_PASS = {path: {k: sum(n for _, n in shapes.get(k, ()))
@@ -246,9 +261,11 @@ PER_PASS["cifar10_fused_train"].update(
     sbr=7, sbr_bwd=7, xent_fwd=1, xent_bwd=1,
     **{k: PER_PASS["cifar10_fused_train"]["block_fwd"] for k in BLOCK_TRAIN})
 # The ImageNet train step: each fused bottleneck runs bottleneck_fwd and the
-# six training kernels once; the 19 sbr sites each run sbr_bwd.
+# six training kernels once, and passes 1-3 one weight gradient each; the
+# 19 sbr sites each run sbr_bwd.
 PER_PASS["imagenet_fused_train"].update(
     sbr_bwd=PER_PASS["imagenet_fused_train"]["sbr"], xent_fwd=1, xent_bwd=1,
+    bottleneck_wgrad=3 * PER_PASS["imagenet_fused_train"]["bottleneck_fwd"],
     **{k: PER_PASS["imagenet_fused_train"]["bottleneck_fwd"]
        for k in BOTTLENECK_TRAIN})
 TRAIN_OVERRIDES = ["model.fused_epilogue=on", "optim.use_pallas_xent=on",
@@ -292,7 +309,7 @@ GRAD_RTOL = (1e-3, 1e-2)
 GRAD_PER_BACKWARD = {
     "cifar10": {"block_fwd": 21, "sbr": 7, "block_bwd": 21, "sbr_bwd": 7},
     "imagenet": {"bottleneck_fwd": 10, "sbr": 19, "bottleneck_bwd": 10,
-                 "sbr_bwd": 19}}
+                 "bottleneck_wgrad": 30, "sbr_bwd": 19}}
 # |kernel - plain| <= atol + rtol * |plain|, elementwise. sbr rounds
 # exactly as the plain version does; the fused blocks sum their convs in
 # another order than cuDNN/cuBLAS, and in bfloat16 that can move the stored
@@ -457,9 +474,17 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
 
 
 # The kernels whose products run on the tensor cores (three-term TF32).
-TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_b",
-                       "bottleneck_bwd1", "bottleneck_bwd2",
-                       "bottleneck_bwd3", "bottleneck_bwd4")
+TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_a",
+                       "bottleneck_stats_b", "bottleneck_bwd1",
+                       "bottleneck_bwd2", "bottleneck_bwd3",
+                       "bottleneck_bwd4", "bottleneck_wgrad")
+# What a row's time takes in besides its own pass: the weight-gradient
+# products that the wrapper launches (bottleneck_wgrad's row has them
+# alone).
+INCLUDES = {"bottleneck_bwd1": "dw3 (bottleneck_wgrad)",
+            "bottleneck_bwd2": "dw2 (bottleneck_wgrad)",
+            "bottleneck_bwd3": "dw1 (bottleneck_wgrad)",
+            "bottleneck_bwd": "dW1, dw2, dW3 (bottleneck_wgrad)"}
 
 
 def kernel_args(kind: str, shape, dtype, gen) -> tuple:
@@ -489,16 +514,20 @@ def kernel_args(kind: str, shape, dtype, gen) -> tuple:
 
 
 def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 20,
-           inner: int = 10) -> dict:
+           inner: int = 10, bound_of=None) -> dict:
+    """Times of kernel and plain version into ``row``, and its bounds
+    (``bound_of(flop_per_s)`` where given, else :func:`bound`)."""
     for key, fn in (("ms", kernel), ("plain_ms", plain)):
         row[key] = time_ms(fn, queued=True, reps=reps, inner=inner)
         row["call_" + key] = time_ms(fn, queued=False, reps=reps,
                                      inner=inner)
-    row["bound_ms"], row["bound_by"] = bound(kind, shape, dtype)
+    bound_of = bound_of or (lambda rate: bound(kind, shape, dtype, rate))
+    row["bound_ms"], row["bound_by"] = bound_of(F32_FLOP_PER_S)
     row["bound_us"] = row["bound_ms"] * 1e3
     if kind in TENSOR_CORE_KERNELS:
-        row["tc_bound_ms"], row["tc_bound_by"] = bound(
-            kind, shape, dtype, TF32X3_FLOP_PER_S)
+        row["tc_bound_ms"], row["tc_bound_by"] = bound_of(TF32X3_FLOP_PER_S)
+    if kind in INCLUDES:
+        row["includes"] = INCLUDES[kind]
     return row
 
 
@@ -830,6 +859,118 @@ def bottleneck_train_kernel_phase(fbn):
     return rows
 
 
+def wgrad_bound(p: int, taps: int, ka: int, nb: int, a_item: int,
+                bn: bool, flop_per_s: float) -> tuple:
+    """(least ms, what bounds it) of one ``_weight_grad`` call: A [P,ka]
+    (``a_item`` bytes an item) and b [P,nb] float32 read once, the
+    [taps,ka,nb] float32 sum written once, BN's four [ka] vectors in;
+    2·P·taps·ka·nb flops."""
+    moved = p * ka * a_item + p * nb * 4 + taps * ka * nb * 4 + (
+        16 * ka if bn else 0)
+    t_bytes, t_ops = (moved / HBM_BYTES_PER_S,
+                      2 * p * taps * ka * nb / flop_per_s)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bottleneck_wgrad_kernel_phase(fbn):
+    """``bottleneck_wgrad`` (``fbn._weight_grad``, csrc/bottleneck_wgrad.cu)
+    alone at the three ResNet-50 B=128 stage shapes, in each of its modes
+    as its callers run it: dw3 = Σ p3ᵀ·gy with p3 from mid (BN and ReLU as
+    staged), dw2 = Σ p2-patchᵀ·dmid (the 9 shifted taps), dw1 = Σ p1ᵀ·dc1
+    from bfloat16 and float32 x (passes 1-3 of the train step), and the
+    folded gradient's dW3 from rows of p3 (``bottleneck_bwd``, the A/B
+    path); within 1e-5·Σ|terms| + 1e-6 of ``weight_grad_reference``, two
+    calls bit for bit equal. ``library_ms``: one PyTorch call on the operand
+    made beforehand, ``torch.matmul(a.t(), b)`` or, for dw2,
+    ``torch.nn.grad.conv2d_weight`` (TF32 off, as ``resolve_device`` sets
+    it)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for shape, per_step in SHAPES["imagenet_fused_train"]["bottleneck_fwd"]:
+        b, h, w, c4 = shape
+        f, p = c4 // 4, b * h * w
+
+        def randn(*size):
+            return torch.randn(size, generator=gen, device="cuda")
+
+        def bn(n):
+            return (torch.rand(n, generator=gen, device="cuda") + 0.5,
+                    randn(n) * 0.5, randn(n) * 0.5,
+                    torch.rand(n, generator=gen, device="cuda") + 0.5)
+
+        def relu_bn(v, vecs):
+            g, be, mu, i = vecs
+            return torch.clamp_min(g * ((v.float() - mu) * i) + be, 0.0)
+
+        def mm(a, bm):
+            return torch.matmul(a.reshape(-1, a.shape[-1]).t(),
+                                bm.reshape(-1, bm.shape[-1]))
+
+        gy, mid, dmid, dc1 = randn(b, h, w, c4), *(randn(b, h, w, f)
+                                                   for _ in range(3))
+        p2 = randn(b, h, w, f).clamp_min(0.0)
+        bn3, bn1 = bn(f), bn(c4)
+        p3 = relu_bn(mid, bn3)
+        x16 = randn(b, h, w, c4).to(torch.bfloat16)
+        x32 = x16.float()
+        p1 = relu_bn(x32, bn1)
+        nchw = (lambda t: t.permute(0, 3, 1, 2))
+        # (product, mode, A, b, ka, nb, taps, BN, x dtype, path, per pass,
+        # the library call)
+        products = (
+            ("dw3", fbn.WGRAD_BN_RELU, mid, gy, f, c4, 1, bn3, "bfloat16",
+             "imagenet_fused_train", per_step, lambda: mm(p3, gy)),
+            ("dw2", fbn.WGRAD_SHIFTED, p2, dmid, f, f, 9, (), "bfloat16",
+             "imagenet_fused_train", per_step,
+             lambda: torch.nn.grad.conv2d_weight(
+                 nchw(p2), (f, f, 3, 3), nchw(dmid), padding=1)),
+            ("dw1", fbn.WGRAD_BN_RELU, x16, dc1, c4, f, 1, bn1, "bfloat16",
+             "imagenet_fused_train", per_step, lambda: mm(p1, dc1)),
+            ("dw1", fbn.WGRAD_BN_RELU, x32, dc1, c4, f, 1, bn1, "float32",
+             "imagenet_fused_train", per_step, lambda: mm(p1, dc1)),
+            ("dW3", fbn.WGRAD_ROWS, p3, gy, f, c4, 1, (), "bfloat16",
+             "imagenet_ab", 1, lambda: mm(p3, gy)))
+        for (product, mode, a, bmat, ka, nb, taps, vecs, dtype, path,
+             per_pass, library) in products:
+            def kernel():
+                return fbn._weight_grad("bottleneck_wgrad", mode, a, bmat,
+                                        ka, nb, a, taps, vecs)
+
+            def plain():
+                return fbn.weight_grad_reference(mode, a, bmat, vecs)
+
+            got, again = kernel(), kernel()
+            with torch.backends.cudnn.flags(enabled=False):
+                want = plain()
+                scale = fbn.weight_grad_reference(mode, a, bmat, vecs,
+                                                  magnitudes=True)
+            torch.cuda.synchronize()
+            name = f"bottleneck_wgrad {product} {shape} x {dtype}"
+            check(torch.equal(got, again), f"{name}: two calls differ")
+            excess = _sum_excess((got,), (want,), (scale,))
+            row = {"kernel": "bottleneck_wgrad", "product": product,
+                   "mode": mode, "path": path, "shape": list(shape),
+                   "dtype": dtype, "per_pass": per_pass,
+                   "operand": [p, taps, ka, nb],
+                   "max_abs_err": float((got - want).abs().max()),
+                   "err_over_limit": excess,
+                   "tolerance": "sums <= 1e-5*sum|terms| + 1e-6"}
+            check(excess <= 1, f"{name}: beyond tolerance: {row}")
+            _timed(row, kernel, plain, "bottleneck_wgrad", shape, dtype,
+                   reps=5, inner=2,
+                   bound_of=lambda rate: wgrad_bound(
+                       p, taps, ka, nb, a.element_size(), bool(vecs),
+                       rate))
+            row["library_ms"] = time_ms(library, queued=True, reps=5,
+                                        inner=2)
+            rows.append(row)
+            del got, again, want, scale
+        del gy, mid, dmid, dc1, p2, p3, x16, x32, p1, products
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _bwd_rows(kind, path, shape, dtype, args, kernel, plain, per_pass,
               fwd_kind, **timing) -> dict:
     """One row of a folded block's gradient: two kernel calls bit for bit
@@ -931,7 +1072,8 @@ def kernel_counters() -> dict:
             "bottleneck_bwd4": (fbn, "bwd4_launches"),
             "sbr_add": (ep, "add_launches"),
             "block_bwd": (fb, "bwd_launches"),
-            "bottleneck_bwd": (fbn, "bwd_launches")}
+            "bottleneck_bwd": (fbn, "bwd_launches"),
+            "bottleneck_wgrad": (fbn, "wgrad_launches")}
 
 
 def zero_counts(counters) -> None:
@@ -1651,14 +1793,16 @@ def ab_phase(counters, gpu: str) -> list:
     from tpu_resnet_torch.tools import fused_block_ab, fused_bottleneck_ab
 
     cuda = torch.device("cuda")
+    # Each tool: launches of each kernel per chained block.
     tools = (("cifar10_ab", fused_block_ab, fused_block_ab.SHAPES,
-              ("block_fwd", "block_bwd")),
+              {"block_fwd": 1, "block_bwd": 1}),
              ("imagenet_ab", fused_bottleneck_ab,
               [(b, h, h, 4 * f) for b, h, f in fused_bottleneck_ab.SHAPES],
-              ("bottleneck_fwd", "bottleneck_bwd")))
+              {"bottleneck_fwd": 1, "bottleneck_bwd": 1,
+               "bottleneck_wgrad": 3}))
     results = []
     for path, tool, shapes, kinds in tools:
-        per_call = {k: AB_LENGTH if k in kinds else 0 for k in KERNELS}
+        per_call = {k: AB_LENGTH * kinds.get(k, 0) for k in KERNELS}
         total = {k: 0 for k in KERNELS}
         by_shape, host_paced = {}, []
         t0 = time.monotonic()
@@ -1791,6 +1935,30 @@ def grad_phase(preset: str, counters, gpu: str) -> dict:
     return result
 
 
+# Where a JPEG decoder for an ImageNet input pipeline could come from: the
+# CUDA toolkit's nvJPEG and the system's libjpeg, headers and libraries.
+JPEG_DIRS = {"cuda": ("/usr/local/cuda/include", "/usr/local/cuda/lib64",
+                      "/usr/local/cuda/targets/x86_64-linux/include",
+                      "/usr/local/cuda/targets/x86_64-linux/lib"),
+             "system": ("/usr/include", "/usr/local/include",
+                        "/usr/lib/x86_64-linux-gnu", "/usr/lib64",
+                        "/usr/local/lib")}
+JPEG_NAMES = ("nvjpeg.h", "libnvjpeg.so", "jpeglib.h")
+
+
+def jpeg_libs() -> dict:
+    """{"cuda": [...], "system": [...]}: the paths, in those directories
+    (not below them), of ``nvjpeg.h``, ``libnvjpeg.so*`` and
+    ``jpeglib.h``."""
+    found = {}
+    for where, dirs in JPEG_DIRS.items():
+        found[where] = sorted(
+            os.path.join(d, fn) for d in dirs if os.path.isdir(d)
+            for fn in os.listdir(d)
+            if fn in JPEG_NAMES or fn.startswith("libnvjpeg.so"))
+    return found
+
+
 # Each kernel: its source in the port and the TPU kernel body it replaces.
 KERNEL_SOURCES = (
     ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
@@ -1813,7 +1981,7 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/fused_block.py:409"),
     ("block_bwd3", "tpu_resnet_torch/csrc/fused_block_train.cu",
      "tpu_resnet/ops/fused_block.py:433"),
-    ("bottleneck_stats_a", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_stats_a", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:445"),
     ("bottleneck_stats_b", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:464"),
@@ -1830,7 +1998,11 @@ KERNEL_SOURCES = (
     ("block_bwd", "tpu_resnet_torch/csrc/fused_block_train.cu",
      "tpu_resnet/ops/fused_block.py:252"),
     ("bottleneck_bwd", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
-     "tpu_resnet/ops/fused_bottleneck.py:241"))
+     "tpu_resnet/ops/fused_bottleneck.py:241"),
+    # The weight-gradient products inside passes 1-3 (dw3, dw2, dw1) and
+    # inside the folded gradient (dW3, dw2, dW1), at their call lines.
+    ("bottleneck_wgrad", "tpu_resnet_torch/csrc/bottleneck_wgrad.cu",
+     "tpu_resnet/ops/fused_bottleneck.py:662, :701, :745, :339"))
 
 
 def path_times(rows) -> dict:
@@ -1851,13 +2023,15 @@ def path_times(rows) -> dict:
                                    for r in on_path)}
                if "tc_bound_ms" in on_path[0] else {}),
             "bound_by": on_path[0]["bound_by"],
-            # One F.cross_entropy call computes xent_fwd. No single PyTorch
-            # call computes the others: relu of an affine is two calls at
-            # least, its backward (dx, ds, db) several, the cross-entropy
-            # backward softmax and a one-hot subtraction, the basic block
-            # five or more, the bottleneck seven; no call returns the fused
-            # block's or the fused bottleneck's training sums and
-            # weight-gradient products, or their folded gradients.
+            # One F.cross_entropy call computes xent_fwd, and one matmul
+            # or conv2d_weight call each of bottleneck_wgrad's products (on
+            # the operand made beforehand). No single PyTorch call computes
+            # the others: relu of an affine is two calls at least, its
+            # backward (dx, ds, db) several, the cross-entropy backward
+            # softmax and a one-hot subtraction, the basic block five or
+            # more, the bottleneck seven; no call returns the fused block's
+            # or the fused bottleneck's training sums, or their folded
+            # gradients.
             "library_ms": sum(library) if library else None}
     return by_path
 
@@ -1889,7 +2063,8 @@ def kernel_entries(rows, served, trained) -> list:
                                   for t in trained},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == kind),
-            **by_path[timed], "timed_path": timed, "by_path": by_path})
+            **by_path[timed], "timed_path": timed, "by_path": by_path,
+            **({"includes": INCLUDES[kind]} if kind in INCLUDES else {})})
     return kernels
 
 
@@ -1915,6 +2090,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_seconds=time.monotonic() - t0,
          libraries=sorted(libs))
+    emit("jpeg_libs", **jpeg_libs())
 
     rows = kernel_phase({
         "sbr": (ep.scale_bias_relu, ep.scale_bias_relu_reference),
@@ -1924,6 +2100,7 @@ def main() -> int:
     rows += train_kernel_phase(ep, sx)
     rows += block_train_kernel_phase(fb)
     rows += bottleneck_train_kernel_phase(fbn)
+    rows += bottleneck_wgrad_kernel_phase(fbn)
     rows += sbr_add_kernel_phase(ep)
     rows += fused_bwd_kernel_phase(fb, fbn)
     emit("kernels", gpu=gpu, rows=rows)

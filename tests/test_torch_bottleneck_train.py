@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from tpu_resnet.data import augment as ref_aug
 from tpu_resnet.models import resnet as jax_resnet
@@ -126,6 +127,110 @@ def test_train_bwd_passes_match_reference(passes):
     dx = fbn.bottleneck_bwd4(*base, *sums, dc1=outs[3][3])
     assert dx.dtype == torch.float32
     _close(dx, ref["dx"], "pass 4 dx", atol=1e-4, rtol=1e-4)
+
+
+def test_weight_grad_products_match_reference(passes):
+    """``_weight_grad`` on the CPU (its plain version, as its kernel's
+    oracle), fed what passes 1-3 hand over, gives the reference's dw3, dw2
+    and dw1, and launches nothing."""
+    x, gy, params, moments, ref = passes
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    w1, w2, w3, g1, be1, g2, be2, g3, be3 = map(t, params)
+    m1, v1, m2, v2, m3, v3 = map(t, moments)
+    i1, i2, i3 = (torch.rsqrt(v + EPS) for v in (v1, v2, v3))
+    base = (t(x), t(gy), w1, w2, w3, g1, be1, m1, i1, g2, be2, m2, i2, g3,
+            be3, m3, i3)
+    sums = [t(ref[k]) for k in ("t3a", "t3b", "t2a", "t2b")]
+    p2, mid, dm3 = fbn.bottleneck_bwd1(*base)[3:]
+    dmid = fbn.bottleneck_bwd2(*base, *sums[:2], p2=p2, mid=mid, dm3=dm3)[3]
+    dc1 = fbn.bottleneck_bwd3(*base, *sums, dmid=dmid)[3]
+    f = w1.shape[1]
+    xt, gyt = base[:2]
+    before = fbn.wgrad_launches
+    got = {"dw3": fbn._weight_grad("dw3", fbn.WGRAD_BN_RELU, mid, gyt, f,
+                                   4 * f, xt, 1, (g3, be3, m3, i3)),
+           "dw2": fbn._weight_grad("dw2", fbn.WGRAD_SHIFTED, p2, dmid, f, f,
+                                   xt, 9),
+           "dw1": fbn._weight_grad("dw1", fbn.WGRAD_BN_RELU, xt, dc1, 4 * f,
+                                   f, xt, 1, (g1, be1, m1, i1))}
+    assert fbn.wgrad_launches == before
+    for name, g in got.items():
+        _close(g.reshape(ref[name].shape), ref[name], name, atol=1e-4,
+               rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["rows", "shifted", "bn_relu"])
+def test_weight_grad_plain_is_the_sum_over_pixels(mode):
+    """``weight_grad_reference`` in each of the kernel's modes against the
+    sum over pixels written out in float64 numpy: rows of A, A shifted by
+    each 3x3 tap with zeros outside the image, relu(g·((v−μ)·i) + be)."""
+    rng = np.random.default_rng(21)
+    b, h, w, ka, nb = 2, 5, 3, 8, 4
+    a = rng.normal(size=(b, h, w, ka)).astype(np.float32)
+    bm = rng.normal(size=(b, h, w, nb)).astype(np.float32)
+    bn = [rng.uniform(0.5, 1.5, ka), rng.normal(size=ka),
+          rng.normal(size=ka), rng.uniform(0.5, 1.5, ka)]
+    bn = [v.astype(np.float32) for v in bn]
+    am = {"rows": fbn.WGRAD_ROWS, "shifted": fbn.WGRAD_SHIFTED,
+          "bn_relu": fbn.WGRAD_BN_RELU}[mode]
+    got = fbn.weight_grad_reference(
+        am, torch.from_numpy(a), torch.from_numpy(bm),
+        tuple(map(torch.from_numpy, bn)) if mode == "bn_relu" else ())
+    a64, b64 = a.astype(np.float64), bm.astype(np.float64)
+    if mode == "bn_relu":
+        g, be, mu, i = (v.astype(np.float64) for v in bn)
+        a64 = np.maximum(g * ((a64 - mu) * i) + be, 0.0)
+    if mode == "shifted":
+        pad = np.pad(a64, ((0, 0), (1, 1), (1, 1), (0, 0)))
+        want = np.stack([np.einsum("bhwk,bhwn->kn",
+                                   pad[:, dy:dy + h, dx:dx + w], b64)
+                         for dy in range(3) for dx in range(3)])
+    else:
+        want = np.einsum("bhwk,bhwn->kn", a64, b64)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.double().numpy(), want.reshape(-1),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _reference_stats_a(x, w1, g1, be1, mu1, i1):
+    """The reference's ``_stats_a_kernel`` through ``pallas_call`` in
+    interpret mode, as its ``bottleneck_train_fwd`` calls it."""
+    f = w1.shape[-1]
+    interpret, bt, ht, grid, full, kwargs = jax_fbn._plumb(x, 1, None, True,
+                                                           f)
+    b, h, wdt, c4 = x.shape
+    center = jax_fbn._specs(bt, ht, wdt, c4, grid[1])[0]
+    return pl.pallas_call(
+        jax_fbn._stats_a_kernel, grid=grid,
+        in_specs=[center, full(c4, f)] + [full(c4)] * 4,
+        out_specs=[full(f), full(f)],
+        out_shape=[jax.ShapeDtypeStruct((f,), jnp.float32)] * 2,
+        interpret=interpret, **kwargs)(x, w1, g1, be1, mu1, i1)
+
+
+def test_stats_a_rounds_bn1_as_the_reference():
+    """(g1·(x−μ1))·i1 first, as the reference's ``_stats_a_kernel``: with x
+    = 2^100, i1 = 2^100 and g1 = 2^-100 on a quarter of the channels, that
+    order gives p1 = 2^100 and finite sums, where g1·((x−μ1)·i1), the
+    order of the other passes, overflows."""
+    f = 64
+    x, _, w1, *_ = _inputs(f, (2, 4, 4), seed=9)
+    rng = np.random.default_rng(10)
+    g1, be1, mu1 = (rng.uniform(0.5, 1.5, 4 * f).astype(np.float32),
+                    rng.uniform(-0.3, 0.3, 4 * f).astype(np.float32),
+                    rng.normal(size=4 * f).astype(np.float32))
+    i1 = rng.uniform(0.5, 1.5, 4 * f).astype(np.float32)
+    big = np.arange(4 * f) % 4 == 0
+    x[..., big], w1[big] = 2.0 ** 100, 2.0 ** -100
+    g1[big], mu1[big], i1[big] = 2.0 ** -100, 0.0, 2.0 ** 100
+    with np.errstate(over="ignore"):
+        assert np.isinf(g1 * ((x - mu1) * i1)).any()
+    args = (x, w1, g1, be1, mu1, i1)
+    want = _reference_stats_a(*map(jnp.asarray, args))
+    got = fbn.bottleneck_stats_a(*map(torch.from_numpy, args))
+    for g, w in zip(got, want):
+        assert np.isfinite(_np(w)).all()
+        _close(g, w, "stats_a", atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.parametrize("f, bhw, row_tile", CASES[:2], ids=IDS[:2])

@@ -448,6 +448,77 @@ def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(dx.float(), want.float(), atol=tol, rtol=tol)
 
 
+# (mode, A's shape [B,H,W,ka], nb, x's dtype): the four output tiles of
+# csrc/bottleneck_wgrad.cu (64 or 128 along each side), 147 and 135 pixels
+# (no multiple of the 16-pixel chunk), and a 7x7 image whose 3x3 taps fall
+# off every edge.
+WGRAD_CASES = [
+    (fbn.WGRAD_ROWS, (3, 7, 7, 64), 256, torch.float32),
+    (fbn.WGRAD_SHIFTED, (3, 7, 7, 64), 64, torch.float32),
+    (fbn.WGRAD_SHIFTED, (3, 9, 5, 128), 128, torch.float32),
+    (fbn.WGRAD_BN_RELU, (3, 7, 7, 256), 64, torch.float32),
+    (fbn.WGRAD_BN_RELU, (3, 7, 7, 256), 64, torch.bfloat16),
+    (fbn.WGRAD_BN_RELU, (3, 9, 5, 128), 512, torch.float32),
+    (fbn.WGRAD_BN_RELU, (3, 9, 5, 128), 512, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("mode, shape, nb, dtype", WGRAD_CASES)
+def test_bottleneck_wgrad_kernel_matches_plain(cuda, mode, shape, nb, dtype):
+    """``tr_bottleneck_wgrad`` in each of its three modes, with the pixels
+    in the default number of splits, in one, and in more than the pixels
+    fill (the last ones empty): within 1e-5·Σ|terms| + 1e-6 of the plain
+    einsum or ``_wgrad``, two calls bit for bit equal."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ka = shape[-1]
+    a = torch.randn(shape, generator=gen, device="cuda")
+    if mode == fbn.WGRAD_SHIFTED:
+        a = a.clamp_min(0.0)   # p2
+    a = a.to(dtype)
+    bmat = torch.randn(*shape[:3], nb, generator=gen, device="cuda")
+    bn = ((torch.rand(ka, generator=gen, device="cuda") + 0.5,
+           torch.randn(ka, generator=gen, device="cuda") * 0.5,
+           torch.randn(ka, generator=gen, device="cuda") * 0.5,
+           torch.rand(ka, generator=gen, device="cuda") + 0.5)
+          if mode == fbn.WGRAD_BN_RELU else ())
+    taps = 9 if mode == fbn.WGRAD_SHIFTED else 1
+    want = fbn.weight_grad_reference(mode, a, bmat, bn)
+    scale = fbn.weight_grad_reference(mode, a, bmat, bn, magnitudes=True)
+    for splits in (None, 1, 20):
+        before = fbn.wgrad_launches
+        got, again = (fbn._weight_grad("wgrad", mode, a, bmat, ka, nb, a,
+                                       taps, bn, splits=splits)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert fbn.wgrad_launches == before + 2
+        assert got.shape == (taps * ka * nb,) and torch.equal(got, again)
+        _sums_close([got], [want], [scale])
+
+
+def test_bottleneck_stats_a_keeps_the_reference_rounding(cuda):
+    """``bottleneck_stats_a`` rounds BN1 as the reference's
+    ``_stats_a_kernel``, (g1·(x−μ1))·i1 first: with x = 2^100, i1 = 2^100
+    and g1 = 2^-100 on a quarter of the channels, that order gives p1 =
+    2^100, and g1·((x−μ1)·i1), the other passes' order, overflows to inf.
+    B=3 at 7x7: 147 pixels, no multiple of the 64-pixel tile."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, _, w1, _, _, vecs = _bottleneck_train_inputs((3, 7, 7, 256),
+                                                    torch.float32, gen)
+    g1, be1, mu1, i1 = (v.clone() for v in vecs[:4])
+    big = torch.arange(256, device="cuda") % 4 == 0
+    x[..., big] = 2.0 ** 100
+    g1[big], mu1[big], i1[big] = 2.0 ** -100, 0.0, 2.0 ** 100
+    w1[big] = 2.0 ** -100
+    assert bool(torch.isinf(g1 * ((x - mu1) * i1)).any())
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), w1, g1, be1, mu1, i1)
+        got = fbn.bottleneck_stats_a(*args)
+        want = fbn.bottleneck_stats_a_reference(*args)
+        scale = fbn.bottleneck_stats_a_reference(*args, magnitudes=True)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(w).all()) for w in want)
+        _sums_close(got, want, scale)
+
+
 def test_bottleneck_train_wrappers_reject_bad_input(cuda):
     gen = torch.Generator(device="cuda").manual_seed(12)
     x, gy, w1, w2, w3, vecs = _bottleneck_train_inputs(
@@ -488,7 +559,8 @@ def test_bottleneck_train_wrappers_reject_bad_input(cuda):
 
 def test_imagenet_fused_train_step_launches(cuda):
     """One bf16 step of ImageNet ResNet-50 at 64x64 through the loop's step:
-    each of the seven bottleneck kernels 10 times, a finite loss."""
+    each of the seven bottleneck kernels 10 times, the weight gradients
+    30, a finite loss."""
     cfg = load_config("imagenet", "", [
         "model.fused_blocks=true", "model.fused_epilogue=on",
         "optim.use_pallas_xent=on", "train.global_batch_size=4",
@@ -501,11 +573,12 @@ def test_imagenet_fused_train_step_launches(cuda):
                            dtype=torch.int32)
     names = ("launches", "stats_a_launches", "stats_b_launches",
              "bwd1_launches", "bwd2_launches", "bwd3_launches",
-             "bwd4_launches")
+             "bwd4_launches", "wgrad_launches")
     before = [getattr(fbn, n) for n in names]
     m = make_loop_step(cfg, cuda)(state, images, labels)
     torch.cuda.synchronize()
-    assert [getattr(fbn, n) - b for n, b in zip(names, before)] == [10] * 7
+    assert [getattr(fbn, n) - b for n, b in zip(names, before)] == (
+        [10] * 7 + [30])
     assert bool(torch.isfinite(m["loss"]))
 
 

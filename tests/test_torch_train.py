@@ -2,9 +2,12 @@
 training mode, the train step over three steps from one converted state,
 the schedules and the L2 term; then the port's loop itself (resume repeats
 the uninterrupted stream bit for bit, metrics, pruning, eval, serving a
-trained checkpoint, SIGTERM) and the guards of this slice."""
+trained checkpoint, SIGTERM), the guards of this slice, and the NaN guard
+and emergency save against the reference's ``train()``."""
 
 import json
+import logging
+import math
 import os
 import signal
 import subprocess
@@ -17,7 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_resnet import resilience as ref_resilience
+from tpu_resnet.config import load_config as ref_load_config
+from tpu_resnet.models import build_model as ref_build_model
 from tpu_resnet.models.resnet import cifar_resnet_v2 as ref_cifar
+from tpu_resnet.obs.spans import load_spans
+from tpu_resnet.parallel import create_mesh
+from tpu_resnet.train import latest_step_in as ref_latest_step_in
+from tpu_resnet.train import train as ref_train
+from tpu_resnet.train import metrics_io as ref_metrics_io
 from tpu_resnet.train import schedule as ref_sched
 from tpu_resnet.train.state import TrainState as RefState
 from tpu_resnet.train.state import build_optimizer as ref_build_optimizer
@@ -28,13 +39,18 @@ from tpu_resnet.data import pipeline as ref_pipeline
 from tpu_resnet.train.step import make_eval_step as ref_make_eval_step
 from tpu_resnet.train.step import make_train_step as ref_make_train_step
 from tpu_resnet_torch import convert
+from tpu_resnet_torch import data as data_lib
 from tpu_resnet_torch.config import load_config
 from tpu_resnet_torch.evaluation.evaluator import evaluate
 from tpu_resnet_torch.main import main as port_main
-from tpu_resnet_torch.models import cifar_resnet_v2, imagenet_resnet_v2
+from tpu_resnet_torch.models import (build_model, cifar_resnet_v2,
+                                     imagenet_resnet_v2)
+from tpu_resnet_torch.resilience import sentinel as port_sentinel
 from tpu_resnet_torch.resilience.shutdown import Preempted
 from tpu_resnet_torch.serve.backend import CheckpointBackend
 from tpu_resnet_torch.train import checkpoint
+from tpu_resnet_torch.train import loop
+from tpu_resnet_torch.train import metrics_io
 from tpu_resnet_torch.train import schedule as sched
 from tpu_resnet_torch.train.loop import build_state, train
 from tpu_resnet_torch.train.state import create_state
@@ -459,3 +475,191 @@ def test_eval_retries_then_skips_a_torn_checkpoint(tmp_path, monkeypatch):
     assert not (tmp_path / "eval" / "best_precision.json").exists()
     path.write_bytes(whole)
     assert evaluate(cfg, device="cpu") is not None
+
+
+# ------------------------------------------- NaN guard and emergency save
+NAN_STEP = 5   # the batch consumed at this step is all NaN
+
+
+def _fault_overrides(train_dir, *extra):
+    """The smoke preset (ResNet-8, synthetic data, float32) on the
+    streaming path, where the reference's fault injector poisons its
+    batches; plain versions in both."""
+    return ["optim.use_pallas_xent=off", "model.fused_epilogue=off",
+            "data.device_resident=off", "data.transfer_stage=1",
+            "data.synthetic_train_examples=64", "train.global_batch_size=8",
+            "train.train_steps=12", "train.log_every=2",
+            "train.summary_every=2", "train.checkpoint_every=4",
+            "train.image_summary_every=0",
+            "resilience.watchdog_stall_sec=0",
+            f"train.train_dir={train_dir}", *extra]
+
+
+def _reference_run(train_dir, *extra):
+    """The reference's ``train()`` on one CPU device, the step-NAN_STEP
+    batch poisoned by its own fault injector; returns its config."""
+    cfg = ref_load_config("smoke", "", _fault_overrides(train_dir, *extra))
+    cfg.resilience.inject_nan_at_step = NAN_STEP
+    ref_train(cfg, mesh=create_mesh(cfg.mesh, devices=jax.devices()[:1]))
+    return cfg
+
+
+def _port_run(train_dir, monkeypatch, *extra):
+    """The port's ``train()`` on the CPU from the reference's initial
+    weights (``init`` at the split of ``PRNGKey(train.seed)`` its loop
+    uses), the step-NAN_STEP batch of its batch source poisoned once."""
+    cfg = load_config("smoke", "", _fault_overrides(train_dir, *extra))
+    size = cfg.data.resolved_image_size
+    variables = jax.device_get(ref_build_model(cfg).init(
+        jax.random.split(jax.random.PRNGKey(cfg.train.seed))[0],
+        jnp.zeros((1, size, size, 3), jnp.float32), train=False))
+
+    def start(cfg, device):
+        model = build_model(cfg)
+        model.load_state_dict(convert.flax_to_torch(variables), strict=True)
+        return create_state(model.to(device), cfg.optim)
+
+    real, fired = data_lib.train_batches, []
+
+    def batches(data_cfg, local_batch, seed=0, start_step=0):
+        for i, (images, labels) in enumerate(real(
+                data_cfg, local_batch, seed=seed, start_step=start_step)):
+            if start_step + i == NAN_STEP and not fired:
+                fired.append(NAN_STEP)
+                images = np.full_like(np.asarray(images, np.float32),
+                                      np.nan)
+            yield images, labels
+
+    monkeypatch.setattr(loop, "build_state", start)
+    monkeypatch.setattr(data_lib, "train_batches", batches)
+    return train(cfg, device="cpu")
+
+
+def _reference_losses(train_dir):
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        return [(r["step"], r["loss"]) for r in map(json.loads, f)
+                if "loss" in r]
+
+
+def _spans(train_dir, name):
+    return [s for s in load_spans(os.path.join(train_dir, "events.jsonl"))
+            if s["span"] == name]
+
+
+def _port_logs(caplog, prefix):
+    """The args of the port's log records that start with ``prefix``."""
+    return [r.args for r in caplog.records
+            if r.name == "tpu_resnet_torch" and r.msg.startswith(prefix)]
+
+
+def _close_losses(got, want):
+    assert [s for s, _ in got] == [s for s, _ in want]
+    assert all(math.isfinite(v) for _, v in got)
+    # float32 on both sides, summed in other orders, over 12 steps.
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_nan_rollback_matches_the_reference(tmp_path, monkeypatch, caplog):
+    """The NaN reaches the loss at step 6, the first log boundary after the
+    poisoned batch: both roll back to checkpoint 4, restart the stream at
+    6 and log the same losses from there to 12."""
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    _reference_run(ref_dir)
+    (rb,) = _spans(ref_dir, "nan_rollback")
+    assert (rb["from_step"], rb["to_step"], rb["retry"]) == (6, 4, 1)
+    with caplog.at_level(logging.WARNING, logger="tpu_resnet_torch"):
+        state = _port_run(port_dir, monkeypatch)
+    assert state.step == 12
+    assert _port_logs(caplog, "nan rollback") == [(6, 4, 1)]
+    _close_losses(_losses(port_dir), _reference_losses(ref_dir))
+    assert [s for s, _ in _losses(port_dir)] == [2, 4, 6, 8, 10, 12]
+
+
+def test_divergence_without_checkpoint_raises(tmp_path, monkeypatch):
+    """No checkpoint before the NaN: both raise DivergenceError at once and
+    save nothing (the emergency save skips a divergence)."""
+    extra = ("train.checkpoint_every=100",)
+    with pytest.raises(ref_resilience.DivergenceError, match="no checkpoint"):
+        _reference_run(tmp_path / "ref", *extra)
+    with pytest.raises(port_sentinel.DivergenceError,
+                       match="no checkpoint") as e:
+        _port_run(tmp_path / "port", monkeypatch, *extra)
+    assert "at step 6 " in str(e.value)
+    assert ref_latest_step_in(str(tmp_path / "ref")) is None
+    assert checkpoint.all_steps_in(str(tmp_path / "port")) == []
+
+
+def test_nonfinite_state_is_not_checkpointed(tmp_path, monkeypatch, caplog):
+    """checkpoint_every=2, log_every=4: step 6 is a checkpoint boundary
+    between loss checks holding NaN state; neither saves it, and the log
+    boundary at 8 rolls back to 4."""
+    extra = ("train.checkpoint_every=2", "train.log_every=4",
+             "train.summary_every=4")
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    _reference_run(ref_dir, *extra)
+    assert [s["step"] for s in _spans(
+        ref_dir, "checkpoint_save_skipped_nonfinite")] == [6]
+    (rb,) = _spans(ref_dir, "nan_rollback")
+    with caplog.at_level(logging.WARNING, logger="tpu_resnet_torch"):
+        state = _port_run(port_dir, monkeypatch, *extra)
+    assert state.step == 12
+    assert _port_logs(caplog, "skipping checkpoint save") == [(6,)]
+    assert _port_logs(caplog, "nan rollback") == [
+        (rb["from_step"], rb["to_step"], rb["retry"])] == [(8, 4, 1)]
+    _close_losses(_losses(port_dir), _reference_losses(ref_dir))
+
+
+def test_emergency_save_on_in_flight_exception(tmp_path, monkeypatch):
+    """After the rollback, a metrics write that raises at step 10 (the
+    checkpoint at 8 written): both save step 10 once and let the error
+    through."""
+    def crashing(writer_cls):
+        real = writer_cls.write
+
+        def write(self, step, m):
+            if step >= 10:
+                raise RuntimeError("disk full")
+            return real(self, step, m)
+        return write
+
+    monkeypatch.setattr(ref_metrics_io.MetricsWriter, "write",
+                        crashing(ref_metrics_io.MetricsWriter))
+    monkeypatch.setattr(metrics_io.MetricsWriter, "write",
+                        crashing(metrics_io.MetricsWriter))
+    with pytest.raises(RuntimeError, match="disk full"):
+        _reference_run(tmp_path / "ref")
+    assert [s["step"] for s in _spans(tmp_path / "ref",
+                                      "emergency_save")] == [10]
+    with pytest.raises(RuntimeError, match="disk full"):
+        _port_run(tmp_path / "port", monkeypatch)
+    assert checkpoint.all_steps_in(str(tmp_path / "port")) == [4, 8, 10]
+    assert ref_latest_step_in(str(tmp_path / "ref")) == 10
+    saved = checkpoint.restore(str(tmp_path / "port"), 10)
+    assert saved["step"] == 10
+    assert all(bool(torch.isfinite(t).all())
+               for t in saved["params"].values())
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_nan_sentinel_policy_matches_the_reference(enabled):
+    """The port's copy of the sentinel: the same decisions, the same
+    messages, the same retry budget."""
+    def outcomes(mod):
+        s = mod.NaNSentinel(max_retries=2, enabled=enabled)
+        seen = []
+        for step, loss in ((10, 1.5), (10, float("nan")),
+                           (20, float("inf")), (25, -2.0),
+                           (30, float("nan"))):
+            try:
+                seen.append(s.check(step, loss))
+            except mod.DivergenceError as e:
+                seen.append(str(e))
+        return seen, s.rollbacks, str(s.no_checkpoint(5, float("nan")))
+
+    got, want = outcomes(port_sentinel), outcomes(ref_resilience)
+    assert got == want
+    assert got[0] == ([False, True, True, False, got[0][4]] if enabled
+                      else [False] * 5)
+    if enabled:
+        assert "nan_max_retries=2" in got[0][4]

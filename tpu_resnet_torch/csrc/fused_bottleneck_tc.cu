@@ -1,6 +1,6 @@
 // Fused ResNet-v2 bottleneck on the tensor cores: the forward with folded
-// batch norm, and with live batch-norm statistics the second moment pass
-// and the four backward passes. Stride 1, identity shortcut, 3x3 SAME; x is
+// batch norm, and with live batch-norm statistics the two moment passes and
+// the four backward passes. Stride 1, identity shortcut, 3x3 SAME; x is
 // NHWC [B,H,W,4F] (f32 or bf16), y (the forward's output) of x's shape and
 // type, gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
 // [F,4F], BN vectors f32 ([4F] for BN1, [F] for BN2 and BN3), and the
@@ -14,12 +14,13 @@
 //   mode 5 fwd     _fwd_kernel (:154): y = x + p3 . W3 on the folded affines
 //                  (s, b) of the three BNs (serving; in training with the
 //                  live moments folded);
+//   mode 6 stats_a _stats_a_kernel (:445): sum c1, sum c1^2;
 //   mode 4 stats_b _stats_b_kernel (:464): sum mid, sum mid^2;
 // and in _train_bwd_calls:
 //   mode 2 bwd1  pass1 (:644): T3a = sum dm3, T3b = sum dm3*mhat, and p2,
 //                mid, dm3 for pass 2 (dw3 = sum p3^T gy is
-//                tr_bottleneck_wgrad's, in fused_bottleneck_train.cu, with
-//                p3 from mid);
+//                tr_bottleneck_wgrad's, in bottleneck_wgrad.cu, with p3 from
+//                mid);
 //   mode 3 bwd2  pass2 (:678): dmid, T2a = sum dm2, T2b = sum dm2*chat (dw2
 //                = sum p2-patch^T dmid is tr_bottleneck_wgrad's);
 //   mode 0 bwd3  pass3 (:729): T1a = sum dm1, T1b = sum dm1*x1hat, and dc1
@@ -32,6 +33,8 @@
 // reference's _chain_train):
 //   c1    x1hat = (x-mu1)*i1, p1 = relu(g1*x1hat + be1), c1 = p1 . W1,
 //         chat = (c1-mu2)*i2, m2 = g2*chat + be2;
+//   stats_a c1, and the two sums; p1 rounded as the reference's
+//         _stats_a_kernel rounds it, relu((g1*(x-mu1))*i1 + be1);
 //   p2    launch 1 of fwd, stats_b and bwd1: c1, then p2 = relu(m2), stored.
 //         fwd passes its folds as (g, be, mu, i) = (s, b, 0, 1): v - 0 and
 //         v * 1 are exact, so p1 = relu(x*s1 + b1) and p2 = relu(c1*s2 + b2)
@@ -56,21 +59,24 @@
 // bwd1's p2 and the masks [m2 > 0] of passes 2 and 3 agree bit for bit.
 //
 // Bound, per pixel (flops; dw's products are the weight-gradient kernel's):
-// fwd 34F^2 (c1 8, mid 18, p3 . W3 8), stats_b 26F^2 (c1, mid), bwd1 34F^2
-// (c1 8, mid 18, dp3 8; dw3 8 more), bwd2 26F^2 (c1 8, convT 18; dw2 18
-// more), bwd3 34F^2 (c1, convT, dp1 8; dw1 8 more), bwd4 8F^2, against a few
-// times 4F items moved: operations, but for bwd4 at F=64.
+// fwd 34F^2 (c1 8, mid 18, p3 . W3 8), stats_a 8F^2 (c1), stats_b 26F^2
+// (c1, mid), bwd1 34F^2 (c1 8, mid 18, dp3 8; dw3 8 more), bwd2 26F^2 (c1
+// 8, convT 18; dw2 18 more), bwd3 34F^2 (c1, convT, dp1 8; dw1 8 more),
+// bwd4 8F^2, against a few times 4F items moved: operations, but for bwd4
+// at F=64.
 //
 // Design. Tiles of 64 consecutive pixels of the [B*H*W] pixel matrix,
 // whatever W, so a 14-pixel image row leaves no tile half empty; as many
 // blocks as the card holds at once, each walking the tiles with a fixed
 // stride. fwd's launches take 32-pixel tiles where 64-pixel ones would leave
-// SMs idle (B=16 at 14^2: 49 tiles for 132 SMs). Each product runs on
-// mma.sync m16n8k8 in TF32 with the three-term split (mma_tf32x3.cuh), 256
-// threads, 2x4 warps, a warp owning 32 (or 16) pixels x F/4 channels; each
-// k-step's three products start from zero and join the running f32 sum
-// rounding to nearest (the tensor cores' own accumulation truncates, and
-// over K = 9F that bias broke the sums' tolerance). K streams through a
+// SMs idle (B=16 at 14^2: 49 tiles for 132 SMs), stats_a 128-pixel tiles
+// where F <= 128 (fewer tile epilogues and pipeline fills a pixel). Each
+// product runs on mma.sync m16n8k8 in TF32 with the three-term split
+// (mma_tf32x3.cuh), 256 threads, 2x4 warps, a warp owning 32 (or 16, or 64)
+// pixels x F/4 channels; each k-step's three products start from zero and
+// join the running f32 sum rounding to nearest (the tensor cores' own
+// accumulation truncates, and over K = 9F that bias broke the sums'
+// tolerance). K streams through a
 // ring of three shared buffers by cp.async, 16 bytes a thread, A and the
 // weight chunk alike (the weights come from L2; they need no region of
 // their own): for c1 the tile's x (BN1 and ReLU applied as the fragments are
@@ -99,7 +105,7 @@ namespace {
 
 using namespace tr;
 
-// Modes 0-5 are tr_bottleneck_tc's (one pass or kernel each). The rest are
+// Modes 0-6 are tr_bottleneck_tc's (one pass or kernel each). The rest are
 // first launches: p2 on the live moments (bwd1, stats_b) or on the folded
 // affines (fwd), each its own entry point so that a profile books it to its
 // kernel.
@@ -110,9 +116,10 @@ enum Mode : int {
   kBwd2 = 3,
   kStatsB = 4,
   kFwd = 5,
-  kP2 = 6,
-  kStatsBP2 = 7,
-  kFwdP2 = 8
+  kStatsA = 6,
+  kP2 = 7,
+  kStatsBP2 = 8,
+  kFwdP2 = 9
 };
 __host__ __device__ constexpr bool p2_mode(int mode) { return mode >= kP2; }
 
@@ -126,8 +133,9 @@ constexpr int kMT = 2;      // 16-pixel mma tiles per warp: 64-pixel tiles
 // stage an A chunk [BM][32 + pad] and a weight chunk [32][F + 8] f32); the
 // tile buffer [BM][F + 4] f32 (bwd1-4, fwd); BN1's vectors [4F] float4 (g1,
 // be1, mu1, i1; the launches that recompute c1); then the block's sums, [2F]
-// f32 (bwd1, bwd2, stats_b) or [8F] (bwd3), or for bwd4 [4F] float4 (g1*i1,
-// T1a/n, T1b/n). The pads keep the fragment reads free of bank conflicts.
+// f32 (bwd1, bwd2, stats_a, stats_b) or [8F] (bwd3), or for bwd4 [4F]
+// float4 (g1*i1, T1a/n, T1b/n). The pads keep the fragment reads free of
+// bank conflicts. stats_a takes tiles of 128 pixels where F <= 128.
 template <int F, int MT = kMT>
 struct Plan {
   static constexpr int BM = 32 * MT;      // pixels per tile
@@ -142,28 +150,32 @@ struct Plan {
   static constexpr int E0_BYTES = 4 * F * 16;
   static constexpr int SMEM_P2 = RING + E0_BYTES;
   static constexpr int SMEM_FWD = RING + C_BYTES;
+  static constexpr int SMEM_STATS_A = RING + E0_BYTES + 2 * F * 4;
   static constexpr int SMEM_STATS_B = RING + 2 * F * 4;
   static constexpr int SMEM_BWD1 = RING + C_BYTES + 2 * F * 4;
   static constexpr int SMEM_BWD2 = RING + C_BYTES + E0_BYTES + 2 * F * 4;
   static constexpr int SMEM_BWD3 = RING + C_BYTES + E0_BYTES + 8 * F * 4;
   static constexpr int SMEM_BWD4 = RING + C_BYTES + E0_BYTES + 4 * F * 16;
   static_assert(SMEM_P2 <= kMaxSmem && SMEM_FWD <= kMaxSmem &&
-                    SMEM_STATS_B <= kMaxSmem && SMEM_BWD1 <= kMaxSmem &&
-                    SMEM_BWD2 <= kMaxSmem && SMEM_BWD3 <= kMaxSmem &&
-                    SMEM_BWD4 <= kMaxSmem,
+                    SMEM_STATS_A <= kMaxSmem && SMEM_STATS_B <= kMaxSmem &&
+                    SMEM_BWD1 <= kMaxSmem && SMEM_BWD2 <= kMaxSmem &&
+                    SMEM_BWD3 <= kMaxSmem && SMEM_BWD4 <= kMaxSmem,
                 "smem");
-  static_assert(F % kBK == 0 && NT >= 1 && (MT == 1 || MT == 2), "tile");
+  static_assert(F % kBK == 0 && NT >= 1 && (MT == 1 || MT == 2 || MT == 4),
+                "tile");
   __host__ __device__ static constexpr int e0_off(int mode) {
-    return p2_mode(mode) ? RING : RING + C_BYTES;
+    return p2_mode(mode) || mode == kStatsA ? RING : RING + C_BYTES;
   }
   __host__ __device__ static constexpr int sums_off(int mode) {
-    return mode == kStatsB  ? RING
-           : mode == kBwd1 ? RING + C_BYTES
-                           : RING + C_BYTES + E0_BYTES;
+    return mode == kStatsB   ? RING
+           : mode == kStatsA ? RING + E0_BYTES
+           : mode == kBwd1   ? RING + C_BYTES
+                             : RING + C_BYTES + E0_BYTES;
   }
   __host__ __device__ static constexpr int smem(int mode) {
     return p2_mode(mode)      ? SMEM_P2
            : mode == kFwd     ? SMEM_FWD
+           : mode == kStatsA  ? SMEM_STATS_A
            : mode == kStatsB  ? SMEM_STATS_B
            : mode == kBwd1    ? SMEM_BWD1
            : mode == kBwd2    ? SMEM_BWD2
@@ -174,6 +186,7 @@ struct Plan {
 // The largest width, in bytes: every mode fits one block of 256 threads on
 // an SM.
 static_assert(Plan<256>::SMEM_P2 == 145408 && Plan<256>::SMEM_FWD == 195584 &&
+                  Plan<256>::SMEM_STATS_A == 147456 &&
                   Plan<256>::SMEM_STATS_B == 131072 &&
                   Plan<256>::SMEM_BWD1 == 197632 &&
                   Plan<256>::SMEM_BWD2 == 214016 &&
@@ -224,6 +237,10 @@ __device__ __forceinline__ float sub(float a, float b) {
 // relu(g*((v-mu)*i) + be), p = (g, be, mu, i): a BN and its ReLU.
 __device__ __forceinline__ float bn_relu(float v, float4 p) {
   return fmaxf(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y), 0.f);
+}
+// relu((g*(v-mu))*i + be): the order of the reference's _stats_a_kernel.
+__device__ __forceinline__ float bn_relu_stats_a(float v, float4 p) {
+  return fmaxf(add(mul(mul(p.x, sub(v, p.z)), p.w), p.y), 0.f);
 }
 __device__ __forceinline__ float2 load2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
@@ -345,10 +362,11 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   constexpr int NT = PL::NT;
   constexpr int BM = PL::BM;
   // The launches that recompute c1 keep BN1's vectors in shared memory.
-  constexpr bool kBn1 =
-      p2_mode(MODE) || MODE == kBwd2 || MODE == kBwd3 || MODE == kBwd4;
+  constexpr bool kBn1 = p2_mode(MODE) || MODE == kStatsA || MODE == kBwd2 ||
+                       MODE == kBwd3 || MODE == kBwd4;
   constexpr int NSUM = MODE == kBwd3 ? 2 * C4
-                       : MODE == kBwd1 || MODE == kBwd2 || MODE == kStatsB
+                       : MODE == kBwd1 || MODE == kBwd2 || MODE == kStatsA ||
+                               MODE == kStatsB
                            ? 2 * F
                            : 0;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -419,7 +437,11 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   long long p0 = 0;
 
   // c1 = p1 . W1 on the tile; the A chunks are raw x, BN1 and ReLU applied
-  // as the fragments are read.
+  // as the fragments are read, in stats_a's order there.
+  auto bn1 = [](float v, float4 p) {
+    if constexpr (MODE == kStatsA) return bn_relu_stats_a(v, p);
+    else return bn_relu(v, p);
+  };
   auto gemm_c1 = [&] {
     constexpr int ARS = kBK + 16 / (int)sizeof(T);  // A row stride, items
     constexpr int ASEG = kBK * (int)sizeof(T) / 16;  // 16 B per row chunk
@@ -446,10 +468,10 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
           const T* as = reinterpret_cast<const T*>(st);
           const int r = row0 + mi * 16 + g, k = kk + t;
           const float4 pa = e0[c * kBK + k], pb = e0[c * kBK + k + 4];
-          const float v[4] = {bn_relu(to_f32(as[r * ARS + k]), pa),
-                              bn_relu(to_f32(as[(r + 8) * ARS + k]), pa),
-                              bn_relu(to_f32(as[r * ARS + k + 4]), pb),
-                              bn_relu(to_f32(as[(r + 8) * ARS + k + 4]), pb)};
+          const float v[4] = {bn1(to_f32(as[r * ARS + k]), pa),
+                              bn1(to_f32(as[(r + 8) * ARS + k]), pa),
+                              bn1(to_f32(as[r * ARS + k + 4]), pb),
+                              bn1(to_f32(as[(r + 8) * ARS + k + 4]), pb)};
           split4(v, big, small);
         });
   };
@@ -549,10 +571,11 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
                      bn_relu(acc[mi][ni][2 * h + 1], b1));
           }
         }
-    } else if constexpr (MODE == kStatsB) {
-      // mid = conv3x3(p2, w2), and the sums of mid and mid^2 over the
-      // tile's pixels.
-      gemm_3x3(a.p2, a.w2);
+    } else if constexpr (MODE == kStatsA || MODE == kStatsB) {
+      // stats_a: c1; stats_b: mid = conv3x3(p2, w2). Then the sums of the
+      // product and its square over the tile's pixels.
+      if constexpr (MODE == kStatsA) gemm_c1();
+      else gemm_3x3(a.p2, a.w2);
       zero_sums();
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -813,6 +836,11 @@ __global__ void __launch_bounds__(kTC, F == 64 ? 2 : 1)
     bottleneck_fwd_kernel(const TcArgs a) {
   tc_body<T, F, kFwd, MT>(a);
 }
+template <typename T, int F, int MT>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_stats_a_kernel(const TcArgs a) {
+  tc_body<T, F, kStatsA, MT>(a);
+}
 template <typename T, int F>
 __global__ void __launch_bounds__(kTC)
     bottleneck_stats_b_p2_kernel(const TcArgs a) {
@@ -875,6 +903,8 @@ template <typename T, int F, int MODE, int MT>
 auto tc_kernel() {
   if constexpr (MODE == kFwdP2) return bottleneck_fwd_p2_kernel<T, F, MT>;
   else if constexpr (MODE == kFwd) return bottleneck_fwd_kernel<T, F, MT>;
+  else if constexpr (MODE == kStatsA)
+    return bottleneck_stats_a_kernel<T, F, MT>;
   else if constexpr (MODE == kStatsBP2)
     return bottleneck_stats_b_p2_kernel<T, F>;
   else if constexpr (MODE == kStatsB) return bottleneck_stats_b_kernel<T, F>;
@@ -922,6 +952,9 @@ cudaError_t run_dmid(const TcArgs& a, int device, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// stats_a's tile: 32 * MT pixels.
+constexpr int stats_a_mt(int F) { return F <= 128 ? 4 : 2; }
+
 // fwd's two launches, in 64-pixel tiles or, where those would leave SMs
 // idle, 32-pixel ones.
 template <typename T, int F>
@@ -940,8 +973,9 @@ cudaError_t run_fwd(const TcArgs& a, int device, cudaStream_t st) {
   return run_tiles<T, F, kFwd>(a, a.P, device, st, &blocks);
 }
 
-// The launches of one mode: fwd the p2 pass and its tile pass; stats_b and
-// bwd1 the p2 pass, the tile pass and the sum of its rows; bwd2 dmid, its
+// The launches of one mode: fwd the p2 pass and its tile pass; stats_a its
+// pass and the sum of its rows; stats_b and bwd1 the p2 pass, the tile pass
+// and the sum of its rows; bwd2 dmid, its
 // tile pass and the sum; bwd3 its pass and the sum; bwd4 its pass.
 template <typename T, int F>
 cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
@@ -951,6 +985,11 @@ cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
   switch (mode) {
     case kFwd:
       return run_fwd<T, F>(a, device, st);
+    case kStatsA:
+      err = run_tiles<T, F, kStatsA, stats_a_mt(F)>(a, part_rows, device, st,
+                                                     &blocks);
+      if (err != cudaSuccess) return err;
+      return sum_rows(a.part, out, blocks, 2 * F, st);
     case kStatsB:
       err = run_tiles<T, F, kStatsBP2>(a, a.P, device, st, &blocks);
       if (err != cudaSuccess) return err;
@@ -1003,7 +1042,8 @@ cudaError_t dispatch_f(int mode, const TcArgs& a, float* out, int part_rows,
 // gy, dx, y [B,H,W,4F], p2, mid, dm3, dmid, dc1 [B,H,W,F]; x, dx and y of
 // `dtype` (tr::DType), the rest f32; all contiguous and 16-byte aligned.
 // Mode 5 (fwd) takes the folds s1, b1, s2, b2, s3, b3 in the places of g1,
-// be1, g2, be2, g3, be3, writes p2 (scratch) and y. Mode 4 (stats_b) writes
+// be1, g2, be2, g3, be3, writes p2 (scratch) and y. Mode 6 (stats_a) writes
+// out = [sum c1, sum c1^2] (2F floats). Mode 4 (stats_b) writes
 // p2 (scratch) and out = [sum mid, sum mid^2] (2F floats); mode 2 (bwd1)
 // writes p2, mid, dm3 and out = [T3a, T3b] (2F); mode 3 (bwd2) reads mid,
 // dm3 and writes dmid and out = [T2a, T2b] (2F); mode 0 (bwd3) reads dmid
@@ -1011,14 +1051,14 @@ cudaError_t dispatch_f(int mode, const TcArgs& a, float* out, int part_rows,
 // rows of out's length; the tile pass runs at most part_rows blocks). Mode
 // 1 (bwd4) reads dc1 and writes dx (part_rows unread by modes 1 and 5). F
 // is 64, 128 or 256. Returns the cudaError_t of the launches on `stream`:
-// three for stats_b, bwd1 and bwd2, two for fwd and bwd3, one for bwd4 (see
-// launch()).
+// three for stats_b, bwd1 and bwd2, two for fwd, stats_a and bwd3, one for
+// bwd4 (see launch()).
 extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
                                 int W, int F, int part_rows, int dtype,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kFwd ||
+  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kStatsA ||
       (mode != kBwd4 && mode != kFwd && part_rows < 1))
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };

@@ -1,52 +1,41 @@
-// Fused ResNet-v2 bottleneck: with live batch-norm statistics, the first
-// moment pass of the training forward (the second and the four backward
-// passes live in fused_bottleneck_tc.cu, and the backward passes take dw1,
-// dw2, dw3 from this file's weight-gradient kernel); with folded (frozen)
-// batch norm, the one backward pass. Stride 1, identity shortcut, 3x3 SAME; x is NHWC [B,H,W,4F] (f32 or
-// bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
-// [F,4F], BN vectors f32 ([4F] for BN1, [F] for BN2 and BN3). All
-// arithmetic is f32.
+// Fused ResNet-v2 bottleneck with folded (frozen) batch norm: its one
+// backward pass, tr_bottleneck_train (the training passes live in
+// fused_bottleneck_tc.cu, the weight-gradient products in
+// bottleneck_wgrad.cu). Stride 1, identity shortcut, 3x3 SAME; x is NHWC
+// [B,H,W,4F] (f32 or bf16), gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO
+// [3,3,F,F], W3 f32 [F,4F], the folded BN vectors f32 ([4F] for BN1, [F] for
+// BN2 and BN3). All arithmetic is f32.
 //
-// Replaces, in tpu_resnet/ops/fused_bottleneck.py (bottleneck_train_apply,
-// which every stride-1 identity bottleneck of width 64, 128 or 256 runs in
-// training when model.fused_blocks=true: 10 blocks of ImageNet ResNet-50):
-//   mode 0 stats_a  _stats_a_kernel: sum c1, sum c1^2, c1 = p1 . W1;
-// and (bottleneck_apply, the folded-BN bottleneck under a gradient: the
-// eval-mode model differentiated, tools/fused_bottleneck_ab.py's fwd_bwd arm):
-//   mode 6 bwd      _bwd_kernel: dx, the six BN sums and the operands p3, p2,
-//                   dmid, dc1 of dW3 = sum p3^T gy, dw2 = sum p2-patch^T dmid,
-//                   dW1 = sum p1^T dc1, in one pass.
-// The chain, recomputed from x and the saved moments (i = 1/sigma), as the
-// reference's _chain_train: x1hat = (x-mu1)*i1, m1 = g1*x1hat + be1, p1 =
-// relu(m1), c1 = p1 . W1.
-// Mode 6 runs the chain on the folded affines, as the reference's _chain_fwd
-// and _bwd_kernel: m1 = x*s1 + b1, m2 = c1*s2 + b2, m3 = mid*s3 + b3, p3 =
-// relu(m3); then dm3 = (gy . W3^T)*[m3>0], dmid = dm3*s3 (0 outside the
-// image), dm2 = convT(dmid, w2)*[m2>0], dc1 = dm2*s2, dm1 = (dc1 . W1^T)*
-// [m1>0], dx = gy + dm1*s1; its sums are db = sum dm and ds = sum dm*v, v
-// the BN's input (x, c1, mid). The kernel reads s, b where the live modes
-// read g, be. Every elementwise formula rounds as written (__fmul_rn,
-// __fadd_rn, no FMA contraction), as the plain PyTorch version does, so a
-// mask [m > 0] agrees with the plain version's wherever the products do.
-// stats_a normalises as the reference's _stats_a_kernel rounds it:
-// (g1*(x-mu1))*i1 + be1.
+// Replaces, in tpu_resnet/ops/fused_bottleneck.py (bottleneck_apply, the
+// folded-BN bottleneck under a gradient: the eval-mode model differentiated,
+// tools/fused_bottleneck_ab.py's fwd_bwd arm):
+//   _bwd_kernel: dx, the six BN sums and the operands p3, p2, dmid, dc1 of
+//   dW3 = sum p3^T gy, dw2 = sum p2-patch^T dmid, dW1 = sum p1^T dc1, in
+//   one pass.
+// The chain on the folded affines, as the reference's _chain_fwd and
+// _bwd_kernel: m1 = x*s1 + b1, p1 = relu(m1), c1 = p1 . W1, m2 = c1*s2 + b2,
+// m3 = mid*s3 + b3, p3 = relu(m3); then dm3 = (gy . W3^T)*[m3>0], dmid =
+// dm3*s3 (0 outside the image), dm2 = convT(dmid, w2)*[m2>0], dc1 = dm2*s2,
+// dm1 = (dc1 . W1^T)*[m1>0], dx = gy + dm1*s1; its sums are db = sum dm and
+// ds = sum dm*v, v the BN's input (x, c1, mid). Every elementwise formula
+// rounds as written (__fmul_rn, __fadd_rn, no FMA contraction), as the plain
+// PyTorch version does, so a mask [m > 0] agrees with the plain version's
+// wherever the products do.
 //
 // Bound: arithmetic. Per centre pixel, c1 is 8F^2 flops, mid 18F^2, gy . W3^T
-// 8F^2, convT 18F^2, dc1 . W1^T 8F^2 and each weight gradient 8F^2 (dW1,
-// dW3) or 18F^2 (dw2): 8F^2 for stats_a, and 94F^2 for mode 6 with its
-// three weight gradients, against ~2*4F elements moved, on
-// f32 FMAs (67 TFLOP/s on an H100). H*W*F^2 is the same at every ResNet-50
-// stage, so each mode has one bound per launch at all three stages.
+// 8F^2, convT 18F^2, dc1 . W1^T 8F^2 (and the weight gradients 34F^2), 94F^2
+// with them, against ~2*4F elements moved, on f32 FMAs (67 TFLOP/s on an
+// H100). H*W*F^2 is the same at every ResNet-50 stage, so the pass has one
+// bound per launch at all three stages.
 //
 // Design: the row kernel. One thread block per (image, band of R output
 // rows), with register-tiled products (tile_fma.cuh). The band recomputes
-// the chain on its rows and a halo: none for stats_a, two for mode 6 (convT
-// needs dmid at +-1, hence mid at +-1 and p2 at +-2); halo rows are
-// recomputed by both neighbours, as the TPU kernel does. Phases, each a
-// product into registers with an elementwise epilogue:
-//   A  c1 over the E = R + 2*halo rows: the sums (stats_a), or p2 into
-//      shared memory (zero rows outside the image, zero side columns) and
-//      c1 of the centre rows;
+// the chain on its rows and a halo of two (convT needs dmid at +-1, hence
+// mid at +-1 and p2 at +-2); halo rows are recomputed by both neighbours, as
+// the TPU kernel does. Phases, each a product into registers with an
+// elementwise epilogue:
+//   A  c1 over the E = R + 4 rows: p2 into shared memory (zero rows outside
+//      the image, zero side columns) and c1 of the centre rows;
 //   B  mid = conv3x3(p2) over E-2 rows, into shared memory;
 //   C  gy . W3^T over the same rows: dm3, then dmid in place of mid (zeroed
 //      outside the image) and the BN3 sums on the centre rows;
@@ -60,25 +49,13 @@
 // phase. R is picked per launch from {4, 2, 1} for the least estimated time,
 // among those whose buffers fit in shared memory.
 //
-// Design: the weight gradients. dw = A^T B summed over all B*H*W pixels is a
-// product whose long dimension is the pixels. bottleneck_wgrad_kernel tiles
-// the output into 64x64 blocks (a thread owns 4x4) and splits the pixels
-// into a fixed number of chunks chosen from the shapes, one block per (tile,
-// chunk); A is rows of an f32 matrix (mode 6's dW3), p2 shifted by the tap
-// with SAME zero padding (dw2, one grid slice per tap) or relu(g*((v-mu)*i)
-// + be) computed from v as it is loaded: p1 from x (dW1), or, in the live
-// backward, p3 from mid (dw3). B is gy, dmid or dc1. Mode 6's dW1 passes
-// (g1, be1, mu1, i1) = (s1, b1, 0, 1): bn_relu rounds g*((v-0)*1) + be, and
-// v-0 and v*1 are exact, so p1 is relu(x*s1 + b1) bit for bit.
-//
 // Sums without atomics: the row kernel writes one row of channel sums per
-// block, the weight-gradient kernel one partial product per chunk, and
-// bottleneck_sum_kernel (row_sums.cuh) adds them in block order. Inside a
-// block each channel sum adds the thread's pixels in order, then the threads
-// in order. Two calls agree bit for bit.
+// block, and bottleneck_sum_kernel (row_sums.cuh) adds them in block order.
+// Inside a block each channel sum adds the thread's pixels in order, then
+// the threads in order. Two calls agree bit for bit.
 //
-// Known limit, the first thing to make fast: every product runs on f32 FMAs;
-// the recomputed halo costs up to 5x the centre rows' c1 at F=256 (R=1).
+// Known limit, the first thing to make fast: every product runs on f32 FMAs,
+// and the recomputed halo costs up to 5x the centre rows' c1 at F=256 (R=1).
 // fused_bottleneck_tc.cu shows the way out: tensor cores, and a pass that
 // reads what the pass before it wrote.
 
@@ -91,11 +68,8 @@ namespace {
 
 using namespace tr;
 
-enum Mode : int {
-  kStatsA = 0,
-  kBwd = 6  // the frozen-BN backward
-};
-enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2 };
+constexpr int kHalo = 2;
+constexpr int kRowLen = 12;  // channel sums per block, in F
 
 struct Args {
   const void* x;      // [B,H,W,4F]
@@ -106,8 +80,8 @@ struct Args {
   const float* w3t;   // [4F,F]: W3 transposed
   const float* w1t;   // [F,4F]: W1 transposed
   const float* v[12];  // g1 be1 mu1 i1 ([4F]) g2 be2 mu2 i2 g3 be3 mu3 i3
-  float* part;        // [blocks][row_len] channel sums
-  float* out;         // [row_len] their sum
+  float* part;        // [blocks][12F] channel sums
+  float* out;         // [12F] their sum
   float* s0;          // [B,H,W,F] scratch: p2 (bwd)
   float* s1;          // [B,H,W,F] scratch: dmid (bwd)
   void* dx;           // [B,H,W,4F] (bwd)
@@ -116,30 +90,23 @@ struct Args {
   int H, W, R, bands;
 };
 
-__host__ __device__ constexpr int halo(int mode) {
-  return mode == kStatsA ? 0 : 2;
-}
-__host__ __device__ constexpr int row_len(int mode, int F) {
-  return mode == kBwd ? 12 * F : 2 * F;
-}
-
 // Shared memory, in floats: region 0 holds p2 [E][W+2][F], later the staged
-// gy chunks and the channel-sum reduction; region 1 (mode 6) mid, then dmid,
-// [E-2][W+2][F] (first the staged x chunks); region 2 (mode 6) c1, then dc1,
+// gy chunks and the channel-sum reduction; region 1 mid, then dmid,
+// [E-2][W+2][F] (first the staged x chunks); region 2 c1, then dc1,
 // [R][W][F]; region 3 two staged weight chunks.
 struct Layout {
   int o1, o2, o3, total;
 };
 template <int F>
-__host__ __device__ inline Layout layout(int mode, int R, int W) {
-  const int E = R + 2 * halo(mode), WP = W + 2;
+__host__ __device__ inline Layout layout(int R, int W) {
+  const int E = R + 2 * kHalo, WP = W + 2;
   const int stage = 2 * Tile<F>::BM * kKC, red = 2 * kThreads * kTN;
-  int s0 = mode == kStatsA ? 0 : E * WP * F;
+  int s0 = E * WP * F;
   s0 = s0 > stage ? s0 : stage;
   s0 = s0 > red ? s0 : red;
-  int s1 = mode == kBwd ? (E - 2) * WP * F : 0;
+  int s1 = (E - 2) * WP * F;
   s1 = s1 > stage ? s1 : stage;
-  const int s2 = mode == kBwd ? R * W * F : 0;
+  const int s2 = R * W * F;
   return {s0, s0 + s1, s0 + s1 + s2, s0 + s1 + s2 + 2 * kKC * F};
 }
 
@@ -149,19 +116,11 @@ __device__ __forceinline__ float mul(float a, float b) {
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
 }
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
 __device__ __forceinline__ float at(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 __device__ __forceinline__ float4 f4(const float (&o)[4]) {
   return make_float4(o[0], o[1], o[2], o[3]);
-}
-// relu(g*((v-m)*i) + b): the training chain's BN+ReLU, rounded as written.
-__device__ __forceinline__ float bn_relu(float v, float m, float i, float g,
-                                         float b) {
-  return fmaxf(add(mul(g, mul(sub(v, m), i)), b), 0.f);
 }
 
 // Rows [0, nrows) of a band, 4F -> F: acc = xf(src) . Bm, where band row e is
@@ -357,14 +316,15 @@ __device__ __forceinline__ void flush_sums(float (&sa)[kTN], float (&sb)[kTN],
   __syncthreads();
 }
 
-template <typename T, int F, int MODE>
-__device__ __forceinline__ void train_body(const Args& a) {
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads)
+    bottleneck_bwd_kernel(const Args a) {
   constexpr int C4 = 4 * F;
-  constexpr int HALO = halo(MODE);
+  constexpr int HALO = kHalo;
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, W = a.W, R = a.R, WP = W + 2;
   const int E = R + 2 * HALO;
-  const Layout L = layout<F>(MODE, R, W);
+  const Layout L = layout<F>(R, W);
   float* reg0 = smem;            // p2; staged gy; reduction
   float* reg1 = smem + L.o1;     // staged x; mid -> dmid
   float* reg2 = smem + L.o2;     // c1 -> dc1
@@ -374,8 +334,8 @@ __device__ __forceinline__ void train_body(const Args& a) {
   const int r0 = (blockIdx.x % a.bands) * R;  // first centre row
   const long long pix0 = (long long)img * H * W;
   const T* xi = static_cast<const T*>(a.x) + pix0 * C4;
-  float* prow = a.part + (long long)blockIdx.x * row_len(MODE, F);
-  const float *g1 = a.v[0], *be1 = a.v[1], *mu1 = a.v[2], *i1 = a.v[3];
+  float* prow = a.part + (long long)blockIdx.x * kRowLen * F;
+  const float *g1 = a.v[0], *be1 = a.v[1];
   const float *g2 = a.v[4], *be2 = a.v[5];
   const float *g3 = a.v[8], *be3 = a.v[9];
   float sa[kTN], sb[kTN];  // the thread's channel sums
@@ -393,29 +353,10 @@ __device__ __forceinline__ void train_body(const Args& a) {
       plane[(e * WP + side * (W + 1)) * F + ch] = 0.f;
     }
   };
-  if (MODE != kStatsA) zero_sides(reg0, E);
+  zero_sides(reg0, E);
 
   // A. c1 = p1 . W1 over the E rows from r0 - HALO.
-  if constexpr (MODE == kStatsA) {
-    reduce_rows<F>(
-        xi, r0, R, H, W, a.w1, reg1, bbuf,
-        [&](float4 v, int c) {
-          float o[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            o[q] = fmaxf(add(mul(mul(__ldg(g1 + c + q),
-                                     sub(at(v, q), __ldg(mu1 + c + q))),
-                                 __ldg(i1 + c + q)),
-                             __ldg(be1 + c + q)),
-                         0.f);
-          return f4(o);
-        },
-        [&](int m, int h, int c, float4 v) {
-          if (r0 + m / W >= H) return;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) sum2(h, q, at(v, q), at(v, q));
-        });
-  } else {
+  {
     reduce_rows<F>(
         xi, r0 - HALO, E, H, W, a.w1, reg1, bbuf,
         [&](float4 v, int c) {
@@ -445,7 +386,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
   }
 
   // B. mid = conv3x3(p2) over E-2 rows.
-  if constexpr (MODE == kBwd) {
+  {
     __syncthreads();
     // dmid's side columns, once phase A's x chunks have left region 1.
     zero_sides(reg1, E - 2);
@@ -456,7 +397,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
   }
 
   // C. dp3 = gy . W3^T over the rows of mid: dm3, then dmid.
-  if constexpr (MODE == kBwd) {
+  {
     __syncthreads();
     const int g0 = r0 - (HALO - 1);
     reduce_rows<F>(
@@ -485,12 +426,10 @@ __device__ __forceinline__ void train_body(const Args& a) {
           }
         });
     flush_sums<F>(sa, sb, reg0, prow + 10 * F, prow + 11 * F);
-  } else {
-    flush_sums<F>(sa, sb, reg0, prow, prow + F);
   }
 
   // D. dp2 = convT(dmid) over the R centre rows: dm2, then dc1.
-  if constexpr (MODE == kBwd) {
+  {
     __syncthreads();
     conv_rows<F>(
         reg1, R, W, a.w2t, bbuf, [&](int m, int h, int c, float4 v) {
@@ -516,7 +455,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
   }
 
   // E. dp1 = dc1 . W1^T, in four tiles of F channels: dm1, then dx.
-  if constexpr (MODE == kBwd) {
+  {
     for (int nt = 0; nt < 4; ++nt) {
       __syncthreads();
       expand_rows<F>(
@@ -546,38 +485,21 @@ __device__ __forceinline__ void train_body(const Args& a) {
   }
 }
 
-// One entry point per mode, so that a profile names the pass.
-#define TR_ROW_KERNEL(name, MODE)                                 \
-  template <typename T, int F>                                    \
-  __global__ void __launch_bounds__(kThreads) name(const Args a) { \
-    train_body<T, F, MODE>(a);                                    \
-  }
-TR_ROW_KERNEL(bottleneck_stats_a_kernel, kStatsA)
-TR_ROW_KERNEL(bottleneck_bwd_kernel, kBwd)
-#undef TR_ROW_KERNEL
-
-template <typename T, int F, int MODE>
-auto row_kernel() {
-  if constexpr (MODE == kStatsA) return bottleneck_stats_a_kernel<T, F>;
-  else return bottleneck_bwd_kernel<T, F>;
-}
-
 // Chunks (BM pixels x kKC x F) a block of band R multiplies through.
 template <int F>
-long long block_work(int mode, int R, int W) {
-  const int E = R + 2 * halo(mode);
+long long block_work(int R, int W) {
+  const int E = R + 2 * kHalo;
   auto tiles = [&](int rows) {
     return (long long)(rows * W + Tile<F>::BM - 1) / Tile<F>::BM;
   };
-  if (mode == kStatsA) return tiles(R) * 4 * F / kKC;
   return tiles(E) * 4 * F / kKC + tiles(E - 2) * 9 * F / kKC +
          tiles(E - 2) * 4 * F / kKC + tiles(R) * 9 * F / kKC +
          4 * tiles(R) * F / kKC;
 }
 
-template <typename T, int F, int MODE>
+template <typename T, int F>
 cudaError_t launch_rows(Args a, int B, int device, cudaStream_t st) {
-  auto kernel = row_kernel<T, F, MODE>();
+  auto kernel = bottleneck_bwd_kernel<T, F>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
@@ -589,7 +511,7 @@ cudaError_t launch_rows(Args a, int B, int device, cudaStream_t st) {
   int best = 0;
   long long best_cost = 0;
   for (int R : {4, 2, 1}) {
-    const size_t smem = sizeof(float) * layout<F>(MODE, R, a.W).total;
+    const size_t smem = sizeof(float) * layout<F>(R, a.W).total;
     int per_sm = 0;
     if (smem > (size_t)kMaxSmem ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
@@ -602,179 +524,53 @@ cudaError_t launch_rows(Args a, int B, int device, cudaStream_t st) {
     const long long share =
         std::min<long long>(per_sm, (blocks + sms - 1) / sms);
     const long long cost =
-        (blocks + slots - 1) / slots * share * block_work<F>(MODE, R, a.W);
+        (blocks + slots - 1) / slots * share * block_work<F>(R, a.W);
     if (best == 0 || cost < best_cost) best = R, best_cost = cost;
   }
   if (best == 0) return cudaErrorInvalidValue;
   a.R = best;
   a.bands = (a.H + best - 1) / best;
   const int blocks = B * a.bands;
-  kernel<<<blocks, kThreads, sizeof(float) * layout<F>(MODE, best, a.W).total,
+  kernel<<<blocks, kThreads, sizeof(float) * layout<F>(best, a.W).total,
            st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return sum_rows(a.part, a.out, blocks, row_len(MODE, F), st);
+  return sum_rows(a.part, a.out, blocks, (long long)kRowLen * F, st);
 }
 
-template <typename T, int MODE>
+template <typename T>
 cudaError_t dispatch_f(const Args& a, int B, int F, int device,
                        cudaStream_t st) {
   switch (F) {
     case 64:
-      return launch_rows<T, 64, MODE>(a, B, device, st);
+      return launch_rows<T, 64>(a, B, device, st);
     case 128:
-      return launch_rows<T, 128, MODE>(a, B, device, st);
+      return launch_rows<T, 128>(a, B, device, st);
     case 256:
-      return launch_rows<T, 256, MODE>(a, B, device, st);
+      return launch_rows<T, 256>(a, B, device, st);
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-cudaError_t dispatch_mode(int mode, const Args& a, int B, int F, int device,
-                          cudaStream_t st) {
-  switch (mode) {
-    case kStatsA:
-      return dispatch_f<T, kStatsA>(a, B, F, device, st);
-    case kBwd:
-      return dispatch_f<T, kBwd>(a, B, F, device, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// ------------------------------------------------- the weight gradients
-constexpr int kWT = 64;  // output tile edge
-constexpr int kWK = 16;  // pixels per staged chunk
-
-struct WArgs {
-  const void* a;  // kRows: f32 [P][Ka]; kShifted: f32 [B,H,W,Ka]; kBnRelu: v
-  const float* b;                      // f32 [P][Nb]
-  const float *g1, *be1, *mu1, *i1;    // kBnRelu: the BN ([Ka])
-  float* part;                         // [splits][taps][Ka][Nb]
-  int P, Ka, Nb, H, W, chunk;          // chunk: pixels per split
-};
-
-// part[split][tap][k][n] = sum over the split's pixels p of A(p, tap)[k] *
-// b[p][n]; one block per 64x64 output tile, split and tap.
-template <typename T, int AM>
-__global__ void __launch_bounds__(256) bottleneck_wgrad_kernel(const WArgs a) {
-  __shared__ __align__(16) float As[kWK][kWT];
-  __shared__ __align__(16) float Bs[kWK][kWT];
-  constexpr int taps = AM == kShifted ? 9 : 1;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * kWT, k0 = blockIdx.y * kWT;
-  const int split = blockIdx.z / taps, tap = blockIdx.z % taps;
-  const int dy = tap / 3 - 1, dxo = tap % 3 - 1;
-  const int p_begin = split * a.chunk;
-  const int p_end = min(a.P, p_begin + a.chunk);
-  const int lk = tid / 16, lc = (tid % 16) * 4;  // loader: pixel, 4 columns
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto load_a = [&](int p) -> float4 {
-    if (p >= p_end) return z;
-    if constexpr (AM == kRows) {
-      return load4(static_cast<const float*>(a.a) + (long long)p * a.Ka + k0 +
-                   lc);
-    } else if constexpr (AM == kShifted) {
-      const int hw = a.H * a.W, r = p % hw;
-      const int y = r / a.W + dy, x = r % a.W + dxo;
-      if (y < 0 || y >= a.H || x < 0 || x >= a.W) return z;
-      return load4(static_cast<const float*>(a.a) +
-                   ((long long)(p - r) + y * a.W + x) * a.Ka + k0 + lc);
-    } else {
-      const float4 v =
-          load4(static_cast<const T*>(a.a) + (long long)p * a.Ka + k0 + lc);
-      float o[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = k0 + lc + q;
-        o[q] = bn_relu(at(v, q), __ldg(a.mu1 + c), __ldg(a.i1 + c),
-                       __ldg(a.g1 + c), __ldg(a.be1 + c));
-      }
-      return f4(o);
-    }
-  };
-  auto load_b = [&](int p) -> float4 {
-    return p < p_end ? load4(a.b + (long long)p * a.Nb + n0 + lc) : z;
-  };
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float4 ra = load_a(p_begin + lk), rb = load_b(p_begin + lk);
-  for (int p0 = p_begin; p0 < p_end; p0 += kWK) {
-    __syncthreads();
-    store4(&As[lk][lc], ra);
-    store4(&Bs[lk][lc], rb);
-    __syncthreads();
-    if (p0 + kWK < p_end) {
-      ra = load_a(p0 + kWK + lk);
-      rb = load_b(p0 + kWK + lk);
-    }
-#pragma unroll
-    for (int k = 0; k < kWK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(at(av, i), at(bv, j), acc[i][j]);
-    }
-  }
-  float* out =
-      a.part + ((long long)blockIdx.z * a.Ka + k0 + ty * 4) * a.Nb + n0 + tx * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    store4(out + (long long)i * a.Nb,
-           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-}
-
-template <typename T>
-cudaError_t launch_wgrad(int amode, const WArgs& w, int splits, float* out,
-                         cudaStream_t st) {
-  const int taps = amode == kShifted ? 9 : 1;
-  const dim3 grid(w.Nb / kWT, w.Ka / kWT, splits * taps);
-  switch (amode) {
-    case kRows:
-      bottleneck_wgrad_kernel<T, kRows><<<grid, 256, 0, st>>>(w);
-      break;
-    case kShifted:
-      bottleneck_wgrad_kernel<T, kShifted><<<grid, 256, 0, st>>>(w);
-      break;
-    case kBnRelu:
-      bottleneck_wgrad_kernel<T, kBnRelu><<<grid, 256, 0, st>>>(w);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sum_rows(w.part, out, splits, (long long)taps * w.Ka * w.Nb, st);
 }
 
 }  // namespace
 
-// p[26], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
-// g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, part, out, s0, s1,
-// dx, s2, s3 (see Args); mode 6 takes the folded s1, b1, s2, b2, s3, b3 in
-// the places of g1, be1, g2, be2, g3, be3.
+// p[26], null where the pass does not read it: x, gy, w1, w2, w2t, w3t,
+// w1t, g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, part, out, s0,
+// s1, dx, s2, s3 (see Args); the folded s1, b1, s2, b2, s3, b3 in the
+// places of g1, be1, g2, be2, g3, be3.
 // x, gy, dx [B,H,W,4F], s0..s3 [B,H,W,F]; x and dx of `dtype` (tr::DType),
-// the rest f32; all contiguous and 16-byte aligned. part holds B*H*row_len
-// floats, row_len = 2F (mode 0) or 12F (mode 6); out row_len floats:
-// [sum a, sum b (F each)], for mode 6 [db1, ds1 (4F each), db2, ds2, db3,
-// ds3 (F each)], db = sum dm and ds = sum dm*v. F is 64, 128 or 256.
+// the rest f32; all contiguous and 16-byte aligned. part holds B*H*12F
+// floats; out 12F floats: [db1, ds1 (4F each), db2, ds2, db3, ds3 (F
+// each)], db = sum dm and ds = sum dm*v. F is 64, 128 or 256.
 // Returns the cudaError_t of the launches on `stream` (the row kernel and
 // the sum of its rows).
-extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
-                                   int H, int W, int F, int dtype, int device,
+extern "C" int tr_bottleneck_train(const void* const* p, int B, int H, int W,
+                                   int F, int dtype, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || (mode != kStatsA && mode != kBwd))
-    return cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
   Args a = {};
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
   a.x = p[0];
@@ -797,51 +593,9 @@ extern "C" int tr_bottleneck_train(int mode, const void* const* p, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tr::kFloat32:
-      return dispatch_mode<float>(mode, a, B, F, device, st);
+      return dispatch_f<float>(a, B, F, device, st);
     case tr::kBFloat16:
-      return dispatch_mode<__nv_bfloat16>(mode, a, B, F, device, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// out[taps][Ka][Nb] = sum over the P = B*H*W pixels of A^T b, A by `amode`:
-// 0 f32 rows [P][Ka]; 1 f32 [B,H,W,Ka] shifted by each of the 9 taps of a
-// 3x3 with SAME zero padding; 2 relu(g*((v-mu)*i) + be) of v [P][Ka] of
-// `dtype` (p1 from x, p3 from mid). p[8]: a, b [P][Nb] f32, g, be, mu, i
-// (amode 2), part
-// (splits*taps*Ka*Nb floats), out. Ka and Nb are multiples of 64. The pixels
-// go in `splits` chunks, added in order by a second launch.
-extern "C" int tr_bottleneck_wgrad(int amode, const void* const* p, int P,
-                                   int Ka, int Nb, int H, int W, int splits,
-                                   int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (P < 1 || Ka % kWT || Nb % kWT || Ka < 1 || Nb < 1 || splits < 1 ||
-      (amode == kShifted && P % (H * W)))
-    return cudaErrorInvalidValue;
-  WArgs w = {};
-  const auto f = [](const void* q) { return static_cast<const float*>(q); };
-  w.a = p[0];
-  w.b = f(p[1]);
-  w.g1 = f(p[2]);
-  w.be1 = f(p[3]);
-  w.mu1 = f(p[4]);
-  w.i1 = f(p[5]);
-  w.part = static_cast<float*>(const_cast<void*>(p[6]));
-  w.P = P;
-  w.Ka = Ka;
-  w.Nb = Nb;
-  w.H = H;
-  w.W = W;
-  w.chunk = ((P + splits - 1) / splits + kWK - 1) / kWK * kWK;
-  float* out = static_cast<float*>(const_cast<void*>(p[7]));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case tr::kFloat32:
-      return launch_wgrad<float>(amode, w, splits, out, st);
-    case tr::kBFloat16:
-      return launch_wgrad<__nv_bfloat16>(amode, w, splits, out, st);
+      return dispatch_f<__nv_bfloat16>(a, B, F, device, st);
     default:
       return cudaErrorInvalidValue;
   }

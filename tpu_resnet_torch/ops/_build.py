@@ -50,9 +50,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P],
     },
     "fused_bottleneck_train": {
-        "tr_bottleneck_train": [_I, _P] + [_I] * 6 + [_P],
-        "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P],
-    },
+        "tr_bottleneck_train": [_P] + [_I] * 6 + [_P]},
+    "bottleneck_wgrad": {
+        "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P]},
     "fused_bottleneck_tc": {"tr_bottleneck_tc": [_I, _P] + [_I] * 7 + [_P]},
     "softmax_xent": {
         "tr_xent_fwd": [_P, _P, _P, _I, _I, _I, _P],

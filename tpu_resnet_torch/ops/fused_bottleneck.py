@@ -15,8 +15,9 @@ float32; the folded BN scale/bias pairs are float32 [4f], [f], [f].
 into a [B,H,W,f] float32 scratch, then the 3x3, p3 and the expand with the
 residual, on the tensor cores.
 
-Its gradient (``_bwd_kernel``; mode 6 of ``csrc/fused_bottleneck_train.cu``
-``tr_bottleneck_train``, then ``tr_bottleneck_wgrad``):
+Its gradient (``_bwd_kernel``; ``csrc/fused_bottleneck_train.cu``
+``tr_bottleneck_train``, then ``csrc/bottleneck_wgrad.cu``
+``tr_bottleneck_wgrad``):
 :func:`bottleneck_bwd` → (dx, dw1, dw2, dw3, ds1, db1, ds2, db2, ds3, db3)
 from x, gy (float32) and the parameters, in one row pass (folded BN has no
 batch-wide sum before dx) and the three weight-gradient products.
@@ -25,10 +26,9 @@ reference's custom-VJP ``bottleneck_apply``), saving only x and the
 parameters.
 
 Training (port of the reference's ``bottleneck_train_fwd`` and
-``_train_bwd_calls``: the first moment pass in
-``csrc/fused_bottleneck_train.cu``, the second and the four backward passes
-in ``csrc/fused_bottleneck_tc.cu``, their weight gradients in the former's
-``tr_bottleneck_wgrad``):
+``_train_bwd_calls``: the two moment passes and the four backward passes in
+``csrc/fused_bottleneck_tc.cu``, their weight gradients in
+``csrc/bottleneck_wgrad.cu``; all products on the tensor cores):
 
 - :func:`bottleneck_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance); :func:`bottleneck_stats_a` gives the sums of
@@ -51,7 +51,9 @@ in ``csrc/fused_bottleneck_tc.cu``, their weight gradients in the former's
 Each wrapper launches its kernel for CUDA tensors, computes its plain version
 (``*_reference``) for CPU tensors and raises otherwise, and counts its
 launches (``launches``, ``stats_a_launches``, ``stats_b_launches``,
-``bwd1_launches`` .. ``bwd4_launches``, ``bwd_launches``). The plain
+``bwd1_launches`` .. ``bwd4_launches``, ``bwd_launches``, and
+``wgrad_launches`` for :func:`_weight_grad`, which passes 1-3 and
+:func:`bottleneck_bwd` call). The plain
 versions keep float64 inputs in float64 (the gradient check); every other
 input computes in
 float32.
@@ -77,6 +79,7 @@ bwd2_launches = 0     # bottleneck_bwd2 calls (five launches each)
 bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
 bwd4_launches = 0     # bottleneck_bwd4 calls (one launch each)
 bwd_launches = 0      # bottleneck_bwd calls (eight launches each)
+wgrad_launches = 0    # _weight_grad calls (two launches each)
 
 WIDTHS = (64, 128, 256)  # the kernels' compiled bottleneck widths f
 
@@ -317,7 +320,13 @@ def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1):
 # tr_bottleneck_train's pointer order.
 _PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, "part", "out",
          "s0", "s1", "dx", "s2", "s3")
-_WGRAD_BLOCKS = 528   # blocks a weight-gradient launch aims at (4 per SM)
+# csrc/bottleneck_wgrad.cu: blocks a launch aims at (two waves of one block
+# per SM on an H100's 132), and the fewest pixels a split takes.
+_WGRAD_BLOCKS = 264
+_WGRAD_MIN_PIXELS = 64
+# Its A operand: rows of a float32 matrix, a float32 map shifted by the 9
+# taps of a 3x3 (SAME zero fill), or relu(g·((v − μ)·i) + be) of v.
+WGRAD_ROWS, WGRAD_SHIFTED, WGRAD_BN_RELU = 0, 1, 2
 
 
 def _check_train(kind, x, gy, weights, vecs, ts=()) -> int:
@@ -364,32 +373,59 @@ def _pointers(kind, names, tensors):
         tensors[n].data_ptr() if n in tensors else None for n in names))
 
 
-def _rows(kind, mode, row_len, x, **tensors):
-    """One row-kernel launch (and the sum of its rows): the ``row_len`` sums
-    of mode ``mode``, or None when it has none."""
+def _rows(kind, x, **tensors):
+    """The folded gradient's row-kernel launch (``tr_bottleneck_train``) and
+    the sum of its rows: its 12f sums."""
     b, h, w, c4 = x.shape
-    out = None
-    if row_len:
-        tensors["part"] = torch.empty(b * h * row_len, dtype=torch.float32,
-                                      device=x.device)
-        out = tensors["out"] = torch.empty(row_len, dtype=torch.float32,
-                                           device=x.device)
+    row_len = 3 * c4
+    tensors["part"] = torch.empty(b * h * row_len, dtype=torch.float32,
+                                  device=x.device)
+    out = tensors["out"] = torch.empty(row_len, dtype=torch.float32,
+                                       device=x.device)
     ptrs = _pointers(kind, _PTRS, {"x": x, **tensors})
     err = _build.library("fused_bottleneck_train").tr_bottleneck_train(
-        mode, ptrs, b, h, w, c4 // 4, _build.DTYPE_CODES[x.dtype],
-        x.device.index, _stream(x))
+        ptrs, b, h, w, c4 // 4, _build.DTYPE_CODES[x.dtype], x.device.index,
+        _stream(x))
     _build.check(err, kind)
     return out
 
 
-def _weight_grad(kind, amode, a, bmat, ka, nb, x, taps, bn1=()):
+def weight_grad_reference(amode, a, bmat, bn1=(), *,
+                          magnitudes: bool = False):
+    """Plain version of :func:`_weight_grad`: Σ over the B·H·W pixels of
+    Aᵀ·bmat, flat [taps·ka·nb] (the 3x3's [3,3,ka,nb] HWIO for
+    ``WGRAD_SHIFTED``, its 9 taps; [ka,nb] else), with A of ``a`` [B,H,W,ka]
+    by ``amode`` and bmat [B,H,W,nb]: ``_wgrad`` or one einsum, float32
+    (float64 for float64 inputs). ``magnitudes``: of |A| and |bmat|."""
+    f = _mag(magnitudes)
+    af, bf = _fp(a), _fp(bmat)
+    if amode == WGRAD_SHIFTED:
+        return _wgrad(f(af), f(bf)).reshape(-1)
+    if amode == WGRAD_BN_RELU:
+        g, be, mu, i = bn1
+        af = torch.clamp_min(g * ((af - mu) * i) + be, 0.0)
+    return torch.einsum("bhwk,bhwn->kn", f(af), f(bf)).reshape(-1)
+
+
+def _weight_grad(kind, amode, a, bmat, ka, nb, x, taps, bn1=(),
+                 splits=None):
     """Σ over the B·H·W pixels of Aᵀ·bmat ([taps·ka·nb] float32), A by
-    ``amode`` (csrc ``tr_bottleneck_wgrad``), the pixels in a number of
-    chunks fixed by the shapes, added in order."""
+    ``amode`` (csrc/bottleneck_wgrad.cu ``tr_bottleneck_wgrad``, TF32×3 on
+    the tensor cores), the pixels in ``splits`` chunks (by default a number
+    fixed by the shapes), added in order; :func:`weight_grad_reference` for
+    CPU tensors."""
+    global wgrad_launches
+    if a.device.type == "cpu":
+        return weight_grad_reference(amode, a, bmat, bn1)
+    if a.device.type != "cuda":
+        raise ValueError(f"{kind} runs on cpu or cuda, not {a.device}")
     b, h, w, _ = x.shape
     p = b * h * w
-    tiles = taps * (ka // 64) * (nb // 64)
-    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), -(-p // 256)))
+    if splits is None:
+        tiles = taps * (ka // (128 if ka % 128 == 0 else 64)) * (
+            nb // (128 if nb % 128 == 0 else 64))
+        splits = max(1, min(_WGRAD_BLOCKS // tiles,
+                            -(-p // _WGRAD_MIN_PIXELS)))
     part = torch.empty(splits * taps * ka * nb, dtype=torch.float32,
                        device=x.device)
     out = torch.empty(taps * ka * nb, dtype=torch.float32, device=x.device)
@@ -397,10 +433,11 @@ def _weight_grad(kind, amode, a, bmat, ka, nb, x, taps, bn1=()):
     ptrs = _pointers(kind, names, {
         "a": a, "b": bmat, "part": part, "out": out,
         **dict(zip(names[2:6], bn1))})
-    err = _build.library("fused_bottleneck_train").tr_bottleneck_wgrad(
+    err = _build.library("bottleneck_wgrad").tr_bottleneck_wgrad(
         amode, ptrs, p, ka, nb, h, w, splits, _build.DTYPE_CODES[a.dtype],
         x.device.index, _stream(x))
     _build.check(err, kind)
+    wgrad_launches += 1
     return out
 
 
@@ -429,15 +466,17 @@ _TC_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS,
 _TC_PIXELS = 64          # csrc/fused_bottleneck_tc.cu: pixels per tile
 _TC_PART_ROWS = 1024     # most blocks (rows of partial sums) a launch runs
 # tr_bottleneck_tc's mode of each kernel, and the length of its sums.
-_TC_MODES = {"bottleneck_fwd": (5, 0), "bottleneck_stats_b": (4, 2),
+_TC_MODES = {"bottleneck_fwd": (5, 0), "bottleneck_stats_a": (6, 2),
+             "bottleneck_stats_b": (4, 2),
              "bottleneck_bwd1": (2, 2), "bottleneck_bwd2": (3, 2),
              "bottleneck_bwd3": (0, 8), "bottleneck_bwd4": (1, 0)}
 
 
 def _tc(kind, x, **tensors):
     """One call of ``csrc/fused_bottleneck_tc.cu`` (its tile launches and
-    the sum of their rows): returns its sums ([Σmid, Σmid²] 2f, [T3a, T3b]
-    2f, [T2a, T2b] 2f, [T1a, T1b] 8f) or, for fwd and bwd4, None."""
+    the sum of their rows): returns its sums ([Σc1, Σc1²] 2f, [Σmid, Σmid²]
+    2f, [T3a, T3b] 2f, [T2a, T2b] 2f, [T1a, T1b] 8f) or, for fwd and bwd4,
+    None."""
     b, h, w, c4 = x.shape
     mode, per_f = _TC_MODES[kind]
     out, rows = None, 0
@@ -459,15 +498,17 @@ def _tc(kind, x, **tensors):
 def bottleneck_stats_a(x, w1, g1, be1, mu1, i1):
     """(Σc1, Σc1²) float32 [f] of the 1x1 reduce's output c1 = relu(g1·(x−
     μ1)·i1 + be1)·W1, recomputed and never stored (the reference's
-    ``_stats_a_kernel``). x [B,H,W,4f] float32/bfloat16; w1 [4f,f], g1, be1,
-    μ1, i1 (= 1/σ1) [4f] float32."""
+    ``_stats_a_kernel``, and its rounding: (g1·(x−μ1))·i1 first). x
+    [B,H,W,4f] float32/bfloat16; w1 [4f,f], g1, be1, μ1, i1 (= 1/σ1) [4f]
+    float32. On CUDA, two launches of ``csrc/fused_bottleneck_tc.cu``: c1
+    and the tile sums on the tensor cores, then the sum of their rows."""
     global stats_a_launches
     vecs = (g1, be1, mu1, i1)
-    f = _check_train("bottleneck_stats_a", x, None, {"w1": w1}, vecs)
+    kind = "bottleneck_stats_a"
+    f = _check_train(kind, x, None, {"w1": w1}, vecs)
     if x.device.type == "cpu":
         return bottleneck_stats_a_reference(x, w1, *vecs)
-    out = _rows("bottleneck_stats_a", 0, 2 * f, x, w1=w1,
-                **dict(zip(_VECS, vecs)))
+    out = _tc(kind, x, w1=w1, **dict(zip(_VECS, vecs)))
     stats_a_launches += 1
     return out[:f], out[f:]
 
@@ -509,7 +550,7 @@ def bottleneck_bwd1(x, gy, w1, w2, w3, *vecs):
     float32 (μ, i: the saved means and 1/σ). On CUDA, five launches: the p2
     pass and the mid/dm3 pass of ``csrc/fused_bottleneck_tc.cu`` (c1, the
     3x3 and gy·W3ᵀ on the tensor cores), the sum of its rows, then dw3
-    (``tr_bottleneck_wgrad``, p3 from mid, and its sum)."""
+    (:func:`_weight_grad`, p3 from mid, and its sum)."""
     global bwd1_launches
     kind = "bottleneck_bwd1"
     ws = {"w1": w1, "w2": w2, "w3": w3}
@@ -521,7 +562,8 @@ def bottleneck_bwd1(x, gy, w1, w2, w3, *vecs):
               **_bwd_tensors(w1, w2, w3, vecs, ()))
     # p3 = relu(g3·((mid − μ3)·i3) + be3), rounded as the tile pass rounds
     # m3.
-    dw3 = _weight_grad(kind, 2, mid, gy, f, 4 * f, x, 1, vecs[8:])
+    dw3 = _weight_grad(kind, WGRAD_BN_RELU, mid, gy, f, 4 * f, x, 1,
+                       vecs[8:])
     bwd1_launches += 1
     return out[:f], out[f:], dw3.view(f, 4 * f), p2, mid, dm3
 
@@ -533,8 +575,8 @@ def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3):
     them); arguments as :func:`bottleneck_bwd1`. dmid is pass 3's input. On
     CUDA, five launches of which ``csrc/fused_bottleneck_tc.cu`` runs three:
     dmid, the tile pass (c1 from x, convT of dmid, dm2 and the sums, on the
-    tensor cores) and the sum of its rows; then dw2 (``tr_bottleneck_wgrad``
-    on p2 and dmid, and its sum)."""
+    tensor cores) and the sum of its rows; then dw2 (:func:`_weight_grad` on
+    p2 and dmid, and its sum)."""
     global bwd2_launches
     kind = "bottleneck_bwd2"
     vecs, ts = vecs_t[:12], vecs_t[12:]
@@ -549,7 +591,7 @@ def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3):
     dmid = _scratch(x)
     out = _tc(kind, x, mid=mid, dm3=dm3, dmid=dmid,
               **_bwd_tensors(w1, w2, w3, vecs, ts))
-    dw2 = _weight_grad(kind, 1, p2, dmid, f, f, x, 9)
+    dw2 = _weight_grad(kind, WGRAD_SHIFTED, p2, dmid, f, f, x, 9)
     bwd2_launches += 1
     return out[:f], out[f:], dw2.view(3, 3, f, f), dmid
 
@@ -560,7 +602,7 @@ def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
     path recomputes it); arguments as :func:`bottleneck_bwd1`. dc1 is pass
     4's input. On CUDA: one pass of ``csrc/fused_bottleneck_tc.cu`` (c1 from
     x, convT of dmid, dc1, dc1·W1ᵀ and the sums, on the tensor cores), the
-    sum of its rows, then dw1 (``tr_bottleneck_wgrad`` and its sum): four
+    sum of its rows, then dw1 (:func:`_weight_grad` and its sum): four
     launches."""
     global bwd3_launches
     kind = "bottleneck_bwd3"
@@ -575,7 +617,8 @@ def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
     dc1 = _scratch(x)
     out = _tc(kind, x, dmid=dmid, dc1=dc1,
               **_bwd_tensors(w1, w2, w3, vecs, ts))
-    dw1 = _weight_grad(kind, 2, x, dc1, 4 * f, f, x, 1, vecs[:4])
+    dw1 = _weight_grad(kind, WGRAD_BN_RELU, x, dc1, 4 * f, f, x, 1,
+                       vecs[:4])
     bwd3_launches += 1
     return out[:4 * f], out[4 * f:], dw1.view(4 * f, f), dc1
 
@@ -777,15 +820,15 @@ def bottleneck_bwd(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
         raise ValueError(f"{kind} has kernels for f in {WIDTHS}, got {f}")
     p2, dmid, p3, dc1 = (_scratch(x) for _ in range(4))
     dx = torch.empty_like(x)
-    # The folded vectors in the places of the live modes' gammas and betas.
-    out = _rows(kind, 6, 12 * f, x, gy=gy, s0=p2, s1=dmid, s2=p3, s3=dc1,
+    # The folded vectors in the places of the gammas and betas.
+    out = _rows(kind, x, gy=gy, s0=p2, s1=dmid, s2=p3, s3=dc1,
                 dx=dx, g1=s1, be1=b1, g2=s2, be2=b2, g3=s3, be3=b3,
                 **_bwd_tensors(w1, w2, w3, (), ()))
-    dw3 = _weight_grad(kind, 0, p3, gy, f, 4 * f, x, 1)
-    dw2 = _weight_grad(kind, 1, p2, dmid, f, f, x, 9)
+    dw3 = _weight_grad(kind, WGRAD_ROWS, p3, gy, f, 4 * f, x, 1)
+    dw2 = _weight_grad(kind, WGRAD_SHIFTED, p2, dmid, f, f, x, 9)
     # p1 = relu(g*((x - 0)*1) + be) with (g, be) = (s1, b1): relu(x*s1 + b1)
     # bit for bit.
-    dw1 = _weight_grad(kind, 2, x, dc1, 4 * f, f, x, 1,
+    dw1 = _weight_grad(kind, WGRAD_BN_RELU, x, dc1, 4 * f, f, x, 1,
                        (s1, b1, torch.zeros_like(s1), torch.ones_like(s1)))
     bwd_launches += 1
     return (dx, dw1.view(4 * f, f), dw2.view(3, 3, f, f), dw3.view(f, 4 * f),

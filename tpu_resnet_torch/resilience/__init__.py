@@ -1,1 +1,1 @@
-"""Graceful shutdown."""
+"""Graceful shutdown, and the NaN sentinel's rollback policy."""

@@ -17,15 +17,15 @@ from torch.profiler import ProfilerActivity, profile
 
 # The port's kernels on the train paths, by a substring of their names
 # (``train_sum`` is the fixed-order sum launch of the fused block's stats and
-# first two backward passes; the fused bottleneck's first moment pass runs a
-# row kernel, its forward, second moment pass and backward passes
-# tensor-core kernels, two for each of the forward, the second moment pass
-# and passes 1 and 2: ``bottleneck_fwd_p2_kernel`` and
-# ``bottleneck_fwd_kernel``, ``bottleneck_stats_b_p2_kernel`` and
-# ``bottleneck_stats_b_kernel``, ``bottleneck_bwd1_p2_kernel`` and
-# ``bottleneck_bwd1_kernel``, ``bottleneck_bwd2_dmid_kernel`` and
-# ``bottleneck_bwd2_kernel``; ``bottleneck_wgrad`` for dw1..3, and
-# ``bottleneck_sum`` adds their partial rows in order).
+# first two backward passes; the fused bottleneck's training kernels all
+# run on the tensor cores: one for the first moment pass and passes 3 and 4,
+# two for each of the forward, the second moment pass and passes 1 and 2:
+# ``bottleneck_fwd_p2_kernel`` and ``bottleneck_fwd_kernel``,
+# ``bottleneck_stats_b_p2_kernel`` and ``bottleneck_stats_b_kernel``,
+# ``bottleneck_bwd1_p2_kernel`` and ``bottleneck_bwd1_kernel``,
+# ``bottleneck_bwd2_dmid_kernel`` and ``bottleneck_bwd2_kernel``;
+# ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum`` adds their
+# partial rows in order).
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",

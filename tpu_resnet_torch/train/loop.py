@@ -13,21 +13,29 @@
   to the device; augment them there with the reference's draws;
 - log every ``train.log_every`` steps (loss, precision, lr, grad_norm,
   steps/s, images/s) to the logger and ``metrics.jsonl``;
-- checkpoint every ``train.checkpoint_every`` steps and at the end;
+- checkpoint every ``train.checkpoint_every`` steps and at the end, but
+  never a state whose loss is not finite;
+- on a non-finite loss at a log boundary (``resilience.nan_guard``), roll
+  back to the newest checkpoint and go on past the bad data window: the
+  stream restarts at the bad step, the device-resident split replays
+  ``batch_at(step)``; after ``resilience.nan_max_retries`` rollbacks, or
+  with no checkpoint, raise ``DivergenceError``;
 - on SIGTERM/SIGINT, stop before the next step, save a final checkpoint
-  and raise ``Preempted`` (the CLI exits 42).
+  and raise ``Preempted`` (the CLI exits 42);
+- on any other exception in flight (``resilience.emergency_save``), save
+  the unsaved progress once, then let the exception go on.
 
 The reference loop's other features are not in this slice (ROADMAP lists
 them): multi-step dispatch, staged and double-buffered transfer, spans,
-telemetry, MFU and memory ledgers, the NaN sentinel, the watchdog, fault
-injection and elastic resume. Their knobs are accepted and logged as
-ignored.
+telemetry, MFU and memory ledgers, the watchdog, fault injection and
+elastic resume. Their knobs are accepted and logged as ignored.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 from typing import Optional
 
 import torch
@@ -42,6 +50,7 @@ from tpu_resnet_torch.models import build_model, init_weights
 from tpu_resnet_torch.ops import autotune
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import softmax_xent as sx
+from tpu_resnet_torch.resilience.sentinel import DivergenceError, NaNSentinel
 from tpu_resnet_torch.resilience.shutdown import (Preempted,
                                                   ShutdownCoordinator)
 from tpu_resnet_torch.train import schedule as sched_lib
@@ -58,8 +67,7 @@ IGNORED_KNOBS = (
     "train.profiler_port", "train.profile_steps", "train.telemetry_port",
     "train.mfu_accounting", "train.memory_ledger", "train.comms_ledger",
     "data.transfer_stage", "data.h2d_double_buffer", "mesh.partition",
-    "resilience.nan_guard", "resilience.watchdog_stall_sec",
-    "resilience.emergency_save", "programs.cache")
+    "resilience.watchdog_stall_sec", "programs.cache")
 
 
 def _knob(cfg, path: str):
@@ -154,18 +162,24 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
     meter = ThroughputMeter(batch)
     shutdown = ShutdownCoordinator(
         enabled=cfg.resilience.graceful_shutdown).install()
-    host_iter = ds = None
-    step = state.step
+    sentinel = NaNSentinel(cfg.resilience.nan_max_retries,
+                           enabled=cfg.resilience.nan_guard)
+    host_iter = ds = m = None
+    step = last_ckpt_step = state.step
+
+    def stream(start_step):
+        return BackgroundIterator(
+            data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
+                                   start_step=start_step),
+            capacity=cfg.data.prefetch + 2, external_stop=shutdown.event)
+
     try:
         if resident:
             ds = device_data.DeviceDataset(
                 *load_split(cfg.data, train=True), batch, device,
                 seed=cfg.train.seed)
         else:
-            host_iter = BackgroundIterator(
-                data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
-                                       start_step=step),
-                capacity=cfg.data.prefetch + 2, external_stop=shutdown.event)
+            host_iter = stream(step)
         meter.rate(step)
         first = True
         while step < total and not shutdown.requested:
@@ -190,6 +204,25 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 meter.rate(step)
             if step % cfg.train.log_every == 0 or step == total:
                 vals = {k: float(v) for k, v in m.items()}
+                if sentinel.check(step, vals["loss"]):
+                    # Roll back to the newest checkpoint. The stream is a
+                    # function of (seed, step): restarting it at the bad
+                    # step feeds the replayed steps the batches after the
+                    # bad window; the resident split replays batch_at.
+                    if ckpt.latest_step() is None:
+                        raise sentinel.no_checkpoint(step, vals["loss"])
+                    bad_step = step
+                    ckpt.restore(state, discard_failed=True)
+                    step = last_ckpt_step = state.step
+                    log.warning("nan rollback from step %d to checkpoint "
+                                "step %d (retry %d)", bad_step, step,
+                                sentinel.rollbacks)
+                    if host_iter is not None:
+                        host_iter.close()
+                        host_iter = stream(bad_step)
+                    m = None
+                    meter.rate(step)
+                    continue
                 rate = meter.rate(step)
                 if rate:
                     vals.update(rate)
@@ -202,12 +235,38 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                          if rate else "")
                 metrics.write(step, vals)
             if step % cfg.train.checkpoint_every == 0 or step == total:
-                ckpt.save(state)
+                # A checkpoint boundary that is not a log boundary has not
+                # had its loss checked: never save a non-finite state, it
+                # would become the rollback target.
+                if (sentinel.enabled and step % cfg.train.log_every != 0
+                        and not math.isfinite(float(m["loss"]))):
+                    log.warning("skipping checkpoint save at step %d: "
+                                "non-finite loss; rollback engages at the "
+                                "next log boundary", step)
+                else:
+                    ckpt.save(state)
+                    last_ckpt_step = step
         if shutdown.requested and step < total:
             log.warning("stop requested at step %d: saving a final "
                         "checkpoint before exit", step)
             if ckpt.latest_step() != step:
                 ckpt.save(state)
+    except BaseException as exc:
+        # An exception in flight with unsaved progress: one guarded save,
+        # so the crash loses at most the current interval. Not for a
+        # divergence (the state is not finite) or an operator's abort.
+        if (cfg.resilience.emergency_save and step > last_ckpt_step
+                and not isinstance(exc, (DivergenceError,
+                                         KeyboardInterrupt))):
+            try:
+                ckpt.save(state)
+                log.warning("emergency checkpoint saved at step %d after "
+                            "in-flight %s", state.step,
+                            type(exc).__name__)
+            except Exception as e:  # noqa: BLE001 - the original goes on
+                log.warning("emergency checkpoint at step %d failed "
+                            "(%s: %s)", step, type(e).__name__, e)
+        raise
     finally:
         if host_iter is not None:
             host_iter.close()
