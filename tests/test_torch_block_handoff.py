@@ -1,0 +1,161 @@
+"""The fused basic block's backward pass 2 hands its dz1 to pass 3 instead
+of pass 3 recomputing the chain from x, as the reference's
+``_train_bwd_calls`` does. On the CPU, at C = 16 and 32 and on a ragged
+plane: the plain passes with the handoff against the recompute-from-x chain
+bit for bit, the wrappers against the reference's passes (Pallas in
+interpret mode, batch tile 2) and the port's backward against ``jax.vjp``
+of the reference's custom-VJP block, and the wrappers' refusals of a
+missing or malformed dz1. The CUDA kernels are held against the same plain
+passes on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_fused_train import EPS, _close
+from tpu_resnet.ops import fused_block as jax_fb
+from tpu_resnet_torch.ops import fused_block as fb
+
+SUM = (0, 1, 2)
+# [B, H, W, C]: the two widths on a square plane, and a ragged plane.
+SHAPES = ((4, 8, 8, 16), (4, 8, 8, 32), (2, 7, 5, 16))
+IDS = ("c16", "c32", "ragged")
+
+
+def _inputs(shape, seed):
+    """x (shifted, so BN1 has work to do), gy, w1, w2, γ1, β1, γ2, β2."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    f32 = np.float32
+    return ((rng.normal(size=shape) * 2 + 1).astype(f32),
+            rng.normal(size=shape).astype(f32),
+            (rng.normal(size=(3, 3, c, c)) * 0.2).astype(f32),
+            (rng.normal(size=(3, 3, c, c)) * 0.2).astype(f32),
+            rng.uniform(0.5, 1.5, c).astype(f32),
+            rng.uniform(-0.3, 0.3, c).astype(f32),
+            rng.uniform(0.5, 1.5, c).astype(f32),
+            rng.uniform(-0.3, 0.3, c).astype(f32))
+
+
+def _base(shape, seed):
+    """x, gy, the weights and the eight BN vectors (moments from the port's
+    training forward), and pass 1's sums."""
+    x, gy, w1, w2, g1, b1, g2, b2 = map(torch.from_numpy,
+                                        _inputs(shape, seed))
+    _, (m1, v1, m2, v2) = fb.block_train_fwd(x, w1, w2, g1, b1, g2, b2)
+    i1, i2 = torch.rsqrt(v1 + EPS), torch.rsqrt(v2 + EPS)
+    base = (x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2)
+    return base, fb.train_bwd_pass1_reference(*base)[:2]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_handed_over_passes_equal_the_recompute_chain(shape):
+    """Pass 2's dz1, and pass 3 from it, give bit for bit what the chain
+    recomputed from x gives for every output of both passes."""
+    base, t = _base(shape, seed=shape[-1] + 3)
+    x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2 = base
+    r = fb._pass2_chain(*base, *t)
+    u1, u2, dw1, dz1 = fb.train_bwd_pass2_reference(*base, *t)
+    want = (r["dz1"].sum(SUM), (r["dz1"] * r["z1hat"]).sum(SUM),
+            fb._wgrad(r["r1"], r["dc1"]), r["dz1"])
+    for name, got, w in zip(("u1", "u2", "dw1", "dz1"),
+                            (u1, u2, dw1, dz1), want):
+        assert torch.equal(got, w), name
+    assert dz1.is_contiguous() and dz1.dtype == torch.float32
+
+    dx = fb.train_bwd_pass3_reference(*base, *t, u1, u2, dz1=dz1)
+    n = fb._n(x)
+    want = gy + g1 * i1 * (r["dz1"] - u1 / n - r["z1hat"] * (u2 / n))
+    assert dx.dtype == x.dtype and torch.equal(dx, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_handed_over_dz1_magnitudes_bound_it(shape):
+    """The scale the card's tolerance may hold dz1 to: Σ|terms| of each
+    element, never below the element itself, zero where [z1 > 0] is."""
+    base, t = _base(shape, seed=shape[-1] + 4)
+    dz1 = fb.train_bwd_pass2_reference(*base, *t)[3]
+    scale = fb.train_bwd_pass2_reference(*base, *t, magnitudes=True)[3]
+    assert scale.shape == dz1.shape and scale.is_contiguous()
+    assert bool((scale * (1 + 1e-6) >= dz1.abs()).all())
+    assert float(scale.max()) > 0
+    z1 = fb._pass2_chain(*base, *t)["z1"]
+    assert bool((scale[z1 <= 0] == 0).all())
+
+
+@pytest.fixture(scope="module", params=SHAPES, ids=IDS)
+def reference(request):
+    """Inputs, the reference's moments and the outputs of its three
+    backward passes (``_train_bwd_calls`` in interpret mode)."""
+    shape = request.param
+    x, gy, *params = _inputs(shape, seed=shape[-1] + 5)
+    jp = list(map(jnp.asarray, params))
+    _, moments = jax_fb.block_train_fwd(jnp.asarray(x), *jp, EPS,
+                                        batch_tile=2, interpret=True)
+    dx, dw1, dw2, u2, u1, t2, t1 = jax_fb._train_bwd_calls(
+        jnp.asarray(x), jnp.asarray(gy), *jp, moments, EPS, batch_tile=2,
+        interpret=True)
+    return (x, gy, params, moments,
+            dict(dx=dx, dw1=dw1, dw2=dw2, u1=u1, u2=u2, t1=t1, t2=t2))
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def test_handed_over_wrappers_match_reference_passes(reference):
+    """The wrappers chained through the handoff (the plain versions on the
+    CPU), later passes on the reference's sums, against
+    ``_train_bwd_calls``' passes."""
+    x, gy, params, moments, ref = reference
+    w1, w2, g1, b1, g2, b2 = map(_t, params)
+    m1, v1, m2, v2 = map(_t, moments)
+    i1, i2 = torch.rsqrt(v1 + EPS), torch.rsqrt(v2 + EPS)
+    base = (_t(x), _t(gy), w1, w2, g1, b1, g2, b2, m1, i1, m2, i2)
+    t = (_t(ref["t1"]), _t(ref["t2"]))
+    t1, t2, dw2 = fb.block_bwd1(*base)
+    u1, u2, dw1, dz1 = fb.block_bwd2(*base, *t)
+    dx = fb.block_bwd3(*base, *t, _t(ref["u1"]), _t(ref["u2"]), dz1=dz1)
+    for name, got in (("t1", t1), ("t2", t2), ("dw2", dw2), ("u1", u1),
+                      ("u2", u2), ("dw1", dw1), ("dx", dx)):
+        _close(got, ref[name], name)
+
+
+def test_train_bwd_matches_jax_vjp(reference):
+    """``block_train_bwd`` (three passes, dz1 handed from 2 to 3) on the
+    port's own moments against ``jax.vjp`` of the reference's
+    ``block_train_apply``: all seven gradients, the moments' cotangent
+    dropped."""
+    x, gy, params, _, _ = reference
+    (_, moments), vjp = jax.vjp(
+        lambda *a: jax_fb.block_train_apply(*a, EPS, 2, True),
+        *map(jnp.asarray, (x, *params)))
+    want = vjp((jnp.asarray(gy), tuple(jnp.zeros_like(m) for m in moments)))
+    args = list(map(torch.from_numpy, (x, *params)))
+    _, got_m = fb.block_train_fwd(*args)
+    got = fb.block_train_bwd(args[0], torch.from_numpy(gy), *args[1:], got_m)
+    names = ("dx", "dw1", "dw2", "dgamma1", "dbeta1", "dgamma2", "dbeta2")
+    for name, g, w in zip(names, got, want):
+        _close(g, w, name)
+
+
+@pytest.mark.parametrize("what", ["missing", "shape", "dtype", "device",
+                                  "strided"])
+def test_block_bwd3_refuses_a_missing_or_malformed_dz1(what):
+    """No path recomputes dz1: without it, or with one of the wrong shape,
+    type, device or layout, ``block_bwd3`` raises."""
+    base, t = _base((2, 6, 6, 16), seed=9)
+    u1, u2, _, dz1 = fb.train_bwd_pass2_reference(*base, *t)
+    args = (*base, *t, u1, u2)
+    fb.block_bwd3(*args, dz1=dz1)   # the well-formed handoff passes
+    if what == "missing":
+        with pytest.raises(TypeError, match="dz1"):
+            fb.block_bwd3(*args)
+        return
+    bad = {"shape": dz1[..., :8], "dtype": dz1.double(),
+           "device": torch.empty(dz1.shape, device="meta"),
+           "strided": dz1.transpose(1, 2)}[what]
+    with pytest.raises(ValueError, match="dz1 must be float32"):
+        fb.block_bwd3(*args, dz1=bad)

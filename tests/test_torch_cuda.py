@@ -265,12 +265,14 @@ def _sums_close(got, want, scale):
                                    (5, 8, 8, 64), (2, 7, 5, 16)])
 def test_block_train_kernels_match_plain(cuda, shape, dtype):
     """block_stats and the three backward passes at the three widths, a
-    single image, odd batches and a ragged plane; each called twice."""
+    single image, odd batches and a ragged plane (where pass 2's tiles of
+    pixels span images); each called twice. Pass 2's dz1 against the plain
+    dz1, pass 3 from the plain dz1 and from the kernel's own."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
     with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
         t = fb.train_bwd_pass1_reference(x, gy, w1, w2, *vecs)[:2]
-        u = fb.train_bwd_pass2_reference(x, gy, w1, w2, *vecs, *t)[:2]
+        *u, _, dz1 = fb.train_bwd_pass2_reference(x, gy, w1, w2, *vecs, *t)
     cases = (("stats_launches", (x, w1, vecs[0], vecs[1]), fb.block_stats,
               fb.block_stats_reference),
              ("bwd1_launches", (x, gy, w1, w2, *vecs), fb.block_bwd1,
@@ -285,19 +287,26 @@ def test_block_train_kernels_match_plain(cuda, shape, dtype):
             scale = plain(*args, magnitudes=True)
         torch.cuda.synchronize()
         assert getattr(fb, counter) == before + 2
-        _sums_close(got, want, scale)
+        _sums_close(got[:3], want[:3], scale[:3])
         assert all(torch.equal(p, q) for p, q in zip(got, again))
+    own_dz1 = got[3]
+    # block_fwd's float32 tolerance: dz1 is float32 whatever x's dtype.
+    assert own_dz1.dtype == torch.float32 and own_dz1.shape == x.shape
+    torch.testing.assert_close(own_dz1, dz1, atol=1e-4, rtol=1e-4)
     before = fb.bwd3_launches
-    dx, again = (fb.block_bwd3(x, gy, w1, w2, *vecs, *t, *u)
-                 for _ in range(2))
+    args = (x, gy, w1, w2, *vecs, *t, *u)
+    dx, again = (fb.block_bwd3(*args, dz1=dz1) for _ in range(2))
+    dx_own = fb.block_bwd3(*args, dz1=own_dz1)
     with torch.backends.cudnn.flags(enabled=False):
-        want = fb.train_bwd_pass3_reference(x, gy, w1, w2, *vecs, *t, *u)
+        want = fb.train_bwd_pass3_reference(*args, dz1=dz1)
     torch.cuda.synchronize()
-    assert fb.bwd3_launches == before + 2 and dx.dtype == dtype
+    assert fb.bwd3_launches == before + 3 and dx.dtype == dtype
     assert torch.equal(dx, again)
     # block_fwd's tolerance: f32 sums in another order; bf16 one ulp.
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(dx.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(dx_own.float(), want.float(), atol=tol,
+                               rtol=tol)
 
 
 def test_block_train_wrappers_reject_bad_input(cuda):
@@ -314,7 +323,13 @@ def test_block_train_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="t1 must be float32"):
         fb.block_bwd2(x, gy, w1, w2, *vecs, vecs[0][:8], vecs[0])
     with pytest.raises(ValueError, match="gy must be float32"):
-        fb.block_bwd3(x, gy.to(torch.bfloat16), w1, w2, *vecs, *vecs[:4])
+        fb.block_bwd3(x, gy.to(torch.bfloat16), w1, w2, *vecs, *vecs[:4],
+                      dz1=gy)
+    with pytest.raises(TypeError, match="dz1"):
+        fb.block_bwd3(x, gy, w1, w2, *vecs, *vecs[:4])
+    for bad in (gy.permute(0, 2, 1, 3), gy.double(), gy[..., :8], gy.cpu()):
+        with pytest.raises(ValueError, match="dz1 must be float32"):
+            fb.block_bwd3(x, gy, w1, w2, *vecs, *vecs[:4], dz1=bad)
     with pytest.raises(ValueError, match="kernels for C"):
         fb.block_stats(torch.zeros(2, 8, 8, 24, device="cuda"),
                        torch.zeros(3, 3, 24, 24, device="cuda"),

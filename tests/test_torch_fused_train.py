@@ -99,7 +99,8 @@ def _jax_passes(c, seed):
 @pytest.mark.parametrize("c", [16, 32])
 def test_train_bwd_passes_match_reference(c):
     """Each pass on the reference's inputs (pass 2 on its T, pass 3 on its
-    T and U) against the matching output of ``_train_bwd_calls``."""
+    T and U and on pass 2's dz1) against the matching output of
+    ``_train_bwd_calls``."""
     x, gy, params, moments, ref = _jax_passes(c, seed=c + 1)
     t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
     m1, v1, m2, v2 = map(t, moments)
@@ -111,10 +112,11 @@ def test_train_bwd_passes_match_reference(c):
     for name, got in (("t1", t1), ("t2", t2), ("dw2", dw2)):
         _close(got, ref[name], f"pass 1 {name}")
     ref_t = (t(ref["t1"]), t(ref["t2"]))
-    u1, u2, dw1 = fb.block_bwd2(*args, *ref_t)
+    u1, u2, dw1, dz1 = fb.block_bwd2(*args, *ref_t)
     for name, got in (("u1", u1), ("u2", u2), ("dw1", dw1)):
         _close(got, ref[name], f"pass 2 {name}")
-    dx = fb.block_bwd3(*args, *ref_t, t(ref["u1"]), t(ref["u2"]))
+    assert dz1.shape == args[0].shape and dz1.dtype == torch.float32
+    dx = fb.block_bwd3(*args, *ref_t, t(ref["u1"]), t(ref["u2"]), dz1=dz1)
     assert dx.dtype == torch.float32
     _close(dx, ref["dx"], "pass 3 dx")
 

@@ -1,6 +1,7 @@
 // Fused ResNet-v2 basic block: the conv1 moments of the training forward,
-// the three backward passes with live batch-norm statistics, and the one
-// backward pass with folded (frozen) batch norm. Stride 1, equal in/out
+// the first backward pass with live batch-norm statistics, and the one
+// backward pass with folded (frozen) batch norm (the live-BN passes 2 and 3
+// are fused_block_tc.cu's). Stride 1, equal in/out
 // channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32, w1 and w2 HWIO
 // f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is f32.
 //
@@ -12,11 +13,6 @@
 //                   stored;
 //   tr_block_bwd1   _train_bwd_calls pass1: T1 = sum dz2, T2 = sum dz2*z2hat,
 //                   dw2 = sum r2-patch^T gy, with dz2 = convT(gy, w2)*[z2>0];
-//   tr_block_bwd2   pass2: dc1 = g2*i2*(dz2 - T1/n - z2hat*(T2/n)),
-//                   U1 = sum dz1, U2 = sum dz1*z1hat,
-//                   dw1 = sum r1-patch^T dc1,
-//                   with dz1 = convT(dc1, w1)*[z1>0];
-//   tr_block_bwd3   pass3: dx = gy + g1*i1*(dz1 - U1/n - z1hat*(U2/n)).
 // and (block_apply, the folded-BN block under a gradient: the eval-mode
 // model differentiated, tools/fused_block_ab.py's fwd_bwd arm):
 //   tr_block_bwd    _block_bwd_kernel: with a1 = x*s1 + b1, r1 = relu(a1),
@@ -38,9 +34,8 @@
 // Bound: arithmetic. One 3x3 product is 2*B*H*W*9*C*C flops (0.604 GFLOP at
 // every CIFAR stage at B=128, 9.0 us at 67 TFLOP/s f32) for B*H*W*C elements
 // moved: tens to hundreds of operations per byte, off the tensor cores. The
-// stats kernel runs one product, bwd1 three (conv1, convT of gy, dw2), bwd2
-// four (conv1, two convT, dw1), bwd3 three, the frozen bwd five (conv1, two
-// convT, dw1, dw2).
+// stats kernel runs one product, bwd1 three (conv1, convT of gy, dw2), the
+// frozen bwd five (conv1, two convT, dw1, dw2).
 //
 // Design: one thread block per image, as block_fwd (csrc/fused_block.cu).
 // The recomputed planes live in shared memory, f32, zero-haloed, with a pixel
@@ -53,10 +48,6 @@
 //   stats: A = r1 (folded BN1); c1 per pixel, summed.            1 plane
 //   bwd1:  A = r1; B = r2, Z = z2hat (unpadded); A = gy; dz2 from convT(A)
 //          and the mask r2 > 0; dw2 from B and A.   2 planes + Z: 226.8 KB
-//   bwd2:  A = r1; B = z2hat; A = gy; B = dc1 in place (each pixel's dc1
-//          needs only its own z2hat); A = r1 again; dz1 from convT(B); dw1
-//          from A and B.                                         2 planes
-//   bwd3:  as bwd2 without the second r1; dx from convT(B), x and gy in A.
 //   bwd:   A = r1; Z = c1, B = r2; A = gy; dw2 from B and A; da2 from
 //          convT(A) and the mask r2 > 0, ds2 and db2 with c1 from Z, and
 //          B = dc1 in place; A = r1 again; dw1 from A and B; da1 from
@@ -84,7 +75,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kCO = 8;  // output channels per item
 constexpr int kMaxSmem = 232448;
-enum Mode : int { kStats = 0, kBwd1 = 1, kBwd2 = 2, kBwd3 = 3, kBwd = 4 };
+enum Mode : int { kStats = 0, kBwd1 = 1, kBwd = 4 };
 
 struct Args {
   const void* x;
@@ -103,11 +94,7 @@ struct Args {
   const float* i1;
   const float* m2;
   const float* i2;
-  const float* t1;  // pass 1's sums (bwd2, bwd3)
-  const float* t2;
-  const float* u1;  // pass 2's sums (bwd3)
-  const float* u2;
-  void* dx;     // bwd3, bwd
+  void* dx;     // bwd
   float* part;  // [B][row_len] partial rows
   float* out;   // [row_len] the batch's sums
   int H, W;
@@ -265,7 +252,7 @@ __device__ __forceinline__ void channel_sums(const float (&sa)[kCO],
   }
 }
 
-// The shared body of the four live-BN kernels; MODE picks the pass.
+// The shared body of the two live-BN kernels; MODE picks the pass.
 template <typename T, int C, int MODE>
 __device__ __forceinline__ void train_body(const Args& a) {
   constexpr int CP = C + 1;
@@ -315,7 +302,7 @@ __device__ __forceinline__ void train_body(const Args& a) {
       }
     }
   } else {
-    // c1 -> z2hat (bwd1 also keeps r2 = relu(z2) for dw2 and the mask).
+    // c1 -> z2hat, and r2 = relu(z2) for dw2 and the mask.
     for (int t = threadIdx.x; t < HW * G; t += kThreads) {
       const int p = t / G, py = p / W;
       conv_point<C, CP>(A, a.w1, py, p - py * W, WP, co0, acc);
@@ -324,12 +311,8 @@ __device__ __forceinline__ void train_body(const Args& a) {
       for (int j = 0; j < kCO; ++j) {
         const int c = co0 + j;
         const float zh = mul(sub(acc[j], __ldg(a.m2 + c)), __ldg(a.i2 + c));
-        if constexpr (MODE == kBwd1) {
-          Z[p * CP + c] = zh;
-          dst[j] = fmaxf(add(mul(__ldg(a.g2 + c), zh), __ldg(a.b2 + c)), 0.f);
-        } else {
-          dst[j] = zh;
-        }
+        Z[p * CP + c] = zh;
+        dst[j] = fmaxf(add(mul(__ldg(a.g2 + c), zh), __ldg(a.b2 + c)), 0.f);
       }
     }
     __syncthreads();
@@ -343,70 +326,16 @@ __device__ __forceinline__ void train_body(const Args& a) {
       float* bc = Bp + cell(p, W, WP, CP) + co0;
 #pragma unroll
       for (int j = 0; j < kCO; ++j) {
-        const int c = co0 + j;
-        if constexpr (MODE == kBwd1) {
-          const float dz = bc[j] > 0.f ? acc[j] : 0.f;  // r2 > 0 iff z2 > 0
-          sa[j] += dz;
-          sb[j] = fmaf(dz, Z[p * CP + c], sb[j]);
-        } else {
-          const float zh = bc[j];
-          const float g2 = __ldg(a.g2 + c);
-          const float dz = add(mul(g2, zh), __ldg(a.b2 + c)) > 0.f ? acc[j]
-                                                                 : 0.f;
-          const float inner =
-              sub(sub(dz, __fdiv_rn(__ldg(a.t1 + c), a.n)),
-                  mul(zh, __fdiv_rn(__ldg(a.t2 + c), a.n)));
-          bc[j] = mul(mul(g2, __ldg(a.i2 + c)), inner);  // dc1, in place
-        }
+        const float dz = bc[j] > 0.f ? acc[j] : 0.f;  // r2 > 0 iff z2 > 0
+        sa[j] += dz;
+        sb[j] = fmaf(dz, Z[p * CP + co0 + j], sb[j]);
       }
     }
     __syncthreads();
-    if constexpr (MODE == kBwd1) {
-      wgrad<C, CP>(Bp, A, H, W, WP, prow + 2 * C);  // dw2: r2p, gy
-    } else {
-      if constexpr (MODE == kBwd2) {
-        for (int i = threadIdx.x; i < HW * C; i += kThreads) {
-          const int c = i % C;
-          A[cell(i / C, W, WP, CP) + c] =
-              bn_relu(tr::to_f32(xi[i]), __ldg(a.m1 + c), __ldg(a.i1 + c),
-                      __ldg(a.g1 + c), __ldg(a.b1 + c));  // A <- r1 again
-        }
-        __syncthreads();
-      }
-      // dr1 = convT(dc1, w1); dz1 = dr1 * [z1 > 0].
-      for (int t = threadIdx.x; t < HW * G; t += kThreads) {
-        const int p = t / G, py = p / W;
-        convT_point<C, CP>(Bp, a.w1, py, p - py * W, WP, co0, acc);
-#pragma unroll
-        for (int j = 0; j < kCO; ++j) {
-          const int c = co0 + j;
-          const long long e = (long long)p * C + c;
-          const float g1 = __ldg(a.g1 + c);
-          const float zh = mul(sub(tr::to_f32(xi[e]), __ldg(a.m1 + c)),
-                               __ldg(a.i1 + c));
-          const float dz = add(mul(g1, zh), __ldg(a.b1 + c)) > 0.f ? acc[j]
-                                                                 : 0.f;
-          if constexpr (MODE == kBwd2) {
-            sa[j] += dz;
-            sb[j] = fmaf(dz, zh, sb[j]);
-          } else {
-            const float inner =
-                sub(sub(dz, __fdiv_rn(__ldg(a.u1 + c), a.n)),
-                    mul(zh, __fdiv_rn(__ldg(a.u2 + c), a.n)));
-            const float v =
-                add(gyi[e], mul(mul(g1, __ldg(a.i1 + c)), inner));
-            static_cast<T*>(a.dx)[base + e] = tr::from_f32<T>(v);
-          }
-        }
-      }
-      if constexpr (MODE == kBwd2) {
-        __syncthreads();
-        wgrad<C, CP>(A, Bp, H, W, WP, prow + 2 * C);  // dw1: r1p, dc1
-      }
-    }
+    wgrad<C, CP>(Bp, A, H, W, WP, prow + 2 * C);  // dw2: r2p, gy
   }
 
-  if constexpr (MODE != kBwd3) channel_sums<C>(sa, sb, smem, prow);
+  channel_sums<C>(sa, sb, smem, prow);
 }
 
 // Kernel 7 (tr_block_bwd): the VJP of the folded-BN block, one pass per
@@ -511,14 +440,6 @@ __global__ void __launch_bounds__(kThreads) block_bwd1_kernel(const Args a) {
   train_body<T, C, kBwd1>(a);
 }
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) block_bwd2_kernel(const Args a) {
-  train_body<T, C, kBwd2>(a);
-}
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) block_bwd3_kernel(const Args a) {
-  train_body<T, C, kBwd3>(a);
-}
-template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) block_bwd_kernel(const Args a) {
   frozen_bwd_body<T, C>(a);
 }
@@ -545,17 +466,15 @@ size_t smem_bytes(int mode, int H, int W, int C) {
 template <typename T, int C, int MODE>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(MODE, a.H, a.W, C);
-  void (*kernel)(const Args) = &block_bwd3_kernel<T, C>;
-  if constexpr (MODE == kStats) kernel = &block_stats_kernel<T, C>;
+  void (*kernel)(const Args) = &block_stats_kernel<T, C>;
   if constexpr (MODE == kBwd1) kernel = &block_bwd1_kernel<T, C>;
-  if constexpr (MODE == kBwd2) kernel = &block_bwd2_kernel<T, C>;
   if constexpr (MODE == kBwd) kernel = &block_bwd_kernel<T, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<B, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || MODE == kBwd3) return err;
+  if (err != cudaSuccess) return err;
   constexpr int L = row_len(MODE, C);
   train_sum_kernel<<<(L + 255) / 256, 256, 0, stream>>>(a.part, a.out, B, L);
   return cudaGetLastError();
@@ -585,10 +504,7 @@ int run(Args a, int B, int H, int W, int C, int dtype, int device,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0)
-    return MODE == kBwd3 ? cudaSuccess
-                         : cudaMemsetAsync(a.out, 0,
-                                           row_len(MODE, C) * sizeof(float),
-                                           st);
+    return cudaMemsetAsync(a.out, 0, row_len(MODE, C) * sizeof(float), st);
   a.H = H;
   a.W = W;
   a.n = (float)((long long)B * H * W);
@@ -604,12 +520,11 @@ int run(Args a, int B, int H, int W, int C, int dtype, int device,
 
 }  // namespace
 
-// Common to all five: x [B,H,W,C] of `dtype` (tr::DType) and gy [B,H,W,C]
+// Common to all three: x [B,H,W,C] of `dtype` (tr::DType) and gy [B,H,W,C]
 // f32, contiguous; w1, w2 [3,3,C,C] f32 HWIO, 16-byte aligned; vectors C
 // floats; C is 16, 32 or 64. part: B * row_len floats of scratch, row_len =
-// 2C (stats), 2C + 9C^2 (bwd1, bwd2) or 4C + 18C^2 (bwd); out: row_len
-// floats. Each returns the cudaError_t of its launches on `stream` (two, but
-// bwd3's one).
+// 2C (stats), 2C + 9C^2 (bwd1) or 4C + 18C^2 (bwd); out: row_len floats.
+// Each returns the cudaError_t of its two launches on `stream`.
 
 // out = [sum c1 (C), sum c1^2 (C)], c1 = conv3x3(relu(s1*x + b1), w1).
 extern "C" int tr_block_stats(const void* x, const void* w1, const void* s1,
@@ -656,32 +571,6 @@ extern "C" int tr_block_bwd1(TR_BWD_ARGS, void* part, void* out, int B, int H,
   a.part = static_cast<float*>(part);
   a.out = static_cast<float*>(out);
   return run<kBwd1>(a, B, H, W, C, dtype, device, stream);
-}
-
-// out = [U1 (C), U2 (C), dw1 (9C^2, HWIO)], given pass 1's T1, T2.
-extern "C" int tr_block_bwd2(TR_BWD_ARGS, const void* t1, const void* t2,
-                             void* part, void* out, int B, int H, int W,
-                             int C, int dtype, int device, void* stream) {
-  Args a = bwd_args(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2);
-  a.t1 = static_cast<const float*>(t1);
-  a.t2 = static_cast<const float*>(t2);
-  a.part = static_cast<float*>(part);
-  a.out = static_cast<float*>(out);
-  return run<kBwd2>(a, B, H, W, C, dtype, device, stream);
-}
-
-// dx [B,H,W,C] of `dtype`, given T1, T2 and pass 2's U1, U2.
-extern "C" int tr_block_bwd3(TR_BWD_ARGS, const void* t1, const void* t2,
-                             const void* u1, const void* u2, void* dx, int B,
-                             int H, int W, int C, int dtype, int device,
-                             void* stream) {
-  Args a = bwd_args(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2);
-  a.t1 = static_cast<const float*>(t1);
-  a.t2 = static_cast<const float*>(t2);
-  a.u1 = static_cast<const float*>(u1);
-  a.u2 = static_cast<const float*>(u2);
-  a.dx = dx;
-  return run<kBwd3>(a, B, H, W, C, dtype, device, stream);
 }
 
 // The frozen-BN backward: out = [ds1, db1, ds2, db2 (C each), dw1, dw2 (9C^2

@@ -45,10 +45,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "fused_block_train": {
         "tr_block_stats": [_P] * 6 + [_I] * 6 + [_P],
         "tr_block_bwd1": [_P] * 14 + [_I] * 6 + [_P],
-        "tr_block_bwd2": [_P] * 16 + [_I] * 6 + [_P],
-        "tr_block_bwd3": [_P] * 17 + [_I] * 6 + [_P],
         "tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P],
     },
+    "fused_block_tc": {"tr_block_tc": [_I, _P] + [_I] * 7 + [_P]},
     "fused_bottleneck_train": {
         "tr_bottleneck_train": [_P] + [_I] * 6 + [_P]},
     "bottleneck_wgrad": {

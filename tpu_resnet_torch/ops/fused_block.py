@@ -22,7 +22,8 @@ custom-VJP ``block_apply``): forward :func:`block_fwd`, backward
 :func:`block_bwd`, saving only x and the parameters.
 
 Training (port of the reference's ``block_train_fwd`` and
-``_train_bwd_calls``, ``csrc/fused_block_train.cu``):
+``_train_bwd_calls``; ``csrc/fused_block_train.cu`` for the stats and pass
+1, ``csrc/fused_block_tc.cu`` for passes 2 and 3):
 
 - :func:`block_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance), folded; :func:`block_stats` gives the sums
@@ -30,8 +31,10 @@ Training (port of the reference's ``block_train_fwd`` and
   clamped at 0); then :func:`block_fwd` with both folds. Returns ``(y,
   (mean1, var1, mean2, var2))``.
 - the backward, three passes from x, gy (float32) and the saved moments:
-  :func:`block_bwd1` → (T1, T2, dw2), :func:`block_bwd2` → (U1, U2, dw1),
-  :func:`block_bwd3` → dx; dγ2 = T2, dβ2 = T1, dγ1 = U2, dβ1 = U1.
+  :func:`block_bwd1` → (T1, T2, dw2), :func:`block_bwd2` → (U1, U2, dw1,
+  dz1), :func:`block_bwd3` (``dz1=``, pass 2's) → dx; dγ2 = T2, dβ2 = T1,
+  dγ1 = U2, dβ1 = U1. Pass 3 reads the dz1 that pass 2 wrote instead of
+  recomputing the chain from x, as the reference's passes do.
 - :func:`block_train_apply` is differentiable in x, both weights and the
   four BN parameters; the moments it returns get no gradient (the running
   statistics' EMA is stop-gradient).
@@ -46,6 +49,7 @@ float32.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -57,12 +61,14 @@ from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 launches = 0       # kernel launches by block_fwd (CUDA tensors only)
 stats_launches = 0  # block_stats calls (two launches each: sums, their sum)
 bwd1_launches = 0   # block_bwd1 calls (two launches each)
-bwd2_launches = 0   # block_bwd2 calls (two launches each)
-bwd3_launches = 0   # block_bwd3 launches
+bwd2_launches = 0   # block_bwd2 calls (three launches each)
+bwd3_launches = 0   # block_bwd3 calls (one launch each)
 bwd_launches = 0    # block_bwd calls (two launches each)
 
 CHANNELS = (16, 32, 64)  # the kernels' compiled widths
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
+# The tile kernels (csrc/fused_block_tc.cu) hold no whole image: any H, W.
+_TILE_KINDS = ("block_bwd2", "block_bwd3")
 EPS = 1e-5
 _SUM_DIMS = (0, 1, 2)
 
@@ -119,10 +125,11 @@ def block_fwd_reference(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
 
 
 def smem_bytes(h: int, w: int, c: int, kind: str = "block_fwd") -> int:
-    """Shared memory one image takes in a kernel: zero-haloed f32 planes
-    with a pixel stride of C+1 words (two for block_fwd and the backward
-    passes, one for block_stats), block_bwd1 and block_bwd one unpadded
-    plane more, and at least the 32 KB of the channel-sum reduction."""
+    """Shared memory one image takes in an image-per-block kernel:
+    zero-haloed f32 planes with a pixel stride of C+1 words (two for
+    block_fwd, block_bwd1 and block_bwd, one for block_stats), block_bwd1
+    and block_bwd one unpadded plane more, and at least the 32 KB of the
+    channel-sum reduction."""
     plane = (h + 2) * (w + 2) * (c + 1) * 4
     if kind == "block_fwd":
         return 2 * plane
@@ -143,7 +150,7 @@ def _check_x(x, kind: str) -> int:
     if c not in CHANNELS:
         raise ValueError(f"fused block has kernels for C in {CHANNELS}, "
                          f"got {c}")
-    need = smem_bytes(h, w, c, kind)
+    need = 0 if kind in _TILE_KINDS else smem_bytes(h, w, c, kind)
     if need > _SMEM_LIMIT:
         raise ValueError(f"{kind} at {h}x{w}x{c} needs {need} bytes of "
                          f"shared memory, more than {_SMEM_LIMIT}")
@@ -181,6 +188,22 @@ def _launch(kind: str, library: str, symbol: str, x, *tensors) -> None:
              _build.DTYPE_CODES[x.dtype], x.device.index,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, kind)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _pointers(kind, names, tensors):
+    """A ctypes array of the tensors' pointers in the order of ``names``
+    (null for a name not given), each tensor checked contiguous and 16-byte
+    aligned."""
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kind}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+    return (ctypes.c_void_p * len(names))(*(
+        tensors[n].data_ptr() if n in tensors else None for n in names))
 
 
 def _sums_out(x, extra: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -389,33 +412,42 @@ def train_bwd_pass1_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
             _wgrad(r2, f(gyf)))
 
 
-def _dz1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2):
+def _pass2_chain(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2
+                 ) -> dict:
+    """Pass 2's chain recomputed from x (the reference's pass2 body):
+    z1, z1hat, r1, dc1 and dz1 = convT(dc1, w1)·[z1 > 0]."""
     z1, z1hat, r1, z2, z2hat, _ = _recompute(x, w1, g1, b1, g2, b2, m1, i1,
                                              m2, i2)
-    gyf = _fp(gy)
-    dc1 = _dc1(z2, z2hat, gyf, w2, g2, i2, t1, t2, _n(x))
+    dc1 = _dc1(z2, z2hat, _fp(gy), w2, g2, i2, t1, t2, _n(x))
     dz1 = torch.where(z1 > 0, _conv3x3_t(dc1, w1.to(dc1.dtype)), 0.0)
-    return dz1, z1hat, r1, dc1, gyf
+    return {"z1": z1, "z1hat": z1hat, "r1": r1, "dc1": dc1, "dz1": dz1}
 
 
 def train_bwd_pass2_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
                               t1, t2, *, magnitudes: bool = False):
     """Plain version of :func:`block_bwd2`: (U1 = Σdz1, U2 = Σdz1·ẑ1,
-    dw1 = Σ r1-patchᵀ·dc1). ``magnitudes``: each sum of |term| instead."""
+    dw1 = Σ r1-patchᵀ·dc1, dz1 [B,H,W,C] contiguous), dz1 for pass 3.
+    ``magnitudes``: each sum of |term| instead, and for dz1 the sum of
+    |term| of each element, convT(|dc1|, |w1|)·[z1 > 0]."""
     f = _mag(magnitudes)
-    dz1, z1hat, r1, dc1, _ = _dz1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2,
-                                  i2, t1, t2)
-    return (f(dz1).sum(_SUM_DIMS), (f(dz1) * f(z1hat)).sum(_SUM_DIMS),
-            _wgrad(r1, f(dc1)))
+    r = _pass2_chain(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2)
+    dz1 = r["dz1"]
+    if magnitudes:
+        dc1 = r["dc1"].abs()
+        dz1 = torch.where(r["z1"] > 0,
+                          _conv3x3_t(dc1, w1.to(dc1.dtype).abs()), 0.0)
+    return (f(r["dz1"]).sum(_SUM_DIMS),
+            (f(r["dz1"]) * f(r["z1hat"])).sum(_SUM_DIMS),
+            _wgrad(r["r1"], f(r["dc1"])), dz1.contiguous())
 
 
 def train_bwd_pass3_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
-                              t1, t2, u1, u2):
-    """Plain version of :func:`block_bwd3`: dx in x's dtype."""
-    dz1, z1hat, _, _, gyf = _dz1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2,
-                                 i2, t1, t2)
+                              t1, t2, u1, u2, *, dz1):
+    """Plain version of :func:`block_bwd3`: dx in x's dtype from pass 2's
+    dz1, with ẑ1 from x."""
+    z1hat = (_fp(x) - m1) * i1
     n = _n(x)
-    return (gyf + g1 * i1 * (dz1 - u1 / n - z1hat * (u2 / n))).to(x.dtype)
+    return (_fp(gy) + g1 * i1 * (dz1 - u1 / n - z1hat * (u2 / n))).to(x.dtype)
 
 
 _VECS = ("g1", "b1", "g2", "b2", "m1", "i1", "m2", "i2", "t1", "t2", "u1",
@@ -426,6 +458,56 @@ def _check_bwd(kind, x, gy, w1, w2, vecs) -> int:
     c = _check_x(x, kind)
     _check_f32(kind, x, gy=gy, w1=w1, w2=w2, **dict(zip(_VECS, vecs)))
     return c
+
+
+def _check_handoff(kind, name, t, x, channels=None) -> None:
+    """The tensor the pass before hands over: float32 [B,H,W,channels]
+    (x's channels unless given), contiguous, on x's device."""
+    shape = (*x.shape[:3], channels or x.shape[-1])
+    if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape
+            or t.dtype != torch.float32 or t.device != x.device
+            or not t.is_contiguous()):
+        got = (f"{t.dtype} {list(t.shape)} on {t.device}"
+               f"{'' if t.is_contiguous() else ', strided'}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"{kind}: {name} must be float32 {list(shape)}, "
+                         f"contiguous, on {x.device} (the previous pass's "
+                         f"output), got {got}")
+
+
+_TC_PTRS = ("x", "gy", "w1", "w2", *_VECS, "dc1", "dz1", "dx", "part",
+            "out")   # tr_block_tc's order
+_TC_MODES = {"block_bwd2": 2, "block_bwd3": 3}
+_TC_PART_ROWS = 512  # most blocks (rows of partial sums) of pass 2's tiles
+_TC_PIXELS = {16: 256, 32: 128, 64: 64}  # pixels per tile, by C
+
+
+def _tc(kind, x, **tensors) -> None:
+    """One call of ``csrc/fused_block_tc.cu`` on the named tensors."""
+    b, h, w, c = x.shape
+    rows = 0
+    if kind == "block_bwd2":
+        rows = min(_TC_PART_ROWS, -(-b * h * w // _TC_PIXELS[c]))
+        tensors["part"] = torch.empty(rows * (2 * c + 9 * c * c),
+                                      dtype=torch.float32, device=x.device)
+    ptrs = _pointers(kind, _TC_PTRS, {"x": x, **tensors})
+    err = _build.library("fused_block_tc").tr_block_tc(
+        _TC_MODES[kind], ptrs, b, h, w, c, rows, _build.DTYPE_CODES[x.dtype],
+        x.device.index, _stream(x))
+    _build.check(err, kind)
+
+
+def _block_bwd2_kernel(x, gy, w1, w2, vecs, dc1):
+    """Pass 2's three launches on CUDA tensors, dc1 (the first launch's
+    output, read by the second) written into the given [B,H,W,C] float32
+    buffer: ([U1, U2, dw1] flat, dz1). Counts nothing."""
+    c = x.shape[-1]
+    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+                      device=x.device)
+    dz1 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _tc("block_bwd2", x, gy=gy, w1=w1, w2=w2, **dict(zip(_VECS, vecs)),
+        dc1=dc1, dz1=dz1, out=out)
+    return out, dz1
 
 
 def block_bwd1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2):
@@ -447,33 +529,37 @@ def block_bwd1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2):
 
 
 def block_bwd2(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2):
-    """Backward pass 2: (U1, U2 [C], dw1 [3,3,C,C]) float32, given pass
-    1's T1, T2; arguments as :func:`block_bwd1`."""
+    """Backward pass 2: (U1, U2 [C], dw1 [3,3,C,C], dz1 [B,H,W,C]) float32,
+    given pass 1's T1, T2; arguments as :func:`block_bwd1`. dz1 is pass 3's
+    input. On CUDA, three launches of ``csrc/fused_block_tc.cu``: dc1 (c1
+    and the convT of gy on the tensor cores) into a scratch, then dz1 (the
+    convT of dc1), the tile sums and dw1, then the sum of the rows."""
     global bwd2_launches
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2, t1, t2)
     c = _check_bwd("block_bwd2", x, gy, w1, w2, vecs)
     if x.device.type == "cpu":
         return train_bwd_pass2_reference(x, gy, w1, w2, *vecs)
-    part, out = _sums_out(x, 9 * c * c)
-    _launch("block_bwd2", "fused_block_train", "tr_block_bwd2",
-            x, x, gy, w1, w2, *vecs, part,
-            out)
+    out, dz1 = _block_bwd2_kernel(x, gy, w1, w2, vecs,
+                                  torch.empty(x.shape, dtype=torch.float32,
+                                              device=x.device))
     bwd2_launches += 1
-    return out[:c], out[c:2 * c], out[2 * c:].view(3, 3, c, c)
+    return out[:c], out[c:2 * c], out[2 * c:].view(3, 3, c, c), dz1
 
 
 def block_bwd3(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, u1,
-               u2):
-    """Backward pass 3: dx in x's dtype, given T1, T2 and pass 2's U1,
-    U2; arguments as :func:`block_bwd1`."""
+               u2, *, dz1):
+    """Backward pass 3: dx in x's dtype, given T1, T2, pass 2's U1, U2 and
+    ``dz1=``, pass 2's dz1 (required: no path recomputes it); arguments as
+    :func:`block_bwd1`. On CUDA one elementwise launch of
+    ``csrc/fused_block_tc.cu``, no product."""
     global bwd3_launches
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, u1, u2)
     _check_bwd("block_bwd3", x, gy, w1, w2, vecs)
+    _check_handoff("block_bwd3", "dz1", dz1, x)
     if x.device.type == "cpu":
-        return train_bwd_pass3_reference(x, gy, w1, w2, *vecs)
+        return train_bwd_pass3_reference(x, gy, w1, w2, *vecs, dz1=dz1)
     dx = torch.empty_like(x)
-    _launch("block_bwd3", "fused_block_train", "tr_block_bwd3",
-            x, x, gy, w1, w2, *vecs, dx)
+    _tc("block_bwd3", x, gy=gy, **dict(zip(_VECS, vecs)), dz1=dz1, dx=dx)
     bwd3_launches += 1
     return dx
 
@@ -485,8 +571,8 @@ def _train_bwd(passes, x, gy, w1, w2, g1, b1, g2, b2, moments, eps):
     gyf = _fp(gy).contiguous()
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2)
     t1, t2, dw2 = p1(x, gyf, w1, w2, *vecs)
-    u1, u2, dw1 = p2(x, gyf, w1, w2, *vecs, t1, t2)
-    dx = p3(x, gyf, w1, w2, *vecs, t1, t2, u1, u2)
+    u1, u2, dw1, dz1 = p2(x, gyf, w1, w2, *vecs, t1, t2)
+    dx = p3(x, gyf, w1, w2, *vecs, t1, t2, u1, u2, dz1=dz1)
     # dγ2 = T2, dβ2 = T1, dγ1 = U2, dβ1 = U1: the correction sums.
     return dx, dw1, dw2, u2, u1, t2, t1
 

@@ -61,15 +61,14 @@ float32.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tpu_resnet_torch.ops import _build
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
-from tpu_resnet_torch.ops.fused_block import (_conv3x3, _conv3x3_t,
-                                              _finish_moments, _fp, _mag, _n,
-                                              _wgrad)
+from tpu_resnet_torch.ops.fused_block import (_check_handoff, _conv3x3,
+                                              _conv3x3_t, _finish_moments,
+                                              _fp, _mag, _n, _pointers,
+                                              _stream, _wgrad)
 
 launches = 0  # bottleneck_fwd calls on CUDA tensors (two launches each)
 stats_a_launches = 0  # bottleneck_stats_a calls (two launches each)
@@ -360,19 +359,6 @@ def _check_train(kind, x, gy, weights, vecs, ts=()) -> int:
     return f
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _pointers(kind, names, tensors):
-    for name, t in tensors.items():
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{kind}: {name} must be contiguous and 16-byte "
-                             f"aligned")
-    return (ctypes.c_void_p * len(names))(*(
-        tensors[n].data_ptr() if n in tensors else None for n in names))
-
-
 def _rows(kind, x, **tensors):
     """The folded gradient's row-kernel launch (``tr_bottleneck_train``) and
     the sum of its rows: its 12f sums."""
@@ -445,19 +431,6 @@ def _scratch(x):
     b, h, w, c4 = x.shape
     return torch.empty(b, h, w, c4 // 4, dtype=torch.float32,
                        device=x.device)
-
-
-def _check_handoff(kind, name, t, x) -> None:
-    """The tensor the pass before hands over: float32 [B,H,W,f] on x's
-    device."""
-    shape = (*x.shape[:3], x.shape[-1] // 4)
-    if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape
-            or t.dtype != torch.float32 or t.device != x.device):
-        got = (f"{t.dtype} {list(t.shape)} on {t.device}"
-               if isinstance(t, torch.Tensor) else type(t).__name__)
-        raise ValueError(f"{kind}: {name} must be float32 {list(shape)} on "
-                         f"{x.device} (the previous pass's output), got "
-                         f"{got}")
 
 
 _TC_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS,
@@ -584,7 +557,7 @@ def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3):
     if len(ts) != 2:
         raise ValueError(f"{kind}: needs T3a, T3b after the twelve vectors")
     for name, t in (("p2", p2), ("mid", mid), ("dm3", dm3)):
-        _check_handoff(kind, name, t, x)
+        _check_handoff(kind, name, t, x, f)
     if x.device.type == "cpu":
         return train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t, p2=p2,
                                          mid=mid, dm3=dm3)
@@ -610,7 +583,7 @@ def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
     f = _check_train(kind, x, gy, {"w1": w1, "w2": w2, "w3": w3}, vecs, ts)
     if len(ts) != 4:
         raise ValueError(f"{kind}: needs T3a .. T2b after the twelve vectors")
-    _check_handoff(kind, "dmid", dmid, x)
+    _check_handoff(kind, "dmid", dmid, x, f)
     if x.device.type == "cpu":
         return train_bwd_pass3_reference(x, gy, w1, w2, w3, *vecs_t,
                                          dmid=dmid)
@@ -632,10 +605,10 @@ def bottleneck_bwd4(x, gy, w1, w2, w3, *vecs_t, dc1):
     global bwd4_launches
     kind = "bottleneck_bwd4"
     vecs, ts = vecs_t[:12], vecs_t[12:]
-    _check_train(kind, x, gy, {"w1": w1, "w2": w2, "w3": w3}, vecs, ts)
+    f = _check_train(kind, x, gy, {"w1": w1, "w2": w2, "w3": w3}, vecs, ts)
     if len(ts) != 6:
         raise ValueError(f"{kind}: needs T3a .. T1b after the twelve vectors")
-    _check_handoff(kind, "dc1", dc1, x)
+    _check_handoff(kind, "dc1", dc1, x, f)
     if x.device.type == "cpu":
         return train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1=dc1)
     dx = torch.empty_like(x)

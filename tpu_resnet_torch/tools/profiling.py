@@ -17,8 +17,11 @@ from torch.profiler import ProfilerActivity, profile
 
 # The port's kernels on the train paths, by a substring of their names
 # (``train_sum`` is the fixed-order sum launch of the fused block's stats and
-# first two backward passes; the fused bottleneck's training kernels all
-# run on the tensor cores: one for the first moment pass and passes 3 and 4,
+# first backward pass; its second pass is three launches,
+# ``block_bwd2_dc1_kernel``, ``block_bwd2_kernel`` and
+# ``block_bwd2_sum_kernel``, on the tensor cores; the fused bottleneck's
+# training kernels all run on the tensor cores: one for the first moment
+# pass and passes 3 and 4,
 # two for each of the forward, the second moment pass and passes 1 and 2:
 # ``bottleneck_fwd_p2_kernel`` and ``bottleneck_fwd_kernel``,
 # ``bottleneck_stats_b_p2_kernel`` and ``bottleneck_stats_b_kernel``,
@@ -32,7 +35,7 @@ TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "block_fwd": "block_fwd_kernel",
                  "block_stats": "block_stats_kernel",
                  "block_bwd1": "block_bwd1_kernel",
-                 "block_bwd2": "block_bwd2_kernel",
+                 "block_bwd2": "block_bwd2_",
                  "block_bwd3": "block_bwd3_kernel",
                  "train_sum": "train_sum_kernel",
                  "bottleneck_fwd": "bottleneck_fwd_",
