@@ -26,13 +26,15 @@ Phases, each printing one JSON line:
    kernels (``block_stats``, ``block_bwd1``, ``block_bwd2``,
    ``block_bwd3``) at the three B=128 stage shapes, on inputs from a coarse
    dyadic grid (so conv1's output and the masks are exact in both): every
-   sum within 1e-5·Σ|terms| + 1e-6 per element, pass 2's dz1 and pass 3's
-   dx within ``block_fwd``'s tolerance, two calls bit for bit equal
-   (``block_bwd3`` fed the plain pass 2's dz1); beside each ``block_bwd2``
-   row the elements where its mask [z2 > 0] differs from the plain pass's,
-   on the grid and on seeded normal inputs with the batch's own BN moments
-   (``z2_mask_flips``: pass 2 computes c1 on the tensor cores, pass 1 and
-   the plain pass elsewhere). The same for the fused
+   sum within 1e-5·Σ|terms| + 1e-6 per element, pass 1's dz2 and ẑ2
+   within ``block_fwd``'s float32 tolerance, pass 2's dz1 and pass 3's dx
+   within ``block_fwd``'s tolerance, two calls bit for bit equal
+   (``block_bwd2`` fed the plain pass 1's dz2 and ẑ2, ``block_bwd3`` the
+   plain pass 2's dz1); beside each ``block_bwd1`` row the elements where
+   its mask [z2 > 0] differs from the plain pass's, read from its dz2, on
+   the grid and on seeded normal inputs with the batch's own BN moments
+   (``z2_mask_flips``: pass 1 computes c1 on the tensor cores, the plain
+   pass in cuDNN's or PyTorch's own order). The same for the fused
    bottleneck's training kernels (``bottleneck_stats_a``,
    ``bottleneck_stats_b``, ``bottleneck_bwd1`` .. ``bottleneck_bwd4``) at
    the three ImageNet ResNet-50 stage shapes with B=128, dx within
@@ -51,7 +53,8 @@ Phases, each printing one JSON line:
    made beforehand (``torch.matmul(a.t(), b)``, or
    ``torch.nn.grad.conv2d_weight`` for dw2; TF32 off). The kernels on the
    tensor cores (``bottleneck_fwd``, the two moment passes, the four
-   passes, ``bottleneck_wgrad`` and ``block_bwd2``) also carry
+   passes, ``bottleneck_wgrad``, ``block_fwd``, ``block_bwd1`` and
+   ``block_bwd2``) also carry
    ``tc_bound_ms``, their
    operations at the TF32 tensor cores' rate over the three terms of the
    split. ``sbr``, ``sbr_bwd``, ``bottleneck_fwd`` and the cross-entropy
@@ -263,9 +266,10 @@ PER_PASS["cifar10_train"].update(
     sbr_bwd=sum(n for _, n in TRAIN_SBR), xent_fwd=1, xent_bwd=1)
 # The fused train step keeps 7 unfused BN+ReLU sites (two per block0, the
 # final one), as the CIFAR serve forward does. The counters count wrapper
-# calls: on the card block_stats, block_bwd1 and block_bwd are two launches
-# each, block_bwd2 three (dc1, dz1 and the sums, their sum) and block_bwd3
-# one.
+# calls: on the card block_fwd (r2, then conv2 and the residual),
+# block_stats, block_bwd1 (the tile pass, the sum of its rows) and block_bwd
+# are two launches each, block_bwd2 three (dc1, dz1 and the sums, their sum)
+# and block_bwd3 one.
 PER_PASS["cifar10_fused_train"].update(
     sbr=7, sbr_bwd=7, xent_fwd=1, xent_bwd=1,
     **{k: PER_PASS["cifar10_fused_train"]["block_fwd"] for k in BLOCK_TRAIN})
@@ -412,19 +416,22 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         moved = 3 * n * item + 4 * c * 4
         ops = 8 * n   # mul, add, compare; mul (dx); mul, add (ds); add (db)
     elif kind == "block_fwd":
-        moved = 2 * n * item + 2 * 9 * c * c * 4 + 4 * c * 4
+        # x in, y out, the weights and folds in, and r2 ([B,H,W,C] float32,
+        # 4n bytes) written by the first launch and read by the second.
+        moved = 2 * n * item + 2 * 4 * n + 2 * 9 * c * c * 4 + 4 * c * 4
         ops = 2 * (2 * b * h * w * 9 * c * c) + 6 * n
     elif kind in BLOCK_TRAIN:
         # x in, weights and BN vectors in, the sums out; then the float32
-        # tensors (n bytes is one float a pixel-channel): gy in (the
-        # passes), pass 2's dc1 written and read between its launches and
-        # its dz1 out, pass 3's dz1 in; pass 3's dx out. Operations: the
-        # 3x3 products (one for the stats, three for pass 1, four for pass
-        # 2: c1, the convT of gy and of dc1, dw1), 2*B*H*W*9*C*C flops
-        # each; pass 3 runs none (dx from dz1: bytes).
+        # tensors (4n bytes is one float a pixel-channel): pass 1's gy in,
+        # its dz2 and ẑ2 out; pass 2's dz2 and ẑ2 in, its dc1 written and
+        # read between its launches and its dz1 out; pass 3's gy and dz1
+        # in; pass 3's dx out. Operations: the 3x3 products (one for the
+        # stats, three for pass 1: c1, the convT of gy, dw2; two for pass 2:
+        # the convT of dc1, dw1), 2*B*H*W*9*C*C flops each; pass 3 runs
+        # none (dx from dz1: bytes).
         products, vecs, weights, moved_f32 = {
-            "block_stats": (1, 2, 1, 0), "block_bwd1": (3, 8, 2, 4 * n),
-            "block_bwd2": (4, 10, 2, 4 * n + 3 * 4 * n),
+            "block_stats": (1, 2, 1, 0), "block_bwd1": (3, 8, 2, 3 * 4 * n),
+            "block_bwd2": (2, 8, 1, 5 * 4 * n),
             "block_bwd3": (0, 5, 0, 2 * 4 * n)}[kind]
         sums = {"block_stats": 2 * c, "block_bwd1": 2 * c + 9 * c * c,
                 "block_bwd2": 2 * c + 9 * c * c, "block_bwd3": 0}[kind]
@@ -490,7 +497,8 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
 TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_a",
                        "bottleneck_stats_b", "bottleneck_bwd1",
                        "bottleneck_bwd2", "bottleneck_bwd3",
-                       "bottleneck_bwd4", "bottleneck_wgrad", "block_bwd2")
+                       "bottleneck_bwd4", "bottleneck_wgrad", "block_fwd",
+                       "block_bwd1", "block_bwd2")
 # What a row's time takes in besides its own pass: the weight-gradient
 # products that the wrapper launches (bottleneck_wgrad's row has them
 # alone).
@@ -721,43 +729,35 @@ def block_train_normal_args(fb, shape, dtype, gen) -> dict:
             "i2": torch.rsqrt(v2 + fb.EPS)}
 
 
-def z2_mask_flips(fb, a) -> int:
-    """Elements where ``block_bwd2``'s mask [z2 > 0] differs from the plain
-    pass's, on the inputs ``a`` with the plain pass 1's sums. The kernel's
-    mask is read from its dc1 (the first launch's output, through
-    ``fb._block_bwd2_kernel``, not counted): dc1 = g2·i2·(dz2 − T1/n −
-    ẑ2·T2/n) with dz2 = dr2 or 0, so the kernel's dc1 lies nearer one of
-    the two candidates; counted where they differ by more than 1e-4 of
-    their size (elsewhere a flip moves nothing the tolerance sees)."""
+def z2_mask_flips(fb, a, dz2) -> int:
+    """Elements where ``block_bwd1``'s mask [z2 > 0] differs from the plain
+    pass's, on the inputs ``a``, read from the kernel's dz2 (``dz2``, dr2
+    where its mask is on, 0 where off): the kernel's dz2 lies nearer one of
+    the two candidates; counted where dr2 is more than 1e-6 (elsewhere a
+    flip moves nothing the tolerance sees)."""
     x, gy, w1, w2 = a["x"], a["gy"], a["w1"], a["w2"]
     vecs = tuple(a[k] for k in ("g1", "b1", "g2", "b2", "m1", "i1", "m2",
                                 "i2"))
-    g2, i2 = a["g2"], a["i2"]
     with torch.backends.cudnn.flags(enabled=False):
-        t = fb.train_bwd_pass1_reference(x, gy, w1, w2, *vecs)[:2]
-        z2 = fb._recompute(x, w1, *vecs[:4], *vecs[4:])[3]
-        dc1_plain = fb._pass2_chain(x, gy, w1, w2, *vecs, *t)["dc1"]
+        z2 = fb._recompute(x, w1, *vecs)[3]
         dr2 = fb._conv3x3_t(gy, w2)
-    dc1 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    fb._block_bwd2_kernel(x, gy, w1, w2, (*vecs, *t), dc1)
-    jump = g2 * i2 * dr2    # dc1 with the mask on, less dc1 with it off
-    on = torch.where(z2 > 0, dc1_plain, dc1_plain + jump)
-    off = on - jump
-    kernel_on = (dc1 - on).abs() < (dc1 - off).abs()
-    decidable = jump.abs() > 1e-4 * (on.abs() + off.abs()) + 1e-6
+    kernel_on = (dz2 - dr2).abs() < dz2.abs()
+    decidable = dr2.abs() > 1e-6
     return int(((kernel_on != (z2 > 0)) & decidable).sum())
 
 
 def block_train_kernel_phase(fb):
     """The fused block's four training kernels against their plain versions
     at the three CIFAR train shapes, bfloat16 and float32: every sum within
-    1e-5 * sum|terms| + 1e-6, pass 2's dz1 and pass 3's dx within
-    ``block_fwd``'s tolerance, two calls bit for bit equal; pass 3 takes the
-    plain pass 2's dz1, so each kernel is checked on its own. The oracle's
-    convolutions run with cuDNN off (PyTorch's own im2col and cuBLAS GEMM),
-    which keep the exact grid of :func:`block_train_args` exact. Each
-    ``block_bwd2`` row carries its mask flips (:func:`z2_mask_flips`) on the
-    grid and on normal inputs (:func:`block_train_normal_args`)."""
+    1e-5 * sum|terms| + 1e-6, pass 1's dz2 and ẑ2 within ``block_fwd``'s
+    float32 tolerance, pass 2's dz1 and pass 3's dx within ``block_fwd``'s
+    tolerance, two calls bit for bit equal; pass 2 takes the plain pass 1's
+    dz2 and ẑ2 and pass 3 the plain pass 2's dz1, so each kernel is checked
+    on its own. The oracle's convolutions run with cuDNN off (PyTorch's own
+    im2col and cuBLAS GEMM), which keep the exact grid of
+    :func:`block_train_args` exact. Each ``block_bwd1`` row carries its mask
+    flips (:func:`z2_mask_flips`) on the grid and on normal inputs
+    (:func:`block_train_normal_args`)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for shape, per_step in SHAPES["cifar10_fused_train"]["block_fwd"]:
@@ -767,15 +767,17 @@ def block_train_kernel_phase(fb):
             vecs = tuple(a[k] for k in ("g1", "b1", "g2", "b2", "m1", "i1",
                                         "m2", "i2"))
             with torch.backends.cudnn.flags(enabled=False):
-                t = fb.train_bwd_pass1_reference(x, gy, w1, w2, *vecs)[:2]
+                *t, _, dz2, z2hat = fb.train_bwd_pass1_reference(
+                    x, gy, w1, w2, *vecs)
+                h1 = {"dz2": dz2, "z2hat": z2hat}
                 *u, _, dz1 = fb.train_bwd_pass2_reference(x, gy, w1, w2,
-                                                          *vecs, *t)
+                                                          *vecs, *t, **h1)
             calls = {
                 "block_stats": ((x, w1, a["g1"], a["b1"]), {},
                                 fb.block_stats, fb.block_stats_reference),
                 "block_bwd1": ((x, gy, w1, w2, *vecs), {}, fb.block_bwd1,
                                fb.train_bwd_pass1_reference),
-                "block_bwd2": ((x, gy, w1, w2, *vecs, *t), {},
+                "block_bwd2": ((x, gy, w1, w2, *vecs, *t), h1,
                                fb.block_bwd2, fb.train_bwd_pass2_reference),
                 "block_bwd3": ((x, gy, w1, w2, *vecs, *t, *u), {"dz1": dz1},
                                fb.block_bwd3, fb.train_bwd_pass3_reference)}
@@ -783,7 +785,7 @@ def block_train_kernel_phase(fb):
                 got, again = kernel(*args, **kw), kernel(*args, **kw)
                 with torch.backends.cudnn.flags(enabled=False):
                     want = plain(*args, **kw)
-                    scale = (plain(*args, magnitudes=True)
+                    scale = (plain(*args, **kw, magnitudes=True)
                              if kind != "block_bwd3" else None)
                 torch.cuda.synchronize()
                 name = f"{kind} {shape} {dtype}"
@@ -806,18 +808,25 @@ def block_train_kernel_phase(fb):
                 else:
                     excess = _sum_excess(got[:3], want[:3], scale[:3])
                     row["tolerance"] = "sums <= 1e-5*sum|terms| + 1e-6"
-                if kind == "block_bwd2":
-                    check(got[3].dtype == torch.float32
-                          and got[3].shape == x.shape,
-                          f"{name}: dz1 is {got[3].dtype} {got[3].shape}")
-                    row["dz1_err_over_limit"] = _fwd_excess(got[3], want[3],
-                                                            dtype)
-                    excess = max(excess, row["dz1_err_over_limit"])
+                for i, out in {"block_bwd1": ((3, "dz2"), (4, "z2hat")),
+                               "block_bwd2": ((3, "dz1"),)}.get(kind, ()):
+                    check(got[i].dtype == torch.float32
+                          and got[i].shape == x.shape,
+                          f"{name}: {out} is {got[i].dtype} {got[i].shape}")
+                    # dz2 and ẑ2 are float32 whatever x's dtype and exact
+                    # on the grid; dz1 is held to x's dtype's tolerance.
+                    row[f"{out}_err_over_limit"] = _fwd_excess(
+                        got[i], want[i],
+                        torch.float32 if kind == "block_bwd1" else dtype)
+                    excess = max(excess, row[f"{out}_err_over_limit"])
+                if kind == "block_bwd1":
+                    normal = block_train_normal_args(fb, shape, dtype, gen)
+                    normal_dz2 = fb.block_bwd1(*(normal[k] for k in (
+                        "x", "gy", "w1", "w2", "g1", "b1", "g2", "b2", "m1",
+                        "i1", "m2", "i2")))[3]
                     row["z2_mask_flips"] = {
-                        "grid": z2_mask_flips(fb, a),
-                        "normal": z2_mask_flips(
-                            fb, block_train_normal_args(fb, shape, dtype,
-                                                        gen)),
+                        "grid": z2_mask_flips(fb, a, got[3]),
+                        "normal": z2_mask_flips(fb, normal, normal_dz2),
                         "elements": x.numel()}
                 row["err_over_limit"] = excess
                 check(excess <= 1, f"{name}: beyond tolerance: {row}")
@@ -2051,7 +2060,7 @@ def jpeg_libs() -> dict:
 KERNEL_SOURCES = (
     ("sbr", "tpu_resnet_torch/csrc/epilogue.cu",
      "tpu_resnet/ops/epilogue.py:110"),
-    ("block_fwd", "tpu_resnet_torch/csrc/fused_block.cu",
+    ("block_fwd", "tpu_resnet_torch/csrc/fused_block_tc.cu",
      "tpu_resnet/ops/fused_block.py:87"),
     ("bottleneck_fwd", "tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
      "tpu_resnet/ops/fused_bottleneck.py:154"),
@@ -2063,7 +2072,7 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/softmax_xent.py:88"),
     ("block_stats", "tpu_resnet_torch/csrc/fused_block_train.cu",
      "tpu_resnet/ops/fused_block.py:509"),
-    ("block_bwd1", "tpu_resnet_torch/csrc/fused_block_train.cu",
+    ("block_bwd1", "tpu_resnet_torch/csrc/fused_block_tc.cu",
      "tpu_resnet/ops/fused_block.py:381"),
     ("block_bwd2", "tpu_resnet_torch/csrc/fused_block_tc.cu",
      "tpu_resnet/ops/fused_block.py:409"),

@@ -1,12 +1,13 @@
-"""The fused basic block's backward pass 2 hands its dz1 to pass 3 instead
-of pass 3 recomputing the chain from x, as the reference's
-``_train_bwd_calls`` does. On the CPU, at C = 16 and 32 and on a ragged
-plane: the plain passes with the handoff against the recompute-from-x chain
-bit for bit, the wrappers against the reference's passes (Pallas in
-interpret mode, batch tile 2) and the port's backward against ``jax.vjp``
-of the reference's custom-VJP block, and the wrappers' refusals of a
-missing or malformed dz1. The CUDA kernels are held against the same plain
-passes on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+"""The fused basic block's backward passes hand their results on instead of
+recomputing the chain from x, as the reference's ``_train_bwd_calls`` does:
+pass 1 hands dz2 and ẑ2 to pass 2, pass 2 hands dz1 to pass 3. On the CPU,
+at C = 16 and 32 and on a ragged plane: the plain passes with the handoffs
+against the recompute-from-x chain bit for bit, the wrappers against the
+reference's passes (Pallas in interpret mode, batch tile 2) and the port's
+backward against ``jax.vjp`` of the reference's custom-VJP block, and the
+wrappers' refusals of a missing or malformed handoff. The CUDA kernels are
+held against the same plain passes on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -41,23 +42,36 @@ def _inputs(shape, seed):
 
 def _base(shape, seed):
     """x, gy, the weights and the eight BN vectors (moments from the port's
-    training forward), and pass 1's sums."""
+    training forward), pass 1's sums and its handoff {dz2, z2hat}."""
     x, gy, w1, w2, g1, b1, g2, b2 = map(torch.from_numpy,
                                         _inputs(shape, seed))
     _, (m1, v1, m2, v2) = fb.block_train_fwd(x, w1, w2, g1, b1, g2, b2)
     i1, i2 = torch.rsqrt(v1 + EPS), torch.rsqrt(v2 + EPS)
     base = (x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2)
-    return base, fb.train_bwd_pass1_reference(*base)[:2]
+    t1, t2, _, dz2, z2hat = fb.train_bwd_pass1_reference(*base)
+    return base, (t1, t2), {"dz2": dz2, "z2hat": z2hat}
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 def test_handed_over_passes_equal_the_recompute_chain(shape):
-    """Pass 2's dz1, and pass 3 from it, give bit for bit what the chain
-    recomputed from x gives for every output of both passes."""
-    base, t = _base(shape, seed=shape[-1] + 3)
+    """Pass 1's dz2 and ẑ2, pass 2 from them, its dz1 and pass 3 from it
+    give bit for bit what the chain recomputed from x gives for every
+    output of the three passes."""
+    base, t, h1 = _base(shape, seed=shape[-1] + 3)
     x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2 = base
+    _, _, _, z2, z2hat, r2 = fb._recompute(x, w1, g1, b1, g2, b2, m1, i1,
+                                           m2, i2)
+    dz2 = fb._dz2(z2, gy, w2)
+    want = (dz2.sum(SUM), (dz2 * z2hat).sum(SUM), fb._wgrad(r2, gy), dz2,
+            z2hat)
+    got = fb.train_bwd_pass1_reference(*base)
+    for name, g, w in zip(("t1", "t2", "dw2", "dz2", "z2hat"), got, want):
+        assert torch.equal(g, w), name
+    for name in ("dz2", "z2hat"):
+        assert h1[name].is_contiguous() and h1[name].dtype == torch.float32
+
     r = fb._pass2_chain(*base, *t)
-    u1, u2, dw1, dz1 = fb.train_bwd_pass2_reference(*base, *t)
+    u1, u2, dw1, dz1 = fb.train_bwd_pass2_reference(*base, *t, **h1)
     want = (r["dz1"].sum(SUM), (r["dz1"] * r["z1hat"]).sum(SUM),
             fb._wgrad(r["r1"], r["dc1"]), r["dz1"])
     for name, got, w in zip(("u1", "u2", "dw1", "dz1"),
@@ -75,9 +89,10 @@ def test_handed_over_passes_equal_the_recompute_chain(shape):
 def test_handed_over_dz1_magnitudes_bound_it(shape):
     """The scale the card's tolerance may hold dz1 to: Σ|terms| of each
     element, never below the element itself, zero where [z1 > 0] is."""
-    base, t = _base(shape, seed=shape[-1] + 4)
-    dz1 = fb.train_bwd_pass2_reference(*base, *t)[3]
-    scale = fb.train_bwd_pass2_reference(*base, *t, magnitudes=True)[3]
+    base, t, h1 = _base(shape, seed=shape[-1] + 4)
+    dz1 = fb.train_bwd_pass2_reference(*base, *t, **h1)[3]
+    scale = fb.train_bwd_pass2_reference(*base, *t, **h1,
+                                         magnitudes=True)[3]
     assert scale.shape == dz1.shape and scale.is_contiguous()
     assert bool((scale * (1 + 1e-6) >= dz1.abs()).all())
     assert float(scale.max()) > 0
@@ -106,7 +121,7 @@ def _t(a):
 
 
 def test_handed_over_wrappers_match_reference_passes(reference):
-    """The wrappers chained through the handoff (the plain versions on the
+    """The wrappers chained through the handoffs (the plain versions on the
     CPU), later passes on the reference's sums, against
     ``_train_bwd_calls``' passes."""
     x, gy, params, moments, ref = reference
@@ -115,8 +130,8 @@ def test_handed_over_wrappers_match_reference_passes(reference):
     i1, i2 = torch.rsqrt(v1 + EPS), torch.rsqrt(v2 + EPS)
     base = (_t(x), _t(gy), w1, w2, g1, b1, g2, b2, m1, i1, m2, i2)
     t = (_t(ref["t1"]), _t(ref["t2"]))
-    t1, t2, dw2 = fb.block_bwd1(*base)
-    u1, u2, dw1, dz1 = fb.block_bwd2(*base, *t)
+    t1, t2, dw2, dz2, z2hat = fb.block_bwd1(*base)
+    u1, u2, dw1, dz1 = fb.block_bwd2(*base, *t, dz2=dz2, z2hat=z2hat)
     dx = fb.block_bwd3(*base, *t, _t(ref["u1"]), _t(ref["u2"]), dz1=dz1)
     for name, got in (("t1", t1), ("t2", t2), ("dw2", dw2), ("u1", u1),
                       ("u2", u2), ("dw1", dw1), ("dx", dx)):
@@ -124,7 +139,8 @@ def test_handed_over_wrappers_match_reference_passes(reference):
 
 
 def test_train_bwd_matches_jax_vjp(reference):
-    """``block_train_bwd`` (three passes, dz1 handed from 2 to 3) on the
+    """``block_train_bwd`` (three passes, dz2 and ẑ2 handed from 1 to 2,
+    dz1 from 2 to 3) on the
     port's own moments against ``jax.vjp`` of the reference's
     ``block_train_apply``: all seven gradients, the moments' cotangent
     dropped."""
@@ -146,8 +162,8 @@ def test_train_bwd_matches_jax_vjp(reference):
 def test_block_bwd3_refuses_a_missing_or_malformed_dz1(what):
     """No path recomputes dz1: without it, or with one of the wrong shape,
     type, device or layout, ``block_bwd3`` raises."""
-    base, t = _base((2, 6, 6, 16), seed=9)
-    u1, u2, _, dz1 = fb.train_bwd_pass2_reference(*base, *t)
+    base, t, h1 = _base((2, 6, 6, 16), seed=9)
+    u1, u2, _, dz1 = fb.train_bwd_pass2_reference(*base, *t, **h1)
     args = (*base, *t, u1, u2)
     fb.block_bwd3(*args, dz1=dz1)   # the well-formed handoff passes
     if what == "missing":
@@ -159,3 +175,24 @@ def test_block_bwd3_refuses_a_missing_or_malformed_dz1(what):
            "strided": dz1.transpose(1, 2)}[what]
     with pytest.raises(ValueError, match="dz1 must be float32"):
         fb.block_bwd3(*args, dz1=bad)
+
+
+@pytest.mark.parametrize("what", ["missing", "shape", "dtype", "device",
+                                  "strided"])
+@pytest.mark.parametrize("name", ["dz2", "z2hat"])
+def test_block_bwd2_refuses_a_missing_or_malformed_handoff(name, what):
+    """No path recomputes dz2 or ẑ2: without either, or with one of the
+    wrong shape, type, device or layout, ``block_bwd2`` raises."""
+    base, t, h1 = _base((2, 6, 6, 16), seed=10)
+    fb.block_bwd2(*base, *t, **h1)   # the well-formed handoff passes
+    good = h1[name]
+    if what == "missing":
+        del h1[name]
+        with pytest.raises(TypeError, match=name):
+            fb.block_bwd2(*base, *t, **h1)
+        return
+    h1[name] = {"shape": good[..., :8], "dtype": good.double(),
+                "device": torch.empty(good.shape, device="meta"),
+                "strided": good.transpose(1, 2)}[what]
+    with pytest.raises(ValueError, match=f"{name} must be float32"):
+        fb.block_bwd2(*base, *t, **h1)

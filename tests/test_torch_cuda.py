@@ -41,9 +41,17 @@ def _inputs(shape, dtype, gen):
     return x, w, sb
 
 
+# The three CIFAR stages at B = 1 and 16 (the serve buckets: the small tile
+# plan) and 128 (the train step: the tile plan), odd batches, and a ragged
+# plane whose tiles span images.
+_FWD_SHAPES = ([(b, hw, hw, c) for b in (1, 16, 128)
+                for hw, c in ((32, 16), (16, 32), (8, 64))]
+               + [(3, 32, 32, 16), (5, 16, 16, 32), (2, 8, 8, 64),
+                  (1, 7, 5, 16), (16, 7, 5, 16)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 32, 32, 16), (5, 16, 16, 32),
-                                   (2, 8, 8, 64), (1, 7, 5, 16)])
+@pytest.mark.parametrize("shape", _FWD_SHAPES)
 def test_block_fwd_kernel_matches_plain(cuda, shape, dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
     x, (w1, w2), (s1, b1, s2, b2) = _inputs(shape, dtype, gen)
@@ -265,30 +273,40 @@ def _sums_close(got, want, scale):
                                    (5, 8, 8, 64), (2, 7, 5, 16)])
 def test_block_train_kernels_match_plain(cuda, shape, dtype):
     """block_stats and the three backward passes at the three widths, a
-    single image, odd batches and a ragged plane (where pass 2's tiles of
-    pixels span images); each called twice. Pass 2's dz1 against the plain
-    dz1, pass 3 from the plain dz1 and from the kernel's own."""
+    single image, odd batches and a ragged plane (where the passes' tiles of
+    pixels span images); each called twice. Pass 1's dz2 and ẑ2 against the
+    plain pass 1's, pass 2 from the plain pass 1's dz2 and ẑ2, its dz1
+    against the plain dz1, pass 3 from the plain dz1 and from the kernel's
+    own."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
     with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
-        t = fb.train_bwd_pass1_reference(x, gy, w1, w2, *vecs)[:2]
-        *u, _, dz1 = fb.train_bwd_pass2_reference(x, gy, w1, w2, *vecs, *t)
-    cases = (("stats_launches", (x, w1, vecs[0], vecs[1]), fb.block_stats,
-              fb.block_stats_reference),
-             ("bwd1_launches", (x, gy, w1, w2, *vecs), fb.block_bwd1,
+        *t, _, dz2, z2hat = fb.train_bwd_pass1_reference(x, gy, w1, w2,
+                                                         *vecs)
+        handoff = {"dz2": dz2, "z2hat": z2hat}
+        *u, _, dz1 = fb.train_bwd_pass2_reference(x, gy, w1, w2, *vecs, *t,
+                                                  **handoff)
+    cases = (("stats_launches", (x, w1, vecs[0], vecs[1]), {},
+              fb.block_stats, fb.block_stats_reference),
+             ("bwd1_launches", (x, gy, w1, w2, *vecs), {}, fb.block_bwd1,
               fb.train_bwd_pass1_reference),
-             ("bwd2_launches", (x, gy, w1, w2, *vecs, *t), fb.block_bwd2,
-              fb.train_bwd_pass2_reference))
-    for counter, args, kernel, plain in cases:
+             ("bwd2_launches", (x, gy, w1, w2, *vecs, *t), handoff,
+              fb.block_bwd2, fb.train_bwd_pass2_reference))
+    for counter, args, kw, kernel, plain in cases:
         before = getattr(fb, counter)
-        got, again = kernel(*args), kernel(*args)
+        got, again = kernel(*args, **kw), kernel(*args, **kw)
         with torch.backends.cudnn.flags(enabled=False):
-            want = plain(*args)
-            scale = plain(*args, magnitudes=True)
+            want = plain(*args, **kw)
+            scale = plain(*args, **kw, magnitudes=True)
         torch.cuda.synchronize()
         assert getattr(fb, counter) == before + 2
         _sums_close(got[:3], want[:3], scale[:3])
         assert all(torch.equal(p, q) for p, q in zip(got, again))
+        if counter == "bwd1_launches":
+            # block_fwd's float32 tolerance: dz2 and ẑ2 are float32.
+            for g, w in zip(got[3:], want[3:]):
+                assert g.dtype == torch.float32 and g.shape == x.shape
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
     own_dz1 = got[3]
     # block_fwd's float32 tolerance: dz1 is float32 whatever x's dtype.
     assert own_dz1.dtype == torch.float32 and own_dz1.shape == x.shape
@@ -321,7 +339,12 @@ def test_block_train_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="w2 must be float32"):
         fb.block_bwd1(x, gy, w1, w2[:, :, :8], *vecs)
     with pytest.raises(ValueError, match="t1 must be float32"):
-        fb.block_bwd2(x, gy, w1, w2, *vecs, vecs[0][:8], vecs[0])
+        fb.block_bwd2(x, gy, w1, w2, *vecs, vecs[0][:8], vecs[0], dz2=gy,
+                      z2hat=gy)
+    for name in ("dz2", "z2hat"):
+        with pytest.raises(ValueError, match=f"{name} must be float32"):
+            fb.block_bwd2(x, gy, w1, w2, *vecs, *vecs[:2],
+                          **{"dz2": gy, "z2hat": gy, name: gy[..., :8]})
     with pytest.raises(ValueError, match="gy must be float32"):
         fb.block_bwd3(x, gy.to(torch.bfloat16), w1, w2, *vecs, *vecs[:4],
                       dz1=gy)

@@ -98,9 +98,9 @@ def _jax_passes(c, seed):
 
 @pytest.mark.parametrize("c", [16, 32])
 def test_train_bwd_passes_match_reference(c):
-    """Each pass on the reference's inputs (pass 2 on its T, pass 3 on its
-    T and U and on pass 2's dz1) against the matching output of
-    ``_train_bwd_calls``."""
+    """Each pass on the reference's inputs (pass 2 on its T and on pass 1's
+    dz2 and ẑ2, pass 3 on its T and U and on pass 2's dz1) against the
+    matching output of ``_train_bwd_calls``."""
     x, gy, params, moments, ref = _jax_passes(c, seed=c + 1)
     t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
     m1, v1, m2, v2 = map(t, moments)
@@ -108,11 +108,11 @@ def test_train_bwd_passes_match_reference(c):
     g1, b1, g2, b2 = map(t, params[2:])
     args = (t(x), t(gy), t(params[0]), t(params[1]), g1, b1, g2, b2, m1, i1,
             m2, i2)
-    t1, t2, dw2 = fb.block_bwd1(*args)
+    t1, t2, dw2, dz2, z2hat = fb.block_bwd1(*args)
     for name, got in (("t1", t1), ("t2", t2), ("dw2", dw2)):
         _close(got, ref[name], f"pass 1 {name}")
     ref_t = (t(ref["t1"]), t(ref["t2"]))
-    u1, u2, dw1, dz1 = fb.block_bwd2(*args, *ref_t)
+    u1, u2, dw1, dz1 = fb.block_bwd2(*args, *ref_t, dz2=dz2, z2hat=z2hat)
     for name, got in (("u1", u1), ("u2", u2), ("dw1", dw1)):
         _close(got, ref[name], f"pass 2 {name}")
     assert dz1.shape == args[0].shape and dz1.dtype == torch.float32

@@ -126,7 +126,13 @@ def test_block_fwd_rejects(bad):
     if bad == "channels":
         a = _torch(_block_inputs((1, 4, 4, 24)))
     elif bad == "smem":
+        # block_fwd runs on tiles of pixels and takes any plane; block_stats
+        # still holds an image a block and refuses one beyond shared memory.
         a = _torch(_block_inputs((1, 64, 64, 16)))
+        assert fb.block_fwd(*a).shape == (1, 64, 64, 16)
+        with pytest.raises(ValueError, match="shared memory"):
+            fb.block_stats(a[0], a[1], a[3], a[4])
+        return
     elif bad == "weight_shape":
         a[1] = a[1][:, :, :8]
     else:

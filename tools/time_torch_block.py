@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Device time of the fused basic block's training kernels, one call at a
-time, at the CIFAR ResNet-50's three fused stage shapes, B=128, bfloat16 x,
-on one CUDA card: ``block_fwd`` (live moments folded), ``block_stats`` and
-the three backward passes, with the plain versions of passes 2 and 3.
+"""Device time of the fused basic block's kernels, one call at a time, at
+the CIFAR ResNet-50's three fused stage shapes, bfloat16 x, on one CUDA
+card: at B=128 (the fused train step) ``block_fwd`` (live moments folded),
+``block_stats`` and the three backward passes, and at B=16 (the serve
+bucket) ``block_fwd``; each beside its plain version.
 
     python3 tools/time_torch_block.py [--root DIR] [--tag NAME]
 
 Each call is queued behind a device spin, so the CUDA events time the card
-alone (median of 10 runs of 5 calls). Pass 2's sums are held against
-1e-5·Σ|terms| + 1e-6 and pass 3's dx against ``block_fwd``'s bfloat16
-tolerance (``err_over_limit`` ≤ 1 passes); inputs are seeded normals with
-the batch's own BN moments. ``per_step_ms`` sums the launches of one fused
-train step (7 blocks a stage). The package timed is the one under
-``--root`` (default: this checkout), so two checkouts, say a parent commit
-unpacked into an ignored directory, run as separate processes in one run
-on one card: parent, change, change, parent. A parent whose pass 3 takes
-no ``dz1`` recomputes it. Prints one JSON line.
+alone (median of 10 runs of 5 calls; the plain versions 5 runs of 2).
+Checked against the plain versions (``err_over_limit`` ≤ 1 passes):
+``block_fwd`` and pass 3's dx within ``block_fwd``'s bfloat16 tolerance
+(1e-2 abs and rel), the sums of passes 1 and 2 within 1e-5·Σ|terms| +
+1e-6, pass 1's handed-over dz2 and ẑ2 within ``block_fwd``'s float32
+tolerance (1e-4); inputs are seeded normals with the batch's own BN
+moments. Pass 2 and its plain version take the kernel's own pass 1
+handoff, pass 3 its own pass 2's dz1. ``per_step_ms`` sums the calls of one
+fused train step (7 blocks a stage), ``per_forward_ms`` those of one B=16
+serve forward. The package timed is the one under ``--root`` (default:
+this checkout), so two checkouts, say a parent commit unpacked into an
+ignored directory, run as separate processes in one run on one card:
+parent, change, change, parent. A parent whose pass 3 takes no ``dz1``, or
+whose pass 2 takes no ``dz2`` and ``z2hat``, recomputes them. Prints one
+JSON line.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import sys
 
 STAGES = ((32, 16), (16, 32), (8, 64))   # (spatial, C); 7 blocks each
 PER_STAGE = 7
+TRAIN_BATCH, SERVE_BATCH = 128, 16
 
 
 def main() -> int:
@@ -51,6 +59,7 @@ def main() -> int:
                            f"{root}")
     resolve_device("cuda")
     handoff = "dz1" in inspect.signature(fb.block_bwd3).parameters
+    handoff1 = "dz2" in inspect.signature(fb.block_bwd2).parameters
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*size, scale=1.0):
@@ -75,62 +84,90 @@ def main() -> int:
             times.append(start.elapsed_time(end) / inner)
         return statistics.median(times)
 
-    rows, per_step = [], {}
+    def over(got, want, atol, rtol):
+        d = (got.float() - want.float()).abs()
+        return float((d / (atol + rtol * want.float().abs())).max())
+
+    def sums_over(got, want, scale):
+        return max(float(((g - w).abs() / (1e-5 * s + 1e-6)).max())
+                   for g, w, s in zip(got, want, scale))
+
+    rows, per_step, per_forward = [], {}, {}
+
+    def record(kind, shape, fn, plain, check, totals):
+        row = {"kernel": kind, "shape": list(shape), "ms": time_ms(fn),
+               "plain_ms": time_ms(plain, reps=5, inner=2),
+               "err_over_limit": check}
+        rows.append(row)
+        for key, name in (("ms", kind), ("plain_ms", f"{kind} plain")):
+            totals[name] = totals.get(name, 0.0) + PER_STAGE * row[key]
+
     for hw, c in STAGES:
-        shape = (128, hw, hw, c)
-        x = randn(*shape).to(torch.bfloat16)
-        gy = randn(*shape)
-        w1, w2 = (randn(3, 3, c, c, scale=(9 * c) ** -0.5) for _ in "12")
-        g1, b1, g2, b2 = (positive(c), randn(c, scale=0.5), positive(c),
-                          randn(c, scale=0.5))
-        m1, v1, m2, v2 = fb.block_train_fwd(x, w1, w2, g1, b1, g2, b2)[1]
-        i1, i2 = torch.rsqrt(v1 + fb.EPS), torch.rsqrt(v2 + fb.EPS)
-        s1, sb1 = fb._fold(g1, b1, m1, v1, fb.EPS)
-        s2, sb2 = fb._fold(g2, b2, m2, v2, fb.EPS)
-        vecs = (g1, b1, g2, b2, m1, i1, m2, i2)
-        base = (x, gy, w1, w2, *vecs)
-        t = fb.block_bwd1(*base)[:2]
-        out2 = fb.block_bwd2(*base, *t)
-        u = out2[:2]
-        kw3 = {"dz1": out2[3]} if handoff else {}
-        calls = {
-            "block_fwd": lambda: fb.block_fwd(x, w1, w2, s1, sb1, s2, sb2),
-            "block_stats": lambda: fb.block_stats(x, w1, s1, sb1),
-            "block_bwd1": lambda: fb.block_bwd1(*base),
-            "block_bwd2": lambda: fb.block_bwd2(*base, *t),
-            "block_bwd3": lambda: fb.block_bwd3(*base, *t, *u, **kw3)}
-        with torch.backends.cudnn.flags(enabled=False):
-            want2 = fb.train_bwd_pass2_reference(*base, *t)
-            scale2 = fb.train_bwd_pass2_reference(*base, *t, magnitudes=True)
-            want3 = fb.train_bwd_pass3_reference(*base, *t, *u, **kw3)
-        plain = {
-            "block_bwd2": lambda: fb.train_bwd_pass2_reference(*base, *t),
-            "block_bwd3": lambda: fb.train_bwd_pass3_reference(*base, *t,
-                                                               *u, **kw3)}
-        got3 = calls["block_bwd3"]().float()
-        checks = {
-            "block_bwd2": max(
-                float(((g - w).abs() / (1e-5 * s + 1e-6)).max())
-                for g, w, s in zip(out2[:3], want2[:3], scale2[:3])),
-            "block_bwd3": float(((got3 - want3.float()).abs()
-                                 / (1e-2 + 1e-2 * want3.float().abs()))
-                                .max())}
-        for kind, fn in calls.items():
-            row = {"kernel": kind, "shape": list(shape), "ms": time_ms(fn)}
-            if kind in plain:
-                row["plain_ms"] = time_ms(plain[kind], reps=5, inner=2)
-                row["err_over_limit"] = checks[kind]
-            rows.append(row)
-            for key in ("ms", "plain_ms"):
-                if key in row:
-                    name = kind if key == "ms" else f"{kind} plain"
-                    per_step[name] = (per_step.get(name, 0.0)
-                                      + PER_STAGE * row[key])
-        del x, gy, out2, calls, plain, want2, scale2, want3, got3
-        torch.cuda.empty_cache()
+        for b in (TRAIN_BATCH, SERVE_BATCH):
+            shape = (b, hw, hw, c)
+            x = randn(*shape).to(torch.bfloat16)
+            w1, w2 = (randn(3, 3, c, c, scale=(9 * c) ** -0.5) for _ in "12")
+            g1, b1, g2, b2 = (positive(c), randn(c, scale=0.5), positive(c),
+                              randn(c, scale=0.5))
+            m1, v1, m2, v2 = fb.block_train_fwd(x, w1, w2, g1, b1, g2, b2)[1]
+            s1, sb1 = fb._fold(g1, b1, m1, v1, fb.EPS)
+            s2, sb2 = fb._fold(g2, b2, m2, v2, fb.EPS)
+            fwd = (x, w1, w2, s1, sb1, s2, sb2)
+            with torch.backends.cudnn.flags(enabled=False):
+                want = fb.block_fwd_reference(*fwd)
+            record("block_fwd", shape, lambda: fb.block_fwd(*fwd),
+                   lambda: fb.block_fwd_reference(*fwd),
+                   over(fb.block_fwd(*fwd), want, 1e-2, 1e-2),
+                   per_step if b == TRAIN_BATCH else per_forward)
+            if b == SERVE_BATCH:
+                continue
+            gy = randn(*shape)
+            i1, i2 = torch.rsqrt(v1 + fb.EPS), torch.rsqrt(v2 + fb.EPS)
+            base = (x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2)
+            out1 = fb.block_bwd1(*base)
+            t = out1[:2]
+            kw2 = ({"dz2": out1[3], "z2hat": out1[4]} if handoff1 else {})
+            out2 = fb.block_bwd2(*base, *t, **kw2)
+            u = out2[:2]
+            kw3 = {"dz1": out2[3]} if handoff else {}
+            with torch.backends.cudnn.flags(enabled=False):
+                want1 = fb.train_bwd_pass1_reference(*base)
+                scale1 = fb.train_bwd_pass1_reference(*base, magnitudes=True)
+                want2 = fb.train_bwd_pass2_reference(*base, *t, **kw2)
+                scale2 = fb.train_bwd_pass2_reference(*base, *t, **kw2,
+                                                      magnitudes=True)
+                want3 = fb.train_bwd_pass3_reference(*base, *t, *u, **kw3)
+            check1 = sums_over(out1[:3], want1[:3], scale1[:3])
+            if handoff1:
+                check1 = max(check1, *(over(g, w, 1e-4, 1e-4)
+                                       for g, w in zip(out1[3:], want1[3:])))
+            calls = {
+                "block_stats": (lambda: fb.block_stats(x, w1, s1, sb1),
+                                lambda: fb.block_stats_reference(
+                                    x, w1, s1, sb1), None),
+                "block_bwd1": (lambda: fb.block_bwd1(*base),
+                               lambda: fb.train_bwd_pass1_reference(*base),
+                               check1),
+                "block_bwd2": (lambda: fb.block_bwd2(*base, *t, **kw2),
+                               lambda: fb.train_bwd_pass2_reference(
+                                   *base, *t, **kw2),
+                               sums_over(out2[:3], want2[:3], scale2[:3])),
+                "block_bwd3": (lambda: fb.block_bwd3(*base, *t, *u, **kw3),
+                               lambda: fb.train_bwd_pass3_reference(
+                                   *base, *t, *u, **kw3),
+                               over(fb.block_bwd3(*base, *t, *u, **kw3),
+                                    want3, 1e-2, 1e-2))}
+            for kind, (fn, plain, check) in calls.items():
+                record(kind, shape, fn, plain, check, per_step)
+            del gy, base, out1, out2, kw2, kw3, want1, want2, want3, calls
+            del scale1, scale2
+            torch.cuda.empty_cache()
     print(json.dumps({"tag": args.tag, "root": root, "handoff": handoff,
+                      "handoff1": handoff1,
                       "gpu": torch.cuda.get_device_name(0),
-                      "per_step_ms": per_step, "rows": rows}), flush=True)
+                      "per_step_ms": per_step,
+                      "per_forward_ms": per_forward, "rows": rows}),
+          flush=True)
     return 0
 
 

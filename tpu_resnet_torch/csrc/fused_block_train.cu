@@ -1,9 +1,8 @@
 // Fused ResNet-v2 basic block: the conv1 moments of the training forward,
-// the first backward pass with live batch-norm statistics, and the one
-// backward pass with folded (frozen) batch norm (the live-BN passes 2 and 3
-// are fused_block_tc.cu's). Stride 1, equal in/out
-// channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32, w1 and w2 HWIO
-// f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is f32.
+// and the one backward pass with folded (frozen) batch norm (the forward and
+// the live-BN backward passes are fused_block_tc.cu's). Stride 1, equal
+// in/out channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32, w1 and
+// w2 HWIO f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is f32.
 //
 // Replaces, in tpu_resnet/ops/fused_block.py (block_train_apply, which every
 // stride-1 identity block of the CIFAR ResNet runs in training when
@@ -11,8 +10,6 @@
 //   tr_block_stats  _stats_kernel (through _c1_moments): sum c1, sum c1^2,
 //                   c1 = conv3x3(relu(s1*x + b1), w1), recomputed, not
 //                   stored;
-//   tr_block_bwd1   _train_bwd_calls pass1: T1 = sum dz2, T2 = sum dz2*z2hat,
-//                   dw2 = sum r2-patch^T gy, with dz2 = convT(gy, w2)*[z2>0];
 // and (block_apply, the folded-BN block under a gradient: the eval-mode
 // model differentiated, tools/fused_block_ab.py's fwd_bwd arm):
 //   tr_block_bwd    _block_bwd_kernel: with a1 = x*s1 + b1, r1 = relu(a1),
@@ -22,32 +19,27 @@
 //                   dw1 = sum r1-patch^T dc1, dw2 = sum r2-patch^T gy,
 //                   ds1 = sum da1*x, db1 = sum da1, ds2 = sum da2*c1,
 //                   db2 = sum da2.
-// The live-BN backward recomputes the chain from x and the saved moments (m,
-// i = 1/sigma): z1hat = (x-m1)*i1, z1 = g1*z1hat + b1, r1 = relu(z1), c1 =
-// conv(r1, w1), z2hat = (c1-m2)*i2, z2 = g2*z2hat + b2, r2 = relu(z2); the
-// frozen one from the folded affines, a = v*s + b, as block_fwd
-// (csrc/fused_block.cu) and the reference kernel round them. Each
-// elementwise formula is rounded as written (__fmul_rn, __fadd_rn, no FMA
-// contraction), as the plain PyTorch version rounds it, so a mask [z > 0]
-// matches the plain version's wherever the conv sums do.
+// Both recompute the chain from the folded affines, a = v*s + b, as
+// block_fwd (csrc/fused_block_tc.cu) and the reference kernel round them.
+// Each elementwise formula is rounded as written (__fmul_rn, __fadd_rn, no
+// FMA contraction), as the plain PyTorch version rounds it, so a mask
+// [a > 0] matches the plain version's wherever the conv sums do.
 //
 // Bound: arithmetic. One 3x3 product is 2*B*H*W*9*C*C flops (0.604 GFLOP at
 // every CIFAR stage at B=128, 9.0 us at 67 TFLOP/s f32) for B*H*W*C elements
 // moved: tens to hundreds of operations per byte, off the tensor cores. The
-// stats kernel runs one product, bwd1 three (conv1, convT of gy, dw2), the
-// frozen bwd five (conv1, two convT, dw1, dw2).
+// stats kernel runs one product, the frozen bwd five (conv1, two convT, dw1,
+// dw2).
 //
-// Design: one thread block per image, as block_fwd (csrc/fused_block.cu).
-// The recomputed planes live in shared memory, f32, zero-haloed, with a pixel
-// stride of C+1 words (odd, so a warp reading neighbouring pixels hits
-// distinct banks). The constraint is room: the passes need r1, r2 or dc1, gy and
-// c1 (or z2hat) planes, four at most, and at 32x32x16 one padded plane is
-// 78.6 KB. Instead of row bands with a two-row halo, each pass reuses and
-// rebuilds planes in phases, because r1 and gy are cheap elementwise
-// functions of x and gy that can be written again, while c1 is a product:
+// Design: one thread block per image. The recomputed planes live in shared
+// memory, f32, zero-haloed, with a pixel stride of C+1 words (odd, so a warp
+// reading neighbouring pixels hits distinct banks). The constraint is room:
+// the frozen bwd needs r1, r2 or dc1, gy and c1 planes, and at 32x32x16 one
+// padded plane is 78.6 KB. Instead of row bands with a two-row halo, each
+// pass reuses and rebuilds planes in phases, because r1 and gy are cheap
+// elementwise functions of x and gy that can be written again, while c1 is a
+// product:
 //   stats: A = r1 (folded BN1); c1 per pixel, summed.            1 plane
-//   bwd1:  A = r1; B = r2, Z = z2hat (unpadded); A = gy; dz2 from convT(A)
-//          and the mask r2 > 0; dw2 from B and A.   2 planes + Z: 226.8 KB
 //   bwd:   A = r1; Z = c1, B = r2; A = gy; dw2 from B and A; da2 from
 //          convT(A) and the mask r2 > 0, ds2 and db2 with c1 from Z, and
 //          B = dc1 in place; A = r1 again; dw1 from A and B; da1 from
@@ -75,25 +67,17 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kCO = 8;  // output channels per item
 constexpr int kMaxSmem = 232448;
-enum Mode : int { kStats = 0, kBwd1 = 1, kBwd = 4 };
+enum Mode : int { kStats = 0, kBwd = 4 };
 
 struct Args {
   const void* x;
   const float* gy;
   const float* w1;
   const float* w2;
-  const float* s1;  // stats, bwd: folded BN1 scale and bias
+  const float* s1;  // folded BN1 scale and bias
   const float* sb1;
   const float* s2;  // bwd: folded BN2 scale and bias
   const float* sb2;
-  const float* g1;  // backward: BN gammas, betas, means, 1/sigma
-  const float* b1;
-  const float* g2;
-  const float* b2;
-  const float* m1;
-  const float* i1;
-  const float* m2;
-  const float* i2;
   void* dx;     // bwd
   float* part;  // [B][row_len] partial rows
   float* out;   // [row_len] the batch's sums
@@ -102,9 +86,7 @@ struct Args {
 };
 
 __host__ __device__ constexpr int row_len(int mode, int C) {
-  return mode == kStats ? 2 * C
-         : mode == kBwd ? 4 * C + 18 * C * C
-                        : 2 * C + 9 * C * C;
+  return mode == kStats ? 2 * C : 4 * C + 18 * C * C;
 }
 
 // One rounding each, never contracted into an FMA.
@@ -113,15 +95,6 @@ __device__ __forceinline__ float mul(float a, float b) {
 }
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-
-// relu(g * ((v - m) * i) + b), rounded as written.
-__device__ __forceinline__ float bn_relu(float v, float m, float i, float g,
-                                         float b) {
-  return fmaxf(add(mul(g, mul(sub(v, m), i)), b), 0.f);
 }
 
 // 3x3 taps for output pixel (py, px), channels co0..co0+7, over a padded
@@ -252,21 +225,19 @@ __device__ __forceinline__ void channel_sums(const float (&sa)[kCO],
   }
 }
 
-// The shared body of the two live-BN kernels; MODE picks the pass.
-template <typename T, int C, int MODE>
-__device__ __forceinline__ void train_body(const Args& a) {
+// Kernel 0 (tr_block_stats): conv1's channel sums, one pass per image. Row:
+// [sum c1, sum c1^2 (C each)].
+template <typename T, int C>
+__device__ __forceinline__ void stats_body(const Args& a) {
   constexpr int CP = C + 1;
   constexpr int G = C / kCO;  // channel groups per pixel
-  constexpr int L = row_len(MODE, C);
+  constexpr int L = row_len(kStats, C);
   extern __shared__ float smem[];
   const int H = a.H, W = a.W, WP = W + 2, HW = H * W;
   const int plane = (H + 2) * WP * CP;
   float* A = smem;
-  float* Bp = smem + plane;
-  float* Z = smem + 2 * plane;  // bwd1: z2hat, unpadded
   const long long base = (long long)blockIdx.x * HW * C;
   const T* xi = static_cast<const T*>(a.x) + base;
-  const float* gyi = MODE == kStats ? nullptr : a.gy + base;
   float* prow = a.part + (long long)blockIdx.x * L;
   const int co0 = (threadIdx.x % G) * kCO;  // this thread's channel group
   float sa[kCO], sb[kCO];                   // its two channel sums
@@ -274,67 +245,24 @@ __device__ __forceinline__ void train_body(const Args& a) {
   for (int j = 0; j < kCO; ++j) sa[j] = sb[j] = 0.f;
   float acc[kCO];
 
-  for (int i = threadIdx.x; i < (MODE == kStats ? 1 : 2) * plane;
-       i += kThreads)
-    smem[i] = 0.f;
+  for (int i = threadIdx.x; i < plane; i += kThreads) smem[i] = 0.f;
   __syncthreads();
-  // A <- r1: the folded BN1 for the stats (as the forward), else the
-  // unfolded z1 from the saved moments (as the reference's backward).
+  // A <- r1 = relu(x*s1 + b1), the folded BN1 (as the forward).
   for (int i = threadIdx.x; i < HW * C; i += kThreads) {
     const int c = i % C;
-    const float v = tr::to_f32(xi[i]);
-    A[cell(i / C, W, WP, CP) + c] =
-        MODE == kStats
-            ? fmaxf(add(mul(v, __ldg(a.s1 + c)), __ldg(a.sb1 + c)), 0.f)
-            : bn_relu(v, __ldg(a.m1 + c), __ldg(a.i1 + c), __ldg(a.g1 + c),
-                      __ldg(a.b1 + c));
+    A[cell(i / C, W, WP, CP) + c] = fmaxf(
+        add(mul(tr::to_f32(xi[i]), __ldg(a.s1 + c)), __ldg(a.sb1 + c)), 0.f);
   }
   __syncthreads();
-
-  if constexpr (MODE == kStats) {
-    for (int t = threadIdx.x; t < HW * G; t += kThreads) {
-      const int p = t / G, py = p / W;
-      conv_point<C, CP>(A, a.w1, py, p - py * W, WP, co0, acc);
+  for (int t = threadIdx.x; t < HW * G; t += kThreads) {
+    const int p = t / G, py = p / W;
+    conv_point<C, CP>(A, a.w1, py, p - py * W, WP, co0, acc);
 #pragma unroll
-      for (int j = 0; j < kCO; ++j) {
-        sa[j] += acc[j];
-        sb[j] = fmaf(acc[j], acc[j], sb[j]);
-      }
+    for (int j = 0; j < kCO; ++j) {
+      sa[j] += acc[j];
+      sb[j] = fmaf(acc[j], acc[j], sb[j]);
     }
-  } else {
-    // c1 -> z2hat, and r2 = relu(z2) for dw2 and the mask.
-    for (int t = threadIdx.x; t < HW * G; t += kThreads) {
-      const int p = t / G, py = p / W;
-      conv_point<C, CP>(A, a.w1, py, p - py * W, WP, co0, acc);
-      float* dst = Bp + cell(p, W, WP, CP) + co0;
-#pragma unroll
-      for (int j = 0; j < kCO; ++j) {
-        const int c = co0 + j;
-        const float zh = mul(sub(acc[j], __ldg(a.m2 + c)), __ldg(a.i2 + c));
-        Z[p * CP + c] = zh;
-        dst[j] = fmaxf(add(mul(__ldg(a.g2 + c), zh), __ldg(a.b2 + c)), 0.f);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < HW * C; i += kThreads)
-      A[cell(i / C, W, WP, CP) + i % C] = gyi[i];  // A <- gy
-    __syncthreads();
-    // dr2 = convT(gy, w2); dz2 = dr2 * [z2 > 0].
-    for (int t = threadIdx.x; t < HW * G; t += kThreads) {
-      const int p = t / G, py = p / W;
-      convT_point<C, CP>(A, a.w2, py, p - py * W, WP, co0, acc);
-      float* bc = Bp + cell(p, W, WP, CP) + co0;
-#pragma unroll
-      for (int j = 0; j < kCO; ++j) {
-        const float dz = bc[j] > 0.f ? acc[j] : 0.f;  // r2 > 0 iff z2 > 0
-        sa[j] += dz;
-        sb[j] = fmaf(dz, Z[p * CP + co0 + j], sb[j]);
-      }
-    }
-    __syncthreads();
-    wgrad<C, CP>(Bp, A, H, W, WP, prow + 2 * C);  // dw2: r2p, gy
   }
-
   channel_sums<C>(sa, sb, smem, prow);
 }
 
@@ -433,11 +361,7 @@ __device__ __forceinline__ void frozen_bwd_body(const Args& a) {
 
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) block_stats_kernel(const Args a) {
-  train_body<T, C, kStats>(a);
-}
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) block_bwd1_kernel(const Args a) {
-  train_body<T, C, kBwd1>(a);
+  stats_body<T, C>(a);
 }
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) block_bwd_kernel(const Args a) {
@@ -457,7 +381,7 @@ __global__ void train_sum_kernel(const float* __restrict__ part,
 size_t smem_bytes(int mode, int H, int W, int C) {
   const size_t plane = (size_t)(H + 2) * (W + 2) * (C + 1) * sizeof(float);
   size_t s = mode == kStats ? plane : 2 * plane;
-  if (mode == kBwd1 || mode == kBwd)
+  if (mode == kBwd)
     s += (size_t)H * W * (C + 1) * sizeof(float);
   const size_t red = 2ull * kThreads * kCO * sizeof(float);
   return s > red ? s : red;
@@ -467,7 +391,6 @@ template <typename T, int C, int MODE>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(MODE, a.H, a.W, C);
   void (*kernel)(const Args) = &block_stats_kernel<T, C>;
-  if constexpr (MODE == kBwd1) kernel = &block_bwd1_kernel<T, C>;
   if constexpr (MODE == kBwd) kernel = &block_bwd_kernel<T, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -520,10 +443,10 @@ int run(Args a, int B, int H, int W, int C, int dtype, int device,
 
 }  // namespace
 
-// Common to all three: x [B,H,W,C] of `dtype` (tr::DType) and gy [B,H,W,C]
-// f32, contiguous; w1, w2 [3,3,C,C] f32 HWIO, 16-byte aligned; vectors C
+// Common to both: x [B,H,W,C] of `dtype` (tr::DType) and (bwd) gy
+// [B,H,W,C] f32, contiguous; w1, w2 [3,3,C,C] f32 HWIO, 16-byte aligned; vectors C
 // floats; C is 16, 32 or 64. part: B * row_len floats of scratch, row_len =
-// 2C (stats), 2C + 9C^2 (bwd1) or 4C + 18C^2 (bwd); out: row_len floats.
+// 2C (stats) or 4C + 18C^2 (bwd); out: row_len floats.
 // Each returns the cudaError_t of its two launches on `stream`.
 
 // out = [sum c1 (C), sum c1^2 (C)], c1 = conv3x3(relu(s1*x + b1), w1).
@@ -539,38 +462,6 @@ extern "C" int tr_block_stats(const void* x, const void* w1, const void* s1,
   a.part = static_cast<float*>(part);
   a.out = static_cast<float*>(out);
   return run<kStats>(a, B, H, W, C, dtype, device, stream);
-}
-
-#define TR_BWD_ARGS                                                         \
-  const void *x, const void *gy, const void *w1, const void *w2,            \
-      const void *g1, const void *b1, const void *g2, const void *b2,       \
-      const void *m1, const void *i1, const void *m2, const void *i2
-
-static Args bwd_args(TR_BWD_ARGS) {
-  Args a = {};
-  a.x = x;
-  a.gy = static_cast<const float*>(gy);
-  a.w1 = static_cast<const float*>(w1);
-  a.w2 = static_cast<const float*>(w2);
-  a.g1 = static_cast<const float*>(g1);
-  a.b1 = static_cast<const float*>(b1);
-  a.g2 = static_cast<const float*>(g2);
-  a.b2 = static_cast<const float*>(b2);
-  a.m1 = static_cast<const float*>(m1);
-  a.i1 = static_cast<const float*>(i1);
-  a.m2 = static_cast<const float*>(m2);
-  a.i2 = static_cast<const float*>(i2);
-  return a;
-}
-
-// out = [T1 (C), T2 (C), dw2 (9C^2, HWIO)].
-extern "C" int tr_block_bwd1(TR_BWD_ARGS, void* part, void* out, int B, int H,
-                             int W, int C, int dtype, int device,
-                             void* stream) {
-  Args a = bwd_args(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2);
-  a.part = static_cast<float*>(part);
-  a.out = static_cast<float*>(out);
-  return run<kBwd1>(a, B, H, W, C, dtype, device, stream);
 }
 
 // The frozen-BN backward: out = [ds1, db1, ds2, db2 (C each), dw1, dw2 (9C^2

@@ -9,9 +9,10 @@ Forward with folded BN (``tpu_resnet/ops/fused_block.py::_block_kernel``):
 for stride 1 and equal in/out channels, 3x3 SAME convs, all arithmetic in
 float32 and y stored in x's dtype. x and y are NHWC, the weights HWIO
 [3,3,C,C] float32, the folded BN scale/bias float32 [C]. :func:`block_fwd`
-launches the CUDA kernel (``csrc/fused_block.cu``) for a CUDA tensor and
-raises if it cannot; for a CPU tensor it computes the plain version,
-:func:`block_fwd_reference`. ``launches`` counts the kernel launches.
+launches the CUDA kernel (``csrc/fused_block_tc.cu``, two launches: r2 to a
+scratch, then conv2 and the residual) for a CUDA tensor and raises if it
+cannot; for a CPU tensor it computes the plain version,
+:func:`block_fwd_reference`. ``launches`` counts its calls on the card.
 
 Its gradient (``_block_bwd_kernel``, ``csrc/fused_block_train.cu``
 ``tr_block_bwd``): :func:`block_bwd` → (dx, dw1, dw2, ds1, db1, ds2, db2)
@@ -22,8 +23,8 @@ custom-VJP ``block_apply``): forward :func:`block_fwd`, backward
 :func:`block_bwd`, saving only x and the parameters.
 
 Training (port of the reference's ``block_train_fwd`` and
-``_train_bwd_calls``; ``csrc/fused_block_train.cu`` for the stats and pass
-1, ``csrc/fused_block_tc.cu`` for passes 2 and 3):
+``_train_bwd_calls``; ``csrc/fused_block_train.cu`` for the stats,
+``csrc/fused_block_tc.cu`` for the three backward passes):
 
 - :func:`block_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance), folded; :func:`block_stats` gives the sums
@@ -31,20 +32,22 @@ Training (port of the reference's ``block_train_fwd`` and
   clamped at 0); then :func:`block_fwd` with both folds. Returns ``(y,
   (mean1, var1, mean2, var2))``.
 - the backward, three passes from x, gy (float32) and the saved moments:
-  :func:`block_bwd1` → (T1, T2, dw2), :func:`block_bwd2` → (U1, U2, dw1,
-  dz1), :func:`block_bwd3` (``dz1=``, pass 2's) → dx; dγ2 = T2, dβ2 = T1,
-  dγ1 = U2, dβ1 = U1. Pass 3 reads the dz1 that pass 2 wrote instead of
-  recomputing the chain from x, as the reference's passes do.
+  :func:`block_bwd1` → (T1, T2, dw2, dz2, ẑ2), :func:`block_bwd2`
+  (``dz2=``, ``z2hat=``, pass 1's) → (U1, U2, dw1, dz1), :func:`block_bwd3`
+  (``dz1=``, pass 2's) → dx; dγ2 = T2, dβ2 = T1, dγ1 = U2, dβ1 = U1. Each
+  pass reads what the pass before it wrote instead of recomputing the chain
+  from x, as the reference's passes do: c1 and the mask [z2 > 0] are
+  computed once, in pass 1.
 - :func:`block_train_apply` is differentiable in x, both weights and the
   four BN parameters; the moments it returns get no gradient (the running
   statistics' EMA is stop-gradient).
 
 Each wrapper launches its kernel for CUDA tensors, computes its plain
 version (``*_reference``) for CPU tensors and raises otherwise, and counts
-its launches (``stats_launches``, ``bwd1_launches``, ``bwd2_launches``,
-``bwd3_launches``, ``bwd_launches``). The plain versions keep float64
-inputs in float64 (the gradient check); every other input computes in
-float32.
+its calls on the card (``stats_launches``, ``bwd1_launches``,
+``bwd2_launches``, ``bwd3_launches``, ``bwd_launches``). The plain versions
+keep float64 inputs in float64 (the gradient check); every other input
+computes in float32.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ import torch.nn.functional as F
 from tpu_resnet_torch.ops import _build
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 
-launches = 0       # kernel launches by block_fwd (CUDA tensors only)
+launches = 0        # block_fwd calls (CUDA tensors only; two launches each)
 stats_launches = 0  # block_stats calls (two launches each: sums, their sum)
 bwd1_launches = 0   # block_bwd1 calls (two launches each)
 bwd2_launches = 0   # block_bwd2 calls (three launches each)
@@ -68,7 +71,7 @@ bwd_launches = 0    # block_bwd calls (two launches each)
 CHANNELS = (16, 32, 64)  # the kernels' compiled widths
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
 # The tile kernels (csrc/fused_block_tc.cu) hold no whole image: any H, W.
-_TILE_KINDS = ("block_bwd2", "block_bwd3")
+_TILE_KINDS = ("block_fwd", "block_bwd1", "block_bwd2", "block_bwd3")
 EPS = 1e-5
 _SUM_DIMS = (0, 1, 2)
 
@@ -124,19 +127,16 @@ def block_fwd_reference(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
     return (xf + out).to(x.dtype)
 
 
-def smem_bytes(h: int, w: int, c: int, kind: str = "block_fwd") -> int:
-    """Shared memory one image takes in an image-per-block kernel:
-    zero-haloed f32 planes with a pixel stride of C+1 words (two for
-    block_fwd, block_bwd1 and block_bwd, one for block_stats), block_bwd1
-    and block_bwd one unpadded plane more, and at least the 32 KB of the
-    channel-sum reduction."""
+def smem_bytes(h: int, w: int, c: int, kind: str = "block_stats") -> int:
+    """Shared memory one image takes in an image-per-block kernel
+    (``block_stats``, ``block_bwd``): zero-haloed f32 planes with a pixel
+    stride of C+1 words (one for block_stats, two for block_bwd), block_bwd
+    one unpadded plane more, and at least the 32 KB of the channel-sum
+    reduction."""
     plane = (h + 2) * (w + 2) * (c + 1) * 4
-    if kind == "block_fwd":
-        return 2 * plane
-    extra = (h * w * (c + 1) * 4 if kind in ("block_bwd1", "block_bwd")
-             else 0)
-    return max((1 if kind == "block_stats" else 2) * plane + extra,
-               2 * 512 * 8 * 4)
+    if kind == "block_stats":
+        return max(plane, 2 * 512 * 8 * 4)
+    return max(2 * plane + h * w * (c + 1) * 4, 2 * 512 * 8 * 4)
 
 
 def _check_x(x, kind: str) -> int:
@@ -225,8 +225,10 @@ def block_fwd(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
     if x.device.type == "cpu":
         return block_fwd_reference(x, w1, w2, s1, b1, s2, b2)
     y = torch.empty_like(x)
-    _launch("block_fwd", "fused_block", "tr_block_fwd", x, x, w1, w2, s1,
-            b1, s2, b2, y)
+    # The folds go in BN's (g1, b1, g2, b2) places; r2 is the first
+    # launch's output, read by the second.
+    _tc("block_fwd", x, w1=w1, w2=w2, g1=s1, b1=b1, g2=s2, b2=b2,
+        r2=_f32_like(x), y=y)
     launches += 1
     return y
 
@@ -378,14 +380,19 @@ def block_train_fwd_reference(x, w1, w2, g1, b1, g2, b2, eps: float = EPS):
 
 
 # ------------------------------------------------------- the backward
-def _recompute(x, w1, g1, b1, g2, b2, m1, i1, m2, i2):
-    """The forward chain from the block input and the saved moments (i =
-    1/σ), as the reference's ``_recompute_train``."""
+def _bn1(x, g1, b1, m1, i1):
+    """z1, ẑ1 = (x − m1)·i1 and r1 = relu(z1) from the block input."""
     xf = _fp(x)
     z1hat = (xf - m1) * i1
     z1 = g1 * z1hat + b1
-    r1 = torch.clamp_min(z1, 0.0)
-    c1 = _conv3x3(r1, w1.to(xf.dtype))
+    return z1, z1hat, torch.clamp_min(z1, 0.0)
+
+
+def _recompute(x, w1, g1, b1, g2, b2, m1, i1, m2, i2):
+    """The forward chain from the block input and the saved moments (i =
+    1/σ), as the reference's ``_recompute_train``."""
+    z1, z1hat, r1 = _bn1(x, g1, b1, m1, i1)
+    c1 = _conv3x3(r1, w1.to(r1.dtype))
     z2hat = (c1 - m2) * i2
     z2 = g2 * z2hat + b2
     return z1, z1hat, r1, z2, z2hat, torch.clamp_min(z2, 0.0)
@@ -395,21 +402,23 @@ def _dz2(z2, gy, w2):
     return torch.where(z2 > 0, _conv3x3_t(gy, w2.to(gy.dtype)), 0.0)
 
 
-def _dc1(z2, z2hat, gy, w2, g2, i2, t1, t2, n):
-    return g2 * i2 * (_dz2(z2, gy, w2) - t1 / n - z2hat * (t2 / n))
+def _dc1(dz2, z2hat, g2, i2, t1, t2, n):
+    return g2 * i2 * (dz2 - t1 / n - z2hat * (t2 / n))
 
 
 def train_bwd_pass1_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
                               *, magnitudes: bool = False):
     """Plain version of :func:`block_bwd1`: (T1 = Σdz2, T2 = Σdz2·ẑ2,
-    dw2 = Σ r2-patchᵀ·gy). ``magnitudes``: each sum of |term| instead."""
+    dw2 = Σ r2-patchᵀ·gy, dz2, ẑ2), dz2 = convT(gy, w2)·[z2 > 0] and ẑ2
+    [B,H,W,C] contiguous for pass 2. ``magnitudes``: each sum of |term|
+    instead (dz2 and ẑ2 as they are)."""
     f = _mag(magnitudes)
     _, _, _, z2, z2hat, r2 = _recompute(x, w1, g1, b1, g2, b2, m1, i1, m2,
                                         i2)
     gyf = _fp(gy)
-    dz2 = f(_dz2(z2, gyf, w2))
-    return (dz2.sum(_SUM_DIMS), (dz2 * f(z2hat)).sum(_SUM_DIMS),
-            _wgrad(r2, f(gyf)))
+    dz2 = _dz2(z2, gyf, w2)
+    return (f(dz2).sum(_SUM_DIMS), (f(dz2) * f(z2hat)).sum(_SUM_DIMS),
+            _wgrad(r2, f(gyf)), dz2.contiguous(), z2hat.contiguous())
 
 
 def _pass2_chain(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2
@@ -418,27 +427,30 @@ def _pass2_chain(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2
     z1, z1hat, r1, dc1 and dz1 = convT(dc1, w1)·[z1 > 0]."""
     z1, z1hat, r1, z2, z2hat, _ = _recompute(x, w1, g1, b1, g2, b2, m1, i1,
                                              m2, i2)
-    dc1 = _dc1(z2, z2hat, _fp(gy), w2, g2, i2, t1, t2, _n(x))
+    dc1 = _dc1(_dz2(z2, _fp(gy), w2), z2hat, g2, i2, t1, t2, _n(x))
     dz1 = torch.where(z1 > 0, _conv3x3_t(dc1, w1.to(dc1.dtype)), 0.0)
     return {"z1": z1, "z1hat": z1hat, "r1": r1, "dc1": dc1, "dz1": dz1}
 
 
 def train_bwd_pass2_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
-                              t1, t2, *, magnitudes: bool = False):
+                              t1, t2, *, dz2, z2hat,
+                              magnitudes: bool = False):
     """Plain version of :func:`block_bwd2`: (U1 = Σdz1, U2 = Σdz1·ẑ1,
-    dw1 = Σ r1-patchᵀ·dc1, dz1 [B,H,W,C] contiguous), dz1 for pass 3.
-    ``magnitudes``: each sum of |term| instead, and for dz1 the sum of
-    |term| of each element, convT(|dc1|, |w1|)·[z1 > 0]."""
+    dw1 = Σ r1-patchᵀ·dc1, dz1 [B,H,W,C] contiguous), dz1 for pass 3, from
+    pass 1's ``dz2`` and ``z2hat``: dc1 = γ2·i2·(dz2 − T1/n − ẑ2·T2/n),
+    dz1 = convT(dc1, w1)·[z1 > 0]. ``magnitudes``: each sum of |term|
+    instead, and for dz1 the sum of |term| of each element, convT(|dc1|,
+    |w1|)·[z1 > 0]."""
     f = _mag(magnitudes)
-    r = _pass2_chain(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2)
-    dz1 = r["dz1"]
+    z1, z1hat, r1 = _bn1(x, g1, b1, m1, i1)
+    dc1 = _dc1(dz2, z2hat, g2, i2, t1, t2, _n(x))
+    wt = w1.to(dc1.dtype)
+    dz1 = torch.where(z1 > 0, _conv3x3_t(dc1, wt), 0.0)
+    out = dz1
     if magnitudes:
-        dc1 = r["dc1"].abs()
-        dz1 = torch.where(r["z1"] > 0,
-                          _conv3x3_t(dc1, w1.to(dc1.dtype).abs()), 0.0)
-    return (f(r["dz1"]).sum(_SUM_DIMS),
-            (f(r["dz1"]) * f(r["z1hat"])).sum(_SUM_DIMS),
-            _wgrad(r["r1"], f(r["dc1"])), dz1.contiguous())
+        out = torch.where(z1 > 0, _conv3x3_t(dc1.abs(), wt.abs()), 0.0)
+    return (f(dz1).sum(_SUM_DIMS), (f(dz1) * f(z1hat)).sum(_SUM_DIMS),
+            _wgrad(r1, f(dc1)), out.contiguous())
 
 
 def train_bwd_pass3_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
@@ -475,18 +487,25 @@ def _check_handoff(kind, name, t, x, channels=None) -> None:
                          f"output), got {got}")
 
 
-_TC_PTRS = ("x", "gy", "w1", "w2", *_VECS, "dc1", "dz1", "dx", "part",
-            "out")   # tr_block_tc's order
-_TC_MODES = {"block_bwd2": 2, "block_bwd3": 3}
-_TC_PART_ROWS = 512  # most blocks (rows of partial sums) of pass 2's tiles
+_TC_PTRS = ("x", "gy", "w1", "w2", *_VECS, "dz2", "z2hat", "dc1", "dz1",
+            "dx", "r2", "y", "part", "out")   # tr_block_tc's order
+_TC_MODES = {"block_fwd": 0, "block_bwd1": 1, "block_bwd2": 2,
+             "block_bwd3": 3}
+_TC_PART_ROWS = 512  # most blocks (rows of partial sums) of a pass's tiles
 _TC_PIXELS = {16: 256, 32: 128, 64: 64}  # pixels per tile, by C
 
 
+def _f32_like(x) -> torch.Tensor:
+    """An uninitialised float32 tensor of x's shape on x's device."""
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device)
+
+
 def _tc(kind, x, **tensors) -> None:
-    """One call of ``csrc/fused_block_tc.cu`` on the named tensors."""
+    """One call of ``csrc/fused_block_tc.cu`` on the named tensors; passes
+    1 and 2 get the scratch for their rows of partial sums."""
     b, h, w, c = x.shape
     rows = 0
-    if kind == "block_bwd2":
+    if kind in ("block_bwd1", "block_bwd2"):
         rows = min(_TC_PART_ROWS, -(-b * h * w // _TC_PIXELS[c]))
         tensors["part"] = torch.empty(rows * (2 * c + 9 * c * c),
                                       dtype=torch.float32, device=x.device)
@@ -497,53 +516,57 @@ def _tc(kind, x, **tensors) -> None:
     _build.check(err, kind)
 
 
-def _block_bwd2_kernel(x, gy, w1, w2, vecs, dc1):
-    """Pass 2's three launches on CUDA tensors, dc1 (the first launch's
-    output, read by the second) written into the given [B,H,W,C] float32
-    buffer: ([U1, U2, dw1] flat, dz1). Counts nothing."""
-    c = x.shape[-1]
-    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
-                      device=x.device)
-    dz1 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    _tc("block_bwd2", x, gy=gy, w1=w1, w2=w2, **dict(zip(_VECS, vecs)),
-        dc1=dc1, dz1=dz1, out=out)
-    return out, dz1
+def _split_sums(out, c):
+    """[S1, S2, dw] flat → (S1, S2 [C], dw [3,3,C,C])."""
+    return out[:c], out[c:2 * c], out[2 * c:].view(3, 3, c, c)
 
 
 def block_bwd1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2):
     """Backward pass 1 (the reference's ``_train_bwd_calls`` pass1): (T1,
-    T2 [C], dw2 [3,3,C,C]) float32. x [B,H,W,C] float32/bfloat16, gy the
-    same shape in float32, the weights and the eight BN vectors float32;
-    m, i are the saved means and 1/σ."""
+    T2 [C], dw2 [3,3,C,C], dz2, ẑ2 [B,H,W,C]) float32; dz2 and ẑ2 are pass
+    2's inputs. x [B,H,W,C] float32/bfloat16, gy the same shape in float32,
+    the weights and the eight BN vectors float32; m, i are the saved means
+    and 1/σ. On CUDA, two launches of ``csrc/fused_block_tc.cu``: c1, ẑ2,
+    the convT of gy, dz2, the tile sums and dw2 over tiles of pixels on the
+    tensor cores, then the sum of the rows."""
     global bwd1_launches
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2)
     c = _check_bwd("block_bwd1", x, gy, w1, w2, vecs)
     if x.device.type == "cpu":
         return train_bwd_pass1_reference(x, gy, w1, w2, *vecs)
-    part, out = _sums_out(x, 9 * c * c)
-    _launch("block_bwd1", "fused_block_train", "tr_block_bwd1",
-            x, x, gy, w1, w2, *vecs, part,
-            out)
+    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+                      device=x.device)
+    dz2, z2hat = _f32_like(x), _f32_like(x)
+    _tc("block_bwd1", x, gy=gy, w1=w1, w2=w2, **dict(zip(_VECS, vecs)),
+        dz2=dz2, z2hat=z2hat, out=out)
     bwd1_launches += 1
-    return out[:c], out[c:2 * c], out[2 * c:].view(3, 3, c, c)
+    return (*_split_sums(out, c), dz2, z2hat)
 
 
-def block_bwd2(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2):
+def block_bwd2(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, *,
+               dz2, z2hat):
     """Backward pass 2: (U1, U2 [C], dw1 [3,3,C,C], dz1 [B,H,W,C]) float32,
-    given pass 1's T1, T2; arguments as :func:`block_bwd1`. dz1 is pass 3's
-    input. On CUDA, three launches of ``csrc/fused_block_tc.cu``: dc1 (c1
-    and the convT of gy on the tensor cores) into a scratch, then dz1 (the
-    convT of dc1), the tile sums and dw1, then the sum of the rows."""
+    given pass 1's T1, T2 and ``dz2=``, ``z2hat=``, pass 1's dz2 and ẑ2
+    (required: no path recomputes them); arguments as :func:`block_bwd1`.
+    dz1 is pass 3's input. On CUDA, three launches of
+    ``csrc/fused_block_tc.cu``: dc1 (elementwise from dz2 and ẑ2) into a
+    scratch, then dz1 (the convT of dc1 on the tensor cores), the tile sums
+    and dw1, then the sum of the rows."""
     global bwd2_launches
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2, t1, t2)
     c = _check_bwd("block_bwd2", x, gy, w1, w2, vecs)
+    _check_handoff("block_bwd2", "dz2", dz2, x)
+    _check_handoff("block_bwd2", "z2hat", z2hat, x)
     if x.device.type == "cpu":
-        return train_bwd_pass2_reference(x, gy, w1, w2, *vecs)
-    out, dz1 = _block_bwd2_kernel(x, gy, w1, w2, vecs,
-                                  torch.empty(x.shape, dtype=torch.float32,
-                                              device=x.device))
+        return train_bwd_pass2_reference(x, gy, w1, w2, *vecs, dz2=dz2,
+                                         z2hat=z2hat)
+    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+                      device=x.device)
+    dz1 = _f32_like(x)
+    _tc("block_bwd2", x, w1=w1, **dict(zip(_VECS, vecs)), dz2=dz2,
+        z2hat=z2hat, dc1=_f32_like(x), dz1=dz1, out=out)
     bwd2_launches += 1
-    return out[:c], out[c:2 * c], out[2 * c:].view(3, 3, c, c), dz1
+    return (*_split_sums(out, c), dz1)
 
 
 def block_bwd3(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, u1,
@@ -570,8 +593,10 @@ def _train_bwd(passes, x, gy, w1, w2, g1, b1, g2, b2, moments, eps):
     i1, i2 = torch.rsqrt(v1 + eps), torch.rsqrt(v2 + eps)
     gyf = _fp(gy).contiguous()
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2)
-    t1, t2, dw2 = p1(x, gyf, w1, w2, *vecs)
-    u1, u2, dw1, dz1 = p2(x, gyf, w1, w2, *vecs, t1, t2)
+    t1, t2, dw2, dz2, z2hat = p1(x, gyf, w1, w2, *vecs)
+    u1, u2, dw1, dz1 = p2(x, gyf, w1, w2, *vecs, t1, t2, dz2=dz2,
+                          z2hat=z2hat)
+    del dz2, z2hat   # pass 1's handoff: freed before pass 3
     dx = p3(x, gyf, w1, w2, *vecs, t1, t2, u1, u2, dz1=dz1)
     # dγ2 = T2, dβ2 = T1, dγ1 = U2, dβ1 = U1: the correction sums.
     return dx, dw1, dw2, u2, u1, t2, t1

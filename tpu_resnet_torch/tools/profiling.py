@@ -16,10 +16,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 # The port's kernels on the train paths, by a substring of their names
-# (``train_sum`` is the fixed-order sum launch of the fused block's stats and
-# first backward pass; its second pass is three launches,
+# (``train_sum`` is the fixed-order sum launch of the fused block's stats;
+# its forward is two launches on the tensor cores, ``block_fwd_r2_kernel``
+# and ``block_fwd_kernel``, its first backward pass two,
+# ``block_bwd1_kernel`` and ``block_bwd1_sum_kernel``, its second three,
 # ``block_bwd2_dc1_kernel``, ``block_bwd2_kernel`` and
-# ``block_bwd2_sum_kernel``, on the tensor cores; the fused bottleneck's
+# ``block_bwd2_sum_kernel``; the fused bottleneck's
 # training kernels all run on the tensor cores: one for the first moment
 # pass and passes 3 and 4,
 # two for each of the forward, the second moment pass and passes 1 and 2:
@@ -32,9 +34,9 @@ from torch.profiler import ProfilerActivity, profile
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
-                 "block_fwd": "block_fwd_kernel",
+                 "block_fwd": "block_fwd_",
                  "block_stats": "block_stats_kernel",
-                 "block_bwd1": "block_bwd1_kernel",
+                 "block_bwd1": "block_bwd1_",
                  "block_bwd2": "block_bwd2_",
                  "block_bwd3": "block_bwd3_kernel",
                  "train_sum": "train_sum_kernel",
