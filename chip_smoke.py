@@ -20,15 +20,19 @@ Phases, each printing one JSON line:
    launch gaps (``call_ms``); the bound (bytes at 3.35 TB/s or float32
    operations at 67 TFLOP/s, the H100 SXM's published peaks); and for
    ``xent_fwd`` the time of ``F.cross_entropy(reduction="none")``
-   (``library_ms``). ``sbr_bwd``: dx exact, ds/db within
-   1e-5·Σ|g·mask·x| + 1e-6 per channel; ``xent_fwd``/``xent_bwd`` at
-   [128, 10/100/1000] within 1e-5 abs and rel. The fused block's training
-   kernels (``block_stats``, ``block_bwd1``, ``block_bwd2``,
-   ``block_bwd3``) at the three B=128 stage shapes, on inputs from a coarse
-   dyadic grid (so conv1's output and the masks are exact in both): every
-   sum within 1e-5·Σ|terms| + 1e-6 per element, pass 1's dz2 and ẑ2
+   (``library_ms``). ``block_fwd`` on the fused train path runs from the
+   stats' c1 (``c1=``, one launch), kernel and plain version from the plain
+   stats' c1, its bound one product with c1 read. ``sbr_bwd`` (one launch):
+   dx exact, ds/db within 1e-5·Σ|g·mask·x| + 1e-6 per channel, two calls
+   bit for bit equal; ``xent_fwd``/``xent_bwd`` at [128, 10/100/1000]
+   within 1e-5 abs and rel. The fused block's training kernels
+   (``block_stats``, ``block_bwd1``, ``block_bwd2``, ``block_bwd3``) at the
+   three B=128 stage shapes, on inputs from a coarse dyadic grid (so
+   conv1's output and the masks are exact in both): every sum within
+   1e-5·Σ|terms| + 1e-6 per element, the stats' c1 and pass 1's dz2 and ẑ2
    within ``block_fwd``'s float32 tolerance, pass 2's dz1 and pass 3's dx
-   within ``block_fwd``'s tolerance, two calls bit for bit equal
+   within ``block_fwd``'s tolerance, two calls bit for bit equal, and
+   ``block_fwd`` from the stats' own c1 bit for bit ``block_fwd`` from x
    (``block_bwd2`` fed the plain pass 1's dz2 and ẑ2, ``block_bwd3`` the
    plain pass 2's dz1); beside each ``block_bwd1`` row the elements where
    its mask [z2 > 0] differs from the plain pass's, read from its dz2, on
@@ -53,8 +57,8 @@ Phases, each printing one JSON line:
    made beforehand (``torch.matmul(a.t(), b)``, or
    ``torch.nn.grad.conv2d_weight`` for dw2; TF32 off). The kernels on the
    tensor cores (``bottleneck_fwd``, the two moment passes, the four
-   passes, ``bottleneck_wgrad``, ``block_fwd``, ``block_bwd1`` and
-   ``block_bwd2``) also carry
+   passes, ``bottleneck_wgrad``, ``block_fwd``, ``block_stats``,
+   ``block_bwd1`` and ``block_bwd2``) also carry
    ``tc_bound_ms``, their
    operations at the TF32 tensor cores' rate over the three terms of the
    split. ``sbr``, ``sbr_bwd``, ``bottleneck_fwd`` and the cross-entropy
@@ -179,6 +183,7 @@ without CUDA the script exits 2.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -266,10 +271,12 @@ PER_PASS["cifar10_train"].update(
     sbr_bwd=sum(n for _, n in TRAIN_SBR), xent_fwd=1, xent_bwd=1)
 # The fused train step keeps 7 unfused BN+ReLU sites (two per block0, the
 # final one), as the CIFAR serve forward does. The counters count wrapper
-# calls: on the card block_fwd (r2, then conv2 and the residual),
-# block_stats, block_bwd1 (the tile pass, the sum of its rows) and block_bwd
-# are two launches each, block_bwd2 three (dc1, dz1 and the sums, their sum)
-# and block_bwd3 one.
+# calls: on the card block_fwd from the stats' c1 (the train step) and
+# block_bwd3 are one launch each, block_fwd from x (serving, eval,
+# block_apply; r2, then conv2 and the residual), block_stats (c1 and the
+# tiles' sums, their sum), block_bwd1 (the tile pass, the sum of its rows)
+# and block_bwd two, block_bwd2 three (dc1, dz1 and the sums, their sum);
+# sbr_bwd is one launch everywhere.
 PER_PASS["cifar10_fused_train"].update(
     sbr=7, sbr_bwd=7, xent_fwd=1, xent_bwd=1,
     **{k: PER_PASS["cifar10_fused_train"]["block_fwd"] for k in BLOCK_TRAIN})
@@ -420,9 +427,16 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         # 4n bytes) written by the first launch and read by the second.
         moved = 2 * n * item + 2 * 4 * n + 2 * 9 * c * c * 4 + 4 * c * 4
         ops = 2 * (2 * b * h * w * 9 * c * c) + 6 * n
+    elif kind == "block_fwd_c1":
+        # The training forward from the stats' c1: x and c1 (float32) in, y
+        # out, w2 and the folds s2, b2 in; conv2 and BN2's scale, bias, ReLU
+        # and the residual add.
+        moved = 2 * n * item + 4 * n + 9 * c * c * 4 + 2 * c * 4
+        ops = 2 * b * h * w * 9 * c * c + 4 * n
     elif kind in BLOCK_TRAIN:
         # x in, weights and BN vectors in, the sums out; then the float32
-        # tensors (4n bytes is one float a pixel-channel): pass 1's gy in,
+        # tensors (4n bytes is one float a pixel-channel): the stats' c1
+        # out; pass 1's gy in,
         # its dz2 and ẑ2 out; pass 2's dz2 and ẑ2 in, its dc1 written and
         # read between its launches and its dz1 out; pass 3's gy and dz1
         # in; pass 3's dx out. Operations: the 3x3 products (one for the
@@ -430,7 +444,8 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
         # the convT of dc1, dw1), 2*B*H*W*9*C*C flops each; pass 3 runs
         # none (dx from dz1: bytes).
         products, vecs, weights, moved_f32 = {
-            "block_stats": (1, 2, 1, 0), "block_bwd1": (3, 8, 2, 3 * 4 * n),
+            "block_stats": (1, 2, 1, 4 * n),
+            "block_bwd1": (3, 8, 2, 3 * 4 * n),
             "block_bwd2": (2, 8, 1, 5 * 4 * n),
             "block_bwd3": (0, 5, 0, 2 * 4 * n)}[kind]
         sums = {"block_stats": 2 * c, "block_bwd1": 2 * c + 9 * c * c,
@@ -498,7 +513,7 @@ TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_a",
                        "bottleneck_stats_b", "bottleneck_bwd1",
                        "bottleneck_bwd2", "bottleneck_bwd3",
                        "bottleneck_bwd4", "bottleneck_wgrad", "block_fwd",
-                       "block_bwd1", "block_bwd2")
+                       "block_stats", "block_bwd1", "block_bwd2")
 # What a row's time takes in besides its own pass: the weight-gradient
 # products that the wrapper launches (bottleneck_wgrad's row has them
 # alone).
@@ -553,15 +568,27 @@ def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 20,
 
 
 def kernel_phase(wrappers):
-    """Per-shape comparison and timing; returns the per-shape rows."""
+    """Per-shape comparison and timing; returns the per-shape rows. On the
+    fused train path ``block_fwd`` runs as the train step runs it, from the
+    stats' c1 (``c1=``): kernel and plain version from the plain stats'
+    c1."""
+    from tpu_resnet_torch.ops import fused_block as fb
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     cases = [(path, kind, shape, n) for path, kinds in SHAPES.items()
              for kind, shapes in kinds.items() for shape, n in shapes]
     for path, kind, shape, per_pass in cases:
-        kernel, plain = wrappers[kind]
         for dtype in (torch.bfloat16, torch.float32):
             args = kernel_args(kind, shape, dtype, gen)
+            kernel, plain = wrappers[kind]
+            bound_of = None
+            if kind == "block_fwd" and path == "cifar10_fused_train":
+                x, w1, _, s1, b1, *_ = args
+                c1 = fb.block_stats_reference(x, w1, s1, b1)[2]
+                kernel = functools.partial(kernel, c1=c1)
+                plain = functools.partial(plain, c1=c1)
+                bound_of = functools.partial(bound, "block_fwd_c1", shape,
+                                             dtype)
             got = kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -579,8 +606,11 @@ def kernel_phase(wrappers):
                   f"{tuple(got.shape)}")
             check(excess <= 0, f"{kind} {shape} {dtype}: error beyond "
                   f"tolerance: {row}")
+            if bound_of is not None:
+                row["from_c1"] = True
             rows.append(_timed(row, lambda: kernel(*args),
-                               lambda: plain(*args), kind, shape, dtype))
+                               lambda: plain(*args), kind, shape, dtype,
+                               bound_of=bound_of))
     return rows
 
 
@@ -609,6 +639,10 @@ def train_kernel_phase(ep, sx):
             name = f"sbr_bwd {shape} {dtype}"
             check(got[0].dtype == dtype and torch.equal(got[0], want[0]),
                   f"{name}: dx differs from the plain version")
+            again = ep.scale_bias_relu_bwd(x, sc, bi, g)
+            check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                  f"{name}: two calls differ")
+            del again
             excess = 0.0
             for k, terms in ((1, gm * x.float()), (2, gm)):
                 limit = rtol * terms.abs().sum(dim=(0, 1, 2)) + atol
@@ -806,19 +840,31 @@ def block_train_kernel_phase(fb):
                     atol, rtol = TOLERANCE[("block_fwd", dtype)]
                     row.update(atol=atol, rtol=rtol)
                 else:
-                    excess = _sum_excess(got[:3], want[:3], scale[:3])
+                    sums = 2 if kind == "block_stats" else 3
+                    excess = _sum_excess(got[:sums], want[:sums],
+                                         scale[:sums])
                     row["tolerance"] = "sums <= 1e-5*sum|terms| + 1e-6"
-                for i, out in {"block_bwd1": ((3, "dz2"), (4, "z2hat")),
+                for i, out in {"block_stats": ((2, "c1"),),
+                               "block_bwd1": ((3, "dz2"), (4, "z2hat")),
                                "block_bwd2": ((3, "dz1"),)}.get(kind, ()):
                     check(got[i].dtype == torch.float32
                           and got[i].shape == x.shape,
                           f"{name}: {out} is {got[i].dtype} {got[i].shape}")
-                    # dz2 and ẑ2 are float32 whatever x's dtype and exact
-                    # on the grid; dz1 is held to x's dtype's tolerance.
+                    # c1, dz2 and ẑ2 are float32 whatever x's dtype and
+                    # exact on the grid; dz1 is held to x's dtype's
+                    # tolerance.
                     row[f"{out}_err_over_limit"] = _fwd_excess(
                         got[i], want[i],
-                        torch.float32 if kind == "block_bwd1" else dtype)
+                        dtype if kind == "block_bwd2" else torch.float32)
                     excess = max(excess, row[f"{out}_err_over_limit"])
+                if kind == "block_stats":
+                    # The training forward from this c1 is the forward from
+                    # x, bit for bit: one plan, the same c1.
+                    fwd = (x, w1, w2, a["g1"], a["b1"], a["g2"], a["b2"])
+                    row["fwd_from_c1_equal"] = torch.equal(
+                        fb.block_fwd(*fwd, c1=got[2]), fb.block_fwd(*fwd))
+                    check(row["fwd_from_c1_equal"], f"{name}: block_fwd "
+                          f"from its c1 differs from block_fwd from x")
                 if kind == "block_bwd1":
                     normal = block_train_normal_args(fb, shape, dtype, gen)
                     normal_dz2 = fb.block_bwd1(*(normal[k] for k in (
@@ -2070,7 +2116,7 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/softmax_xent.py:74"),
     ("xent_bwd", "tpu_resnet_torch/csrc/softmax_xent.cu",
      "tpu_resnet/ops/softmax_xent.py:88"),
-    ("block_stats", "tpu_resnet_torch/csrc/fused_block_train.cu",
+    ("block_stats", "tpu_resnet_torch/csrc/fused_block_tc.cu",
      "tpu_resnet/ops/fused_block.py:509"),
     ("block_bwd1", "tpu_resnet_torch/csrc/fused_block_tc.cu",
      "tpu_resnet/ops/fused_block.py:381"),

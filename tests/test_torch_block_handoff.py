@@ -1,13 +1,14 @@
-"""The fused basic block's backward passes hand their results on instead of
-recomputing the chain from x, as the reference's ``_train_bwd_calls`` does:
+"""The fused basic block's training kernels hand their results on instead
+of recomputing the chain from x, as the reference's ``block_train_fwd``
+and ``_train_bwd_calls`` do: the stats hand c1 to the training forward,
 pass 1 hands dz2 and ẑ2 to pass 2, pass 2 hands dz1 to pass 3. On the CPU,
-at C = 16 and 32 and on a ragged plane: the plain passes with the handoffs
-against the recompute-from-x chain bit for bit, the wrappers against the
-reference's passes (Pallas in interpret mode, batch tile 2) and the port's
-backward against ``jax.vjp`` of the reference's custom-VJP block, and the
-wrappers' refusals of a missing or malformed handoff. The CUDA kernels are
-held against the same plain passes on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+at C = 16 and 32 (and 64 for the forward) and on a ragged plane: the plain
+versions with the handoffs against the recompute-from-x chain bit for bit,
+the wrappers against the reference's forward and passes (Pallas in
+interpret mode, batch tile 2) and the port's backward against ``jax.vjp``
+of the reference's custom-VJP block, and the wrappers' refusals of a
+missing or malformed handoff. The CUDA kernels are held against the same
+plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -83,6 +84,96 @@ def test_handed_over_passes_equal_the_recompute_chain(shape):
     n = fb._n(x)
     want = gy + g1 * i1 * (r["dz1"] - u1 / n - r["z1hat"] * (u2 / n))
     assert dx.dtype == x.dtype and torch.equal(dx, want)
+
+
+# The forward's handoff at the three widths and the ragged plane.
+FWD_SHAPES = ((4, 8, 8, 16), (4, 8, 8, 32), (2, 4, 4, 64), (2, 7, 5, 16))
+FWD_IDS = ("c16", "c32", "c64", "ragged")
+
+
+def _folds(shape, seed):
+    """x, w1, w2 and the folds s1, b1, s2, b2 of the port's training
+    forward (its own batch moments)."""
+    x, _, w1, w2, g1, b1, g2, b2 = map(torch.from_numpy, _inputs(shape, seed))
+    _, (m1, v1, m2, v2) = fb.block_train_fwd(x, w1, w2, g1, b1, g2, b2)
+    return (x, w1, w2, *fb._fold(g1, b1, m1, v1, EPS),
+            *fb._fold(g2, b2, m2, v2, EPS))
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=FWD_IDS)
+def test_stats_c1_equals_the_recompute_chain(shape):
+    """The plain stats' c1 is bit for bit the c1 of the chain recomputed
+    from x with the folds as BN (γ, β, μ, 1/σ) = (s, b, 0, 1), ẑ2 = (c1 −
+    0)·1, and its sums are c1's."""
+    x, w1, _, s1, b1, s2, b2 = _folds(shape, seed=shape[-1] + 11)
+    zero, one = torch.zeros_like(s1), torch.ones_like(s1)
+    want = fb._recompute(x, w1, s1, b1, s2, b2, zero, one, zero, one)[4]
+    total, squares, c1 = fb.block_stats_reference(x, w1, s1, b1)
+    assert c1.dtype == torch.float32 and c1.is_contiguous()
+    assert torch.equal(c1, want)
+    assert torch.equal(total, want.sum(SUM))
+    assert torch.equal(squares, (want * want).sum(SUM))
+    got = fb.block_stats(x, w1, s1, b1)   # the wrapper on the CPU
+    for g, w in zip(got, (total, squares, c1)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=FWD_IDS)
+def test_block_fwd_from_c1_equals_block_fwd_from_x(shape, dtype):
+    """The forward from the stats' c1 gives bit for bit what the forward
+    from x gives, plain and through the wrapper."""
+    x, w1, w2, s1, b1, s2, b2 = _folds(shape, seed=shape[-1] + 12)
+    x = x.to(dtype)
+    c1 = fb.block_stats(x, w1, s1, b1)[2]
+    want = fb.block_fwd_reference(x, w1, w2, s1, b1, s2, b2)
+    got = fb.block_fwd_reference(x, w1, w2, s1, b1, s2, b2, c1=c1)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(fb.block_fwd(x, w1, w2, s1, b1, s2, b2, c1=c1), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=FWD_IDS)
+def test_train_fwd_through_the_handoff_matches_reference(shape, dtype):
+    """``block_train_fwd`` (the stats' c1 handed to the forward) against
+    the reference's ``block_train_fwd`` in interpret mode, batch tile 2:
+    the four moments and y within the tolerances of
+    tests/test_torch_fused_train.py."""
+    x, _, *params = _inputs(shape, seed=shape[-1] + 13)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    want_y, want_m = jax_fb.block_train_fwd(
+        jx, *map(jnp.asarray, params), EPS, batch_tile=2, interpret=True)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got_y, got_m = fb.block_train_fwd(tx, *map(torch.from_numpy, params))
+    for name, g, w in zip(("mean1", "var1", "mean2", "var2"), got_m, want_m):
+        _close(g, w, name, atol=1e-5, rtol=1e-5)
+    if dtype == "float32":
+        _close(got_y, want_y, "y", atol=1e-5, rtol=1e-5)
+    else:
+        # One bf16 ulp of the reference's value, plus 1e-5 where x + out
+        # cancels (as tests/test_torch_fused_train.py holds it).
+        want = np.asarray(jnp.asarray(want_y, jnp.float32), np.float64)
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30)))
+                      - 7)
+        got = got_y.double().numpy()
+        assert (np.abs(got - want) <= ulp + 1e-5).all()
+
+
+@pytest.mark.parametrize("what", ["not_a_tensor", "shape", "dtype",
+                                  "device", "strided"])
+def test_block_fwd_refuses_a_malformed_c1(what):
+    """``c1=`` must be the stats' c1 of this x: the whole stats tuple, or a
+    c1 of the wrong shape, type, device or layout, raises."""
+    x, w1, w2, s1, b1, s2, b2 = _folds((2, 6, 6, 16), seed=14)
+    stats = fb.block_stats(x, w1, s1, b1)
+    c1 = stats[2]
+    fb.block_fwd(x, w1, w2, s1, b1, s2, b2, c1=c1)   # the handoff passes
+    bad = {"not_a_tensor": stats, "shape": c1[..., :8],
+           "dtype": c1.double(),
+           "device": torch.empty(c1.shape, device="meta"),
+           "strided": c1.transpose(1, 2)}[what]
+    with pytest.raises(ValueError, match="c1 must be float32"):
+        fb.block_fwd(x, w1, w2, s1, b1, s2, b2, c1=bad)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)

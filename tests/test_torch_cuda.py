@@ -65,6 +65,29 @@ def test_block_fwd_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# The three CIFAR train shapes (the tile plan), a B=16 serve shape (the
+# small plan), an odd batch and a ragged plane whose tiles span images.
+_C1_SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64),
+              (16, 16, 16, 32), (3, 16, 16, 32), (5, 7, 5, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _C1_SHAPES)
+def test_block_fwd_from_c1_equals_block_fwd_from_x(cuda, shape, dtype):
+    """The training forward: block_fwd from block_stats' c1 (one launch)
+    gives bit for bit what block_fwd from x (two launches) gives, since
+    both take one plan and the stats' c1 is the first launch's."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, (w1, w2), (s1, b1, s2, b2) = _inputs(shape, dtype, gen)
+    before = (fb.launches, fb.stats_launches)
+    c1 = fb.block_stats(x, w1, s1, b1)[2]
+    got = fb.block_fwd(x, w1, w2, s1, b1, s2, b2, c1=c1)
+    want = fb.block_fwd(x, w1, w2, s1, b1, s2, b2)
+    torch.cuda.synchronize()
+    assert (fb.launches, fb.stats_launches) == (before[0] + 2, before[1] + 1)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 32, 32, 16), (3, 5, 7, 24)])
 def test_sbr_kernel_matches_plain(cuda, shape, dtype):
@@ -118,11 +141,14 @@ def test_bottleneck_fwd_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(128, 32, 32, 16), (128, 16, 16, 32),
-                                   (128, 8, 8, 64), (3, 5, 7, 24),
+                                   (128, 8, 8, 64), (128, 56, 56, 256),
+                                   (128, 7, 7, 2048), (3, 5, 7, 24),
                                    (1, 1, 1, 8)])
 def test_sbr_bwd_kernel_matches_plain(cuda, shape, dtype):
-    """The three CIFAR train shapes, a ragged one (C/N not a power of two)
-    and a single pixel."""
+    """The three CIFAR train shapes, two ImageNet ones (the widest plane
+    and the widest C: 64 channel slices), a ragged one (C/N not a power of
+    two) and a single pixel; one launch a call, two calls bit for bit
+    equal."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     x, _, (s, b, _, _) = _inputs(shape, dtype, gen)
     g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -141,8 +167,15 @@ def test_sbr_bwd_kernel_matches_plain(cuda, shape, dtype):
     for got, ref, terms in ((ds, want[1], gm * x.float()), (db, want[2], gm)):
         scale = terms.abs().sum(dim=(0, 1, 2))
         assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    del want, gm
     again = ep.scale_bias_relu_bwd(x, s, b, g)
     assert all(torch.equal(p, q) for p, q in zip((dx, ds, db), again))
+    # One kernel launch a call, and no other kernel.
+    from tpu_resnet_torch.tools.profiling import device_profile
+    kernels = device_profile(lambda: ep.scale_bias_relu_bwd(x, s, b, g),
+                             iters=2)["kernels"]
+    assert [k["name"] for k in kernels if "sbr_bwd" not in k["name"]] == []
+    assert sum(k["launches_per_call"] for k in kernels) == 1
 
 
 @pytest.mark.parametrize("shape", [(128, 10), (128, 100), (128, 1000),
@@ -270,14 +303,18 @@ def _sums_close(got, want, scale):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 32, 32, 16), (3, 16, 16, 32),
-                                   (5, 8, 8, 64), (2, 7, 5, 16)])
+                                   (5, 8, 8, 64), (2, 7, 5, 16),
+                                   (7, 7, 5, 16), (128, 32, 32, 16),
+                                   (128, 16, 16, 32), (128, 8, 8, 64)])
 def test_block_train_kernels_match_plain(cuda, shape, dtype):
     """block_stats and the three backward passes at the three widths, a
-    single image, odd batches and a ragged plane (where the passes' tiles of
-    pixels span images); each called twice. Pass 1's dz2 and ẑ2 against the
-    plain pass 1's, pass 2 from the plain pass 1's dz2 and ẑ2, its dz1
-    against the plain dz1, pass 3 from the plain dz1 and from the kernel's
-    own."""
+    single image, odd batches and ragged planes (where the tiles of pixels
+    span images; the stats on the small plan) and the three B=128 train
+    shapes (the stats on the tile plan); each called twice, bit for bit
+    equal. The stats' c1 against the plain c1 within block_fwd's float32
+    tolerance; pass 1's dz2 and ẑ2 against the plain pass 1's, pass 2 from
+    the plain pass 1's dz2 and ẑ2, its dz1 against the plain dz1, pass 3
+    from the plain dz1 and from the kernel's own."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
     with torch.backends.cudnn.flags(enabled=False):   # exact on the grid
@@ -300,13 +337,13 @@ def test_block_train_kernels_match_plain(cuda, shape, dtype):
             scale = plain(*args, **kw, magnitudes=True)
         torch.cuda.synchronize()
         assert getattr(fb, counter) == before + 2
-        _sums_close(got[:3], want[:3], scale[:3])
+        sums = 2 if counter == "stats_launches" else 3
+        _sums_close(got[:sums], want[:sums], scale[:sums])
         assert all(torch.equal(p, q) for p, q in zip(got, again))
-        if counter == "bwd1_launches":
-            # block_fwd's float32 tolerance: dz2 and ẑ2 are float32.
-            for g, w in zip(got[3:], want[3:]):
-                assert g.dtype == torch.float32 and g.shape == x.shape
-                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        # block_fwd's float32 tolerance: c1, dz2 and ẑ2 are float32.
+        for g, w in zip(got[sums:], want[sums:]):
+            assert g.dtype == torch.float32 and g.shape == x.shape
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
     own_dz1 = got[3]
     # block_fwd's float32 tolerance: dz1 is float32 whatever x's dtype.
     assert own_dz1.dtype == torch.float32 and own_dz1.shape == x.shape
@@ -353,6 +390,10 @@ def test_block_train_wrappers_reject_bad_input(cuda):
     for bad in (gy.permute(0, 2, 1, 3), gy.double(), gy[..., :8], gy.cpu()):
         with pytest.raises(ValueError, match="dz1 must be float32"):
             fb.block_bwd3(x, gy, w1, w2, *vecs, *vecs[:4], dz1=bad)
+    s1, b1, s2, b2 = vecs[:4]
+    for bad in (gy.permute(0, 2, 1, 3), gy.double(), gy[..., :8], gy.cpu()):
+        with pytest.raises(ValueError, match="c1 must be float32"):
+            fb.block_fwd(x, w1, w2, s1, b1, s2, b2, c1=bad)
     with pytest.raises(ValueError, match="kernels for C"):
         fb.block_stats(torch.zeros(2, 8, 8, 24, device="cuda"),
                        torch.zeros(3, 3, 24, 24, device="cuda"),

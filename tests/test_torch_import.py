@@ -21,8 +21,10 @@ PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "tpu_resnet_torch"))
     for f in files if f.endswith(".py")) + [
-        "chip_smoke.py", os.path.join("tools", "profile_torch_forward.py"),
-        os.path.join("tools", "profile_torch_train.py")]
+        "chip_smoke.py", *(os.path.join("tools", f"{name}.py") for name in (
+            "profile_torch_forward", "profile_torch_train",
+            "time_torch_block", "time_torch_bottleneck",
+            "time_torch_epilogue"))]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_resnet")
 
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Device time of the fused basic block's kernels, one call at a time, at
 the CIFAR ResNet-50's three fused stage shapes, bfloat16 x, on one CUDA
-card: at B=128 (the fused train step) ``block_fwd`` (live moments folded),
-``block_stats`` and the three backward passes, and at B=16 (the serve
-bucket) ``block_fwd``; each beside its plain version.
+card: at B=128 (the fused train step) ``block_fwd`` (live moments folded,
+as the train step calls it: from the stats' c1 where ``block_fwd`` takes
+``c1=``, else from x), ``block_stats`` and the three backward passes, and
+at B=16 (the serve bucket) ``block_fwd`` from x; each beside its plain
+version.
 
     python3 tools/time_torch_block.py [--root DIR] [--tag NAME]
 
@@ -11,18 +13,19 @@ Each call is queued behind a device spin, so the CUDA events time the card
 alone (median of 10 runs of 5 calls; the plain versions 5 runs of 2).
 Checked against the plain versions (``err_over_limit`` ≤ 1 passes):
 ``block_fwd`` and pass 3's dx within ``block_fwd``'s bfloat16 tolerance
-(1e-2 abs and rel), the sums of passes 1 and 2 within 1e-5·Σ|terms| +
-1e-6, pass 1's handed-over dz2 and ẑ2 within ``block_fwd``'s float32
-tolerance (1e-4); inputs are seeded normals with the batch's own BN
-moments. Pass 2 and its plain version take the kernel's own pass 1
+(1e-2 abs and rel), the sums of the stats and of passes 1 and 2 within
+1e-5·Σ|terms| + 1e-6, the stats' c1 and pass 1's handed-over dz2 and ẑ2
+within ``block_fwd``'s float32 tolerance (1e-4); inputs are seeded normals
+with the batch's own BN moments. The training ``block_fwd`` and its plain
+version take the kernel's own c1. Pass 2 and its plain version take the kernel's own pass 1
 handoff, pass 3 its own pass 2's dz1. ``per_step_ms`` sums the calls of one
 fused train step (7 blocks a stage), ``per_forward_ms`` those of one B=16
 serve forward. The package timed is the one under ``--root`` (default:
 this checkout), so two checkouts, say a parent commit unpacked into an
 ignored directory, run as separate processes in one run on one card:
-parent, change, change, parent. A parent whose pass 3 takes no ``dz1``, or
-whose pass 2 takes no ``dz2`` and ``z2hat``, recomputes them. Prints one
-JSON line.
+parent, change, change, parent. A parent whose pass 3 takes no ``dz1``,
+whose pass 2 takes no ``dz2`` and ``z2hat``, or whose ``block_fwd`` takes no
+``c1``, recomputes them. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ def main() -> int:
     resolve_device("cuda")
     handoff = "dz1" in inspect.signature(fb.block_bwd3).parameters
     handoff1 = "dz2" in inspect.signature(fb.block_bwd2).parameters
+    handoff0 = "c1" in inspect.signature(fb.block_fwd).parameters
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*size, scale=1.0):
@@ -113,14 +117,25 @@ def main() -> int:
             s1, sb1 = fb._fold(g1, b1, m1, v1, fb.EPS)
             s2, sb2 = fb._fold(g2, b2, m2, v2, fb.EPS)
             fwd = (x, w1, w2, s1, sb1, s2, sb2)
+            # The train step's forward from the stats' c1 (one launch).
+            kw0 = ({"c1": fb.block_stats(x, w1, s1, sb1)[2]}
+                   if handoff0 and b == TRAIN_BATCH else {})
             with torch.backends.cudnn.flags(enabled=False):
                 want = fb.block_fwd_reference(*fwd)
-            record("block_fwd", shape, lambda: fb.block_fwd(*fwd),
-                   lambda: fb.block_fwd_reference(*fwd),
-                   over(fb.block_fwd(*fwd), want, 1e-2, 1e-2),
+            record("block_fwd", shape, lambda: fb.block_fwd(*fwd, **kw0),
+                   lambda: fb.block_fwd_reference(*fwd, **kw0),
+                   over(fb.block_fwd(*fwd, **kw0), want, 1e-2, 1e-2),
                    per_step if b == TRAIN_BATCH else per_forward)
             if b == SERVE_BATCH:
                 continue
+            stats = fb.block_stats(x, w1, s1, sb1)
+            with torch.backends.cudnn.flags(enabled=False):
+                want0 = fb.block_stats_reference(x, w1, s1, sb1)
+                scale0 = fb.block_stats_reference(x, w1, s1, sb1,
+                                                  magnitudes=True)
+            check0 = sums_over(stats[:2], want0[:2], scale0[:2])
+            if handoff0:
+                check0 = max(check0, over(stats[2], want0[2], 1e-4, 1e-4))
             gy = randn(*shape)
             i1, i2 = torch.rsqrt(v1 + fb.EPS), torch.rsqrt(v2 + fb.EPS)
             base = (x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2)
@@ -144,7 +159,7 @@ def main() -> int:
             calls = {
                 "block_stats": (lambda: fb.block_stats(x, w1, s1, sb1),
                                 lambda: fb.block_stats_reference(
-                                    x, w1, s1, sb1), None),
+                                    x, w1, s1, sb1), check0),
                 "block_bwd1": (lambda: fb.block_bwd1(*base),
                                lambda: fb.train_bwd_pass1_reference(*base),
                                check1),
@@ -160,10 +175,10 @@ def main() -> int:
             for kind, (fn, plain, check) in calls.items():
                 record(kind, shape, fn, plain, check, per_step)
             del gy, base, out1, out2, kw2, kw3, want1, want2, want3, calls
-            del scale1, scale2
+            del scale1, scale2, kw0, stats, want0, scale0
             torch.cuda.empty_cache()
     print(json.dumps({"tag": args.tag, "root": root, "handoff": handoff,
-                      "handoff1": handoff1,
+                      "handoff1": handoff1, "handoff0": handoff0,
                       "gpu": torch.cuda.get_device_name(0),
                       "per_step_ms": per_step,
                       "per_forward_ms": per_forward, "rows": rows}),

@@ -35,10 +35,34 @@
 // site of the training step with model.fused_epilogue=on. Bound: device
 // memory, x and g read once and dx written once (3 x elements x type size).
 // Only x is kept from the forward: the mask is recomputed with the forward's
-// exact roundings. The TPU kernel carries ds/db across its sequential grid;
-// here blocks run in parallel, so each block writes a row of partial sums
-// and a second small launch adds the rows in a fixed order. No float
-// atomics, so runs repeat bit for bit.
+// exact roundings and dx = g*mask*s rounds once, so dx is bit for bit the
+// plain version's. The TPU kernel carries ds/db across its sequential grid;
+// here it is one launch:
+//   - A block covers a slice of a pixel's channels, 4 or 8 16-byte vectors
+//     (8 where C has 32 vectors or more; all of C where C is smaller), and
+//     walks chunks of pixels with a fixed stride. A thread keeps one vector
+//     of the slice, with four independent vectors of x and four of g in
+//     flight. The grid is one wave: the SM count times the blocks an SM
+//     holds, at most kBlocksPerSM (one ran faster on an H100 than two, at
+//     the CIFAR and at the ImageNet sites), shared among the slices. Each
+//     block writes a row of partial sums, so few blocks keep the last
+//     block's sum short.
+//   - A block reduces its threads' sums in a fixed order (shuffles in a fixed
+//     pattern, then the warps in order; where a slice's vectors are not a
+//     power of two, its rows of threads in order) and writes one row [ds,
+//     db] of its slice.
+//   - The block that finishes its slice last adds the slice's rows. It is
+//     found by an integer ticket: after a barrier one thread fences the
+//     block's writes and takes an atomicAdd on the slice's counter; the last
+//     one resets it to 0. The ticket decides only which block adds, never
+//     the order, which is fixed, so two calls agree bit for bit. No float
+//     atomics. Its loads go out 16 at a time before they are added: loaded
+//     and added one by one they took 4-5 us of a 10 us call at the CIFAR
+//     shapes.
+// Slicing C keeps each slice's rows few, so the last block's sum stays short
+// however wide C is.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -110,119 +134,198 @@ __global__ void sbr_add_kernel(const T* __restrict__ x,
   }
 }
 
-// Backward: one thread owns one 16-byte vector of channels (c0..c0+N-1, a
-// fixed group for the thread) and walks the block's range of pixels with a
-// stride of `rows`; it writes dx per element and keeps its channels' sums of
-// g*mask*x and g*mask in registers. The block then sums its threads' rows in
-// a fixed order through shared memory and writes one row of partial sums
-// per block; sbr_bwd_sum_kernel adds the blocks' rows in block order.
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride beyond this
+constexpr int kUnroll = 4;          // vectors of x and of g in flight a thread
+constexpr int kBlocksPerSM = 1;     // backward blocks an SM, at most
+constexpr int kTailLoads = 16;      // the last block's loads in flight a thread
+constexpr int kRedFloats = 4096;    // a backward block's exchange
+constexpr int kMaxSlices = 1024;    // the tickets the wrapper keeps
+
+// The backward: block (bx, slice), slice = blockIdx.x % slices, one of nbx
+// blocks of its slice, covers channels [slice*cw, (slice+1)*cw), cw = vs*N,
+// of the chunks bx, bx + nbx, ... of rows*kUnroll pixels; thread (r, v)
+// keeps vector v of the slice at pixels chunk + u*rows + r. part is
+// [nbx][2C]: row bx holds ds then db.
 template <typename T>
-__global__ void sbr_bwd_kernel(const T* __restrict__ x,
-                               const float* __restrict__ s,
-                               const float* __restrict__ b,
-                               const T* __restrict__ g, T* __restrict__ dx,
-                               float* __restrict__ part, long long pixels,
-                               int C, int rows) {
+__global__ void __launch_bounds__(kThreads) sbr_bwd_kernel(
+    const T* __restrict__ x, const float* __restrict__ s,
+    const float* __restrict__ b, const T* __restrict__ g, T* __restrict__ dx,
+    float* __restrict__ part, float* __restrict__ sums,
+    unsigned* __restrict__ tickets, long long pixels, int C, int vs,
+    int nbx) {
   constexpr int N = Vec<T>::N;
-  extern __shared__ float red[];  // [2][rows][C]: sums of g*m*x, of g*m
-  const int vpp = C / N;          // vectors per pixel
-  const int v = threadIdx.x % vpp;
-  const int r = threadIdx.x / vpp;
-  const int c0 = v * N;
-  const long long per_block = (pixels + gridDim.x - 1) / gridDim.x;
-  const long long p0 = (long long)blockIdx.x * per_block;
-  const long long p1 = min(p0 + per_block, pixels);
+  __shared__ float red[kRedFloats];  // [slots][2][cw], then [phases][2cw]
+  __shared__ bool last;
+  const int cw = vs * N, vpp = C / N, slices = C / cw;
+  const int slice = blockIdx.x % slices, bx = blockIdx.x / slices;
+  const int rows = blockDim.x / vs;
+  const int v = threadIdx.x % vs, r = threadIdx.x / vs;
+  const int vec = slice * vs + v;  // the thread's vector of a pixel
   float sv[N], bv[N], ds[N], db[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    sv[j] = __ldg(s + c0 + j);
-    bv[j] = __ldg(b + c0 + j);
+    sv[j] = __ldg(s + vec * N + j);
+    bv[j] = __ldg(b + vec * N + j);
     ds[j] = 0.f;
     db[j] = 0.f;
   }
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   const uint4* gv = reinterpret_cast<const uint4*>(g);
   uint4* dxv = reinterpret_cast<uint4*>(dx);
-  for (long long p = p0 + r; p < p1; p += rows) {
-    const long long i = p * vpp + v;
-    const uint4 xr = __ldg(xv + i);
-    const uint4 gr = __ldg(gv + i);
-    const T* xin = reinterpret_cast<const T*>(&xr);
-    const T* gin = reinterpret_cast<const T*>(&gr);
-    uint4 packed;
-    T* out = reinterpret_cast<T*>(&packed);
+  const long long chunk = (long long)rows * kUnroll;
+  for (long long p0 = bx * chunk; p0 < pixels; p0 += nbx * chunk) {
+    uint4 xr[kUnroll], gr[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long p = p0 + u * rows + r;
+      if (p < pixels) {
+        xr[u] = __ldg(xv + p * vpp + vec);
+        gr[u] = __ldg(gv + p * vpp + vec);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long p = p0 + u * rows + r;
+      if (p >= pixels) continue;
+      const T* xin = reinterpret_cast<const T*>(&xr[u]);
+      const T* gin = reinterpret_cast<const T*>(&gr[u]);
+      uint4 packed;
+      T* out = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xf = tr::to_f32(xin[j]);
+        // The forward's rounding exactly (no FMA): a pre-activation that
+        // rounds to 0 there has mask 0 here too.
+        const float pre = __fadd_rn(__fmul_rn(xf, sv[j]), bv[j]);
+        const float gm = pre > 0.f ? tr::to_f32(gin[j]) : 0.f;
+        out[j] = tr::from_f32<T>(__fmul_rn(gm, sv[j]));
+        ds[j] = fmaf(gm, xf, ds[j]);
+        db[j] += gm;
+      }
+      dxv[p * vpp + vec] = packed;
+    }
+  }
+
+  // The block's row: where vs is a power of two (it divides 32, and the
+  // block is kThreads threads) the lanes of one vector lie vs apart, so
+  // shuffles in a fixed pattern, then the warps in order; else the rows of
+  // threads in order.
+  const int lane = threadIdx.x & 31;
+  const bool shfl = (vs & (vs - 1)) == 0;
+  if (shfl) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      for (int o = vs; o < 32; o <<= 1) {
+        ds[j] += __shfl_xor_sync(0xffffffffu, ds[j], o);
+        db[j] += __shfl_xor_sync(0xffffffffu, db[j], o);
+      }
+  }
+  const int slots = shfl ? blockDim.x / 32 : rows;
+  const int slot = shfl ? threadIdx.x / 32 : r;
+  if (!shfl || lane < vs) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const float xf = tr::to_f32(xin[j]);
-      // The forward's rounding exactly (no FMA): a pre-activation that
-      // rounds to 0 there has mask 0 here too.
-      const float pre = __fadd_rn(__fmul_rn(xf, sv[j]), bv[j]);
-      const float gm = pre > 0.f ? tr::to_f32(gin[j]) : 0.f;
-      out[j] = tr::from_f32<T>(__fmul_rn(gm, sv[j]));
-      ds[j] += gm * xf;
-      db[j] += gm;
+      red[(slot * 2) * cw + v * N + j] = ds[j];
+      red[(slot * 2 + 1) * cw + v * N + j] = db[j];
     }
-    dxv[i] = packed;
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    red[r * C + c0 + j] = ds[j];
-    red[(rows + r) * C + c0 + j] = db[j];
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < 2 * C; k += blockDim.x) {
-    const int which = k / C, c = k % C;
+  float* row = part + (long long)bx * 2 * C;
+  for (int k = threadIdx.x; k < 2 * cw; k += blockDim.x) {
+    const int which = k / cw, c = k % cw;
     float acc = 0.f;
-    for (int rr = 0; rr < rows; ++rr) acc += red[(which * rows + rr) * C + c];
-    part[((long long)which * gridDim.x + blockIdx.x) * C + c] = acc;
+    for (int q = 0; q < slots; ++q) acc += red[(q * 2 + which) * cw + c];
+    row[which * C + slice * cw + c] = acc;
   }
+  // The block's writes, the row among them, are ordered before the ticket by
+  // the barrier and one fence (cumulative); the last block's reads after
+  // the ticket by a fence and the barrier.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + slice, 1u) == (unsigned)(nbx - 1);
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // The slice's last block: column k of [ds, db] over the slice's rows.
+  // Thread (phase, k) adds rows phase, phase + phases, ... in order, then
+  // the phases are added in order. The rows are loaded kTailLoads at a time
+  // before they are added, so that the loads overlap.
+  const int cols = 2 * cw;
+  const int phases = (int)blockDim.x >= cols ? blockDim.x / cols : 1;
+  const int k = threadIdx.x % cols, phase = threadIdx.x / cols;
+  if (phase < phases) {
+    const float* col = part + (k / cw) * C + slice * cw + k % cw;
+    float acc = 0.f;
+    for (int q0 = phase; q0 < nbx; q0 += kTailLoads * phases) {
+      float v[kTailLoads];
+#pragma unroll
+      for (int j = 0; j < kTailLoads; ++j) {
+        const int q = q0 + j * phases;
+        v[j] = q < nbx ? __ldcg(col + (long long)q * 2 * C) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kTailLoads; ++j) acc += v[j];
+    }
+    red[phase * cols + k] = acc;
+  }
+  __syncthreads();
+  for (int kk = threadIdx.x; kk < cols; kk += blockDim.x) {
+    float acc = 0.f;
+    for (int q = 0; q < phases; ++q) acc += red[q * cols + kk];
+    sums[(kk / cw) * C + slice * cw + kk % cw] = acc;
+  }
+  if (threadIdx.x == 0) tickets[slice] = 0;
 }
 
-// out[which * C + c] = sum over blocks, in block order, of
-// part[which][block][c]; which 0 is ds, 1 is db.
-__global__ void sbr_bwd_sum_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, int nblocks,
-                                   int C) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= 2 * C) return;
-  const int which = k / C, c = k % C;
-  const float* p = part + (long long)which * nblocks * C + c;
-  float acc = 0.f;
-  for (int blk = 0; blk < nblocks; ++blk) acc += p[(long long)blk * C];
-  out[k] = acc;
+// The largest divisor of n that is at most m.
+int divisor_at_most(int n, int m) {
+  for (int d = m < n ? m : n; d > 1; --d)
+    if (n % d == 0) return d;
+  return 1;
 }
-
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride beyond this
 
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* s, const void* b,
                        const void* g, void* dx, void* part, void* sums,
-                       long long n, int C, int nblocks, cudaStream_t stream) {
+                       void* tickets, long long n, int C, int part_rows,
+                       int device, cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
-  if (C % N != 0 || n % C != 0 || nblocks <= 0) return cudaErrorInvalidValue;
-  const int vpp = C / N;
-  if (vpp > 1024) return cudaErrorInvalidValue;
-  const int rows = vpp >= kThreads ? 1 : kThreads / vpp;
-  const size_t smem = 2ull * rows * C * sizeof(float);  // <= 64 KB
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sbr_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  if (C % N != 0 || n % C != 0 || part_rows < 1) return cudaErrorInvalidValue;
   const long long pixels = n / C;
-  if (pixels == 0) return cudaMemsetAsync(sums, 0, 2 * C * sizeof(float),
-                                          stream);
-  sbr_bwd_kernel<T><<<nblocks, rows * vpp, smem, stream>>>(
+  if (pixels == 0)
+    return cudaMemsetAsync(sums, 0, 2 * C * sizeof(float), stream);
+  const int vpp = C / N;
+  // A slice of 8 vectors (128 bytes of a pixel) where C has 32 vectors or
+  // more, else 4: the faster on an H100 at the ImageNet and CIFAR sites
+  // (PERF.md).
+  const int vs = divisor_at_most(vpp, vpp >= 32 ? 8 : 4);
+  const int slices = vpp / vs, threads = kThreads / vs * vs;
+  if (slices > kMaxSlices) return cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sbr_bwd_kernel<T>, threads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // Blocks a slice: as many as run at once over all slices, no more than
+  // the slice's chunks of pixels or the rows of partial sums.
+  const long long chunk = (long long)(threads / vs) * kUnroll;
+  const long long chunks = (pixels + chunk - 1) / chunk;
+  const long long fill =
+      ((long long)std::min(per_sm, kBlocksPerSM) * sms + slices - 1) / slices;
+  const int nbx = (int)std::min<long long>({chunks, fill, part_rows});
+  sbr_bwd_kernel<T><<<nbx * slices, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(s),
       static_cast<const float*>(b), static_cast<const T*>(g),
-      static_cast<T*>(dx), static_cast<float*>(part), pixels, C, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sbr_bwd_sum_kernel<<<(2 * C + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(static_cast<const float*>(part),
-                                 static_cast<float*>(sums), nblocks, C);
+      static_cast<T*>(dx), static_cast<float*>(part),
+      static_cast<float*>(sums), static_cast<unsigned*>(tickets), pixels, C,
+      vs, nbx);
   return cudaGetLastError();
 }
 
@@ -297,21 +400,24 @@ extern "C" int tr_sbr_add(const void* x, const void* s, const void* b,
 }
 
 // Backward of tr_sbr. x, g, dx: n elements of `dtype`, NHWC-contiguous with
-// C channels, 16-byte aligned; s, b: C floats; part: 2 * nblocks * C floats
-// of scratch; sums: 2 * C floats, ds then db. Two launches on `stream`.
+// C channels, 16-byte aligned; s, b: C floats; part: 2 * part_rows * C
+// floats of scratch; sums: 2 * C floats, ds then db; tickets: 1024 unsigned
+// zeros, left zero, used by no other call at the same time (the wrapper
+// keeps them per device and stream). One launch on `stream`.
 extern "C" int tr_sbr_bwd(const void* x, const void* s, const void* b,
                           const void* g, void* dx, void* part, void* sums,
-                          long long n, int C, int nblocks, int dtype,
-                          int device, void* stream) {
+                          void* tickets, long long n, int C, int part_rows,
+                          int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tr::kFloat32:
-      return launch_bwd<float>(x, s, b, g, dx, part, sums, n, C, nblocks, st);
+      return launch_bwd<float>(x, s, b, g, dx, part, sums, tickets, n, C,
+                               part_rows, device, st);
     case tr::kBFloat16:
-      return launch_bwd<__nv_bfloat16>(x, s, b, g, dx, part, sums, n, C,
-                                       nblocks, st);
+      return launch_bwd<__nv_bfloat16>(x, s, b, g, dx, part, sums, tickets, n,
+                                       C, part_rows, device, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,18 +1,21 @@
 // The fused ResNet-v2 basic block on tiles of pixels and the tensor cores:
-// its forward with folded batch norm, and its three backward passes with live
-// batch norm. Stride 1, equal in/out channels C (16, 32 or 64), 3x3 SAME
-// convs; x is NHWC [B,H,W,C] (f32 or bf16), y (the forward's output) of x's
-// shape and type, gy f32 of x's shape, w1 and w2 HWIO f32 [3,3,C,C], every BN
-// vector f32 [C]; the tensors one launch or pass hands the next (r2, dz2,
+// its forward with folded batch norm, the moments of conv1's output in the
+// training forward, and its three backward passes with live batch norm.
+// Stride 1, equal in/out channels C (16, 32 or 64), 3x3 SAME convs; x is
+// NHWC [B,H,W,C] (f32 or bf16), y (the forward's output) of x's shape and
+// type, gy f32 of x's shape, w1 and w2 HWIO f32 [3,3,C,C], every BN vector
+// f32 [C]; the tensors one launch or pass hands the next (c1, r2, dz2,
 // z2hat, dc1, dz1) f32 [B,H,W,C].
 //
 // Replaces, in tpu_resnet/ops/fused_block.py (every stride-1 identity block
 // of the CIFAR ResNet runs them when model.fused_blocks=true: 21 blocks of
 // ResNet-50):
 //   mode 0 block_fwd   _block_kernel (:87): y = x + conv(r2, w2), r2 =
-//               relu(s2*conv(r1, w1) + b2), r1 = relu(s1*x + b1) (serving,
-//               the eval-mode gradient's forward, and in training with the
-//               live moments folded);
+//               relu(s2*c1 + b2), c1 = conv(r1, w1), r1 = relu(s1*x + b1)
+//               (serving, the eval-mode gradient's forward, and in training
+//               with the live moments folded, from the stats' c1);
+//   mode 4 block_stats _stats_kernel (:509, through _c1_moments): sum c1,
+//               sum c1^2 over (B, H, W), and c1 itself, handed to block_fwd;
 // and in _train_bwd_calls:
 //   mode 1 block_bwd1  pass1 (:381): T1 = sum dz2, T2 = sum dz2*z2hat with
 //               dz2 = convT(gy, w2)*[z2>0]; dw2 = sum r2-patch^T gy; and dz2
@@ -23,24 +26,28 @@
 //               r1-patch^T dc1; and dz1 itself, handed to pass 3;
 //   mode 3 block_bwd3  pass3 (:433): dx = gy + g1*i1*(dz1 - U1/n -
 //               z1hat*(U2/n)), from pass 2's dz1, in x's dtype.
-// The reference recomputes the chain from x in each pass (z1hat = (x-m1)*i1,
+// The reference recomputes the chain from x in each call (z1hat = (x-m1)*i1,
 // z1 = g1*z1hat + b1, r1 = relu(z1), c1 = conv(r1, w1), z2hat = (c1-m2)*i2,
 // z2 = g2*z2hat + b2, r2 = relu(z2); i = 1/sigma): its VMEM keeps nothing
-// between calls. Here pass 1 writes dz2 and z2hat and pass 2 reads them,
-// pass 2 writes dz1 and pass 3 reads it: c1 and each mask [z > 0] are
-// computed once, in one pass. The forward runs its folds as (g, b, m, i) =
-// (s, b, 0, 1): v - 0 and v * 1 are exact, so r1 = relu(s1*x + b1) and r2 =
-// relu(s2*c1 + b2) bit for bit, the reference's folded chain. Every
-// elementwise formula rounds as written (__fmul_rn, __fadd_rn, __fsub_rn,
-// __fdiv_rn, no FMA contraction), as the plain PyTorch version does, so a
-// mask [z > 0] agrees with the plain version's wherever the products do.
+// between calls, and its training forward computes c1 twice, once for the
+// moments and once in the folded forward. Here the stats write c1 and the
+// training forward reads it, pass 1 writes dz2 and z2hat and pass 2 reads
+// them, pass 2 writes dz1 and pass 3 reads it: c1 and each mask [z > 0] are
+// computed once, in one pass. The folded forward and the stats run their
+// folds as (g, b, m, i) = (s, b, 0, 1): v - 0 and v * 1 are exact, so r1 =
+// relu(s1*x + b1) and r2 = relu(s2*c1 + b2) bit for bit, the reference's
+// folded chain. Every elementwise formula rounds as written (__fmul_rn,
+// __fadd_rn, __fsub_rn, __fdiv_rn, no FMA contraction), as the plain PyTorch
+// version does, so a mask [z > 0] agrees with the plain version's wherever
+// the products do.
 //
 // Bound: each 3x3 product (conv, convT or a weight gradient) is 2*B*H*W*9*C*C
 // flops, 0.604 GFLOP at every CIFAR stage at B=128: 9 us at the f32 rate, 3.7
 // at TF32 over the split's three terms, against ~4-8 bytes a pixel-channel
-// moved for each: operations. fwd runs two products, pass 1 three (c1, the
-// convT of gy, dw2), pass 2 two (the convT of dc1, dw1); pass 3 runs none
-// and moves 12 bytes a pixel-channel with bf16 x: bytes.
+// moved for each: operations. fwd runs two products from x, one from c1; the
+// stats one (c1); pass 1 three (c1, the convT of gy, dw2), pass 2 two (the
+// convT of dc1, dw1); pass 3 runs none and moves 12 bytes a pixel-channel
+// with bf16 x: bytes.
 //
 // Design. Tiles of BM consecutive pixels of the [B*H*W] pixel matrix (a tile
 // may span images), each row carrying a 9-bit mask of its taps inside the
@@ -48,11 +55,13 @@
 // stride. 256 threads, 8 warps; a warp owns 16*MT pixels x 8*NI channels
 // (Plan<C, MT, NI>). The tile plan (4096/C pixels: 256, 128, 64) keeps two by
 // two mma tiles a warp (8x1, 4x2, 2x4 warps at C = 16, 32, 64), one code path
-// for all widths. The forward takes the small plan (one 16-pixel by 8-channel
-// mma tile a warp, 1024/C pixels: 64, 32, 16) where the tile plan would fill
-// fewer than 3/4 of the SMs: at B=128 the tile plan (512, 256, 128 tiles at
-// 32^2x16, 16^2x32, 8^2x64), at B=16 and B=1 the small one (256, 128, 64; 16,
-// 8, 4 blocks): B*H*W*C/1024 blocks, the most that one mma tile a warp gives.
+// for all widths. The forward and the stats take the small plan (one
+// 16-pixel by 8-channel mma tile a warp, 1024/C pixels: 64, 32, 16) where the
+// tile plan would fill fewer than 3/4 of the SMs: at B=128 the tile plan
+// (512, 256, 128 tiles at 32^2x16, 16^2x32, 8^2x64), at B=16 and B=1 the
+// small one (256, 128, 64; 16, 8, 4 blocks): B*H*W*C/1024 blocks, the most
+// that one mma tile a warp gives. Both pick the plan by one rule, so the
+// stats' c1 is bit for bit the c1 of the forward's own first launch.
 // Products run on mma.sync m16n8k8 in TF32 with the three-term split
 // (mma_tf32x3.cuh): each k-step's three products start from zero and join
 // the running f32 sum rounding to nearest. A 3x3 product is an implicit GEMM
@@ -60,13 +69,19 @@
 // 16 bytes a thread, A and the weight chunk alike (chunks of min(C, 32)
 // channels of one tap; the weights come from L2). A is the tap's shifted rows
 // of its source straight from device memory, zero filled outside the image:
-// for c1, x, BN1 and ReLU applied as the fragments are read and zero for a
-// tap outside the image (SAME pads r1 itself, not relu(b1)); for conv2 r2,
-// for the convTs gy and dc1. A conv's chunk is stored [K][C] as w is, a
-// convT's [C][K], w's rows of the flipped tap, so both copy whole rows.
-//   fwd    launch 1: c1, r2 to a scratch; launch 2: conv2 over r2, y = x +
-//          it. r2 goes through device memory (at B=128, 8.4 MB at 32^2x16,
-//          in L2): no halo is recomputed.
+// for c1, x with BN1 and its ReLU applied as the fragments are read; for
+// conv2 from the stats' c1, c1 with BN2 and its ReLU applied the same way
+// (gemm_bn: zero for a tap outside the image, since SAME pads r1 and r2, not
+// relu(b)); for conv2 from x, r2; for the convTs gy and dc1. A conv's chunk
+// is stored [K][C] as w is, a convT's [C][K], w's rows of the flipped tap,
+// so both copy whole rows.
+//   fwd    from x (serving, block_apply): launch 1: c1, r2 to a scratch;
+//          launch 2: conv2 over r2, y = x + it. r2 goes through device
+//          memory (at B=128, 8.4 MB at 32^2x16, in L2): no halo is
+//          recomputed. From c1 (training): one launch, conv2 over relu(s2*c1
+//          + b2), y = x + it.
+//   stats  launch 1: c1 (stored) and the tile's sums of c1 and c1^2 into the
+//          block's row; launch 2: the rows' sum.
 //   bwd1   launch 1: c1, z2hat (stored), r2 into the tile's own rows in
 //          shared memory; dr2 = convT(gy, w2), dz2 (stored) and the tile's
 //          sums; then dw2 in the mirrored form, dw2[tap] = sum over the
@@ -93,8 +108,8 @@
 // Sums without atomics: each block walks the tiles with a fixed stride; a
 // channel sum adds a warp's rows by shuffles in a fixed pattern and then the
 // warps of a column in order, each weight-gradient element belongs to one
-// thread, the block writes one row [T1, T2, dw2] or [U1, U2, dw1], and the
-// pass's sum kernel adds the rows in block order. Two calls agree bit for
+// thread, the block writes one row [S1, S2], [T1, T2, dw2] or [U1, U2, dw1],
+// and the sum kernel adds the rows in block order. Two calls agree bit for
 // bit.
 
 #include <algorithm>
@@ -116,7 +131,7 @@ using tr::to_f32;
 constexpr int kTC = 256;     // threads per block
 constexpr int kStages = 3;   // the cp.async rings
 constexpr int kMaxSmem = 232448;
-enum Mode : int { kFwd = 0, kBwd1 = 1, kBwd2 = 2, kBwd3 = 3 };
+enum Mode : int { kFwd = 0, kBwd1 = 1, kBwd2 = 2, kBwd3 = 3, kStats = 4 };
 
 // The tile plan at width C: MT 16-pixel and NI 8-channel mma tiles a warp;
 // shared memory in bytes.
@@ -158,6 +173,11 @@ struct Plan {
   using L1 = After<RING1>;
   using L2 = After<RING2>;
   static constexpr int SMEM_PROD = L1::END;  // one product a launch: fwd
+  // The stats' tile launch: the forward's layout, then the block's sums [2C]
+  // and the tile sums' exchange [WM][2][C].
+  static constexpr int STATS_SUMS_OFF = L1::END;
+  static constexpr int STATS_RED_OFF = STATS_SUMS_OFF + 2 * C * 4;
+  static constexpr int SMEM_STATS = STATS_RED_OFF + WM * 2 * C * 4;
   static constexpr int SUMS_OFF = L2::END;
   static constexpr int RED_OFF = SUMS_OFF + 2 * C * 4;
   static constexpr int DBUF_OFF = RED_OFF + WM * 2 * C * 4;
@@ -168,7 +188,7 @@ struct Plan {
   static_assert(WN * 8 * NI == C && WM * WN == 8, "warps");
   static_assert(TPW * 8 == TILES * KS && BM % (8 * KS) == 0, "tile");
   static_assert(STAGE1 % 16 == 0 && DBUF_OFF % 16 == 0 &&
-                    SMEM_PROD <= kMaxSmem && SMEM_TAPS <= kMaxSmem,
+                    SMEM_STATS <= kMaxSmem && SMEM_TAPS <= kMaxSmem,
                 "smem");
 };
 static_assert(Plan<16>::SMEM_TAPS == 109952 && Plan<32>::SMEM_TAPS == 93952 &&
@@ -183,8 +203,8 @@ struct Args {
   const float* gy;   // [P][C]
   const float* w1;   // [9][C][C]
   const float* w2;
-  // BN gammas, betas, means, 1/sigma [C]; fwd: the folds s1, b1, s2, b2 as
-  // g1, b1, g2, b2, and no m, i.
+  // BN gammas, betas, means, 1/sigma [C]; fwd and stats: the folds s1, b1,
+  // s2, b2 as g1, b1, g2, b2, and no m, i.
   const float *g1, *b1, *g2, *b2, *m1, *i1, *m2, *i2;
   const float *t1, *t2, *u1, *u2;  // pass 1's and pass 2's sums, [C]
   float* dz2;    // [P][C]: pass 1 writes them, pass 2 reads them
@@ -194,7 +214,8 @@ struct Args {
   void* dx;      // [P][C] of the dtype (pass 3)
   float* r2;     // [P][C]: fwd's first launch writes it, its second reads it
   void* y;       // [P][C] of the dtype (fwd)
-  float* part;   // [blocks][ROW_LEN] (passes 1 and 2)
+  float* c1;     // [P][C]: the stats write it, fwd reads it where given
+  float* part;   // [blocks][row] (stats, passes 1 and 2)
   int P, H, W;
   float n;  // B*H*W
 };
@@ -461,13 +482,16 @@ __device__ __forceinline__ void gemm_f32(Acc<PL>& acc, unsigned char* ring,
       });
 }
 
-// c1 = conv3x3(r1, w1) over the tile, r1 = relu(g1*((x-m1)*i1) + b1) from
-// x with e0[c] = (g1, b1, m1, i1), zero for a tap outside the image.
-template <typename T, class PL, int STAGE>
-__device__ __forceinline__ void gemm_c1(Acc<PL>& acc, unsigned char* ring,
-                                        const Args& a, const int2* rows,
-                                        const float4* e0) {
-  constexpr int XS = PL::BK + 16 / (int)sizeof(T);  // x chunk row, items
+// acc = conv3x3(relu(g*((v-m)*i) + b), w) over the tile, v the rows of src
+// [P][C] with e[c] = (g, b, m, i): BN and its ReLU applied as the fragments
+// are read, zero for a tap outside the image. c1 from x (w1, BN1 or the
+// folds s1, b1), and conv2 from c1 (w2, the folds s2, b2).
+template <typename S, class PL, int STAGE>
+__device__ __forceinline__ void gemm_bn(Acc<PL>& acc, unsigned char* ring,
+                                        const S* src, const float* w,
+                                        const int2* rows, const float4* e,
+                                        int W) {
+  constexpr int XS = PL::BK + 16 / (int)sizeof(S);  // src chunk row, items
   constexpr int C = PL::C;
   const Frag<PL> f;
   int vm[PL::MT][2];  // the valid taps of the thread's fragment rows
@@ -476,19 +500,18 @@ __device__ __forceinline__ void gemm_c1(Acc<PL>& acc, unsigned char* ring,
 #pragma unroll
     for (int h = 0; h < 2; ++h) vm[mi][h] = rows[f.row(mi, 2 * h)].y;
   gemm3x3<PL, false, STAGE>(
-      acc, ring, a.w1,
+      acc, ring, w,
       [&](int c, unsigned char* st) {
-        issue_shifted<PL, PL::BK, XS>(reinterpret_cast<T*>(st),
-                                      static_cast<const T*>(a.x), rows,
-                                      c * PL::BK / C, c * PL::BK % C, a.W);
+        issue_shifted<PL, PL::BK, XS>(reinterpret_cast<S*>(st), src, rows,
+                                      c * PL::BK / C, c * PL::BK % C, W);
       },
       [&](const unsigned char* st, int c, int kk, int mi, uint32_t(&big)[4],
           uint32_t(&small)[4]) {
-        const T* as = reinterpret_cast<const T*>(st);
+        const S* as = reinterpret_cast<const S*>(st);
         const int tap = c * PL::BK / C, k = kk + f.t;
         const int r = f.row0 + mi * 16 + f.g;
-        const float4 pa = e0[c * PL::BK % C + k];
-        const float4 pb = e0[c * PL::BK % C + k + 4];
+        const float4 pa = e[c * PL::BK % C + k];
+        const float4 pb = e[c * PL::BK % C + k + 4];
         const bool v0 = (vm[mi][0] >> tap) & 1, v1 = (vm[mi][1] >> tap) & 1;
         const float v[4] = {
             v0 ? bn_relu(to_f32(as[r * XS + k]), pa) : 0.f,
@@ -499,13 +522,14 @@ __device__ __forceinline__ void gemm_c1(Acc<PL>& acc, unsigned char* ring,
       });
 }
 
-// BN1's vectors into e0: (g1, b1, m1, i1), or the forward's folds (s1, b1,
+// A BN's vectors into e: (g, b, m, i), or with m and i null a fold (s, b,
 // 0, 1).
-template <bool FOLD>
-__device__ __forceinline__ void load_e0(const Args& a, float4* e0, int C) {
+__device__ __forceinline__ void load_bn(float4* e, const float* g,
+                                        const float* b, const float* m,
+                                        const float* i, int C) {
   for (int c = threadIdx.x; c < C; c += kTC)
-    e0[c] = FOLD ? make_float4(a.g1[c], a.b1[c], 0.f, 1.f)
-                 : make_float4(a.g1[c], a.b1[c], a.m1[c], a.i1[c]);
+    e[c] = m ? make_float4(g[c], b[c], m[c], i[c])
+             : make_float4(g[c], b[c], 0.f, 1.f);
 }
 
 // Adds a tile's channel sums, sa and sb over the thread's column pairs, to
@@ -626,14 +650,15 @@ __global__ void __launch_bounds__(kTC, 2) block_fwd_r2_kernel(const Args a) {
   int2* rows = reinterpret_cast<int2*>(smem + PL::L1::ROWS);
   float4* e0 = reinterpret_cast<float4*>(smem + PL::L1::E0);
   const Frag<PL> f;
-  load_e0<true>(a, e0, C);
+  load_bn(e0, a.g1, a.b1, nullptr, nullptr, C);
   const int tiles = (a.P + PL::BM - 1) / PL::BM;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long p0 = (long long)tile * PL::BM;
     tile_rows<PL>(a, p0, rows);
     __syncthreads();
     Acc<PL> acc;
-    gemm_c1<T, PL, PL::STAGE1>(acc, smem, a, rows, e0);
+    gemm_bn<T, PL, PL::STAGE1>(acc, smem, static_cast<const T*>(a.x), a.w1,
+                               rows, e0, a.W);
 #pragma unroll
     for (int mi = 0; mi < PL::MT; ++mi)
 #pragma unroll
@@ -655,22 +680,29 @@ __global__ void __launch_bounds__(kTC, 2) block_fwd_r2_kernel(const Args a) {
   }
 }
 
-// The forward's launch 2: y = x + conv3x3(r2, w2) in x's dtype.
-template <typename T, class PL>
+// The forward's last launch: y = x + conv3x3(r2, w2) in x's dtype, r2 from
+// the first launch's scratch or, FROM_C1, relu(s2*c1 + b2) from the stats'
+// c1 as the fragments are read.
+template <typename T, class PL, bool FROM_C1>
 __global__ void __launch_bounds__(kTC, 2) block_fwd_kernel(const Args a) {
   constexpr int C = PL::C;
   extern __shared__ __align__(16) unsigned char smem[];
   int2* rows = reinterpret_cast<int2*>(smem + PL::L1::ROWS);
+  float4* e2 = reinterpret_cast<float4*>(smem + PL::L1::E0);
   const Frag<PL> f;
   const T* xg = static_cast<const T*>(a.x);
   T* yg = static_cast<T*>(a.y);
+  if constexpr (FROM_C1) load_bn(e2, a.g2, a.b2, nullptr, nullptr, C);
   const int tiles = (a.P + PL::BM - 1) / PL::BM;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long p0 = (long long)tile * PL::BM;
     tile_rows<PL>(a, p0, rows);
     __syncthreads();
     Acc<PL> acc;
-    gemm_f32<PL, false, PL::STAGE1>(acc, smem, a.r2, a.w2, rows, a.W);
+    if constexpr (FROM_C1)
+      gemm_bn<float, PL, PL::STAGE1>(acc, smem, a.c1, a.w2, rows, e2, a.W);
+    else
+      gemm_f32<PL, false, PL::STAGE1>(acc, smem, a.r2, a.w2, rows, a.W);
 #pragma unroll
     for (int mi = 0; mi < PL::MT; ++mi)
 #pragma unroll
@@ -686,6 +718,50 @@ __global__ void __launch_bounds__(kTC, 2) block_fwd_kernel(const Args a) {
         }
       }
   }
+}
+
+// The stats' tile launch: c1 = conv3x3(relu(s1*x + b1), w1) to device
+// memory, and each block's row [sum c1, sum c1^2]. Two blocks an SM.
+template <typename T, class PL>
+__global__ void __launch_bounds__(kTC, 2) block_stats_kernel(const Args a) {
+  constexpr int C = PL::C;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* rows = reinterpret_cast<int2*>(smem + PL::L1::ROWS);
+  float4* e0 = reinterpret_cast<float4*>(smem + PL::L1::E0);
+  float* sums = reinterpret_cast<float*>(smem + PL::STATS_SUMS_OFF);
+  float* red = reinterpret_cast<float*>(smem + PL::STATS_RED_OFF);
+  const Frag<PL> f;
+  load_bn(e0, a.g1, a.b1, nullptr, nullptr, C);
+  for (int k = threadIdx.x; k < 2 * C; k += kTC) sums[k] = 0.f;
+  const int tiles = (a.P + PL::BM - 1) / PL::BM;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long p0 = (long long)tile * PL::BM;
+    tile_rows<PL>(a, p0, rows);
+    __syncthreads();
+    Acc<PL> acc;
+    gemm_bn<T, PL, PL::STAGE1>(acc, smem, static_cast<const T*>(a.x), a.w1,
+                               rows, e0, a.W);
+    float sa[PL::NI][2] = {}, sb[PL::NI][2] = {};
+#pragma unroll
+    for (int mi = 0; mi < PL::MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long p = p0 + f.row(mi, 2 * h);
+        if (p >= a.P) continue;
+#pragma unroll
+        for (int ni = 0; ni < PL::NI; ++ni) {
+          const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+          sa[ni][0] += v0;
+          sa[ni][1] += v1;
+          sb[ni][0] = fmaf(v0, v0, sb[ni][0]);
+          sb[ni][1] = fmaf(v1, v1, sb[ni][1]);
+          store2(a.c1 + p * C + f.col(ni, 0), v0, v1);
+        }
+      }
+    add_tile_sums<PL>(sa, sb, red, sums);
+  }
+  float* row = a.part + (long long)blockIdx.x * 2 * C;
+  for (int k = threadIdx.x; k < 2 * C; k += kTC) row[k] = sums[k];
 }
 
 // Pass 1's tile launch: z2hat and dz2 to device memory, and each block's
@@ -707,7 +783,7 @@ __global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
   float* xch = reinterpret_cast<float*>(smem + PL::XCH_OFF);
   const Frag<PL> f;
   float* row = a.part + (long long)blockIdx.x * PL::ROW_LEN;
-  load_e0<false>(a, e0, C);
+  load_bn(e0, a.g1, a.b1, a.m1, a.i1, C);
   for (int k = threadIdx.x; k < 2 * C; k += kTC) sums[k] = 0.f;
 
   bool first = true;
@@ -719,7 +795,8 @@ __global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
     // c1; z2hat = (c1-m2)*i2, kept in registers and stored; r2 =
     // relu(g2*z2hat + b2) into the tile's own rows (zero past P).
     Acc<PL> acc, zh;
-    gemm_c1<T, PL, PL::STAGE2>(acc, ring, a, rows, e0);
+    gemm_bn<T, PL, PL::STAGE2>(acc, ring, static_cast<const T*>(a.x), a.w1,
+                               rows, e0, a.W);
 #pragma unroll
     for (int mi = 0; mi < PL::MT; ++mi)
 #pragma unroll
@@ -835,7 +912,7 @@ __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
   const Frag<PL> f;
   const T* xg = static_cast<const T*>(a.x);
   float* row = a.part + (long long)blockIdx.x * PL::ROW_LEN;
-  load_e0<false>(a, e0, C);
+  load_bn(e0, a.g1, a.b1, a.m1, a.i1, C);
   for (int k = threadIdx.x; k < 2 * C; k += kTC) sums[k] = 0.f;
 
   bool first = true;
@@ -907,7 +984,7 @@ __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
 }
 
 // out[k] = sum over rows, in row order, of part[row][k]: the last launch of
-// passes 1 and 2, each under its own name.
+// the stats and of passes 1 and 2, each under its own name.
 __device__ __forceinline__ void sum_rows(const float* __restrict__ part,
                                          float* __restrict__ out, int rows,
                                          int L) {
@@ -916,6 +993,11 @@ __device__ __forceinline__ void sum_rows(const float* __restrict__ part,
   float s = 0.f;
   for (int r = 0; r < rows; ++r) s += part[(long long)r * L + k];
   out[k] = s;
+}
+__global__ void block_stats_sum_kernel(const float* __restrict__ part,
+                                       float* __restrict__ out, int rows,
+                                       int L) {
+  sum_rows(part, out, rows, L);
 }
 __global__ void block_bwd1_sum_kernel(const float* __restrict__ part,
                                       float* __restrict__ out, int rows,
@@ -999,28 +1081,46 @@ cudaError_t run_elementwise(K kernel, const Args& a, int C, int device,
   return cudaGetLastError();
 }
 
-// The forward's two launches on plan PL.
+// The forward on plan PL: from c1 one launch, else two.
 template <typename T, class PL>
 cudaError_t run_fwd_plan(const Args& a, int device, cudaStream_t st) {
   int blocks = 0;
+  if (a.c1)
+    return run_tiles(block_fwd_kernel<T, PL, true>, PL::SMEM_PROD, a, PL::BM,
+                     a.P, device, st, &blocks);
   const cudaError_t err =
       run_tiles(block_fwd_r2_kernel<T, PL>, PL::SMEM_PROD, a, PL::BM, a.P,
                 device, st, &blocks);
   if (err != cudaSuccess) return err;
-  return run_tiles(block_fwd_kernel<T, PL>, PL::SMEM_PROD, a, PL::BM, a.P,
-                   device, st, &blocks);
+  return run_tiles(block_fwd_kernel<T, PL, false>, PL::SMEM_PROD, a, PL::BM,
+                   a.P, device, st, &blocks);
 }
 
-// The forward on the tile plan where its grid fills 3/4 of the SMs, else on
-// the small plan.
-template <typename T, int C>
-cudaError_t run_fwd(const Args& a, int device, cudaStream_t st) {
+// The stats on plan PL: the tile launch, at most part_rows blocks, then the
+// sum of its rows into out.
+template <typename T, class PL>
+cudaError_t run_stats_plan(const Args& a, float* out, int part_rows,
+                           int device, cudaStream_t st) {
+  int blocks = 0;
+  const cudaError_t err =
+      run_tiles(block_stats_kernel<T, PL>, PL::SMEM_STATS, a, PL::BM,
+                part_rows, device, st, &blocks);
+  if (err != cudaSuccess) return err;
+  block_stats_sum_kernel<<<1, 2 * PL::C, 0, st>>>(a.part, out, blocks,
+                                                  2 * PL::C);
+  return cudaGetLastError();
+}
+
+// The forward and the stats take the tile plan where its grid fills 3/4 of
+// the SMs, else the small plan: one rule, so that the stats' c1 is the c1
+// of the forward's own first launch.
+template <int C, class Run>
+cudaError_t on_plan(const Args& a, int device, Run run) {
   int sms = 0;
   const cudaError_t err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
   const long long tiles = (a.P + Plan<C>::BM - 1) / Plan<C>::BM;
-  return 4 * tiles >= 3LL * sms ? run_fwd_plan<T, Plan<C>>(a, device, st)
-                                : run_fwd_plan<T, Small<C>>(a, device, st);
+  return 4 * tiles >= 3LL * sms ? run(Plan<C>()) : run(Small<C>());
 }
 
 // Pass 1's two launches, or pass 2's three; the rows of partial sums are at
@@ -1054,7 +1154,14 @@ cudaError_t dispatch_c(int mode, const Args& a, float* out, int part_rows,
                        int device, cudaStream_t st) {
   switch (mode) {
     case kFwd:
-      return run_fwd<T, C>(a, device, st);
+      return on_plan<C>(a, device, [&](auto plan) {
+        return run_fwd_plan<T, decltype(plan)>(a, device, st);
+      });
+    case kStats:
+      return on_plan<C>(a, device, [&](auto plan) {
+        return run_stats_plan<T, decltype(plan)>(a, out, part_rows, device,
+                                                 st);
+      });
     case kBwd3:
       return run_elementwise(block_bwd3_kernel<T>, a, C, device, st);
     default:
@@ -1077,19 +1184,23 @@ cudaError_t dispatch(int mode, const Args& a, float* out, int part_rows,
 
 }  // namespace
 
-// p[25], null where a mode does not read it: x, gy, w1, w2, g1, b1, g2, b2,
-// m1, i1, m2, i2, T1, T2, U1, U2, dz2, z2hat, dc1, dz1, dx, r2, y, part,
-// then out at p[24] (see Args). x, gy and the [B,H,W,C] tensors handed on,
+// p[26], null where a mode does not read it: x, gy, w1, w2, g1, b1, g2, b2,
+// m1, i1, m2, i2, T1, T2, U1, U2, dz2, z2hat, dc1, dz1, dx, r2, y, c1, part,
+// then out at p[25] (see Args). x, gy and the [B,H,W,C] tensors handed on,
 // dx and y; x, dx and y of `dtype` (tr::DType), the rest f32; all
 // contiguous and 16-byte aligned; C is 16, 32 or 64.
 //   Mode 0 (fwd) reads x, the weights and the folds s1, b1, s2, b2 in the
-//   g1, b1, g2, b2 places, writes r2 (scratch) and y: two launches.
+//   g1, b1, g2, b2 places, writes y: with c1 given (the stats' c1 of the
+//   same x, w1, s1, b1) it reads c1, w2, s2, b2: one launch; else it writes
+//   r2 (scratch): two launches.
+//   Mode 4 (stats) reads x, w1 and the folds s1, b1 in the g1, b1 places,
+//   writes c1 and out = [sum c1, sum c1^2 (C each)]: two launches.
 //   Mode 1 (pass 1) reads x, gy, the weights and the eight vectors, writes
 //   dz2, z2hat and out = [T1, T2 (C each), dw2 (9C^2, HWIO)]: two launches.
 //   Mode 2 (pass 2) reads x, w1, dz2, z2hat, g1, b1, m1, i1, g2, i2, T1,
 //   T2, writes dc1 (scratch), dz1 and out = [U1, U2, dw1]: three launches.
-//   Passes 1 and 2 write out through part (part_rows rows of out's length:
-//   the tile launch runs at most part_rows blocks).
+//   The stats and passes 1 and 2 write out through part (part_rows rows of
+//   out's length: the tile launch runs at most part_rows blocks).
 //   Mode 3 (pass 3) reads x, gy, dz1, g1, m1, i1, U1, U2 and writes dx: one
 //   launch.
 // Returns the cudaError_t of the launches on `stream`.
@@ -1099,9 +1210,9 @@ extern "C" int tr_block_tc(int mode, const void* const* p, int B, int H,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long P = (long long)B * H * W;
-  const bool sums = mode == kBwd1 || mode == kBwd2;
+  const bool sums = mode == kBwd1 || mode == kBwd2 || mode == kStats;
   if (B < 0 || H < 1 || W < 1 || (C != 16 && C != 32 && C != 64) ||
-      mode < kFwd || mode > kBwd3 || P * C >= (1LL << 31) ||
+      mode < kFwd || mode > kStats || P * C >= (1LL << 31) ||
       (sums && P > 0 && part_rows < 1))
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
@@ -1132,16 +1243,19 @@ extern "C" int tr_block_tc(int mode, const void* const* p, int B, int H,
   a.dx = const_cast<void*>(p[20]);
   a.r2 = w(p[21]);
   a.y = const_cast<void*>(p[22]);
-  a.part = w(p[23]);
-  float* out = w(p[24]);
+  a.c1 = w(p[23]);
+  a.part = w(p[24]);
+  float* out = w(p[25]);
   a.P = (int)P;
   a.H = H;
   a.W = W;
   a.n = (float)P;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P == 0)
-    return sums ? cudaMemsetAsync(out, 0, (2 * C + 9 * C * C) * sizeof(float),
-                                  st)
+    return sums ? cudaMemsetAsync(
+                      out, 0,
+                      (2 * C + (mode == kStats ? 0 : 9 * C * C)) * sizeof(float),
+                      st)
                 : cudaSuccess;
   switch (dtype) {
     case tr::kFloat32:

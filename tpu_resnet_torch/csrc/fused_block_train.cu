@@ -1,17 +1,12 @@
-// Fused ResNet-v2 basic block: the conv1 moments of the training forward,
-// and the one backward pass with folded (frozen) batch norm (the forward and
-// the live-BN backward passes are fused_block_tc.cu's). Stride 1, equal
-// in/out channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32, w1 and
-// w2 HWIO f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is f32.
+// Fused ResNet-v2 basic block: the one backward pass with folded (frozen)
+// batch norm (the forward, the training forward's conv1 moments and the
+// live-BN backward passes are fused_block_tc.cu's). Stride 1, equal in/out
+// channels, 3x3 SAME convs; x is NHWC (f32 or bf16), gy f32, w1 and w2 HWIO
+// f32 [3,3,C,C], every BN vector f32 [C]. All arithmetic is f32.
 //
-// Replaces, in tpu_resnet/ops/fused_block.py (block_train_apply, which every
-// stride-1 identity block of the CIFAR ResNet runs in training when
-// model.fused_blocks=true):
-//   tr_block_stats  _stats_kernel (through _c1_moments): sum c1, sum c1^2,
-//                   c1 = conv3x3(relu(s1*x + b1), w1), recomputed, not
-//                   stored;
-// and (block_apply, the folded-BN block under a gradient: the eval-mode
-// model differentiated, tools/fused_block_ab.py's fwd_bwd arm):
+// Replaces, in tpu_resnet/ops/fused_block.py (block_apply, the folded-BN
+// block under a gradient: the eval-mode model differentiated,
+// tools/fused_block_ab.py's fwd_bwd arm):
 //   tr_block_bwd    _block_bwd_kernel: with a1 = x*s1 + b1, r1 = relu(a1),
 //                   c1 = conv(r1, w1), a2 = c1*s2 + b2, r2 = relu(a2):
 //                   da2 = convT(gy, w2)*[a2>0], dc1 = da2*s2,
@@ -19,7 +14,7 @@
 //                   dw1 = sum r1-patch^T dc1, dw2 = sum r2-patch^T gy,
 //                   ds1 = sum da1*x, db1 = sum da1, ds2 = sum da2*c1,
 //                   db2 = sum da2.
-// Both recompute the chain from the folded affines, a = v*s + b, as
+// It recomputes the chain from the folded affines, a = v*s + b, as
 // block_fwd (csrc/fused_block_tc.cu) and the reference kernel round them.
 // Each elementwise formula is rounded as written (__fmul_rn, __fadd_rn, no
 // FMA contraction), as the plain PyTorch version rounds it, so a mask
@@ -27,20 +22,17 @@
 //
 // Bound: arithmetic. One 3x3 product is 2*B*H*W*9*C*C flops (0.604 GFLOP at
 // every CIFAR stage at B=128, 9.0 us at 67 TFLOP/s f32) for B*H*W*C elements
-// moved: tens to hundreds of operations per byte, off the tensor cores. The
-// stats kernel runs one product, the frozen bwd five (conv1, two convT, dw1,
-// dw2).
+// moved: tens to hundreds of operations per byte, off the tensor cores. It
+// runs five (conv1, two convT, dw1, dw2).
 //
 // Design: one thread block per image. The recomputed planes live in shared
 // memory, f32, zero-haloed, with a pixel stride of C+1 words (odd, so a warp
 // reading neighbouring pixels hits distinct banks). The constraint is room:
-// the frozen bwd needs r1, r2 or dc1, gy and c1 planes, and at 32x32x16 one
-// padded plane is 78.6 KB. Instead of row bands with a two-row halo, each
-// pass reuses and rebuilds planes in phases, because r1 and gy are cheap
-// elementwise functions of x and gy that can be written again, while c1 is a
-// product:
-//   stats: A = r1 (folded BN1); c1 per pixel, summed.            1 plane
-//   bwd:   A = r1; Z = c1, B = r2; A = gy; dw2 from B and A; da2 from
+// it needs r1, r2 or dc1, gy and c1 planes, and at 32x32x16 one padded plane
+// is 78.6 KB. Instead of row bands with a two-row halo, the pass reuses and
+// rebuilds planes in phases, because r1 and gy are cheap elementwise
+// functions of x and gy that can be written again, while c1 is a product:
+//          A = r1; Z = c1, B = r2; A = gy; dw2 from B and A; da2 from
 //          convT(A) and the mask r2 > 0, ds2 and db2 with c1 from Z, and
 //          B = dc1 in place; A = r1 again; dw1 from A and B; da1 from
 //          convT(B) and the mask from x, dx with gy read from device
@@ -67,7 +59,6 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kCO = 8;  // output channels per item
 constexpr int kMaxSmem = 232448;
-enum Mode : int { kStats = 0, kBwd = 4 };
 
 struct Args {
   const void* x;
@@ -76,18 +67,17 @@ struct Args {
   const float* w2;
   const float* s1;  // folded BN1 scale and bias
   const float* sb1;
-  const float* s2;  // bwd: folded BN2 scale and bias
+  const float* s2;  // folded BN2 scale and bias
   const float* sb2;
-  void* dx;     // bwd
+  void* dx;
   float* part;  // [B][row_len] partial rows
   float* out;   // [row_len] the batch's sums
   int H, W;
   float n;  // B*H*W
 };
 
-__host__ __device__ constexpr int row_len(int mode, int C) {
-  return mode == kStats ? 2 * C : 4 * C + 18 * C * C;
-}
+// A block's row of partial sums: [ds1, db1, ds2, db2 (C each), dw1, dw2].
+__host__ __device__ constexpr int row_len(int C) { return 4 * C + 18 * C * C; }
 
 // One rounding each, never contracted into an FMA.
 __device__ __forceinline__ float mul(float a, float b) {
@@ -225,55 +215,13 @@ __device__ __forceinline__ void channel_sums(const float (&sa)[kCO],
   }
 }
 
-// Kernel 0 (tr_block_stats): conv1's channel sums, one pass per image. Row:
-// [sum c1, sum c1^2 (C each)].
-template <typename T, int C>
-__device__ __forceinline__ void stats_body(const Args& a) {
-  constexpr int CP = C + 1;
-  constexpr int G = C / kCO;  // channel groups per pixel
-  constexpr int L = row_len(kStats, C);
-  extern __shared__ float smem[];
-  const int H = a.H, W = a.W, WP = W + 2, HW = H * W;
-  const int plane = (H + 2) * WP * CP;
-  float* A = smem;
-  const long long base = (long long)blockIdx.x * HW * C;
-  const T* xi = static_cast<const T*>(a.x) + base;
-  float* prow = a.part + (long long)blockIdx.x * L;
-  const int co0 = (threadIdx.x % G) * kCO;  // this thread's channel group
-  float sa[kCO], sb[kCO];                   // its two channel sums
-#pragma unroll
-  for (int j = 0; j < kCO; ++j) sa[j] = sb[j] = 0.f;
-  float acc[kCO];
-
-  for (int i = threadIdx.x; i < plane; i += kThreads) smem[i] = 0.f;
-  __syncthreads();
-  // A <- r1 = relu(x*s1 + b1), the folded BN1 (as the forward).
-  for (int i = threadIdx.x; i < HW * C; i += kThreads) {
-    const int c = i % C;
-    A[cell(i / C, W, WP, CP) + c] = fmaxf(
-        add(mul(tr::to_f32(xi[i]), __ldg(a.s1 + c)), __ldg(a.sb1 + c)), 0.f);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < HW * G; t += kThreads) {
-    const int p = t / G, py = p / W;
-    conv_point<C, CP>(A, a.w1, py, p - py * W, WP, co0, acc);
-#pragma unroll
-    for (int j = 0; j < kCO; ++j) {
-      sa[j] += acc[j];
-      sb[j] = fmaf(acc[j], acc[j], sb[j]);
-    }
-  }
-  channel_sums<C>(sa, sb, smem, prow);
-}
-
-// Kernel 7 (tr_block_bwd): the VJP of the folded-BN block, one pass per
-// image; see the plan at the top. Row: [ds1, db1, ds2, db2 (C each), dw1,
-// dw2 (9C^2 each, HWIO)].
+// The VJP of the folded-BN block, one pass per image; see the plan at the
+// top. Row: [ds1, db1, ds2, db2 (C each), dw1, dw2 (9C^2 each, HWIO)].
 template <typename T, int C>
 __device__ __forceinline__ void frozen_bwd_body(const Args& a) {
   constexpr int CP = C + 1;
   constexpr int G = C / kCO;
-  constexpr int L = row_len(kBwd, C);
+  constexpr int L = row_len(C);
   extern __shared__ float smem[];
   const int H = a.H, W = a.W, WP = W + 2, HW = H * W;
   const int plane = (H + 2) * WP * CP;
@@ -360,17 +308,14 @@ __device__ __forceinline__ void frozen_bwd_body(const Args& a) {
 }
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) block_stats_kernel(const Args a) {
-  stats_body<T, C>(a);
-}
-template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) block_bwd_kernel(const Args a) {
   frozen_bwd_body<T, C>(a);
 }
 
 // out[k] = sum over rows, in row order, of part[row][k].
-__global__ void train_sum_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int rows, int L) {
+__global__ void block_bwd_sum_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int rows,
+                                     int L) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= L) return;
   float s = 0.f;
@@ -378,64 +323,38 @@ __global__ void train_sum_kernel(const float* __restrict__ part,
   out[k] = s;
 }
 
-size_t smem_bytes(int mode, int H, int W, int C) {
+size_t smem_bytes(int H, int W, int C) {
   const size_t plane = (size_t)(H + 2) * (W + 2) * (C + 1) * sizeof(float);
-  size_t s = mode == kStats ? plane : 2 * plane;
-  if (mode == kBwd)
-    s += (size_t)H * W * (C + 1) * sizeof(float);
+  const size_t s = 2 * plane + (size_t)H * W * (C + 1) * sizeof(float);
   const size_t red = 2ull * kThreads * kCO * sizeof(float);
   return s > red ? s : red;
 }
 
-template <typename T, int C, int MODE>
+template <typename T, int C>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, a.H, a.W, C);
-  void (*kernel)(const Args) = &block_stats_kernel<T, C>;
-  if constexpr (MODE == kBwd) kernel = &block_bwd_kernel<T, C>;
+  const size_t smem = smem_bytes(a.H, a.W, C);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      block_bwd_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B, kThreads, smem, stream>>>(a);
+  block_bwd_kernel<T, C><<<B, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr int L = row_len(MODE, C);
-  train_sum_kernel<<<(L + 255) / 256, 256, 0, stream>>>(a.part, a.out, B, L);
+  constexpr int L = row_len(C);
+  block_bwd_sum_kernel<<<(L + 255) / 256, 256, 0, stream>>>(a.part, a.out, B,
+                                                           L);
   return cudaGetLastError();
 }
 
-template <typename T, int MODE>
+template <typename T>
 cudaError_t dispatch_c(const Args& a, int B, int C, cudaStream_t st) {
   switch (C) {
     case 16:
-      return launch<T, 16, MODE>(a, B, st);
+      return launch<T, 16>(a, B, st);
     case 32:
-      return launch<T, 32, MODE>(a, B, st);
+      return launch<T, 32>(a, B, st);
     case 64:
-      return launch<T, 64, MODE>(a, B, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <int MODE>
-int run(Args a, int B, int H, int W, int C, int dtype, int device,
-        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (B < 0 || H < 1 || W < 1 || (C != 16 && C != 32 && C != 64) ||
-      smem_bytes(MODE, H, W, C) > kMaxSmem)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B == 0)
-    return cudaMemsetAsync(a.out, 0, row_len(MODE, C) * sizeof(float), st);
-  a.H = H;
-  a.W = W;
-  a.n = (float)((long long)B * H * W);
-  switch (dtype) {
-    case tr::kFloat32:
-      return dispatch_c<float, MODE>(a, B, C, st);
-    case tr::kBFloat16:
-      return dispatch_c<__nv_bfloat16, MODE>(a, B, C, st);
+      return launch<T, 64>(a, B, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -443,30 +362,12 @@ int run(Args a, int B, int H, int W, int C, int dtype, int device,
 
 }  // namespace
 
-// Common to both: x [B,H,W,C] of `dtype` (tr::DType) and (bwd) gy
-// [B,H,W,C] f32, contiguous; w1, w2 [3,3,C,C] f32 HWIO, 16-byte aligned; vectors C
-// floats; C is 16, 32 or 64. part: B * row_len floats of scratch, row_len =
-// 2C (stats) or 4C + 18C^2 (bwd); out: row_len floats.
-// Each returns the cudaError_t of its two launches on `stream`.
-
-// out = [sum c1 (C), sum c1^2 (C)], c1 = conv3x3(relu(s1*x + b1), w1).
-extern "C" int tr_block_stats(const void* x, const void* w1, const void* s1,
-                              const void* b1, void* part, void* out, int B,
-                              int H, int W, int C, int dtype, int device,
-                              void* stream) {
-  Args a = {};
-  a.x = x;
-  a.w1 = static_cast<const float*>(w1);
-  a.s1 = static_cast<const float*>(s1);
-  a.sb1 = static_cast<const float*>(b1);
-  a.part = static_cast<float*>(part);
-  a.out = static_cast<float*>(out);
-  return run<kStats>(a, B, H, W, C, dtype, device, stream);
-}
-
 // The frozen-BN backward: out = [ds1, db1, ds2, db2 (C each), dw1, dw2 (9C^2
 // each, HWIO)] and dx [B,H,W,C] of `dtype`, given the folded BN vectors s1,
-// b1, s2, b2.
+// b1, s2, b2. x [B,H,W,C] of `dtype` (tr::DType) and gy [B,H,W,C] f32,
+// contiguous; w1, w2 [3,3,C,C] f32 HWIO, 16-byte aligned; vectors C floats;
+// C is 16, 32 or 64. part: B * (4C + 18C^2) floats of scratch; out: 4C +
+// 18C^2 floats. Returns the cudaError_t of its two launches on `stream`.
 extern "C" int tr_block_bwd(const void* x, const void* gy, const void* w1,
                             const void* w2, const void* s1, const void* b1,
                             const void* s2, const void* b2, void* part,
@@ -484,5 +385,22 @@ extern "C" int tr_block_bwd(const void* x, const void* gy, const void* w1,
   a.part = static_cast<float*>(part);
   a.out = static_cast<float*>(out);
   a.dx = dx;
-  return run<kBwd>(a, B, H, W, C, dtype, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B < 0 || H < 1 || W < 1 || (C != 16 && C != 32 && C != 64) ||
+      smem_bytes(H, W, C) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0) return cudaMemsetAsync(a.out, 0, row_len(C) * sizeof(float), st);
+  a.H = H;
+  a.W = W;
+  a.n = (float)((long long)B * H * W);
+  switch (dtype) {
+    case tr::kFloat32:
+      return dispatch_c<float>(a, B, C, st);
+    case tr::kBFloat16:
+      return dispatch_c<__nv_bfloat16>(a, B, C, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

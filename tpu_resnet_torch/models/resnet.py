@@ -464,8 +464,7 @@ def imagenet_resnet_v2(resnet_size: int, num_classes: int,
                        remat: bool = False) -> ResNetV2:
     """ImageNet ResNet-v2 18/34/50/101/152/200 (stages 64/128/256/512,
     ImageNet stem). ``fused_blocks`` takes the bottleneck sizes only: the
-    port's basic-block kernels have no widths above 64, and ``block_stats``
-    holds an image a block, too small for 56x56x64."""
+    port's basic-block kernels have no widths above 64."""
     if resnet_size not in IMAGENET_PARAMS:
         raise ValueError(f"invalid resnet_size {resnet_size}; have "
                          f"{sorted(IMAGENET_PARAMS)}")
@@ -474,8 +473,8 @@ def imagenet_resnet_v2(resnet_size: int, num_classes: int,
         raise NotImplementedError(
             f"fused_blocks for ImageNet ResNet-{resnet_size} (basic blocks "
             f"at 56x56x64 and wider) needs the basic block's kernels at C "
-            f"128 and 256 and block_stats on tiles of pixels, a later slice "
-            f"of the port (ROADMAP Queue 1); use fused_blocks=false")
+            f"128 and 256, a later slice of the port (ROADMAP Queue 1); use "
+            f"fused_blocks=false")
     return ResNetV2(stage_filters=(64, 128, 256, 512), stage_blocks=blocks,
                     stage_strides=(1, 2, 2, 2), num_classes=num_classes,
                     stem_filters=64, dtype=dtype, fused_blocks=fused_blocks,

@@ -39,12 +39,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "epilogue": {
         "tr_sbr": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
         "tr_sbr_add": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-        "tr_sbr_bwd": [_P] * 7 + [_L, _I, _I, _I, _I, _P],
+        "tr_sbr_bwd": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
     },
-    "fused_block_train": {
-        "tr_block_stats": [_P] * 6 + [_I] * 6 + [_P],
-        "tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P],
-    },
+    "fused_block_train": {"tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P]},
     "fused_block_tc": {"tr_block_tc": [_I, _P] + [_I] * 7 + [_P]},
     "fused_bottleneck_train": {
         "tr_bottleneck_train": [_P] + [_I] * 6 + [_P]},

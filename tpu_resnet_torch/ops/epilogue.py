@@ -8,9 +8,9 @@ stored in x's dtype, as in ``tpu_resnet/ops/epilogue.py::_sbr_kernel``.
 
 :func:`scale_bias_relu` is differentiable. Its forward launches the CUDA
 kernel ``tr_sbr`` and its backward :func:`scale_bias_relu_bwd`, the kernel
-``tr_sbr_bwd`` (``csrc/epilogue.cu``), which is the reference's custom VJP
-(``_sbr_bwd_kernel``): only x, scale and bias are saved, and the ReLU mask
-is recomputed from x with the forward's roundings. A CUDA tensor goes to
+``tr_sbr_bwd`` (``csrc/epilogue.cu``, one launch), which is the reference's
+custom VJP (``_sbr_bwd_kernel``): only x, scale and bias are saved, and the
+ReLU mask is recomputed from x with the forward's roundings. A CUDA tensor goes to
 the kernels or the call raises; a CPU tensor takes the plain versions,
 :func:`scale_bias_relu_reference` (differentiable through the same
 backward in plain PyTorch) and :func:`scale_bias_relu_bwd_reference`.
@@ -47,8 +47,14 @@ OP_SBR_ADD = "epilogue_sbr_add"
 
 launches = 0      # tr_sbr launches (CUDA tensors only)
 add_launches = 0  # tr_sbr_add launches
-bwd_launches = 0  # tr_sbr_bwd calls (two launches each: sums, then their sum)
-_BWD_MAX_BLOCKS = 4 * 132   # partial-sum rows of one backward call
+bwd_launches = 0  # tr_sbr_bwd launches (one a call)
+# The backward's rows of partial sums a channel slice may write, and its
+# tickets (csrc/epilogue.cu's kMaxSlices), kept per device and stream:
+# zeroed once, every call leaves them zero, and calls on one stream run one
+# after another, so they share them.
+_BWD_PART_ROWS = 512
+_BWD_TICKETS = 1024
+_bwd_tickets = {}   # (device index, stream) -> int32 [_BWD_TICKETS]
 
 
 def scale_bias_relu_math(x: torch.Tensor, scale: torch.Tensor,
@@ -175,16 +181,20 @@ def scale_bias_relu_bwd(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"scale_bias_relu_bwd runs on cpu or cuda, not "
                          f"{x.device}")
     _check_cuda("scale_bias_relu_bwd", x=x, g=g, scale=scale, bias=bias)
-    pixels = x.numel() // c
-    nblocks = max(1, min(_BWD_MAX_BLOCKS, -(-pixels // 256)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device.index, stream)
+    if key not in _bwd_tickets:
+        _bwd_tickets[key] = torch.zeros(_BWD_TICKETS, dtype=torch.int32,
+                                        device=x.device)
     dx = torch.empty_like(x)
-    part = torch.empty(2, nblocks, c, dtype=torch.float32, device=x.device)
+    part = torch.empty(_BWD_PART_ROWS, 2 * c, dtype=torch.float32,
+                       device=x.device)
     sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
     fn = _build.library("epilogue").tr_sbr_bwd
     err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(),
-             dx.data_ptr(), part.data_ptr(), sums.data_ptr(), x.numel(), c,
-             nblocks, _build.DTYPE_CODES[x.dtype], x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             dx.data_ptr(), part.data_ptr(), sums.data_ptr(),
+             _bwd_tickets[key].data_ptr(), x.numel(), c, _BWD_PART_ROWS,
+             _build.DTYPE_CODES[x.dtype], x.device.index, stream)
     _build.check(err, "scale_bias_relu_bwd")
     bwd_launches += 1
     return dx, sums[0], sums[1]

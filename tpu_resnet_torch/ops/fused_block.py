@@ -9,10 +9,12 @@ Forward with folded BN (``tpu_resnet/ops/fused_block.py::_block_kernel``):
 for stride 1 and equal in/out channels, 3x3 SAME convs, all arithmetic in
 float32 and y stored in x's dtype. x and y are NHWC, the weights HWIO
 [3,3,C,C] float32, the folded BN scale/bias float32 [C]. :func:`block_fwd`
-launches the CUDA kernel (``csrc/fused_block_tc.cu``, two launches: r2 to a
-scratch, then conv2 and the residual) for a CUDA tensor and raises if it
-cannot; for a CPU tensor it computes the plain version,
-:func:`block_fwd_reference`. ``launches`` counts its calls on the card.
+launches the CUDA kernel (``csrc/fused_block_tc.cu``: from x two launches,
+r2 to a scratch, then conv2 and the residual; given ``c1=``, the training
+forward's, one launch, conv2 over relu(s2·c1 + b2) and the residual) for a
+CUDA tensor and raises if it cannot; for a CPU tensor it computes the plain
+version, :func:`block_fwd_reference`. ``launches`` counts its calls on the
+card.
 
 Its gradient (``_block_bwd_kernel``, ``csrc/fused_block_train.cu``
 ``tr_block_bwd``): :func:`block_bwd` → (dx, dw1, dw2, ds1, db1, ds2, db2)
@@ -23,14 +25,15 @@ custom-VJP ``block_apply``): forward :func:`block_fwd`, backward
 :func:`block_bwd`, saving only x and the parameters.
 
 Training (port of the reference's ``block_train_fwd`` and
-``_train_bwd_calls``; ``csrc/fused_block_train.cu`` for the stats,
-``csrc/fused_block_tc.cu`` for the three backward passes):
+``_train_bwd_calls``; ``csrc/fused_block_tc.cu``):
 
 - :func:`block_train_fwd`: BN1's moments of x in plain PyTorch (mean and
   the two-pass biased variance), folded; :func:`block_stats` gives the sums
   of conv1's output c1, finished into BN2's moments (single-pass variance
-  clamped at 0); then :func:`block_fwd` with both folds. Returns ``(y,
-  (mean1, var1, mean2, var2))``.
+  clamped at 0), and c1 itself; then :func:`block_fwd` with both folds from
+  that c1 (``c1=``), which runs conv2 alone: c1 is computed once, where the
+  reference's ``_block_kernel`` computes it again. Returns ``(y, (mean1,
+  var1, mean2, var2))``.
 - the backward, three passes from x, gy (float32) and the saved moments:
   :func:`block_bwd1` → (T1, T2, dw2, dz2, ẑ2), :func:`block_bwd2`
   (``dz2=``, ``z2hat=``, pass 1's) → (U1, U2, dw1, dz1), :func:`block_bwd3`
@@ -61,8 +64,10 @@ import torch.nn.functional as F
 from tpu_resnet_torch.ops import _build
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 
-launches = 0        # block_fwd calls (CUDA tensors only; two launches each)
-stats_launches = 0  # block_stats calls (two launches each: sums, their sum)
+launches = 0        # block_fwd calls (CUDA tensors only; two launches each,
+                    # one with c1=)
+stats_launches = 0  # block_stats calls (two launches each: c1 and the
+                    # tiles' sums, their sum)
 bwd1_launches = 0   # block_bwd1 calls (two launches each)
 bwd2_launches = 0   # block_bwd2 calls (three launches each)
 bwd3_launches = 0   # block_bwd3 calls (one launch each)
@@ -71,7 +76,8 @@ bwd_launches = 0    # block_bwd calls (two launches each)
 CHANNELS = (16, 32, 64)  # the kernels' compiled widths
 _SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
 # The tile kernels (csrc/fused_block_tc.cu) hold no whole image: any H, W.
-_TILE_KINDS = ("block_fwd", "block_bwd1", "block_bwd2", "block_bwd3")
+_TILE_KINDS = ("block_fwd", "block_stats", "block_bwd1", "block_bwd2",
+               "block_bwd3")
 EPS = 1e-5
 _SUM_DIMS = (0, 1, 2)
 
@@ -118,24 +124,29 @@ def _mag(magnitudes: bool):
     return torch.abs if magnitudes else (lambda t: t)
 
 
-def block_fwd_reference(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
+def _c1(xf, w1, s1, b1) -> torch.Tensor:
+    """conv1's output c1 = conv3x3(relu(s1·x + b1), w1) of the float x."""
+    return _conv3x3(scale_bias_relu_math(xf, s1, b1), w1.to(xf.dtype))
+
+
+def block_fwd_reference(x, w1, w2, s1, b1, s2, b2, *, c1=None
+                        ) -> torch.Tensor:
     """Plain PyTorch version (``F.conv2d`` in float32): the CPU path, the
-    tests' and the chip smoke's oracle."""
+    tests' and the chip smoke's oracle. ``c1``: conv1's output of the same
+    x, w1, s1, b1 (:func:`block_stats_reference`'s), used in place of
+    computing it."""
     xf = _fp(x)
-    mid = _conv3x3(scale_bias_relu_math(xf, s1, b1), w1.to(xf.dtype))
+    mid = _c1(xf, w1, s1, b1) if c1 is None else c1
     out = _conv3x3(scale_bias_relu_math(mid, s2, b2), w2.to(xf.dtype))
     return (xf + out).to(x.dtype)
 
 
-def smem_bytes(h: int, w: int, c: int, kind: str = "block_stats") -> int:
-    """Shared memory one image takes in an image-per-block kernel
-    (``block_stats``, ``block_bwd``): zero-haloed f32 planes with a pixel
-    stride of C+1 words (one for block_stats, two for block_bwd), block_bwd
+def smem_bytes(h: int, w: int, c: int) -> int:
+    """Shared memory one image takes in ``block_bwd``, which holds an image
+    a block: two zero-haloed f32 planes with a pixel stride of C+1 words,
     one unpadded plane more, and at least the 32 KB of the channel-sum
     reduction."""
     plane = (h + 2) * (w + 2) * (c + 1) * 4
-    if kind == "block_stats":
-        return max(plane, 2 * 512 * 8 * 4)
     return max(2 * plane + h * w * (c + 1) * 4, 2 * 512 * 8 * 4)
 
 
@@ -150,7 +161,7 @@ def _check_x(x, kind: str) -> int:
     if c not in CHANNELS:
         raise ValueError(f"fused block has kernels for C in {CHANNELS}, "
                          f"got {c}")
-    need = 0 if kind in _TILE_KINDS else smem_bytes(h, w, c, kind)
+    need = 0 if kind in _TILE_KINDS else smem_bytes(h, w, c)
     if need > _SMEM_LIMIT:
         raise ValueError(f"{kind} at {h}x{w}x{c} needs {need} bytes of "
                          f"shared memory, more than {_SMEM_LIMIT}")
@@ -214,21 +225,26 @@ def _sums_out(x, extra: int) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.empty(2 * c + extra, dtype=torch.float32, device=x.device))
 
 
-def block_fwd(x, w1, w2, s1, b1, s2, b2) -> torch.Tensor:
+def block_fwd(x, w1, w2, s1, b1, s2, b2, *, c1=None) -> torch.Tensor:
     """Fused v2 basic-block forward: x [B,H,W,C] float32/bfloat16 with C in
     :data:`CHANNELS`; w1, w2 [3,3,C,C] float32; s1, b1, s2, b2 [C] float32
     (folded BN). Returns x + conv2(relu(sb2(conv1(relu(sb1(x)))))) in x's
-    dtype."""
+    dtype. ``c1``: conv1's output of this x, w1, s1, b1, float32
+    [B,H,W,C] contiguous (:func:`block_stats`'s, the training forward's
+    handoff); then only conv2 runs, one launch on the card."""
     global launches
     _check_x(x, "block_fwd")
     _check_f32("block_fwd", x, w1=w1, w2=w2, s1=s1, b1=b1, s2=s2, b2=b2)
+    if c1 is not None:
+        _check_handoff("block_fwd", "c1", c1, x)
     if x.device.type == "cpu":
-        return block_fwd_reference(x, w1, w2, s1, b1, s2, b2)
+        return block_fwd_reference(x, w1, w2, s1, b1, s2, b2, c1=c1)
     y = torch.empty_like(x)
-    # The folds go in BN's (g1, b1, g2, b2) places; r2 is the first
+    # The folds go in BN's (g1, b1, g2, b2) places; from x, r2 is the first
     # launch's output, read by the second.
-    _tc("block_fwd", x, w1=w1, w2=w2, g1=s1, b1=b1, g2=s2, b2=b2,
-        r2=_f32_like(x), y=y)
+    handoff = {"c1": c1} if c1 is not None else {"r2": _f32_like(x)}
+    _tc("block_fwd", x, w1=w1, w2=w2, g1=s1, b1=b1, g2=s2, b2=b2, y=y,
+        **handoff)
     launches += 1
     return y
 
@@ -312,29 +328,33 @@ def block_apply_reference(x, w1, w2, s1, b1, s2, b2):
 
 # ------------------------------------------------------- conv1's moments
 def block_stats_reference(x, w1, s1, b1, *, magnitudes: bool = False):
-    """Plain version of :func:`block_stats`: (Σc1, Σc1²) over (B, H, W),
-    c1 = conv3x3(relu(s1·x + b1), w1). ``magnitudes``: Σ|c1| in place of
-    Σc1 (the scale of the card's tolerance on the sums)."""
-    xf = _fp(x)
-    c1 = _conv3x3(scale_bias_relu_math(xf, s1, b1), w1.to(xf.dtype))
-    return _mag(magnitudes)(c1).sum(_SUM_DIMS), (c1 * c1).sum(_SUM_DIMS)
+    """Plain version of :func:`block_stats`: (Σc1, Σc1² over (B, H, W), c1
+    [B,H,W,C] contiguous), c1 = conv3x3(relu(s1·x + b1), w1), as
+    :func:`block_fwd_reference` computes it. ``magnitudes``: Σ|c1| in place
+    of Σc1 (the scale of the card's tolerance on the sums)."""
+    c1 = _c1(_fp(x), w1, s1, b1).contiguous()
+    return (_mag(magnitudes)(c1).sum(_SUM_DIMS), (c1 * c1).sum(_SUM_DIMS),
+            c1)
 
 
 def block_stats(x, w1, s1, b1):
-    """(Σc1, Σc1²) float32 [C] of conv1's output c1 = conv3x3(relu(s1·x +
-    b1), w1), recomputed and never stored (the reference's
-    ``_stats_kernel``). x [B,H,W,C] float32/bfloat16; w1 [3,3,C,C], s1, b1
-    [C] float32."""
+    """(Σc1, Σc1² float32 [C], c1 float32 [B,H,W,C]) of conv1's output c1 =
+    conv3x3(relu(s1·x + b1), w1) (the reference's ``_stats_kernel``, which
+    keeps no c1): c1 is the handoff to :func:`block_fwd`'s ``c1=``. x
+    [B,H,W,C] float32/bfloat16; w1 [3,3,C,C], s1, b1 [C] float32. On CUDA,
+    two launches of ``csrc/fused_block_tc.cu``: c1 and the tile sums over
+    tiles of pixels on the tensor cores (the plan and the c1 of
+    :func:`block_fwd`'s first launch), then the sum of the rows."""
     global stats_launches
     c = _check_x(x, "block_stats")
     _check_f32("block_stats", x, w1=w1, s1=s1, b1=b1)
     if x.device.type == "cpu":
         return block_stats_reference(x, w1, s1, b1)
-    part, out = _sums_out(x, 0)
-    _launch("block_stats", "fused_block_train", "tr_block_stats",
-            x, x, w1, s1, b1, part, out)
+    out = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    c1 = _f32_like(x)
+    _tc("block_stats", x, w1=w1, g1=s1, b1=b1, c1=c1, out=out)
     stats_launches += 1
-    return out[:c], out[c:]
+    return out[:c], out[c:], c1
 
 
 def _finish_moments(s, ss, n):
@@ -346,13 +366,15 @@ def _finish_moments(s, ss, n):
 
 def c1_moments(x, w1, s1, b1):
     """BN2's batch moments (mean, var) of c1 from :func:`block_stats`, as
-    the reference's ``_c1_moments``."""
-    return _finish_moments(*block_stats(x, w1, s1, b1), _n(x))
+    the reference's ``_c1_moments``, and c1 itself: (mean, var, c1)."""
+    s, ss, c1 = block_stats(x, w1, s1, b1)
+    return (*_finish_moments(s, ss, _n(x)), c1)
 
 
 def c1_moments_reference(x, w1, s1, b1):
     """Plain version of :func:`c1_moments`."""
-    return _finish_moments(*block_stats_reference(x, w1, s1, b1), _n(x))
+    s, ss, c1 = block_stats_reference(x, w1, s1, b1)
+    return (*_finish_moments(s, ss, _n(x)), c1)
 
 
 # ------------------------------------------------------- the forward
@@ -361,9 +383,12 @@ def _train_fwd(moments2, fwd, x, w1, w2, g1, b1, g2, b2, eps):
     mean1 = xf.mean(dim=_SUM_DIMS)
     var1 = xf.var(dim=_SUM_DIMS, correction=0)
     s1, sb1 = _fold(g1, b1, mean1, var1, eps)
-    mean2, var2 = moments2(x, w1, s1, sb1)
+    mean2, var2, c1 = moments2(x, w1, s1, sb1)
     s2, sb2 = _fold(g2, b2, mean2, var2, eps)
-    return fwd(x, w1, w2, s1, sb1, s2, sb2), (mean1, var1, mean2, var2)
+    # The forward runs conv2 alone from the stats' c1, freed after it.
+    y = fwd(x, w1, w2, s1, sb1, s2, sb2, c1=c1)
+    del c1
+    return y, (mean1, var1, mean2, var2)
 
 
 def block_train_fwd(x, w1, w2, g1, b1, g2, b2, eps: float = EPS):
@@ -488,9 +513,9 @@ def _check_handoff(kind, name, t, x, channels=None) -> None:
 
 
 _TC_PTRS = ("x", "gy", "w1", "w2", *_VECS, "dz2", "z2hat", "dc1", "dz1",
-            "dx", "r2", "y", "part", "out")   # tr_block_tc's order
+            "dx", "r2", "y", "c1", "part", "out")   # tr_block_tc's order
 _TC_MODES = {"block_fwd": 0, "block_bwd1": 1, "block_bwd2": 2,
-             "block_bwd3": 3}
+             "block_bwd3": 3, "block_stats": 4}
 _TC_PART_ROWS = 512  # most blocks (rows of partial sums) of a pass's tiles
 _TC_PIXELS = {16: 256, 32: 128, 64: 64}  # pixels per tile, by C
 
@@ -501,14 +526,18 @@ def _f32_like(x) -> torch.Tensor:
 
 
 def _tc(kind, x, **tensors) -> None:
-    """One call of ``csrc/fused_block_tc.cu`` on the named tensors; passes
-    1 and 2 get the scratch for their rows of partial sums."""
+    """One call of ``csrc/fused_block_tc.cu`` on the named tensors; the
+    stats and passes 1 and 2 get the scratch for their rows of partial
+    sums (the stats' tiles are 1024/C pixels where the small plan runs)."""
     b, h, w, c = x.shape
     rows = 0
-    if kind in ("block_bwd1", "block_bwd2"):
-        rows = min(_TC_PART_ROWS, -(-b * h * w // _TC_PIXELS[c]))
-        tensors["part"] = torch.empty(rows * (2 * c + 9 * c * c),
-                                      dtype=torch.float32, device=x.device)
+    if kind in ("block_stats", "block_bwd1", "block_bwd2"):
+        stats = kind == "block_stats"
+        pixels = 1024 // c if stats else _TC_PIXELS[c]
+        rows = min(_TC_PART_ROWS, -(-b * h * w // pixels))
+        tensors["part"] = torch.empty(
+            rows * (2 * c + (0 if stats else 9 * c * c)),
+            dtype=torch.float32, device=x.device)
     ptrs = _pointers(kind, _TC_PTRS, {"x": x, **tensors})
     err = _build.library("fused_block_tc").tr_block_tc(
         _TC_MODES[kind], ptrs, b, h, w, c, rows, _build.DTYPE_CODES[x.dtype],

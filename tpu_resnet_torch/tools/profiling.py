@@ -15,31 +15,31 @@ from typing import Callable, Dict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-# The port's kernels on the train paths, by a substring of their names
-# (``train_sum`` is the fixed-order sum launch of the fused block's stats;
-# its forward is two launches on the tensor cores, ``block_fwd_r2_kernel``
-# and ``block_fwd_kernel``, its first backward pass two,
-# ``block_bwd1_kernel`` and ``block_bwd1_sum_kernel``, its second three,
-# ``block_bwd2_dc1_kernel``, ``block_bwd2_kernel`` and
-# ``block_bwd2_sum_kernel``; the fused bottleneck's
-# training kernels all run on the tensor cores: one for the first moment
-# pass and passes 3 and 4,
-# two for each of the forward, the second moment pass and passes 1 and 2:
+# The port's kernels on the train paths, by a substring of their names: the
+# fused block's stats are two launches on the tensor cores,
+# ``block_stats_kernel`` (c1 and the tiles' sums) and
+# ``block_stats_sum_kernel``; its training forward one,
+# ``block_fwd_kernel`` from the stats' c1 (from x, as serving runs it, two:
+# ``block_fwd_r2_kernel`` and ``block_fwd_kernel``); its first backward pass
+# two, ``block_bwd1_kernel`` and ``block_bwd1_sum_kernel``, its second
+# three, ``block_bwd2_dc1_kernel``, ``block_bwd2_kernel`` and
+# ``block_bwd2_sum_kernel``; ``sbr_bwd_kernel`` is one launch with its
+# sums. The fused bottleneck's training kernels all run on the tensor
+# cores: one for the first moment pass and passes 3 and 4, two for each of
+# the forward, the second moment pass and passes 1 and 2:
 # ``bottleneck_fwd_p2_kernel`` and ``bottleneck_fwd_kernel``,
 # ``bottleneck_stats_b_p2_kernel`` and ``bottleneck_stats_b_kernel``,
 # ``bottleneck_bwd1_p2_kernel`` and ``bottleneck_bwd1_kernel``,
 # ``bottleneck_bwd2_dmid_kernel`` and ``bottleneck_bwd2_kernel``;
 # ``bottleneck_wgrad`` for dw1..3, and ``bottleneck_sum`` adds their
-# partial rows in order).
+# partial rows in order.
 TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
-                 "sbr_bwd_sum": "sbr_bwd_sum_kernel",
                  "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
                  "block_fwd": "block_fwd_",
-                 "block_stats": "block_stats_kernel",
+                 "block_stats": "block_stats_",
                  "block_bwd1": "block_bwd1_",
                  "block_bwd2": "block_bwd2_",
                  "block_bwd3": "block_bwd3_kernel",
-                 "train_sum": "train_sum_kernel",
                  "bottleneck_fwd": "bottleneck_fwd_",
                  "bottleneck_stats_a": "bottleneck_stats_a_kernel",
                  "bottleneck_stats_b": "bottleneck_stats_b_",
