@@ -164,7 +164,9 @@ ResNet-50 B=128 stage shapes, bfloat16 and float32, on the dyadic grids of
 the training kernels, and again at the grad phase's B=``GRAD_BATCH``
 shapes: every sum and weight gradient within 1e-5·Σ|terms| + 1e-6, dx
 within ``block_fwd``'s or ``bottleneck_fwd``'s tolerance, two calls bit for
-bit equal.
+bit equal, and no mask of the first step ([a2 > 0], [m3 > 0], read from
+the dc1 or dmid it hands over) other than the plain version's
+(``mask_flips``).
 
 Then one ``{"kernels": [...]}`` line of the 20 kernels (times summed over
 the launches of one forward pass of each serve path and one train step that
@@ -274,8 +276,9 @@ PER_PASS["cifar10_train"].update(
 # calls: on the card block_fwd from the stats' c1 (the train step) and
 # block_bwd3 are one launch each, block_fwd from x (serving, eval,
 # block_apply; r2, then conv2 and the residual), block_stats (c1 and the
-# tiles' sums, their sum), block_bwd1 (the tile pass, the sum of its rows)
-# and block_bwd two, block_bwd2 three (dc1, dz1 and the sums, their sum);
+# tiles' sums, their sum) and block_bwd1 (the tile pass, the sum of its
+# rows) two, block_bwd2 three (dc1, dz1 and the sums, their sum), the
+# folded block_bwd four (two steps of a tile pass and the sum of its rows);
 # sbr_bwd is one launch everywhere.
 PER_PASS["cifar10_fused_train"].update(
     sbr=7, sbr_bwd=7, xent_fwd=1, xent_bwd=1,
@@ -481,18 +484,22 @@ def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
                  + (n * item if kind == "bottleneck_bwd4" else 0))
         ops = flops * b * h * w
     elif kind == "block_bwd":
-        # x, gy (float32) in, dx out; w1, w2 and the four folded vectors in,
-        # dw1, dw2 and the four sums out; five 3x3 products (the c1
-        # recompute, two convT, dw1, dw2).
-        moved = 2 * n * item + 4 * n + (4 * 9 * c * c + 8 * c) * 4
+        # x, gy (float32) in, dx out; dc1 ([B,H,W,C] float32, 4n bytes)
+        # written by step 1 and read by step 2; w1, w2 and the four folded
+        # vectors in, dw1, dw2 and the four sums out; five 3x3 products (the
+        # c1 recompute, two convT, dw1, dw2), the reference's work.
+        moved = 2 * n * item + 4 * n + 2 * 4 * n + (4 * 9 * c * c + 8 * c) * 4
         ops = 5 * 2 * b * h * w * 9 * c * c
     elif kind == "bottleneck_bwd":   # c = 4f
-        # x, gy (float32) in, dx out; the three weights (17f² floats) and
-        # six folded vectors in, their gradients out; 94f² flops per pixel
-        # (c1 8, mid 18, gy·W3ᵀ 8, convT 18, dc1·W1ᵀ 8, dW1 8, dW3 8, dw2
-        # 18).
+        # x, gy (float32) in, dx out; the [B,H,W,f] float32 tensors handed
+        # over (n bytes each: p2, c1, p3, dmid, dc1), each written once and
+        # read once; the three weights (17f² floats) and six folded vectors
+        # in, their gradients out; 94f² flops per pixel (c1 8, mid 18,
+        # gy·W3ᵀ 8, convT 18, dc1·W1ᵀ 8, dW1 8, dW3 8, dw2 18), the
+        # reference's work.
         f = c // 4
-        moved = 2 * n * item + 4 * n + (2 * 17 * f * f + 4 * (c + 2 * f)) * 4
+        moved = (2 * n * item + 4 * n + 5 * 2 * n
+                 + (2 * 17 * f * f + 4 * (c + 2 * f)) * 4)
         ops = 94 * f * f * b * h * w
     else:   # bottleneck_fwd: c = 4f
         f = c // 4
@@ -513,7 +520,8 @@ TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_a",
                        "bottleneck_stats_b", "bottleneck_bwd1",
                        "bottleneck_bwd2", "bottleneck_bwd3",
                        "bottleneck_bwd4", "bottleneck_wgrad", "block_fwd",
-                       "block_stats", "block_bwd1", "block_bwd2")
+                       "block_stats", "block_bwd1", "block_bwd2",
+                       "block_bwd", "bottleneck_bwd")
 # What a row's time takes in besides its own pass: the weight-gradient
 # products that the wrapper launches (bottleneck_wgrad's row has them
 # alone).
@@ -775,9 +783,15 @@ def z2_mask_flips(fb, a, dz2) -> int:
     with torch.backends.cudnn.flags(enabled=False):
         z2 = fb._recompute(x, w1, *vecs)[3]
         dr2 = fb._conv3x3_t(gy, w2)
-    kernel_on = (dz2 - dr2).abs() < dz2.abs()
-    decidable = dr2.abs() > 1e-6
-    return int(((kernel_on != (z2 > 0)) & decidable).sum())
+    return _flips(dz2, dr2, z2 > 0)
+
+
+def _flips(handed, on, plain_on) -> int:
+    """Elements where a handed-over tensor (``on`` where the kernel's mask
+    is on, 0 where off) lies nearer the other candidate than ``plain_on``
+    says, counted where ``on`` is more than 1e-6."""
+    kernel_on = (handed - on).abs() < handed.abs()
+    return int(((kernel_on != plain_on) & (on.abs() > 1e-6)).sum())
 
 
 def block_train_kernel_phase(fb):
@@ -1149,6 +1163,28 @@ def _bwd_rows(kind, path, shape, dtype, args, kernel, plain, per_pass,
                   shape, dtype, **timing)
 
 
+def folded_mask_flips(fb, fbn, kind, args) -> int:
+    """Elements where the folded gradient's step 1 masks otherwise than the
+    plain version ([a2 > 0] of ``block_bwd``, [m3 > 0] of
+    ``bottleneck_bwd``), read from the tensor it hands over (dc1 = s2·da2,
+    dmid = s3·dm3; 0 where its mask is off), as :func:`z2_mask_flips`
+    reads ``block_bwd1``'s dz2; counted where the product is more than
+    1e-6."""
+    with torch.backends.cudnn.flags(enabled=False):
+        if kind == "block_bwd":
+            x, gy, w1, w2, s1, b1, scale, b2 = args
+            plain_on = fb._c1(x.float(), w1, s1, b1) * scale + b2 > 0
+            on = scale * fb._conv3x3_t(gy, w2)
+            handed = fb.folded_bwd1(*args)[3]
+        else:
+            x, gy, w1, w2, w3, s1, b1, s2, b2, scale, b3 = args
+            p2 = fbn._folded_chain(x, w1, s1, b1, s2, b2)[-1]
+            plain_on = fbn._conv3x3(p2, w2) * scale + b3 > 0
+            on = scale * torch.einsum("bhwc,fc->bhwf", gy, w3)
+            handed = fbn.folded_bwd1(*args)[5]
+    return _flips(handed, on, plain_on)
+
+
 def fused_bwd_kernel_phase(fb, fbn):
     """The folded blocks' gradients against their plain versions:
     ``block_bwd`` at the three CIFAR stage shapes and ``bottleneck_bwd`` at
@@ -1157,7 +1193,8 @@ def fused_bwd_kernel_phase(fb, fbn):
     its launches per backward), bfloat16 and float32, on the dyadic grids
     of :func:`block_train_args` and :func:`bottleneck_train_args` (the
     folded scales and biases taken from their gammas, betas and powers of
-    2, so that c1 and mid and with them the masks are exact)."""
+    2, so that c1 and mid and with them the masks are exact): each row's
+    ``mask_flips`` (:func:`folded_mask_flips`) must be 0."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     ab = [(shape, 1) for shape, _ in SHAPES["cifar10_fused_train"]
@@ -1172,6 +1209,8 @@ def fused_bwd_kernel_phase(fb, fbn):
                 rows.append(_bwd_rows(
                     "block_bwd", path, shape, dtype, args, fb.block_bwd,
                     fb.block_bwd_reference, per_pass, "block_fwd"))
+                rows[-1]["mask_flips"] = folded_mask_flips(fb, fbn,
+                                                           "block_bwd", args)
     ab = [(shape, 1) for shape, _ in SHAPES["imagenet_fused_train"]
           ["bottleneck_fwd"]]
     for path, shapes in (("imagenet_ab", ab),
@@ -1188,8 +1227,13 @@ def fused_bwd_kernel_phase(fb, fbn):
                     "bottleneck_bwd", path, shape, dtype, args,
                     fbn.bottleneck_bwd, fbn.bottleneck_bwd_reference,
                     per_pass, "bottleneck_fwd", reps=5, inner=2))
+                rows[-1]["mask_flips"] = folded_mask_flips(
+                    fb, fbn, "bottleneck_bwd", args)
                 del x, gy, args
     torch.cuda.empty_cache()
+    for row in rows:
+        check(row["mask_flips"] == 0, f"{row['kernel']} {row['shape']} "
+              f"{row['dtype']}: masks differ from the plain version's: {row}")
     return rows
 
 
@@ -2138,9 +2182,10 @@ KERNEL_SOURCES = (
      "tpu_resnet/ops/fused_bottleneck.py:754"),
     ("sbr_add", "tpu_resnet_torch/csrc/epilogue.cu",
      "tpu_resnet/ops/epilogue.py:116"),
-    ("block_bwd", "tpu_resnet_torch/csrc/fused_block_train.cu",
+    ("block_bwd", "tpu_resnet_torch/csrc/fused_block_tc.cu",
      "tpu_resnet/ops/fused_block.py:252"),
-    ("bottleneck_bwd", "tpu_resnet_torch/csrc/fused_bottleneck_train.cu",
+    ("bottleneck_bwd", ("tpu_resnet_torch/csrc/fused_bottleneck_tc.cu",
+                        "tpu_resnet_torch/csrc/bottleneck_wgrad.cu"),
      "tpu_resnet/ops/fused_bottleneck.py:241"),
     # The weight-gradient products inside passes 1-3 (dw3, dw2, dw1) and
     # inside the folded gradient (dW3, dw2, dW1), at their call lines.
@@ -2194,8 +2239,10 @@ def kernel_entries(rows, served, trained) -> list:
         timed = next((p for p in ("imagenet_fused_train",
                                   "cifar10_fused_train", "cifar10_train")
                       if p in by_path), next(iter(by_path)))
+        sources = (source,) if isinstance(source, str) else source
         kernels.append({
-            "name": kind, "route": "cuda", "source": source,
+            "name": kind, "route": "cuda", "source": sources[0],
+            **({"sources": list(sources)} if len(sources) > 1 else {}),
             "replaces": replaces,
             "launches": (sum(s["launches"][kind] for s in served)
                          + sum(t["launches"][kind] + t["eval_launches"][kind]

@@ -756,13 +756,47 @@ def _bwd_close(got, again, want, scale, dtype):
     _sums_close(got[1:], want[1:], scale[1:])
 
 
+def _launches_per_call(fn) -> float:
+    """The port's kernel launches in one call of ``fn`` (PyTorch's own
+    kernels, the weights' transposes and the like, left out)."""
+    from tpu_resnet_torch.tools.profiling import device_profile
+    kernels = device_profile(fn, iters=2)["kernels"]
+    return sum(k["launches_per_call"] for k in kernels
+               if "at::" not in k["name"])
+
+
+def _mask_flips(handed, scale, product, plain_on) -> int:
+    """Elements where a kernel's mask differs from the plain version's,
+    read from the tensor it hands over (scale·product where its mask is on,
+    0 where off: it lies nearer one of the two); counted where the product
+    is more than 1e-6."""
+    on = scale * product
+    kernel_on = (handed - on).abs() < handed.abs()
+    return int(((kernel_on != plain_on) & (on.abs() > 1e-6)).sum())
+
+
+# The folded gradients' shapes: the three widths and a ragged plane, the
+# grad phase's B=16 (the small tile plan, 32-pixel bottleneck tiles at 14²)
+# and the A/B tools' B=128.
+_BLOCK_BWD_SHAPES = ([(1, 32, 32, 16), (3, 16, 16, 32), (5, 8, 8, 64),
+                      (2, 7, 5, 16)]
+                     + [(b, hw, hw, c) for b in (16, 128)
+                        for hw, c in ((32, 16), (16, 32), (8, 64))])
+_BOTTLENECK_BWD_SHAPES = ([(2, 56, 56, 256), (2, 28, 28, 512),
+                           (2, 14, 14, 1024), (1, 9, 5, 256)]
+                          + [(b, hw, hw, c) for b in (16, 128)
+                             for hw, c in ((56, 256), (28, 512),
+                                           (14, 1024))])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 32, 32, 16), (3, 16, 16, 32),
-                                   (5, 8, 8, 64), (2, 7, 5, 16)])
+@pytest.mark.parametrize("shape", _BLOCK_BWD_SHAPES)
 def test_block_bwd_kernel_matches_plain(cuda, shape, dtype):
-    """The folded block's gradient at the three widths and a ragged plane,
-    on the dyadic grid (the gammas and betas as the folded scales and
-    biases, so c1 and the masks are exact); called twice."""
+    """The folded block's gradient at the three widths, a ragged plane and
+    the grad phase's and A/B tools' shapes, on the dyadic grid (the gammas
+    and betas as the folded scales and biases, so c1 and the masks are
+    exact); called twice, bit for bit equal, four launches a call; step 1's
+    mask [a2 > 0], read from its dc1, the plain version's everywhere."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
     args = (x, gy, w1, w2, *vecs[:4])
@@ -771,18 +805,27 @@ def test_block_bwd_kernel_matches_plain(cuda, shape, dtype):
     with torch.backends.cudnn.flags(enabled=False):
         want = fb.block_bwd_reference(*args)
         scale = fb.block_bwd_reference(*args, magnitudes=True)
+        s1, b1, s2, b2 = vecs[:4]
+        a2 = fb._c1(x.float(), w1, s1, b1) * s2 + b2
+        dr2 = fb._conv3x3_t(gy, w2)
     torch.cuda.synchronize()
     assert fb.bwd_launches == before + 2
     _bwd_close(got, again, want, scale, dtype)
+    dc1 = fb.folded_bwd1(*args)[3]
+    assert _mask_flips(dc1, s2, dr2, a2 > 0) == 0
+    assert _launches_per_call(lambda: fb.block_bwd(*args)) == 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 56, 56, 256), (2, 28, 28, 512),
-                                   (2, 14, 14, 1024), (1, 9, 5, 256)])
+@pytest.mark.parametrize("shape", _BOTTLENECK_BWD_SHAPES)
 def test_bottleneck_bwd_kernel_matches_plain(cuda, shape, dtype):
     """The folded bottleneck's gradient at the three ResNet-50 stage shapes
-    and a ragged one, on the dyadic grid: s1 = γ1, s2 = 1/σ2 (1/8 or 1/4,
-    so mid stays exact), s3 = γ3 and the betas as biases; called twice."""
+    (B = 2, the grad phase's 16 and the A/B tools' 128) and a ragged one,
+    on the dyadic grid: s1 = γ1, s2 = 1/σ2 (1/8 or 1/4, so mid stays
+    exact), s3 = γ3 and the betas as biases; called twice, bit for bit
+    equal, eleven launches a call (three weight gradients of two among
+    them); step 1's mask [m3 > 0], read from its dmid, the plain
+    version's everywhere."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     x, gy, w1, w2, w3, v = _bottleneck_train_inputs(shape, dtype, gen)
     args = (x, gy, w1, w2, w3, v[0], v[1], v[7], v[5], v[8], v[9])
@@ -791,9 +834,17 @@ def test_bottleneck_bwd_kernel_matches_plain(cuda, shape, dtype):
     with torch.backends.cudnn.flags(enabled=False):
         want = fbn.bottleneck_bwd_reference(*args)
         scale = fbn.bottleneck_bwd_reference(*args, magnitudes=True)
+        p2 = fbn._folded_chain(x, *args[2:3], *args[5:9])[-1]
+        s3, b3 = args[9:]
+        m3 = fbn._conv3x3(p2, w2) * s3 + b3
+        dp3 = torch.einsum("bhwc,fc->bhwf", gy, w3)
     torch.cuda.synchronize()
     assert fbn.bwd_launches == before + 2
     _bwd_close(got, again, want, scale, dtype)
+    dmid = fbn.folded_bwd1(*args)[5]
+    assert _mask_flips(dmid, s3, dp3, m3 > 0) == 0
+    del got, again, want, scale, p2, m3, dp3, dmid
+    assert _launches_per_call(lambda: fbn.bottleneck_bwd(*args)) == 11
 
 
 @pytest.mark.parametrize("preset, overrides, blocks", [

@@ -22,9 +22,10 @@ PORT_FILES = sorted(
     for d, _, files in os.walk(os.path.join(REPO, "tpu_resnet_torch"))
     for f in files if f.endswith(".py")) + [
         "chip_smoke.py", *(os.path.join("tools", f"{name}.py") for name in (
-            "profile_torch_forward", "profile_torch_train",
-            "time_torch_block", "time_torch_bottleneck",
-            "time_torch_epilogue"))]
+            "profile_torch_forward", "profile_torch_grad",
+            "profile_torch_train", "time_torch_block",
+            "time_torch_bottleneck", "time_torch_epilogue",
+            "time_torch_folded_bwd"))]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_resnet")
 
 

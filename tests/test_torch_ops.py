@@ -126,12 +126,14 @@ def test_block_fwd_rejects(bad):
     if bad == "channels":
         a = _torch(_block_inputs((1, 4, 4, 24)))
     elif bad == "smem":
-        # block_fwd and block_stats run on tiles of pixels and take a plane
-        # that no image-a-block kernel could hold in shared memory; the
-        # stats' sums against float64 ones, within 1e-5·Σ|terms| + 1e-6.
+        # Every block kernel runs on tiles of pixels and takes a plane that
+        # no image-a-block kernel could hold in an H100 block's 227 KB of
+        # shared memory, the folded gradient too; the stats' sums against
+        # float64 ones, within 1e-5·Σ|terms| + 1e-6.
         a = _torch(_block_inputs((1, 64, 64, 16)))
-        assert fb.smem_bytes(64, 64, 16) > fb._SMEM_LIMIT
         assert fb.block_fwd(*a).shape == (1, 64, 64, 16)
+        gy = torch.ones(1, 64, 64, 16)
+        assert fb.block_bwd(a[0], gy, *a[1:])[0].shape == (1, 64, 64, 16)
         total, squares, c1 = fb.block_stats(a[0], a[1], a[3], a[4])
         assert c1.shape == (1, 64, 64, 16) and c1.dtype == torch.float32
         c64 = fb._c1(a[0].double(), a[1], a[3].double(), a[4].double())

@@ -1,6 +1,7 @@
 // The fused ResNet-v2 basic block on tiles of pixels and the tensor cores:
-// its forward with folded batch norm, the moments of conv1's output in the
-// training forward, and its three backward passes with live batch norm.
+// its forward with folded batch norm and that forward's gradient, the
+// moments of conv1's output in the training forward, and its three backward
+// passes with live batch norm.
 // Stride 1, equal in/out channels C (16, 32 or 64), 3x3 SAME convs; x is
 // NHWC [B,H,W,C] (f32 or bf16), y (the forward's output) of x's shape and
 // type, gy f32 of x's shape, w1 and w2 HWIO f32 [3,3,C,C], every BN vector
@@ -25,7 +26,14 @@
 //               dz1*z1hat with dz1 = convT(dc1, w1)*[z1>0]; dw1 = sum
 //               r1-patch^T dc1; and dz1 itself, handed to pass 3;
 //   mode 3 block_bwd3  pass3 (:433): dx = gy + g1*i1*(dz1 - U1/n -
-//               z1hat*(U2/n)), from pass 2's dz1, in x's dtype.
+//               z1hat*(U2/n)), from pass 2's dz1, in x's dtype;
+// and the folded forward's gradient, _block_bwd_kernel (:252, block_bwd):
+//   mode 5 step 1: mode 1's tile pass on the folds: db2 = sum da2, ds2 =
+//               sum da2*c1 with da2 = convT(gy, w2)*[a2>0], a2 = s2*c1 + b2;
+//               dw2; and dc1 = s2*da2, handed to step 2;
+//   mode 6 step 2: mode 2's tile pass on the folds, from step 1's dc1: db1 =
+//               sum da1, ds1 = sum da1*x with da1 = convT(dc1, w1)*[a1>0],
+//               a1 = s1*x + b1; dw1; and dx = gy + s1*da1 in x's dtype.
 // The reference recomputes the chain from x in each call (z1hat = (x-m1)*i1,
 // z1 = g1*z1hat + b1, r1 = relu(z1), c1 = conv(r1, w1), z2hat = (c1-m2)*i2,
 // z2 = g2*z2hat + b2, r2 = relu(z2); i = 1/sigma): its VMEM keeps nothing
@@ -36,7 +44,12 @@
 // computed once, in one pass. The folded forward and the stats run their
 // folds as (g, b, m, i) = (s, b, 0, 1): v - 0 and v * 1 are exact, so r1 =
 // relu(s1*x + b1) and r2 = relu(s2*c1 + b2) bit for bit, the reference's
-// folded chain. Every elementwise formula rounds as written (__fmul_rn,
+// folded chain. The folded gradient is the live passes with the folds as
+// (s, b, 0, 1) and no batch-wide correction: T1, T2, U1, U2 are db2, ds2,
+// db1, ds1, and dc1 = s2*dz2, dx = gy + s1*dz1 are elementwise on what each
+// tile pass holds in registers, so step 1 writes dc1 where pass 1 writes dz2
+// and z2hat, step 2 writes dx where pass 2 writes dz1, and neither pass 2's
+// dc1 launch nor pass 3 runs. Every elementwise formula rounds as written (__fmul_rn,
 // __fadd_rn, __fsub_rn, __fdiv_rn, no FMA contraction), as the plain PyTorch
 // version does, so a mask [z > 0] agrees with the plain version's wherever
 // the products do.
@@ -47,7 +60,8 @@
 // moved for each: operations. fwd runs two products from x, one from c1; the
 // stats one (c1); pass 1 three (c1, the convT of gy, dw2), pass 2 two (the
 // convT of dc1, dw1); pass 3 runs none and moves 12 bytes a pixel-channel
-// with bf16 x: bytes.
+// with bf16 x: bytes. The folded gradient runs five: steps 1 and 2 as
+// passes 1 and 2.
 //
 // Design. Tiles of BM consecutive pixels of the [B*H*W] pixel matrix (a tile
 // may span images), each row carrying a 9-bit mask of its taps inside the
@@ -61,7 +75,10 @@
 // (512, 256, 128 tiles at 32^2x16, 16^2x32, 8^2x64), at B=16 and B=1 the
 // small one (256, 128, 64; 16, 8, 4 blocks): B*H*W*C/1024 blocks, the most
 // that one mma tile a warp gives. Both pick the plan by one rule, so the
-// stats' c1 is bit for bit the c1 of the forward's own first launch.
+// stats' c1 is bit for bit the c1 of the forward's own first launch; the
+// folded gradient's two steps pick theirs by the same rule (the grad phase's
+// B=16 the small plan, the A/B tools' B=128 the tile plan). The live passes
+// keep the tile plan.
 // Products run on mma.sync m16n8k8 in TF32 with the three-term split
 // (mma_tf32x3.cuh): each k-step's three products start from zero and join
 // the running f32 sum rounding to nearest. A 3x3 product is an implicit GEMM
@@ -97,6 +114,9 @@
 //          3: the rows' sum.
 //   bwd3   one elementwise launch, eight channels a thread, every access 16
 //          bytes wide.
+//   folded step 1: bwd1's launches, writing dc1 = s2*da2 in place of dz2 and
+//          z2hat; step 2: bwd2's second and third launches on step 1's dc1,
+//          writing dx = gy + s1*da1 in place of dz1. Four launches a call.
 // The weight gradients keep a tap's [C][C] a warp group, from zero over the
 // tile's pixels (K running over the pixels), and add it to the block's row;
 // at C = 16 a tap's [C][C] is two mma tiles, so four warp groups split the
@@ -108,8 +128,9 @@
 // Sums without atomics: each block walks the tiles with a fixed stride; a
 // channel sum adds a warp's rows by shuffles in a fixed pattern and then the
 // warps of a column in order, each weight-gradient element belongs to one
-// thread, the block writes one row [S1, S2], [T1, T2, dw2] or [U1, U2, dw1],
-// and the sum kernel adds the rows in block order. Two calls agree bit for
+// thread, the block writes one row [S1, S2], [T1, T2, dw2] or [U1, U2, dw1]
+// (the folded steps [db2, ds2, dw2] and [db1, ds1, dw1]), and the sum kernel
+// adds the rows in block order. Two calls agree bit for
 // bit.
 
 #include <algorithm>
@@ -131,7 +152,15 @@ using tr::to_f32;
 constexpr int kTC = 256;     // threads per block
 constexpr int kStages = 3;   // the cp.async rings
 constexpr int kMaxSmem = 232448;
-enum Mode : int { kFwd = 0, kBwd1 = 1, kBwd2 = 2, kBwd3 = 3, kStats = 4 };
+enum Mode : int {
+  kFwd = 0,
+  kBwd1 = 1,
+  kBwd2 = 2,
+  kBwd3 = 3,
+  kStats = 4,
+  kFold1 = 5,
+  kFold2 = 6
+};
 
 // The tile plan at width C: MT 16-pixel and NI 8-channel mma tiles a warp;
 // shared memory in bytes.
@@ -203,15 +232,16 @@ struct Args {
   const float* gy;   // [P][C]
   const float* w1;   // [9][C][C]
   const float* w2;
-  // BN gammas, betas, means, 1/sigma [C]; fwd and stats: the folds s1, b1,
-  // s2, b2 as g1, b1, g2, b2, and no m, i.
+  // BN gammas, betas, means, 1/sigma [C]; fwd, stats and the folded steps:
+  // the folds s1, b1, s2, b2 as g1, b1, g2, b2, and no m, i.
   const float *g1, *b1, *g2, *b2, *m1, *i1, *m2, *i2;
   const float *t1, *t2, *u1, *u2;  // pass 1's and pass 2's sums, [C]
   float* dz2;    // [P][C]: pass 1 writes them, pass 2 reads them
   float* z2hat;
   float* dc1;    // [P][C]: pass 2's first launch writes it, its second reads
+                 // (folded: step 1 writes it, step 2 reads it)
   float* dz1;    // [P][C]: pass 2 writes it, pass 3 reads it
-  void* dx;      // [P][C] of the dtype (pass 3)
+  void* dx;      // [P][C] of the dtype (pass 3, folded step 2)
   float* r2;     // [P][C]: fwd's first launch writes it, its second reads it
   void* y;       // [P][C] of the dtype (fwd)
   float* c1;     // [P][C]: the stats write it, fwd reads it where given
@@ -765,13 +795,15 @@ __global__ void __launch_bounds__(kTC, 2) block_stats_kernel(const Args a) {
 }
 
 // Pass 1's tile launch: z2hat and dz2 to device memory, and each block's
-// row [T1, T2, dw2] of partial sums. Two blocks an SM at C <= 32 (128
-// registers, a few bytes of spills) ran 1% faster on an H100 than one block
-// without spills (PERF.md); at C = 64, 128 tiles fill the SMs once.
-template <typename T, int C>
-__global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
+// row [T1, T2, dw2] of partial sums; FOLDED (the folded gradient's step 1,
+// BN2 the folds (s2, b2, 0, 1), no m2, i2): z2hat = c1, and dc1 = s2*dz2 to
+// device memory in their place. Two blocks an SM at C <= 32 (128 registers,
+// a few bytes of spills) ran 1% faster on an H100 than one block without
+// spills (PERF.md); at C = 64 the tile plan's 128 tiles fill the SMs once.
+template <typename T, class PL, bool FOLDED>
+__global__ void __launch_bounds__(kTC, PL::C == 64 && PL::MT == 2 ? 1 : 2)
     block_bwd1_kernel(const Args a) {
-  using PL = Plan<C>;
+  constexpr int C = PL::C;
   constexpr int DS = PL::DS;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
@@ -792,8 +824,8 @@ __global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
     const long long p0 = (long long)tile * PL::BM;
     tile_rows<PL>(a, p0, rows);
     __syncthreads();
-    // c1; z2hat = (c1-m2)*i2, kept in registers and stored; r2 =
-    // relu(g2*z2hat + b2) into the tile's own rows (zero past P).
+    // c1; z2hat = (c1-m2)*i2 (folded: c1), kept in registers and stored; r2
+    // = relu(g2*z2hat + b2) into the tile's own rows (zero past P).
     Acc<PL> acc, zh;
     gemm_bn<T, PL, PL::STAGE2>(acc, ring, static_cast<const T*>(a.x), a.w1,
                                rows, e0, a.W);
@@ -804,8 +836,9 @@ __global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int r = f.row(mi, q), col = f.col(ni, q);
-          const float z =
-              mul(sub(acc[mi][ni][q], __ldg(a.m2 + col)), __ldg(a.i2 + col));
+          const float z = FOLDED ? acc[mi][ni][q]
+                                 : mul(sub(acc[mi][ni][q], __ldg(a.m2 + col)),
+                                       __ldg(a.i2 + col));
           zh[mi][ni][q] = z;
           rbuf[r * DS + col] =
               p0 + r < a.P
@@ -815,7 +848,8 @@ __global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
         }
     // dr2 = convT(gy, w2).
     gemm_f32<PL, true, PL::STAGE2>(acc, ring, a.gy, a.w2, rows, a.W);
-    // dz2 = dr2*[z2 > 0]; z2hat and dz2 stored; their sums.
+    // dz2 = dr2*[z2 > 0]; z2hat and dz2 stored (folded: dc1 = s2*dz2);
+    // their sums.
     float sa[PL::NI][2] = {}, sb[PL::NI][2] = {};
 #pragma unroll
     for (int mi = 0; mi < PL::MT; ++mi)
@@ -837,7 +871,11 @@ __global__ void __launch_bounds__(kTC, C == 64 ? 1 : 2)
             sa[ni][j] += d[j];
             sb[ni][j] = fmaf(d[j], z, sb[ni][j]);
           }
-          if (ok) {
+          if (!ok) continue;
+          if constexpr (FOLDED) {
+            store2(a.dc1 + p * C + col, mul(d[0], __ldg(a.g2 + col)),
+                   mul(d[1], __ldg(a.g2 + col + 1)));
+          } else {
             store2(a.dz2 + p * C + col, d[0], d[1]);
             store2(a.z2hat + p * C + col, zh[mi][ni][2 * h],
                    zh[mi][ni][2 * h + 1]);
@@ -896,10 +934,11 @@ __global__ void __launch_bounds__(kTC)
 }
 
 // Pass 2's launch 2: dz1 to device memory, and each block's row [U1, U2,
-// dw1] of partial sums.
-template <typename T, int C>
+// dw1] of partial sums; FOLDED (the folded gradient's step 2, BN1 the folds
+// (s1, b1, 0, 1)): dx = gy + s1*dz1 in x's dtype in dz1's place.
+template <typename T, class PL, bool FOLDED>
 __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
-  using PL = Plan<C>;
+  constexpr int C = PL::C;
   constexpr int DS = PL::DS;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
@@ -928,7 +967,8 @@ __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
     // dr1 = convT(dc1, w1).
     Acc<PL> acc;
     gemm_f32<PL, true, PL::STAGE2>(acc, ring, a.dc1, a.w1, rows, a.W);
-    // dz1 = dr1*[z1 > 0], stored; the sums of dz1 and dz1*z1hat.
+    // dz1 = dr1*[z1 > 0], stored (folded: dx = gy + s1*dz1); the sums of
+    // dz1 and dz1*z1hat.
     float sa[PL::NI][2] = {}, sb[PL::NI][2] = {};
 #pragma unroll
     for (int mi = 0; mi < PL::MT; ++mi)
@@ -952,7 +992,15 @@ __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
             sa[ni][j] += d[j];
             sb[ni][j] = fmaf(d[j], zh, sb[ni][j]);
           }
-          if (ok) store2(a.dz1 + p * C + col, d[0], d[1]);
+          if (!ok) continue;
+          if constexpr (FOLDED) {
+            const float2 gv = load2(a.gy + p * C + col);
+            store2(static_cast<T*>(a.dx) + p * C + col,
+                   add(gv.x, mul(d[0], e0[col].x)),
+                   add(gv.y, mul(d[1], e0[col + 1].x)));
+          } else {
+            store2(a.dz1 + p * C + col, d[0], d[1]);
+          }
         }
       }
     add_tile_sums<PL>(sa, sb, red, sums);
@@ -1007,6 +1055,11 @@ __global__ void block_bwd1_sum_kernel(const float* __restrict__ part,
 __global__ void block_bwd2_sum_kernel(const float* __restrict__ part,
                                       float* __restrict__ out, int rows,
                                       int L) {
+  sum_rows(part, out, rows, L);
+}
+__global__ void block_bwd_sum_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int rows,
+                                     int L) {
   sum_rows(part, out, rows, L);
 }
 
@@ -1132,8 +1185,8 @@ cudaError_t run_pass(int mode, const Args& a, float* out, int part_rows,
   int blocks = 0;
   cudaError_t err;
   if (mode == kBwd1) {
-    err = run_tiles(block_bwd1_kernel<T, C>, PL::SMEM_TAPS, a, PL::BM,
-                    part_rows, device, st, &blocks);
+    err = run_tiles(block_bwd1_kernel<T, PL, false>, PL::SMEM_TAPS, a,
+                    PL::BM, part_rows, device, st, &blocks);
     if (err != cudaSuccess) return err;
     block_bwd1_sum_kernel<<<(PL::ROW_LEN + 255) / 256, 256, 0, st>>>(
         a.part, out, blocks, PL::ROW_LEN);
@@ -1141,10 +1194,28 @@ cudaError_t run_pass(int mode, const Args& a, float* out, int part_rows,
   }
   err = run_elementwise(block_bwd2_dc1_kernel, a, C, device, st);
   if (err != cudaSuccess) return err;
-  err = run_tiles(block_bwd2_kernel<T, C>, PL::SMEM_TAPS, a, PL::BM,
+  err = run_tiles(block_bwd2_kernel<T, PL, false>, PL::SMEM_TAPS, a, PL::BM,
                   part_rows, device, st, &blocks);
   if (err != cudaSuccess) return err;
   block_bwd2_sum_kernel<<<(PL::ROW_LEN + 255) / 256, 256, 0, st>>>(
+      a.part, out, blocks, PL::ROW_LEN);
+  return cudaGetLastError();
+}
+
+// A folded step on plan PL: its tile launch (pass 1's or pass 2's, at most
+// part_rows blocks), then the sum of its rows into out.
+template <typename T, class PL>
+cudaError_t run_folded_plan(int mode, const Args& a, float* out,
+                            int part_rows, int device, cudaStream_t st) {
+  int blocks = 0;
+  const cudaError_t err =
+      mode == kFold1
+          ? run_tiles(block_bwd1_kernel<T, PL, true>, PL::SMEM_TAPS, a,
+                      PL::BM, part_rows, device, st, &blocks)
+          : run_tiles(block_bwd2_kernel<T, PL, true>, PL::SMEM_TAPS, a,
+                      PL::BM, part_rows, device, st, &blocks);
+  if (err != cudaSuccess) return err;
+  block_bwd_sum_kernel<<<(PL::ROW_LEN + 255) / 256, 256, 0, st>>>(
       a.part, out, blocks, PL::ROW_LEN);
   return cudaGetLastError();
 }
@@ -1164,6 +1235,12 @@ cudaError_t dispatch_c(int mode, const Args& a, float* out, int part_rows,
       });
     case kBwd3:
       return run_elementwise(block_bwd3_kernel<T>, a, C, device, st);
+    case kFold1:
+    case kFold2:
+      return on_plan<C>(a, device, [&](auto plan) {
+        return run_folded_plan<T, decltype(plan)>(mode, a, out, part_rows,
+                                                  device, st);
+      });
     default:
       return run_pass<T, C>(mode, a, out, part_rows, device, st);
   }
@@ -1203,6 +1280,11 @@ cudaError_t dispatch(int mode, const Args& a, float* out, int part_rows,
 //   out's length: the tile launch runs at most part_rows blocks).
 //   Mode 3 (pass 3) reads x, gy, dz1, g1, m1, i1, U1, U2 and writes dx: one
 //   launch.
+//   Modes 5 and 6, the folded gradient's steps, read the folds s1, b1, s2,
+//   b2 in the g1, b1, g2, b2 places and no m, i, T or U. Mode 5 reads x, gy,
+//   w1, w2, writes dc1 and out = [db2, ds2 (C each), dw2 (9C^2)]; mode 6
+//   reads x, gy, w1, dc1, writes dx and out = [db1, ds1, dw1]; two launches
+//   each, through part as the stats'.
 // Returns the cudaError_t of the launches on `stream`.
 extern "C" int tr_block_tc(int mode, const void* const* p, int B, int H,
                            int W, int C, int part_rows, int dtype, int device,
@@ -1210,9 +1292,9 @@ extern "C" int tr_block_tc(int mode, const void* const* p, int B, int H,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long P = (long long)B * H * W;
-  const bool sums = mode == kBwd1 || mode == kBwd2 || mode == kStats;
+  const bool sums = mode != kFwd && mode != kBwd3;
   if (B < 0 || H < 1 || W < 1 || (C != 16 && C != 32 && C != 64) ||
-      mode < kFwd || mode > kStats || P * C >= (1LL << 31) ||
+      mode < kFwd || mode > kFold2 || P * C >= (1LL << 31) ||
       (sums && P > 0 && part_rows < 1))
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };

@@ -1,12 +1,12 @@
 // Fused ResNet-v2 bottleneck on the tensor cores: the forward with folded
-// batch norm, and with live batch-norm statistics the two moment passes and
-// the four backward passes. Stride 1, identity shortcut, 3x3 SAME; x is
+// batch norm and that forward's gradient, and with live batch-norm
+// statistics the two moment passes and the four backward passes. Stride 1, identity shortcut, 3x3 SAME; x is
 // NHWC [B,H,W,4F] (f32 or bf16), y (the forward's output) of x's shape and
 // type, gy f32 of x's shape, W1 f32 [4F,F], w2 f32 HWIO [3,3,F,F], W3 f32
 // [F,4F], BN vectors f32 ([4F] for BN1, [F] for BN2 and BN3), and the
 // tensors a launch hands the next, f32 [B,H,W,F]: p2 (the first launch of
 // fwd, stats_b and bwd1 to the second), mid, dm3 (pass 1 to 2), dmid (2 to
-// 3), dc1 (3 to 4).
+// 3), dc1 (3 to 4); the folded gradient's p2 and dmid (step 1 to 2).
 //
 // Replaces, in tpu_resnet/ops/fused_bottleneck.py (every stride-1 identity
 // bottleneck of width 64, 128 or 256 runs these when model.fused_blocks=true:
@@ -25,7 +25,18 @@
 //                = sum p2-patch^T dmid is tr_bottleneck_wgrad's);
 //   mode 0 bwd3  pass3 (:729): T1a = sum dm1, T1b = sum dm1*x1hat, and dc1
 //                for dw1 = sum p1^T dc1 (tr_bottleneck_wgrad's);
-//   mode 1 bwd4  pass4 (:754): dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n)).
+//   mode 1 bwd4  pass4 (:754): dx = gy + g1*i1*(dm1 - T1a/n - x1hat*(T1b/n));
+// and the folded forward's gradient, _bwd_kernel (:241, bottleneck_bwd), on
+// the folds as (g, be, mu, i) = (s, b, 0, 1) with no batch-wide correction:
+//   mode 7 fold1 fwd's p2 launch writing c1 too, then bwd1's tile pass:
+//                db3 = sum dm3, ds3 = sum dm3*mid, p3 (for dW3 = sum p3^T
+//                gy) and dmid = s3*dm3; c1 and dmid handed to step 2;
+//   mode 8 fold2 bwd3's tile pass and bwd4's in one, from step 1's c1 and
+//                dmid:
+//                db2 = sum dm2, ds2 = sum dm2*c1, dc1 = s2*dm2 (for dW1 = sum
+//                p1^T dc1), then dm1 = (dc1 . W1^T)*[m1>0], db1 = sum dm1,
+//                ds1 = sum dm1*x and dx = gy + s1*dm1 (dw2 = sum p2-patch^T
+//                dmid is tr_bottleneck_wgrad's too).
 // The reference recomputes the chain from x in every kernel, with a halo of
 // one or two rows: its VMEM keeps nothing between calls. On this card each
 // launch reads what the launch before it wrote, and recomputes only c1, a
@@ -51,7 +62,13 @@
 //   bwd3  c1, dp2 and dm2 as bwd2, dc1 = g2*i2*(dm2 - T2a/n - chat*(T2b/n)),
 //         stored; dp1 = dc1 . W1^T, m1 = g1*x1hat + be1, dm1 = dp1*[m1>0],
 //         and the two sums;
-//   bwd4  dp1 = dc1 . W1^T, dm1 as in bwd3, dx in x's dtype.
+//   bwd4  dp1 = dc1 . W1^T, dm1 as in bwd3, dx in x's dtype;
+//   fold1 launch 2: bwd1's with mhat = mid, p3 stored in mid's place and
+//         dmid = s3*dm3 in dm3's: no pass waits for a batch-wide sum;
+//   fold2 bwd3's from the handed-over c1 in place of its c1 product, with
+//         the BN2 sums, dc1 = s2*dm2, and the BN1 sums and dx = gy + s1*dm1
+//         from each round of dp1: bwd2's dmid launch, its c1 and convT,
+//         bwd3's c1 and bwd4's pass all drop out.
 // Every elementwise formula rounds as written (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn, no FMA contraction), as the plain PyTorch version
 // does, so a mask [m > 0] agrees with the plain version's wherever the
@@ -62,14 +79,16 @@
 // fwd 34F^2 (c1 8, mid 18, p3 . W3 8), stats_a 8F^2 (c1), stats_b 26F^2
 // (c1, mid), bwd1 34F^2 (c1 8, mid 18, dp3 8; dw3 8 more), bwd2 26F^2 (c1
 // 8, convT 18; dw2 18 more), bwd3 34F^2 (c1, convT, dp1 8; dw1 8 more),
-// bwd4 8F^2, against a few times 4F items moved: operations, but for bwd4
-// at F=64.
+// bwd4 8F^2, fold1 26F^2 (mid, dp3; its p2 launch c1 8, dW3 8 more), fold2
+// 26F^2 (convT, dp1; dw2 18 and dW1 8 more), against a few times 4F items
+// moved: operations, but for bwd4 at F=64.
 //
 // Design. Tiles of 64 consecutive pixels of the [B*H*W] pixel matrix,
 // whatever W, so a 14-pixel image row leaves no tile half empty; as many
 // blocks as the card holds at once, each walking the tiles with a fixed
-// stride. fwd's launches take 32-pixel tiles where 64-pixel ones would leave
-// SMs idle (B=16 at 14^2: 49 tiles for 132 SMs), stats_a 128-pixel tiles
+// stride. fwd's launches and the folded gradient's take 32-pixel tiles where
+// 64-pixel ones would leave SMs idle (B=16 at 14^2: 49 tiles for 132 SMs),
+// stats_a 128-pixel tiles
 // where F <= 128 (fewer tile epilogues and pipeline fills a pixel). Each
 // product runs on mma.sync m16n8k8 in TF32 with the three-term split
 // (mma_tf32x3.cuh), 256 threads, 2x4 warps, a warp owning 32 (or 16, or 64)
@@ -96,6 +115,7 @@
 // rows in block order. Two calls agree bit for bit.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "mma_tf32x3.cuh"
 #include "row_sums.cuh"
@@ -105,10 +125,10 @@ namespace {
 
 using namespace tr;
 
-// Modes 0-6 are tr_bottleneck_tc's (one pass or kernel each). The rest are
+// Modes 0-8 are tr_bottleneck_tc's (one pass or kernel each). The rest are
 // first launches: p2 on the live moments (bwd1, stats_b) or on the folded
-// affines (fwd), each its own entry point so that a profile books it to its
-// kernel.
+// affines (fwd; fold1, which writes c1 too), each its own entry point so
+// that a profile books it to its kernel.
 enum Mode : int {
   kBwd3 = 0,
   kBwd4 = 1,
@@ -117,9 +137,12 @@ enum Mode : int {
   kStatsB = 4,
   kFwd = 5,
   kStatsA = 6,
-  kP2 = 7,
-  kStatsBP2 = 8,
-  kFwdP2 = 9
+  kFold1 = 7,
+  kFold2 = 8,
+  kP2 = 9,
+  kStatsBP2 = 10,
+  kFwdP2 = 11,
+  kFoldP2 = 12
 };
 __host__ __device__ constexpr bool p2_mode(int mode) { return mode >= kP2; }
 
@@ -133,8 +156,8 @@ constexpr int kMT = 2;      // 16-pixel mma tiles per warp: 64-pixel tiles
 // stage an A chunk [BM][32 + pad] and a weight chunk [32][F + 8] f32); the
 // tile buffer [BM][F + 4] f32 (bwd1-4, fwd); BN1's vectors [4F] float4 (g1,
 // be1, mu1, i1; the launches that recompute c1); then the block's sums, [2F]
-// f32 (bwd1, bwd2, stats_a, stats_b) or [8F] (bwd3), or for bwd4 [4F]
-// float4 (g1*i1, T1a/n, T1b/n). The pads keep the fragment reads free of
+// f32 (bwd1, bwd2, stats_a, stats_b, fold1), [8F] (bwd3) or [10F] (fold2),
+// or for bwd4 [4F] float4 (g1*i1, T1a/n, T1b/n). The pads keep the fragment reads free of
 // bank conflicts. stats_a takes tiles of 128 pixels where F <= 128.
 template <int F, int MT = kMT>
 struct Plan {
@@ -156,10 +179,12 @@ struct Plan {
   static constexpr int SMEM_BWD2 = RING + C_BYTES + E0_BYTES + 2 * F * 4;
   static constexpr int SMEM_BWD3 = RING + C_BYTES + E0_BYTES + 8 * F * 4;
   static constexpr int SMEM_BWD4 = RING + C_BYTES + E0_BYTES + 4 * F * 16;
+  static constexpr int SMEM_FOLD2 = RING + C_BYTES + E0_BYTES + 10 * F * 4;
   static_assert(SMEM_P2 <= kMaxSmem && SMEM_FWD <= kMaxSmem &&
                     SMEM_STATS_A <= kMaxSmem && SMEM_STATS_B <= kMaxSmem &&
                     SMEM_BWD1 <= kMaxSmem && SMEM_BWD2 <= kMaxSmem &&
-                    SMEM_BWD3 <= kMaxSmem && SMEM_BWD4 <= kMaxSmem,
+                    SMEM_BWD3 <= kMaxSmem && SMEM_BWD4 <= kMaxSmem &&
+                    SMEM_FOLD2 <= kMaxSmem,
                 "smem");
   static_assert(F % kBK == 0 && NT >= 1 && (MT == 1 || MT == 2 || MT == 4),
                 "tile");
@@ -169,18 +194,19 @@ struct Plan {
   __host__ __device__ static constexpr int sums_off(int mode) {
     return mode == kStatsB   ? RING
            : mode == kStatsA ? RING + E0_BYTES
-           : mode == kBwd1   ? RING + C_BYTES
-                             : RING + C_BYTES + E0_BYTES;
+           : mode == kBwd1 || mode == kFold1 ? RING + C_BYTES
+                                               : RING + C_BYTES + E0_BYTES;
   }
   __host__ __device__ static constexpr int smem(int mode) {
     return p2_mode(mode)      ? SMEM_P2
            : mode == kFwd     ? SMEM_FWD
            : mode == kStatsA  ? SMEM_STATS_A
            : mode == kStatsB  ? SMEM_STATS_B
-           : mode == kBwd1    ? SMEM_BWD1
-           : mode == kBwd2    ? SMEM_BWD2
-           : mode == kBwd3    ? SMEM_BWD3
-                              : SMEM_BWD4;
+           : mode == kBwd1 || mode == kFold1 ? SMEM_BWD1
+           : mode == kBwd2                   ? SMEM_BWD2
+           : mode == kBwd3                   ? SMEM_BWD3
+           : mode == kFold2                  ? SMEM_FOLD2
+                                             : SMEM_BWD4;
   }
 };
 // The largest width, in bytes: every mode fits one block of 256 threads on
@@ -192,6 +218,7 @@ static_assert(Plan<256>::SMEM_P2 == 145408 && Plan<256>::SMEM_FWD == 195584 &&
                   Plan<256>::SMEM_BWD2 == 214016 &&
                   Plan<256>::SMEM_BWD3 == 220160 &&
                   Plan<256>::SMEM_BWD4 == 228352 &&
+                  Plan<256>::SMEM_FOLD2 == 222208 &&
                   Plan<256, 1>::SMEM_P2 == 131584 &&
                   Plan<256, 1>::SMEM_FWD == 148480,
               "the plan at F = 256");
@@ -205,7 +232,8 @@ struct TcArgs {
   const float* w3t;   // [4F][F]: W3 transposed (bwd1)
   const float* w1t;   // [F][4F]
   const float* w3;    // [F][4F] (fwd)
-  // BN1-3; fwd reads its folds (s, b) as (g, be) and no mu, i.
+  // BN1-3; fwd and the folded steps read the folds (s, b) as (g, be) and
+  // no mu, i.
   const float *g1, *be1, *mu1, *i1;  // [4F]
   const float *g2, *be2, *mu2, *i2;  // [F]
   const float *g3, *be3, *mu3, *i3;  // [F] (fwd, bwd1, bwd2)
@@ -215,12 +243,15 @@ struct TcArgs {
   float* p2;          // [P][F]: the first launch writes it, the 3x3 reads it
                       // (and bwd1 returns it, for pass 2's dw2)
   float* mid;         // [P][F]: bwd1 writes it, bwd2 reads it
+  float* p3;          // [P][F]: fold1 writes it for dW3
+  float* c1;          // [P][F]: fold1's p2 launch writes it, fold2 reads it
   float* dm3;         // [P][F]: bwd1 writes it, bwd2 reads it
-  float* dmid;        // [P][F]: bwd2 writes it, bwd3 reads it
-  float* dc1;         // [P][F]: bwd3 writes it, bwd4 reads it
-  void* dx;           // [P][4F] (bwd4)
+  float* dmid;        // [P][F]: bwd2 writes it, bwd3 reads it (fold1, fold2)
+  float* dc1;         // [P][F]: bwd3 writes it, bwd4 reads it (fold2 writes
+                      // it for dW1)
+  void* dx;           // [P][4F] (bwd4, fold2)
   void* y;            // [P][4F] (fwd)
-  float* part;        // [gridDim.x][2F or 8F] (stats_b, bwd1-3)
+  float* part;        // [gridDim.x][2F, 8F or 10F] (stats, bwd1-3, folds)
   int P, H, W;
   float n;  // B*H*W
 };
@@ -363,10 +394,14 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   constexpr int BM = PL::BM;
   // The launches that recompute c1 keep BN1's vectors in shared memory.
   constexpr bool kBn1 = p2_mode(MODE) || MODE == kStatsA || MODE == kBwd2 ||
-                       MODE == kBwd3 || MODE == kBwd4;
-  constexpr int NSUM = MODE == kBwd3 ? 2 * C4
+                       MODE == kBwd3 || MODE == kBwd4 || MODE == kFold2;
+  // The folded steps: BN's (mu, i) are (0, 1), the correction none.
+  constexpr bool kFolded = MODE == kFwdP2 || MODE == kFoldP2 ||
+                          MODE == kFold1 || MODE == kFold2;
+  constexpr int NSUM = MODE == kBwd3    ? 2 * C4
+                       : MODE == kFold2 ? 2 * C4 + 2 * F
                        : MODE == kBwd1 || MODE == kBwd2 || MODE == kStatsA ||
-                               MODE == kStatsB
+                               MODE == kStatsB || MODE == kFold1
                            ? 2 * F
                            : 0;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -385,7 +420,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
 
   if constexpr (kBn1) {
     for (int c = tid; c < C4; c += kTC) {
-      if constexpr (MODE == kFwdP2)  // the folds (s1, b1) as (s1, b1, 0, 1)
+      if constexpr (kFolded)  // the folds (s1, b1) as (s1, b1, 0, 1)
         e0[c] = make_float4(a.g1[c], a.be1[c], 0.f, 1.f);
       else
         e0[c] = make_float4(a.g1[c], a.be1[c], a.mu1[c], a.i1[c]);
@@ -511,14 +546,30 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
           frag_rows(cbuf, PL::CS, c * kBK + kk + t, mi, big, small);
         });
   };
-  // chat = (c1-mu2)*i2 into the tile buffer.
+  // The tile's rows of src [P][F] into the tile buffer.
+  auto load_tile = [&](const float* src) {
+    constexpr int SEGS = F / 4;
+#pragma unroll
+    for (int q = 0; q < BM * SEGS / kTC; ++q) {
+      const int idx = tid + q * kTC, r = idx / SEGS, s = idx % SEGS;
+      const long long p = p0 + r;
+      const bool ok = p < a.P;
+      cp_async16(cbuf + r * PL::CS + s * 4, src + (ok ? p : 0) * F + s * 4,
+                 ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+  // chat = (c1-mu2)*i2 (folded: c1) into the tile buffer.
   auto store_chat = [&] {
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni) {
         const int col = wn * PL::WN + ni * 8 + 2 * t;
-        const float2 mu = load2(a.mu2 + col), iv = load2(a.i2 + col);
+        const float2 mu = kFolded ? make_float2(0.f, 0.f) : load2(a.mu2 + col);
+        const float2 iv = kFolded ? make_float2(1.f, 1.f) : load2(a.i2 + col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float* cp = cbuf + (row0 + mi * 16 + g + 8 * h) * PL::CS + col;
@@ -532,7 +583,8 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     p0 = (long long)tile * BM;
     if constexpr (MODE == kBwd1 || MODE == kBwd2 || MODE == kBwd3 ||
-                  MODE == kFwd || MODE == kStatsB) {
+                  MODE == kFwd || MODE == kStatsB || MODE == kFold1 ||
+                  MODE == kFold2) {
 #pragma unroll
       for (int q = 0; q < MT; ++q) {
         const long long p = p0 + ((tid + q * kTC) >> 3);
@@ -557,7 +609,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
                                   1.f);
           float4 b1 = make_float4(__ldg(a.g2 + col + 1),
                                   __ldg(a.be2 + col + 1), 0.f, 1.f);
-          if constexpr (MODE != kFwdP2) {
+          if constexpr (!kFolded) {
             b0.z = __ldg(a.mu2 + col);
             b0.w = __ldg(a.i2 + col);
             b1.z = __ldg(a.mu2 + col + 1);
@@ -569,6 +621,10 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
             if (p < a.P)
               store2(a.p2 + p * F + col, bn_relu(acc[mi][ni][2 * h], b0),
                      bn_relu(acc[mi][ni][2 * h + 1], b1));
+            if constexpr (MODE == kFoldP2)  // c1 too, for fold2
+              if (p < a.P)
+                store2(a.c1 + p * F + col, acc[mi][ni][2 * h],
+                       acc[mi][ni][2 * h + 1]);
           }
         }
     } else if constexpr (MODE == kStatsA || MODE == kStatsB) {
@@ -630,15 +686,19 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
             }
           }
       }
-    } else if constexpr (MODE == kBwd1) {
-      // mid = conv3x3(p2, w2): stored, and mhat into the tile buffer.
+    } else if constexpr (MODE == kBwd1 || MODE == kFold1) {
+      // mid = conv3x3(p2, w2): stored (folded: p3 = relu(s3*mid + b3), dW3's
+      // rows), and mhat (folded: mid) into the tile buffer.
       gemm_3x3(a.p2, a.w2);
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni) {
           const int col = wn * PL::WN + ni * 8 + 2 * t;
-          const float2 mu = load2(a.mu3 + col), iv = load2(a.i3 + col);
+          const float2 mu = kFolded ? make_float2(0.f, 0.f)
+                                    : load2(a.mu3 + col);
+          const float2 iv = kFolded ? make_float2(1.f, 1.f)
+                                    : load2(a.i3 + col);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = row0 + mi * 16 + g + 8 * h;
@@ -647,7 +707,16 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
             const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
             cp[0] = mul(sub(v0, mu.x), iv.x);
             cp[1] = mul(sub(v1, mu.y), iv.y);
-            if (p < a.P) store2(a.mid + p * F + col, v0, v1);
+            if constexpr (kFolded) {
+              if (p < a.P) {
+                const float2 sv = load2(a.g3 + col), bv = load2(a.be3 + col);
+                store2(a.p3 + p * F + col,
+                       bn_relu(v0, make_float4(sv.x, bv.x, 0.f, 1.f)),
+                       bn_relu(v1, make_float4(sv.y, bv.y, 0.f, 1.f)));
+              }
+            } else if (p < a.P) {
+              store2(a.mid + p * F + col, v0, v1);
+            }
           }
         }
       // dp3 = gy . W3^T; the A chunks are the tile's gy rows.
@@ -666,7 +735,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
             issue_w(st, a.w3t + (long long)c * kBK * F, F);
           },
           frag_stage);
-      // dm3, stored, and the sums.
+      // dm3, stored (folded: dmid = s3*dm3), and the sums.
       zero_sums();
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -689,13 +758,23 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
               sa[ni][j] += d[j];
               sb[ni][j] = fmaf(d[j], mh, sb[ni][j]);
             }
-            if (ok) store2(a.dm3 + p * F + col, d[0], d[1]);
+            if constexpr (kFolded) {
+              if (ok)
+                store2(a.dmid + p * F + col, mul(d[0], gv.x),
+                       mul(d[1], gv.y));
+            } else if (ok) {
+              store2(a.dm3 + p * F + col, d[0], d[1]);
+            }
           }
         }
       add_tile_sums<F>(sa, sb, red, sums, sums + F);
-    } else if constexpr (MODE == kBwd2 || MODE == kBwd3) {
-      gemm_c1();
-      store_chat();
+    } else if constexpr (MODE == kBwd2 || MODE == kBwd3 || MODE == kFold2) {
+      if constexpr (MODE == kFold2) {
+        load_tile(a.c1);  // chat = c1, fold1's
+      } else {
+        gemm_c1();
+        store_chat();
+      }
       // dp2 = convT(dmid).
       gemm_3x3(a.dmid, a.w2t);
       if constexpr (MODE == kBwd2) {
@@ -726,7 +805,9 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
           }
         add_tile_sums<F>(sa, sb, red, sums, sums + F);
       } else {
-        // dm2, then dc1 in place of chat, and to device memory.
+        // dm2, then dc1 in place of chat, and to device memory; folded: dc1
+        // = s2*dm2, and the BN2 sums.
+        if constexpr (kFolded) zero_sums();
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -743,37 +824,37 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
                 const int cc = col + j;
                 const float g2 = __ldg(a.g2 + cc), ch = cp[j];
                 const float m2 = add(mul(g2, ch), __ldg(a.be2 + cc));
-                const float dm2 = m2 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
-                d[j] = p < a.P
-                           ? mul(mul(g2, __ldg(a.i2 + cc)),
-                                 sub(sub(dm2, __fdiv_rn(__ldg(a.t2a + cc), n)),
-                                     mul(ch, __fdiv_rn(__ldg(a.t2b + cc), n))))
-                           : 0.f;
+                const float dm2 = m2 > 0.f && (!kFolded || p < a.P)
+                                      ? acc[mi][ni][2 * h + j]
+                                      : 0.f;
+                if constexpr (kFolded) {
+                  sa[ni][j] += dm2;
+                  sb[ni][j] = fmaf(dm2, ch, sb[ni][j]);
+                  d[j] = mul(dm2, g2);
+                } else {
+                  d[j] = p < a.P
+                             ? mul(mul(g2, __ldg(a.i2 + cc)),
+                                   sub(sub(dm2,
+                                           __fdiv_rn(__ldg(a.t2a + cc), n)),
+                                       mul(ch,
+                                           __fdiv_rn(__ldg(a.t2b + cc), n))))
+                             : 0.f;
+                }
                 cp[j] = d[j];
               }
               if (p < a.P) store2(a.dc1 + p * F + col, d[0], d[1]);
             }
           }
+        if constexpr (kFolded)
+          add_tile_sums<F>(sa, sb, red, sums + 2 * C4, sums + 2 * C4 + F);
       }
     } else {
-      // The tile's dc1, from pass 3.
-      constexpr int SEGS = F / 4;
-#pragma unroll
-      for (int q = 0; q < BM * SEGS / kTC; ++q) {
-        const int idx = tid + q * kTC, r = idx / SEGS, s = idx % SEGS;
-        const long long p = p0 + r;
-        const bool ok = p < a.P;
-        cp_async16(cbuf + r * PL::CS + s * 4, a.dc1 + (ok ? p : 0) * F + s * 4,
-                   ok);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+      load_tile(a.dc1);  // the tile's dc1, from pass 3
     }
 
-    if constexpr (MODE == kBwd3 || MODE == kBwd4) {
+    if constexpr (MODE == kBwd3 || MODE == kBwd4 || MODE == kFold2) {
       // dp1 = dc1 . W1^T in four rounds of F output channels: dm1, then the
-      // sums (bwd3) or dx (bwd4).
+      // sums (bwd3), dx (bwd4) or both (fold2: dx = gy + s1*dm1).
       for (int n0 = 0; n0 < C4; n0 += F) {
         gemm_expand(a.w1t, n0);
         zero_sums();
@@ -796,15 +877,18 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
                 const float m1 = add(mul(pr.x, xh), pr.y);
                 const float dm1 =
                     ok && m1 > 0.f ? acc[mi][ni][2 * h + j] : 0.f;
-                if constexpr (MODE == kBwd3) {
+                if constexpr (MODE != kBwd4) {
                   sa[ni][j] += dm1;
                   sb[ni][j] = fmaf(dm1, xh, sb[ni][j]);
-                } else {
+                }
+                if constexpr (MODE == kFold2) {
+                  d[j] = mul(dm1, pr.x);
+                } else if constexpr (MODE == kBwd4) {
                   const float4 q1 = e1[cc + j];
                   d[j] = mul(q1.x, sub(sub(dm1, q1.y), mul(xh, q1.z)));
                 }
               }
-              if constexpr (MODE == kBwd4) {
+              if constexpr (MODE != kBwd3) {
                 if (ok) {
                   const float2 gv = load2(a.gy + p * C4 + cc);
                   store2(static_cast<T*>(a.dx) + p * C4 + cc, add(gv.x, d[0]),
@@ -813,7 +897,7 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
               }
             }
           }
-        if constexpr (MODE == kBwd3)
+        if constexpr (MODE != kBwd4)
           add_tile_sums<F>(sa, sb, red, sums + n0, sums + C4 + n0);
       }
     }
@@ -872,6 +956,21 @@ template <typename T, int F>
 __global__ void __launch_bounds__(kTC) bottleneck_bwd4_kernel(const TcArgs a) {
   tc_body<T, F, kBwd4>(a);
 }
+template <typename T, int F, int MT>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_fold1_p2_kernel(const TcArgs a) {
+  tc_body<T, F, kFoldP2, MT>(a);
+}
+template <typename T, int F, int MT>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_fold1_kernel(const TcArgs a) {
+  tc_body<T, F, kFold1, MT>(a);
+}
+template <typename T, int F, int MT>
+__global__ void __launch_bounds__(kTC)
+    bottleneck_fold2_kernel(const TcArgs a) {
+  tc_body<T, F, kFold2, MT>(a);
+}
 
 // bwd2's first launch, elementwise over [P][F], four channels a thread:
 // dmid = g3*i3*(dm3 - T3a/n - mhat*(T3b/n)), mhat = (mid-mu3)*i3.
@@ -912,6 +1011,10 @@ auto tc_kernel() {
   else if constexpr (MODE == kBwd1) return bottleneck_bwd1_kernel<T, F>;
   else if constexpr (MODE == kBwd2) return bottleneck_bwd2_kernel<T, F>;
   else if constexpr (MODE == kBwd3) return bottleneck_bwd3_kernel<T, F>;
+  else if constexpr (MODE == kFoldP2)
+    return bottleneck_fold1_p2_kernel<T, F, MT>;
+  else if constexpr (MODE == kFold1) return bottleneck_fold1_kernel<T, F, MT>;
+  else if constexpr (MODE == kFold2) return bottleneck_fold2_kernel<T, F, MT>;
   else return bottleneck_bwd4_kernel<T, F>;
 }
 
@@ -955,28 +1058,53 @@ cudaError_t run_dmid(const TcArgs& a, int device, cudaStream_t st) {
 // stats_a's tile: 32 * MT pixels.
 constexpr int stats_a_mt(int F) { return F <= 128 ? 4 : 2; }
 
-// fwd's two launches, in 64-pixel tiles or, where those would leave SMs
-// idle, 32-pixel ones.
-template <typename T, int F>
+// fwd's two launches: the p2 pass, then its tile pass.
+template <typename T, int F, int MT>
 cudaError_t run_fwd(const TcArgs& a, int device, cudaStream_t st) {
-  int sms = 0, blocks = 0;
-  cudaError_t err =
+  int blocks = 0;
+  const cudaError_t err = run_tiles<T, F, kFwdP2, MT>(a, a.P, device, st,
+                                                      &blocks);
+  if (err != cudaSuccess) return err;
+  return run_tiles<T, F, kFwd, MT>(a, a.P, device, st, &blocks);
+}
+
+// The folded gradient's steps: fold1 the p2 pass, its tile pass and the sum
+// of its rows; fold2 its tile pass and the sum.
+template <typename T, int F, int MT>
+cudaError_t run_fold(int mode, const TcArgs& a, float* out, int part_rows,
+                     int device, cudaStream_t st) {
+  int blocks = 0;
+  cudaError_t err;
+  if (mode == kFold1) {
+    err = run_tiles<T, F, kFoldP2, MT>(a, a.P, device, st, &blocks);
+    if (err != cudaSuccess) return err;
+    // The tile pass reads no x: one instantiation serves both types.
+    err = run_tiles<float, F, kFold1, MT>(a, part_rows, device, st, &blocks);
+    if (err != cudaSuccess) return err;
+    return sum_rows(a.part, out, blocks, 2 * F, st);
+  }
+  err = run_tiles<T, F, kFold2, MT>(a, part_rows, device, st, &blocks);
+  if (err != cudaSuccess) return err;
+  return sum_rows(a.part, out, blocks, 10 * F, st);
+}
+
+// fwd and the folded steps take 64-pixel tiles or, where those would leave
+// SMs idle, 32-pixel ones: run(MT) with MT the 16-pixel mma tiles a warp.
+template <int F, class Run>
+cudaError_t on_tiles(const TcArgs& a, int device, Run run) {
+  int sms = 0;
+  const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  if ((a.P + Plan<F>::BM - 1) / Plan<F>::BM < sms) {
-    err = run_tiles<T, F, kFwdP2, 1>(a, a.P, device, st, &blocks);
-    if (err != cudaSuccess) return err;
-    return run_tiles<T, F, kFwd, 1>(a, a.P, device, st, &blocks);
-  }
-  err = run_tiles<T, F, kFwdP2>(a, a.P, device, st, &blocks);
-  if (err != cudaSuccess) return err;
-  return run_tiles<T, F, kFwd>(a, a.P, device, st, &blocks);
+  if ((a.P + Plan<F>::BM - 1) / Plan<F>::BM < sms)
+    return run(std::integral_constant<int, 1>());
+  return run(std::integral_constant<int, kMT>());
 }
 
 // The launches of one mode: fwd the p2 pass and its tile pass; stats_a its
-// pass and the sum of its rows; stats_b and bwd1 the p2 pass, the tile pass
-// and the sum of its rows; bwd2 dmid, its
-// tile pass and the sum; bwd3 its pass and the sum; bwd4 its pass.
+// pass and the sum of its rows; stats_b, bwd1 and fold1 the p2 pass, the
+// tile pass and the sum of its rows; bwd2 dmid, its tile pass and the sum;
+// bwd3 and fold2 their pass and the sum; bwd4 its pass.
 template <typename T, int F>
 cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
                    int device, cudaStream_t st) {
@@ -984,7 +1112,15 @@ cudaError_t launch(int mode, const TcArgs& a, float* out, int part_rows,
   cudaError_t err = cudaSuccess;
   switch (mode) {
     case kFwd:
-      return run_fwd<T, F>(a, device, st);
+      return on_tiles<F>(a, device, [&](auto mt) {
+        return run_fwd<T, F, decltype(mt)::value>(a, device, st);
+      });
+    case kFold1:
+    case kFold2:
+      return on_tiles<F>(a, device, [&](auto mt) {
+        return run_fold<T, F, decltype(mt)::value>(mode, a, out, part_rows,
+                                                   device, st);
+      });
     case kStatsA:
       err = run_tiles<T, F, kStatsA, stats_a_mt(F)>(a, part_rows, device, st,
                                                      &blocks);
@@ -1036,10 +1172,11 @@ cudaError_t dispatch_f(int mode, const TcArgs& a, float* out, int part_rows,
 
 }  // namespace
 
-// p[35], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
+// p[37], null where a mode does not read it: x, gy, w1, w2, w2t, w3t, w1t,
 // g1, be1, mu1, i1, g2, be2, mu2, i2, g3, be3, mu3, i3, T3a, T3b, T2a, T2b,
-// T1a, T1b, p2, mid, dm3, dmid, dc1, dx, part, out, w3, y (see TcArgs). x,
-// gy, dx, y [B,H,W,4F], p2, mid, dm3, dmid, dc1 [B,H,W,F]; x, dx and y of
+// T1a, T1b, p2, mid, dm3, dmid, dc1, dx, part, out, w3, y, p3, c1 (see
+// TcArgs). x, gy, dx, y [B,H,W,4F], p2, mid, dm3, dmid, dc1, p3, c1
+// [B,H,W,F]; x, dx and y of
 // `dtype` (tr::DType), the rest f32; all contiguous and 16-byte aligned.
 // Mode 5 (fwd) takes the folds s1, b1, s2, b2, s3, b3 in the places of g1,
 // be1, g2, be2, g3, be3, writes p2 (scratch) and y. Mode 6 (stats_a) writes
@@ -1047,18 +1184,22 @@ cudaError_t dispatch_f(int mode, const TcArgs& a, float* out, int part_rows,
 // p2 (scratch) and out = [sum mid, sum mid^2] (2F floats); mode 2 (bwd1)
 // writes p2, mid, dm3 and out = [T3a, T3b] (2F); mode 3 (bwd2) reads mid,
 // dm3 and writes dmid and out = [T2a, T2b] (2F); mode 0 (bwd3) reads dmid
-// and writes dc1 and out = [T1a, T1b] (8F); each through part (part_rows
+// and writes dc1 and out = [T1a, T1b] (8F); modes 7 and 8 (the folded
+// gradient's steps) take the folds as mode 5 does: mode 7 (fold1) reads x,
+// gy, w1, w2, w3t and writes p2, c1, p3, dmid and out = [db3, ds3] (2F),
+// mode 8 (fold2) reads x, gy, w1t, w2t, c1, dmid and writes dc1, dx and out =
+// [db1, ds1 (4F each), db2, ds2 (F each)]; each through part (part_rows
 // rows of out's length; the tile pass runs at most part_rows blocks). Mode
 // 1 (bwd4) reads dc1 and writes dx (part_rows unread by modes 1 and 5). F
 // is 64, 128 or 256. Returns the cudaError_t of the launches on `stream`:
-// three for stats_b, bwd1 and bwd2, two for fwd, stats_a and bwd3, one for
-// bwd4 (see launch()).
+// three for stats_b, bwd1, bwd2 and fold1, two for fwd, stats_a, bwd3 and
+// fold2, one for bwd4 (see launch()).
 extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
                                 int W, int F, int part_rows, int dtype,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kStatsA ||
+  if (B < 1 || H < 1 || W < 1 || mode < kBwd3 || mode > kFold2 ||
       (mode != kBwd4 && mode != kFwd && part_rows < 1))
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
@@ -1101,6 +1242,8 @@ extern "C" int tr_bottleneck_tc(int mode, const void* const* p, int B, int H,
   float* out = w(p[32]);
   a.w3 = f(p[33]);
   a.y = const_cast<void*>(p[34]);
+  a.p3 = w(p[35]);
+  a.c1 = w(p[36]);
   a.P = B * H * W;
   a.H = H;
   a.W = W;

@@ -1,5 +1,5 @@
 // Sums without atomics, shared by the fused bottleneck's kernels
-// (fused_bottleneck_train.cu, fused_bottleneck_tc.cu): a kernel writes one
+// (fused_bottleneck_tc.cu, bottleneck_wgrad.cu): a kernel writes one
 // row of partial sums per block, and bottleneck_sum_kernel adds the rows in
 // row order, so two calls agree bit for bit.
 #pragma once

@@ -41,10 +41,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_sbr_add": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
         "tr_sbr_bwd": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
     },
-    "fused_block_train": {"tr_block_bwd": [_P] * 11 + [_I] * 6 + [_P]},
     "fused_block_tc": {"tr_block_tc": [_I, _P] + [_I] * 7 + [_P]},
-    "fused_bottleneck_train": {
-        "tr_bottleneck_train": [_P] + [_I] * 6 + [_P]},
     "bottleneck_wgrad": {
         "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P]},
     "fused_bottleneck_tc": {"tr_bottleneck_tc": [_I, _P] + [_I] * 7 + [_P]},

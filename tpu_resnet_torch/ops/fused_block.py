@@ -16,13 +16,15 @@ CUDA tensor and raises if it cannot; for a CPU tensor it computes the plain
 version, :func:`block_fwd_reference`. ``launches`` counts its calls on the
 card.
 
-Its gradient (``_block_bwd_kernel``, ``csrc/fused_block_train.cu``
-``tr_block_bwd``): :func:`block_bwd` → (dx, dw1, dw2, ds1, db1, ds2, db2)
-from x, gy (float32) and the parameters, recomputing the chain; one pass,
-no batch-wide sum before dx, since folded BN has none.
-:func:`block_apply` is the differentiable folded block (the reference's
-custom-VJP ``block_apply``): forward :func:`block_fwd`, backward
-:func:`block_bwd`, saving only x and the parameters.
+Its gradient (``_block_bwd_kernel``): :func:`block_bwd` → (dx, dw1, dw2,
+ds1, db1, ds2, db2) from x, gy (float32) and the parameters, in two steps
+that are the live-BN passes 1 and 2 below with the folds as BN (γ, β, μ,
+1/σ) = (s, b, 0, 1) and no batch-wide correction (``csrc/fused_block_tc.cu``
+modes 5 and 6): :func:`folded_bwd1` → (db2, ds2, dw2, dc1 = s2·da2),
+:func:`folded_bwd2` (``dc1=``, step 1's) → (db1, ds1, dw1, dx = gy +
+s1·da1). :func:`block_apply` is the differentiable folded block (the
+reference's custom-VJP ``block_apply``): forward :func:`block_fwd`,
+backward :func:`block_bwd`, saving only x and the parameters.
 
 Training (port of the reference's ``block_train_fwd`` and
 ``_train_bwd_calls``; ``csrc/fused_block_tc.cu``):
@@ -56,7 +58,6 @@ computes in float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,13 +72,9 @@ stats_launches = 0  # block_stats calls (two launches each: c1 and the
 bwd1_launches = 0   # block_bwd1 calls (two launches each)
 bwd2_launches = 0   # block_bwd2 calls (three launches each)
 bwd3_launches = 0   # block_bwd3 calls (one launch each)
-bwd_launches = 0    # block_bwd calls (two launches each)
+bwd_launches = 0    # block_bwd calls (four launches each: its two steps)
 
 CHANNELS = (16, 32, 64)  # the kernels' compiled widths
-_SMEM_LIMIT = 232448     # bytes of shared memory one H100 block may use
-# The tile kernels (csrc/fused_block_tc.cu) hold no whole image: any H, W.
-_TILE_KINDS = ("block_fwd", "block_stats", "block_bwd1", "block_bwd2",
-               "block_bwd3")
 EPS = 1e-5
 _SUM_DIMS = (0, 1, 2)
 
@@ -141,30 +138,17 @@ def block_fwd_reference(x, w1, w2, s1, b1, s2, b2, *, c1=None
     return (xf + out).to(x.dtype)
 
 
-def smem_bytes(h: int, w: int, c: int) -> int:
-    """Shared memory one image takes in ``block_bwd``, which holds an image
-    a block: two zero-haloed f32 planes with a pixel stride of C+1 words,
-    one unpadded plane more, and at least the 32 KB of the channel-sum
-    reduction."""
-    plane = (h + 2) * (w + 2) * (c + 1) * 4
-    return max(2 * plane + h * w * (c + 1) * 4, 2 * 512 * 8 * 4)
-
-
 def _check_x(x, kind: str) -> int:
     if x.dim() != 4:
         raise ValueError(f"{kind}: x must be [B,H,W,C], got shape "
                          f"{tuple(x.shape)}")
-    _, h, w, c = x.shape
+    c = x.shape[-1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{kind}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
     if c not in CHANNELS:
         raise ValueError(f"fused block has kernels for C in {CHANNELS}, "
                          f"got {c}")
-    need = 0 if kind in _TILE_KINDS else smem_bytes(h, w, c)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"{kind} at {h}x{w}x{c} needs {need} bytes of "
-                         f"shared memory, more than {_SMEM_LIMIT}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{kind} runs on cpu or cuda, not {x.device}")
     return c
@@ -185,22 +169,6 @@ def _check_f32(kind: str, x, **tensors) -> None:
                              f"{x.device}")
 
 
-def _launch(kind: str, library: str, symbol: str, x, *tensors) -> None:
-    """CUDA-side checks, then the C entry point ``symbol`` of ``library``
-    with the tensors' pointers and x's shape, dtype, device and stream."""
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{kind}: every tensor must be contiguous")
-        if t.shape[:2] == (3, 3) and t.data_ptr() % 16:
-            raise ValueError(f"{kind}: w1 and w2 must be 16-byte aligned")
-    b, h, w, c = x.shape
-    fn = getattr(_build.library(library), symbol)
-    err = fn(*(t.data_ptr() for t in tensors), b, h, w, c,
-             _build.DTYPE_CODES[x.dtype], x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, kind)
-
-
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -215,14 +183,6 @@ def _pointers(kind, names, tensors):
                              f"aligned")
     return (ctypes.c_void_p * len(names))(*(
         tensors[n].data_ptr() if n in tensors else None for n in names))
-
-
-def _sums_out(x, extra: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(partial rows [B, 2C+extra], their sum [2C+extra]) on x's device."""
-    b, c = x.shape[0], x.shape[-1]
-    return (torch.empty(b, 2 * c + extra, dtype=torch.float32,
-                        device=x.device),
-            torch.empty(2 * c + extra, dtype=torch.float32, device=x.device))
 
 
 def block_fwd(x, w1, w2, s1, b1, s2, b2, *, c1=None) -> torch.Tensor:
@@ -274,26 +234,90 @@ def block_bwd_reference(x, gy, w1, w2, s1, b1, s2, b2, *,
             (f(da2) * f(c1)).sum(_SUM_DIMS), f(da2).sum(_SUM_DIMS))
 
 
+def folded_bwd1_reference(x, gy, w1, w2, s1, b1, s2, b2):
+    """Plain version of :func:`folded_bwd1`: (db2 = Σda2, ds2 = Σda2·c1,
+    dw2 = Σ r2-patchᵀ·gy, dc1 = s2·da2 [B,H,W,C] contiguous), da2 =
+    convT(gy, w2)·[a2 > 0], a2 = c1·s2 + b2, each rounded as
+    :func:`block_bwd_reference` rounds it."""
+    xf, gyf = _fp(x), _fp(gy)
+    c1 = _c1(xf, w1, s1, b1)
+    a2 = c1 * s2 + b2
+    da2 = torch.where(a2 > 0, _conv3x3_t(gyf, w2.to(xf.dtype)), 0.0)
+    return (da2.sum(_SUM_DIMS), (da2 * c1).sum(_SUM_DIMS),
+            _wgrad(torch.clamp_min(a2, 0.0), gyf), (da2 * s2).contiguous())
+
+
+def folded_bwd2_reference(x, gy, w1, w2, s1, b1, s2, b2, *, dc1):
+    """Plain version of :func:`folded_bwd2`, from step 1's ``dc1``: (db1 =
+    Σda1, ds1 = Σda1·x, dw1 = Σ r1-patchᵀ·dc1, dx = gy + da1·s1 in x's
+    dtype), da1 = convT(dc1, w1)·[a1 > 0], a1 = x·s1 + b1."""
+    xf = _fp(x)
+    a1 = xf * s1 + b1
+    da1 = torch.where(a1 > 0, _conv3x3_t(dc1, w1.to(xf.dtype)), 0.0)
+    return (da1.sum(_SUM_DIMS), (da1 * xf).sum(_SUM_DIMS),
+            _wgrad(torch.clamp_min(a1, 0.0), dc1),
+            (_fp(gy) + da1 * s1).to(x.dtype))
+
+
+def _check_folded(kind, x, gy, w1, w2, s1, b1, s2, b2) -> int:
+    c = _check_x(x, kind)
+    _check_f32(kind, x, gy=gy, w1=w1, w2=w2, s1=s1, b1=b1, s2=s2, b2=b2)
+    return c
+
+
+def folded_bwd1(x, gy, w1, w2, s1, b1, s2, b2):
+    """The folded gradient's step 1: (db2, ds2 [C], dw2 [3,3,C,C], dc1
+    [B,H,W,C]) float32; dc1 is step 2's input. Arguments as
+    :func:`block_bwd`, gy float32. On CUDA, two launches of
+    ``csrc/fused_block_tc.cu`` (mode 5, :func:`block_bwd1`'s tile pass on
+    the folds): c1, the convT of gy, da2, the sums, dw2 and dc1 over tiles
+    of pixels on the tensor cores (:func:`block_fwd`'s plan), then the sum
+    of the rows."""
+    c = _check_folded("folded_bwd1", x, gy, w1, w2, s1, b1, s2, b2)
+    if x.device.type == "cpu":
+        return folded_bwd1_reference(x, gy, w1, w2, s1, b1, s2, b2)
+    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+                      device=x.device)
+    dc1 = _f32_like(x)
+    _tc("folded_bwd1", x, gy=gy, w1=w1, w2=w2, g1=s1, b1=b1, g2=s2, b2=b2,
+        dc1=dc1, out=out)
+    return (*_split_sums(out, c), dc1)
+
+
+def folded_bwd2(x, gy, w1, w2, s1, b1, s2, b2, *, dc1):
+    """The folded gradient's step 2: (db1, ds1 [C], dw1 [3,3,C,C] float32,
+    dx in x's dtype), given ``dc1=``, step 1's dc1 (required: no path
+    recomputes it); arguments as :func:`folded_bwd1`. On CUDA, two launches
+    of ``csrc/fused_block_tc.cu`` (mode 6, :func:`block_bwd2`'s tile pass on
+    the folds): da1, the sums, dw1 and dx, then the sum of the rows."""
+    c = _check_folded("folded_bwd2", x, gy, w1, w2, s1, b1, s2, b2)
+    _check_handoff("folded_bwd2", "dc1", dc1, x)
+    if x.device.type == "cpu":
+        return folded_bwd2_reference(x, gy, w1, w2, s1, b1, s2, b2, dc1=dc1)
+    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+                      device=x.device)
+    dx = torch.empty_like(x)
+    _tc("folded_bwd2", x, gy=gy, w1=w1, g1=s1, b1=b1, dc1=dc1, dx=dx,
+        out=out)
+    return (*_split_sums(out, c), dx)
+
+
 def block_bwd(x, gy, w1, w2, s1, b1, s2, b2):
     """The gradient of :func:`block_fwd` given gy = dL/dy: (dx in x's dtype,
     dw1, dw2 [3,3,C,C], ds1, db1, ds2, db2 [C] float32). Arguments as
     :func:`block_fwd`; gy [B,H,W,C] is taken in float32 (exact from
-    bfloat16)."""
+    bfloat16). On CUDA :func:`folded_bwd1`, then :func:`folded_bwd2` on its
+    dc1: four launches."""
     global bwd_launches
     gy = _fp(gy).contiguous()
-    c = _check_x(x, "block_bwd")
-    _check_f32("block_bwd", x, gy=gy, w1=w1, w2=w2, s1=s1, b1=b1, s2=s2,
-               b2=b2)
+    args = (x, gy, w1, w2, s1, b1, s2, b2)
+    _check_folded("block_bwd", *args)
     if x.device.type == "cpu":
-        return block_bwd_reference(x, gy, w1, w2, s1, b1, s2, b2)
-    part, out = _sums_out(x, 2 * c + 18 * c * c)
-    dx = torch.empty_like(x)
-    _launch("block_bwd", "fused_block_train", "tr_block_bwd", x, x, gy, w1,
-            w2, s1, b1, s2, b2, part, out, dx)
+        return block_bwd_reference(*args)
+    db2, ds2, dw2, dc1 = folded_bwd1(*args)
+    db1, ds1, dw1, dx = folded_bwd2(*args, dc1=dc1)
     bwd_launches += 1
-    k = 4 * c + 9 * c * c
-    return (dx, out[4 * c:k].view(3, 3, c, c), out[k:].view(3, 3, c, c),
-            out[:c], out[c:2 * c], out[2 * c:3 * c], out[3 * c:4 * c])
+    return dx, dw1, dw2, ds1, db1, ds2, db2
 
 
 class _BlockApply(torch.autograd.Function):
@@ -515,7 +539,8 @@ def _check_handoff(kind, name, t, x, channels=None) -> None:
 _TC_PTRS = ("x", "gy", "w1", "w2", *_VECS, "dz2", "z2hat", "dc1", "dz1",
             "dx", "r2", "y", "c1", "part", "out")   # tr_block_tc's order
 _TC_MODES = {"block_fwd": 0, "block_bwd1": 1, "block_bwd2": 2,
-             "block_bwd3": 3, "block_stats": 4}
+             "block_bwd3": 3, "block_stats": 4, "folded_bwd1": 5,
+             "folded_bwd2": 6}
 _TC_PART_ROWS = 512  # most blocks (rows of partial sums) of a pass's tiles
 _TC_PIXELS = {16: 256, 32: 128, 64: 64}  # pixels per tile, by C
 
@@ -527,13 +552,15 @@ def _f32_like(x) -> torch.Tensor:
 
 def _tc(kind, x, **tensors) -> None:
     """One call of ``csrc/fused_block_tc.cu`` on the named tensors; the
-    stats and passes 1 and 2 get the scratch for their rows of partial
-    sums (the stats' tiles are 1024/C pixels where the small plan runs)."""
+    stats, passes 1 and 2 and the folded steps get the scratch for their
+    rows of partial sums (tiles of 1024/C pixels where the small plan runs,
+    for the kinds that take :func:`block_fwd`'s plan)."""
     b, h, w, c = x.shape
     rows = 0
-    if kind in ("block_stats", "block_bwd1", "block_bwd2"):
+    if kind not in ("block_fwd", "block_bwd3"):
         stats = kind == "block_stats"
-        pixels = 1024 // c if stats else _TC_PIXELS[c]
+        pixels = (_TC_PIXELS[c] if kind in ("block_bwd1", "block_bwd2")
+                  else 1024 // c)
         rows = min(_TC_PART_ROWS, -(-b * h * w // pixels))
         tensors["part"] = torch.empty(
             rows * (2 * c + (0 if stats else 9 * c * c)),

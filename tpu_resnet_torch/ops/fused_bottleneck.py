@@ -15,15 +15,17 @@ float32; the folded BN scale/bias pairs are float32 [4f], [f], [f].
 into a [B,H,W,f] float32 scratch, then the 3x3, p3 and the expand with the
 residual, on the tensor cores.
 
-Its gradient (``_bwd_kernel``; ``csrc/fused_bottleneck_train.cu``
-``tr_bottleneck_train``, then ``csrc/bottleneck_wgrad.cu``
-``tr_bottleneck_wgrad``):
-:func:`bottleneck_bwd` → (dx, dw1, dw2, dw3, ds1, db1, ds2, db2, ds3, db3)
-from x, gy (float32) and the parameters, in one row pass (folded BN has no
-batch-wide sum before dx) and the three weight-gradient products.
-:func:`bottleneck_apply` is the differentiable folded bottleneck (the
-reference's custom-VJP ``bottleneck_apply``), saving only x and the
-parameters.
+Its gradient (``_bwd_kernel``): :func:`bottleneck_bwd` → (dx, dw1, dw2,
+dw3, ds1, db1, ds2, db2, ds3, db3) from x, gy (float32) and the
+parameters, in two steps that are the live-BN passes below with the folds
+as BN (γ, β, μ, 1/σ) = (s, b, 0, 1) and no batch-wide correction
+(``csrc/fused_bottleneck_tc.cu`` modes 7 and 8, the weight gradients
+``csrc/bottleneck_wgrad.cu``'s): :func:`folded_bwd1` → (db3, ds3, dW3, p2,
+c1, dmid = s3·dm3), :func:`folded_bwd2` (``p2=, c1=, dmid=``, step 1's) →
+(db2, ds2, dw2, db1, ds1, dW1, dx); dc1 = s2·dm2 and dx = gy + s1·dm1 come
+out of one tile pass. :func:`bottleneck_apply` is the differentiable folded
+bottleneck (the reference's custom-VJP ``bottleneck_apply``), saving only
+x and the parameters.
 
 Training (port of the reference's ``bottleneck_train_fwd`` and
 ``_train_bwd_calls``: the two moment passes and the four backward passes in
@@ -77,7 +79,8 @@ bwd1_launches = 0     # bottleneck_bwd1 calls (five launches each)
 bwd2_launches = 0     # bottleneck_bwd2 calls (five launches each)
 bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
 bwd4_launches = 0     # bottleneck_bwd4 calls (one launch each)
-bwd_launches = 0      # bottleneck_bwd calls (eight launches each)
+bwd_launches = 0      # bottleneck_bwd calls (eleven launches each: its
+                      # two steps, three weight gradients among them)
 wgrad_launches = 0    # _weight_grad calls (two launches each)
 
 WIDTHS = (64, 128, 256)  # the kernels' compiled bottleneck widths f
@@ -316,9 +319,6 @@ def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1):
 
 
 # ------------------------------------------------------- training: kernels
-# tr_bottleneck_train's pointer order.
-_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, "part", "out",
-         "s0", "s1", "dx", "s2", "s3")
 # csrc/bottleneck_wgrad.cu: blocks a launch aims at (two waves of one block
 # per SM on an H100's 132), and the fewest pixels a split takes.
 _WGRAD_BLOCKS = 264
@@ -357,23 +357,6 @@ def _check_train(kind, x, gy, weights, vecs, ts=()) -> int:
     if x.device.type == "cuda" and f not in WIDTHS:
         raise ValueError(f"{kind} has kernels for f in {WIDTHS}, got {f}")
     return f
-
-
-def _rows(kind, x, **tensors):
-    """The folded gradient's row-kernel launch (``tr_bottleneck_train``) and
-    the sum of its rows: its 12f sums."""
-    b, h, w, c4 = x.shape
-    row_len = 3 * c4
-    tensors["part"] = torch.empty(b * h * row_len, dtype=torch.float32,
-                                  device=x.device)
-    out = tensors["out"] = torch.empty(row_len, dtype=torch.float32,
-                                       device=x.device)
-    ptrs = _pointers(kind, _PTRS, {"x": x, **tensors})
-    err = _build.library("fused_bottleneck_train").tr_bottleneck_train(
-        ptrs, b, h, w, c4 // 4, _build.DTYPE_CODES[x.dtype], x.device.index,
-        _stream(x))
-    _build.check(err, kind)
-    return out
 
 
 def weight_grad_reference(amode, a, bmat, bn1=(), *,
@@ -435,26 +418,29 @@ def _scratch(x):
 
 _TC_PTRS = ("x", "gy", "w1", "w2", "w2t", "w3t", "w1t", *_VECS, *_TS,
             "p2", "mid", "dm3", "dmid", "dc1", "dx", "part",
-            "out", "w3", "y")   # tr_bottleneck_tc's order
+            "out", "w3", "y", "p3", "c1")   # tr_bottleneck_tc's order
 _TC_PIXELS = 64          # csrc/fused_bottleneck_tc.cu: pixels per tile
 _TC_PART_ROWS = 1024     # most blocks (rows of partial sums) a launch runs
-# tr_bottleneck_tc's mode of each kernel, and the length of its sums.
+# tr_bottleneck_tc's mode of each kernel, and the length of its sums in f.
 _TC_MODES = {"bottleneck_fwd": (5, 0), "bottleneck_stats_a": (6, 2),
              "bottleneck_stats_b": (4, 2),
              "bottleneck_bwd1": (2, 2), "bottleneck_bwd2": (3, 2),
-             "bottleneck_bwd3": (0, 8), "bottleneck_bwd4": (1, 0)}
+             "bottleneck_bwd3": (0, 8), "bottleneck_bwd4": (1, 0),
+             "folded_bwd1": (7, 2), "folded_bwd2": (8, 10)}
 
 
 def _tc(kind, x, **tensors):
     """One call of ``csrc/fused_bottleneck_tc.cu`` (its tile launches and
     the sum of their rows): returns its sums ([Σc1, Σc1²] 2f, [Σmid, Σmid²]
-    2f, [T3a, T3b] 2f, [T2a, T2b] 2f, [T1a, T1b] 8f) or, for fwd and bwd4,
-    None."""
+    2f, [T3a, T3b] 2f, [T2a, T2b] 2f, [T1a, T1b] 8f; folded [db3, ds3] 2f,
+    [db1, ds1, db2, ds2] 10f) or, for fwd and bwd4, None. The folded steps
+    may take 32-pixel tiles, as the forward does."""
     b, h, w, c4 = x.shape
     mode, per_f = _TC_MODES[kind]
     out, rows = None, 0
     if per_f:
-        rows = min(_TC_PART_ROWS, -(-b * h * w // _TC_PIXELS))
+        pixels = _TC_PIXELS // 2 if kind.startswith("folded") else _TC_PIXELS
+        rows = min(_TC_PART_ROWS, -(-b * h * w // pixels))
         tensors["part"] = torch.empty(rows * per_f * c4 // 4,
                                       dtype=torch.float32, device=x.device)
         out = tensors["out"] = torch.empty(per_f * c4 // 4,
@@ -741,6 +727,17 @@ def bottleneck_train_apply_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
 
 
 # ------------------------------------------------------- folded: gradient
+def _folded_chain(x, w1, s1, b1, s2, b2):
+    """The folded chain up to p2 from x, in float32 (float64 for float64
+    x): (x, m1, p1, c1, m2, p2)."""
+    xf = _fp(x)
+    m1 = xf * s1 + b1
+    p1 = torch.clamp_min(m1, 0.0)
+    c1 = torch.einsum("bhwc,cf->bhwf", p1, w1.to(xf.dtype))
+    m2 = c1 * s2 + b2
+    return xf, m1, p1, c1, m2, torch.clamp_min(m2, 0.0)
+
+
 def bottleneck_bwd_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *,
                              magnitudes: bool = False):
     """Plain version of :func:`bottleneck_bwd`, the reference's
@@ -748,14 +745,9 @@ def bottleneck_bwd_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *,
     ds1, db1, ds2, db2, ds3, db3). ``magnitudes``: each sum and weight
     gradient of |term| instead."""
     f = _mag(magnitudes)
-    xf = _fp(x)
+    xf, m1, p1, c1, m2, p2 = _folded_chain(x, w1, s1, b1, s2, b2)
     gyf = _fp(gy)
     w1f, w2f, w3f = (w.to(xf.dtype) for w in (w1, w2, w3))
-    m1 = xf * s1 + b1
-    p1 = torch.clamp_min(m1, 0.0)
-    c1 = torch.einsum("bhwc,cf->bhwf", p1, w1f)
-    m2 = c1 * s2 + b2
-    p2 = torch.clamp_min(m2, 0.0)
     mid = _conv3x3(p2, w2f)
     m3 = mid * s3 + b3
     p3 = torch.clamp_min(m3, 0.0)
@@ -771,42 +763,129 @@ def bottleneck_bwd_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *,
               for t in ((f(dm) * f(v)).sum(_SUM_DIMS), f(dm).sum(_SUM_DIMS))])
 
 
+def folded_bwd1_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+    """Plain version of :func:`folded_bwd1`: (db3 = Σdm3, ds3 = Σdm3·mid,
+    dW3 = Σ p3ᵀ·gy, and for step 2 p2, c1 and dmid = s3·dm3, [B,H,W,f]
+    contiguous), dm3 = (gy·W3ᵀ)·[m3 > 0], m3 = mid·s3 + b3, each rounded as
+    :func:`bottleneck_bwd_reference` rounds it."""
+    gyf = _fp(gy)
+    *_, c1, _, p2 = _folded_chain(x, w1, s1, b1, s2, b2)
+    mid = _conv3x3(p2, w2.to(gyf.dtype))
+    m3 = mid * s3 + b3
+    dm3 = torch.where(m3 > 0, torch.einsum("bhwc,fc->bhwf", gyf,
+                                           w3.to(gyf.dtype)), 0.0)
+    return (dm3.sum(_SUM_DIMS), (dm3 * mid).sum(_SUM_DIMS),
+            torch.einsum("bhwf,bhwc->fc", torch.clamp_min(m3, 0.0), gyf),
+            p2.contiguous(), c1.contiguous(), (dm3 * s3).contiguous())
+
+
+def folded_bwd2_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, p2,
+                          c1, dmid):
+    """Plain version of :func:`folded_bwd2`, from step 1's ``p2``, ``c1``
+    and ``dmid``: (db2 = Σdm2, ds2 = Σdm2·c1, dw2 = Σ p2-patchᵀ·dmid, db1 =
+    Σdm1, ds1 = Σdm1·x, dW1 = Σ p1ᵀ·dc1, dx = gy + dm1·s1 in x's dtype),
+    m2 = c1·s2 + b2, dm2 = convT(dmid, w2)·[m2 > 0], dc1 = dm2·s2, dm1 =
+    (dc1·W1ᵀ)·[m1 > 0], m1 = x·s1 + b1."""
+    xf = _fp(x)
+    m1 = xf * s1 + b1
+    p1 = torch.clamp_min(m1, 0.0)
+    m2 = c1 * s2 + b2
+    dm2 = torch.where(m2 > 0, _conv3x3_t(dmid, w2.to(xf.dtype)), 0.0)
+    dc1 = dm2 * s2
+    dm1 = torch.where(m1 > 0, torch.einsum("bhwf,cf->bhwc", dc1,
+                                           w1.to(xf.dtype)), 0.0)
+    return (dm2.sum(_SUM_DIMS), (dm2 * c1).sum(_SUM_DIMS), _wgrad(p2, dmid),
+            dm1.sum(_SUM_DIMS), (dm1 * xf).sum(_SUM_DIMS),
+            torch.einsum("bhwc,bhwf->cf", p1, dc1),
+            (_fp(gy) + dm1 * s1).to(x.dtype))
+
+
+def _check_folded(kind, x, gy, args) -> int:
+    """The forward's checks of ``args`` (x, the weights and the folds), gy
+    of x's shape in float32 on its device, and a compiled width on CUDA;
+    returns f."""
+    _check(x, *args)
+    if (tuple(gy.shape) != tuple(x.shape) or gy.dtype != torch.float32
+            or gy.device != x.device):
+        raise ValueError(f"{kind}: gy must be float32 {list(x.shape)} on "
+                         f"{x.device}, got {gy.dtype} {list(gy.shape)} on "
+                         f"{gy.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kind} runs on cpu or cuda, not {x.device}")
+    f = x.shape[-1] // 4
+    if x.device.type == "cuda" and f not in WIDTHS:
+        raise ValueError(f"{kind} has kernels for f in {WIDTHS}, got {f}")
+    return f
+
+
+def folded_bwd1(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+    """The folded gradient's step 1: (db3, ds3 [f], dW3 [f,4f], p2, c1, dmid
+    [B,H,W,f]) float32; p2, c1 and dmid are step 2's inputs. Arguments as
+    :func:`bottleneck_bwd`, gy float32. On CUDA, five launches: the p2 pass
+    of :func:`bottleneck_fwd`, writing c1 too, the tile pass of
+    ``csrc/fused_bottleneck_tc.cu`` mode 7 (mid, gy·W3ᵀ, dm3, the sums and
+    dmid on the tensor cores; p3 to a scratch), the sum of its rows, then
+    dW3 (:func:`_weight_grad` on p3's rows, and its sum)."""
+    kind = "folded_bwd1"
+    args = (w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    f = _check_folded(kind, x, gy, args)
+    if x.device.type == "cpu":
+        return folded_bwd1_reference(x, gy, *args)
+    p2, c1, p3, dmid = (_scratch(x) for _ in range(4))
+    out = _tc(kind, x, gy=gy, w1=w1, w2=w2, w3t=w3.t().contiguous(), g1=s1,
+              be1=b1, g2=s2, be2=b2, g3=s3, be3=b3, p2=p2, c1=c1, p3=p3,
+              dmid=dmid)
+    dw3 = _weight_grad(kind, WGRAD_ROWS, p3, gy, f, 4 * f, x, 1)
+    del p3
+    return out[:f], out[f:], dw3.view(f, 4 * f), p2, c1, dmid
+
+
+def folded_bwd2(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, p2, c1,
+                dmid):
+    """The folded gradient's step 2: (db2, ds2 [f], dw2 [3,3,f,f], db1,
+    ds1 [4f], dW1 [4f,f] float32, dx in x's dtype), given ``p2=``, ``c1=``
+    and ``dmid=``, step 1's (required: no path recomputes them); arguments
+    as :func:`folded_bwd1`. On CUDA, six launches: the tile pass of
+    ``csrc/fused_bottleneck_tc.cu`` mode 8 (the convT of dmid, dm2, dc1 to
+    a scratch, dc1·W1ᵀ, dm1, the sums and dx on the tensor cores), the sum
+    of its rows, then dw2 on p2 and dmid and dW1 on x and dc1
+    (:func:`_weight_grad` and their sums)."""
+    kind = "folded_bwd2"
+    args = (w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    f = _check_folded(kind, x, gy, args)
+    for name, t in (("p2", p2), ("c1", c1), ("dmid", dmid)):
+        _check_handoff(kind, name, t, x, f)
+    if x.device.type == "cpu":
+        return folded_bwd2_reference(x, gy, *args, p2=p2, c1=c1, dmid=dmid)
+    dc1, dx = _scratch(x), torch.empty_like(x)
+    out = _tc(kind, x, gy=gy, w1t=w1.t().contiguous(),
+              w2t=w2.flip(0, 1).transpose(2, 3).contiguous(), g1=s1, be1=b1,
+              g2=s2, be2=b2, c1=c1, dmid=dmid, dc1=dc1, dx=dx)
+    dw2 = _weight_grad(kind, WGRAD_SHIFTED, p2, dmid, f, f, x, 9)
+    # p1 = relu(s1·((x − 0)·1) + b1): relu(x·s1 + b1) bit for bit.
+    dw1 = _weight_grad(kind, WGRAD_BN_RELU, x, dc1, 4 * f, f, x, 1,
+                       (s1, b1, torch.zeros_like(s1), torch.ones_like(s1)))
+    return (out[8 * f:9 * f], out[9 * f:], dw2.view(3, 3, f, f),
+            out[:4 * f], out[4 * f:8 * f], dw1.view(4 * f, f), dx)
+
+
 def bottleneck_bwd(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
     """The gradient of :func:`bottleneck_fwd` given gy = dL/dy: (dx in x's
     dtype, dw1 [4f,f], dw2 [3,3,f,f], dw3 [f,4f], ds1, db1 [4f], ds2, db2,
     ds3, db3 [f], float32). Arguments as :func:`bottleneck_fwd`; gy is taken
-    in float32 (exact from bfloat16)."""
+    in float32 (exact from bfloat16). On CUDA :func:`folded_bwd1`, then
+    :func:`folded_bwd2` on its p2, c1 and dmid: eleven launches."""
     global bwd_launches
-    kind = "bottleneck_bwd"
     gy = _fp(gy).contiguous()
-    args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
-    _check(*args)
-    if tuple(gy.shape) != tuple(x.shape) or gy.device != x.device:
-        raise ValueError(f"{kind}: gy must be {list(x.shape)} on {x.device}, "
-                         f"got {list(gy.shape)} on {gy.device}")
+    args = (w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    _check_folded("bottleneck_bwd", x, gy, args)
     if x.device.type == "cpu":
-        return bottleneck_bwd_reference(x, gy, *args[1:])
-    if x.device.type != "cuda":
-        raise ValueError(f"{kind} runs on cpu or cuda, not {x.device}")
-    f = x.shape[-1] // 4
-    if f not in WIDTHS:
-        raise ValueError(f"{kind} has kernels for f in {WIDTHS}, got {f}")
-    p2, dmid, p3, dc1 = (_scratch(x) for _ in range(4))
-    dx = torch.empty_like(x)
-    # The folded vectors in the places of the gammas and betas.
-    out = _rows(kind, x, gy=gy, s0=p2, s1=dmid, s2=p3, s3=dc1,
-                dx=dx, g1=s1, be1=b1, g2=s2, be2=b2, g3=s3, be3=b3,
-                **_bwd_tensors(w1, w2, w3, (), ()))
-    dw3 = _weight_grad(kind, WGRAD_ROWS, p3, gy, f, 4 * f, x, 1)
-    dw2 = _weight_grad(kind, WGRAD_SHIFTED, p2, dmid, f, f, x, 9)
-    # p1 = relu(g*((x - 0)*1) + be) with (g, be) = (s1, b1): relu(x*s1 + b1)
-    # bit for bit.
-    dw1 = _weight_grad(kind, WGRAD_BN_RELU, x, dc1, 4 * f, f, x, 1,
-                       (s1, b1, torch.zeros_like(s1), torch.ones_like(s1)))
+        return bottleneck_bwd_reference(x, gy, *args)
+    db3, ds3, dw3, p2, c1, dmid = folded_bwd1(x, gy, *args)
+    db2, ds2, dw2, db1, ds1, dw1, dx = folded_bwd2(x, gy, *args, p2=p2,
+                                                   c1=c1, dmid=dmid)
     bwd_launches += 1
-    return (dx, dw1.view(4 * f, f), dw2.view(3, 3, f, f), dw3.view(f, 4 * f),
-            out[4 * f:8 * f], out[:4 * f], out[9 * f:10 * f],
-            out[8 * f:9 * f], out[11 * f:], out[10 * f:11 * f])
+    return dx, dw1, dw2, dw3, ds1, db1, ds2, db2, ds3, db3
 
 
 class _BottleneckApply(torch.autograd.Function):
