@@ -25,7 +25,15 @@ Phases, each printing one JSON line:
    stats' c1, its bound one product with c1 read. ``sbr_bwd`` (one launch):
    dx exact, ds/db within 1e-5·Σ|g·mask·x| + 1e-6 per channel, two calls
    bit for bit equal; ``xent_fwd``/``xent_bwd`` at [128, 10/100/1000]
-   within 1e-5 abs and rel. The fused block's training kernels
+   within 1e-5 abs and rel, with int32 labels and a seeded cotangent (the
+   timed call) and again with int64 labels and a broadcast cotangent
+   (stride 0, the mean's). ``sbr`` is bit for bit its plain version
+   (``torch.equal``) at every shape. First, ``launch_floor_ms``: the
+   device time of one empty launch (``tr_noop``, 10 queued back to back
+   behind the spin), and on the rows of ``sbr``, ``sbr_bwd``, ``xent_fwd``
+   and ``xent_bwd`` ``floor_ms``, their launches times that floor: a
+   pass takes at least the larger of ``bound_ms`` and ``floor_ms``. The
+   fused block's training kernels
    (``block_stats``, ``block_bwd1``, ``block_bwd2``, ``block_bwd3``) at the
    three B=128 stage shapes, on inputs from a coarse dyadic grid (so
    conv1's output and the masks are exact in both): every sum within
@@ -334,12 +342,12 @@ GRAD_PER_BACKWARD = {
     "imagenet": {"bottleneck_fwd": 10, "sbr": 19, "bottleneck_bwd": 10,
                  "bottleneck_wgrad": 30, "sbr_bwd": 19}}
 # |kernel - plain| <= atol + rtol * |plain|, elementwise. sbr rounds
-# exactly as the plain version does; the fused blocks sum their convs in
-# another order than cuDNN/cuBLAS, and in bfloat16 that can move the stored
-# value by an ulp (2^-8 relative).
+# exactly as the plain version does, and is held to torch.equal; the fused
+# blocks sum their convs in another order than cuDNN/cuBLAS, and in
+# bfloat16 that can move the stored value by an ulp (2^-8 relative).
 TOLERANCE = {
-    ("sbr", torch.float32): (1e-6, 1e-6),
-    ("sbr", torch.bfloat16): (1e-6, 1e-6),
+    ("sbr", torch.float32): (0.0, 0.0),
+    ("sbr", torch.bfloat16): (0.0, 0.0),
     ("block_fwd", torch.float32): (1e-4, 1e-4),
     ("block_fwd", torch.bfloat16): (1e-2, 1e-2),
     ("bottleneck_fwd", torch.float32): (1e-4, 1e-4),
@@ -355,6 +363,8 @@ ARGMAX_AGREE = 0.99
 # held to block_fwd's tolerance.
 SBR_BWD_TOL = (1e-5, 1e-6)
 XENT_TOL = (1e-5, 1e-5)    # xent_fwd/xent_bwd, atol and rtol
+# The kernels whose rows carry floor_ms: one launch a call each.
+FLOOR_KERNELS = ("sbr", "sbr_bwd", "xent_fwd", "xent_bwd")
 # The float32 train step through the kernels against the plain versions:
 # metrics within STEP_RTOL relative, state within atol + rtol * |plain|.
 STEP_RTOL = 1e-5
@@ -395,6 +405,20 @@ def time_ms(fn, queued: bool, reps: int = 20, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def launch_floor_ms() -> float:
+    """The device time of one empty launch (``tr_noop``, which replaces no
+    TPU kernel), queued back to back behind the spin as every row's calls
+    are: the least time any one-launch call takes."""
+    from tpu_resnet_torch.ops import _build
+    lib = _build.library("epilogue")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def noop():
+        _build.check(lib.tr_noop(torch.cuda.current_device(), stream),
+                     "tr_noop")
+    return time_ms(noop, queued=True, inner=10)
 
 
 def bound(kind: str, shape, dtype, flop_per_s: float = F32_FLOP_PER_S
@@ -614,6 +638,8 @@ def kernel_phase(wrappers):
                   f"{tuple(got.shape)}")
             check(excess <= 0, f"{kind} {shape} {dtype}: error beyond "
                   f"tolerance: {row}")
+            check(kind != "sbr" or torch.equal(got, want),
+                  f"sbr {shape} {dtype}: not bit for bit the plain version")
             if bound_of is not None:
                 row["from_c1"] = True
             rows.append(_timed(row, lambda: kernel(*args),
@@ -676,6 +702,9 @@ def train_kernel_phase(ep, sx):
                                device="cuda", dtype=torch.int32)
         labels64 = labels.long()
         g = torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+        # The mean's cotangent: one value, stride 0.
+        g_mean = torch.full((), 1.0 / TRAIN_BATCH, device="cuda").expand(
+            TRAIN_BATCH)
         pairs = {
             "xent_fwd": (lambda: sx.softmax_xent_per_example(logits, labels),
                          lambda: sx.softmax_xent_per_example_reference(
@@ -683,18 +712,36 @@ def train_kernel_phase(ep, sx):
             "xent_bwd": (lambda: sx.softmax_xent_bwd(logits, labels, g),
                          lambda: sx.softmax_xent_bwd_reference(logits,
                                                                labels, g))}
+        # The same with int64 labels and, for the backward, the mean's
+        # broadcast cotangent: checked, not timed.
+        wide = {
+            "xent_fwd": (lambda: sx.softmax_xent_per_example(logits,
+                                                             labels64),
+                         lambda: sx.softmax_xent_per_example_reference(
+                             logits, labels64)),
+            "xent_bwd": (lambda: sx.softmax_xent_bwd(logits, labels64,
+                                                     g_mean),
+                         lambda: sx.softmax_xent_bwd_reference(
+                             logits, labels64, g_mean))}
         for kind, (kernel, plain) in pairs.items():
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            d = (got - want).abs()
+            errs = []
+            for labels_as, (k, p) in (("int32", (kernel, plain)),
+                                      ("int64", wide[kind])):
+                got, want = k(), p()
+                torch.cuda.synchronize()
+                d = (got - want).abs()
+                errs.append((d, want))
+                check(got.shape == want.shape and bool(
+                    (d <= atol + rtol * want.abs()).all()),
+                    f"{kind} {shape}, {labels_as} labels: error beyond "
+                    f"tolerance: max {float(d.max())}")
+            (d, want), (d64, _) = errs
             row = {"kernel": kind, "path": path,
                    "shape": list(shape), "dtype": "float32",
                    "per_pass": per_step, "max_abs_err": float(d.max()),
                    "max_rel_err": float(d.max() / want.abs().max()),
+                   "int64_labels_max_abs_err": float(d64.max()),
                    "atol": atol, "rtol": rtol}
-            check(got.shape == want.shape and bool(
-                (d <= atol + rtol * want.abs()).all()),
-                f"{kind} {shape}: error beyond tolerance: {row}")
             _timed(row, kernel, plain, kind, shape, torch.float32)
             # One PyTorch call computes the forward; none the backward.
             row["library_ms"] = (time_ms(lambda: F.cross_entropy(
@@ -2207,6 +2254,9 @@ def path_times(rows) -> dict:
                                 ("call_ms", "call_ms"),
                                 ("plain_call_ms", "call_plain_ms"),
                                 ("bound_ms", "bound_ms"))},
+            **({"floor_ms": sum(r["floor_ms"] * r["per_pass"]
+                                for r in on_path)}
+               if "floor_ms" in on_path[0] else {}),
             **({"tc_bound_ms": sum(r["tc_bound_ms"] * r["per_pass"]
                                    for r in on_path)}
                if "tc_bound_ms" in on_path[0] else {}),
@@ -2282,6 +2332,9 @@ def main() -> int:
          libraries=sorted(libs))
     emit("jpeg_libs", **jpeg_libs())
 
+    floor = launch_floor_ms()
+    emit("launch_floor", gpu=gpu, launch_floor_ms=floor,
+         launch_floor_us=floor * 1e3)
     rows = kernel_phase({
         "sbr": (ep.scale_bias_relu, ep.scale_bias_relu_reference),
         "block_fwd": (fb.block_fwd, fb.block_fwd_reference),
@@ -2293,7 +2346,10 @@ def main() -> int:
     rows += bottleneck_wgrad_kernel_phase(fbn)
     rows += sbr_add_kernel_phase(ep)
     rows += fused_bwd_kernel_phase(fb, fbn)
-    emit("kernels", gpu=gpu, rows=rows)
+    for row in rows:
+        if row["kernel"] in FLOOR_KERNELS:   # one launch a call
+            row["floor_ms"] = floor
+    emit("kernels", gpu=gpu, launch_floor_ms=floor, rows=rows)
     counters = kernel_counters()
     served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
@@ -2304,6 +2360,9 @@ def main() -> int:
                 for preset in ("cifar10", "imagenet")]
 
     kernels = kernel_entries(rows, served, trained)
+    for entry in kernels:
+        if entry["name"] in FLOOR_KERNELS:
+            entry["launch_floor_ms"] = floor
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

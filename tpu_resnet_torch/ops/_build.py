@@ -37,7 +37,8 @@ _L = ctypes.c_longlong
 # C signatures of each library's entry points: {library: {symbol: argtypes}}.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "epilogue": {
-        "tr_sbr": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+        "tr_sbr": [_P, _P, _P, _P, _L] + [_I] * 7 + [_P],
+        "tr_noop": [_I, _P],
         "tr_sbr_add": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
         "tr_sbr_bwd": [_P] * 8 + [_L, _I, _I, _I, _I, _P],
     },
@@ -46,8 +47,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P]},
     "fused_bottleneck_tc": {"tr_bottleneck_tc": [_I, _P] + [_I] * 7 + [_P]},
     "softmax_xent": {
-        "tr_xent_fwd": [_P, _P, _P, _I, _I, _I, _P],
-        "tr_xent_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "tr_xent_fwd": [_P, _P, _I, _L, _P, _I, _I, _I, _P],
+        "tr_xent_bwd": [_P, _P, _I, _L, _P, _L, _P, _I, _I, _I, _P],
     },
 }
 

@@ -34,8 +34,10 @@ points take the kernel only where a probe chose it.
 
 from __future__ import annotations
 
+import functools
+import math
 import zlib
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -55,6 +57,62 @@ bwd_launches = 0  # tr_sbr_bwd launches (one a call)
 _BWD_PART_ROWS = 512
 _BWD_TICKETS = 1024
 _bwd_tickets = {}   # (device index, stream) -> int32 [_BWD_TICKETS]
+# The forward's plan (csrc/epilogue.cu: kThreads, kSbrBlocksPerSM, the
+# vectors in flight it is built for), and the waves of blocks at most.
+SBR_THREADS = 256
+SBR_MIN_THREADS = 64
+SBR_BLOCKS_PER_SM = 4
+SBR_WAVES = 4
+SBR_UNROLLS = (4, 2, 1)
+
+
+class SbrPlan(NamedTuple):
+    """``tr_sbr``'s launch: block (slice, bx) of a (slices, nbx) grid
+    covers 16-byte vectors ``[slice*vs, (slice+1)*vs)`` of a pixel in the
+    chunks bx, bx + nbx, ... of ``rows * unroll`` pixels; thread (v, r) of
+    a (vs, rows) block keeps vector v of the slice at pixels ``chunk +
+    u*rows + r``, u < unroll, rows = threads // vs."""
+    vs: int        # vectors of a pixel a block covers (its slice)
+    slices: int    # vectors of a pixel / vs
+    threads: int   # a block's threads: rows of vs
+    unroll: int    # vectors of x in flight a thread
+    nbx: int       # blocks a slice
+
+
+def _divisor_at_most(n: int, m: int) -> int:
+    return next(d for d in range(min(n, m), 0, -1) if n % d == 0)
+
+
+def sbr_plan(shape, dtype: torch.dtype, sms: int) -> SbrPlan:
+    """The forward's plan for x of ``shape`` (NHWC, C a multiple of the
+    vector width) and ``dtype`` on a card of ``sms`` SMs: a slice of all a
+    pixel's vectors where there are at most ``SBR_THREADS``; four vectors
+    in flight a thread unless that leaves SMs without a block, then two or
+    one, then fewer threads a block (at least ``SBR_MIN_THREADS``); at most
+    ``SBR_WAVES`` waves of ``SBR_BLOCKS_PER_SM`` blocks an SM, the rest by
+    the blocks' stride over the chunks."""
+    vpp = shape[-1] * torch.tensor([], dtype=dtype).element_size() // 16
+    pixels = math.prod(shape[:-1])
+    vs = _divisor_at_most(vpp, SBR_THREADS)
+    slices = vpp // vs
+    rows = SBR_THREADS // vs
+
+    def chunks(rows, unroll):
+        return -(-pixels // (rows * unroll))
+
+    unroll = next((u for u in SBR_UNROLLS
+                   if chunks(rows, u) * slices >= sms), 1)
+    while (chunks(rows, unroll) * slices < sms
+           and rows // 2 * vs >= SBR_MIN_THREADS):
+        rows //= 2
+    nbx = max(1, min(chunks(rows, unroll),
+                     -(-sms * SBR_BLOCKS_PER_SM * SBR_WAVES // slices)))
+    return SbrPlan(vs, slices, rows * vs, unroll, nbx)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def scale_bias_relu_math(x: torch.Tensor, scale: torch.Tensor,
@@ -119,10 +177,14 @@ def _sbr_kernel(x: torch.Tensor, scale: torch.Tensor,
                          f"{x.device}")
     _check_cuda("scale_bias_relu", x=x, scale=scale, bias=bias)
     y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    plan = sbr_plan(x.shape, x.dtype, _sms(x.device.index))
     fn = _build.library("epilogue").tr_sbr
     err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-             x.numel(), c, _build.DTYPE_CODES[x.dtype],
-             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+             x.numel(), c, plan.vs, plan.threads, plan.unroll, plan.nbx,
+             _build.DTYPE_CODES[x.dtype], x.device.index,
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "scale_bias_relu")
     launches += 1
     return y

@@ -6,9 +6,12 @@ kernels (port of ``tpu_resnet/ops/softmax_xent.py``).
 - backward: ``(softmax(logits) - onehot(label)) * g`` recomputed from the
   saved logits (``tr_xent_bwd``, the reference's ``_bwd_kernel``).
 
-The kernels (``csrc/softmax_xent.cu``) take [B, C] float32 logits, [B]
-int32 labels and a [B] cotangent; the reference's padding of C to 128
-lanes is TPU layout and is not ported. A label outside [0, C) gathers 0.
+The kernels (``csrc/softmax_xent.cu``, one warp a row, the row read once
+into registers) take [B, C] float32 logits, [B] int32 or int64 labels and
+a [B] float32 cotangent, labels and cotangent at any stride (the mean's
+cotangent may be one value broadcast, stride 0), so the wrappers launch
+nothing but the kernel; the reference's padding of C to 128 lanes is TPU
+layout and is not ported. A label outside [0, C) gathers 0.
 :func:`softmax_xent_per_example` is differentiable (an
 ``autograd.Function`` over the two kernels) and :func:`softmax_xent_mean`
 takes its mean, the train step's loss with ``optim.use_pallas_xent=on``.
@@ -69,11 +72,13 @@ def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
                          f"{logits.device}")
 
 
-def _cuda_args(logits: torch.Tensor, labels: torch.Tensor):
-    """The kernels' layout: contiguous rows and int32 labels."""
+def _cuda_args(logits: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """The kernels' label arguments (pointer, 64-bit, stride); the logits'
+    rows must be contiguous."""
     if not logits.is_contiguous():
         raise ValueError("softmax_xent: logits must be contiguous")
-    return labels.to(torch.int32).contiguous()
+    return (labels.data_ptr(), int(labels.dtype == torch.int64),
+            labels.stride(0))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -90,7 +95,7 @@ def _xent_kernel(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     b, c = logits.shape
     loss = torch.empty(b, dtype=torch.float32, device=logits.device)
     err = _build.library("softmax_xent").tr_xent_fwd(
-        logits.data_ptr(), lab.data_ptr(), loss.data_ptr(), b, c,
+        logits.data_ptr(), *lab, loss.data_ptr(), b, c,
         logits.device.index, _stream(logits))
     _build.check(err, "softmax_xent fwd")
     fwd_launches += 1
@@ -109,12 +114,12 @@ def softmax_xent_bwd(logits: torch.Tensor, labels: torch.Tensor,
     if logits.device.type == "cpu":
         return softmax_xent_bwd_reference(logits, labels, g)
     lab = _cuda_args(logits, labels)
-    gf = g.float().contiguous()
+    gf = g.float()   # itself where g is float32, the train step's case
     b, c = logits.shape
     dx = torch.empty_like(logits)
     err = _build.library("softmax_xent").tr_xent_bwd(
-        logits.data_ptr(), lab.data_ptr(), gf.data_ptr(), dx.data_ptr(), b, c,
-        logits.device.index, _stream(logits))
+        logits.data_ptr(), *lab, gf.data_ptr(), gf.stride(0), dx.data_ptr(),
+        b, c, logits.device.index, _stream(logits))
     _build.check(err, "softmax_xent bwd")
     bwd_launches += 1
     return dx
