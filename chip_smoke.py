@@ -116,14 +116,14 @@ Phases, each printing one JSON line:
    B=128 (``--preset imagenet model.fused_blocks=true
    model.fused_epilogue=on optim.use_pallas_xent=on``): (a) as in 6, at
    B=``IMAGENET_GATE_BATCH``; (b) the loop's own step (``build_state`` +
-   ``make_loop_step``, as ``train()`` builds them; the ImageNet input
-   pipeline is not ported) for ``IMAGENET_STEPS`` bfloat16 steps on a few
-   seeded uint8 batches repeated, the counters zeroed just before and read
+   ``make_loop_step``, as ``train()`` builds them; the step alone, without
+   the input pipeline of 11) for ``IMAGENET_STEPS`` bfloat16 steps on a
+   few seeded uint8 batches repeated, the counters zeroed just before and read
    just after: 10 ``bottleneck_fwd``, 10 of each of the six bottleneck
    training kernels, 30 ``bottleneck_wgrad``, 19 ``sbr``, 19 ``sbr_bwd``,
    1 ``xent_fwd`` and 1 ``xent_bwd`` per step; every loss finite and the
-   mean of the last 5 below the first 5's; (c) the step's profile. No
-   eval.
+   mean of the last 5 below the first 5's; (c) the step's profile. Its
+   eval is 11's.
 
 8. ``autotune``: (a) ``ep.probe_epilogue(include_add=True)`` in bfloat16 at
    every ``model_epilogue_shapes`` shape of the ``cifar10`` and
@@ -162,6 +162,34 @@ Phases, each printing one JSON line:
    ``block_bwd`` + 7 ``sbr_bwd`` (CIFAR), 10 ``bottleneck_fwd`` + 19
    ``sbr`` + 10 ``bottleneck_bwd`` + 30 ``bottleneck_wgrad`` + 19
    ``sbr_bwd`` (ImageNet).
+11. ``imagenet_input``, after 7: ImageNet ResNet-50 training and eval from
+   JPEG shards through the port's input pipeline (``--preset imagenet
+   model.fused_blocks=true model.fused_epilogue=on optim.use_pallas_xent=on
+   train.global_batch_size=128 data.data_dir=<shards>``). The shards are
+   made at run time from the 28 committed fixture JPEGs
+   (``tests/fixtures/imagenet``, 113 kB each on average, about ImageNet's
+   mean) with seeded labels 1..1000: 8 train shards
+   of 160 records, one validation shard of 250. (a) The decode stage on one
+   B=128 order of the train stream: nvJPEG against the plain decoder per
+   sampling (``NVJPEG_TOL``), nvJPEG + ``tr_resize_crop`` against the plain
+   decoder + the plain resize (``STAGE_TOL``), ``tr_resize_crop`` alone
+   against its plain version on nvJPEG's pixels (``RESIZE_TOL``, one launch
+   a batch), its times and bound, nvJPEG's ms per batch and its bytes
+   bound, the plain decoder's ms on the host and the stage's images/s on
+   one thread. (b) ``train()`` for ``INPUT_STEPS`` steps, the
+   counters zeroed just before and read just after: the ImageNet step's
+   launches exactly (7's table) and one ``tr_resize_crop`` a decoded batch;
+   finite losses; every batch copied to the host after its step and held
+   bit for bit against a synchronous decode of its order. (c) A second run resumed from step ``INPUT_RESUME_AT``'s
+   checkpoint: its first batch bit for bit the first run's. (d)
+   ``evaluate`` once: exactly 250 records, 10 ``bottleneck_fwd`` + 19
+   ``sbr`` per forward, one ``tr_resize_crop`` a batch. (e) The step fed
+   by a fresh engine in its steady state: once the step has drained the
+   engine's ring (at most ``INPUT_SETTLE_MAX`` steps), ``profile_train_step``
+   over ``INPUT_PROFILE_STEPS`` steps, as 7's seeded-batch step: wall,
+   images/s, the step's streams' busy time and idle share, the decode
+   streams' time (copies included) and the device's idle share over all
+   streams, and the ring's decoded batches at the window's start and end.
 
 The ``kernels`` phase also holds ``sbr_add`` (``tr_sbr_add``) against its
 plain version at the 14 probe shapes, bfloat16 and float32: the forward
@@ -183,8 +211,11 @@ shape, for ``block_bwd`` and ``bottleneck_bwd`` over one call at each A/B
 shape, and per path also over one backward of the grad phase;
 ``launches`` is the count over the phases that drive the main paths:
 both serve phases, the train and eval runs of both CIFAR train phases, the
-ImageNet train steps, both parts of the autotune phase, the ``ab`` phase's
-counted calls and the ``grad`` phase),
+ImageNet train steps, the JPEG-fed ImageNet train, resume and eval runs,
+both parts of the autotune phase, the ``ab`` phase's counted calls and the
+``grad`` phase) and, last, ``resize_crop`` (phase 11's B=128 batch; its
+launches over the train, resume and eval runs; ``library_ms`` null: no
+one PyTorch call takes the same window and rounding),
 the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises and exits non-zero before the last line;
 without CUDA the script exits 2.
@@ -194,6 +225,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import logging
 import os
@@ -314,7 +346,7 @@ TRAIN_STEPS, RESUME_STEPS = 100, 120
 # 224x224 batches, repeated; the float32 step gate at IMAGENET_GATE_BATCH.
 IMAGENET_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
                       "optim.use_pallas_xent=on"]
-IMAGENET_STEPS, IMAGENET_BATCHES, IMAGENET_GATE_BATCH = 30, 2, 32
+IMAGENET_STEPS, IMAGENET_BATCHES, IMAGENET_GATE_BATCH = 20, 2, 32
 # The autotune phase: the probe's timed calls per arm, and the steps of the
 # slice's own train path (model.fused_epilogue=auto on the cifar10
 # preset's defaults).
@@ -1647,7 +1679,8 @@ def train_phase(path: str, counters, gpu: str) -> dict:
     from tpu_resnet_torch.config import load_config
     from tpu_resnet_torch.data.cifar import synthetic_data
     from tpu_resnet_torch.evaluation.evaluator import evaluate
-    from tpu_resnet_torch.tools.profiling import profile_train_step
+    from tpu_resnet_torch.tools.profiling import (host_batches,
+                                                  profile_train_step)
     from tpu_resnet_torch.train import checkpoint
     from tpu_resnet_torch.train.loop import make_loop_step, train
 
@@ -1706,8 +1739,9 @@ def train_phase(path: str, counters, gpu: str) -> dict:
 
         images, labels = synthetic_data(TRAIN_BATCH, 32,
                                         cfg.data.num_classes, learnable=True)
-        prof = profile_train_step(
-            state, make_loop_step(cfg, torch.device("cuda")), images, labels)
+        cuda = torch.device("cuda")
+        prof = profile_train_step(state, make_loop_step(cfg, cuda),
+                                  host_batches(images, labels, cuda))
     finally:
         shutil.rmtree(train_dir, ignore_errors=True)
     # The loop's speed over the window of steps 2..TRAIN_STEPS (step 1 pays
@@ -1753,7 +1787,8 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     every loss finite and the mean of the last 5 below the first 5's; then
     the step's device profile."""
     from tpu_resnet_torch.config import load_config
-    from tpu_resnet_torch.tools.profiling import profile_train_step
+    from tpu_resnet_torch.tools.profiling import (host_batches,
+                                                  profile_train_step)
     from tpu_resnet_torch.train.loop import build_state, make_loop_step
 
     path = "imagenet_fused_train"
@@ -1788,7 +1823,8 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     check(last5 < first5, f"loss did not fall: first 5 mean {first5}, "
           f"last 5 {last5}")
-    prof = profile_train_step(state, step_fn, *host[0], iters=10)
+    prof = profile_train_step(state, step_fn, host_batches(*host[0], cuda),
+                              iters=INPUT_PROFILE_STEPS)
     result = {
         "path": path,
         "model": f"imagenet ResNet-50 {size}x{size} fused_blocks=on "
@@ -1807,6 +1843,490 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
         "profile_top_kernels": prof["kernels"][:16],
         "gpu": gpu}
     emit("train", **result)
+    return result
+
+
+# The ImageNet input phase: JPEG shards made at run time from the committed
+# fixtures' payloads (tests/fixtures/imagenet, 28 JPEGs), cycled with seeded
+# labels 1..1000: INPUT_TRAIN_SHARDS of INPUT_PER_SHARD records (ten
+# batches of 128) and a validation shard of INPUT_VALIDATION (two batches of
+# 125, the preset's eval batch). train() runs INPUT_STEPS steps with a
+# checkpoint at INPUT_RESUME_AT, from which a second run resumes.
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "imagenet")
+INPUT_TRAIN_SHARDS, INPUT_PER_SHARD, INPUT_VALIDATION = 8, 160, 250
+INPUT_STEPS, INPUT_RESUME_AT, INPUT_PROFILE_STEPS = 30, 20, 30
+# At most this many steps fed by a fresh engine before its profiled window.
+INPUT_SETTLE_MAX = 60
+INPUT_OVERRIDES = [*IMAGENET_OVERRIDES,
+                   f"train.global_batch_size={TRAIN_BATCH}"]
+# nvJPEG against the plain decoder (data/jpeg.py, PIL's decode), per
+# sampling: (max |d|, mean |d|) per image. Measured on an H100 over the 28
+# fixtures (tools/time_torch_imagenet_input.py, which applies no limit):
+# max 25, 16, 4, 1 and worst means 0.95, 1.14, 0.52, 0.02 at 4:2:0, 4:2:2,
+# 4:4:4, grey: nvJPEG's IDCT and chroma upsampling are not libjpeg's, and
+# the fixtures' detail (a texture sized to ImageNet's mean bytes) shows it.
+NVJPEG_TOL = {"4:2:0": (30, 1.25), "4:2:2": (20, 1.5), "4:4:4": (6, 1.0),
+              "grey": (2, 0.1)}
+# The decode stage (nvJPEG + tr_resize_crop) against the plain decoder and
+# the plain resize: max |d| per image and mean |d| over the batch
+# (measured: 22 and 0.54; the resize averages, so the stage's max stays
+# within the decode's plus a level); tr_resize_crop alone against its
+# plain version on the same decoded pixels: one filter in the same float
+# order.
+STAGE_TOL = (28, 0.75)
+RESIZE_TOL = 1
+
+
+def make_input_shards(root: str) -> list:
+    """Write the phase's shards under ``root``; returns the payloads."""
+    from tpu_resnet_torch.data import imagenet, tfrecord
+    payloads = [imagenet.parse_record(r)[0]
+                for name in sorted(os.listdir(FIXTURES))
+                for r in tfrecord.read_records(os.path.join(FIXTURES, name),
+                                               verify_crc=True)]
+    rng = np.random.default_rng(17)
+    made = 0
+
+    def records(n):
+        nonlocal made
+        out = [tfrecord.encode_example({
+            "image/encoded": [payloads[(made + i) % len(payloads)]],
+            "image/class/label": [int(rng.integers(1, 1001))]})
+            for i in range(n)]
+        made += n
+        return out
+
+    for s in range(INPUT_TRAIN_SHARDS):
+        tfrecord.write_records(os.path.join(
+            root, f"train-{s:05d}-of-{INPUT_TRAIN_SHARDS:05d}"),
+            records(INPUT_PER_SHARD))
+    tfrecord.write_records(os.path.join(root, "validation-00000-of-00001"),
+                           records(INPUT_VALIDATION))
+    return payloads
+
+
+class Tap:
+    """The train loop's batch stream with the batches of ``seqs`` copied
+    to the host when the loop asks for the next one, that is after the
+    step that read them was queued (the copy waits for it)."""
+
+    def __init__(self, engine, first_seq: int, seqs, store: dict):
+        self.engine, self.seq, self.seqs, self.store = (engine, first_seq,
+                                                        seqs, store)
+        self.held = None
+
+    def _keep(self):
+        if self.held is not None:
+            seq, (images, labels) = self.held
+            self.store[seq] = (images.cpu(), labels.cpu())
+            self.held = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self._keep()
+        batch = next(self.engine)
+        if self.seq in self.seqs:
+            self.held = (self.seq, batch)
+        self.seq += 1
+        return batch
+
+    def stats(self):
+        return self.engine.stats()
+
+    def close(self):
+        self._keep()
+        self.engine.close()
+
+
+@contextlib.contextmanager
+def tapped_stream(seqs, store: dict):
+    """Route the train loop's ``data.train_batches`` through :class:`Tap`."""
+    from tpu_resnet_torch import data as data_lib
+    real = data_lib.train_batches
+
+    def tapped(*args, **kwargs):
+        return Tap(real(*args, **kwargs), kwargs["start_step"], seqs, store)
+
+    data_lib.train_batches = tapped
+    try:
+        yield
+    finally:
+        data_lib.train_batches = real
+
+
+def resize_bound(sizes, tables, out_size: int) -> tuple:
+    """(ms, what bounds it) of tr_resize_crop on this batch: the source
+    pixels its windows touch read once, the output and the tables written
+    and read once, against the operations its taps do (a multiply and an
+    add each, three channels) at the float32 rate."""
+    first, count, weights = tables
+    nbytes = first.nbytes + count.nbytes + weights.nbytes + (
+        len(sizes) * out_size * out_size * 3)
+    ops = 0
+    for (_, _, c), f, n in zip(sizes, first, count):
+        rows = int((f[0] + n[0]).max() - f[0].min())
+        cols = int((f[1] + n[1]).max() - f[1].min())
+        nbytes += rows * cols * c
+        ops += 6 * int((n[0][:, None] * (n[1][None, :] + 1)).sum())
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def draw_params(cfg) -> dict:
+    """The engine's draw parameters of ``cfg``'s training stream."""
+    d = cfg.data
+    return dict(train=True, seed=cfg.train.seed, resize_min=d.resize_min,
+                resize_max=d.resize_max, eval_resize=d.eval_resize)
+
+
+def decode_stage_measure(root: str, cfg) -> dict:
+    """The decode stage on the card against its plain versions on the
+    first B=128 order of the train stream, and the times of its parts; no
+    limit is applied here (``decode_stage_checks`` applies them)."""
+    from tpu_resnet_torch.data import engine
+    from tpu_resnet_torch.data import jpeg as plain_jpeg
+    from tpu_resnet_torch.data.imagenet import (ImageNetIterator,
+                                                parse_record)
+    from tpu_resnet_torch.ops import jpeg_decode as jd
+
+    it = ImageNetIterator.from_config(cfg.data, TRAIN_BATCH,
+                                      seed=cfg.train.seed)
+    records = engine.read_order(next(it.work_orders()), it.files)
+    draws = engine.order_draws(draw_params(cfg), 0, len(records))
+    jpegs = [parse_record(p)[0] for p, _ in records]
+    size = cfg.data.resolved_image_size
+    stage = engine.DecodeStage(torch.device("cuda"), size, TRAIN_BATCH)
+    try:
+        images, _, _ = stage.batch(records, draws)
+        torch.cuda.synchronize()
+        card = images.cpu().numpy().astype(np.int16)
+        # nvJPEG alone, per distinct JPEG, against the plain decoder.
+        distinct = list(dict.fromkeys(jpegs))
+        src, offsets, sizes = stage.decoder.decode_batch(distinct)
+        plain_rgb, by_sampling = {}, {}
+        t0 = time.perf_counter()
+        for data in distinct:
+            plain_rgb[data] = plain_jpeg.decode(data)
+        plain_decode_ms = 1e3 * (time.perf_counter() - t0) / len(distinct)
+        for data, off, (w, h, c) in zip(distinct, offsets.tolist(), sizes):
+            got = src[off:off + w * h * c].view(h, w, c).cpu().numpy()
+            diff = np.abs(got.astype(np.int16)
+                          - plain_rgb[data][..., :c].astype(np.int16))
+            by_sampling.setdefault(plain_jpeg.sampling(data), []).append(
+                (int(diff.max()), float(diff.mean())))
+        nvjpeg = {s: {"images": len(v), "max_abs": max(m for m, _ in v),
+                      "mean_abs": max(a for _, a in v)}
+                  for s, v in sorted(by_sampling.items())}
+        # The whole stage against the plain decoder and the plain resize.
+        plain = np.stack([jd.resize_crop_reference(
+            torch.from_numpy(plain_rgb[data]),
+            *jd.crop_tables(plain_rgb[data].shape[1],
+                            plain_rgb[data].shape[0], *dr, size)).numpy()
+            for data, dr in zip(jpegs, draws)]).astype(np.int16)
+        stage_diff = np.abs(card - plain)
+        stage_row = {"max_abs": int(stage_diff.max()),
+                     "mean_abs": float(stage_diff.mean()),
+                     "worst_image_mean": float(stage_diff.reshape(
+                         len(jpegs), -1).mean(1).max())}
+        # tr_resize_crop alone against its plain version, same pixels.
+        src, offsets, sizes = stage.decoder.decode_batch(jpegs)
+        tables = jd.crop_table_batch([s[:2] for s in sizes], draws, size)
+        tabs = [torch.from_numpy(a).cuda() for a in (
+            offsets, np.array(sizes, np.int32), *tables)]
+        views = [src[o:o + w * h * c].view(h, w, c)
+                 for o, (w, h, c) in zip(offsets.tolist(), sizes)]
+
+        def plain_resize():
+            return torch.stack([jd.resize_crop_reference(
+                v, tables[0][j], tables[1][j], tables[2][j])
+                for j, v in enumerate(views)])
+
+        before = jd.launches
+        kernel = jd.resize_crop(src, *tabs)
+        resize_launches = jd.launches - before
+        resize_err = int((kernel.int() - plain_resize().int()).abs().max())
+        ms = time_ms(lambda: jd.resize_crop(src, *tabs), queued=True)
+        call_ms = time_ms(lambda: jd.resize_crop(src, *tabs), queued=False)
+        plain_ms = time_ms(plain_resize, queued=False, reps=3, inner=1)
+        bound_ms, bound_by = resize_bound(sizes, tables, size)
+
+        # The parts' times: nvJPEG's decodes, the whole stage per batch.
+        def wall(fn, reps=5):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / reps
+
+        nvjpeg_ms = wall(lambda: stage.decoder.decode_batch(jpegs))
+        # nvJPEG's bytes: the JPEGs read once, the decoded pixels written
+        # once (its Huffman decode runs on the host, which this leaves out).
+        nvjpeg_bytes = sum(map(len, jpegs)) + sum(w * h * c
+                                                  for w, h, c in sizes)
+        stage_ms = wall(lambda: stage.batch(records, draws))
+    finally:
+        stage.close()
+    return {"batch": len(jpegs), "distinct_jpegs": len(plain_rgb),
+            "jpeg_bytes_mean": sum(map(len, jpegs)) / len(jpegs),
+            "nvjpeg_vs_plain": nvjpeg, "stage_vs_plain": stage_row,
+            "resize_crop": {
+                "name": "resize_crop", "route": "cuda",
+                "source": "tpu_resnet_torch/csrc/jpeg_decode.cu",
+                "replaces": "tpu_resnet/native/loader.cc:266 "
+                            "(resize_bilinear_window, host C++; no TPU "
+                            "kernel)",
+                "max_abs_err": resize_err, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "launches_per_batch": resize_launches},
+            "nvjpeg_ms_per_batch": nvjpeg_ms,
+            "nvjpeg_bytes_bound_ms": 1e3 * nvjpeg_bytes / HBM_BYTES_PER_S,
+            # The plain decoder on the host, one thread, per image and as
+            # a B=128 batch would take it.
+            "plain_decode_ms_per_image": plain_decode_ms,
+            "plain_decode_ms_per_batch": plain_decode_ms * len(jpegs),
+            "stage_ms_per_batch": stage_ms,
+            "stage_images_per_s": 1e3 * len(jpegs) / stage_ms}
+
+
+def decode_stage_checks(root: str, cfg, gpu: str) -> dict:
+    """:func:`decode_stage_measure` held to ``NVJPEG_TOL``, ``STAGE_TOL``
+    and ``RESIZE_TOL``, one ``tr_resize_crop`` launch a batch."""
+    out = decode_stage_measure(root, cfg)
+    for s, row in out["nvjpeg_vs_plain"].items():
+        row["limit"] = NVJPEG_TOL[s]
+        check(row["max_abs"] <= NVJPEG_TOL[s][0]
+              and row["mean_abs"] <= NVJPEG_TOL[s][1],
+              f"nvJPEG against the plain decoder at {s}: {row}")
+    row = out["stage_vs_plain"]
+    row["limit"] = STAGE_TOL
+    check(row["max_abs"] <= STAGE_TOL[0] and row["mean_abs"] <= STAGE_TOL[1],
+          f"decode stage against the plain versions: {row}")
+    resize = out["resize_crop"]
+    check(resize["launches_per_batch"] == 1, "resize_crop: not one launch")
+    check(resize["max_abs_err"] <= RESIZE_TOL, f"tr_resize_crop against its "
+          f"plain version: max |d| {resize['max_abs_err']} > {RESIZE_TOL}")
+    out["gpu"] = gpu
+    return out
+
+
+def imagenet_input_phase(counters, gpu: str, seeded: dict) -> dict:
+    """ImageNet ResNet-50 training and eval from JPEG shards through the
+    port's input pipeline: the decode stage's checks and times, then
+    ``train()`` for INPUT_STEPS steps with the launches read around it, a
+    batch read after its step against a synchronous decode of its order, a
+    resume from INPUT_RESUME_AT bit for bit, ``evaluate`` once over exactly
+    INPUT_VALIDATION records, and the step fed by the engine profiled
+    beside the seeded-batch phase's (``seeded``)."""
+    from tpu_resnet_torch import data as data_lib
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.data import engine
+    from tpu_resnet_torch.data.imagenet import ImageNetIterator
+    from tpu_resnet_torch.evaluation.evaluator import evaluate
+    from tpu_resnet_torch.ops import jpeg_decode as jd
+    from tpu_resnet_torch.tools.profiling import profile_train_step
+    from tpu_resnet_torch.train.loop import make_loop_step, train
+
+    path = "imagenet_fused_train"
+    root = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    dir_a = tempfile.mkdtemp(prefix="chip_smoke_jpeg_a_")
+    dir_b = tempfile.mkdtemp(prefix="chip_smoke_jpeg_b_")
+    records = LogRecords()
+    logger = logging.getLogger("tpu_resnet_torch")
+    logger.addHandler(records)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        t0 = time.monotonic()
+        payloads = make_input_shards(root)
+        shard_seconds = time.monotonic() - t0
+
+        def config(train_dir, steps):
+            return load_config("imagenet", "", [
+                *INPUT_OVERRIDES, f"data.data_dir={root}",
+                f"train.train_dir={train_dir}", f"train.train_steps={steps}",
+                "train.log_every=1",
+                f"train.checkpoint_every={INPUT_RESUME_AT}"])
+
+        cfg = config(dir_a, INPUT_STEPS)
+        check(cfg.data.resolved_image_size == 224
+              and cfg.train.global_batch_size == TRAIN_BATCH
+              and cfg.train.eval_batch_size * 2 == INPUT_VALIDATION,
+              "imagenet preset: 224x224, B=128, eval batch 125")
+        stage = decode_stage_checks(root, cfg, gpu)
+
+        # train() from the shards, every batch tapped.
+        per_step = PER_PASS[path]
+        run_a = {}
+        zero_counts(counters)
+        jd.launches = 0
+        t0 = time.monotonic()
+        with tapped_stream(set(range(INPUT_STEPS)), run_a):
+            state = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        train_seconds = time.monotonic() - t0
+        counts, resizes = read_counts(counters), jd.launches
+        check(state.step == INPUT_STEPS, f"train() stopped at {state.step}")
+        want = {k: n * INPUT_STEPS for k, n in per_step.items()}
+        check(counts == want, f"{path} from JPEG shards: launch counts "
+              f"{counts} over {INPUT_STEPS} steps, expected {want}")
+        ring = 2 * cfg.data.num_workers + 1
+        check(INPUT_STEPS <= resizes <= INPUT_STEPS + ring,
+              f"tr_resize_crop launched {resizes} times for {INPUT_STEPS} "
+              f"steps and a ring of {ring}")
+        with open(os.path.join(dir_a, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs]
+        check([r["step"] for r in recs] == list(range(1, INPUT_STEPS + 1))
+              and all(np.isfinite(losses)), f"losses {losses}")
+        check(recs[-1]["data_stream_seq"] == INPUT_STEPS,
+              f"stream at seq {recs[-1]['data_stream_seq']}")
+
+        # Each batch, read after its step, against a synchronous decode of
+        # its order (a batch the step read before it was written, or whose
+        # decode raced, differs).
+        it = ImageNetIterator.from_config(cfg.data, TRAIN_BATCH,
+                                          seed=cfg.train.seed)
+        sync_stage = engine.DecodeStage(torch.device("cuda"),
+                                        cfg.data.resolved_image_size,
+                                        TRAIN_BATCH)
+        differ = []
+        try:
+            for seq, order in enumerate(itertools.islice(it.work_orders(),
+                                                         INPUT_STEPS)):
+                images, labels, _ = sync_stage.batch(
+                    engine.read_order(order, it.files),
+                    engine.order_draws(draw_params(cfg), seq, len(order)))
+                torch.cuda.synchronize()
+                got = run_a[seq]
+                bad = [j for j in range(TRAIN_BATCH)
+                       if not torch.equal(got[0][j], images[j].cpu())]
+                if bad or not torch.equal(got[1], labels.cpu()):
+                    differ.append((seq, bad[:8]))
+        finally:
+            sync_stage.close()
+        check(not differ, f"batches read after their steps differ from a "
+              f"synchronous decode of their orders: (seq, images) {differ}")
+        tapped = run_a[INPUT_RESUME_AT]
+
+        # Resume at INPUT_RESUME_AT from run A's checkpoint.
+        shutil.copytree(os.path.join(dir_a, str(INPUT_RESUME_AT)),
+                        os.path.join(dir_b, str(INPUT_RESUME_AT)))
+        run_b = {}
+        zero_counts(counters)
+        jd.launches = 0
+        with tapped_stream({INPUT_RESUME_AT, INPUT_RESUME_AT + 1}, run_b):
+            resumed = train(config(dir_b, INPUT_RESUME_AT + 2),
+                            device="cuda")
+        torch.cuda.synchronize()
+        resume_counts, resume_resizes = read_counts(counters), jd.launches
+        check(resumed.step == INPUT_RESUME_AT + 2,
+              f"resumed run stopped at {resumed.step}")
+        check(resume_counts == {k: 2 * n for k, n in per_step.items()},
+              f"resumed run launch counts {resume_counts}")
+        for seq in (INPUT_RESUME_AT, INPUT_RESUME_AT + 1):
+            check(torch.equal(run_b[seq][0], run_a[seq][0])
+                  and torch.equal(run_b[seq][1], run_a[seq][1]),
+                  f"the resumed stream's batch {seq} differs from the "
+                  "uninterrupted run's")
+        with open(os.path.join(dir_b, "metrics.jsonl")) as f:
+            resumed_losses = [json.loads(line)["loss"] for line in f]
+        del resumed
+
+        # eval --once over the validation shard.
+        cfg.train.eval_once = True
+        zero_counts(counters)
+        jd.launches = 0
+        records.messages.clear()
+        precision = evaluate(cfg, device="cuda")
+        eval_counts, eval_resizes = read_counts(counters), jd.launches
+        evals = [m for m in records.messages if m.startswith("eval @ step")]
+        forwards = INPUT_VALIDATION // cfg.train.eval_batch_size
+        want = {k: PER_PASS["imagenet"][k] * forwards for k in KERNELS}
+        check(eval_counts == want, f"eval launch counts {eval_counts}, "
+              f"expected {want}")
+        check(eval_resizes == forwards, f"eval tr_resize_crop launches "
+              f"{eval_resizes}")
+        check(len(evals) == 1 and evals[0].endswith(
+            f"{INPUT_VALIDATION} examples)") and precision is not None,
+              f"eval: {evals}")
+
+        # The step fed by the engine, profiled in its steady state: a
+        # fresh engine fills its ring (the prefetch) ahead of the step, so
+        # the window starts only when the step has drained it (a batch not
+        # yet decoded when the step asks for it) or the step stays behind
+        # the decode for INPUT_SETTLE_MAX steps (the ring full at both
+        # ends); the ring's batches at the window's start and end show
+        # which.
+        feed = data_lib.train_batches(cfg.data, TRAIN_BATCH,
+                                      seed=cfg.train.seed,
+                                      start_step=state.step, device="cuda")
+        step_fn = make_loop_step(cfg, torch.device("cuda"))
+        try:
+            settle = 0
+            while settle < INPUT_SETTLE_MAX and (
+                    settle < 3 or feed.stats()["data_ring_occupancy"] > 0):
+                step_fn(state, *next(feed))
+                settle += 1
+            prof = profile_train_step(state, step_fn, feed,
+                                      iters=INPUT_PROFILE_STEPS, warmup=0,
+                                      probe=feed.stats)
+        finally:
+            feed.close()
+    finally:
+        logger.removeHandler(records)
+        logger.setLevel(level)
+        for tmp in (root, dir_a, dir_b):
+            shutil.rmtree(tmp, ignore_errors=True)
+    window_s = recs[-1]["wall"] - recs[0]["wall"]
+    rates = [r["data_decode_images_per_sec"] for r in recs[1:]]
+    seeded_prof = seeded["profile"]
+    entry = dict(stage.pop("resize_crop"),
+                 launches=resizes + resume_resizes + eval_resizes)
+    result = {
+        "path": "imagenet_jpeg_train",
+        "model": f"imagenet ResNet-50 224x224 fused_blocks=on "
+                 f"fused_epilogue=on use_pallas_xent=on "
+                 f"{cfg.model.compute_dtype}, B={TRAIN_BATCH}, from JPEG "
+                 f"shards ({len(payloads)} fixture JPEGs cycled)",
+        "shards": {"train": INPUT_TRAIN_SHARDS * INPUT_PER_SHARD,
+                   "validation": INPUT_VALIDATION, "seconds": shard_seconds},
+        "decode_workers": cfg.data.num_workers, "decode_stage": stage,
+        "steps": INPUT_STEPS, "train_seconds": train_seconds,
+        "launches": {k: counts[k] + resume_counts[k] for k in KERNELS},
+        "launches_per_step": per_step, "eval_launches": eval_counts,
+        "resize_launches": {"train": resizes, "resume": resume_resizes,
+                            "eval": eval_resizes},
+        "losses": losses, "resumed_losses": resumed_losses,
+        "resume_batches_equal": [INPUT_RESUME_AT, INPUT_RESUME_AT + 1],
+        "read_after_step_equal_batches": INPUT_STEPS,
+        "loop_window_steps": INPUT_STEPS - 1, "loop_window_s": window_s,
+        "loop_ms_per_step": 1e3 * window_s / (INPUT_STEPS - 1),
+        "loop_images_per_s": TRAIN_BATCH * (INPUT_STEPS - 1) / window_s,
+        "engine_decode_images_per_s_median": statistics.median(rates),
+        # The host clock's window: the engine's ring at its start and end
+        # (decoded batches not yet taken) and its decode rate over it.
+        "profile_settle_steps": settle,
+        "profile_ring_batches": [p["data_ring_occupancy"]
+                                 for p in prof["probe"]],
+        "profile_ring_slots": prof["probe"][1]["data_ring_slots"],
+        "engine_decode_images_per_s_profiled":
+            prof["probe"][1]["data_decode_images_per_sec"],
+        "eval_records": INPUT_VALIDATION, "eval_precision": precision,
+        "profile": {k: v for k, v in prof.items() if k != "kernels"},
+        "profile_top_kernels": prof["kernels"][:12],
+        "seeded_profile": {k: seeded_prof.get(k) for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "step_busy_ms_per_step",
+            "step_idle_share", "images_per_s")},
+        "resize_crop": entry, "gpu": gpu}
+    emit("imagenet_input", **result)
     return result
 
 
@@ -2354,6 +2874,7 @@ def main() -> int:
     served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
+    trained.append(imagenet_input_phase(counters, gpu, trained[-1]))
     trained.append(autotune_phase(counters, gpu))
     trained += ab_phase(counters, gpu)
     trained += [grad_phase(preset, counters, gpu)
@@ -2363,6 +2884,8 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in FLOOR_KERNELS:
             entry["launch_floor_ms"] = floor
+    kernels.append(next(t["resize_crop"] for t in trained
+                        if "resize_crop" in t))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -471,10 +471,13 @@ def test_check_step_config_accepts_imagenet():
 
 
 def test_train_on_imagenet_refuses_for_its_input_pipeline(tmp_path):
+    """ImageNet training goes through the input pipeline, which refuses a
+    data dir without shards with the reference's FileNotFoundError."""
     cfg = load_config("imagenet", "", [
         "model.resnet_size=18", "optim.use_pallas_xent=on",
-        "data.image_size=32", f"train.train_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="input pipeline"):
+        "data.image_size=32", f"data.data_dir={tmp_path / 'no_shards'}",
+        f"train.train_dir={tmp_path}"])
+    with pytest.raises(FileNotFoundError, match="no ImageNet shards match"):
         train(cfg, device="cpu")
 
 

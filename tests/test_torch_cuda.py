@@ -4,6 +4,8 @@ need a CUDA card and skip without one; on a GPU machine run
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -972,3 +974,114 @@ def test_timed_us_flags_a_timing_the_spin_could_not_hold(cuda,
 
     us, host_paced = autotune.timed_us(fn, (x,), 4)
     assert us > 0 and host_paced is synchronising
+
+
+# The decode stage on the card against its plain versions: max |d| per
+# image and mean |d| over the batch (nvJPEG's IDCT and chroma upsampling
+# are not libjpeg's; chip_smoke.py's STAGE_TOL), and tr_resize_crop alone
+# against its plain version on the same decoded pixels.
+_STAGE_TOL, _RESIZE_TOL = (28, 0.75), 1
+
+
+def _fixture_jpegs():
+    import os
+
+    from tpu_resnet_torch.data import imagenet, tfrecord
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "imagenet")
+    return [imagenet.parse_record(r)[0] for name in sorted(os.listdir(root))
+            for r in tfrecord.read_records(os.path.join(root, name))]
+
+
+def test_resize_crop_and_nvjpeg_stage_match_plain(cuda):
+    import numpy as np
+
+    from tpu_resnet_torch.data import jpeg as plain_jpeg
+    from tpu_resnet_torch.ops import jpeg_decode as jd
+
+    jpegs = _fixture_jpegs()
+    rng = np.random.default_rng(0)
+    draws = [(int(rng.integers(256, 513)), float(rng.random()),
+              float(rng.random())) for _ in jpegs[:-4]]
+    draws += [(256, -1.0, -1.0)] * 4    # the eval crop
+    decoder = jd.NvJpegDecoder(cuda)
+    try:
+        before = jd.launches
+        got = jd.decode_crop_batch(jpegs, draws, 224, cuda, decoder).cpu()
+        assert jd.launches == before + 1
+        want = jd.decode_crop_batch(jpegs, draws, 224, "cpu")
+        diff = (got.int() - want.int()).abs()
+        assert int(diff.max()) <= _STAGE_TOL[0]
+        assert float(diff.float().mean()) <= _STAGE_TOL[1]
+        # The kernel alone, on nvJPEG's pixels.
+        infos = decoder.infos(jpegs)
+        assert {s for _, s, _, _ in infos} >= {"4:2:0", "4:4:4", "grey"}
+        src, offsets, sizes = decoder.decode_batch(jpegs)
+        nbytes = [w * h * c for w, h, c in sizes]
+        tables = jd.crop_table_batch([s[:2] for s in sizes], draws, 224)
+        kernel = jd.resize_crop(src, *(torch.from_numpy(a).cuda() for a in (
+            offsets, np.array(sizes, np.int32), *tables)))
+        for j, (w, h, c) in enumerate(sizes):
+            plain = jd.resize_crop_reference(
+                src[offsets[j]:offsets[j] + nbytes[j]].view(h, w, c),
+                tables[0][j], tables[1][j], tables[2][j])
+            assert int((kernel[j].int() - plain.int()).abs().max()) <= \
+                _RESIZE_TOL
+        # A grey image decodes to its luma plane, as the plain decoder's.
+        grey = next(j for j, i in enumerate(infos) if i[1] == "grey")
+        w, h, _ = sizes[grey]
+        luma = src[offsets[grey]:offsets[grey] + nbytes[grey]].view(h, w)
+        assert int((luma.cpu().int() - torch.from_numpy(plain_jpeg.decode(
+            jpegs[grey])[..., 0]).int()).abs().max()) <= 2
+        with pytest.raises(RuntimeError, match="of junk: nvJPEG status"):
+            decoder.infos([jpegs[0], b"\xff\xd8 not a jpeg"],
+                          ["good", "junk"])
+    finally:
+        decoder.close()
+
+
+def test_imagenet_engine_on_the_card_is_the_synchronous_decode(cuda):
+    """Batches from two decode threads on their own streams, read while
+    matrix products keep the card busy (the decode streams lag behind
+    them), equal one thread's and a synchronous decode of the same
+    order."""
+    import os
+
+    from tpu_resnet_torch.data import engine
+    from tpu_resnet_torch.data.imagenet import ImageNetIterator
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "imagenet")
+
+    def batches(workers):
+        it = ImageNetIterator(root, 8, seed=4, shuffle_buffer=16,
+                              image_size=224)
+        eng = it.engine(device="cuda", workers=workers, ring_slots=3)
+        a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+        out = []
+        try:
+            for _ in range(4):
+                batch = next(eng)
+                for _ in range(40):   # ~10 ms of products a batch
+                    a = (a @ a).clamp_(-1, 1)
+                out.append(tuple(t.cpu() for t in batch))
+            return out
+        finally:
+            eng.close()
+
+    one, two = batches(1), batches(2)
+    for (ai, al), (bi, bl) in zip(one, two):
+        assert torch.equal(ai, bi) and torch.equal(al, bl)
+    it = ImageNetIterator(root, 8, seed=4, shuffle_buffer=16)
+    order = list(itertools.islice(it.work_orders(), 4))[3]
+    records = engine.read_order(order, it.files)
+    stage = engine.DecodeStage(cuda, 224, 8)
+    try:
+        images, labels, _ = stage.batch(records, engine.order_draws(
+            dict(train=True, seed=4, resize_min=256, resize_max=512,
+                 eval_resize=256), 3, 8))
+        torch.cuda.synchronize()
+        assert torch.equal(images.cpu(), one[3][0])
+        assert torch.equal(labels.cpu(), one[3][1])
+    finally:
+        stage.close()

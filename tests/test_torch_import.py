@@ -1,7 +1,8 @@
-"""The port stands alone: importing it loads no JAX stack, no file of it
-imports the reference package, its config copy means what the reference's
-means, and its entry points refuse to run on a machine without CUDA unless
-asked for the CPU."""
+"""The port stands alone: importing it loads no JAX stack and no PIL, no
+file of it imports the reference package (nor, in the package, PIL: the
+card has none), its config copy means what the reference's means, its
+entry points refuse to run on a machine without CUDA unless asked for the
+CPU, and its kernel build links each library with its own flags."""
 
 import ast
 import os
@@ -15,6 +16,7 @@ from tpu_resnet import config as ref_config
 from tpu_resnet_torch import config as port_config
 from tpu_resnet_torch.device import resolve_device
 from tpu_resnet_torch.main import main as port_main
+from tpu_resnet_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
@@ -25,8 +27,11 @@ PORT_FILES = sorted(
             "profile_torch_forward", "profile_torch_grad",
             "profile_torch_train", "time_torch_block",
             "time_torch_bottleneck", "time_torch_epilogue",
-            "time_torch_folded_bwd"))]
+            "time_torch_folded_bwd", "time_torch_imagenet_input",
+            "make_torch_imagenet_fixtures"))]
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_resnet")
+# The package also imports no PIL (the tests and the fixture tool may).
+PACKAGE_FORBIDDEN = FORBIDDEN_ROOTS + ("PIL",)
 
 
 def test_import_loads_no_jax_stack():
@@ -34,9 +39,11 @@ def test_import_loads_no_jax_stack():
             "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert, "
             "tpu_resnet_torch.ops.fused_bottleneck, "
             "tpu_resnet_torch.train.loop, "
-            "tpu_resnet_torch.evaluation.evaluator; "
+            "tpu_resnet_torch.evaluation.evaluator, "
+            "tpu_resnet_torch.data.imagenet, tpu_resnet_torch.data.engine, "
+            "tpu_resnet_torch.data.jpeg, tpu_resnet_torch.ops.jpeg_decode; "
             "print(sorted(m for m in sys.modules "
-            f"if m.split('.')[0] in {FORBIDDEN_ROOTS!r}))")
+            f"if m.split('.')[0] in {PACKAGE_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
@@ -53,7 +60,9 @@ def test_port_file_imports_no_reference(rel):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
-    assert not roots & set(FORBIDDEN_ROOTS), (rel, roots)
+    forbidden = (PACKAGE_FORBIDDEN if rel.startswith("tpu_resnet_torch")
+                 else FORBIDDEN_ROOTS)
+    assert not roots & set(forbidden), (rel, roots)
 
 
 @pytest.mark.parametrize("preset", sorted(ref_config.PRESETS))
@@ -81,3 +90,25 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
+
+
+def test_build_links_each_library_with_its_own_flags(tmp_path):
+    """nvJPEG's shim links libnvjpeg from the toolkit beside nvcc, with
+    that directory as its run path; every other library links nothing
+    more; a library's file name (the hash of what it is built from)
+    changes with its link flags."""
+    home = tmp_path / "cuda"
+    (home / "lib64").mkdir(parents=True)
+    flags = _build.link_flags("jpeg_decode", str(home))
+    lib = str(home / "lib64")
+    assert flags == [f"-L{lib}", "-Xlinker", f"-rpath={lib}", "-lnvjpeg"]
+    assert set(_build.LINKED_LIBS) <= set(_build.SIGNATURES)
+    for name in _build.SIGNATURES:
+        if name != "jpeg_decode":
+            assert _build.link_flags(name, str(home)) == []
+    plain = _build._target("epilogue", [])
+    assert plain[1] != _build._target("epilogue", flags)[1]
+    assert os.path.basename(plain[0]) == "epilogue.cu"
+    assert set(_build.SIGNATURES["jpeg_decode"]) == {
+        "tr_jpeg_create", "tr_jpeg_destroy", "tr_jpeg_info_batch",
+        "tr_jpeg_decode_batch", "tr_resize_crop"}

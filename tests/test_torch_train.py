@@ -58,6 +58,7 @@ from tpu_resnet_torch.train.step import (check_step_config,
                                          l2_weight_penalty, make_train_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+IMAGENET_FIXTURES = os.path.join(REPO, "tests", "fixtures", "imagenet")
 
 
 def _randomize(variables, seed):
@@ -336,36 +337,71 @@ def test_preempted_in_process(tmp_path, monkeypatch):
     (["optim.use_pallas_xent=auto", "model.fused_epilogue=auto"], None,
      None),
     (["optim.use_pallas_xent=maybe"], ValueError, "auto|on|off"),
-    ("fused ImageNet bottleneck", NotImplementedError, "ImageNet training"),
+    ("fused ImageNet bottleneck", None, None),
     (["mesh.data=4"], NotImplementedError, "one device"),
     (["data.device_resident=on", "data.dataset=imagenet",
       "model.resnet_size=18", "data.image_size=32"], ValueError,
      "unsupported for dataset 'imagenet'"),
     (["data.dataset=imagenet", "model.resnet_size=18", "data.image_size=32"],
-     NotImplementedError, "later slice"),
+     FileNotFoundError, "no ImageNet shards match"),
 ])
 def test_train_guards(tmp_path, overrides, exc, match):
-    """What the port does not train yet raises, and the ``auto`` policies
-    train (``exc`` None). ImageNet training gets past the step's and the
-    model's gates (the string case: ResNet-50 through the fused
-    bottlenecks, whose training forward runs) and stops at the missing
-    input pipeline; ``data.device_resident=on`` refuses ImageNet with the
-    reference's ValueError."""
+    """What the port does not train raises, and what it trains trains
+    (``exc`` None): the ``auto`` policies, and ImageNet ResNet-50 through
+    the fused bottlenecks on the fixture shards (the string case: one step
+    at 32x32 from small resize sides). ``data.device_resident=on`` refuses
+    ImageNet with the reference's ValueError, and a data dir without shards
+    raises the reference's FileNotFoundError."""
+    if isinstance(overrides, str):
+        model = imagenet_resnet_v2(50, 10, fused_blocks=True)
+        assert model(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 10)
+        state = train(load_config("imagenet", "", [
+            "model.fused_blocks=true", "model.fused_epilogue=on",
+            "optim.use_pallas_xent=on", "data.image_size=32",
+            f"data.data_dir={IMAGENET_FIXTURES}", "data.resize_min=36",
+            "data.resize_max=44", "data.num_workers=1", "data.ring_slots=1",
+            "train.global_batch_size=4", "train.train_steps=1",
+            f"train.train_dir={tmp_path}"]), device="cpu")
+        assert state.step == 1
+        assert math.isfinite(_losses(tmp_path)[0][1])
+        return
+    cfg = _loop_cfg(tmp_path, *overrides,
+                    f"data.data_dir={tmp_path / 'no_shards'}")
     if exc is None:
-        state = train(_loop_cfg(tmp_path, *overrides), device="cpu")
+        state = train(cfg, device="cpu")
         assert state.step == 12
         return
     with pytest.raises(exc, match=match):
-        if isinstance(overrides, str):
-            model = imagenet_resnet_v2(50, 10, fused_blocks=True)
-            assert model(torch.zeros(2, 32, 32, 3), train=True).shape == (
-                2, 10)
-            train(load_config("imagenet", "", [
-                "model.fused_blocks=true", "model.fused_epilogue=on",
-                "optim.use_pallas_xent=on", "data.image_size=32",
-                f"train.train_dir={tmp_path}"]), device="cpu")
-        else:
-            train(_loop_cfg(tmp_path, *overrides), device="cpu")
+        train(cfg, device="cpu")
+
+
+def test_imagenet_train_then_eval_once_on_the_fixtures(tmp_path, caplog):
+    """``train`` then ``eval --once`` on ``--preset imagenet`` end to end on
+    the CPU (ResNet-18, 32x32 crops from small resize sides) over the
+    fixture shards: the loop logs the decode engine's stats with each step,
+    and eval counts the validation shard's 8 records exactly once."""
+    common = ["--device", "cpu", "--preset", "imagenet",
+              "model.resnet_size=18", "model.compute_dtype=float32",
+              "data.image_size=32", f"data.data_dir={IMAGENET_FIXTURES}",
+              "data.resize_min=36", "data.resize_max=44",
+              "data.eval_resize=40", "data.num_workers=2",
+              "train.global_batch_size=4", "train.eval_batch_size=3",
+              f"train.train_dir={tmp_path}"]
+    assert port_main(["train", *common, "train.train_steps=2",
+                      "train.log_every=1"]) == 0
+    with open(tmp_path / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all(math.isfinite(r["loss"]) for r in recs)
+    assert recs[-1]["data_stream_seq"] == 2.0
+    with caplog.at_level(logging.INFO, logger="tpu_resnet_torch"):
+        assert port_main(["eval", "--once", *common]) == 0
+    done = [r.args for r in caplog.records
+            if r.msg.startswith("eval @ step")]
+    assert len(done) == 1 and done[0][0] == 2 and done[0][-1] == 8
+    with open(tmp_path / "eval" / "metrics.jsonl") as f:
+        rec = json.loads(f.readlines()[-1])
+    assert rec["step"] == 2 and math.isfinite(rec["eval_loss"])
 
 
 def test_check_step_config_passes_the_slice():

@@ -42,7 +42,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from tpu_resnet_torch.config import load_config  # noqa: E402
 from tpu_resnet_torch.data.cifar import synthetic_data  # noqa: E402
 from tpu_resnet_torch.device import resolve_device  # noqa: E402
-from tpu_resnet_torch.tools.profiling import profile_train_step  # noqa: E402
+from tpu_resnet_torch.tools.profiling import (  # noqa: E402
+    host_batches, profile_train_step)
 from tpu_resnet_torch.train.loop import (build_state,  # noqa: E402
                                          make_loop_step)
 
@@ -75,8 +76,8 @@ def main(argv=None) -> int:
              f"{cfg.model.fused_epilogue} fused_blocks="
              f"{cfg.model.fused_blocks}, B={args.batch}")
     print(f"model: {model}", flush=True)
-    out = profile_train_step(state, make_loop_step(cfg, device), images,
-                             labels, args.iters)
+    out = profile_train_step(state, make_loop_step(cfg, device),
+                             host_batches(images, labels, device), args.iters)
     out["model"] = model
     print(json.dumps(out), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,7 +7,9 @@ and the best so far to ``<train_dir>/eval/best_precision.json``, sleep
 newest checkpoint and returns. The whole eval split is evaluated; the short
 last batch is padded and masked out. A checkpoint that does not load is
 retried ``resilience.eval_restore_retries`` times with backoff, then
-skipped and logged, as the reference's evaluator does.
+skipped and logged, as the reference's evaluator does. ImageNet's eval
+batches arrive decoded on the device (``data/imagenet.py``
+``eval_examples``).
 """
 
 from __future__ import annotations
@@ -36,9 +38,9 @@ def run_eval_pass(cfg, model, device: torch.device,
     """One full pass over the eval split → (precision, mean loss, count)."""
     correct = loss_sum = count = 0
     for images, labels in data_lib.eval_split_batches(
-            cfg.data, cfg.train.eval_batch_size):
-        c, ls, n = eval_step(model, torch.from_numpy(images).to(device),
-                             torch.from_numpy(labels).to(device))
+            cfg.data, cfg.train.eval_batch_size, device=device):
+        c, ls, n = eval_step(model, torch.as_tensor(images, device=device),
+                             torch.as_tensor(labels, device=device))
         correct, loss_sum, count = correct + c, loss_sum + ls, count + n
     count = int(count)
     return (float(correct) / max(count, 1), float(loss_sum) / max(count, 1),

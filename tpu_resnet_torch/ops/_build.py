@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). Libraries land in
-``build/tpu_resnet_torch/`` at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-from disk. :func:`build_all` starts one ``nvcc`` per source together.
+PyTorch headers, so a build takes seconds). A library that calls one of
+the CUDA toolkit's own libraries (``jpeg_decode``: nvJPEG) links it with
+the flags of :func:`link_flags`, which find it beside ``nvcc``. Libraries
+land in ``build/tpu_resnet_torch/`` at the repository root, named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads from disk. :func:`build_all` starts one ``nvcc`` per
+source together.
 
 A failed build raises; nothing here has a fallback.
 """
@@ -28,12 +31,18 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "tpu_resnet_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# The toolkit libraries each kernel library links, by name (-l).
+LINKED_LIBS: Dict[str, Tuple[str, ...]] = {"jpeg_decode": ("nvjpeg",)}
 # Element-type codes of csrc/common.cuh (tr::DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# Host arrays: of bytes objects (passed without a copy), int64, int32.
+_PB = ctypes.POINTER(ctypes.c_char_p)
+_PL = ctypes.POINTER(_L)
+_PI = ctypes.POINTER(_I)
 # C signatures of each library's entry points: {library: {symbol: argtypes}}.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "epilogue": {
@@ -46,6 +55,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "bottleneck_wgrad": {
         "tr_bottleneck_wgrad": [_I, _P] + [_I] * 8 + [_P]},
     "fused_bottleneck_tc": {"tr_bottleneck_tc": [_I, _P] + [_I] * 7 + [_P]},
+    "jpeg_decode": {
+        "tr_jpeg_create": [_I, ctypes.POINTER(_P)],
+        "tr_jpeg_destroy": [_P],
+        "tr_jpeg_info_batch": [_P, _I, _PB, _PL, _PI, _PI],
+        "tr_jpeg_decode_batch": [_P, _I, _PB, _PL, _PI, _PI, _P, _PL, _P,
+                                 _PI],
+        "tr_resize_crop": [_P] * 6 + [_I, _I, _I, _P, _I, _P],
+    },
     "softmax_xent": {
         "tr_xent_fwd": [_P, _P, _I, _L, _P, _I, _I, _I, _P],
         "tr_xent_bwd": [_P, _P, _I, _L, _P, _L, _P, _I, _I, _I, _P],
@@ -64,11 +81,29 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Tuple[str, str]:
+def link_flags(name: str, cuda_home: str) -> List[str]:
+    """nvcc flags that link library ``name`` against the toolkit libraries
+    it calls (``LINKED_LIBS``), found in ``cuda_home``'s library
+    directories and recorded as the library's run path; none for a
+    library that calls none."""
+    libs = LINKED_LIBS.get(name, ())
+    if not libs:
+        return []
+    dirs = [d for d in (os.path.join(cuda_home, "lib64"),
+                        os.path.join(cuda_home, "targets", "x86_64-linux",
+                                     "lib"))
+            if os.path.isdir(d)]
+    flags = []
+    for d in dirs:
+        flags += [f"-L{d}", "-Xlinker", f"-rpath={d}"]
+    return flags + [f"-l{lib}" for lib in libs]
+
+
+def _target(name: str, extra: List[str]) -> Tuple[str, str]:
     """(source path, library path keyed by the hash of what it is built
     from)."""
     src = os.path.join(CSRC, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
@@ -82,13 +117,16 @@ def build_all(names=tuple(SIGNATURES)) -> Dict[str, str]:
     with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out, procs = {}, {}
+    nvcc = _nvcc()
+    cuda_home = os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))
     for name in names:
-        src, lib = _target(name)
+        extra = link_flags(name, cuda_home)
+        src, lib = _target(name, extra)
         out[name] = lib
         if not os.path.exists(lib):
             tmp = f"{lib}.tmp{os.getpid()}"
             procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src, *extra],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 tmp, lib)
     failed = []

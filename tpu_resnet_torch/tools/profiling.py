@@ -1,17 +1,25 @@
 """Device time on a CUDA card, from ``torch.profiler``.
 
 :func:`device_profile` runs a callable ``iters`` times under the profiler
-and sums the kernels' own device times by name; one stream, so the kernels
-do not overlap and their sum is the time the device was busy.
-:func:`profile_train_step` times the train loop's step that way
-(``tools/profile_torch_train.py`` and ``chip_smoke.py`` print it).
+and reads every device event (kernels and copies) with its stream and its
+interval. Streams that ran a kernel of the ImageNet decode stage
+(``DECODE_KERNELS``) are the decode engine's, and every event on them,
+copies included, is the decode's; the other streams are the step's. Busy
+times are unions of intervals, so that work overlapping on two streams
+counts once: the device's busy time over all streams, the step's over its
+own. The rows by name (launches, device ms) are the profiler's per-name
+averages. :func:`profile_train_step` times the train loop's step that way,
+fed by any iterator of batches on the device (seeded ones copied in by
+:func:`host_batches`, or the decode engine's);
+``tools/profile_torch_train.py`` and ``chip_smoke.py`` print it.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, Iterator, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -51,6 +59,95 @@ TRAIN_KERNELS = {"sbr": "sbr_kernel", "sbr_bwd": "sbr_bwd_kernel",
                  "bottleneck_sum": "bottleneck_sum_kernel"}
 
 
+# The ImageNet decode stage's kernels, by a lowercase substring of their
+# names: tr_resize_crop and nvJPEG's own. A stream that ran one is a decode
+# worker's.
+DECODE_KERNELS = ("resize_crop", "jpeg", "idct", "huffman")
+
+# A device event: (name, stream, start µs, end µs).
+Event = Tuple[str, int, float, float]
+
+
+def union_ms(intervals: Iterable[Tuple[float, float]]) -> float:
+    """The time covered by (start µs, end µs) intervals, in ms; an interval
+    that does not end after it starts covers nothing."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end and b > a:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def kernel_rows(averages: Iterable[Tuple[str, int, float]], iters: int
+                ) -> list:
+    """[{"name", "ms_per_call", "launches_per_call"}, ...] by device time,
+    from the profiler's per-name (name, events, device µs); a name whose
+    events took no device time is left out (the profiler now and then
+    stamps a launch with none, and counts it under its name)."""
+    rows = [{"name": name[:90], "ms_per_call": us / 1e3 / iters,
+             "launches_per_call": count / iters}
+            for name, count, us in averages if us > 0]
+    return sorted(rows, key=lambda k: -k["ms_per_call"])
+
+
+def split_streams(events: Sequence[Event], iters: int) -> Dict:
+    """Per call: the device's busy ms (all streams), the step's (the
+    streams that ran no ``DECODE_KERNELS`` kernel) and the decode's (the
+    streams that did, every event on them), unions of intervals, None when
+    there was no device event; each stream's events and ms; and the names
+    whose events all ran on the decode's streams."""
+    decode_streams = {s for name, s, _, _ in events
+                      if any(k in name.lower() for k in DECODE_KERNELS)}
+    step = [e for e in events if e[1] not in decode_streams]
+    decode = [e for e in events if e[1] in decode_streams]
+    streams = []
+    for s in sorted({e[1] for e in events}):
+        mine = [e for e in events if e[1] == s]
+        streams.append({"stream": s, "decode": s in decode_streams,
+                        "events_per_call": len(mine) / iters,
+                        "busy_ms_per_call": union_ms(
+                            (a, b) for _, _, a, b in mine) / iters})
+
+    def busy(evts):
+        return (union_ms((a, b) for _, _, a, b in evts) / iters
+                if events else None)
+
+    return {"device_busy_ms": busy(events), "step_busy_ms": busy(step),
+            "decode_ms": busy(decode), "streams": streams,
+            "decode_names": ({e[0] for e in decode}
+                             - {e[0] for e in step})}
+
+
+def device_profile(fn: Callable[[], object], iters: int) -> Dict:
+    """``iters`` calls of ``fn`` under the profiler: {"device_busy_ms",
+    "step_busy_ms", "decode_ms", "streams"} (:func:`split_streams` of its
+    device events), "kernels": the step's :func:`kernel_rows` (every name
+    but the decode's), "decode_kernels": the decode's}."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    def device_work(evt) -> bool:
+        # A user range (e.g. the optimizer's step) is not device work.
+        return (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False))
+
+    out = split_streams([
+        (evt.name, int(getattr(evt, "device_resource_id", 0)),
+         float(evt.time_range.start), float(evt.time_range.end))
+        for evt in prof.events() if device_work(evt)], iters)
+    decode = out.pop("decode_names")
+    averages = [evt for evt in prof.key_averages() if device_work(evt)]
+    for key, names in (("kernels", False), ("decode_kernels", True)):
+        out[key] = kernel_rows(((evt.key, evt.count, _device_us(evt))
+                                for evt in averages
+                                if (evt.key in decode) == names), iters)
+    return out
+
+
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -58,62 +155,65 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def device_profile(fn: Callable[[], object], iters: int) -> Dict:
-    """{"device_busy_ms": device ms per call, "kernels": [{"name",
-    "ms_per_call", "launches_per_call"}, ...] by device time}; busy is None
-    when the profiler saw no device time."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = []
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        # A user range (e.g. the optimizer's step) is not a kernel.
-        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            kernels.append({"name": evt.key[:90],
-                            "ms_per_call": us / 1e3 / iters,
-                            "launches_per_call": evt.count / iters})
-    kernels.sort(key=lambda k: -k["ms_per_call"])
-    busy = sum(k["ms_per_call"] for k in kernels)
-    return {"device_busy_ms": busy if kernels else None, "kernels": kernels}
-
-
-def profile_train_step(state, step_fn, images, labels, iters: int = 20
-                       ) -> Dict:
-    """Wall and device time per step of ``step_fn(state, images, labels)``
-    (the loop's step: host-to-device copy of the uint8 batch included)
-    after 5 warm-up steps: the host clock over ``iters`` steps ending in a
-    synchronize, then ``iters`` more under the profiler."""
-    device = next(state.model.parameters()).device
+def host_batches(images: np.ndarray, labels: np.ndarray, device
+                 ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """One seeded host batch, copied to ``device`` at every step as the
+    loop's streaming path copies it (the labels once)."""
     lab = torch.from_numpy(labels).to(device)
+    while True:
+        yield torch.from_numpy(images).to(device), lab
+
+
+def profile_train_step(state, step_fn, batches, iters: int = 20,
+                       warmup: int = 5, probe=None) -> Dict:
+    """Wall and device time per step of ``step_fn(state, images, labels)``,
+    each step fed by ``next(batches)`` (batches on the device), after
+    ``warmup`` steps: the host clock over ``iters`` steps ending in a
+    synchronize, then ``iters`` more under the profiler. The idle shares
+    are the wall's share that the device (all streams) and the step's own
+    streams leave idle; a decode engine's work on its streams is counted
+    apart (``decode_device_ms_per_step``). ``probe()``, where given, is
+    read at the host clock's window's start and end (``probe``: the
+    two readings), e.g. the decode engine's ``stats``."""
+    images = None
 
     def one_step():
-        return step_fn(state, torch.from_numpy(images).to(device), lab)
+        nonlocal images
+        images, labels = next(batches)
+        return step_fn(state, images, labels)
 
-    for _ in range(5):
+    for _ in range(warmup):
         one_step()
     torch.cuda.synchronize()
+    probed = [probe()] if probe is not None else None
     t0 = time.perf_counter()
     for _ in range(iters):
         one_step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    if probe is not None:
+        probed.append(probe())
     prof = device_profile(one_step, iters)
-    busy = prof["device_busy_ms"]
     ours = {}
     for name, key in TRAIN_KERNELS.items():
         rows = [k for k in prof["kernels"] if key in k["name"]]
         ours[name] = {"ms_per_step": sum(k["ms_per_call"] for k in rows),
                       "launches_per_step": sum(k["launches_per_call"]
                                                for k in rows)}
+
+    def idle(busy):
+        return None if busy is None else 1 - busy / wall_ms
+
     batch = len(images)
     return {"batch": batch, "iters": iters, "wall_ms_per_step": wall_ms,
-            "device_busy_ms_per_step": busy,
-            "device_idle_share": None if busy is None else 1 - busy / wall_ms,
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "device_idle_share": idle(prof["device_busy_ms"]),
+            "step_busy_ms_per_step": prof["step_busy_ms"],
+            "step_idle_share": idle(prof["step_busy_ms"]),
+            "decode_device_ms_per_step": prof["decode_ms"],
             "images_per_s": batch * 1e3 / wall_ms,
             "launches_per_step": sum(k["launches_per_call"]
                                      for k in prof["kernels"]),
-            "port_kernels": ours, "kernels": prof["kernels"][:30]}
+            "port_kernels": ours, "kernels": prof["kernels"][:30],
+            "decode_kernels": prof["decode_kernels"][:8],
+            "streams": prof["streams"], "probe": probed}

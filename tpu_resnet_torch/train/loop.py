@@ -9,8 +9,10 @@
   decisions to ``<train_dir>/autotune.json``;
 - feed batches in the reference's order: from the device-resident split
   where ``data/device_data.should_use`` says so (the default for
-  CIFAR/synthetic), else streamed through a background thread and copied
-  to the device; augment them there with the reference's draws;
+  CIFAR/synthetic), ImageNet's from the decode engine (records read on the
+  host, decoded and cropped on the device: ``data/engine.py``), else
+  streamed through a background thread and copied to the device; augment
+  them there with the reference's draws;
 - log every ``train.log_every`` steps (loss, precision, lr, grad_norm,
   steps/s, images/s) to the logger and ``metrics.jsonl``;
 - checkpoint every ``train.checkpoint_every`` steps and at the end, but
@@ -67,7 +69,8 @@ IGNORED_KNOBS = (
     "train.profiler_port", "train.profile_steps", "train.telemetry_port",
     "train.mfu_accounting", "train.memory_ledger", "train.comms_ledger",
     "data.transfer_stage", "data.h2d_double_buffer", "mesh.partition",
-    "resilience.watchdog_stall_sec", "programs.cache")
+    "resilience.watchdog_stall_sec", "programs.cache",
+    "data.use_native_loader")
 
 
 def _knob(cfg, path: str):
@@ -168,6 +171,10 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
     step = last_ckpt_step = state.step
 
     def stream(start_step):
+        if cfg.data.dataset == "imagenet":  # the engine: its own workers
+            return data_lib.train_batches(
+                cfg.data, batch, seed=cfg.train.seed, start_step=start_step,
+                device=device, external_stop=shutdown.event)
         return BackgroundIterator(
             data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
                                    start_step=start_step),
@@ -192,7 +199,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     if shutdown.requested:
                         break
                     raise
-                images, labels = (torch.from_numpy(a).to(device)
+                images, labels = (torch.as_tensor(a, device=device)
                                   for a in host)
             m = train_step(state, images, labels)
             step = state.step
@@ -226,6 +233,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 rate = meter.rate(step)
                 if rate:
                     vals.update(rate)
+                if hasattr(host_iter, "stats"):
+                    vals.update(host_iter.stats())
                 log.info("step %d | loss %.4f | precision %.4f | lr %.4g | "
                          "grad_norm %.4g%s", step, vals["loss"],
                          vals["precision"], vals["learning_rate"],
