@@ -97,7 +97,9 @@ Phases, each printing one JSON line:
    just before and read just after: 49 ``sbr``, 49 ``sbr_bwd``, 1
    ``xent_fwd`` and 1 ``xent_bwd`` launches per step and none of the fused
    blocks; every loss finite and the mean of the last 10 below the mean of
-   the first 10; (c) ``train()`` again to step 120, resuming from 100; (d)
+   the first 10 (``train()`` at the preset's ``train.steps_per_call=10``:
+   with a log every step each chunk is one CUDA graph replay); (c)
+   ``train()`` again to step 120, resuming from 100; (d)
    ``evaluate`` once on checkpoint 120 (49 ``sbr`` per eval forward),
    printing its precision and loss; then ms/step, images/s, device-busy ms
    per step and idle share of the loop's step under ``torch.profiler``.
@@ -118,12 +120,14 @@ Phases, each printing one JSON line:
    B=``IMAGENET_GATE_BATCH``; (b) the loop's own step (``build_state`` +
    ``make_loop_step``, as ``train()`` builds them; the step alone, without
    the input pipeline of 11) for ``IMAGENET_STEPS`` bfloat16 steps on a
-   few seeded uint8 batches repeated, the counters zeroed just before and read
+   few seeded uint8 batches repeated, dispatched in chunks of the preset's
+   ``train.steps_per_call`` CUDA graph replays (``ChunkRunner``, every
+   step's metrics kept), the counters zeroed just before and read
    just after: 10 ``bottleneck_fwd``, 10 of each of the six bottleneck
    training kernels, 30 ``bottleneck_wgrad``, 19 ``sbr``, 19 ``sbr_bwd``,
    1 ``xent_fwd`` and 1 ``xent_bwd`` per step; every loss finite and the
-   mean of the last 5 below the first 5's; (c) the step's profile. Its
-   eval is 11's.
+   mean of the last 5 below the first 5's; (c) the eager step's profile
+   (12 profiles the graphed one). Its eval is 11's.
 
 8. ``autotune``: (a) ``ep.probe_epilogue(include_add=True)`` in bfloat16 at
    every ``model_epilogue_shapes`` shape of the ``cifar10`` and
@@ -190,6 +194,31 @@ Phases, each printing one JSON line:
    images/s, the step's streams' busy time and idle share, the decode
    streams' time (copies included) and the device's idle share over all
    streams, and the ring's decoded batches at the window's start and end.
+12. ``chunked_train``, after 11: multi-step dispatch. Per path (CIFAR-10
+   ResNet-50 unfused and fused, ImageNet ResNet-50 at 224x224 fed seeded
+   batches on the card in the decode engine's place; B=128, bf16),
+   ``train()`` three times from the same seeded state over the same steps
+   (``CHUNK_PATHS``: 200 steps, log and checkpoint every 100; ImageNet 30,
+   a log every 10): ``train.steps_per_call=1`` twice (eager; the second is
+   the control) and ``=10`` (CUDA graph replays). The graphed run's end
+   state (parameters, BN statistics, momentum buffers) and logged metrics
+   bit for bit the eager run's where the control is, else within
+   ``CONTROL_FACTOR`` times the control's normwise distance; launches
+   exactly ``PER_PASS`` a step in every run; the same ``metrics.jsonl``
+   steps and checkpoints. Per run: loop ms/step and images/s over the
+   steps after the first log interval, the capture's seconds, peak device
+   memory, and (not the control) its dispatch profiled on its end state
+   (busy, idle share); ``sbr_bwd``'s capture-stream tickets zero after the
+   replays; over the fused path's graphed profile the counters against
+   the profiler's kernel counts a step (reported, not gated). Then the fused path streamed from
+   the host (``data.device_resident=off``, graphed) at
+   ``data.transfer_stage=8`` with the double buffer on and off and at 1:
+   every batch the steps read and the loss stream bit for bit equal across
+   the three, the h2d stats printed; and whether ``torch.optim.SGD`` with
+   a tensor learning rate can be captured (a process of its own).
+
+Each phase line carries ``elapsed_s``, the seconds since the script
+started.
 
 The ``kernels`` phase also holds ``sbr_add`` (``tr_sbr_add``) against its
 plain version at the 14 probe shapes, bfloat16 and float32: the forward
@@ -342,6 +371,9 @@ TRAIN_PATHS = {
                             "eval_per_forward": PER_PASS["cifar10"]},
 }
 TRAIN_STEPS, RESUME_STEPS = 100, 120
+# Steps each profiled train step's host clock and profiler take (the
+# profiler's events take the host seconds to read).
+TRAIN_PROFILE_STEPS = 10
 # The ImageNet train phase: the loop's step on a fixed set of seeded uint8
 # 224x224 batches, repeated; the float32 step gate at IMAGENET_GATE_BATCH.
 IMAGENET_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
@@ -406,8 +438,13 @@ STATE_TOL = (1e-5, 1e-4)
 CONTROL_FACTOR = 4.0
 
 
+# The script's start, for each phase line's ``elapsed_s``.
+STARTED = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.monotonic() - STARTED}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -415,14 +452,16 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, queued: bool, reps: int = 20, inner: int = 10) -> float:
-    """CUDA-event median of ``reps`` runs of ``inner`` calls, per call.
+def time_ms(fn, queued: bool, reps: int = 10, inner: int = 10,
+            warmup: int = 3) -> float:
+    """CUDA-event median of ``reps`` runs of ``inner`` calls, per call,
+    after ``warmup`` calls.
 
     ``queued``: the calls are enqueued behind a ~10 ms device spin, so they
     run back to back and the events time the device alone; otherwise the
     events also take in the host's launch gaps (wrapper checks, ctypes,
     PyTorch dispatch), which dominate a kernel shorter than its launch."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -613,7 +652,7 @@ def kernel_args(kind: str, shape, dtype, gen) -> tuple:
             randn(f, c, scale=f ** -0.5), *sb(c), *sb(f), *sb(f))
 
 
-def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 20,
+def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 10,
            inner: int = 10, bound_of=None) -> dict:
     """Times of kernel and plain version into ``row``, and its bounds
     (``bound_of(flop_per_s)`` where given, else :func:`bound`)."""
@@ -1741,7 +1780,8 @@ def train_phase(path: str, counters, gpu: str) -> dict:
                                         cfg.data.num_classes, learnable=True)
         cuda = torch.device("cuda")
         prof = profile_train_step(state, make_loop_step(cfg, cuda),
-                                  host_batches(images, labels, cuda))
+                                  host_batches(images, labels, cuda),
+                                  iters=TRAIN_PROFILE_STEPS)
     finally:
         shutil.rmtree(train_dir, ignore_errors=True)
     # The loop's speed over the window of steps 2..TRAIN_STEPS (step 1 pays
@@ -1783,11 +1823,14 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     float32 kernel-vs-plain step gate (B=IMAGENET_GATE_BATCH), then the
     loop's own step (``build_state`` + ``make_loop_step``, as ``train()``
     builds them) for IMAGENET_STEPS steps on IMAGENET_BATCHES seeded uint8
-    batches repeated, the counters zeroed just before and read just after;
-    every loss finite and the mean of the last 5 below the first 5's; then
-    the step's device profile."""
+    batches repeated, dispatched as the loop does at the preset's
+    ``train.steps_per_call`` (chunks of CUDA graph replays,
+    ``ChunkRunner``), the counters zeroed just before and read just after;
+    every step's loss finite and the mean of the last 5 below the first
+    5's; then the step's device profile, eager and graphed."""
     from tpu_resnet_torch.config import load_config
-    from tpu_resnet_torch.tools.profiling import (host_batches,
+    from tpu_resnet_torch.data.device_data import WARMUP_STEPS, ChunkRunner
+    from tpu_resnet_torch.tools.profiling import (device_batches,
                                                   profile_train_step)
     from tpu_resnet_torch.train.loop import build_state, make_loop_step
 
@@ -1800,30 +1843,41 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     check(size == 224 and classes == 1000 and cfg.model.resnet_size == 50,
           f"imagenet preset: {size}x{size}, {classes} classes, "
           f"ResNet-{cfg.model.resnet_size}")
+    per_call = cfg.train.steps_per_call
+    check(per_call > 1, f"imagenet preset: steps_per_call {per_call}")
     cuda = torch.device("cuda")
     state = build_state(cfg, cuda)
     step_fn = make_loop_step(cfg, cuda)
     host = imagenet_batches(IMAGENET_BATCHES, TRAIN_BATCH, classes, size)
     batches = [(torch.from_numpy(im).to(cuda), torch.from_numpy(lb).to(cuda))
                for im, lb in host]
+    runner = ChunkRunner(step_fn, cuda, per_call, record_steps=True)
     torch.cuda.synchronize()
     zero_counts(counters)
     t0 = time.monotonic()
-    losses = [step_fn(state, *batches[i % IMAGENET_BATCHES])["loss"]
-              for i in range(IMAGENET_STEPS)]
+    for start in range(0, IMAGENET_STEPS, per_call):
+        runner.run_batches(state, [
+            batches[i % IMAGENET_BATCHES]
+            for i in range(start, min(start + per_call, IMAGENET_STEPS))])
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
     counts = read_counts(counters)
-    losses = [float(v) for v in losses]
+    losses = [float(m["loss"]) for m in runner.recorded]
+    capture_seconds = runner.capture_seconds
+    check(runner.replays == IMAGENET_STEPS - WARMUP_STEPS,
+          f"{runner.replays} replays for {IMAGENET_STEPS} steps")
+    runner.close()
     want = {k: n * IMAGENET_STEPS for k, n in PER_PASS[path].items()}
     check(counts == want, f"{path}: launch counts {counts} over "
           f"{IMAGENET_STEPS} steps, expected {want}")
     check(state.step == IMAGENET_STEPS, f"state at step {state.step}")
-    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(len(losses) == IMAGENET_STEPS and all(np.isfinite(losses)),
+          f"a loss is not finite: {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     check(last5 < first5, f"loss did not fall: first 5 mean {first5}, "
           f"last 5 {last5}")
-    prof = profile_train_step(state, step_fn, host_batches(*host[0], cuda),
+    prof = profile_train_step(state, step_fn,
+                              device_batches(*host[0], cuda),
                               iters=INPUT_PROFILE_STEPS)
     result = {
         "path": path,
@@ -1833,6 +1887,7 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
         "params": sum(p.numel() for p in state.model.parameters()),
         "f32_step_vs_plain": compared,
         "steps": IMAGENET_STEPS, "batches": IMAGENET_BATCHES,
+        "steps_per_call": per_call, "capture_seconds": capture_seconds,
         "train_seconds": seconds,
         "loop_ms_per_step_first_included": 1e3 * seconds / IMAGENET_STEPS,
         "launches": counts, "launches_per_step": PER_PASS[path],
@@ -1846,6 +1901,373 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     return result
 
 
+# The chunked_train phase: each path trained twice eagerly
+# (train.steps_per_call=1, the second the control) and once in chunks of
+# CHUNK_PER_CALL CUDA graph replays, from the same seeded state over the
+# same steps, log and checkpoint every CHUNK_LOG_EVERY[path] steps; the
+# ImageNet path's seeded batches (IMAGENET_BATCHES, on the card) stand in
+# for the decode engine. Then the streamed CIFAR run (fused) at
+# STREAM_STAGE with the double buffer on and off, against a stage of 1.
+CHUNK_PER_CALL = 10
+CHUNK_PATHS = {
+    "cifar10_train": ("cifar10", [*TRAIN_OVERRIDES], 200),
+    "cifar10_fused_train": ("cifar10", [*TRAIN_OVERRIDES,
+                                        "model.fused_blocks=true"], 200),
+    "imagenet_fused_train": ("imagenet", [*IMAGENET_OVERRIDES], 30),
+}
+CHUNK_LOG_EVERY = {"cifar10_train": 100, "cifar10_fused_train": 100,
+                   "imagenet_fused_train": 10}
+CHUNK_CHECKPOINT_EVERY = {"cifar10_train": 100, "cifar10_fused_train": 100,
+                          "imagenet_fused_train": 100}
+CHUNK_PROFILE_STEPS = 10
+STREAM_STEPS, STREAM_LOG_EVERY, STREAM_STAGE = 100, 10, 8
+# Launches of one wrapper call on the fused CIFAR train path, as the
+# profiler counts kernels (``tools/profiling.py`` TRAIN_KERNELS): block_fwd
+# from the stats' c1 one, block_stats two, block_bwd1 two, block_bwd2
+# three, block_bwd3, sbr, sbr_bwd and the xent pair one.
+LAUNCHES_PER_CALL = {"sbr": 1, "sbr_bwd": 1, "xent_fwd": 1, "xent_bwd": 1,
+                     "block_fwd": 1, "block_stats": 2, "block_bwd1": 2,
+                     "block_bwd2": 3, "block_bwd3": 1}
+# torch.optim.SGD stepped with a tensor learning rate inside a capture, in
+# a process of its own: does it read the rate on the host?
+SGD_TENSOR_LR_PROBE = """
+import torch
+p = torch.nn.Parameter(torch.ones(1024, device="cuda"))
+p.grad = torch.ones_like(p)
+opt = torch.optim.SGD([p], lr=torch.tensor(0.1, device="cuda"), momentum=0.9)
+opt.step()
+opt.step()
+torch.cuda.synchronize()
+graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+try:
+    with torch.cuda.graph(graph, stream=stream):
+        opt.step()
+    print("captured")
+except Exception as e:
+    print(f"capture failed: {type(e).__name__}: {str(e)[:300]}")
+"""
+
+
+def sgd_tensor_lr_probe() -> str:
+    out = subprocess.run([sys.executable, "-c", SGD_TENSOR_LR_PROBE],
+                         capture_output=True, text=True, timeout=300)
+    return (out.stdout.strip() or out.stderr.strip()[-300:]
+            or f"exit {out.returncode}")
+
+
+def state_tensors(state, recs) -> dict:
+    """A run's end state by name: parameters, BN statistics, momentum
+    buffers, and its logged metrics."""
+    out = {f"state {n}": t for n, t in state.model.state_dict().items()}
+    out.update({f"momentum {n}": t
+                for n, t in state.momentum_buffers().items()})
+    for r in recs:
+        for k in ("loss", "precision", "learning_rate", "grad_norm"):
+            out[f"metric {k}@{r['step']}"] = torch.tensor(r[k],
+                                                          dtype=torch.float64)
+    return out
+
+
+def run_distance(got: dict, want: dict) -> dict:
+    """Normwise ‖got − want‖ / ‖want‖ per tensor: the worst, the tensors
+    that differ at all, and whether every one is bit for bit equal."""
+    check(set(got) == set(want), "the runs hold different tensors")
+    rel = {}
+    for name, w in want.items():
+        g = got[name].double().cpu()
+        w = w.double().cpu()
+        rel[name] = float((g - w).norm() / max(float(w.norm()), 1e-30))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    equal = all(torch.equal(got[n].cpu(), want[n].cpu()) for n in want)
+    return {"bit_equal": equal, "worst_rel": worst[0][1],
+            "tensors_differing": sum(v > 0 for v in rel.values()),
+            "tensors": len(rel), "worst_tensors": worst[:4]}
+
+
+@contextlib.contextmanager
+def seeded_device_stream(batches):
+    """Route the loop's ImageNet ``data.train_batches`` to seeded batches
+    already on the card, cycled from the requested step (what the decode
+    engine hands the step)."""
+    from tpu_resnet_torch import data as data_lib
+    real = data_lib.train_batches
+
+    def seeded(data_cfg, local_batch, seed=0, start_step=0, **kwargs):
+        return (batches[i % len(batches)]
+                for i in itertools.count(start_step))
+
+    data_lib.train_batches = seeded
+    try:
+        yield
+    finally:
+        data_lib.train_batches = real
+
+
+def chunk_arm(path: str, counters, per_call: int, seeded,
+              profiled: bool = True) -> dict:
+    """One arm of the chunked_train phase: ``train()`` on ``path`` at
+    ``train.steps_per_call=per_call``; its metrics, checkpoints, launch
+    counts, loop speed over the steps after the first log interval, peak
+    memory and capture seconds, then (``profiled``) its dispatch profiled
+    on its own end state, with the counters' launches over the profile."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.data.cifar import synthetic_data
+    from tpu_resnet_torch.data.device_data import ChunkRunner
+    from tpu_resnet_torch.tools.profiling import (device_batches,
+                                                  profile_train_chunks,
+                                                  profile_train_step)
+    from tpu_resnet_torch.train import checkpoint
+    from tpu_resnet_torch.train.loop import make_loop_step, train
+
+    preset, overrides, steps = CHUNK_PATHS[path]
+    log_every = CHUNK_LOG_EVERY[path]
+    cuda = torch.device("cuda")
+    train_dir = tempfile.mkdtemp(prefix=f"chip_smoke_chunk_{path}_")
+    try:
+        cfg = load_config(preset, "", [
+            *overrides, f"train.train_dir={train_dir}",
+            f"train.train_steps={steps}", f"train.log_every={log_every}",
+            f"train.checkpoint_every={CHUNK_CHECKPOINT_EVERY[path]}",
+            f"train.steps_per_call={per_call}"])
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        t0 = time.monotonic()
+        with (seeded_device_stream(seeded) if preset == "imagenet"
+              else contextlib.nullcontext()):
+            state = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        counts = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        check(state.step == steps, f"{path}: train() stopped at {state.step}")
+        want = {k: n * steps for k, n in PER_PASS[path].items()}
+        check(counts == want, f"{path} steps_per_call={per_call}: launch "
+              f"counts {counts}, expected {want}")
+        with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        saved = checkpoint.all_steps_in(train_dir)
+        tensors = {n: t.detach().clone()
+                   for n, t in state_tensors(state, recs).items()}
+        if preset == "imagenet":
+            images, labels = (t.cpu().numpy() for t in seeded[0])
+        else:
+            images, labels = synthetic_data(TRAIN_BATCH, 32,
+                                            cfg.data.num_classes,
+                                            learnable=True)
+        step_fn = make_loop_step(cfg, cuda)
+        prof, runner, profiled_counts = {}, None, None
+        zero_counts(counters)
+        before = state.step
+        if profiled and per_call == 1:
+            prof = profile_train_step(state, step_fn,
+                                      device_batches(images, labels, cuda),
+                                      iters=CHUNK_PROFILE_STEPS)
+        elif profiled:
+            runner = ChunkRunner(step_fn, cuda, per_call)
+            prof = profile_train_chunks(
+                state, runner, device_batches(images, labels, cuda),
+                per_call, chunks=CHUNK_PROFILE_STEPS // per_call)
+        if profiled:
+            torch.cuda.synchronize()
+            walked = max(1, state.step - before)
+            profiled_counts = {k: n / walked
+                               for k, n in read_counts(counters).items()}
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    first, last = recs[0], recs[-1]
+    window_steps = last["step"] - first["step"]
+    wall = last["wall"] - first["wall"]
+    arm = {"steps_per_call": per_call, "steps": steps,
+           "train_seconds": seconds,
+           "logged_steps": [r["step"] for r in recs],
+           "checkpoints": saved, "launches": counts,
+           "loop_window_steps": window_steps, "loop_window_s": wall,
+           "loop_ms_per_step": 1e3 * wall / window_steps,
+           "loop_images_per_s": TRAIN_BATCH * window_steps / wall,
+           "capture_seconds": next((r["capture_seconds"] for r in recs
+                                    if "capture_seconds" in r), None),
+           "max_memory_allocated_bytes": peak,
+           "losses": {str(r["step"]): r["loss"] for r in recs},
+           "profile": {k: v for k, v in prof.items() if k != "kernels"},
+           "profile_top_kernels": prof.get("kernels", [])[:8]}
+    return {"arm": arm, "tensors": tensors, "runner": runner,
+            "profiled_counts": profiled_counts}
+
+
+def profiler_window(arm: dict) -> dict:
+    """The runner's counted launches a step against the profiler's kernels
+    a step over the graphed fused CIFAR arm's profiled window (counts are
+    wrapper calls, times each call's launches)."""
+    counted, kernels = arm["profiled_counts"], arm["arm"]["profile"][
+        "port_kernels"]
+    out = {name: {"counted": counted[name] * per,
+                  "profiled": round(kernels[name]["launches_per_step"], 3)}
+           for name, per in LAUNCHES_PER_CALL.items()}
+    short = {k: v for k, v in out.items() if v["profiled"] < v["counted"]}
+    return {"steps": CHUNK_PROFILE_STEPS, "launches_per_step": out,
+            "profiler_short": short}
+
+
+def streamed_arms(counters) -> dict:
+    """The fused CIFAR path streamed from the host
+    (``data.device_resident=off``), graphed: STREAM_STEPS steps at a stage
+    of STREAM_STAGE with the double buffer on and off, and at a stage of 1;
+    every batch the steps read and the loss stream bit for bit equal across
+    the three, and the double buffer's h2d stats."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.data import device_data
+    from tpu_resnet_torch.train.loop import train
+
+    arms = {"stage8_double_buffer": (STREAM_STAGE, "true"),
+            "stage8_generator": (STREAM_STAGE, "false"),
+            "stage1": (1, "true")}
+    real = device_data.ChunkRunner._run
+    out, fed = {}, {}
+
+    def tapped(self, state, c, batch_at):
+        def at(i):
+            images, labels = batch_at(i)
+            fed[arm].append((images.clone(), labels.clone()))
+            return images, labels
+        return real(self, state, c, at)
+
+    device_data.ChunkRunner._run = tapped
+    try:
+        for arm, (stage, double) in arms.items():
+            fed[arm] = []
+            train_dir = tempfile.mkdtemp(prefix=f"chip_smoke_stream_{arm}_")
+            try:
+                cfg = load_config("cifar10", "", [
+                    *CHUNK_PATHS["cifar10_fused_train"][1],
+                    "data.device_resident=off",
+                    f"data.transfer_stage={stage}",
+                    f"data.h2d_double_buffer={double}",
+                    f"train.train_dir={train_dir}",
+                    f"train.train_steps={STREAM_STEPS}",
+                    f"train.log_every={STREAM_LOG_EVERY}",
+                    f"train.checkpoint_every={STREAM_STEPS}",
+                    f"train.steps_per_call={CHUNK_PER_CALL}"])
+                zero_counts(counters)
+                t0 = time.monotonic()
+                state = train(cfg, device="cuda")
+                torch.cuda.synchronize()
+                seconds = time.monotonic() - t0
+                counts = read_counts(counters)
+                with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+                    recs = [json.loads(line) for line in f]
+            finally:
+                shutil.rmtree(train_dir, ignore_errors=True)
+            want = {k: n * STREAM_STEPS for k, n in
+                    PER_PASS["cifar10_fused_train"].items()}
+            check(state.step == STREAM_STEPS and counts == want,
+                  f"streamed {arm}: step {state.step}, launches {counts}")
+            del state
+            wall = recs[-1]["wall"] - recs[0]["wall"]
+            steps = recs[-1]["step"] - recs[0]["step"]
+            out[arm] = {
+                "transfer_stage": stage, "h2d_double_buffer": double,
+                "train_seconds": seconds,
+                "loop_ms_per_step": 1e3 * wall / steps,
+                "loop_images_per_s": TRAIN_BATCH * steps / wall,
+                "losses": [r["loss"] for r in recs],
+                "h2d": [{k: r[k] for k in ("step", "h2d_bytes_per_sec",
+                                           "h2d_overlap_frac")}
+                        for r in recs if "h2d_bytes_per_sec" in r]}
+    finally:
+        device_data.ChunkRunner._run = real
+    base = fed["stage1"]
+    for arm in arms:
+        check(len(fed[arm]) == STREAM_STEPS, f"streamed {arm}: "
+              f"{len(fed[arm])} batches for {STREAM_STEPS} steps")
+        differ = [i for i, ((a, b), (c, d)) in enumerate(zip(fed[arm], base))
+                  if not (torch.equal(a, c) and torch.equal(b, d))]
+        check(not differ, f"streamed {arm}: batches {differ[:8]} differ "
+              f"from the stage-1 stream's")
+        check(out[arm]["losses"] == out["stage1"]["losses"],
+              f"streamed {arm}: losses {out[arm]['losses']} against "
+              f"{out['stage1']['losses']}")
+        out[arm]["batches_equal"] = len(fed[arm])
+    check(out["stage8_double_buffer"]["h2d"], "no h2d stats logged")
+    return out
+
+
+def gc_collect() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def chunked_train_phase(counters, gpu: str) -> dict:
+    """Multi-step dispatch on the card (``train.steps_per_call``): per
+    path of ``CHUNK_PATHS``, two eager runs and one in chunks of CUDA graph
+    replays from the same seeded state over the same steps. The graphed
+    run's end state (parameters, BN statistics, momentum buffers) and
+    logged metrics are bit for bit the eager run's where the two eager
+    runs are, else within ``CONTROL_FACTOR`` times the control's normwise
+    distance; every run's launch counts are exact (``PER_PASS`` a step);
+    all write the same metrics.jsonl steps and checkpoints. Each arm's
+    loop speed, device busy time and idle share, capture seconds and peak
+    memory; the counters against the profiler over a graphed window of the
+    fused CIFAR path; the streamed runs (``streamed_arms``); and whether
+    ``torch.optim.SGD`` can be captured with a tensor learning rate."""
+    from tpu_resnet_torch.ops import epilogue as ep
+
+    paths = {}
+    window_check = None
+    for path, (preset, _, steps) in CHUNK_PATHS.items():
+        seeded = None
+        if preset == "imagenet":
+            cuda = torch.device("cuda")
+            seeded = [(torch.from_numpy(im).to(cuda),
+                       torch.from_numpy(lb).to(cuda)) for im, lb in
+                      imagenet_batches(IMAGENET_BATCHES, TRAIN_BATCH, 1000,
+                                       224)]
+        runs = {}
+        for name, per_call in (("eager", 1), ("eager_control", 1),
+                               ("graphed", CHUNK_PER_CALL)):
+            runs[name] = chunk_arm(path, counters, per_call, seeded,
+                                   profiled=name != "eager_control")
+            runner = runs[name].pop("runner")
+            if runner is not None:
+                tickets = [t for key, t in ep._bwd_tickets.items()
+                           if key[1] == runner._stream.cuda_stream]
+                check(len(tickets) == 1 and not tickets[0].any(),
+                      f"{path}: sbr_bwd's capture-stream tickets "
+                      f"{[t.nonzero().numel() for t in tickets]}")
+                if path == "cifar10_fused_train":
+                    window_check = profiler_window(runs[name])
+                runner.close()
+            gc_collect()
+        eager = runs["eager"]
+        control = run_distance(runs["eager_control"]["tensors"],
+                               eager["tensors"])
+        graphed = run_distance(runs["graphed"]["tensors"], eager["tensors"])
+        if control["bit_equal"]:
+            ok = graphed["bit_equal"]
+        else:
+            ok = (graphed["worst_rel"]
+                  <= CONTROL_FACTOR * control["worst_rel"])
+        check(ok, f"{path}: graphed against eager {graphed}, control "
+              f"{control}")
+        arms = {name: r["arm"] for name, r in runs.items()}
+        for name in ("eager_control", "graphed"):
+            for key in ("logged_steps", "checkpoints"):
+                check(arms[name][key] == arms["eager"][key],
+                      f"{path} {name}: {key} {arms[name][key]}, eager "
+                      f"{arms['eager'][key]}")
+        paths[path] = {"steps": steps, "log_every": CHUNK_LOG_EVERY[path],
+                       "graphed_vs_eager": graphed,
+                       "control_vs_eager": control,
+                       "control_factor": CONTROL_FACTOR, "arms": arms}
+    streamed = streamed_arms(counters)
+    result = {"steps_per_call": CHUNK_PER_CALL, "paths": paths,
+              "profiler_window": window_check, "streamed": streamed,
+              "sgd_tensor_lr_capture": sgd_tensor_lr_probe(), "gpu": gpu}
+    emit("chunked_train", **result)
+    return result
+
+
 # The ImageNet input phase: JPEG shards made at run time from the committed
 # fixtures' payloads (tests/fixtures/imagenet, 28 JPEGs), cycled with seeded
 # labels 1..1000: INPUT_TRAIN_SHARDS of INPUT_PER_SHARD records (ten
@@ -1855,7 +2277,7 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures", "imagenet")
 INPUT_TRAIN_SHARDS, INPUT_PER_SHARD, INPUT_VALIDATION = 8, 160, 250
-INPUT_STEPS, INPUT_RESUME_AT, INPUT_PROFILE_STEPS = 30, 20, 30
+INPUT_STEPS, INPUT_RESUME_AT, INPUT_PROFILE_STEPS = 30, 20, 15
 # At most this many steps fed by a fresh engine before its profiled window.
 INPUT_SETTLE_MAX = 60
 INPUT_OVERRIDES = [*IMAGENET_OVERRIDES,
@@ -2051,7 +2473,9 @@ def decode_stage_measure(root: str, cfg) -> dict:
         resize_err = int((kernel.int() - plain_resize().int()).abs().max())
         ms = time_ms(lambda: jd.resize_crop(src, *tabs), queued=True)
         call_ms = time_ms(lambda: jd.resize_crop(src, *tabs), queued=False)
-        plain_ms = time_ms(plain_resize, queued=False, reps=3, inner=1)
+        # ~0.25 s an image on the host: one call, warmed by the check above.
+        plain_ms = time_ms(plain_resize, queued=False, reps=1, inner=1,
+                           warmup=0)
         bound_ms, bound_by = resize_bound(sizes, tables, size)
 
         # The parts' times: nvJPEG's decodes, the whole stage per batch.
@@ -2875,6 +3299,7 @@ def main() -> int:
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))
+    chunked_train_phase(counters, gpu)
     trained.append(autotune_phase(counters, gpu))
     trained += ab_phase(counters, gpu)
     trained += [grad_phase(preset, counters, gpu)

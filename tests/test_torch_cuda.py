@@ -1085,3 +1085,169 @@ def test_imagenet_engine_on_the_card_is_the_synchronous_decode(cuda):
         assert torch.equal(labels.cpu(), one[3][1])
     finally:
         stage.close()
+
+
+# ------------------------------------------------ multi-step dispatch
+def _resnet8_run(cuda, per_call, steps=10, chunk=4, overrides=()):
+    """CIFAR ResNet-8, B=16, the loop's step on the resident split
+    (synthetic data), ``steps`` steps in chunks of at most ``chunk``
+    through a ChunkRunner at ``per_call``; returns (state, runner, every
+    step's metrics)."""
+    from tpu_resnet_torch.data.cifar import load_split
+    from tpu_resnet_torch.data.device_data import ChunkRunner, DeviceDataset
+    cfg = load_config("cifar10", "", [
+        "data.dataset=synthetic", "data.synthetic_learnable=true",
+        "data.synthetic_train_examples=256", "model.resnet_size=8",
+        "model.fused_epilogue=on", "optim.use_pallas_xent=on",
+        "train.global_batch_size=16", *overrides])
+    ds = DeviceDataset(*load_split(cfg.data, train=True), 16, cuda)
+    state = build_state(cfg, cuda)
+    runner = ChunkRunner(make_loop_step(cfg, cuda), cuda, per_call, ds,
+                         record_steps=True)
+    while state.step < steps:
+        c = min(chunk, per_call, steps - state.step,
+                ds.steps_per_epoch - state.step % ds.steps_per_epoch)
+        runner.run(state, state.step, c)
+    torch.cuda.synchronize()
+    return state, runner, runner.recorded
+
+
+def _run_tensors(state, metrics):
+    out = dict(state.model.state_dict())
+    out.update({f"momentum {n}": b
+                for n, b in state.momentum_buffers().items()})
+    for i, m in enumerate(metrics):
+        out.update({f"{k}@{i}": torch.as_tensor(v) for k, v in m.items()})
+    return out
+
+
+def test_graphed_step_equals_the_eager_step(cuda):
+    """Ten steps in chunks of 4, 4, 2 as CUDA graph replays (two eager
+    warm-up steps, then the capture) against ten eager steps: bit for bit
+    where two eager runs are, else within 4x their normwise distance."""
+    eager = _run_tensors(*_resnet8_run(cuda, 1)[::2])
+    again = _run_tensors(*_resnet8_run(cuda, 1)[::2])
+    state, runner, metrics = _resnet8_run(cuda, 4)
+    assert runner.graph is not None and runner.replays == 8
+    graphed = _run_tensors(state, metrics)
+    assert set(graphed) == set(eager)
+
+    def worst(a, b):
+        return max(float((a[n].double() - b[n].double()).norm()
+                         / max(float(b[n].double().norm()), 1e-30))
+                   for n in b)
+
+    control = worst(again, eager)
+    if control == 0:
+        for n in eager:
+            assert torch.equal(graphed[n], eager[n]), n
+    else:
+        assert worst(graphed, eager) <= 4 * control
+
+
+def test_launch_counters_count_replays(cuda):
+    """A replay moves no Python counter: the runner adds the capture's
+    increments once per replay, so ten graphed steps count what ten eager
+    steps count (7 sbr, 7 sbr_bwd, 1 + 1 xent a step at ResNet-8)."""
+    from tpu_resnet_torch.data.device_data import launch_counters
+    counters = launch_counters()
+    before = [getattr(m, a) for m, a in counters]
+    _, runner, _ = _resnet8_run(cuda, 4)
+    moved = {a if m is ep else f"{m.__name__.rsplit('.', 1)[1]}.{a}":
+             getattr(m, a) - n for (m, a), n in zip(counters, before)
+             if getattr(m, a) != n}
+    assert moved == {"launches": 70, "bwd_launches": 70,
+                     "softmax_xent.fwd_launches": 10,
+                     "softmax_xent.bwd_launches": 10}, moved
+    assert runner._increments
+
+
+def test_sbr_bwd_tickets_are_zero_after_every_replay(cuda):
+    """sbr_bwd's tickets for the capture stream exist before the capture
+    (the warm-up made them) and every replay leaves them zero."""
+    from tpu_resnet_torch.data.cifar import load_split
+    from tpu_resnet_torch.data.device_data import ChunkRunner, DeviceDataset
+    state, runner, _ = _resnet8_run(cuda, 4, steps=3, chunk=1)
+    key = (torch.cuda.current_device(), runner._stream.cuda_stream)
+    assert key in ep._bwd_tickets
+    for _ in range(5):
+        runner.run(state, state.step, 1)
+        torch.cuda.synchronize()
+        assert not ep._bwd_tickets[key].any()
+    assert runner.replays == 6
+
+
+def test_capture_of_an_unprobed_auto_shape_raises(cuda):
+    """model.fused_epilogue=auto with no probe: the eager warm-up takes the
+    plain version, the capture raises instead of freezing that choice."""
+    autotune.reset()
+    try:
+        with pytest.raises(autotune.UnprobedUnderCapture,
+                           match="steps_per_call=1"):
+            _resnet8_run(cuda, 4, steps=4,
+                         overrides=["model.fused_epilogue=auto"])
+    finally:
+        autotune.reset()
+
+
+def test_sgd_update_replays_the_eager_update(cuda):
+    """The explicit update with a tensor learning rate, captured and
+    replayed, equals the eager update bit for bit."""
+    from tpu_resnet_torch.train.state import create_state, sgd_update
+    cfg = load_config("smoke", "", [])
+    states = []
+    for graphed in (False, True):
+        model = init_weights(build_model(cfg), torch.Generator().manual_seed(
+            0)).to("cuda")
+        state = create_state(model, cfg.optim)
+        lr = torch.tensor(0.1, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        grads = [[torch.randn(p.shape, generator=gen, device="cuda")
+                  for p in model.parameters()] for _ in range(4)]
+        slots = [torch.zeros_like(p) for p in model.parameters()]
+        for p, g in zip(model.parameters(), slots):
+            p.grad = g
+        graph = None
+        for i, gs in enumerate(grads):
+            for slot, g in zip(slots, gs):
+                slot.copy_(g)
+            lr.fill_(0.1 / (i + 1))
+            if not graphed or i < 2:
+                sgd_update(state, lr)
+                continue
+            if graph is None:
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    sgd_update(state, lr)
+            graph.replay()
+        torch.cuda.synchronize()
+        states.append(state)
+    for (n, a), b in zip(states[0].model.state_dict().items(),
+                         states[1].model.state_dict().values()):
+        assert torch.equal(a, b), n
+    ma, mb = states[0].momentum_buffers(), states[1].momentum_buffers()
+    assert all(torch.equal(ma[n], mb[n]) for n in ma)
+
+
+def test_double_buffered_h2d_on_the_card(cuda):
+    """The double buffer's superbatches on the card equal the generator
+    form's, a partial last stage included, read after the consumer's
+    stream waited for their copy."""
+    import numpy as np
+    from tpu_resnet_torch.data import pipeline
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 255, (128, 32, 32, 3)).astype(np.uint8),
+                rng.integers(0, 10, 128).astype(np.int32))
+               for _ in range(19)]
+    want = [(a.cpu(), b.cpu(), k) for a, b, k in
+            pipeline.staged_superbatch_prefetch(iter(batches), cuda,
+                                                stage=8)]
+    db = pipeline.DoubleBufferedH2D(iter(batches), cuda, stage=8)
+    got = [(a.cpu(), b.cpu(), k) for a, b, k in db]
+    stats = db.stats()
+    db.close()
+    assert [k for *_, k in got] == [k for *_, k in want] == [8, 8, 3]
+    for (a, b, _), (c, d, _) in zip(got, want):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    assert stats["h2d_bytes_per_sec"] > 0

@@ -105,7 +105,8 @@ class DataConfig:
     # b128, bandwidth-bound link): stage 4/8/16 → 88.1/96.4/104.4 st/s;
     # 8 takes most of the amortization at half 16's staging HBM.
     transfer_stage: int = 8
-    # Double-buffered H2D prefetch (data/pipeline.py::DoubleBufferedH2D):
+    # Double-buffered H2D prefetch (data/pipeline.py::DoubleBufferedH2D;
+    # the port stacks in pinned memory and copies on a stream of its own):
     # a producer thread assembles the NEXT staged superbatch and runs its
     # host->device transfer to completion while the loop dispatches
     # compute on the current one — an explicit two-slot device buffer,
@@ -293,14 +294,18 @@ class TrainConfig:
     # Continuous-eval sidecar (resnet_cifar_eval.py:140-143)
     eval_interval_secs: int = 60
     eval_once: bool = False
-    # Steps fused into one dispatch via lax.scan (amortizes host→device
-    # command latency) — governs BOTH fused paths: device-resident chunks
-    # and staged streaming superbatches (there additionally capped by
-    # data.transfer_stage). 1 = one dispatch per step; chunks are clipped
-    # to log/checkpoint/epoch boundaries so all intervals are honored
-    # exactly. Measured (v5e r3, resident CIFAR rn50 b128): k=10 →
-    # 203.3 st/s, k=50 → 195.8 — the curve is flat past 10, and 10 keeps
-    # log/checkpoint clipping cheap.
+    # Steps per dispatch (amortizes host→device command latency): the
+    # reference fuses them with lax.scan; on CUDA the port runs a chunk as
+    # that many replays of one CUDA graph of the step
+    # (data/device_data.py ChunkRunner), on the CPU as eager steps.
+    # Governs BOTH fused paths: device-resident chunks and staged
+    # streaming superbatches (there additionally capped by
+    # data.transfer_stage). 1 = one dispatch per step (the eager step);
+    # chunks are clipped to log/checkpoint/epoch boundaries so all
+    # intervals are honored exactly. The reference's measurement (TPU v5e
+    # r3, resident CIFAR rn50 b128): k=10 → 203.3 st/s, k=50 → 195.8 —
+    # the curve is flat past 10, and 10 keeps log/checkpoint clipping
+    # cheap.
     steps_per_call: int = 10
     # Profiling (tools/profiling.py): port for the live jax.profiler
     # service (0 = off) and an optional "start:stop" step window traced

@@ -19,11 +19,17 @@ already random-resized and cropped to 224x224): uint8 → [0, 1], a p=0.5
 horizontal flip drawn from the step key, minus the VGG means. As for
 CIFAR, the draw (:func:`imagenet_flips`) and the pure function of the flip
 mask (:func:`flip_mean_subtract`) are apart.
+
+:class:`StepAugment` is the train step's view of both: ``draws(step, b)``
+on the host, ``apply(images, *draws)`` on the device with no host read, so
+that a captured step takes its draws from device slots.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -91,10 +97,15 @@ def cifar_train_augment(images: torch.Tensor,
     """uint8 [B,32,32,3] → standardized float32: 2-pixel zero pad, random
     32x32 crop, random horizontal flip, per-image standardization, with
     the reference's draws from ``key`` (:func:`cifar_draws`)."""
-    off_h, off_w, flip = (torch.from_numpy(a) for a in
-                          cifar_draws(key, images.shape[0]))
-    return per_image_standardization(
-        crop_flip(images.float(), off_h, off_w, flip))
+    return cifar_apply(images, *(torch.from_numpy(a) for a in
+                                 cifar_draws(key, images.shape[0])))
+
+
+@functools.lru_cache(maxsize=None)
+def _vgg_means(device: torch.device) -> torch.Tensor:
+    """The VGG means as a float32 [3] tensor on ``device``, made once (a
+    captured step may not copy them in)."""
+    return torch.tensor(VGG_MEANS_01, device=device)
 
 
 def flip_mean_subtract(images: torch.Tensor,
@@ -103,7 +114,7 @@ def flip_mean_subtract(images: torch.Tensor,
     where ``flip[i]`` (bool [B]), minus the VGG means."""
     x = images.float() / 255.0
     x = torch.where(flip.to(images.device)[:, None, None, None], x.flip(2), x)
-    return x - torch.tensor(VGG_MEANS_01, device=images.device)
+    return x - _vgg_means(images.device)
 
 
 def imagenet_train_augment(images: torch.Tensor,
@@ -113,6 +124,36 @@ def imagenet_train_augment(images: torch.Tensor,
     minus the VGG means."""
     return flip_mean_subtract(
         images, torch.from_numpy(imagenet_flips(key, images.shape[0])))
+
+
+def cifar_apply(images: torch.Tensor, off_h: torch.Tensor,
+                off_w: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """:func:`cifar_train_augment` given its draws (device tensors)."""
+    return per_image_standardization(
+        crop_flip(images.float(), off_h, off_w, flip))
+
+
+class StepAugment:
+    """A dataset's training augmentation for the train step with the
+    reference's draws for ``(seed, step)`` (:func:`step_key`):
+    ``draws(step, b)``, numpy arrays made on the host, and
+    ``apply(images, *draws)``, their device tensors applied on the
+    images' device with no host read. ``images`` are uint8 [B,H,W,3]."""
+
+    def __init__(self, dataset: str, seed: int):
+        if dataset == "imagenet":
+            self._draw = lambda key, b: (imagenet_flips(key, b),)
+            self.apply = flip_mean_subtract
+        elif dataset in ("cifar10", "cifar100", "synthetic"):
+            self._draw = cifar_draws
+            self.apply = cifar_apply
+        else:
+            raise ValueError(f"no training augmentation for dataset "
+                             f"{dataset!r}")
+        self.seed = seed
+
+    def draws(self, step: int, b: int) -> Tuple[np.ndarray, ...]:
+        return tuple(self._draw(step_key(self.seed, step), b))
 
 
 def get_train_augment(dataset: str):
@@ -132,8 +173,7 @@ def cifar_eval_preprocess(images: torch.Tensor) -> torch.Tensor:
 def imagenet_eval_preprocess(images: torch.Tensor) -> torch.Tensor:
     """uint8 [B,H,W,3], already resized and cropped → [0,1] minus the VGG
     means."""
-    means = torch.tensor(VGG_MEANS_01, device=images.device)
-    return images.float() / 255.0 - means
+    return images.float() / 255.0 - _vgg_means(images.device)
 
 
 def get_eval_preprocess(dataset: str):

@@ -24,6 +24,10 @@ the host's launch gaps, both arms of every probe shape of the CIFAR and
 ImageNet ResNet-50 took 0.8–1.7 ms per call on an NVIDIA H100 80GB HBM3
 at 700 W (PERF.md §6), and the choice fell on noise.
 
+Inside a CUDA graph capture (the loop's graphed train step) nothing may
+be timed and no choice may be frozen that no probe made: a probe, or a
+dispatch on a shape no probe covered, raises :class:`UnprobedUnderCapture`.
+
 One departure from the reference: there, a kernel candidate that fails to
 compile or run is recorded as a plain-arm decision and training goes on.
 Here it raises. A kernel that does not build or launch is a fault to see,
@@ -92,11 +96,32 @@ def reset() -> None:
         _decisions.clear()
 
 
+def capturing() -> bool:
+    """True while this thread's current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+class UnprobedUnderCapture(RuntimeError):
+    """An ``auto`` dispatch met a shape no probe covered while a CUDA graph
+    was being captured: a probe cannot be timed inside a capture, and a
+    graph must not freeze a choice nobody made."""
+
+
 def use_kernel(op: str, key: str, default: bool = False) -> bool:
     """True only where a probe chose the kernel for (op, key); an unprobed
-    shape takes ``default``."""
+    shape takes ``default``, and raises :class:`UnprobedUnderCapture`
+    inside a CUDA graph capture."""
     d = decision(op, key)
-    return default if d is None else d.use_pallas
+    if d is None:
+        if capturing():
+            raise UnprobedUnderCapture(
+                f"autotune: no probe covered {op}[{key}] before the train "
+                f"step was captured; probe it first (the loop probes every "
+                f"shape of the configured model), or run "
+                f"train.steps_per_call=1")
+        return default
+    return d.use_pallas
 
 
 def _record(d: Decision) -> Decision:
@@ -180,6 +205,10 @@ def probe(op: str, key: str, kernel_fn: Callable, plain_fn: Callable,
     existing = decision(op, key)
     if existing is not None and not force:
         return existing
+    if capturing():
+        raise UnprobedUnderCapture(
+            f"autotune: a timed probe of {op}[{key}] was asked for inside a "
+            f"CUDA graph capture")
     plain_us = _timed_us(plain_fn, args, iters)
     kernel_us = _timed_us(kernel_fn, args, iters)
     speedup = round(plain_us / kernel_us, 4) if kernel_us > 0 else 0.0

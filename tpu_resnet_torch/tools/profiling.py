@@ -8,10 +8,12 @@ copies included, is the decode's; the other streams are the step's. Busy
 times are unions of intervals, so that work overlapping on two streams
 counts once: the device's busy time over all streams, the step's over its
 own. The rows by name (launches, device ms) are the profiler's per-name
-averages. :func:`profile_train_step` times the train loop's step that way,
-fed by any iterator of batches on the device (seeded ones copied in by
-:func:`host_batches`, or the decode engine's);
-``tools/profile_torch_train.py`` and ``chip_smoke.py`` print it.
+averages. :func:`profile_train_step` times the train loop's eager step
+that way, :func:`profile_train_chunks` its chunked dispatch (CUDA graph
+replays), each fed by any iterator of batches on the device (seeded ones
+copied in by :func:`host_batches`, or the decode engine's); figures are
+per step; ``tools/profile_torch_train.py`` and ``chip_smoke.py`` print
+them.
 """
 
 from __future__ import annotations
@@ -164,6 +166,16 @@ def host_batches(images: np.ndarray, labels: np.ndarray, device
         yield torch.from_numpy(images).to(device), lab
 
 
+def device_batches(images: np.ndarray, labels: np.ndarray, device
+                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """One seeded batch copied to ``device`` once and fed at every step,
+    as the device-resident split feeds its views."""
+    batch = (torch.from_numpy(images).to(device),
+             torch.from_numpy(labels).to(device))
+    while True:
+        yield batch
+
+
 def profile_train_step(state, step_fn, batches, iters: int = 20,
                        warmup: int = 5, probe=None) -> Dict:
     """Wall and device time per step of ``step_fn(state, images, labels)``,
@@ -175,45 +187,79 @@ def profile_train_step(state, step_fn, batches, iters: int = 20,
     apart (``decode_device_ms_per_step``). ``probe()``, where given, is
     read at the host clock's window's start and end (``probe``: the
     two readings), e.g. the decode engine's ``stats``."""
-    images = None
-
     def one_step():
-        nonlocal images
         images, labels = next(batches)
-        return step_fn(state, images, labels)
+        step_fn(state, images, labels)
+        return len(images)
 
+    return _profile_calls(one_step, 1, iters, warmup, probe)
+
+
+def profile_train_chunks(state, runner, batches, steps_per_call: int,
+                         chunks: int = 4, warmup: int = 2,
+                         probe=None) -> Dict:
+    """:func:`profile_train_step` for the loop's chunked dispatch: each
+    call is one chunk of ``steps_per_call`` steps through ``runner``
+    (``data/device_data.py`` ``ChunkRunner.run_batches``: CUDA graph
+    replays where the runner is graphed), fed ``steps_per_call`` batches
+    of ``batches``; ``chunks`` chunks timed by the host clock, as many
+    profiled; every figure per step. ``warmup`` chunks run first (they
+    capture the step)."""
+    def one_chunk():
+        fed = [next(batches) for _ in range(steps_per_call)]
+        runner.run_batches(state, fed)
+        return len(fed[0][0])
+
+    out = _profile_calls(one_chunk, steps_per_call, chunks, warmup, probe)
+    out.update(steps_per_call=steps_per_call,
+               graphed=bool(getattr(runner, "graphed", False)))
+    return out
+
+
+def _profile_calls(call: Callable[[], int], steps: int, iters: int,
+                   warmup: int, probe) -> Dict:
+    """``call()`` runs ``steps`` train steps and returns the batch size;
+    the figures of :func:`profile_train_step`, per step."""
     for _ in range(warmup):
-        one_step()
+        call()
     torch.cuda.synchronize()
     probed = [probe()] if probe is not None else None
     t0 = time.perf_counter()
     for _ in range(iters):
-        one_step()
+        batch = call()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (iters * steps)
     if probe is not None:
         probed.append(probe())
-    prof = device_profile(one_step, iters)
+    prof = device_profile(call, iters)
+    kernels = [{**k, "ms_per_call": k["ms_per_call"] / steps,
+                "launches_per_call": k["launches_per_call"] / steps}
+               for k in prof["kernels"]]
     ours = {}
     for name, key in TRAIN_KERNELS.items():
-        rows = [k for k in prof["kernels"] if key in k["name"]]
+        rows = [k for k in kernels if key in k["name"]]
         ours[name] = {"ms_per_step": sum(k["ms_per_call"] for k in rows),
                       "launches_per_step": sum(k["launches_per_call"]
                                                for k in rows)}
 
+    def per_step(ms):
+        return None if ms is None else ms / steps
+
     def idle(busy):
         return None if busy is None else 1 - busy / wall_ms
 
-    batch = len(images)
-    return {"batch": batch, "iters": iters, "wall_ms_per_step": wall_ms,
-            "device_busy_ms_per_step": prof["device_busy_ms"],
-            "device_idle_share": idle(prof["device_busy_ms"]),
-            "step_busy_ms_per_step": prof["step_busy_ms"],
-            "step_idle_share": idle(prof["step_busy_ms"]),
-            "decode_device_ms_per_step": prof["decode_ms"],
+    busy = {k: per_step(prof[k]) for k in ("device_busy_ms", "step_busy_ms",
+                                            "decode_ms")}
+    return {"batch": batch, "iters": iters * steps,
+            "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy["device_busy_ms"],
+            "device_idle_share": idle(busy["device_busy_ms"]),
+            "step_busy_ms_per_step": busy["step_busy_ms"],
+            "step_idle_share": idle(busy["step_busy_ms"]),
+            "decode_device_ms_per_step": busy["decode_ms"],
             "images_per_s": batch * 1e3 / wall_ms,
             "launches_per_step": sum(k["launches_per_call"]
-                                     for k in prof["kernels"]),
-            "port_kernels": ours, "kernels": prof["kernels"][:30],
+                                     for k in kernels),
+            "port_kernels": ours, "kernels": kernels[:30],
             "decode_kernels": prof["decode_kernels"][:8],
             "streams": prof["streams"], "probe": probed}

@@ -99,7 +99,9 @@ class CheckpointManager:
 
     def restore(self, state, discard_failed: bool = False):
         """Load the newest restorable checkpoint into ``state``:
-        parameters, running statistics, momentum buffers and step. A step
+        parameters, running statistics, momentum buffers and step, each
+        written into the tensor that holds it (a CUDA graph captured on
+        them stays valid across a rollback or a resume). A step
         that fails to load (a torn or corrupt file) is logged and the next
         older one tried, as the reference's fallback does; if none loads,
         raise with the newest error. ``discard_failed`` (the trainer's

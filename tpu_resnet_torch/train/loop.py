@@ -1,5 +1,5 @@
 """The training loop (port of the core of ``tpu_resnet/train/loop.py``
-``train()``), on one device, one step per dispatch:
+``train()``), on one device:
 
 - build the model (seeded from ``train.seed``), schedule and train state,
   and resume from the newest restorable checkpoint in ``train.train_dir``;
@@ -11,10 +11,16 @@
   where ``data/device_data.should_use`` says so (the default for
   CIFAR/synthetic), ImageNet's from the decode engine (records read on the
   host, decoded and cropped on the device: ``data/engine.py``), else
-  streamed through a background thread and copied to the device; augment
-  them there with the reference's draws;
+  streamed through a background thread and copied to the device
+  (:func:`build_train_iterator`); augment them there with the reference's
+  draws;
+- dispatch them in chunks (the reference's three branches: resident,
+  staged, one batch at a time), each clipped by :func:`_chunk_len` to the
+  next log, summary, image-summary, checkpoint, epoch or stop boundary, so
+  that every interval fires at the steps a one-step loop fires it;
 - log every ``train.log_every`` steps (loss, precision, lr, grad_norm,
-  steps/s, images/s) to the logger and ``metrics.jsonl``;
+  steps/s, images/s, the input's stats, the capture's seconds once) to the
+  logger and ``metrics.jsonl``;
 - checkpoint every ``train.checkpoint_every`` steps and at the end, but
   never a state whose loss is not finite;
 - on a non-finite loss at a log boundary (``resilience.nan_guard``), roll
@@ -22,15 +28,37 @@
   stream restarts at the bad step, the device-resident split replays
   ``batch_at(step)``; after ``resilience.nan_max_retries`` rollbacks, or
   with no checkpoint, raise ``DivergenceError``;
-- on SIGTERM/SIGINT, stop before the next step, save a final checkpoint
+- on SIGTERM/SIGINT, stop before the next chunk, save a final checkpoint
   and raise ``Preempted`` (the CLI exits 42);
 - on any other exception in flight (``resilience.emergency_save``), save
   the unsaved progress once, then let the exception go on.
 
+The NaN guard, the checkpoint skip, the stop and the emergency save act
+at chunk boundaries, as in the reference.
+
+What the reference's dispatch knobs mean here:
+
+- ``train.steps_per_call = 1`` is the reference's one dispatch per step:
+  the eager step, one Python call per op.
+- ``train.steps_per_call = k > 1`` is the reference's fused multi-step
+  dispatch. On CUDA each chunk of ``c <= k`` steps is ``c`` replays of one
+  captured train step (``data/device_data.py`` ``ChunkRunner``): no host
+  read inside a chunk, and the metrics are the chunk's last step's. A
+  step that cannot be captured raises, naming ``steps_per_call=1``; there
+  is no eager fallback. On the CPU the same runner runs ``c`` eager steps
+  with the same chunk boundaries.
+- ``data.transfer_stage = s > 1`` (streamed host batches): ``s`` batches
+  are stacked in pinned memory and copied to the device in one transfer;
+  ``data.h2d_double_buffer`` does that on a producer thread and a copy
+  stream into a two-slot device buffer (``data/pipeline.py``), and its
+  ``h2d_*`` stats go to ``metrics.jsonl``. On the ImageNet engine path
+  the batches are on the device already: the stage only groups them into
+  chunks, and ``h2d_double_buffer`` changes nothing.
+
 The reference loop's other features are not in this slice (ROADMAP lists
-them): multi-step dispatch, staged and double-buffered transfer, spans,
-telemetry, MFU and memory ledgers, the watchdog, fault injection and
-elastic resume. Their knobs are accepted and logged as ignored.
+them): spans, telemetry, MFU and memory ledgers, the watchdog, fault
+injection and elastic resume. Their knobs are accepted and logged as
+ignored.
 """
 
 from __future__ import annotations
@@ -44,7 +72,7 @@ import torch
 
 from tpu_resnet_torch import data as data_lib
 from tpu_resnet_torch.data import augment as aug_lib
-from tpu_resnet_torch.data import device_data
+from tpu_resnet_torch.data import device_data, pipeline
 from tpu_resnet_torch.data.cifar import load_split
 from tpu_resnet_torch.data.pipeline import BackgroundIterator
 from tpu_resnet_torch.device import resolve_device
@@ -65,11 +93,10 @@ log = logging.getLogger("tpu_resnet_torch")
 
 # Knobs of the reference loop that this slice accepts and does not act on.
 IGNORED_KNOBS = (
-    "train.steps_per_call", "train.summary_every", "train.image_summary_every",
+    "train.summary_every", "train.image_summary_every",
     "train.profiler_port", "train.profile_steps", "train.telemetry_port",
     "train.mfu_accounting", "train.memory_ledger", "train.comms_ledger",
-    "data.transfer_stage", "data.h2d_double_buffer", "mesh.partition",
-    "resilience.watchdog_stall_sec", "programs.cache",
+    "mesh.partition", "resilience.watchdog_stall_sec", "programs.cache",
     "data.use_native_loader")
 
 
@@ -87,19 +114,16 @@ def build_state(cfg, device: torch.device) -> TrainState:
 
 
 def make_loop_step(cfg, device: torch.device):
-    """The loop's ``train_step(state, uint8 images, labels)``: the dataset's
+    """The loop's ``TrainStep`` on uint8 images and labels: the dataset's
     augmentation on ``device`` with the reference's draws for
-    ``(train.seed, step)`` (``aug_lib.step_key``), then the train step
+    ``(train.seed, step)`` (``aug_lib.StepAugment``), then the train step
     (whose ``use_pallas_xent=auto`` probe runs here)."""
-    augment = aug_lib.get_train_augment(cfg.data.dataset)
-    seed = cfg.train.seed
-
-    def augment_fn(images, step):
-        return augment(images, aug_lib.step_key(seed, step))
-
     return make_train_step(cfg.optim,
                            sched_lib.build_schedule(cfg.optim, cfg.train),
-                           cfg.data.num_classes, augment_fn, device=device,
+                           cfg.data.num_classes,
+                           aug_lib.StepAugment(cfg.data.dataset,
+                                               cfg.train.seed),
+                           device=device,
                            xent_probe_batch=cfg.train.global_batch_size)
 
 
@@ -137,6 +161,69 @@ def build_step(cfg, device: torch.device):
     return train_step
 
 
+def build_train_iterator(cfg, device: torch.device, start_step: int = 0,
+                         stop_event=None):
+    """The streaming input from ``start_step`` (reference
+    ``build_train_iterator``): ``(data_iter, stage, host_iter)``.
+    ``host_iter`` is the source the loop closes: the decode engine for
+    ImageNet, else a :class:`BackgroundIterator` over the host batches.
+    With ``data.transfer_stage`` = 1, ``data_iter`` yields one batch at a
+    time (host arrays the loop copies in, or the engine's batches on the
+    device); above 1 it yields stages ``(images, labels, k)``: the
+    engine's batches grouped as they are (nothing to transfer), host
+    batches stacked in pinned memory and copied once per stage, by a
+    producer thread into a two-slot device buffer
+    (``data.h2d_double_buffer``, :class:`DoubleBufferedH2D`) or on the
+    loop's thread (:func:`staged_superbatch_prefetch`)."""
+    stage = max(1, cfg.data.transfer_stage)
+    batch = cfg.train.global_batch_size
+    if cfg.data.dataset == "imagenet":  # the engine: its own workers
+        engine = data_lib.train_batches(
+            cfg.data, batch, seed=cfg.train.seed, start_step=start_step,
+            device=device, external_stop=stop_event)
+        if stage > 1:
+            return pipeline.device_stages(engine, stage), stage, engine
+        return engine, 1, engine
+    host_iter = BackgroundIterator(
+        data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
+                               start_step=start_step),
+        capacity=stage * cfg.data.prefetch + 2, external_stop=stop_event)
+    if stage == 1:
+        return host_iter, 1, host_iter
+    if cfg.data.h2d_double_buffer:
+        return pipeline.DoubleBufferedH2D(
+            host_iter, device, stage=stage, depth=cfg.data.prefetch,
+            external_stop=stop_event), stage, host_iter
+    return pipeline.staged_superbatch_prefetch(
+        host_iter, device, stage=stage,
+        depth=cfg.data.prefetch), stage, host_iter
+
+
+def _chunk_len(step: int, total: int, train_cfg, steps_per_epoch: int,
+               extra_boundaries: tuple = ()) -> int:
+    """Steps to run in the next fused dispatch: at most ``steps_per_call``,
+    clipped so the chunk ends exactly on the next log/summary/checkpoint/
+    epoch/stop boundary — every interval fires at precisely the same steps
+    a one-dispatch-per-step loop would fire them. ``extra_boundaries`` are
+    absolute steps (e.g. a profiler trace window) chunks must not straddle."""
+    k = max(1, train_cfg.steps_per_call)
+    for interval in (train_cfg.log_every, train_cfg.summary_every,
+                     train_cfg.image_summary_every,
+                     train_cfg.checkpoint_every, steps_per_epoch):
+        if interval > 0:
+            k = min(k, interval - step % interval)
+    for b in extra_boundaries:
+        if b > step:
+            k = min(k, b - step)
+    return min(k, total - step)
+
+
+def _close_input(*iters) -> None:
+    for it in iters:
+        if hasattr(it, "close"):
+            it.close()
+
+
 def train(cfg, device: Optional[str] = None) -> TrainState:
     """Run training to ``cfg.train.train_steps``; returns the final state."""
     device = resolve_device(device)
@@ -152,12 +239,16 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
     train_step = build_step(cfg, device)
     total = cfg.train.train_steps
     batch = cfg.train.global_batch_size
+    per_call = max(1, cfg.train.steps_per_call)
+    graphed = device.type == "cuda" and per_call > 1
     log.info("training %s-%d/%s to step %d on %s | params %.2fM | batch %d "
-             "| input %s (data.device_resident=%s)",
+             "| input %s (data.device_resident=%s) | dispatch %s",
              cfg.model.name, cfg.model.resnet_size, cfg.data.dataset, total,
              device, param_count(state.model) / 1e6, batch,
              "device-resident" if resident else "streaming",
-             cfg.data.device_resident)
+             cfg.data.device_resident,
+             f"chunks of <= {per_call} CUDA graph replays" if graphed
+             else f"eager, chunks of <= {per_call} steps")
     log.info("this slice ignores: %s", ", ".join(
         f"{k}={_knob(cfg, k)}" for k in IGNORED_KNOBS))
 
@@ -167,18 +258,9 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
         enabled=cfg.resilience.graceful_shutdown).install()
     sentinel = NaNSentinel(cfg.resilience.nan_max_retries,
                            enabled=cfg.resilience.nan_guard)
-    host_iter = ds = m = None
+    host_iter = data_iter = ds = m = runner = None
+    stage = 1
     step = last_ckpt_step = state.step
-
-    def stream(start_step):
-        if cfg.data.dataset == "imagenet":  # the engine: its own workers
-            return data_lib.train_batches(
-                cfg.data, batch, seed=cfg.train.seed, start_step=start_step,
-                device=device, external_stop=shutdown.event)
-        return BackgroundIterator(
-            data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
-                                   start_step=start_step),
-            capacity=cfg.data.prefetch + 2, external_stop=shutdown.event)
 
     try:
         if resident:
@@ -186,36 +268,62 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 *load_split(cfg.data, train=True), batch, device,
                 seed=cfg.train.seed)
         else:
-            host_iter = stream(step)
+            data_iter, stage, host_iter = build_train_iterator(
+                cfg, device, step, shutdown.event)
+        runner = device_data.ChunkRunner(train_step, device, per_call, ds)
         meter.rate(step)
         first = True
+        capture_logged = False
+        stage_buf = None  # the current stage: (images, labels, k, offset)
         while step < total and not shutdown.requested:
-            if ds is not None:
-                images, labels = ds.batch_at(step)
-            else:
-                try:
-                    host = next(host_iter)
+            if resident:
+                m = runner.run(state, step, _chunk_len(
+                    step, total, cfg.train, ds.steps_per_epoch))
+            elif stage > 1:
+                if stage_buf is None:
+                    try:
+                        stage_buf = (*next(data_iter), 0)
+                    except StopIteration:
+                        if shutdown.requested:
+                            break
+                        raise
+                gi, gl, n, off = stage_buf
+                # Up to the stage's end, clipped to the next log or
+                # checkpoint boundary (the reference's staged branch).
+                c = min(n - off, _chunk_len(step, total, cfg.train, 0))
+                try:  # the engine's stages take each batch as it comes
+                    m = runner.run_staged(state, gi, gl, off, c)
                 except StopIteration:
                     if shutdown.requested:
                         break
                     raise
-                images, labels = (torch.as_tensor(a, device=device)
-                                  for a in host)
-            m = train_step(state, images, labels)
+                stage_buf = (None if off + c >= n
+                             else (gi, gl, n, off + c))
+            else:
+                try:
+                    host = next(data_iter)
+                except StopIteration:
+                    if shutdown.requested:
+                        break
+                    raise
+                m = runner.run_batches(state, [tuple(
+                    torch.as_tensor(a, device=device) for a in host)])
             step = state.step
             if first:
-                # The first step pays the kernel builds and cuDNN's plan
-                # search: keep it out of the first logged rate.
+                # The first chunk pays the kernel builds, cuDNN's plan
+                # search and the capture: keep it out of the first rate.
                 first = False
                 float(m["loss"])
                 meter.rate(step)
             if step % cfg.train.log_every == 0 or step == total:
                 vals = {k: float(v) for k, v in m.items()}
                 if sentinel.check(step, vals["loss"]):
-                    # Roll back to the newest checkpoint. The stream is a
-                    # function of (seed, step): restarting it at the bad
-                    # step feeds the replayed steps the batches after the
-                    # bad window; the resident split replays batch_at.
+                    # Roll back to the newest checkpoint (written into the
+                    # state's own tensors, so a captured step stays
+                    # valid). The stream is a function of (seed, step):
+                    # restarting it at the bad step feeds the replayed
+                    # steps the batches after the bad window; the resident
+                    # split replays batch_at.
                     if ckpt.latest_step() is None:
                         raise sentinel.no_checkpoint(step, vals["loss"])
                     bad_step = step
@@ -224,17 +332,26 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     log.warning("nan rollback from step %d to checkpoint "
                                 "step %d (retry %d)", bad_step, step,
                                 sentinel.rollbacks)
-                    if host_iter is not None:
-                        host_iter.close()
-                        host_iter = stream(bad_step)
+                    if not resident:
+                        _close_input(data_iter, host_iter)
+                        data_iter, stage, host_iter = build_train_iterator(
+                            cfg, device, bad_step, shutdown.event)
+                        stage_buf = None
                     m = None
                     meter.rate(step)
                     continue
                 rate = meter.rate(step)
                 if rate:
                     vals.update(rate)
-                if hasattr(host_iter, "stats"):
-                    vals.update(host_iter.stats())
+                # The engine's decode stats; the double buffer's h2d stats
+                # (each read once: a read starts the next interval).
+                for it in ((host_iter,) if data_iter is host_iter
+                           else (host_iter, data_iter)):
+                    if hasattr(it, "stats"):
+                        vals.update(it.stats())
+                if runner.capture_seconds is not None and not capture_logged:
+                    capture_logged = True
+                    vals["capture_seconds"] = runner.capture_seconds
                 log.info("step %d | loss %.4f | precision %.4f | lr %.4g | "
                          "grad_norm %.4g%s", step, vals["loss"],
                          vals["precision"], vals["learning_rate"],
@@ -277,8 +394,9 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                             "(%s: %s)", step, type(e).__name__, e)
         raise
     finally:
-        if host_iter is not None:
-            host_iter.close()
+        _close_input(data_iter, host_iter)
+        if runner is not None:
+            runner.close()
         metrics.close()
         shutdown.uninstall()
     if shutdown.requested and step < total:

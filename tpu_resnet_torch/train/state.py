@@ -1,12 +1,17 @@
 """The train state: step, model (parameters and BN running statistics) and
 optimizer (port of ``tpu_resnet/train/state.py``).
 
-The optimizer matches optax's ``sgd`` with the reference's settings:
-``momentum`` is ``sgd(lr, momentum=0.9)`` (``v ← g + m·v``, ``p ← p −
-lr·v``), ``sgd`` has no momentum. ``torch.optim.SGD`` with dampening 0,
-no Nesterov and no weight decay computes exactly that; the train step sets
-the learning rate from the schedule before every update. Weight decay is
-not the optimizer's: the reference adds the L2 term to the loss
+The update is optax's ``sgd`` with the reference's settings: ``momentum``
+is ``sgd(lr, momentum=0.9)`` (``v ← g + m·v``, ``p ← p + (−lr)·v``),
+``sgd`` has no momentum. :func:`sgd_update` writes it out as
+``torch._foreach_*`` calls on a learning rate held in a 0-dim float32
+tensor on the parameters' device, so that no host read happens in it and a
+CUDA graph can replay it: ``torch.optim.SGD`` passes a tensor learning
+rate as ``alpha=-lr``, which reads it on the host. The optimizer object
+stays as the holder of the momentum buffers (``optimizer.state[p]
+["momentum_buffer"]``, created at the first momentum step as
+``torch.optim.SGD`` creates them) and of the momentum factor. Weight decay
+is not the optimizer's: the reference adds the L2 term to the loss
 (``train/step.py``), which interacts with momentum differently.
 """
 
@@ -35,21 +40,64 @@ class TrainState:
                 out[name] = buf
         return out
 
-    def load_momentum_buffers(self, buffers: Dict[str, torch.Tensor]) -> None:
-        """Set momentum buffers by parameter name (an unknown name raises)."""
+    def load_momentum_buffers(self, buffers: Dict[str, torch.Tensor]
+                              ) -> None:
+        """Set the momentum buffers to ``buffers``, by parameter name (an
+        unknown name raises). A buffer that exists is written in place, so
+        that a captured step that reads and writes it stays valid; one
+        that does not is created; an existing one that ``buffers`` lacks
+        (a checkpoint saved before the first momentum step) is zeroed in
+        place, and the next step then computes ``g + m·0 = g``, as it
+        would from no buffer."""
         params = dict(self.model.named_parameters())
         unknown = set(buffers) - set(params)
         if unknown:
             raise KeyError(f"momentum buffers for unknown parameters: "
                            f"{sorted(unknown)[:5]}")
-        for name, buf in buffers.items():
-            p = params[name]
-            self.optimizer.state[p]["momentum_buffer"] = buf.to(
-                device=p.device, dtype=p.dtype).clone()
+        with torch.no_grad():
+            for name, p in params.items():
+                state = self.optimizer.state[p]
+                old = state.get("momentum_buffer")
+                if name in buffers:
+                    if old is None:
+                        state["momentum_buffer"] = buffers[name].to(
+                            device=p.device, dtype=p.dtype).clone()
+                    else:
+                        old.copy_(buffers[name])
+                elif old is not None:
+                    old.zero_()
+
+
+def sgd_update(state: TrainState, lr: torch.Tensor) -> None:
+    """One optax ``sgd``/``momentum`` update of every parameter that has a
+    gradient, ``lr`` a 0-dim float32 tensor on their device; reads nothing
+    on the host. A parameter without a momentum buffer gets ``clone(g)``
+    (``torch.optim.SGD``'s first step; optax's ``g + m·0``); once every
+    buffer exists, the update is ``v ← m·v + g``, ``p ← p + (−lr)·v``."""
+    momentum = state.optimizer.param_groups[0]["momentum"]
+    params = [p for p in state.model.parameters() if p.grad is not None]
+    grads = [p.grad for p in params]
+    with torch.no_grad():
+        if momentum == 0:
+            updates = grads
+        else:
+            slots = [state.optimizer.state[p] for p in params]
+            updates = [s.get("momentum_buffer") for s in slots]
+            have = [i for i, buf in enumerate(updates) if buf is not None]
+            if have:
+                bufs = [updates[i] for i in have]
+                torch._foreach_mul_(bufs, momentum)
+                torch._foreach_add_(bufs, [grads[i] for i in have])
+            for i, buf in enumerate(updates):
+                if buf is None:
+                    updates[i] = slots[i]["momentum_buffer"] = torch.clone(
+                        grads[i]).detach()
+        torch._foreach_add_(params, torch._foreach_mul(updates, -lr))
 
 
 def build_optimizer(optim_cfg, model: nn.Module) -> torch.optim.Optimizer:
-    """SGD over ``model``'s parameters; the learning rate is set per step."""
+    """The holder of the momentum buffers and factor over ``model``'s
+    parameters (:func:`sgd_update` runs the update)."""
     if optim_cfg.optimizer == "sgd":
         momentum = 0.0
     elif optim_cfg.optimizer == "momentum":

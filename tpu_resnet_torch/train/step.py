@@ -5,7 +5,8 @@ Step semantics, as the reference's:
   parameters (BN scale/bias and the dense bias included unless
   ``optim.weight_decay_on_bn=false``), in float32;
 - BN running statistics update inside the forward (``train=True``);
-- the learning rate is ``schedule(step)`` read before the step moves;
+- the learning rate is ``schedule(step)`` read before the step moves, as
+  a float32 tensor on the device (:class:`TrainStep`);
 - metrics: loss, precision (argmax == label), learning_rate and grad_norm,
   the global L2 norm of the full gradient, penalty included.
 
@@ -21,14 +22,14 @@ with label smoothing, it takes the plain chain, as the reference's
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_resnet_torch.ops import softmax_xent as sx
-from tpu_resnet_torch.train.state import TrainState
+from tpu_resnet_torch.train.state import TrainState, sgd_update
 
 XENT_MODES = {"true": "on", "1": "on", "yes": "on",
               "false": "off", "0": "off", "no": "off"}
@@ -82,15 +83,71 @@ def check_step_config(cfg) -> None:
     xent_mode(cfg.optim)
 
 
+class TrainStep:
+    """``train_step(state, images, labels) -> metrics``, the eager step,
+    which updates ``state`` in place; and its two halves, which a captured
+    step replays (``data/device_data.py`` ``ChunkRunner``):
+
+    - ``host_inputs(step, b)``: on the host, the step's learning rate
+      ``schedule(step)`` and its augmentation draws (numpy arrays);
+    - ``core(state, images, labels, lr, *draws)``: on the device, with
+      ``lr`` a 0-dim float32 tensor and the draws as tensors: augmentation,
+      forward, loss, backward, the global gradient norm and the SGD update
+      (``train/state.py`` ``sgd_update``). It reads nothing on the host and
+      leaves ``state.step`` to its caller.
+
+    The eager step runs ``core`` on ``lr`` and the draws copied to the
+    images' device, so both compute the same thing. Metrics are 0-dim
+    tensors on the device (no host sync): loss, precision, learning_rate,
+    grad_norm."""
+
+    def __init__(self, loss_fn: Callable, schedule: Callable[[int], float],
+                 augment=None):
+        self.loss_fn = loss_fn
+        self.schedule = schedule
+        self.augment = augment
+
+    def host_inputs(self, step: int, b: int) -> Tuple[float, tuple]:
+        draws = (self.augment.draws(step, b) if self.augment is not None
+                 else ())
+        return self.schedule(step), draws
+
+    def core(self, state: TrainState, images: torch.Tensor,
+             labels: torch.Tensor, lr: torch.Tensor,
+             *draws: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.augment is not None:
+            images = self.augment.apply(images, *draws)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, logits = self.loss_fn(state.model, images, labels)
+        loss.backward()
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        grad_norm = torch.sqrt(torch.stack(
+            [torch.square(g.float()).sum() for g in grads]).sum())
+        sgd_update(state, lr)
+        with torch.no_grad():
+            precision = (logits.argmax(-1) == labels).float().mean()
+        return {"loss": loss.detach(), "precision": precision,
+                "learning_rate": lr, "grad_norm": grad_norm}
+
+    def __call__(self, state: TrainState, images: torch.Tensor,
+                 labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        lr, draws = self.host_inputs(state.step, images.shape[0])
+        dev = images.device
+        m = self.core(state, images, labels,
+                      torch.tensor(lr, dtype=torch.float32, device=dev),
+                      *(torch.from_numpy(d).to(dev) for d in draws))
+        state.step += 1
+        return m
+
+
 def make_train_step(optim_cfg, schedule: Callable[[int], float],
-                    num_classes: int,
-                    augment_fn: Optional[Callable] = None,
-                    device=None, xent_probe_batch: Optional[int] = None):
-    """Returns ``train_step(state, images, labels) -> metrics``, which
-    updates ``state`` in place. ``images`` are raw uint8 with
-    ``augment_fn(images, step)`` applied on their device, or pre-processed
-    floats (``augment_fn=None``). Metrics are 0-dim tensors on the device
-    (no host sync) except ``learning_rate``. Under
+                    num_classes: int, augment=None,
+                    device=None, xent_probe_batch: Optional[int] = None
+                    ) -> TrainStep:
+    """The :class:`TrainStep`. ``images`` are raw uint8 with ``augment``
+    (a ``data.augment.StepAugment``) applied on their device, or
+    pre-processed floats (``augment=None``). Under
     ``use_pallas_xent=auto`` on a CUDA ``device`` the cross-entropy A/B
     runs here, at (``xent_probe_batch``, ``num_classes``)."""
     mode = xent_mode(optim_cfg)
@@ -113,28 +170,7 @@ def make_train_step(optim_cfg, schedule: Callable[[int], float],
             model, optim_cfg.weight_decay_on_bn)
         return xent + penalty, logits
 
-    def train_step(state: TrainState, images: torch.Tensor,
-                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if augment_fn is not None:
-            images = augment_fn(images, state.step)
-        lr = schedule(state.step)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, logits = loss_fn(state.model, images, labels)
-        loss.backward()
-        grads = [p.grad for p in state.model.parameters()
-                 if p.grad is not None]
-        grad_norm = torch.sqrt(torch.stack(
-            [torch.square(g.float()).sum() for g in grads]).sum())
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        with torch.no_grad():
-            precision = (logits.argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "precision": precision,
-                "learning_rate": lr, "grad_norm": grad_norm}
-
-    return train_step
+    return TrainStep(loss_fn, schedule, augment)
 
 
 def make_eval_step(num_classes: int,
