@@ -216,6 +216,33 @@ Phases, each printing one JSON line:
    every batch the steps read and the loss stream bit for bit equal across
    the three, the h2d stats printed; and whether ``torch.optim.SGD`` with
    a tensor learning rate can be captured (a process of its own).
+13. ``observability``, after 12: per path of ``OBS_PATHS`` (ImageNet
+   ResNet-50 fused on seeded batches on the card, 30 steps; CIFAR-10
+   ResNet-50 fused, 100 steps; B=128, graphed at ``steps_per_call=10``),
+   ``train()`` with observability on
+   (``train.telemetry_port=0``, the FLOPs and memory ledgers, the
+   watchdog at ``OBS_WATCHDOG_SEC``), ``/metrics`` and ``/healthz``
+   scraped from a thread every 50 ms while it runs, the counters zeroed
+   just before and read just after (launches exactly ``PER_PASS`` a
+   step): ``step``, ``images_per_sec``, ``mfu``, ``model_flops_per_sec``
+   and the ``hbm_bytes_*`` gauges present and finite; ``mfu`` (logged and
+   scraped) equal to ``flops.json``'s count × steps/s ÷ the card's peak
+   to ``MFU_RTOL``; ``memory.json``'s peak within ``MEMORY_RTOL`` of
+   ``torch.cuda.max_memory_allocated()`` over the run; ``events.jsonl``
+   parsed. The same run with observability off: end state and
+   loss/precision bit for bit, both runs' loop ms/step and their
+   difference (reported); the ImageNet run's launches join the
+   ``kernels`` line. Then the drills on CIFAR-10 ResNet-50 fused,
+   graphed, at full depth: a ``DRILL_STALL`` data stall on the streamed
+   path against a 1 s watchdog (one stack dump, /healthz 200 → 503 → 200,
+   the two watchdog spans); SIGTERM at step ``DRILL_SIGTERM_AT``
+   (``Preempted`` there, its checkpoint, the resumed run bit for bit the
+   uninterrupted one, else within ``CONTROL_FACTOR`` times a control's
+   distance); the uninterrupted run's newest checkpoint corrupted
+   (``resilience.inject_corrupt_ckpt``: the restore falls back to the one
+   before); a synthetic RESOURCE_EXHAUSTED at step 20 (an
+   ``oom_report.json`` that ``validate_oom_report`` passes, with the
+   allocator's stats).
 
 Each phase line carries ``elapsed_s``, the seconds since the script
 started.
@@ -241,6 +268,7 @@ shape, and per path also over one backward of the grad phase;
 ``launches`` is the count over the phases that drive the main paths:
 both serve phases, the train and eval runs of both CIFAR train phases, the
 ImageNet train steps, the JPEG-fed ImageNet train, resume and eval runs,
+the observability phase's ImageNet run with observability on,
 both parts of the autotune phase, the ``ab`` phase's counted calls and the
 ``grad`` phase) and, last, ``resize_crop`` (phase 11's B=128 batch; its
 launches over the train, resume and eval runs; ``library_ms`` null: no
@@ -263,6 +291,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -2268,6 +2297,424 @@ def chunked_train_phase(counters, gpu: str) -> dict:
     return result
 
 
+# The observability phase: ImageNet ResNet-50 fused, graphed, on seeded
+# batches on the card (the decode engine's place), and CIFAR-10 ResNet-50
+# fused, graphed (OBS_PATHS), each with observability on (telemetry on an
+# ephemeral port, scraped from a thread during the run; the FLOPs and
+# memory ledgers; the watchdog) and off; then the fault drills on the
+# CIFAR-10 ResNet-50 fused path, graphed, at full depth (DRILL_* below).
+OBS_LOG_EVERY, OBS_WATCHDOG_SEC = 10, 600
+OBS_PATHS = {  # path: (preset, overrides, steps)
+    "imagenet_fused_train": ("imagenet", [
+        *IMAGENET_OVERRIDES, f"train.global_batch_size={TRAIN_BATCH}"], 30),
+    "cifar10_fused_train": ("cifar10", [*TRAIN_OVERRIDES,
+                                        "model.fused_blocks=true"], 100)}
+OBS_ON = ["train.telemetry_port=0", "train.mfu_accounting=true",
+          "train.memory_ledger=true",
+          f"resilience.watchdog_stall_sec={OBS_WATCHDOG_SEC}"]
+OBS_OFF = ["train.telemetry_port=-1", "train.mfu_accounting=false",
+           "train.memory_ledger=false", "resilience.watchdog_stall_sec=0"]
+MFU_RTOL = 1e-6
+MEMORY_RTOL = 0.05
+# The graphed ImageNet run's peak device memory before this phase existed
+# (PERF.md §5, the chunked_train table), printed beside this phase's.
+MEMORY_BEFORE = "6.33-6.39 GB (PERF.md 5, chunked_train, graphed ImageNet)"
+OBS_GAUGES = ("step", "images_per_sec", "mfu", "model_flops_per_sec",
+              "hbm_bytes_in_use", "hbm_bytes_peak", "hbm_bytes_limit",
+              "hbm_utilization")
+DRILL_OVERRIDES = [*TRAIN_OVERRIDES, "model.fused_blocks=true",
+                   "train.mfu_accounting=false", "train.memory_ledger=false",
+                   "resilience.watchdog_stall_sec=0",
+                   f"train.steps_per_call={CHUNK_PER_CALL}"]
+DRILL_STALL = dict(steps=80, at=40, seconds=3.0, watchdog=1.0)
+DRILL_STEPS, DRILL_SIGTERM_AT = 60, 30
+
+
+def scrape_loop(train_dir: str, stop, out: list) -> None:
+    """Scrape ``/metrics`` and ``/healthz`` of the run in ``train_dir``
+    every 50 ms until ``stop`` is set (``obs.scrape``), with the wall time
+    of each scrape."""
+    from tpu_resnet_torch import obs
+
+    while not stop.is_set():
+        port = obs.read_telemetry_port(train_dir)
+        if port:
+            try:
+                got = obs.scrape(f"127.0.0.1:{port}", timeout=2)
+                out.append({"wall": time.time(), **got})
+            except (OSError, ValueError):
+                pass
+        stop.wait(0.05)
+
+
+@contextlib.contextmanager
+def scraping(train_dir: str):
+    """Scrape the run in ``train_dir`` from a thread while the block runs;
+    yields the list the scrapes land in."""
+    scrapes, stop = [], threading.Event()
+    thread = threading.Thread(target=scrape_loop,
+                              args=(train_dir, stop, scrapes), daemon=True)
+    thread.start()
+    try:
+        yield scrapes
+    finally:
+        stop.set()
+        thread.join()
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def obs_arm(path: str, counters, seeded, on: bool) -> dict:
+    """One run of ``OBS_PATHS[path]`` in the observability phase."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.train.loop import train
+
+    preset, overrides, steps = OBS_PATHS[path]
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        cfg = load_config(preset, "", [
+            *overrides, f"train.train_dir={train_dir}",
+            f"train.train_steps={steps}", f"train.log_every={OBS_LOG_EVERY}",
+            f"train.checkpoint_every={steps}",
+            f"train.steps_per_call={CHUNK_PER_CALL}",
+            *(OBS_ON if on else OBS_OFF)])
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        with (seeded_device_stream(seeded) if preset == "imagenet"
+              else contextlib.nullcontext()), (
+                scraping(train_dir) if on
+                else contextlib.nullcontext([])) as scrapes:
+            state = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        recs = read_jsonl(os.path.join(train_dir, "metrics.jsonl"))
+        spans = load_spans(os.path.join(train_dir, "events.jsonl"))
+        files = {name: json.load(open(os.path.join(train_dir, name)))
+                 for name in ("flops.json", "memory.json", "manifest.json")
+                 if os.path.exists(os.path.join(train_dir, name))}
+        tensors = {n: t.detach().clone()
+                   for n, t in state_tensors(state, recs).items()}
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    want = {k: n * steps for k, n in PER_PASS[path].items()}
+    check(state.step == steps and counts == want,
+          f"observability {path} on={on}: step {state.step}, launches "
+          f"{counts}, expected {want}")
+    del state
+    window = recs[-1]["step"] - recs[0]["step"]
+    return {"on": on, "counts": counts, "peak": peak, "recs": recs,
+            "spans": spans, "files": files, "tensors": tensors,
+            "scrapes": scrapes,
+            "loop_ms_per_step": 1e3 * (recs[-1]["wall"] - recs[0]["wall"])
+            / window}
+
+
+def obs_checks(arm: dict, kind: str) -> dict:
+    """The obs-on run: gauges present and finite in a scrape after a rate
+    was logged, mfu = FLOPs × steps/s ÷ peak, the memory ledger against
+    the allocator's peak, the spans."""
+    from tpu_resnet_torch.obs import mfu
+
+    scrapes = arm["scrapes"]
+    check(bool(scrapes), "observability: no scrape reached the run")
+    rated = [s for s in scrapes
+             if s["metrics"].get("tpu_resnet_images_per_sec", 0) > 0]
+    check(bool(rated), f"observability: no scrape after a logged rate "
+          f"({len(scrapes)} scrapes)")
+    last = rated[-1]
+    gauges = {g: last["metrics"].get(f"tpu_resnet_{g}") for g in OBS_GAUGES}
+    check(all(v is not None and np.isfinite(v) for v in gauges.values()),
+          f"observability: gauges {gauges}")
+    check(last["health_status"] == 200 and last["health"]["ok"],
+          f"observability: /healthz {last['health_status']}")
+    check(all(s["health_status"] == 200 for s in scrapes),
+          "observability: /healthz not 200 during the run")
+    ((key, flops_entry),) = arm["files"]["flops.json"]["entries"].items()
+    flops = flops_entry["flops_per_step"]
+    peak_flops = mfu.peak_flops_per_chip(kind)
+    check(peak_flops is not None, f"no peak for {kind!r}")
+    final = arm["recs"][-1]
+    want_mfu = flops * final["steps_per_sec"] / peak_flops
+    mfu_rel = abs(final["mfu"] - want_mfu) / want_mfu
+    m = last["metrics"]
+    gauge_rel = abs(m["tpu_resnet_mfu"] - flops * m["tpu_resnet_steps_per_sec"]
+                    / peak_flops) / m["tpu_resnet_mfu"]
+    check(mfu_rel <= MFU_RTOL and gauge_rel <= MFU_RTOL,
+          f"mfu {final['mfu']} (gauge {m['tpu_resnet_mfu']}) against "
+          f"flops x steps/s / peak: rel {mfu_rel}, {gauge_rel}")
+    ((mkey, mem),) = arm["files"]["memory.json"]["entries"].items()
+    mem_rel = abs(mem["peak_bytes"] - arm["peak"]) / arm["peak"]
+    check(mkey == key and mem_rel <= MEMORY_RTOL,
+          f"memory.json peak {mem['peak_bytes']} against the allocator's "
+          f"{arm['peak']}: rel {mem_rel}")
+    kinds = [s["span"] for s in arm["spans"]]
+    check(kinds[:3] == ["compile", "mfu_account", "memory_account"]
+          and kinds[-1] == "run" and "checkpoint_save" in kinds,
+          f"observability: spans {kinds}")
+    return {"program_key": key, "flops_per_step": flops,
+            "flops_source": flops_entry["flops_source"],
+            "peak_flops_per_chip": peak_flops,
+            "mfu": final["mfu"], "mfu_expected": want_mfu,
+            "mfu_rel_err": mfu_rel, "gauge_mfu_rel_err": gauge_rel,
+            "model_flops_per_sec": final["model_flops_per_sec"],
+            "steps_per_sec": final["steps_per_sec"],
+            "memory_json": mem, "max_memory_allocated_bytes": arm["peak"],
+            "memory_rel_err": mem_rel, "memory_before": MEMORY_BEFORE,
+            "scrapes": len(scrapes), "scraped_gauges": gauges,
+            "scraped_step": m["tpu_resnet_step"],
+            "train_step_ms": last["histograms"].get(
+                "tpu_resnet_train_step_ms"),
+            "breakdown": {r["step"]: {k: r.get(k) for k in (
+                "data_wait_sec", "data_wait_frac", "dispatch_sec",
+                "device_sync_sec", "device_step_sec_sampled",
+                "compile_seconds", "capture_seconds", "train_step_ms_p50",
+                "hbm_bytes_in_use", "hbm_bytes_peak")}
+                for r in arm["recs"]},
+            "spans": kinds}
+
+
+def drill_cfg(train_dir: str, steps: int, *extra):
+    from tpu_resnet_torch.config import load_config
+    return load_config("cifar10", "", [
+        *DRILL_OVERRIDES, f"train.train_dir={train_dir}",
+        f"train.train_steps={steps}", *extra])
+
+
+def stall_drill() -> dict:
+    """The streamed path (the injector wraps host batches): a
+    ``DRILL_STALL`` stall against the watchdog's deadline; /healthz 503
+    during it and 200 after it, the stack dump, both watchdog spans."""
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.train.loop import train
+
+    s = DRILL_STALL
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_drill_stall_")
+    try:
+        cfg = drill_cfg(train_dir, s["steps"], "data.device_resident=off",
+                        "data.transfer_stage=1", "train.telemetry_port=0",
+                        f"resilience.watchdog_stall_sec={s['watchdog']}",
+                        f"resilience.inject_stall_at_step={s['at']}",
+                        f"resilience.inject_stall_seconds={s['seconds']}")
+        t0 = time.monotonic()
+        with scraping(train_dir) as scrapes:
+            state = train(cfg, device="cuda")
+        seconds = time.monotonic() - t0
+        spans = load_spans(os.path.join(train_dir, "events.jsonl"))
+        dumps = sorted(os.path.basename(p) for p in os.listdir(train_dir)
+                       if p.startswith("stall_stacks_"))
+        with open(os.path.join(train_dir, dumps[0])) as f:
+            dump_has_main = "MainThread" in f.read()
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    stalls = [x for x in spans if x["span"] == "watchdog_stall"]
+    recovered = [x for x in spans if x["span"] == "watchdog_recovered"]
+    codes = [x["health_status"] for x in scrapes]
+    first_503 = codes.index(503) if 503 in codes else None
+    check(state.step == s["steps"] and len(stalls) == 1
+          and len(recovered) == 1 and dump_has_main
+          and first_503 is not None and 200 in codes[first_503:]
+          and 200 in codes[:first_503],
+          f"stall drill: step {state.step}, stalls {stalls}, recovered "
+          f"{recovered}, dumps {dumps}, /healthz {codes}")
+    reason = next(x["health"].get("unhealthy_reason") for x in scrapes
+                  if x["health_status"] == 503)
+    return {"steps": s["steps"], "stall_at": s["at"],
+            "stall_seconds": s["seconds"], "watchdog_sec": s["watchdog"],
+            "seconds": seconds, "stall_step": stalls[0]["step"],
+            "outage_sec": recovered[0]["outage_sec"], "dumps": dumps,
+            "healthz_503": codes.count(503), "healthz_200": codes.count(200),
+            "unhealthy_reason": reason}
+
+
+def sigterm_and_corrupt_drills() -> dict:
+    """SIGTERM at ``DRILL_SIGTERM_AT``: ``Preempted`` at that boundary with
+    its checkpoint, then a resume to ``DRILL_STEPS`` against the
+    uninterrupted run, bit for bit (else within ``CONTROL_FACTOR`` times a
+    second uninterrupted run's distance). Then the uninterrupted run's dir
+    resumed with ``resilience.inject_corrupt_ckpt``: its newest checkpoint
+    fails, the restore falls back to the one before."""
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.resilience.shutdown import Preempted
+    from tpu_resnet_torch.train import checkpoint
+    from tpu_resnet_torch.train.loop import train
+
+    every = f"train.checkpoint_every={DRILL_SIGTERM_AT}"
+    dirs = [tempfile.mkdtemp(prefix=f"chip_smoke_drill_{n}_")
+            for n in ("sigterm", "whole", "control")]
+    try:
+        cut, whole, control = dirs
+        t0 = time.monotonic()
+        try:
+            train(drill_cfg(cut, DRILL_STEPS, every,
+                            f"resilience.inject_sigterm_at_step="
+                            f"{DRILL_SIGTERM_AT}"), device="cuda")
+            preempted = None
+        except Preempted as e:
+            preempted = e.step
+        saved = checkpoint.all_steps_in(cut)
+        stop = [x for x in load_spans(os.path.join(cut, "events.jsonl"))
+                if x["span"] == "preempt_stop"]
+        resumed = train(drill_cfg(cut, DRILL_STEPS, every), device="cuda")
+        got = {n: t.detach().clone() for n, t in state_tensors(
+            resumed, read_jsonl(os.path.join(cut, "metrics.jsonl"))[-1:]
+        ).items()}
+        del resumed
+        gc_collect()
+        base = train(drill_cfg(whole, DRILL_STEPS, every), device="cuda")
+        want = {n: t.detach().clone() for n, t in state_tensors(
+            base, read_jsonl(os.path.join(whole, "metrics.jsonl"))[-1:]
+        ).items()}
+        del base
+        gc_collect()
+        dist = run_distance(got, want)
+        control_dist = None
+        if not dist["bit_equal"]:
+            ctl = train(drill_cfg(control, DRILL_STEPS, every), device="cuda")
+            control_dist = run_distance({n: t.detach().clone() for n, t in
+                                         state_tensors(ctl, read_jsonl(
+                                             os.path.join(control,
+                                                          "metrics.jsonl")
+                                         )[-1:]).items()}, want)
+            del ctl
+        sigterm_s = time.monotonic() - t0
+        check(preempted == DRILL_SIGTERM_AT and saved == [DRILL_SIGTERM_AT]
+              and len(stop) == 1 and stop[0]["step"] == DRILL_SIGTERM_AT,
+              f"sigterm drill: preempted at {preempted}, checkpoints "
+              f"{saved}, spans {stop}")
+        check(dist["bit_equal"] or (
+            control_dist is not None and dist["worst_rel"]
+            <= CONTROL_FACTOR * control_dist["worst_rel"]),
+              f"sigterm drill: resumed against uninterrupted {dist}, "
+              f"control {control_dist}")
+        gc_collect()
+        t0 = time.monotonic()
+        state = train(drill_cfg(whole, DRILL_STEPS, every,
+                                "resilience.inject_corrupt_ckpt=true"),
+                      device="cuda")
+        corrupt_s = time.monotonic() - t0
+        spans = load_spans(os.path.join(whole, "events.jsonl"))
+        failed = [x["step"] for x in spans
+                  if x["span"] == "checkpoint_restore_failed"]
+        restored = [x for x in spans if x["span"] == "checkpoint_restore"]
+        check(failed == [DRILL_STEPS] and len(restored) == 1
+              and restored[0]["step"] == DRILL_SIGTERM_AT
+              and state.step == DRILL_STEPS,
+              f"corrupt drill: failed {failed}, restored {restored}, step "
+              f"{state.step}")
+        del state
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    return {"sigterm": {"at": DRILL_SIGTERM_AT, "steps": DRILL_STEPS,
+                        "preempted_at": preempted, "checkpoints": saved,
+                        "resumed_vs_whole": dist,
+                        "control_vs_whole": control_dist,
+                        "seconds": sigterm_s},
+            "corrupt_checkpoint": {"failed": failed,
+                                   "restored": restored[0]["step"],
+                                   "seconds": corrupt_s}}
+
+
+def oom_drill() -> dict:
+    """``resilience.inject_oom_at_step``: the synthetic RESOURCE_EXHAUSTED
+    at a chunk boundary, and an ``oom_report.json`` that passes
+    ``validate_oom_report``, with the allocator's stats."""
+    from tpu_resnet_torch.obs import memory
+    from tpu_resnet_torch.train.loop import train
+
+    at = 20
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_drill_oom_")
+    try:
+        cfg = drill_cfg(train_dir, 40, "train.memory_ledger=true",
+                        f"resilience.inject_oom_at_step={at}")
+        err = None
+        try:
+            train(cfg, device="cuda")
+        except RuntimeError as e:
+            err = str(e)
+        with open(os.path.join(train_dir, "oom_report.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    problems = memory.validate_oom_report(report)
+    stats = (report["devices"][0]["stats"] or {})
+    check(err is not None and "RESOURCE_EXHAUSTED" in err and not problems
+          and report["step"] == at and stats.get("allocated_bytes.all.peak"),
+          f"oom drill: error {err}, report problems {problems}, step "
+          f"{report.get('step')}")
+    return {"at": at, "problems": problems,
+            "live_tensors": report["live_arrays"]["total_arrays"],
+            "live_bytes": report["live_arrays"]["total_bytes"],
+            "allocator_peak_bytes": stats["allocated_bytes.all.peak"],
+            "program_key": report["program_key"]}
+
+
+def obs_path(path: str, counters, seeded, kind: str) -> dict:
+    """``path`` with observability on and off (``obs_arm``,
+    ``obs_checks``): launches exact in both, the end state and the
+    loss/precision metrics of the two bit for bit, both runs' loop
+    ms/step."""
+    on = obs_arm(path, counters, seeded, True)
+    checks = obs_checks(on, kind)
+    gc_collect()
+    off = obs_arm(path, counters, seeded, False)
+    gc_collect()
+    keys = ("step", "loss", "precision")
+    same_metrics = ([{k: r[k] for k in keys} for r in on["recs"]]
+                    == [{k: r[k] for k in keys} for r in off["recs"]])
+    dist = run_distance(off["tensors"], on["tensors"])
+    check(dist["bit_equal"] and same_metrics,
+          f"observability {path} off against on: {dist}, metrics "
+          f"{same_metrics}")
+    return {"steps": OBS_PATHS[path][2], "launches": on["counts"],
+            **checks, "max_memory_allocated_bytes_off": off["peak"],
+            "off_vs_on": dist, "metrics_equal": same_metrics,
+            "loop_ms_per_step_on": on["loop_ms_per_step"],
+            "loop_ms_per_step_off": off["loop_ms_per_step"],
+            "loop_ms_per_step_on_minus_off": (on["loop_ms_per_step"]
+                                              - off["loop_ms_per_step"])}
+
+
+def observability_phase(counters, gpu: str) -> dict:
+    """``obs_path`` on ImageNet ResNet-50 fused and graphed (seeded
+    batches on the card) and on CIFAR-10 ResNet-50 fused and graphed; then
+    the drills on the CIFAR path."""
+    cuda = torch.device("cuda")
+    seeded = [(torch.from_numpy(im).to(cuda), torch.from_numpy(lb).to(cuda))
+              for im, lb in imagenet_batches(IMAGENET_BATCHES, TRAIN_BATCH,
+                                             1000, 224)]
+    kind = torch.cuda.get_device_name(0)
+    imagenet = obs_path("imagenet_fused_train", counters, seeded, kind)
+    del seeded
+    gc_collect()
+    cifar = obs_path("cifar10_fused_train", counters, None, kind)
+    drills = {"path": "cifar10 ResNet-50 fused, graphed, B=128, depth not "
+                      "cut",
+              "stall": stall_drill()}
+    gc_collect()
+    drills.update(sigterm_and_corrupt_drills())
+    gc_collect()
+    drills["oom"] = oom_drill()
+    gc_collect()
+    result = {
+        "path": "imagenet_fused_train",
+        "model": f"imagenet ResNet-50 224x224 fused, graphed "
+                 f"(steps_per_call={CHUNK_PER_CALL}), seeded batches, "
+                 f"B={TRAIN_BATCH}",
+        **imagenet,
+        "launches_per_step": PER_PASS["imagenet_fused_train"],
+        "eval_launches": {k: 0 for k in KERNELS},
+        "cifar10_fused_train": cifar, "drills": drills, "gpu": gpu}
+    emit("observability", **result)
+    return result
+
+
 # The ImageNet input phase: JPEG shards made at run time from the committed
 # fixtures' payloads (tests/fixtures/imagenet, 28 JPEGs), cycled with seeded
 # labels 1..1000: INPUT_TRAIN_SHARDS of INPUT_PER_SHARD records (ten
@@ -3300,6 +3747,7 @@ def main() -> int:
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))
     chunked_train_phase(counters, gpu)
+    trained.append(observability_phase(counters, gpu))
     trained.append(autotune_phase(counters, gpu))
     trained += ab_phase(counters, gpu)
     trained += [grad_phase(preset, counters, gpu)

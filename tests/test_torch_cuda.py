@@ -1251,3 +1251,44 @@ def test_double_buffered_h2d_on_the_card(cuda):
     for (a, b, _), (c, d, _) in zip(got, want):
         assert torch.equal(a, c) and torch.equal(b, d)
     assert stats["h2d_bytes_per_sec"] > 0
+
+
+def test_graphed_train_takes_the_injected_nan_batch(cuda, tmp_path):
+    """``resilience.inject_nan_at_step=5`` on the streamed, graphed loop:
+    the float NaN batch of a uint8 stream runs as one eager step of the
+    captured step's state (no recapture); the loop rolls back to
+    checkpoint 4 and finishes, as the eager loop (steps_per_call=1) does,
+    at the same steps and with the same losses."""
+    import json
+    import math
+    import os
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.train.loop import train
+
+    runs = {}
+    for per_call in (1, 4):
+        d = tmp_path / str(per_call)
+        cfg = load_config("cifar10", "", [
+            "data.dataset=synthetic", "data.synthetic_learnable=true",
+            "data.synthetic_train_examples=256", "model.resnet_size=8",
+            "model.fused_epilogue=on", "optim.use_pallas_xent=on",
+            "data.device_resident=off", "data.transfer_stage=1",
+            "train.global_batch_size=16", "train.train_steps=12",
+            "train.log_every=2", "train.checkpoint_every=4",
+            f"train.steps_per_call={per_call}", f"train.train_dir={d}",
+            "resilience.inject_nan_at_step=5"])
+        assert train(cfg, device="cuda").step == 12
+        rollbacks = [(s["from_step"], s["to_step"]) for s in
+                     load_spans(os.path.join(d, "events.jsonl"))
+                     if s["span"] == "nan_rollback"]
+        with open(d / "metrics.jsonl") as f:
+            losses = [(r["step"], r["loss"]) for r in map(json.loads, f)]
+        runs[per_call] = (rollbacks, losses)
+        print(per_call, rollbacks, losses)
+    (rb1, losses1), (rb4, losses4) = runs[1], runs[4]
+    assert rb4 == rb1 and len(rb1) == 1 and rb1[0][1] == 4
+    assert [s for s, _ in losses4] == [s for s, _ in losses1]
+    assert math.isfinite(losses4[-1][1])
+    for (_, a), (_, b) in zip(losses4, losses1):
+        assert a == b or (math.isnan(a) and math.isnan(b)) or abs(
+            a - b) <= 1e-5 * max(1.0, abs(b))

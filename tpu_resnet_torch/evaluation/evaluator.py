@@ -9,7 +9,10 @@ last batch is padded and masked out. A checkpoint that does not load is
 retried ``resilience.eval_restore_retries`` times with backoff, then
 skipped and logged, as the reference's evaluator does. ImageNet's eval
 batches arrive decoded on the device (``data/imagenet.py``
-``eval_examples``).
+``eval_examples``). Each pass is an ``eval_pass`` span, each skipped step
+an ``eval_restore_failed`` span, in ``<train_dir>/eval/events.jsonl``
+(the trainer owns ``<train_dir>/events.jsonl``), stamped with the train
+run's ``run_id``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from tpu_resnet_torch import data as data_lib
 from tpu_resnet_torch.data.augment import get_eval_preprocess
 from tpu_resnet_torch.device import resolve_device
 from tpu_resnet_torch.models import build_model
+from tpu_resnet_torch.obs.manifest import read_run_id
+from tpu_resnet_torch.obs.spans import SpanTracer
 from tpu_resnet_torch.train import checkpoint
 from tpu_resnet_torch.train.metrics_io import MetricsWriter
 from tpu_resnet_torch.train.step import make_eval_step
@@ -60,6 +65,7 @@ def evaluate(cfg, device: Optional[str] = None) -> Optional[float]:
         with open(best_file) as f:
             best = json.load(f)["best_precision"]
     metrics = MetricsWriter(eval_dir)
+    spans = SpanTracer(eval_dir, run_id=read_run_id(cfg.train.train_dir))
 
     last_seen = precision = None
     try:
@@ -69,6 +75,8 @@ def evaluate(cfg, device: Optional[str] = None) -> Optional[float]:
                 log.info("no checkpoint yet in %s", cfg.train.train_dir)
             elif step != last_seen:
                 last_seen = step
+                if spans.run_id is None:  # the trainer started after us
+                    spans.run_id = read_run_id(cfg.train.train_dir)
                 saved = checkpoint.restore_with_retry(
                     cfg.train.train_dir, step,
                     retries=cfg.resilience.eval_restore_retries,
@@ -76,11 +84,15 @@ def evaluate(cfg, device: Optional[str] = None) -> Optional[float]:
                 if saved is None:
                     log.error("skipping eval of checkpoint step %d: restore "
                               "failed repeatedly", step)
+                    spans.event("eval_restore_failed", step=step)
                 else:
                     checkpoint.load_state(model, saved)
                     t0 = time.perf_counter()
-                    precision, loss, count = run_eval_pass(cfg, model, device,
-                                                           eval_step)
+                    with spans.span("eval_pass", step=step) as attrs:
+                        precision, loss, count = run_eval_pass(
+                            cfg, model, device, eval_step)
+                        attrs.update(precision=round(precision, 6),
+                                     examples=count)
                     dt = time.perf_counter() - t0
                     best = max(best, precision)
                     with open(best_file, "w") as f:
@@ -95,5 +107,6 @@ def evaluate(cfg, device: Optional[str] = None) -> Optional[float]:
                 break
             time.sleep(cfg.train.eval_interval_secs)
     finally:
+        spans.close()
         metrics.close()
     return precision

@@ -76,21 +76,33 @@ def restore(train_dir: str, step: int) -> Dict:
 
 class CheckpointManager:
     """The trainer's view of a train dir: save a train state, keep the
-    newest ``keep`` checkpoints, restore the newest for resume."""
+    newest ``keep`` checkpoints, restore the newest for resume. ``spans``
+    (an ``obs.SpanTracer``) records ``checkpoint_save``,
+    ``checkpoint_restore`` and ``checkpoint_restore_failed`` spans, as
+    the reference's manager does."""
 
-    def __init__(self, directory: str, keep: int = 5):
+    def __init__(self, directory: str, keep: int = 5, spans=None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self._spans = spans
         os.makedirs(self.directory, exist_ok=True)
+
+    def _span(self, kind: str, t0: float, **attrs) -> None:
+        if self._spans is not None:
+            self._spans.record(kind, t0, time.time(), **attrs)
 
     def latest_step(self) -> Optional[int]:
         return latest_step_in(self.directory)
 
     def save(self, state) -> str:
         """Checkpoint ``state`` (a ``TrainState``) at its step, then prune
-        to the newest ``keep``."""
+        to the newest ``keep``. The save is synchronous: its span covers
+        the write (``async: false``)."""
+        t0 = time.time()
         path = save(self.directory, state.step, state.model,
                     state.momentum_buffers())
+        self._span("checkpoint_save", t0, step=int(state.step),
+                   **{"async": False})
         if self.keep > 0:
             for old in all_steps_in(self.directory)[:-self.keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)),
@@ -112,6 +124,7 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         failed, first_err = [], None
         for step in steps:
+            t0 = time.time()
             try:
                 saved = restore(self.directory, step)
                 load_state(state.model, saved)
@@ -121,8 +134,13 @@ class CheckpointManager:
                 failed.append(step)
                 log.warning("checkpoint step %d failed to restore (%s: %s)",
                             step, type(e).__name__, e)
+                self._span("checkpoint_restore_failed", t0, step=int(step),
+                           error=f"{type(e).__name__}: {e}"[:200])
                 continue
             state.step = int(saved["step"])
+            self._span("checkpoint_restore", t0, step=int(step),
+                       **({"fallback_from_step": int(steps[0])}
+                          if failed else {}))
             if failed:
                 log.warning("restored step %d instead of %s", step, failed)
                 if discard_failed:

@@ -55,10 +55,33 @@ What the reference's dispatch knobs mean here:
   the batches are on the device already: the stage only groups them into
   chunks, and ``h2d_double_buffer`` changes nothing.
 
+Observability and drills, as the reference's loop has them:
+
+- ``<train_dir>/run_id.json``, ``manifest.json`` and ``events.jsonl``
+  (spans: ``run``, ``compile``, ``mfu_account``, ``memory_account``,
+  checkpoint saves and restores, ``nan_rollback``, ``preempt_stop``,
+  ``emergency_save``, ``oom``, the watchdog's); ``train.telemetry_port``
+  >= 0 serves ``/metrics`` and ``/healthz`` (``obs/server.py``);
+- after the first dispatch, ``compile_seconds`` (that dispatch's wall
+  time, capture included), the step's FLOPs in ``flops.json``
+  (``train.mfu_accounting``) and the first dispatch's measured memory in
+  ``memory.json`` (``train.memory_ledger``);
+- at each log boundary, and only there: the interval's breakdown (data
+  wait, dispatch, the sampled device wait), ``model_flops_per_sec`` and
+  ``mfu``, the ``train_step_ms`` histogram's percentiles and the
+  allocator's ``hbm_bytes_*``, into ``metrics.jsonl`` and the gauges. The
+  device is read where the loop reads the metrics anyway; nothing runs in
+  a capture and nothing is read per step;
+- ``resilience.watchdog_stall_sec`` > 0 watches the chunk boundaries
+  (``resilience/watchdog.py``); the ``resilience.inject_*`` knobs and
+  ``TPU_RESNET_FAULT_*`` drive the fault injector
+  (``resilience/faultinject.py``); an out-of-memory error writes
+  ``oom_report.json``.
+
 The reference loop's other features are not in this slice (ROADMAP lists
-them): spans, telemetry, MFU and memory ledgers, the watchdog, fault
-injection and elastic resume. Their knobs are accepted and logged as
-ignored.
+them): summaries, the profiler, the comms ledger (one card has no
+collective), the program cache and elastic resume. Their knobs are
+accepted and logged as ignored.
 """
 
 from __future__ import annotations
@@ -66,23 +89,30 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import sys
+import time
 from typing import Optional
 
 import torch
 
 from tpu_resnet_torch import data as data_lib
+from tpu_resnet_torch import obs
 from tpu_resnet_torch.data import augment as aug_lib
 from tpu_resnet_torch.data import device_data, pipeline
 from tpu_resnet_torch.data.cifar import load_split
+from tpu_resnet_torch.data.device_data import WARMUP_STEPS
 from tpu_resnet_torch.data.pipeline import BackgroundIterator
 from tpu_resnet_torch.device import resolve_device
 from tpu_resnet_torch.models import build_model, init_weights
+from tpu_resnet_torch.obs.server import CORE_HISTOGRAMS
 from tpu_resnet_torch.ops import autotune
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import softmax_xent as sx
+from tpu_resnet_torch.resilience.faultinject import FaultInjector, FaultPlan
 from tpu_resnet_torch.resilience.sentinel import DivergenceError, NaNSentinel
 from tpu_resnet_torch.resilience.shutdown import (Preempted,
                                                   ShutdownCoordinator)
+from tpu_resnet_torch.resilience.watchdog import HangWatchdog
 from tpu_resnet_torch.train import schedule as sched_lib
 from tpu_resnet_torch.train.checkpoint import CheckpointManager
 from tpu_resnet_torch.train.metrics_io import MetricsWriter, ThroughputMeter
@@ -94,10 +124,8 @@ log = logging.getLogger("tpu_resnet_torch")
 # Knobs of the reference loop that this slice accepts and does not act on.
 IGNORED_KNOBS = (
     "train.summary_every", "train.image_summary_every",
-    "train.profiler_port", "train.profile_steps", "train.telemetry_port",
-    "train.mfu_accounting", "train.memory_ledger", "train.comms_ledger",
-    "mesh.partition", "resilience.watchdog_stall_sec", "programs.cache",
-    "data.use_native_loader")
+    "train.profiler_port", "train.profile_steps", "train.comms_ledger",
+    "mesh.partition", "programs.cache", "data.use_native_loader")
 
 
 def _knob(cfg, path: str):
@@ -162,7 +190,7 @@ def build_step(cfg, device: torch.device):
 
 
 def build_train_iterator(cfg, device: torch.device, start_step: int = 0,
-                         stop_event=None):
+                         stop_event=None, injector=None, wait=None):
     """The streaming input from ``start_step`` (reference
     ``build_train_iterator``): ``(data_iter, stage, host_iter)``.
     ``host_iter`` is the source the loop closes: the decode engine for
@@ -174,20 +202,33 @@ def build_train_iterator(cfg, device: torch.device, start_step: int = 0,
     batches stacked in pinned memory and copied once per stage, by a
     producer thread into a two-slot device buffer
     (``data.h2d_double_buffer``, :class:`DoubleBufferedH2D`) or on the
-    loop's thread (:func:`staged_superbatch_prefetch`)."""
+    loop's thread (:func:`staged_superbatch_prefetch`). ``injector`` (a
+    ``FaultInjector``) wraps the batches with its planned data faults, as
+    the reference's does: the host batches before their background
+    thread, the engine's as the loop takes them. ``wait`` wraps the
+    engine's batches to time each as a data wait (the loop's breakdown:
+    the engine's stages are read while a chunk is issued)."""
     stage = max(1, cfg.data.transfer_stage)
     batch = cfg.train.global_batch_size
     if cfg.data.dataset == "imagenet":  # the engine: its own workers
         engine = data_lib.train_batches(
             cfg.data, batch, seed=cfg.train.seed, start_step=start_step,
             device=device, external_stop=stop_event)
+        stream = engine
+        if injector is not None:
+            stream = injector.wrap_host_batches(stream, start_step)
+        if wait is not None:
+            stream = wait(stream)
         if stage > 1:
-            return pipeline.device_stages(engine, stage), stage, engine
-        return engine, 1, engine
+            return pipeline.device_stages(stream, stage), stage, engine
+        return stream, 1, engine
+    batches = data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
+                                     start_step=start_step)
+    if injector is not None:
+        batches = injector.wrap_host_batches(batches, start_step)
     host_iter = BackgroundIterator(
-        data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
-                               start_step=start_step),
-        capacity=stage * cfg.data.prefetch + 2, external_stop=stop_event)
+        batches, capacity=stage * cfg.data.prefetch + 2,
+        external_stop=stop_event)
     if stage == 1:
         return host_iter, 1, host_iter
     if cfg.data.h2d_double_buffer:
@@ -224,65 +265,157 @@ def _close_input(*iters) -> None:
             it.close()
 
 
+def _flops_entry(cfg, device, spans, train_dir) -> Optional[float]:
+    """The step's FLOPs (``obs/mfu.py``), once, in the compile window; None
+    when the count fails (the mfu gauges then stay 0)."""
+    t0 = time.time()
+    try:
+        entry = obs.mfu.account_train_step(cfg, device, train_dir=train_dir)
+    except Exception as e:  # noqa: BLE001 - accounting must never kill
+        log.warning("mfu accounting failed (%s: %s): the mfu gauges stay 0",
+                    type(e).__name__, e)
+        return None
+    spans.record("mfu_account", t0, time.time(),
+                 flops_per_step=entry.get("flops_per_step"),
+                 source=entry.get("flops_source"))
+    return entry.get("flops_per_step")
+
+
+def _memory_entry(cfg, state, device, baseline, runner, steps: int, spans,
+                  ledger, train_dir) -> Optional[str]:
+    """The first dispatch's memory (``obs/memory.py``) in the ledger, once;
+    returns its program key, None when the accounting fails."""
+    if runner.graph is not None:
+        dispatch = (f"first chunk: {WARMUP_STEPS} warm-up steps, the "
+                    f"capture, {runner.replays} CUDA graph replays")
+    else:
+        dispatch = f"first chunk: {steps} eager steps"
+    t0 = time.time()
+    try:
+        entry = obs.memory.account_train_step(
+            cfg, state, device, baseline, dispatch=dispatch, ledger=ledger,
+            train_dir=train_dir)
+    except Exception as e:  # noqa: BLE001 - accounting must never kill
+        log.warning("memory ledger failed (%s: %s): memory.json absent for "
+                    "this run", type(e).__name__, e)
+        return None
+    spans.record("memory_account", t0, time.time(),
+                 program_key=entry["program_key"],
+                 peak_bytes=entry.get("peak_bytes"),
+                 transient_peak_bytes=entry.get("transient_peak_bytes"))
+    return entry["program_key"]
+
+
 def train(cfg, device: Optional[str] = None) -> TrainState:
     """Run training to ``cfg.train.train_steps``; returns the final state."""
     device = resolve_device(device)
     check_step_config(cfg)
     resident = device_data.should_use(cfg.data)
-    state = build_state(cfg, device)
-    ckpt = CheckpointManager(cfg.train.train_dir,
-                             keep=cfg.train.keep_checkpoints)
-    if ckpt.latest_step() is not None:
-        ckpt.restore(state, discard_failed=True)
-        log.info("resumed from step %d in %s", state.step,
-                 cfg.train.train_dir)
-    train_step = build_step(cfg, device)
-    total = cfg.train.train_steps
-    batch = cfg.train.global_batch_size
-    per_call = max(1, cfg.train.steps_per_call)
-    graphed = device.type == "cuda" and per_call > 1
-    log.info("training %s-%d/%s to step %d on %s | params %.2fM | batch %d "
-             "| input %s (data.device_resident=%s) | dispatch %s",
-             cfg.model.name, cfg.model.resnet_size, cfg.data.dataset, total,
-             device, param_count(state.model) / 1e6, batch,
-             "device-resident" if resident else "streaming",
-             cfg.data.device_resident,
-             f"chunks of <= {per_call} CUDA graph replays" if graphed
-             else f"eager, chunks of <= {per_call} steps")
-    log.info("this slice ignores: %s", ", ".join(
-        f"{k}={_knob(cfg, k)}" for k in IGNORED_KNOBS))
+    train_dir = cfg.train.train_dir
+    rcfg = cfg.resilience
 
-    metrics = MetricsWriter(cfg.train.train_dir)
-    meter = ThroughputMeter(batch)
-    shutdown = ShutdownCoordinator(
-        enabled=cfg.resilience.graceful_shutdown).install()
-    sentinel = NaNSentinel(cfg.resilience.nan_max_retries,
-                           enabled=cfg.resilience.nan_guard)
-    host_iter = data_iter = ds = m = runner = None
+    # Observability (obs/): the run's id, spans and manifest, and the
+    # telemetry registry and server, alive from startup.
+    run_id = obs.ensure_run_id(train_dir)
+    spans = obs.SpanTracer(train_dir, run_id=run_id)
+    obs.write_manifest(train_dir, cfg, device, run_id=run_id)
+    telemetry = obs.TelemetryRegistry(
+        stale_after_sec=cfg.train.telemetry_stale_sec,
+        histograms=CORE_HISTOGRAMS)
+    telemetry.heartbeat(0)
+    server = obs.TelemetryServer.maybe_start(
+        cfg.train.telemetry_port, telemetry, train_dir=train_dir)
+
+    # From here on a failure (a bad restore, an injected corrupt checkpoint
+    # with nothing to fall back to, a bad config) still runs the closers
+    # below, so that no server, watchdog, signal handler or file outlives
+    # the call.
+    shutdown = watchdog = ckpt = metrics = runner = None
+    host_iter = data_iter = ds = m = state = None
     stage = 1
-    step = last_ckpt_step = state.step
-
+    step = last_ckpt_step = 0
+    total = cfg.train.train_steps
+    run_wall0 = start_step = None
+    mem_ledger = obs.memory.MemoryLedger()
+    mem_key = None
+    mem_ring = obs.memory.MemorySampleRing()
     try:
+        injector = FaultInjector(FaultPlan.from_config(rcfg),
+                                 train_dir=train_dir)
+        if injector.plan.preempt_burst > 0:
+            telemetry.set("fault_preempt_burst", float(injector.burst_fired))
+        shutdown = ShutdownCoordinator(
+            enabled=rcfg.graceful_shutdown).install()
+        sentinel = NaNSentinel(rcfg.nan_max_retries, enabled=rcfg.nan_guard)
+        watchdog = HangWatchdog.maybe_start(
+            rcfg.watchdog_stall_sec, train_dir, telemetry=telemetry,
+            spans=spans)
+
+        state = build_state(cfg, device)
+        injector.maybe_corrupt_checkpoint(train_dir)
+        ckpt = CheckpointManager(train_dir, keep=cfg.train.keep_checkpoints,
+                                 spans=spans)
+        if ckpt.latest_step() is not None:
+            ckpt.restore(state, discard_failed=True)
+            log.info("resumed from step %d in %s", state.step, train_dir)
+        step = last_ckpt_step = state.step
+        train_step = build_step(cfg, device)
+        batch = cfg.train.global_batch_size
+        per_call = max(1, cfg.train.steps_per_call)
+        graphed = device.type == "cuda" and per_call > 1
+        log.info("training %s-%d/%s to step %d on %s | params %.2fM | batch "
+                 "%d | input %s (data.device_resident=%s) | dispatch %s",
+                 cfg.model.name, cfg.model.resnet_size, cfg.data.dataset,
+                 total, device, param_count(state.model) / 1e6, batch,
+                 "device-resident" if resident else "streaming",
+                 cfg.data.device_resident,
+                 f"chunks of <= {per_call} CUDA graph replays" if graphed
+                 else f"eager, chunks of <= {per_call} steps")
+        log.info("this slice ignores: %s", ", ".join(
+            f"{k}={_knob(cfg, k)}" for k in IGNORED_KNOBS))
+
+        metrics = MetricsWriter(train_dir)
+        meter = ThroughputMeter(batch)
+        # Where the interval's time goes (obs/breakdown.py): data waits,
+        # dispatch, and the device sampled at log boundaries only.
+        breakdown = obs.StepBreakdown()
         if resident:
             ds = device_data.DeviceDataset(
                 *load_split(cfg.data, train=True), batch, device,
                 seed=cfg.train.seed)
         else:
             data_iter, stage, host_iter = build_train_iterator(
-                cfg, device, step, shutdown.event)
+                cfg, device, step, shutdown.event, injector=injector,
+                wait=breakdown.waited)
         runner = device_data.ChunkRunner(train_step, device, per_call, ds)
+        step_flops = None
+        kind = obs.mfu.device_kind(device)
+        telemetry.heartbeat(step)
+        run_wall0, start_step = time.time(), step
         meter.rate(step)
+        breakdown.reset_interval()
+        # The memory ledger measures the first dispatch: the warm-up steps
+        # and the capture of a graphed run are in it (obs/memory.py).
+        mem_base = (obs.memory.start_dispatch_measure(device)
+                    if cfg.train.memory_ledger else None)
         first = True
         capture_logged = False
+        last_sync = last_log_step = step
         stage_buf = None  # the current stage: (images, labels, k, offset)
-        while step < total and not shutdown.requested:
+        while step < total:
+            injector.maybe_sigterm(step)
+            injector.maybe_oom(step)
+            if shutdown.requested:
+                break  # stop at the chunk boundary; final save below
             if resident:
-                m = runner.run(state, step, _chunk_len(
-                    step, total, cfg.train, ds.steps_per_epoch))
+                with breakdown.dispatch():
+                    m = runner.run(state, step, _chunk_len(
+                        step, total, cfg.train, ds.steps_per_epoch))
             elif stage > 1:
                 if stage_buf is None:
                     try:
-                        stage_buf = (*next(data_iter), 0)
+                        with breakdown.data_wait():
+                            stage_buf = (*next(data_iter), 0)
                     except StopIteration:
                         if shutdown.requested:
                             break
@@ -292,7 +425,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 # checkpoint boundary (the reference's staged branch).
                 c = min(n - off, _chunk_len(step, total, cfg.train, 0))
                 try:  # the engine's stages take each batch as it comes
-                    m = runner.run_staged(state, gi, gl, off, c)
+                    with breakdown.dispatch():
+                        m = runner.run_staged(state, gi, gl, off, c)
                 except StopIteration:
                     if shutdown.requested:
                         break
@@ -301,22 +435,43 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                              else (gi, gl, n, off + c))
             else:
                 try:
-                    host = next(data_iter)
+                    with breakdown.data_wait():
+                        host = next(data_iter)
                 except StopIteration:
                     if shutdown.requested:
                         break
                     raise
-                m = runner.run_batches(state, [tuple(
-                    torch.as_tensor(a, device=device) for a in host)])
+                with breakdown.dispatch():
+                    m = runner.run_batches(state, [tuple(
+                        torch.as_tensor(a, device=device) for a in host)])
             step = state.step
+            if watchdog is not None:
+                watchdog.progress(step)
             if first:
                 # The first chunk pays the kernel builds, cuDNN's plan
-                # search and the capture: keep it out of the first rate.
+                # search and the capture: compile_seconds, kept out of the
+                # first rate; then the once-a-run FLOPs and memory ledgers.
                 first = False
-                float(m["loss"])
+                compile_s = breakdown.first_dispatch_done(
+                    lambda: float(m["loss"]))
+                now = time.time()
+                spans.record("compile", now - compile_s, now,
+                             seconds=round(compile_s, 3), step=start_step)
+                telemetry.set("compile_seconds", compile_s)
+                if cfg.train.mfu_accounting:
+                    step_flops = _flops_entry(cfg, device, spans, train_dir)
+                if cfg.train.memory_ledger:
+                    mem_key = _memory_entry(cfg, state, device, mem_base,
+                                            runner, step - start_step,
+                                            spans, mem_ledger, train_dir)
+                breakdown.reset_interval()
                 meter.rate(step)
+                last_sync = last_log_step = step
             if step % cfg.train.log_every == 0 or step == total:
-                vals = {k: float(v) for k, v in m.items()}
+                vals = breakdown.sample_device(
+                    lambda: {k: float(v) for k, v in m.items()},
+                    step - last_sync)
+                last_sync = step
                 if sentinel.check(step, vals["loss"]):
                     # Roll back to the newest checkpoint (written into the
                     # state's own tensors, so a captured step stays
@@ -332,17 +487,47 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     log.warning("nan rollback from step %d to checkpoint "
                                 "step %d (retry %d)", bad_step, step,
                                 sentinel.rollbacks)
+                    spans.event("nan_rollback", from_step=bad_step,
+                                to_step=step, loss=str(vals["loss"]),
+                                retry=sentinel.rollbacks)
+                    telemetry.set("fault_nan_rollbacks", sentinel.rollbacks)
                     if not resident:
                         _close_input(data_iter, host_iter)
                         data_iter, stage, host_iter = build_train_iterator(
-                            cfg, device, bad_step, shutdown.event)
+                            cfg, device, bad_step, shutdown.event,
+                            injector=injector, wait=breakdown.waited)
                         stage_buf = None
                     m = None
+                    breakdown.reset_interval()
                     meter.rate(step)
+                    last_sync = last_log_step = step
+                    telemetry.heartbeat(step)
                     continue
                 rate = meter.rate(step)
                 if rate:
                     vals.update(rate)
+                    vals["images_per_sec_per_chip"] = rate["images_per_sec"]
+                    # The interval's mean step time, once a step: the
+                    # train_step_ms histogram and its percentiles.
+                    telemetry.observe("train_step_ms",
+                                      1e3 / rate["steps_per_sec"],
+                                      n=max(1, step - last_log_step))
+                    for q in (0.50, 0.95, 0.99):
+                        vals[f"train_step_ms_p{int(q * 100)}"] = round(
+                            telemetry.hist_percentile("train_step_ms", q),
+                            3)
+                    if step_flops:
+                        mfs = step_flops * rate["steps_per_sec"]
+                        vals["model_flops_per_sec"] = mfs
+                        u = obs.mfu.mfu(mfs, kind, 1)
+                        if u is not None:
+                            vals["mfu"] = u
+                last_log_step = step
+                vals.update(breakdown.interval())
+                hbm = obs.memory.sample_device_memory(device)
+                if hbm:
+                    vals.update(hbm)
+                    mem_ring.add(step, hbm)
                 # The engine's decode stats; the double buffer's h2d stats
                 # (each read once: a read starts the next interval).
                 for it in ((host_iter,) if data_iter is host_iter
@@ -352,13 +537,16 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 if runner.capture_seconds is not None and not capture_logged:
                     capture_logged = True
                     vals["capture_seconds"] = runner.capture_seconds
+                telemetry.update(vals)
+                telemetry.set("checkpoint_lag_steps", step - last_ckpt_step)
+                telemetry.heartbeat(step)
                 log.info("step %d | loss %.4f | precision %.4f | lr %.4g | "
-                         "grad_norm %.4g%s", step, vals["loss"],
+                         "grad_norm %.4g%s | wait %d%%", step, vals["loss"],
                          vals["precision"], vals["learning_rate"],
                          vals["grad_norm"],
                          f" | {rate['steps_per_sec']:.2f} st/s "
                          f"({rate['images_per_sec']:.0f} img/s)"
-                         if rate else "")
+                         if rate else "", round(vals["data_wait_frac"] * 100))
                 metrics.write(step, vals)
             if step % cfg.train.checkpoint_every == 0 or step == total:
                 # A checkpoint boundary that is not a log boundary has not
@@ -369,36 +557,81 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     log.warning("skipping checkpoint save at step %d: "
                                 "non-finite loss; rollback engages at the "
                                 "next log boundary", step)
+                    spans.event("checkpoint_save_skipped_nonfinite",
+                                step=step)
                 else:
                     ckpt.save(state)
                     last_ckpt_step = step
+                    telemetry.set("checkpoint_lag_steps", 0)
         if shutdown.requested and step < total:
             log.warning("stop requested at step %d: saving a final "
                         "checkpoint before exit", step)
+            spans.event("preempt_stop", step=step, signum=shutdown.signum)
+            telemetry.set("fault_preemptions", 1.0)
+            if injector.plan.preempt_burst > 0:
+                telemetry.set("fault_preempt_burst",
+                              float(injector.burst_fired))
             if ckpt.latest_step() != step:
                 ckpt.save(state)
-    except BaseException as exc:
-        # An exception in flight with unsaved progress: one guarded save,
-        # so the crash loses at most the current interval. Not for a
-        # divergence (the state is not finite) or an operator's abort.
-        if (cfg.resilience.emergency_save and step > last_ckpt_step
-                and not isinstance(exc, (DivergenceError,
-                                         KeyboardInterrupt))):
-            try:
-                ckpt.save(state)
-                log.warning("emergency checkpoint saved at step %d after "
-                            "in-flight %s", state.step,
-                            type(exc).__name__)
-            except Exception as e:  # noqa: BLE001 - the original goes on
-                log.warning("emergency checkpoint at step %d failed "
-                            "(%s: %s)", step, type(e).__name__, e)
-        raise
+                last_ckpt_step = step
     finally:
-        _close_input(data_iter, host_iter)
+        # One shutdown path for clean exits and exceptions: each closer
+        # runs even if one before it raised; a closer's error surfaces on
+        # a clean exit and never masks the loop's own exception.
+        exc_type, exc_val = sys.exc_info()[:2]
+        closer_errs = []
+
+        def _close(fn):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 - shutdown must finish
+                closer_errs.append(e)
+                log.warning("shutdown closer %s failed: %s",
+                            getattr(fn, "__name__", fn), e)
+
+        if exc_val is not None and obs.memory.is_oom_error(exc_val):
+            # OOM forensics first: the ledger, the recent samples and the
+            # live tensors in <train_dir>/oom_report.json.
+            _close(lambda: obs.memory.write_oom_report(
+                train_dir, exc_val, context="train", step=step,
+                program_key=mem_key, ledger=mem_ledger,
+                samples=mem_ring.snapshot(), run_id=run_id, device=device))
+            _close(lambda: spans.event("oom", step=step,
+                                       program_key=mem_key))
+        if (rcfg.emergency_save and exc_type is not None
+                and ckpt is not None and state is not None
+                and not issubclass(exc_type, (DivergenceError,
+                                              KeyboardInterrupt))
+                and step > last_ckpt_step):
+            # An exception in flight with unsaved progress: one guarded
+            # save, so the crash loses at most the current interval. Not
+            # for a divergence (the state is not finite) or an operator's
+            # abort.
+            def _emergency_save():
+                ckpt.save(state)
+                spans.event("emergency_save", step=step)
+                log.warning("emergency checkpoint saved at step %d after "
+                            "in-flight %s", state.step, exc_type.__name__)
+
+            _close(_emergency_save)
+        if run_wall0 is not None:  # the loop started
+            _close(lambda: spans.record(
+                "run", run_wall0, time.time(), start_step=start_step,
+                stop_step=step, train_steps=total))
+        _close(spans.close)
+        if server is not None:
+            _close(server.close)
+        _close(lambda: _close_input(data_iter, host_iter))
         if runner is not None:
-            runner.close()
-        metrics.close()
-        shutdown.uninstall()
+            _close(runner.close)
+        if metrics is not None:
+            _close(metrics.close)
+        if watchdog is not None:
+            _close(watchdog.close)
+        if shutdown is not None:
+            _close(shutdown.uninstall)
+        if closer_errs and exc_type is None:
+            raise closer_errs[0]
     if shutdown.requested and step < total:
         raise Preempted(step, state=state, signum=shutdown.signum)
     return state
