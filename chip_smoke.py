@@ -56,8 +56,9 @@ Phases, each printing one JSON line:
    dm3, ``bottleneck_bwd3`` the plain pass 2's dmid, ``bottleneck_bwd4``
    the plain pass 3's dc1; passes 1-3 and ``bottleneck_bwd`` time their
    weight-gradient products with them and say so, ``includes``); and
-   ``bottleneck_wgrad`` (``_weight_grad``, the weight-gradient products of
-   passes 1-3 and of ``bottleneck_bwd``) alone at the three stage shapes in
+   ``bottleneck_wgrad`` (``wgrad.weight_grad``, the weight-gradient
+   products of passes 1-3 and of ``bottleneck_bwd``, and of the fused
+   block's passes at C = 128, 256) alone at the three stage shapes in
    each of its modes, dw3, dw2 and dw1 as the train step calls them (dw1
    on bfloat16 and float32 x) and the folded gradient's dW3 from p3, within
    1e-5·Σ|terms| + 1e-6 of the plain einsum or ``_wgrad``, two calls bit
@@ -70,7 +71,24 @@ Phases, each printing one JSON line:
    ``tc_bound_ms``, their
    operations at the TF32 tensor cores' rate over the three terms of the
    split. ``sbr``, ``sbr_bwd``, ``bottleneck_fwd`` and the cross-entropy
-   pair also at the ImageNet train path's shapes.
+   pair also at the ImageNet train path's shapes. The fused block's kernels
+   also at ImageNet ResNet-34's three fused stage shapes (56²x64, 28²x128,
+   14²x256): ``block_fwd`` at B=16 (serve) and from the stats' c1 at B=128,
+   ``block_stats`` and the three passes at B=128 (fewer timing
+   repetitions), ``block_bwd`` at B=16, ``sbr``/``sbr_bwd`` at its 13 BN+ReLU
+   sites; at C = 128 and 256 passes 1 and 2 and ``block_bwd`` time their
+   weight gradients (``bottleneck_wgrad``'s shifted BN+ReLU mode) with
+   them (``includes``), and ``bottleneck_wgrad`` has rows of its own for
+   them at 28²x128 and 14²x256 (dw2 from ẑ2, dw1 from bfloat16 x).
+   Then a ``nan`` line (fault 7): every kernel with a ReLU
+   (``tools/nan_check.py``: ``sbr``, ``sbr_add``, the block's forward,
+   stats and passes 1-2 at C = 64, 128, 256, the bottleneck's forward and
+   first moment pass, the weight gradient's BN+ReLU operand) on inputs
+   with NaNs at seeded places: NaN exactly where the plain version's
+   output is, bit for bit its own clean output wherever the plain
+   version's did not move; and the NaN drill (``NAN_DRILL``, graphed CIFAR
+   ResNet-8, the step-5 batch NaN): rolled back from step 6 to checkpoint
+   4, the reference's rollback.
 3. ``serve`` (``cifar10``): CIFAR-10 ResNet-50 at full width (``--preset
    cifar10 model.fused_blocks=true model.fused_epilogue=on``) from seeded
    random weights, checkpointed to a temporary train dir and served by the
@@ -85,7 +103,10 @@ Phases, each printing one JSON line:
    Logits are held against the plain-version model (max |d| within 5% of
    the largest |logit|), and the argmax must agree on every image whose
    plain-version top-1/top-2 margin exceeds twice the measured max |d|
-   (random weights with 1000 classes leave many near-ties).
+   (random weights with 1000 classes leave many near-ties). Then
+   ``imagenet34``: ImageNet ResNet-34 (``model.resnet_size=34``) served
+   the same way: 10 ``block_fwd`` (2, 3, 5 at 56²x64, 28²x128, 14²x256)
+   and 13 ``sbr`` per forward pass, the 7²x512 stage on F.conv2d.
 5. ``train``: CIFAR-10 ResNet-50 at full width, B=128 (``--preset cifar10
    model.fused_epilogue=on optim.use_pallas_xent=on data.dataset=synthetic
    data.synthetic_learnable=true``): (a) one float32 train step from one
@@ -127,7 +148,14 @@ Phases, each printing one JSON line:
    training kernels, 30 ``bottleneck_wgrad``, 19 ``sbr``, 19 ``sbr_bwd``,
    1 ``xent_fwd`` and 1 ``xent_bwd`` per step; every loss finite and the
    mean of the last 5 below the first 5's; (c) the eager step's profile
-   (12 profiles the graphed one). Its eval is 11's.
+   (12 profiles the graphed one). Its eval is 11's. After 11, the same
+   for ImageNet ResNet-34 fused (``imagenet34_fused_train``,
+   ``model.resnet_size=34``): the f32 gate, 20 graphed steps with exactly
+   10 ``block_fwd`` and 10 of each block training kernel, 16
+   ``bottleneck_wgrad`` (dw2 and dw1 of the 8 blocks at 28²x128 and
+   14²x256), 13 ``sbr`` + 13 ``sbr_bwd``, 1 + 1 xent per step; then its
+   eager step profiled over ``IMAGENET34_PROFILE_STEPS`` steps with the
+   peak device memory, beside the unfused ResNet-34 step's.
 
 8. ``autotune``: (a) ``ep.probe_epilogue(include_add=True)`` in bfloat16 at
    every ``model_epilogue_shapes`` shape of the ``cifar10`` and
@@ -147,7 +175,9 @@ Phases, each printing one JSON line:
 9. ``ab``: the twins of the reference's A/B tools
    (``tpu_resnet_torch.tools.fused_block_ab`` and ``fused_bottleneck_ab``)
    through their per-shape functions, at the reference's shapes (B=128,
-   the three CIFAR stages, the three ResNet-50 stages) in bfloat16: one
+   the three CIFAR stages, the three ResNet-50 stages) and the block's at
+   ImageNet ResNet-34's three fused stages (``imagenet34_ab``; two
+   ``bottleneck_wgrad`` per ``block_bwd`` at C = 128, 256) in bfloat16: one
    ``fwd_bwd`` call of ``AB_LENGTH`` chained blocks per shape, the counters
    zeroed just before and read just after (``AB_LENGTH`` launches of
    ``block_fwd`` and ``block_bwd``, or of ``bottleneck_fwd`` and
@@ -251,10 +281,10 @@ The ``kernels`` phase also holds ``sbr_add`` (``tr_sbr_add``) against its
 plain version at the 14 probe shapes, bfloat16 and float32: the forward
 bit for bit, and through autograd dx bit for bit, dr == g, ds/db within
 ``sbr_bwd``'s limits; and the folded blocks' gradients, ``block_bwd`` at
-the three CIFAR B=128 stage shapes and ``bottleneck_bwd`` at the three
-ResNet-50 B=128 stage shapes, bfloat16 and float32, on the dyadic grids of
-the training kernels, and again at the grad phase's B=``GRAD_BATCH``
-shapes: every sum and weight gradient within 1e-5·Σ|terms| + 1e-6, dx
+the three CIFAR and the three ImageNet ResNet-34 B=128 stage shapes (the
+A/B tool's) and ``bottleneck_bwd`` at the three ResNet-50 B=128 stage
+shapes, bfloat16 and float32, on the dyadic grids of the training kernels,
+and again at the grad phase's B=``GRAD_BATCH`` shapes: every sum and weight gradient within 1e-5·Σ|terms| + 1e-6, dx
 within ``block_fwd``'s or ``bottleneck_fwd``'s tolerance, two calls bit for
 bit equal, and no mask of the first step ([a2 > 0], [m3 > 0], read from
 the dc1 or dmid it hands over) other than the plain version's
@@ -303,6 +333,7 @@ import torch.nn.functional as F
 # The port beside this script, however Python was started (``-I``, or from
 # another directory).
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from tpu_resnet_torch.ops import fused_block as _fb  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -328,6 +359,19 @@ def imagenet_shapes(b: int) -> dict:
                                ((b, 14, 14, 1024), 5))}
 
 
+def imagenet34_shapes(b: int) -> dict:
+    """ImageNet ResNet-34 at 224x224 with ``model.fused_blocks=true``,
+    batch b: (shape, launches per forward pass or train step) of ``sbr``
+    (13 BN+ReLU sites: the four block0s, the 7²x512 stage's two unfused
+    blocks and the final one) and of ``block_fwd`` (the 10 stride-1
+    identity blocks the reference fuses: 2, 3 and 5 of the 56²x64, 28²x128
+    and 14²x256 stages; the 7²x512 stage stays on F.conv2d)."""
+    return {"sbr": (((b, 56, 56, 64), 3), ((b, 28, 28, 128), 2),
+                    ((b, 14, 14, 256), 2), ((b, 7, 7, 512), 6)),
+            "block_fwd": (((b, 56, 56, 64), 2), ((b, 28, 28, 128), 3),
+                          ((b, 14, 14, 256), 5))}
+
+
 # (shape, launches per forward pass) on each serve path, at B=BATCH, and
 # per step on the train paths, at B=TRAIN_BATCH.
 TRAIN_SBR = (((TRAIN_BATCH, 32, 32, 16), 17), ((TRAIN_BATCH, 16, 16, 32), 16),
@@ -347,14 +391,24 @@ SHAPES = {
                                           ((TRAIN_BATCH, 8, 8, 64), 7))},
     # ImageNet ResNet-50 training through the 10 fused bottlenecks.
     "imagenet_fused_train": imagenet_shapes(TRAIN_BATCH),
+    # ImageNet ResNet-34: served, and trained through its 10 fused blocks.
+    "imagenet34": imagenet34_shapes(BATCH),
+    "imagenet34_fused_train": imagenet34_shapes(TRAIN_BATCH),
 }
+# The fused train paths of the basic block, whose block_fwd runs from the
+# stats' c1, and the block kernels' widths that take their weight gradients
+# from bottleneck_wgrad (two calls a step per block: dw2 in pass 1, dw1 in
+# pass 2).
+BLOCK_TRAIN_PATHS = ("cifar10_fused_train", "imagenet34_fused_train")
+WIDE_CHANNELS = tuple(c for c in _fb.CHANNELS if c not in _fb.TAP_CHANNELS)
 # Train-path kernels with their own rows: sbr_bwd at the train paths' sbr
 # shapes, the cross-entropy pair at these (path, class count, launches per
 # step), the fused block's training kernels at the block_fwd shapes of the
 # fused CIFAR train path, the fused bottleneck's at the bottleneck_fwd
 # shapes of the ImageNet train path.
 XENT_CLASSES = (("cifar10_train", 10, 1), ("cifar10_train", 100, 0),
-                ("imagenet_fused_train", 1000, 1))
+                ("imagenet_fused_train", 1000, 1),
+                ("imagenet34_fused_train", 1000, 1))
 BLOCK_TRAIN = ("block_stats", "block_bwd1", "block_bwd2", "block_bwd3")
 BOTTLENECK_TRAIN = ("bottleneck_stats_a", "bottleneck_stats_b",
                     "bottleneck_bwd1", "bottleneck_bwd2", "bottleneck_bwd3",
@@ -389,6 +443,18 @@ PER_PASS["imagenet_fused_train"].update(
     bottleneck_wgrad=3 * PER_PASS["imagenet_fused_train"]["bottleneck_fwd"],
     **{k: PER_PASS["imagenet_fused_train"]["bottleneck_fwd"]
        for k in BOTTLENECK_TRAIN})
+# The ImageNet ResNet-34 train step: each fused block runs block_fwd (from
+# the stats' c1) and the four training kernels once; at 28²x128 and
+# 14²x256 passes 1 and 2 each take one bottleneck_wgrad call (8 blocks);
+# the 13 sbr sites each run sbr_bwd.
+PER_PASS["imagenet34_fused_train"].update(
+    sbr_bwd=PER_PASS["imagenet34_fused_train"]["sbr"], xent_fwd=1,
+    xent_bwd=1,
+    bottleneck_wgrad=2 * sum(n for shape, n in SHAPES[
+        "imagenet34_fused_train"]["block_fwd"]
+        if shape[-1] in WIDE_CHANNELS),
+    **{k: PER_PASS["imagenet34_fused_train"]["block_fwd"]
+       for k in BLOCK_TRAIN})
 TRAIN_OVERRIDES = ["model.fused_epilogue=on", "optim.use_pallas_xent=on",
                    "data.dataset=synthetic", "data.synthetic_learnable=true"]
 # Each train path: its overrides and the launches of one eval forward.
@@ -408,6 +474,15 @@ TRAIN_PROFILE_STEPS = 10
 IMAGENET_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
                       "optim.use_pallas_xent=on"]
 IMAGENET_STEPS, IMAGENET_BATCHES, IMAGENET_GATE_BATCH = 20, 2, 32
+# The ImageNet train paths: ResNet-50 through its fused bottlenecks, and
+# ResNet-34 through its fused basic blocks, whose step is also profiled
+# unfused (model.fused_blocks=false) beside it, IMAGENET34_PROFILE_STEPS
+# steps each.
+IMAGENET_TRAIN_PATHS = {
+    "imagenet_fused_train": {"resnet_size": 50, "overrides": []},
+    "imagenet34_fused_train": {"resnet_size": 34,
+                               "overrides": ["model.resnet_size=34"]}}
+IMAGENET34_PROFILE_STEPS = 5
 # The autotune phase: the probe's timed calls per arm, and the steps of the
 # slice's own train path (model.fused_epilogue=auto on the cifar10
 # preset's defaults).
@@ -426,7 +501,9 @@ GRAD_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
 GRAD_SHAPES = {
     "cifar10": (((GRAD_BATCH, 32, 32, 16), 7), ((GRAD_BATCH, 16, 16, 32), 7),
                 ((GRAD_BATCH, 8, 8, 64), 7)),
-    "imagenet": imagenet_shapes(GRAD_BATCH)["bottleneck_fwd"]}
+    "imagenet": imagenet_shapes(GRAD_BATCH)["bottleneck_fwd"],
+    # The eval-mode gradient of ImageNet ResNet-34's fused blocks.
+    "imagenet34": imagenet34_shapes(GRAD_BATCH)["block_fwd"]}
 # The gradient's gate, normwise per tensor: the floor, and the ceiling
 # that CONTROL_FACTOR times the control's distance may not pass.
 GRAD_RTOL = (1e-3, 1e-2)
@@ -652,7 +729,11 @@ TENSOR_CORE_KERNELS = ("bottleneck_fwd", "bottleneck_stats_a",
 INCLUDES = {"bottleneck_bwd1": "dw3 (bottleneck_wgrad)",
             "bottleneck_bwd2": "dw2 (bottleneck_wgrad)",
             "bottleneck_bwd3": "dw1 (bottleneck_wgrad)",
-            "bottleneck_bwd": "dW1, dw2, dW3 (bottleneck_wgrad)"}
+            "bottleneck_bwd": "dW1, dw2, dW3 (bottleneck_wgrad)",
+            # The fused block's at C = 128 and 256 only (its rows say so).
+            "block_bwd1": "dw2 (bottleneck_wgrad) at C = 128, 256",
+            "block_bwd2": "dw1 (bottleneck_wgrad) at C = 128, 256",
+            "block_bwd": "dw2, dw1 (bottleneck_wgrad) at C = 128, 256"}
 
 
 def kernel_args(kind: str, shape, dtype, gen) -> tuple:
@@ -694,7 +775,8 @@ def _timed(row, kernel, plain, kind, shape, dtype, reps: int = 10,
     row["bound_us"] = row["bound_ms"] * 1e3
     if kind in TENSOR_CORE_KERNELS:
         row["tc_bound_ms"], row["tc_bound_by"] = bound_of(TF32X3_FLOP_PER_S)
-    if kind in INCLUDES:
+    if kind in INCLUDES and (kind.startswith("bottleneck")
+                             or shape[-1] in WIDE_CHANNELS):
         row["includes"] = INCLUDES[kind]
     return row
 
@@ -714,7 +796,7 @@ def kernel_phase(wrappers):
             args = kernel_args(kind, shape, dtype, gen)
             kernel, plain = wrappers[kind]
             bound_of = None
-            if kind == "block_fwd" and path == "cifar10_fused_train":
+            if kind == "block_fwd" and path in BLOCK_TRAIN_PATHS:
                 x, w1, _, s1, b1, *_ = args
                 c1 = fb.block_stats_reference(x, w1, s1, b1)[2]
                 kernel = functools.partial(kernel, c1=c1)
@@ -756,7 +838,8 @@ def train_kernel_phase(ep, sx):
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     sbr_cases = [(path, shape, n)
-                 for path in ("cifar10_train", "imagenet_fused_train")
+                 for path in ("cifar10_train", "imagenet_fused_train",
+                              "imagenet34_fused_train")
                  for shape, n in SHAPES[path]["sbr"]]
     for path, shape, per_step in sbr_cases:
         c = shape[-1]
@@ -955,7 +1038,13 @@ def block_train_kernel_phase(fb):
     (:func:`block_train_normal_args`)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for shape, per_step in SHAPES["cifar10_fused_train"]["block_fwd"]:
+    cases = [(path, shape, per_step) for path in BLOCK_TRAIN_PATHS
+             for shape, per_step in SHAPES[path]["block_fwd"]]
+    for path, shape, per_step in cases:
+        # Fewer timing repetitions at ImageNet's sizes: a call takes
+        # milliseconds.
+        timing = ({} if path == "cifar10_fused_train"
+                  else {"reps": 5, "inner": 2})
         for dtype in (torch.bfloat16, torch.float32):
             a = block_train_args(shape, dtype, gen)
             x, gy, w1, w2 = a["x"], a["gy"], a["w1"], a["w2"]
@@ -990,8 +1079,7 @@ def block_train_kernel_phase(fb):
                       f"{name}: two calls differ")
                 err = max(float((g.float() - w.float()).abs().max())
                           for g, w in zip(got, want))
-                row = {"kernel": kind, "path": "cifar10_fused_train",
-                       "shape": list(shape),
+                row = {"kernel": kind, "path": path, "shape": list(shape),
                        "dtype": str(dtype).split(".")[1],
                        "per_pass": per_step, "max_abs_err": err}
                 if kind == "block_bwd3":
@@ -1039,7 +1127,9 @@ def block_train_kernel_phase(fb):
                 check(excess <= 1, f"{name}: beyond tolerance: {row}")
                 rows.append(_timed(row, lambda: kernel(*args, **kw),
                                    lambda: plain(*args, **kw), kind, shape,
-                                   dtype))
+                                   dtype, **timing))
+            del a, x, gy, w1, w2, vecs, t, h1, u, dz1, dz2, z2hat, calls
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1165,7 +1255,7 @@ def bottleneck_train_kernel_phase(fbn):
 
 def wgrad_bound(p: int, taps: int, ka: int, nb: int, a_item: int,
                 bn: bool, flop_per_s: float) -> tuple:
-    """(least ms, what bounds it) of one ``_weight_grad`` call: A [P,ka]
+    """(least ms, what bounds it) of one ``weight_grad`` call: A [P,ka]
     (``a_item`` bytes an item) and b [P,nb] float32 read once, the
     [taps,ka,nb] float32 sum written once, BN's four [ka] vectors in;
     2·P·taps·ka·nb flops."""
@@ -1177,20 +1267,50 @@ def wgrad_bound(p: int, taps: int, ka: int, nb: int, a_item: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def bottleneck_wgrad_kernel_phase(fbn):
-    """``bottleneck_wgrad`` (``fbn._weight_grad``, csrc/bottleneck_wgrad.cu)
+def bottleneck_wgrad_kernel_phase(wg):
+    """``bottleneck_wgrad`` (``wg.weight_grad``, csrc/bottleneck_wgrad.cu)
     alone at the three ResNet-50 B=128 stage shapes, in each of its modes
     as its callers run it: dw3 = Σ p3ᵀ·gy with p3 from mid (BN and ReLU as
     staged), dw2 = Σ p2-patchᵀ·dmid (the 9 shifted taps), dw1 = Σ p1ᵀ·dc1
     from bfloat16 and float32 x (passes 1-3 of the train step), and the
     folded gradient's dW3 from rows of p3 (``bottleneck_bwd``, the A/B
-    path); within 1e-5·Σ|terms| + 1e-6 of ``weight_grad_reference``, two
+    path); and the fused basic block's at ImageNet ResNet-34's 28²x128 and
+    14²x256 B=128 stage shapes in the shifted BN+ReLU mode: dw2 from pass
+    1's ẑ2 with (γ2, β2) against gy, dw1 from bfloat16 x with BN1 against
+    dc1; within 1e-5·Σ|terms| + 1e-6 of ``weight_grad_reference``, two
     calls bit for bit equal. ``library_ms``: one PyTorch call on the operand
-    made beforehand, ``torch.matmul(a.t(), b)`` or, for dw2,
+    made beforehand, ``torch.matmul(a.t(), b)`` or, for the 3x3s,
     ``torch.nn.grad.conv2d_weight`` (TF32 off, as ``resolve_device`` sets
     it)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
+    for shape, per_step in SHAPES["imagenet34_fused_train"]["block_fwd"]:
+        b, h, w, c = shape
+        if c not in WIDE_CHANNELS:
+            continue
+        p = b * h * w
+        z2hat, gy, dc1 = (torch.randn(shape, generator=gen, device="cuda")
+                          for _ in range(3))
+        x16 = torch.randn(shape, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        bn2 = (torch.rand(c, generator=gen, device="cuda") + 0.5,
+               torch.randn(c, generator=gen, device="cuda") * 0.5)
+        bn1 = (*bn2, torch.randn(c, generator=gen, device="cuda") * 0.5,
+               torch.rand(c, generator=gen, device="cuda") + 0.5)
+        nchw = (lambda t: t.permute(0, 3, 1, 2))
+        r2 = torch.clamp_min(bn2[0] * z2hat + bn2[1], 0.0)
+        r1 = torch.clamp_min(bn1[0] * ((x16.float() - bn1[2]) * bn1[3])
+                             + bn1[1], 0.0)
+        products = (("block dw2", z2hat, gy, bn2, r2),
+                    ("block dw1", x16, dc1, bn1, r1))
+        for product, a, bmat, vecs, r in products:
+            rows.append(_wgrad_row(
+                wg, product, wg.SHIFTED_BN_RELU, a, bmat, c, c, 9,
+                vecs, "bfloat16", "imagenet34_fused_train", per_step, shape,
+                lambda: torch.nn.grad.conv2d_weight(
+                    nchw(r), (c, c, 3, 3), nchw(bmat), padding=1)))
+        del z2hat, gy, dc1, x16, r1, r2, products
+        torch.cuda.empty_cache()
     for shape, per_step in SHAPES["imagenet_fused_train"]["bottleneck_fwd"]:
         b, h, w, c4 = shape
         f, p = c4 // 4, b * h * w
@@ -1223,56 +1343,64 @@ def bottleneck_wgrad_kernel_phase(fbn):
         # (product, mode, A, b, ka, nb, taps, BN, x dtype, path, per pass,
         # the library call)
         products = (
-            ("dw3", fbn.WGRAD_BN_RELU, mid, gy, f, c4, 1, bn3, "bfloat16",
+            ("dw3", wg.BN_RELU, mid, gy, f, c4, 1, bn3, "bfloat16",
              "imagenet_fused_train", per_step, lambda: mm(p3, gy)),
-            ("dw2", fbn.WGRAD_SHIFTED, p2, dmid, f, f, 9, (), "bfloat16",
+            ("dw2", wg.SHIFTED, p2, dmid, f, f, 9, (), "bfloat16",
              "imagenet_fused_train", per_step,
              lambda: torch.nn.grad.conv2d_weight(
                  nchw(p2), (f, f, 3, 3), nchw(dmid), padding=1)),
-            ("dw1", fbn.WGRAD_BN_RELU, x16, dc1, c4, f, 1, bn1, "bfloat16",
+            ("dw1", wg.BN_RELU, x16, dc1, c4, f, 1, bn1, "bfloat16",
              "imagenet_fused_train", per_step, lambda: mm(p1, dc1)),
-            ("dw1", fbn.WGRAD_BN_RELU, x32, dc1, c4, f, 1, bn1, "float32",
+            ("dw1", wg.BN_RELU, x32, dc1, c4, f, 1, bn1, "float32",
              "imagenet_fused_train", per_step, lambda: mm(p1, dc1)),
-            ("dW3", fbn.WGRAD_ROWS, p3, gy, f, c4, 1, (), "bfloat16",
+            ("dW3", wg.ROWS, p3, gy, f, c4, 1, (), "bfloat16",
              "imagenet_ab", 1, lambda: mm(p3, gy)))
         for (product, mode, a, bmat, ka, nb, taps, vecs, dtype, path,
              per_pass, library) in products:
-            def kernel():
-                return fbn._weight_grad("bottleneck_wgrad", mode, a, bmat,
-                                        ka, nb, a, taps, vecs)
-
-            def plain():
-                return fbn.weight_grad_reference(mode, a, bmat, vecs)
-
-            got, again = kernel(), kernel()
-            with torch.backends.cudnn.flags(enabled=False):
-                want = plain()
-                scale = fbn.weight_grad_reference(mode, a, bmat, vecs,
-                                                  magnitudes=True)
-            torch.cuda.synchronize()
-            name = f"bottleneck_wgrad {product} {shape} x {dtype}"
-            check(torch.equal(got, again), f"{name}: two calls differ")
-            excess = _sum_excess((got,), (want,), (scale,))
-            row = {"kernel": "bottleneck_wgrad", "product": product,
-                   "mode": mode, "path": path, "shape": list(shape),
-                   "dtype": dtype, "per_pass": per_pass,
-                   "operand": [p, taps, ka, nb],
-                   "max_abs_err": float((got - want).abs().max()),
-                   "err_over_limit": excess,
-                   "tolerance": "sums <= 1e-5*sum|terms| + 1e-6"}
-            check(excess <= 1, f"{name}: beyond tolerance: {row}")
-            _timed(row, kernel, plain, "bottleneck_wgrad", shape, dtype,
-                   reps=5, inner=2,
-                   bound_of=lambda rate: wgrad_bound(
-                       p, taps, ka, nb, a.element_size(), bool(vecs),
-                       rate))
-            row["library_ms"] = time_ms(library, queued=True, reps=5,
-                                        inner=2)
-            rows.append(row)
-            del got, again, want, scale
+            rows.append(_wgrad_row(wg, product, mode, a, bmat, ka, nb,
+                                   taps, vecs, dtype, path, per_pass, shape,
+                                   library))
         del gy, mid, dmid, dc1, p2, p3, x16, x32, p1, products
         torch.cuda.empty_cache()
     return rows
+
+
+def _wgrad_row(wg, product, mode, a, bmat, ka, nb, taps, vecs, dtype, path,
+               per_pass, shape, library) -> dict:
+    """One ``bottleneck_wgrad`` row: two calls bit for bit equal, within
+    1e-5·Σ|terms| + 1e-6 of ``weight_grad_reference``, timed beside it and
+    beside ``library``."""
+    p = a.numel() // a.shape[-1]
+
+    def kernel():
+        return wg.weight_grad("bottleneck_wgrad", mode, a, bmat, ka, nb, a,
+                              taps, vecs)
+
+    def plain():
+        return wg.weight_grad_reference(mode, a, bmat, vecs)
+
+    got, again = kernel(), kernel()
+    with torch.backends.cudnn.flags(enabled=False):
+        want = plain()
+        scale = wg.weight_grad_reference(mode, a, bmat, vecs,
+                                         magnitudes=True)
+    torch.cuda.synchronize()
+    name = f"bottleneck_wgrad {product} {shape} x {dtype}"
+    check(torch.equal(got, again), f"{name}: two calls differ")
+    excess = _sum_excess((got,), (want,), (scale,))
+    row = {"kernel": "bottleneck_wgrad", "product": product, "mode": mode,
+           "path": path, "shape": list(shape), "dtype": dtype,
+           "per_pass": per_pass, "operand": [p, taps, ka, nb],
+           "max_abs_err": float((got - want).abs().max()),
+           "err_over_limit": excess,
+           "tolerance": "sums <= 1e-5*sum|terms| + 1e-6"}
+    check(excess <= 1, f"{name}: beyond tolerance: {row}")
+    del got, again, want, scale
+    _timed(row, kernel, plain, "bottleneck_wgrad", shape, dtype, reps=5,
+           inner=2, bound_of=lambda rate: wgrad_bound(
+               p, taps, ka, nb, a.element_size(), bool(vecs), rate))
+    row["library_ms"] = time_ms(library, queued=True, reps=5, inner=2)
+    return row
 
 
 def _bwd_rows(kind, path, shape, dtype, args, kernel, plain, per_pass,
@@ -1337,17 +1465,26 @@ def fused_bwd_kernel_phase(fb, fbn):
     ``block_bwd`` at the three CIFAR stage shapes and ``bottleneck_bwd`` at
     the three ResNet-50 stage shapes, at B=128 (the A/B tools' shapes, one
     call per shape and pass) and at B=GRAD_BATCH (the grad phase's, with
-    its launches per backward), bfloat16 and float32, on the dyadic grids
+    its launches per backward), and ``block_bwd`` at ImageNet ResNet-34's
+    three fused stage shapes at B=128 (``imagenet34_ab``, the A/B tool's
+    shapes) and at B=GRAD_BATCH (the eval-mode gradient of its 10 fused
+    blocks), bfloat16 and float32, on the dyadic grids
     of :func:`block_train_args` and :func:`bottleneck_train_args` (the
     folded scales and biases taken from their gammas, betas and powers of
     2, so that c1 and mid and with them the masks are exact): each row's
     ``mask_flips`` (:func:`folded_mask_flips`) must be 0."""
+    from tpu_resnet_torch.tools import fused_block_ab
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     ab = [(shape, 1) for shape, _ in SHAPES["cifar10_fused_train"]
           ["block_fwd"]]
+    ab34 = [(shape, 1) for shape in fused_block_ab.IMAGENET_SHAPES]
     for path, shapes in (("cifar10_ab", ab),
-                         ("cifar10_grad", GRAD_SHAPES["cifar10"])):
+                         ("cifar10_grad", GRAD_SHAPES["cifar10"]),
+                         ("imagenet34_ab", ab34),
+                         ("imagenet34_grad", GRAD_SHAPES["imagenet34"])):
+        timing = {} if path.startswith("cifar10") else {"reps": 5,
+                                                        "inner": 2}
         for shape, per_pass in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 a = block_train_args(shape, dtype, gen)
@@ -1355,7 +1492,7 @@ def fused_bwd_kernel_phase(fb, fbn):
                         a["g2"], a["b2"])
                 rows.append(_bwd_rows(
                     "block_bwd", path, shape, dtype, args, fb.block_bwd,
-                    fb.block_bwd_reference, per_pass, "block_fwd"))
+                    fb.block_bwd_reference, per_pass, "block_fwd", **timing))
                 rows[-1]["mask_flips"] = folded_mask_flips(fb, fbn,
                                                            "block_bwd", args)
     ab = [(shape, 1) for shape, _ in SHAPES["imagenet_fused_train"]
@@ -1384,12 +1521,63 @@ def fused_bwd_kernel_phase(fb, fbn):
     return rows
 
 
+# The NaN drill of fault 7: a graphed CIFAR ResNet-8 run whose step-5 batch
+# is NaN (resilience.inject_nan_at_step) must roll back from the log
+# boundary of step 6 to checkpoint 4, where the reference rolls back.
+NAN_DRILL = ["data.dataset=synthetic", "data.synthetic_learnable=true",
+             "data.synthetic_train_examples=256", "model.resnet_size=8",
+             "model.fused_epilogue=on", "optim.use_pallas_xent=on",
+             "data.device_resident=off", "data.transfer_stage=1",
+             "train.global_batch_size=16", "train.train_steps=12",
+             "train.log_every=2", "train.checkpoint_every=4",
+             "train.steps_per_call=4", "resilience.inject_nan_at_step=5"]
+NAN_ROLLBACK = [(6, 4)]
+
+
+def nan_phase(gpu: str) -> dict:
+    """Fault 7: every kernel with a ReLU keeps a NaN
+    (``tools/nan_check.py``): on inputs with NaNs at seeded places each
+    kernel's output is NaN exactly where its plain version's is, bit for
+    bit its own output on the clean input wherever the plain version's did
+    not move, and within the plain version's rounding elsewhere; then the
+    NaN drill (``NAN_DRILL``): the rollback the reference takes,
+    ``NAN_ROLLBACK``, and the reference's logged steps."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.tools import nan_check
+    from tpu_resnet_torch.train.loop import train
+
+    rows = [nan_check.check(case) for case in nan_check.cases()]
+    bad = [row for row in rows if not row["ok"]]
+    check(not bad, f"a kernel does not keep the NaN: {bad}")
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_nan_")
+    try:
+        state = train(load_config("cifar10", "", [
+            *NAN_DRILL, f"train.train_dir={train_dir}"]), device="cuda")
+        rollbacks = [(s["from_step"], s["to_step"]) for s in load_spans(
+            os.path.join(train_dir, "events.jsonl"))
+            if s["span"] == "nan_rollback"]
+        logged = [r["step"] for r in read_jsonl(
+            os.path.join(train_dir, "metrics.jsonl"))]
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    check(state.step == 12 and rollbacks == NAN_ROLLBACK
+          and logged == [2, 4, 6, 8, 10, 12],
+          f"NaN drill: stopped at {state.step}, rollbacks {rollbacks} "
+          f"(the reference's: {NAN_ROLLBACK}), logged steps {logged}")
+    result = {"rows": rows, "drill_rollbacks": rollbacks,
+              "drill_logged_steps": logged, "gpu": gpu}
+    emit("nan", **result)
+    return result
+
+
 def kernel_counters() -> dict:
     """{kernel: (module, launch counter)} of the port's wrappers."""
     from tpu_resnet_torch.ops import epilogue as ep
     from tpu_resnet_torch.ops import fused_block as fb
     from tpu_resnet_torch.ops import fused_bottleneck as fbn
     from tpu_resnet_torch.ops import softmax_xent as sx
+    from tpu_resnet_torch.ops import wgrad as wg
     return {"sbr": (ep, "launches"), "block_fwd": (fb, "launches"),
             "bottleneck_fwd": (fbn, "launches"),
             "sbr_bwd": (ep, "bwd_launches"), "xent_fwd": (sx, "fwd_launches"),
@@ -1407,7 +1595,7 @@ def kernel_counters() -> dict:
             "sbr_add": (ep, "add_launches"),
             "block_bwd": (fb, "bwd_launches"),
             "bottleneck_bwd": (fbn, "bwd_launches"),
-            "bottleneck_wgrad": (fbn, "wgrad_launches")}
+            "bottleneck_wgrad": (wg, "launches")}
 
 
 def zero_counts(counters) -> None:
@@ -1477,6 +1665,10 @@ SERVE_PATHS = {
                 "lat1": 40, "argmax": "all"},
     "imagenet": {"size": 224, "octet": ((1, 0), (16, 1)), "json": 1,
                  "lat1": 20, "argmax": "margin"},
+    # ImageNet ResNet-34 through its 10 fused blocks at 224².
+    "imagenet34": {"size": 224, "octet": ((1, 0), (16, 1)), "json": 1,
+                   "lat1": 20, "argmax": "margin", "preset": "imagenet",
+                   "overrides": ["model.resnet_size=34"]},
 }
 N_IMAGES = 256
 
@@ -1491,10 +1683,10 @@ def serve_phase(path: str, counters, gpu: str) -> dict:
     spec = SERVE_PATHS[path]
     size = spec["size"]
     train_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{path}_")
-    cfg = load_config(path, "", [
+    cfg = load_config(spec.get("preset", path), "", [
         "model.fused_blocks=true", "model.fused_epilogue=on",
         f"train.train_dir={train_dir}", "serve.host=127.0.0.1",
-        "serve.port=0"])
+        "serve.port=0", *spec.get("overrides", ())])
     check(cfg.data.resolved_image_size == size, f"{path}: image size "
           f"{cfg.data.resolved_image_size}")
     model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
@@ -1586,8 +1778,8 @@ def serve_phase(path: str, counters, gpu: str) -> dict:
     check(clean, "server did not drain cleanly")
     result = {
         "path": path,
-        "model": f"{path} ResNet-50 {size}x{size} fused_blocks=on "
-                 f"fused_epilogue=on bf16",
+        "model": f"{cfg.data.dataset} ResNet-{cfg.model.resnet_size} "
+                 f"{size}x{size} fused_blocks=on fused_epilogue=on bf16",
         "params": sum(p.numel() for p in model.parameters()),
         "warmup_s": warm_s, "forwards": forwards, "launches": launches,
         "per_forward": {k: v / forwards for k, v in launches.items()},
@@ -1846,30 +2038,36 @@ def train_phase(path: str, counters, gpu: str) -> dict:
     return result
 
 
-def imagenet_train_phase(counters, gpu: str) -> dict:
-    """ImageNet ResNet-50 training at 224x224, full depth and width, B=128,
-    bf16, through the 10 fused bottlenecks (``IMAGENET_OVERRIDES``): the
-    float32 kernel-vs-plain step gate (B=IMAGENET_GATE_BATCH), then the
-    loop's own step (``build_state`` + ``make_loop_step``, as ``train()``
-    builds them) for IMAGENET_STEPS steps on IMAGENET_BATCHES seeded uint8
-    batches repeated, dispatched as the loop does at the preset's
-    ``train.steps_per_call`` (chunks of CUDA graph replays,
-    ``ChunkRunner``), the counters zeroed just before and read just after;
-    every step's loss finite and the mean of the last 5 below the first
-    5's; then the step's device profile, eager and graphed."""
+def imagenet_train_phase(counters, gpu: str,
+                         path: str = "imagenet_fused_train") -> dict:
+    """ImageNet training at 224x224, full depth and width, B=128, bf16, on
+    one of ``IMAGENET_TRAIN_PATHS`` (``IMAGENET_OVERRIDES``): ResNet-50
+    through its 10 fused bottlenecks, or ResNet-34 through its 10 fused
+    basic blocks. The float32 kernel-vs-plain step gate
+    (B=IMAGENET_GATE_BATCH), then the loop's own step (``build_state`` +
+    ``make_loop_step``, as ``train()`` builds them) for IMAGENET_STEPS
+    steps on IMAGENET_BATCHES seeded uint8 batches repeated, dispatched as
+    the loop does at the preset's ``train.steps_per_call`` (chunks of CUDA
+    graph replays, ``ChunkRunner``), the counters zeroed just before and
+    read just after; every step's loss finite and the mean of the last 5
+    below the first 5's; then the step's device profile (ResNet-34: over
+    IMAGENET34_PROFILE_STEPS steps, with the step's peak device memory, and
+    the unfused ResNet-34 step's profile and peak beside it)."""
     from tpu_resnet_torch.config import load_config
     from tpu_resnet_torch.data.device_data import WARMUP_STEPS, ChunkRunner
     from tpu_resnet_torch.tools.profiling import (device_batches,
                                                   profile_train_step)
     from tpu_resnet_torch.train.loop import build_state, make_loop_step
 
-    path = "imagenet_fused_train"
+    spec = IMAGENET_TRAIN_PATHS[path]
+    overrides = [*IMAGENET_OVERRIDES, *spec["overrides"]]
     compared = compare_step(load_config("imagenet", "", [
-        *IMAGENET_OVERRIDES, "model.compute_dtype=float32"]), counters, path,
+        *overrides, "model.compute_dtype=float32"]), counters, path,
         IMAGENET_GATE_BATCH)
-    cfg = load_config("imagenet", "", IMAGENET_OVERRIDES)
+    cfg = load_config("imagenet", "", overrides)
     size, classes = cfg.data.resolved_image_size, cfg.data.num_classes
-    check(size == 224 and classes == 1000 and cfg.model.resnet_size == 50,
+    check(size == 224 and classes == 1000
+          and cfg.model.resnet_size == spec["resnet_size"],
           f"imagenet preset: {size}x{size}, {classes} classes, "
           f"ResNet-{cfg.model.resnet_size}")
     per_call = cfg.train.steps_per_call
@@ -1905,16 +2103,32 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     check(last5 < first5, f"loss did not fall: first 5 mean {first5}, "
           f"last 5 {last5}")
-    prof = profile_train_step(state, step_fn,
-                              device_batches(*host[0], cuda),
-                              iters=INPUT_PROFILE_STEPS)
+    params = sum(p.numel() for p in state.model.parameters())
+    if path == "imagenet_fused_train":
+        prof = profile_train_step(state, step_fn,
+                                  device_batches(*host[0], cuda),
+                                  iters=INPUT_PROFILE_STEPS)
+        unfused = {}
+    else:
+        prof = _peak_profile(state, step_fn, host[0], cuda)
+        del state, step_fn, runner, batches
+        gc_collect()
+        ucfg = load_config("imagenet", "", [*overrides,
+                                            "model.fused_blocks=false"])
+        ustate = build_state(ucfg, cuda)
+        unfused = _peak_profile(ustate, make_loop_step(ucfg, cuda), host[0],
+                                cuda)
+        unfused = {"unfused_profile": {k: v for k, v in unfused.items()
+                                       if k != "kernels"},
+                   "unfused_profile_top_kernels": unfused["kernels"][:16]}
+        del ustate
+        gc_collect()
     result = {
         "path": path,
-        "model": f"imagenet ResNet-50 {size}x{size} fused_blocks=on "
-                 f"fused_epilogue=on use_pallas_xent=on "
+        "model": f"imagenet ResNet-{cfg.model.resnet_size} {size}x{size} "
+                 f"fused_blocks=on fused_epilogue=on use_pallas_xent=on "
                  f"{cfg.model.compute_dtype}, B={TRAIN_BATCH}",
-        "params": sum(p.numel() for p in state.model.parameters()),
-        "f32_step_vs_plain": compared,
+        "params": params, "f32_step_vs_plain": compared,
         "steps": IMAGENET_STEPS, "batches": IMAGENET_BATCHES,
         "steps_per_call": per_call, "capture_seconds": capture_seconds,
         "train_seconds": seconds,
@@ -1924,10 +2138,24 @@ def imagenet_train_phase(counters, gpu: str) -> dict:
         "loss_first5_mean": first5, "loss_last5_mean": last5,
         "losses": losses,
         "profile": {k: v for k, v in prof.items() if k != "kernels"},
-        "profile_top_kernels": prof["kernels"][:16],
+        "profile_top_kernels": prof["kernels"][:16], **unfused,
         "gpu": gpu}
     emit("train", **result)
     return result
+
+
+def _peak_profile(state, step_fn, batch, cuda) -> dict:
+    """The eager step's profile over IMAGENET34_PROFILE_STEPS steps of one
+    seeded batch, with the device memory's peak over them (``peak_gb``:
+    state, batch and the steps' own tensors)."""
+    from tpu_resnet_torch.tools.profiling import (device_batches,
+                                                  profile_train_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_train_step(state, step_fn, device_batches(*batch, cuda),
+                              iters=IMAGENET34_PROFILE_STEPS, warmup=2)
+    prof["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return prof
 
 
 # The chunked_train phase: each path trained twice eagerly
@@ -3418,20 +3646,27 @@ def ab_phase(counters, gpu: str) -> list:
     from tpu_resnet_torch.tools import fused_block_ab, fused_bottleneck_ab
 
     cuda = torch.device("cuda")
-    # Each tool: launches of each kernel per chained block.
-    tools = (("cifar10_ab", fused_block_ab, fused_block_ab.SHAPES,
-              {"block_fwd": 1, "block_bwd": 1}),
+
+    def block(shape):   # two weight gradients a block_bwd at C >= 128
+        return {"block_fwd": 1, "block_bwd": 1,
+                "bottleneck_wgrad": 2 if shape[-1] in WIDE_CHANNELS else 0}
+
+    # Each tool: launches of each kernel per chained block, by shape.
+    tools = (("cifar10_ab", fused_block_ab, fused_block_ab.SHAPES, block),
              ("imagenet_ab", fused_bottleneck_ab,
               [(b, h, h, 4 * f) for b, h, f in fused_bottleneck_ab.SHAPES],
-              {"bottleneck_fwd": 1, "bottleneck_bwd": 1,
-               "bottleneck_wgrad": 3}))
+              lambda shape: {"bottleneck_fwd": 1, "bottleneck_bwd": 1,
+                             "bottleneck_wgrad": 3}),
+             ("imagenet34_ab", fused_block_ab,
+              fused_block_ab.IMAGENET_SHAPES, block))
     results = []
     for path, tool, shapes, kinds in tools:
-        per_call = {k: AB_LENGTH * kinds.get(k, 0) for k in KERNELS}
         total = {k: 0 for k in KERNELS}
         by_shape, host_paced = {}, []
         t0 = time.monotonic()
         for shape in shapes:
+            per_call = {k: AB_LENGTH * kinds(shape).get(k, 0)
+                        for k in KERNELS}
             x0, arms = tool.make_arms(shape, AB_LENGTH, torch.bfloat16, cuda)
             zero_counts(counters)
             grads = arms["fwd_bwd"][0](x0)
@@ -3458,7 +3693,10 @@ def ab_phase(counters, gpu: str) -> list:
             "shapes": [list(s) for s in shapes], "seconds":
             time.monotonic() - t0, "launches": total,
             "eval_launches": {k: 0 for k in KERNELS},
-            "launches_per_step": per_call, "by_shape": by_shape,
+            # Per fwd_bwd call, the mean over the shapes.
+            "launches_per_step": {k: n / len(shapes)
+                                  for k, n in total.items()},
+            "by_shape": by_shape,
             "host_paced": host_paced, "gpu": gpu}
         emit("ab", **result)
         results.append(result)
@@ -3628,7 +3866,8 @@ KERNEL_SOURCES = (
     # The weight-gradient products inside passes 1-3 (dw3, dw2, dw1) and
     # inside the folded gradient (dW3, dw2, dW1), at their call lines.
     ("bottleneck_wgrad", "tpu_resnet_torch/csrc/bottleneck_wgrad.cu",
-     "tpu_resnet/ops/fused_bottleneck.py:662, :701, :745, :339"))
+     "tpu_resnet/ops/fused_bottleneck.py:662, :701, :745, :339; "
+     "tpu_resnet/ops/fused_block.py:381, :409, :252 (C = 128, 256)"))
 
 
 def path_times(rows) -> dict:
@@ -3709,6 +3948,7 @@ def main() -> int:
     from tpu_resnet_torch.ops import fused_block as fb
     from tpu_resnet_torch.ops import fused_bottleneck as fbn
     from tpu_resnet_torch.ops import softmax_xent as sx
+    from tpu_resnet_torch.ops import wgrad as wg
 
     resolve_device("cuda")  # TF32 off for the float32 oracle
     gpu = subprocess.run(
@@ -3734,18 +3974,21 @@ def main() -> int:
     rows += train_kernel_phase(ep, sx)
     rows += block_train_kernel_phase(fb)
     rows += bottleneck_train_kernel_phase(fbn)
-    rows += bottleneck_wgrad_kernel_phase(fbn)
+    rows += bottleneck_wgrad_kernel_phase(wg)
     rows += sbr_add_kernel_phase(ep)
     rows += fused_bwd_kernel_phase(fb, fbn)
     for row in rows:
         if row["kernel"] in FLOOR_KERNELS:   # one launch a call
             row["floor_ms"] = floor
     emit("kernels", gpu=gpu, launch_floor_ms=floor, rows=rows)
+    nan_phase(gpu)
     counters = kernel_counters()
     served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))
+    trained.append(imagenet_train_phase(counters, gpu,
+                                        "imagenet34_fused_train"))
     chunked_train_phase(counters, gpu)
     trained.append(observability_phase(counters, gpu))
     trained.append(autotune_phase(counters, gpu))

@@ -19,6 +19,7 @@ import torch
 from test_torch_fused_train import EPS, _close
 from tpu_resnet.ops import fused_block as jax_fb
 from tpu_resnet_torch.ops import fused_block as fb
+from tpu_resnet_torch.ops import wgrad as wg
 
 SUM = (0, 1, 2)
 # [B, H, W, C]: the two widths on a square plane, and a ragged plane.
@@ -63,7 +64,7 @@ def test_handed_over_passes_equal_the_recompute_chain(shape):
     _, _, _, z2, z2hat, r2 = fb._recompute(x, w1, g1, b1, g2, b2, m1, i1,
                                            m2, i2)
     dz2 = fb._dz2(z2, gy, w2)
-    want = (dz2.sum(SUM), (dz2 * z2hat).sum(SUM), fb._wgrad(r2, gy), dz2,
+    want = (dz2.sum(SUM), (dz2 * z2hat).sum(SUM), wg.shifted_reference(r2, gy), dz2,
             z2hat)
     got = fb.train_bwd_pass1_reference(*base)
     for name, g, w in zip(("t1", "t2", "dw2", "dz2", "z2hat"), got, want):
@@ -74,7 +75,7 @@ def test_handed_over_passes_equal_the_recompute_chain(shape):
     r = fb._pass2_chain(*base, *t)
     u1, u2, dw1, dz1 = fb.train_bwd_pass2_reference(*base, *t, **h1)
     want = (r["dz1"].sum(SUM), (r["dz1"] * r["z1hat"]).sum(SUM),
-            fb._wgrad(r["r1"], r["dc1"]), r["dz1"])
+            wg.shifted_reference(r["r1"], r["dc1"]), r["dz1"])
     for name, got, w in zip(("u1", "u2", "dw1", "dz1"),
                             (u1, u2, dw1, dz1), want):
         assert torch.equal(got, w), name

@@ -18,7 +18,8 @@ import torch
 from test_torch_bottleneck_train import CASES, EPS, IDS, _close, _inputs
 from tpu_resnet.ops import fused_bottleneck as jax_fbn
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
-from tpu_resnet_torch.ops.fused_block import _n, _wgrad
+from tpu_resnet_torch.ops.fused_block import _n
+from tpu_resnet_torch.ops.wgrad import shifted_reference
 
 SUM = (0, 1, 2)
 
@@ -53,7 +54,7 @@ def test_handed_over_passes_equal_the_recompute_chain(f, bhw, row_tile):
     t2a, t2b, dw2, dmid = fbn.train_bwd_pass2_reference(*base, *t3, **h1)
     r = fbn._bwd_chain(x, gy, w1, w2, w3, vecs, t3)
     want = (r["dm2"].sum(SUM), (r["dm2"] * r["chat"]).sum(SUM),
-            _wgrad(r["p2"], r["dmid"]), r["dmid"])
+            shifted_reference(r["p2"], r["dmid"]), r["dmid"])
     for name, got, w in zip(("t2a", "t2b", "dw2", "dmid"),
                             (t2a, t2b, dw2, dmid), want):
         assert torch.equal(got, w), name

@@ -31,6 +31,7 @@ from tpu_resnet_torch.data import augment as aug
 from tpu_resnet_torch.models import imagenet_resnet_v2
 from tpu_resnet_torch.models.resnet import FusedBottleneckBlock
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
+from tpu_resnet_torch.ops import wgrad as wg
 from tpu_resnet_torch.train import schedule as sched
 from tpu_resnet_torch.train.loop import train
 from tpu_resnet_torch.train.state import create_state
@@ -130,7 +131,7 @@ def test_train_bwd_passes_match_reference(passes):
 
 
 def test_weight_grad_products_match_reference(passes):
-    """``_weight_grad`` on the CPU (its plain version, as its kernel's
+    """``wgrad.weight_grad`` on the CPU (its plain version, as its kernel's
     oracle), fed what passes 1-3 hand over, gives the reference's dw3, dw2
     and dw1, and launches nothing."""
     x, gy, params, moments, ref = passes
@@ -146,14 +147,13 @@ def test_weight_grad_products_match_reference(passes):
     dc1 = fbn.bottleneck_bwd3(*base, *sums, dmid=dmid)[3]
     f = w1.shape[1]
     xt, gyt = base[:2]
-    before = fbn.wgrad_launches
-    got = {"dw3": fbn._weight_grad("dw3", fbn.WGRAD_BN_RELU, mid, gyt, f,
-                                   4 * f, xt, 1, (g3, be3, m3, i3)),
-           "dw2": fbn._weight_grad("dw2", fbn.WGRAD_SHIFTED, p2, dmid, f, f,
-                                   xt, 9),
-           "dw1": fbn._weight_grad("dw1", fbn.WGRAD_BN_RELU, xt, dc1, 4 * f,
-                                   f, xt, 1, (g1, be1, m1, i1))}
-    assert fbn.wgrad_launches == before
+    before = wg.launches
+    got = {"dw3": wg.weight_grad("dw3", wg.BN_RELU, mid, gyt, f, 4 * f, xt,
+                                 1, (g3, be3, m3, i3)),
+           "dw2": wg.weight_grad("dw2", wg.SHIFTED, p2, dmid, f, f, xt, 9),
+           "dw1": wg.weight_grad("dw1", wg.BN_RELU, xt, dc1, 4 * f, f, xt,
+                                 1, (g1, be1, m1, i1))}
+    assert wg.launches == before
     for name, g in got.items():
         _close(g.reshape(ref[name].shape), ref[name], name, atol=1e-4,
                rtol=1e-4)
@@ -171,9 +171,9 @@ def test_weight_grad_plain_is_the_sum_over_pixels(mode):
     bn = [rng.uniform(0.5, 1.5, ka), rng.normal(size=ka),
           rng.normal(size=ka), rng.uniform(0.5, 1.5, ka)]
     bn = [v.astype(np.float32) for v in bn]
-    am = {"rows": fbn.WGRAD_ROWS, "shifted": fbn.WGRAD_SHIFTED,
-          "bn_relu": fbn.WGRAD_BN_RELU}[mode]
-    got = fbn.weight_grad_reference(
+    am = {"rows": wg.ROWS, "shifted": wg.SHIFTED,
+          "bn_relu": wg.BN_RELU}[mode]
+    got = wg.weight_grad_reference(
         am, torch.from_numpy(a), torch.from_numpy(bm),
         tuple(map(torch.from_numpy, bn)) if mode == "bn_relu" else ())
     a64, b64 = a.astype(np.float64), bm.astype(np.float64)

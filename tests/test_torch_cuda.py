@@ -17,6 +17,7 @@ from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import fused_block as fb
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
 from tpu_resnet_torch.ops import softmax_xent as sx
+from tpu_resnet_torch.ops import wgrad as wg
 from tpu_resnet_torch.train import schedule as sched_lib
 from tpu_resnet_torch.train.loop import build_state, build_step, make_loop_step
 from tpu_resnet_torch.train.step import make_train_step
@@ -43,13 +44,16 @@ def _inputs(shape, dtype, gen):
     return x, w, sb
 
 
-# The three CIFAR stages at B = 1 and 16 (the serve buckets: the small tile
-# plan) and 128 (the train step: the tile plan), odd batches, and a ragged
-# plane whose tiles span images.
+# The three CIFAR stages and the ImageNet ResNet-18/34 stages at C = 128
+# and 256 at B = 1 and 16 (the serve buckets: the small tile plan) and 128
+# (the train step: the tile plan), odd batches, and ragged planes whose
+# tiles span images.
 _FWD_SHAPES = ([(b, hw, hw, c) for b in (1, 16, 128)
-                for hw, c in ((32, 16), (16, 32), (8, 64))]
+                for hw, c in ((32, 16), (16, 32), (8, 64), (28, 128),
+                              (14, 256))]
                + [(3, 32, 32, 16), (5, 16, 16, 32), (2, 8, 8, 64),
-                  (1, 7, 5, 16), (16, 7, 5, 16)])
+                  (1, 7, 5, 16), (16, 7, 5, 16), (3, 7, 5, 128),
+                  (2, 5, 3, 256)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -70,7 +74,9 @@ def test_block_fwd_kernel_matches_plain(cuda, shape, dtype):
 # The three CIFAR train shapes (the tile plan), a B=16 serve shape (the
 # small plan), an odd batch and a ragged plane whose tiles span images.
 _C1_SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64),
-              (16, 16, 16, 32), (3, 16, 16, 32), (5, 7, 5, 16)]
+              (16, 16, 16, 32), (3, 16, 16, 32), (5, 7, 5, 16),
+              (128, 28, 28, 128), (128, 14, 14, 256), (16, 14, 14, 256),
+              (3, 7, 5, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -379,7 +385,9 @@ def _sums_close(got, want, scale):
 @pytest.mark.parametrize("shape", [(1, 32, 32, 16), (3, 16, 16, 32),
                                    (5, 8, 8, 64), (2, 7, 5, 16),
                                    (7, 7, 5, 16), (128, 32, 32, 16),
-                                   (128, 16, 16, 32), (128, 8, 8, 64)])
+                                   (128, 16, 16, 32), (128, 8, 8, 64),
+                                   (3, 7, 5, 128), (2, 9, 5, 256),
+                                   (128, 28, 28, 128), (128, 14, 14, 256)])
 def test_block_train_kernels_match_plain(cuda, shape, dtype):
     """block_stats and the three backward passes at the three widths, a
     single image, odd batches and ragged planes (where the tiles of pixels
@@ -606,25 +614,30 @@ def test_bottleneck_train_kernels_match_plain(cuda, shape, dtype):
 # (no multiple of the 16-pixel chunk), and a 7x7 image whose 3x3 taps fall
 # off every edge.
 WGRAD_CASES = [
-    (fbn.WGRAD_ROWS, (3, 7, 7, 64), 256, torch.float32),
-    (fbn.WGRAD_SHIFTED, (3, 7, 7, 64), 64, torch.float32),
-    (fbn.WGRAD_SHIFTED, (3, 9, 5, 128), 128, torch.float32),
-    (fbn.WGRAD_BN_RELU, (3, 7, 7, 256), 64, torch.float32),
-    (fbn.WGRAD_BN_RELU, (3, 7, 7, 256), 64, torch.bfloat16),
-    (fbn.WGRAD_BN_RELU, (3, 9, 5, 128), 512, torch.float32),
-    (fbn.WGRAD_BN_RELU, (3, 9, 5, 128), 512, torch.bfloat16)]
+    (wg.ROWS, (3, 7, 7, 64), 256, torch.float32),
+    (wg.SHIFTED, (3, 7, 7, 64), 64, torch.float32),
+    (wg.SHIFTED, (3, 9, 5, 128), 128, torch.float32),
+    (wg.BN_RELU, (3, 7, 7, 256), 64, torch.float32),
+    (wg.BN_RELU, (3, 7, 7, 256), 64, torch.bfloat16),
+    (wg.BN_RELU, (3, 9, 5, 128), 512, torch.float32),
+    (wg.BN_RELU, (3, 9, 5, 128), 512, torch.bfloat16),
+    (wg.SHIFTED_BN_RELU, (3, 9, 5, 128), 128, torch.float32),
+    (wg.SHIFTED_BN_RELU, (3, 9, 5, 128), 128, torch.bfloat16),
+    (wg.SHIFTED_BN_RELU, (2, 7, 7, 256), 256, torch.float32)]
 
 
 @pytest.mark.parametrize("mode, shape, nb, dtype", WGRAD_CASES)
 def test_bottleneck_wgrad_kernel_matches_plain(cuda, mode, shape, nb, dtype):
-    """``tr_bottleneck_wgrad`` in each of its three modes, with the pixels
+    """``tr_bottleneck_wgrad`` in each of its four modes, with the pixels
     in the default number of splits, in one, and in more than the pixels
     fill (the last ones empty): within 1e-5·Σ|terms| + 1e-6 of the plain
-    einsum or ``_wgrad``, two calls bit for bit equal."""
+    einsum or ``_wgrad``, two calls bit for bit equal. The shifted BN+ReLU
+    mode with a BN (g, b, μ, i) and with a fold (s, b): SAME pads after the
+    ReLU, so an out-of-image tap reads 0, not relu(b − g·μ·i)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     ka = shape[-1]
     a = torch.randn(shape, generator=gen, device="cuda")
-    if mode == fbn.WGRAD_SHIFTED:
+    if mode == wg.SHIFTED:
         a = a.clamp_min(0.0)   # p2
     a = a.to(dtype)
     bmat = torch.randn(*shape[:3], nb, generator=gen, device="cuda")
@@ -632,17 +645,19 @@ def test_bottleneck_wgrad_kernel_matches_plain(cuda, mode, shape, nb, dtype):
            torch.randn(ka, generator=gen, device="cuda") * 0.5,
            torch.randn(ka, generator=gen, device="cuda") * 0.5,
            torch.rand(ka, generator=gen, device="cuda") + 0.5)
-          if mode == fbn.WGRAD_BN_RELU else ())
-    taps = 9 if mode == fbn.WGRAD_SHIFTED else 1
-    want = fbn.weight_grad_reference(mode, a, bmat, bn)
-    scale = fbn.weight_grad_reference(mode, a, bmat, bn, magnitudes=True)
+          if mode in (wg.BN_RELU, wg.SHIFTED_BN_RELU) else ())
+    if mode == wg.SHIFTED_BN_RELU and ka == 256:
+        bn = bn[:2]   # a fold: μ = 0, i = 1
+    taps = 9 if mode in (wg.SHIFTED, wg.SHIFTED_BN_RELU) else 1
+    want = wg.weight_grad_reference(mode, a, bmat, bn)
+    scale = wg.weight_grad_reference(mode, a, bmat, bn, magnitudes=True)
     for splits in (None, 1, 20):
-        before = fbn.wgrad_launches
-        got, again = (fbn._weight_grad("wgrad", mode, a, bmat, ka, nb, a,
-                                       taps, bn, splits=splits)
+        before = wg.launches
+        got, again = (wg.weight_grad("wgrad", mode, a, bmat, ka, nb, a,
+                                     taps, bn, splits=splits)
                       for _ in range(2))
         torch.cuda.synchronize()
-        assert fbn.wgrad_launches == before + 2
+        assert wg.launches == before + 2
         assert got.shape == (taps * ka * nb,) and torch.equal(got, again)
         _sums_close([got], [want], [scale])
 
@@ -724,13 +739,14 @@ def test_imagenet_fused_train_step_launches(cuda):
                            device="cuda", dtype=torch.uint8)
     labels = torch.randint(0, 1000, (4,), generator=gen, device="cuda",
                            dtype=torch.int32)
-    names = ("launches", "stats_a_launches", "stats_b_launches",
-             "bwd1_launches", "bwd2_launches", "bwd3_launches",
-             "bwd4_launches", "wgrad_launches")
-    before = [getattr(fbn, n) for n in names]
+    counters = [(fbn, n) for n in (
+        "launches", "stats_a_launches", "stats_b_launches", "bwd1_launches",
+        "bwd2_launches", "bwd3_launches", "bwd4_launches")] + [
+        (wg, "launches")]
+    before = [getattr(mod, n) for mod, n in counters]
     m = make_loop_step(cfg, cuda)(state, images, labels)
     torch.cuda.synchronize()
-    assert [getattr(fbn, n) - b for n, b in zip(names, before)] == (
+    assert [getattr(mod, n) - b for (mod, n), b in zip(counters, before)] == (
         [10] * 7 + [30])
     assert bool(torch.isfinite(m["loss"]))
 
@@ -853,9 +869,10 @@ def _mask_flips(handed, scale, product, plain_on) -> int:
 # grad phase's B=16 (the small tile plan, 32-pixel bottleneck tiles at 14²)
 # and the A/B tools' B=128.
 _BLOCK_BWD_SHAPES = ([(1, 32, 32, 16), (3, 16, 16, 32), (5, 8, 8, 64),
-                      (2, 7, 5, 16)]
+                      (2, 7, 5, 16), (2, 7, 5, 128), (3, 6, 6, 256)]
                      + [(b, hw, hw, c) for b in (16, 128)
-                        for hw, c in ((32, 16), (16, 32), (8, 64))])
+                        for hw, c in ((32, 16), (16, 32), (8, 64), (28, 128),
+                                      (14, 256))])
 _BOTTLENECK_BWD_SHAPES = ([(2, 56, 56, 256), (2, 28, 28, 512),
                            (2, 14, 14, 1024), (1, 9, 5, 256)]
                           + [(b, hw, hw, c) for b in (16, 128)
@@ -869,8 +886,9 @@ def test_block_bwd_kernel_matches_plain(cuda, shape, dtype):
     """The folded block's gradient at the three widths, a ragged plane and
     the grad phase's and A/B tools' shapes, on the dyadic grid (the gammas
     and betas as the folded scales and biases, so c1 and the masks are
-    exact); called twice, bit for bit equal, four launches a call; step 1's
-    mask [a2 > 0], read from its dc1, the plain version's everywhere."""
+    exact); called twice, bit for bit equal, four launches a call (eight at
+    C = 128 and 256: two weight gradients of two launches); step 1's mask
+    [a2 > 0], read from its dc1, the plain version's everywhere."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     x, gy, w1, w2, vecs = _block_train_inputs(shape, dtype, gen)
     args = (x, gy, w1, w2, *vecs[:4])
@@ -887,7 +905,8 @@ def test_block_bwd_kernel_matches_plain(cuda, shape, dtype):
     _bwd_close(got, again, want, scale, dtype)
     dc1 = fb.folded_bwd1(*args)[3]
     assert _mask_flips(dc1, s2, dr2, a2 > 0) == 0
-    assert _launches_per_call(lambda: fb.block_bwd(*args)) == 4
+    launches = 4 if shape[-1] in fb.TAP_CHANNELS else 8
+    assert _launches_per_call(lambda: fb.block_bwd(*args)) == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1256,9 +1275,10 @@ def test_double_buffered_h2d_on_the_card(cuda):
 def test_graphed_train_takes_the_injected_nan_batch(cuda, tmp_path):
     """``resilience.inject_nan_at_step=5`` on the streamed, graphed loop:
     the float NaN batch of a uint8 stream runs as one eager step of the
-    captured step's state (no recapture); the loop rolls back to
-    checkpoint 4 and finishes, as the eager loop (steps_per_call=1) does,
-    at the same steps and with the same losses."""
+    captured step's state (no recapture); the loop rolls back from step 6
+    to checkpoint 4, where the reference rolls back, and finishes, as the
+    eager loop (steps_per_call=1) does, at the same steps and with the same
+    losses."""
     import json
     import math
     import os
@@ -1286,9 +1306,28 @@ def test_graphed_train_takes_the_injected_nan_batch(cuda, tmp_path):
         runs[per_call] = (rollbacks, losses)
         print(per_call, rollbacks, losses)
     (rb1, losses1), (rb4, losses4) = runs[1], runs[4]
-    assert rb4 == rb1 and len(rb1) == 1 and rb1[0][1] == 4
+    # The reference's rollback: the NaN batch of step 5 makes the loss at
+    # the log boundary of step 6 NaN (every ReLU keeps the NaN), back to
+    # checkpoint 4; the steps logged are the reference's.
+    assert rb4 == rb1 == [(6, 4)]
+    assert [s for s, _ in losses1] == [2, 4, 6, 8, 10, 12]
     assert [s for s, _ in losses4] == [s for s, _ in losses1]
     assert math.isfinite(losses4[-1][1])
     for (_, a), (_, b) in zip(losses4, losses1):
         assert a == b or (math.isnan(a) and math.isnan(b)) or abs(
             a - b) <= 1e-5 * max(1.0, abs(b))
+
+
+def test_kernels_keep_a_nan(cuda):
+    """Fault 7: every kernel with a ReLU (``sbr``, ``sbr_add``, the fused
+    block's forward, stats, passes 1 and 2 at C = 64, 128, 256, the fused
+    bottleneck's forward and first moment pass, and the weight gradient's
+    BN+ReLU operand) on an input with NaNs at seeded places: NaN exactly
+    where the plain version's output is, bit for bit its own clean output
+    wherever the plain version's did not move, and within the plain
+    version's rounding elsewhere (``tools/nan_check.py``)."""
+    from tpu_resnet_torch.tools import nan_check
+    rows = [nan_check.check(case) for case in nan_check.cases()]
+    assert len(rows) == 20
+    bad = [row for row in rows if not row["ok"]]
+    assert not bad, bad

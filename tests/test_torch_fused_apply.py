@@ -341,7 +341,7 @@ def test_ab_tool_exits_1_when_a_shape_fails(tmp_path, monkeypatch):
     assert fused_block_ab.main(["--device", "cpu", "--length", "1",
                                 "--reps", "1", "--out", str(out)]) == 1
     got = json.loads(out.read_text())["by_shape"]
-    assert "C in (16, 32, 64)" in got["b2_4x4x8"]["error"]
+    assert "C in (16, 32, 64, 128, 256)" in got["b2_4x4x8"]["error"]
     assert "error" not in got["b2_4x4x16"]
 
 

@@ -134,16 +134,34 @@ def test_init_weights_distributions():
     (["model.width_multiplier=2", "model.fused_blocks=true",
       "model.resnet_size=16"], ValueError),
     (["model.fused_epilogue=auto", "data.dataset=imagenet",
-      "model.resnet_size=34", "model.fused_blocks=true"],
-     NotImplementedError),
+      "model.resnet_size=34", "model.fused_blocks=true"], None),
     (["model.fused_epilogue=sometimes"], ValueError),
     (["data.dataset=imagenet", "model.resnet_size=18",
-      "model.fused_blocks=true"], NotImplementedError),
+      "model.fused_blocks=true"], None),
     (["model.name=mlp"], NotImplementedError),
 ])
 def test_build_model_guards(overrides, exc):
-    with pytest.raises(exc):
-        build_model(load_config("cifar10", "", overrides))
+    """The build guards; ImageNet ResNet-18/34 with fused_blocks=true (None)
+    build, fused where the reference fuses at 224²: stages 1-3's blocks 1..
+    fused, the 7²×512 stage's blocks all ``BuildingBlock``, and the
+    parameter names those of the unfused model (checkpoints and the
+    converter unchanged)."""
+    cfg = load_config("cifar10", "", overrides)
+    if exc is not None:
+        with pytest.raises(exc):
+            build_model(cfg)
+        return
+    from tpu_resnet_torch.models.resnet import (BuildingBlock,
+                                                FusedBuildingBlock)
+    model = build_model(cfg)
+    for i in (1, 2, 3, 4):
+        blocks = list(getattr(model, f"block_layer{i}").children())
+        assert len(blocks) > 1 and isinstance(blocks[0], BuildingBlock)
+        want = BuildingBlock if i == 4 else FusedBuildingBlock
+        assert all(type(b) is want for b in blocks[1:]), (i, blocks)
+    cfg.model.fused_blocks = False
+    unfused = build_model(cfg)
+    assert list(model.state_dict()) == list(unfused.state_dict())
 
 
 @pytest.mark.parametrize("overrides", [

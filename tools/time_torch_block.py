@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Device time of the fused basic block's kernels, one call at a time, at
-the CIFAR ResNet-50's three fused stage shapes, bfloat16 x, on one CUDA
-card: at B=128 (the fused train step) ``block_fwd`` (live moments folded,
-as the train step calls it: from the stats' c1 where ``block_fwd`` takes
-``c1=``, else from x), ``block_stats`` and the three backward passes, and
-at B=16 (the serve bucket) ``block_fwd`` from x; each beside its plain
-version.
+the three fused stage shapes of the CIFAR ResNet-50 (``--preset
+cifar10``, the default) or of the ImageNet ResNet-34 (``--preset
+imagenet``: 56²×64, 28²×128, 14²×256), bfloat16 x, on one CUDA card: at
+B=128 (the fused train step) ``block_fwd`` (live moments folded, as the
+train step calls it: from the stats' c1 where ``block_fwd`` takes ``c1=``,
+else from x), ``block_stats`` and the three backward passes, and at B=16
+(the serve bucket) ``block_fwd`` from x; each beside its plain version.
 
-    python3 tools/time_torch_block.py [--root DIR] [--tag NAME]
+    python3 tools/time_torch_block.py [--preset cifar10|imagenet] \
+        [--root DIR] [--tag NAME]
 
 Each call is queued behind a device spin, so the CUDA events time the card
 alone (median of 10 runs of 5 calls; the plain versions 5 runs of 2).
@@ -19,11 +21,11 @@ within ``block_fwd``'s float32 tolerance (1e-4); inputs are seeded normals
 with the batch's own BN moments. The training ``block_fwd`` and its plain
 version take the kernel's own c1. Pass 2 and its plain version take the kernel's own pass 1
 handoff, pass 3 its own pass 2's dz1. ``per_step_ms`` sums the calls of one
-fused train step (7 blocks a stage), ``per_forward_ms`` those of one B=16
-serve forward. The package timed is the one under ``--root`` (default:
-this checkout), so two checkouts, say a parent commit unpacked into an
-ignored directory, run as separate processes in one run on one card:
-parent, change, change, parent. A parent whose pass 3 takes no ``dz1``,
+fused train step (7 blocks a stage; ResNet-34: 2, 3 and 5),
+``per_forward_ms`` those of one B=16 serve forward. The package timed is
+the one under ``--root`` (default: this checkout), so two checkouts, say a
+parent commit unpacked into an ignored directory, run as separate
+processes in one run on one card: parent, change, change, parent. A parent whose pass 3 takes no ``dz1``,
 whose pass 2 takes no ``dz2`` and ``z2hat``, or whose ``block_fwd`` takes no
 ``c1``, recomputes them. Prints one JSON line.
 """
@@ -37,8 +39,9 @@ import os
 import statistics
 import sys
 
-STAGES = ((32, 16), (16, 32), (8, 64))   # (spatial, C); 7 blocks each
-PER_STAGE = 7
+# (spatial, C, fused blocks) of each preset's fused stages.
+STAGES = {"cifar10": ((32, 16, 7), (16, 32, 7), (8, 64, 7)),
+          "imagenet": ((56, 64, 2), (28, 128, 3), (14, 256, 5))}
 TRAIN_BATCH, SERVE_BATCH = 128, 16
 
 
@@ -47,6 +50,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--preset", choices=sorted(STAGES), default="cifar10")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -98,15 +102,15 @@ def main() -> int:
 
     rows, per_step, per_forward = [], {}, {}
 
-    def record(kind, shape, fn, plain, check, totals):
+    def record(kind, shape, fn, plain, check, totals, blocks):
         row = {"kernel": kind, "shape": list(shape), "ms": time_ms(fn),
                "plain_ms": time_ms(plain, reps=5, inner=2),
                "err_over_limit": check}
         rows.append(row)
         for key, name in (("ms", kind), ("plain_ms", f"{kind} plain")):
-            totals[name] = totals.get(name, 0.0) + PER_STAGE * row[key]
+            totals[name] = totals.get(name, 0.0) + blocks * row[key]
 
-    for hw, c in STAGES:
+    for hw, c, blocks in STAGES[args.preset]:
         for b in (TRAIN_BATCH, SERVE_BATCH):
             shape = (b, hw, hw, c)
             x = randn(*shape).to(torch.bfloat16)
@@ -125,7 +129,7 @@ def main() -> int:
             record("block_fwd", shape, lambda: fb.block_fwd(*fwd, **kw0),
                    lambda: fb.block_fwd_reference(*fwd, **kw0),
                    over(fb.block_fwd(*fwd, **kw0), want, 1e-2, 1e-2),
-                   per_step if b == TRAIN_BATCH else per_forward)
+                   per_step if b == TRAIN_BATCH else per_forward, blocks)
             if b == SERVE_BATCH:
                 continue
             stats = fb.block_stats(x, w1, s1, sb1)
@@ -173,11 +177,12 @@ def main() -> int:
                                over(fb.block_bwd3(*base, *t, *u, **kw3),
                                     want3, 1e-2, 1e-2))}
             for kind, (fn, plain, check) in calls.items():
-                record(kind, shape, fn, plain, check, per_step)
+                record(kind, shape, fn, plain, check, per_step, blocks)
             del gy, base, out1, out2, kw2, kw3, want1, want2, want3, calls
             del scale1, scale2, kw0, stats, want0, scale0
             torch.cuda.empty_cache()
-    print(json.dumps({"tag": args.tag, "root": root, "handoff": handoff,
+    print(json.dumps({"tag": args.tag, "root": root, "preset": args.preset,
+                      "handoff": handoff,
                       "handoff1": handoff1, "handoff0": handoff0,
                       "gpu": torch.cuda.get_device_name(0),
                       "per_step_ms": per_step,

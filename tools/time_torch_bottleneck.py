@@ -10,7 +10,7 @@ Each call is queued behind a device spin, so the CUDA events time the card
 alone (median of 10 runs of 5 calls). ``bottleneck_fwd`` is held against its
 plain version (max abs error), the moment passes' sums and the weight
 gradients against 1e-5·Σ|terms| + 1e-6 (``err_over_limit`` ≤ 1 passes).
-The weight gradients (``_weight_grad``: dw3 from mid and gy, dw2 from p2
+The weight gradients (``wgrad.weight_grad``: dw3 from mid and gy, dw2 from p2
 and dmid, dw1 from x and dc1, as passes 1-3 call it) carry ``library_ms``,
 one PyTorch call on the operand made beforehand: ``torch.matmul(a.t(), b)``
 or ``torch.nn.grad.conv2d_weight``, TF32 off. ``per_pass`` sums the
@@ -45,8 +45,8 @@ def main() -> int:
     import torch
 
     from tpu_resnet_torch.device import resolve_device
-    from tpu_resnet_torch.ops import fused_block as fb
     from tpu_resnet_torch.ops import fused_bottleneck as fbn
+    from tpu_resnet_torch.ops import wgrad as wg
     if not torch.cuda.is_available():
         print("time_torch_bottleneck: needs a CUDA card", file=sys.stderr)
         return 2
@@ -104,17 +104,17 @@ def main() -> int:
                                         bm.reshape(-1, bm.shape[-1]))
         nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
         return (
-            ("dw3", lambda: fbn._weight_grad("dw3", 2, mid, gy, f, c, x, 1,
-                                             bn3),
+            ("dw3", lambda: wg.weight_grad("dw3", 2, mid, gy, f, c, x, 1,
+                                           bn3),
              lambda m: (mm(p3.abs(), gy.abs()) if m else mm(p3, gy)),
              lambda: mm(p3, gy)),
-            ("dw2", lambda: fbn._weight_grad("dw2", 1, p2, dmid, f, f, x, 9),
-             lambda m: fb._wgrad(p2.abs(), dmid.abs()) if m
-             else fb._wgrad(p2, dmid),
+            ("dw2", lambda: wg.weight_grad("dw2", 1, p2, dmid, f, f, x, 9),
+             lambda m: wg.shifted_reference(p2.abs(), dmid.abs()) if m
+             else wg.shifted_reference(p2, dmid),
              lambda: torch.nn.grad.conv2d_weight(
                  nchw(p2), (f, f, 3, 3), nchw(dmid), padding=1)),
-            ("dw1", lambda: fbn._weight_grad("dw1", 2, x, dc1, c, f, x, 1,
-                                             bn1),
+            ("dw1", lambda: wg.weight_grad("dw1", 2, x, dc1, c, f, x, 1,
+                                           bn1),
              lambda m: (mm(p1.abs(), dc1.abs()) if m else mm(p1, dc1)),
              lambda: mm(p1, dc1)))
 

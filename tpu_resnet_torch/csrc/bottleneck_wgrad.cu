@@ -8,11 +8,21 @@
 //              as it is staged (dw1 from x; dw3 from mid, p3 rounded as
 //              fused_bottleneck_tc.cu's tile pass rounds m3; the folded
 //              gradient's dW1 with (g, be, mu, i) = (s1, b1, 0, 1), so p1 =
-//              relu(x*s1 + b1) bit for bit).
+//              relu(x*s1 + b1) bit for bit);
+//   3 shifted_bn_relu  relu(g*((v-mu)*i) + be) of v [B,H,W,Ka], f32 or
+//              bf16, shifted by each of the 9 taps, zero where the tap
+//              leaves the image: SAME pads r, after the ReLU, so the zero
+//              is applied after the transform (the fused basic block's dw1
+//              = sum r1-patch^T dc1 from x with BN1, and dw2 = sum
+//              r2-patch^T gy from z2hat with (g2, b2, 0, 1), each rounded
+//              as fused_block_tc.cu's tile pass rounds r1 and r2).
+// mu and i may be null: (0, 1), a fold.
 //
 // Replaces the weight-gradient products inside tpu_resnet/ops/
 // fused_bottleneck.py's kernels: _train_bwd_calls pass1 (dw3, :662), pass2
-// (dw2, :701), pass3 (dw1, :745), and _bwd_kernel's dW3, dw2, dW1 (:339).
+// (dw2, :701), pass3 (dw1, :745), and _bwd_kernel's dW3, dw2, dW1 (:339);
+// and at C = 128 and 256 inside tpu_resnet/ops/fused_block.py's: pass1
+// (dw2, :381), pass2 (dw1, :409), and _block_bwd_kernel's dw2, dw1 (:252).
 //
 // Bound: operations, 2*P*taps*Ka*Nb flops against (Ka + Nb)*P items read;
 // 34*P*f^2 flops a block (dw3 8, dw2 18, dw1 8), 559 GFLOP a ResNet-50 B=128
@@ -27,8 +37,10 @@
 // one consumer warpgroup per 64 x 64 outputs. The producers stream the
 // pixels in chunks of 16 through a ring of four cp.async stages, four
 // pixels of four channels a thread (SAME's zero fill by the copy's source
-// size), then transpose what they copied into K-major rows, apply the BN
-// and ReLU of mode 2, and split each value once into big = tf32(v) and
+// size; in mode 3 each copy's validity kept in a register until it is
+// converted, and the zero put in after the BN and ReLU), then transpose what
+// they copied into K-major rows, apply the BN and ReLU of modes 2 and 3,
+// and split each value once into big = tf32(v) and
 // small = tf32(v - big) (mma_tf32x3.cuh), into one of four buffers in the
 // layout wgmma reads: A's big and small terms, then b's. The consumers run
 // Hopper's warpgroup products (wgmma m64n64k8, TF32, both operands from
@@ -50,7 +62,14 @@ namespace {
 
 using namespace tr;
 
-enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2 };
+enum AMode : int { kRows = 0, kShifted = 1, kBnRelu = 2, kShiftedBnRelu = 3 };
+// A shifted by the 9 taps; BN and ReLU applied to A.
+__host__ __device__ constexpr bool shifted(int am) {
+  return am == kShifted || am == kShiftedBnRelu;
+}
+__host__ __device__ constexpr bool bn_mode(int am) {
+  return am == kBnRelu || am == kShiftedBnRelu;
+}
 
 constexpr int kKP = 16;    // pixels per chunk: two k-steps of 8
 constexpr int kRaw = 4;    // the producers' cp.async ring
@@ -94,15 +113,15 @@ struct WPlan {
 struct WArgs {
   const void* a;                    // see the modes above
   const float* b;                   // f32 [P][Nb]
-  const float *g, *be, *mu, *i;     // mode 2: the BN ([Ka])
+  const float *g, *be, *mu, *i;     // modes 2, 3: the BN ([Ka]); mu, i
+                                    // null: (0, 1)
   float* part;                      // [splits][taps][Ka][Nb]
   int P, Ka, Nb, H, W, chunk;       // chunk: pixels per split
 };
 
 __device__ __forceinline__ float bn_relu(float v, float g, float be,
                                          float mu, float i) {
-  return fmaxf(__fadd_rn(__fmul_rn(g, __fmul_rn(__fsub_rn(v, mu), i)), be),
-               0.f);
+  return relu(__fadd_rn(__fmul_rn(g, __fmul_rn(__fsub_rn(v, mu), i)), be));
 }
 
 // Byte offset of (row r, k) in a split operand.
@@ -203,7 +222,7 @@ __device__ __forceinline__ void store_split(unsigned char* big,
 // The producers: a thread copies four pixels of four channels of A (the
 // first B_FIRST threads) or of b (the rest) a chunk through the cp.async
 // ring, then transposes them into split buffer c % kSplit in K-major rows,
-// BN and ReLU applied (mode 2), each value split once.
+// BN and ReLU applied (modes 2, 3), each value split once.
 template <typename T, int AM, int BM, int BN>
 __device__ __forceinline__ void produce(const WArgs& a, unsigned char* ring,
                                         unsigned char* sbuf, int k0, int n0,
@@ -216,21 +235,24 @@ __device__ __forceinline__ void produce(const WArgs& a, unsigned char* ring,
   // The thread's pixels 4*kg .. 4*kg+3 of a chunk, and its channels.
   const int kg = tid % 4, ch = (tid / 4) * 4;
   const bool active = tid < (is_a ? PL::A_GROUPS : PL::B_GROUPS);
-  float bn[AM == kBnRelu ? 4 : 1][4];
-  if constexpr (AM == kBnRelu) {
+  float bn[bn_mode(AM) ? 4 : 1][4];
+  if constexpr (bn_mode(AM)) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = is_a && active ? k0 + ch + q : k0;
       bn[q][0] = __ldg(a.g + c);
       bn[q][1] = __ldg(a.be + c);
-      bn[q][2] = __ldg(a.mu + c);
-      bn[q][3] = __ldg(a.i + c);
+      bn[q][2] = a.mu ? __ldg(a.mu + c) : 0.f;
+      bn[q][3] = a.i ? __ldg(a.i + c) : 1.f;
     }
   }
+  // Mode 3: the validity of the thread's four copies of each ring stage,
+  // bits 4*stage .. 4*stage+3, set where issued and read where converted.
+  unsigned valid = 0;
   // Shifted: the (row, column) in its image of the thread's first pixel of
   // the next chunk to issue, advanced kKP pixels a chunk.
   int ay = 0, ax = 0;
-  if constexpr (AM == kShifted) {
+  if constexpr (shifted(AM)) {
     const int rem = (p_begin + 4 * kg) % (a.H * a.W);
     ay = rem / a.W;
     ax = rem % a.W;
@@ -242,12 +264,13 @@ __device__ __forceinline__ void produce(const WArgs& a, unsigned char* ring,
     const int p0 = p_begin + c * kKP + 4 * kg;
     if (active && is_a) {
       int y = ay, x = ax;
+      unsigned bits = 0;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int p = p0 + q;
         long long pix = p;
         bool ok = p < p_end;
-        if constexpr (AM == kShifted) {
+        if constexpr (shifted(AM)) {
           ok = ok && y + dy >= 0 && y + dy < a.H && x + dx >= 0 &&
                x + dx < a.W;
           pix += dy * a.W + dx;
@@ -256,8 +279,13 @@ __device__ __forceinline__ void produce(const WArgs& a, unsigned char* ring,
             if (++y == a.H) y = 0;
           }
         }
+        bits |= (unsigned)ok << q;
         copy_a(st + (tid * 4 + q) * PL::A_COPY,
                asrc + (ok ? pix : 0) * a.Ka + k0 + ch, ok);
+      }
+      if constexpr (AM == kShiftedBnRelu) {
+        const int sh = 4 * (c % kRaw);
+        valid = (valid & ~(0xFu << sh)) | (bits << sh);
       }
     } else if (active) {
 #pragma unroll
@@ -268,7 +296,7 @@ __device__ __forceinline__ void produce(const WArgs& a, unsigned char* ring,
                    a.b + (long long)(ok ? p : 0) * a.Nb + n0 + ch, ok);
       }
     }
-    if constexpr (AM == kShifted) {
+    if constexpr (shifted(AM)) {
       ax += kKP;
       while (ax >= a.W) {
         ax -= a.W;
@@ -287,11 +315,14 @@ __device__ __forceinline__ void produce(const WArgs& a, unsigned char* ring,
       for (int q = 0; q < 4; ++q) {
         const T* raw =
             reinterpret_cast<const T*>(st + (tid * 4 + q) * PL::A_COPY);
-        const bool ok = p0 + q < p_end;
+        // Mode 3: a tap outside the image reads 0 after the transform.
+        const bool ok = AM == kShiftedBnRelu
+                            ? (valid >> (4 * (c % kRaw) + q)) & 1
+                            : p0 + q < p_end;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float u = to_f32(raw[j]);
-          if constexpr (AM == kBnRelu)
+          if constexpr (bn_mode(AM))
             u = bn_relu(u, bn[j][0], bn[j][1], bn[j][2], bn[j][3]);
           v[j][q] = ok ? u : 0.f;
         }
@@ -338,7 +369,7 @@ __global__ void __launch_bounds__(WPlan<T, BM, BN>::THREADS,
                                   BM * BN <= 64 * 64 ? 2 : 1)
     bottleneck_wgrad_kernel(const WArgs a) {
   using PL = WPlan<T, BM, BN>;
-  constexpr int taps = AM == kShifted ? 9 : 1;
+  constexpr int taps = shifted(AM) ? 9 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* sbuf = smem + kRaw * PL::RAW;
   const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BM;
@@ -421,7 +452,7 @@ cudaError_t run(const WArgs& w, int splits, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int taps = AM == kShifted ? 9 : 1;
+  const int taps = shifted(AM) ? 9 : 1;
   const dim3 grid(w.Nb / BN, w.Ka / BM, splits * taps);
   kernel<<<grid, WPlan<T, BM, BN>::THREADS, smem, st>>>(w);
   return cudaGetLastError();
@@ -451,20 +482,24 @@ cudaError_t launch(int amode, const WArgs& w, int splits, float* out,
     case kBnRelu:
       err = run_tiled<T, kBnRelu>(w, splits, st);
       break;
+    case kShiftedBnRelu:
+      err = run_tiled<T, kShiftedBnRelu>(w, splits, st);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  const int taps = amode == kShifted ? 9 : 1;
+  const int taps = shifted(amode) ? 9 : 1;
   return sum_rows(w.part, out, splits, (long long)taps * w.Ka * w.Nb, st);
 }
 
 }  // namespace
 
 // out[taps][Ka][Nb] = sum over the P = B*H*W pixels of A^T b, A by `amode`
-// (0 rows, 1 shifted, 2 bn_relu; see the top of this file); v of mode 2 of
-// `dtype` (tr::DType), every other tensor f32. p[8]: a, b [P][Nb], g, be,
-// mu, i ([Ka], mode 2), part (splits*taps*Ka*Nb floats), out
+// (0 rows, 1 shifted, 2 bn_relu, 3 shifted_bn_relu; see the top of this
+// file); v of modes 2 and 3 of `dtype` (tr::DType), every other tensor
+// f32. p[8]: a, b [P][Nb], g, be, mu, i ([Ka], modes 2 and 3; mu and i may
+// be null), part (splits*taps*Ka*Nb floats), out
 // (taps*Ka*Nb). Ka and Nb are multiples of 64; every tensor contiguous and
 // 16-byte aligned. The pixels go in `splits` chunks of whole 16-pixel
 // steps, their partial products added in split order by a second launch.
@@ -475,7 +510,7 @@ extern "C" int tr_bottleneck_wgrad(int amode, const void* const* p, int P,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (P < 1 || Ka < 64 || Nb < 64 || Ka % 64 || Nb % 64 || splits < 1 ||
-      H < 1 || W < 1 || (amode == kShifted && P % (H * W)))
+      H < 1 || W < 1 || (shifted(amode) && P % (H * W)))
     return cudaErrorInvalidValue;
   WArgs w = {};
   const auto f = [](const void* q) { return static_cast<const float*>(q); };

@@ -163,7 +163,7 @@ __global__ void __launch_bounds__(kThreads, kSbrBlocksPerSM) sbr_kernel(
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         const float f = __fadd_rn(__fmul_rn(tr::to_f32(in[j]), sv[j]), bv[j]);
-        out[j] = tr::from_f32<T>(fmaxf(f, 0.f));
+        out[j] = tr::from_f32<T>(tr::relu(f));
       }
       yv[p * vpp] = packed;
     }
@@ -196,7 +196,7 @@ __global__ void sbr_add_kernel(const T* __restrict__ x,
     for (int j = 0; j < N; ++j) {
       const float v = __fadd_rn(__fmul_rn(tr::to_f32(in[j]), __ldg(s + c0 + j)),
                                 __ldg(b + c0 + j));
-      out[j] = tr::from_f32<T>(__fadd_rn(fmaxf(v, 0.f), tr::to_f32(res[j])));
+      out[j] = tr::from_f32<T>(__fadd_rn(tr::relu(v), tr::to_f32(res[j])));
     }
     yv[i] = packed;
   }

@@ -2,15 +2,17 @@
 // its forward with folded batch norm and that forward's gradient, the
 // moments of conv1's output in the training forward, and its three backward
 // passes with live batch norm.
-// Stride 1, equal in/out channels C (16, 32 or 64), 3x3 SAME convs; x is
-// NHWC [B,H,W,C] (f32 or bf16), y (the forward's output) of x's shape and
-// type, gy f32 of x's shape, w1 and w2 HWIO f32 [3,3,C,C], every BN vector
-// f32 [C]; the tensors one launch or pass hands the next (c1, r2, dz2,
-// z2hat, dc1, dz1) f32 [B,H,W,C].
+// Stride 1, equal in/out channels C (16, 32, 64, 128 or 256), 3x3 SAME
+// convs; x is NHWC [B,H,W,C] (f32 or bf16), y (the forward's output) of
+// x's shape and type, gy f32 of x's shape, w1 and w2 HWIO f32 [3,3,C,C],
+// every BN vector f32 [C]; the tensors one launch or pass hands the next
+// (c1, r2, dz2, z2hat, dc1, dz1) f32 [B,H,W,C].
 //
 // Replaces, in tpu_resnet/ops/fused_block.py (every stride-1 identity block
 // of the CIFAR ResNet runs them when model.fused_blocks=true: 21 blocks of
-// ResNet-50):
+// ResNet-50; and the ImageNet ResNet-18/34 blocks of the 56^2x64, 28^2x128
+// and 14^2x256 stages, 10 blocks of ResNet-34, where the reference's
+// auto_batch_tile finds a plan):
 //   mode 0 block_fwd   _block_kernel (:87): y = x + conv(r2, w2), r2 =
 //               relu(s2*c1 + b2), c1 = conv(r1, w1), r1 = relu(s1*x + b1)
 //               (serving, the eval-mode gradient's forward, and in training
@@ -55,8 +57,9 @@
 // the products do.
 //
 // Bound: each 3x3 product (conv, convT or a weight gradient) is 2*B*H*W*9*C*C
-// flops, 0.604 GFLOP at every CIFAR stage at B=128: 9 us at the f32 rate, 3.7
-// at TF32 over the split's three terms, against ~4-8 bytes a pixel-channel
+// flops, 0.604 GFLOP at every CIFAR stage at B=128 (29.6 at every ImageNet
+// ResNet-34 stage): 9 us at the f32 rate, 3.7 at TF32 over the split's
+// three terms, against ~4-8 bytes a pixel-channel
 // moved for each: operations. fwd runs two products from x, one from c1; the
 // stats one (c1); pass 1 three (c1, the convT of gy, dw2), pass 2 two (the
 // convT of dc1, dw1); pass 3 runs none and moves 12 bytes a pixel-channel
@@ -69,8 +72,11 @@
 // stride. 256 threads, 8 warps; a warp owns 16*MT pixels x 8*NI channels
 // (Plan<C, MT, NI>). The tile plan (4096/C pixels: 256, 128, 64) keeps two by
 // two mma tiles a warp (8x1, 4x2, 2x4 warps at C = 16, 32, 64), one code path
-// for all widths. The forward and the stats take the small plan (one
-// 16-pixel by 8-channel mma tile a warp, 1024/C pixels: 64, 32, 16) where the
+// for all widths; at C = 128 and 256 the 8 warps lie across the channels,
+// C/64 pairs of mma tiles a warp by two pixel tiles: 32-pixel tiles. The
+// forward and the stats take the small plan (one 16-pixel by 8-channel mma
+// tile a warp, 1024/C pixels: 64, 32, 16; at C >= 128 16 pixels by C/8
+// channels a warp, C/64 mma tiles) where the
 // tile plan would fill fewer than 3/4 of the SMs: at B=128 the tile plan
 // (512, 256, 128 tiles at 32^2x16, 16^2x32, 8^2x64), at B=16 and B=1 the
 // small one (256, 128, 64; 16, 8, 4 blocks): B*H*W*C/1024 blocks, the most
@@ -117,8 +123,16 @@
 //   folded step 1: bwd1's launches, writing dc1 = s2*da2 in place of dz2 and
 //          z2hat; step 2: bwd2's second and third launches on step 1's dc1,
 //          writing dx = gy + s1*da1 in place of dz1. Four launches a call.
-// The weight gradients keep a tap's [C][C] a warp group, from zero over the
-// tile's pixels (K running over the pixels), and add it to the block's row;
+// At C = 128 and 256 the tile passes take no weight gradient (a tap's [C][C]
+// in registers would be 64 or 256 floats a thread, and a block's row of
+// partial products 0.59 or 2.36 MB): passes 1 and 2 and the folded steps
+// write their sums alone, and dw2 and dw1 come from csrc/bottleneck_wgrad.cu
+// on wgmma (mode 3, the shifted operand with BN and its ReLU applied as it
+// is staged, zero outside the image), from the z2hat (folded: c1) that pass 1
+// writes with BN2 as (g2, b2, 0, 1), and from x with BN1, against gy and dc1.
+// The weight gradients at C <= 64 keep a tap's [C][C] a warp group, from
+// zero over the tile's pixels (K running over the pixels), and add it to the
+// block's row;
 // at C = 16 a tap's [C][C] is two mma tiles, so four warp groups split the
 // pixels and add through a double-buffered exchange in group order, and no
 // register array is indexed by the tap. Rings of four or five stages, and
@@ -151,7 +165,9 @@ using tr::to_f32;
 
 constexpr int kTC = 256;     // threads per block
 constexpr int kStages = 3;   // the cp.async rings
-constexpr int kMaxSmem = 232448;
+constexpr int kMaxSmem = 232448;    // a block's shared memory at most
+constexpr int kSmemPerSm = 233472;  // an SM's, 1 KB a block the system's
+constexpr int kMaxC = 256;   // the widest plan
 enum Mode : int {
   kFwd = 0,
   kBwd1 = 1,
@@ -162,11 +178,24 @@ enum Mode : int {
   kFold2 = 6
 };
 
-// The tile plan at width C: MT 16-pixel and NI 8-channel mma tiles a warp;
+// Blocks of `smem` bytes of shared memory an SM holds, up to two: the
+// min-blocks of a kernel's __launch_bounds__.
+constexpr int blocks_per_sm(int smem) {
+  return 2 * (smem + 1024) <= kSmemPerSm ? 2 : 1;
+}
+
+// Whether the tile passes at width C take the weight gradients themselves
+// (tap_wgrad: a tap's [C][C] in registers), at C <= 64; wider, each takes
+// one call of csrc/bottleneck_wgrad.cu.
+constexpr bool takes_taps(int C) { return C <= 64; }
+
+// The tile plan at width C: MT 16-pixel and NI 8-channel mma tiles a warp
+// (two by two to C = 64, two by C/64 wider, so that 8 warps cover C);
 // shared memory in bytes.
-template <int C_, int MT_ = 2, int NI_ = 2>
+template <int C_, int MT_ = 2, int NI_ = (C_ <= 64 ? 2 : C_ / 64)>
 struct Plan {
   static constexpr int C = C_, MT = MT_, NI = NI_;
+  static constexpr bool TAPS = takes_taps(C);
   static constexpr int WN = C / (8 * NI);      // warps across channels
   static constexpr int WM = 8 / WN;            // warps across pixels
   static constexpr int BM = WM * 16 * MT;      // pixels per tile
@@ -182,7 +211,7 @@ struct Plan {
   // The rings' stages: a 3x3's chunks, and in the launches with a weight
   // gradient also its shifted rows.
   static constexpr int STAGE1 = A_BYTES + W_BYTES;
-  static constexpr int STAGE2 = STAGE1 > D_BYTES ? STAGE1 : D_BYTES;
+  static constexpr int STAGE2 = !TAPS || STAGE1 > D_BYTES ? STAGE1 : D_BYTES;
   static constexpr int RING1 = kStages * STAGE1, RING2 = kStages * STAGE2;
   // A weight gradient: a tap's [C][C] is TILES mma tiles (16 in x 8 out
   // channels); KS groups of warps split the pixels where there are fewer
@@ -210,10 +239,11 @@ struct Plan {
   static constexpr int SUMS_OFF = L2::END;
   static constexpr int RED_OFF = SUMS_OFF + 2 * C * 4;
   static constexpr int DBUF_OFF = RED_OFF + WM * 2 * C * 4;
-  static constexpr int XCH_OFF = DBUF_OFF + D_BYTES;
+  static constexpr int XCH_OFF = DBUF_OFF + (TAPS ? D_BYTES : 0);
   static constexpr int SMEM_TAPS =  // bwd1's and bwd2's tile launches
-      XCH_OFF + (KS > 1 ? 2 * KS * C * C * 4 : 0);
-  static constexpr int ROW_LEN = 2 * C + 9 * C * C;  // [T1, T2, dw2] etc.
+      XCH_OFF + (TAPS && KS > 1 ? 2 * KS * C * C * 4 : 0);
+  // [T1, T2, dw2] etc.; [T1, T2] without TAPS.
+  static constexpr int ROW_LEN = 2 * C + (TAPS ? 9 * C * C : 0);
   static_assert(WN * 8 * NI == C && WM * WN == 8, "warps");
   static_assert(TPW * 8 == TILES * KS && BM % (8 * KS) == 0, "tile");
   static_assert(STAGE1 % 16 == 0 && DBUF_OFF % 16 == 0 &&
@@ -223,9 +253,34 @@ struct Plan {
 static_assert(Plan<16>::SMEM_TAPS == 109952 && Plan<32>::SMEM_TAPS == 93952 &&
                   Plan<64>::SMEM_TAPS == 76800,
               "the plan");
-// The forward's small plan: one mma tile a warp.
+// The wide plans: 32-pixel tiles, 8 warps across the channels; shared
+// memory of the forward (SMEM_PROD) and of the stats' and the passes'
+// tile launches, under kMaxSmem.
+static_assert(Plan<128>::BM == 32 && Plan<128>::WM == 1 &&
+                  Plan<128>::SMEM_PROD == 71424 &&
+                  Plan<128>::SMEM_STATS == 73472 &&
+                  Plan<128>::SMEM_TAPS == 73472 && Plan<128>::ROW_LEN == 256,
+              "the plan at 128");
+static_assert(Plan<256>::BM == 32 && Plan<256>::WM == 1 &&
+                  Plan<256>::SMEM_PROD == 128768 &&
+                  Plan<256>::SMEM_STATS == 132864 &&
+                  Plan<256>::SMEM_TAPS == 132864 && Plan<256>::ROW_LEN == 512,
+              "the plan at 256");
+// The forward's small plan: one mma tile a warp; at C >= 128 one 16-pixel
+// row of C/64 mma tiles a warp.
 template <int C>
-using Small = Plan<C, 1, 1>;
+using Small = Plan<C, 1, (C <= 64 ? 1 : C / 64)>;
+static_assert(Small<128>::BM == 16 && Small<256>::BM == 16 &&
+                  Small<128>::SMEM_TAPS == 66432 &&
+                  Small<256>::SMEM_TAPS == 125824,
+              "the small plans");
+// Two blocks an SM for every launch with a tile plan but at C = 256.
+static_assert(blocks_per_sm(Plan<16>::SMEM_TAPS) == 2 &&
+                  blocks_per_sm(Plan<128>::SMEM_STATS) == 2 &&
+                  blocks_per_sm(Small<128>::SMEM_STATS) == 2 &&
+                  blocks_per_sm(Plan<256>::SMEM_PROD) == 1 &&
+                  blocks_per_sm(Small<256>::SMEM_PROD) == 1,
+              "blocks an SM");
 
 struct Args {
   const void* x;     // [P][C] of the dtype
@@ -259,9 +314,9 @@ __device__ __forceinline__ float add(float a, float b) {
 __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
-// relu(g*((v-m)*i) + b), p = (g, b, m, i): BN1 and its ReLU.
+// relu(g*((v-m)*i) + b), p = (g, b, m, i): BN1 and its ReLU (a NaN kept).
 __device__ __forceinline__ float bn_relu(float v, float4 p) {
-  return fmaxf(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y), 0.f);
+  return tr::relu(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y));
 }
 __device__ __forceinline__ float2 load2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
@@ -672,9 +727,11 @@ __device__ __forceinline__ void tap_wgrad(unsigned char* ring, float* xch,
 }
 
 // The forward's launch 1: r2 = relu(s2*c1 + b2) to device memory, c1 =
-// conv3x3(relu(s1*x + b1), w1). Two blocks an SM.
+// conv3x3(relu(s1*x + b1), w1). Two blocks an SM where the shared memory
+// holds them (all but C = 256).
 template <typename T, class PL>
-__global__ void __launch_bounds__(kTC, 2) block_fwd_r2_kernel(const Args a) {
+__global__ void __launch_bounds__(kTC, blocks_per_sm(PL::SMEM_PROD))
+    block_fwd_r2_kernel(const Args a) {
   constexpr int C = PL::C;
   extern __shared__ __align__(16) unsigned char smem[];
   int2* rows = reinterpret_cast<int2*>(smem + PL::L1::ROWS);
@@ -701,9 +758,9 @@ __global__ void __launch_bounds__(kTC, 2) block_fwd_r2_kernel(const Args a) {
           float r[2];
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            r[j] = fmaxf(add(mul(__ldg(a.g2 + col + j), acc[mi][ni][2 * h + j]),
-                             __ldg(a.b2 + col + j)),
-                         0.f);
+            r[j] = tr::relu(add(mul(__ldg(a.g2 + col + j),
+                                    acc[mi][ni][2 * h + j]),
+                                __ldg(a.b2 + col + j)));
           store2(a.r2 + p * C + col, r[0], r[1]);
         }
       }
@@ -712,9 +769,11 @@ __global__ void __launch_bounds__(kTC, 2) block_fwd_r2_kernel(const Args a) {
 
 // The forward's last launch: y = x + conv3x3(r2, w2) in x's dtype, r2 from
 // the first launch's scratch or, FROM_C1, relu(s2*c1 + b2) from the stats'
-// c1 as the fragments are read.
+// c1 as the fragments are read. Two blocks an SM where the shared memory
+// holds them (all but C = 256).
 template <typename T, class PL, bool FROM_C1>
-__global__ void __launch_bounds__(kTC, 2) block_fwd_kernel(const Args a) {
+__global__ void __launch_bounds__(kTC, blocks_per_sm(PL::SMEM_PROD))
+    block_fwd_kernel(const Args a) {
   constexpr int C = PL::C;
   extern __shared__ __align__(16) unsigned char smem[];
   int2* rows = reinterpret_cast<int2*>(smem + PL::L1::ROWS);
@@ -751,9 +810,11 @@ __global__ void __launch_bounds__(kTC, 2) block_fwd_kernel(const Args a) {
 }
 
 // The stats' tile launch: c1 = conv3x3(relu(s1*x + b1), w1) to device
-// memory, and each block's row [sum c1, sum c1^2]. Two blocks an SM.
+// memory, and each block's row [sum c1, sum c1^2]. Two blocks an SM where
+// the shared memory holds them (all but C = 256).
 template <typename T, class PL>
-__global__ void __launch_bounds__(kTC, 2) block_stats_kernel(const Args a) {
+__global__ void __launch_bounds__(kTC, blocks_per_sm(PL::SMEM_STATS))
+    block_stats_kernel(const Args a) {
   constexpr int C = PL::C;
   extern __shared__ __align__(16) unsigned char smem[];
   int2* rows = reinterpret_cast<int2*>(smem + PL::L1::ROWS);
@@ -797,11 +858,15 @@ __global__ void __launch_bounds__(kTC, 2) block_stats_kernel(const Args a) {
 // Pass 1's tile launch: z2hat and dz2 to device memory, and each block's
 // row [T1, T2, dw2] of partial sums; FOLDED (the folded gradient's step 1,
 // BN2 the folds (s2, b2, 0, 1), no m2, i2): z2hat = c1, and dc1 = s2*dz2 to
-// device memory in their place. Two blocks an SM at C <= 32 (128 registers,
-// a few bytes of spills) ran 1% faster on an H100 than one block without
-// spills (PERF.md); at C = 64 the tile plan's 128 tiles fill the SMs once.
+// device memory in their place. Without TAPS (C >= 128) the row is [T1,
+// T2] and z2hat is stored in both modes (folded: c1), dw2's operand. Two
+// blocks an SM at C <= 32 (128 registers, a few bytes of spills) ran 1%
+// faster on an H100 than one block without spills (PERF.md); at C = 64 the
+// tile plan's 128 tiles fill the SMs once; at C = 256 the shared memory
+// holds one block an SM.
 template <typename T, class PL, bool FOLDED>
-__global__ void __launch_bounds__(kTC, PL::C == 64 && PL::MT == 2 ? 1 : 2)
+__global__ void __launch_bounds__(
+    kTC, PL::C == 64 && PL::MT == 2 ? 1 : blocks_per_sm(PL::SMEM_TAPS))
     block_bwd1_kernel(const Args a) {
   constexpr int C = PL::C;
   constexpr int DS = PL::DS;
@@ -840,11 +905,11 @@ __global__ void __launch_bounds__(kTC, PL::C == 64 && PL::MT == 2 ? 1 : 2)
                                  : mul(sub(acc[mi][ni][q], __ldg(a.m2 + col)),
                                        __ldg(a.i2 + col));
           zh[mi][ni][q] = z;
-          rbuf[r * DS + col] =
-              p0 + r < a.P
-                  ? fmaxf(add(mul(__ldg(a.g2 + col), z), __ldg(a.b2 + col)),
-                          0.f)
-                  : 0.f;
+          if constexpr (PL::TAPS)
+            rbuf[r * DS + col] =
+                p0 + r < a.P
+                    ? tr::relu(add(mul(__ldg(a.g2 + col), z), __ldg(a.b2 + col)))
+                    : 0.f;
         }
     // dr2 = convT(gy, w2).
     gemm_f32<PL, true, PL::STAGE2>(acc, ring, a.gy, a.w2, rows, a.W);
@@ -872,21 +937,21 @@ __global__ void __launch_bounds__(kTC, PL::C == 64 && PL::MT == 2 ? 1 : 2)
             sb[ni][j] = fmaf(d[j], z, sb[ni][j]);
           }
           if (!ok) continue;
-          if constexpr (FOLDED) {
+          if constexpr (FOLDED)
             store2(a.dc1 + p * C + col, mul(d[0], __ldg(a.g2 + col)),
                    mul(d[1], __ldg(a.g2 + col + 1)));
-          } else {
+          else
             store2(a.dz2 + p * C + col, d[0], d[1]);
+          if constexpr (!FOLDED || !PL::TAPS)
             store2(a.z2hat + p * C + col, zh[mi][ni][2 * h],
                    zh[mi][ni][2 * h + 1]);
-          }
         }
       }
     add_tile_sums<PL>(sa, sb, red, sums);
 
     // dw2[tap] += sum over the tile's pixels q of r2(q)^T gy(q - d): gy's
     // rows shifted by the mirrored tap 8 - tap through the ring.
-    tap_wgrad<PL>(
+    if constexpr (PL::TAPS) tap_wgrad<PL>(
         ring, xch, row + 2 * C, first,
         [&](int tap, unsigned char* st) {
           issue_shifted<PL, C, DS>(reinterpret_cast<float*>(st), a.gy, rows,
@@ -911,7 +976,7 @@ __global__ void __launch_bounds__(kTC, PL::C == 64 && PL::MT == 2 ? 1 : 2)
 // 1's dz2 and z2hat, eight channels a thread.
 __global__ void __launch_bounds__(kTC)
     block_bwd2_dc1_kernel(const Args a, int C) {
-  __shared__ float4 coef[64];  // g2*i2, T1/n, T2/n
+  __shared__ float4 coef[kMaxC];  // g2*i2, T1/n, T2/n
   for (int c = threadIdx.x; c < C; c += kTC)
     coef[c] = make_float4(mul(a.g2[c], a.i2[c]), __fdiv_rn(a.t1[c], a.n),
                           __fdiv_rn(a.t2[c], a.n), 0.f);
@@ -961,8 +1026,10 @@ __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
     tile_rows<PL>(a, p0, rows);
     __syncthreads();
     // The tile's own dc1 rows (the centre tap), dw1's second operand.
-    issue_shifted<PL, C, DS>(dbuf, a.dc1, rows, 4, 0, a.W);
-    cp_async_commit();
+    if constexpr (PL::TAPS) {
+      issue_shifted<PL, C, DS>(dbuf, a.dc1, rows, 4, 0, a.W);
+      cp_async_commit();
+    }
 
     // dr1 = convT(dc1, w1).
     Acc<PL> acc;
@@ -1008,7 +1075,7 @@ __global__ void __launch_bounds__(kTC) block_bwd2_kernel(const Args a) {
     // dw1[tap] += sum over the tile's pixels p of r1(p + d)^T dc1(p): x's
     // rows shifted by the tap through the ring, BN1 and ReLU applied as
     // they are read, zero where the tap leaves the image.
-    tap_wgrad<PL>(
+    if constexpr (PL::TAPS) tap_wgrad<PL>(
         ring, xch, row + 2 * C, first,
         [&](int tap, unsigned char* st) {
           issue_shifted<PL, C, DS>(reinterpret_cast<T*>(st), xg, rows, tap, 0,
@@ -1067,8 +1134,8 @@ __global__ void block_bwd_sum_kernel(const float* __restrict__ part,
 // (x-m1)*i1, eight channels a thread.
 template <typename T>
 __global__ void __launch_bounds__(kTC) block_bwd3_kernel(const Args a, int C) {
-  __shared__ float4 coef[64];  // g1*i1, U1/n, U2/n, m1
-  __shared__ float inv[64];    // i1
+  __shared__ float4 coef[kMaxC];  // g1*i1, U1/n, U2/n, m1
+  __shared__ float inv[kMaxC];    // i1
   for (int c = threadIdx.x; c < C; c += kTC) {
     coef[c] = make_float4(mul(a.g1[c], a.i1[c]), __fdiv_rn(a.u1[c], a.n),
                           __fdiv_rn(a.u2[c], a.n), a.m1[c]);
@@ -1254,8 +1321,14 @@ cudaError_t dispatch(int mode, const Args& a, float* out, int part_rows,
       return dispatch_c<T, 16>(mode, a, out, part_rows, device, st);
     case 32:
       return dispatch_c<T, 32>(mode, a, out, part_rows, device, st);
-    default:
+    case 64:
       return dispatch_c<T, 64>(mode, a, out, part_rows, device, st);
+    case 128:
+      return dispatch_c<T, 128>(mode, a, out, part_rows, device, st);
+    case 256:
+      return dispatch_c<T, 256>(mode, a, out, part_rows, device, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -1265,7 +1338,10 @@ cudaError_t dispatch(int mode, const Args& a, float* out, int part_rows,
 // m1, i1, m2, i2, T1, T2, U1, U2, dz2, z2hat, dc1, dz1, dx, r2, y, c1, part,
 // then out at p[25] (see Args). x, gy and the [B,H,W,C] tensors handed on,
 // dx and y; x, dx and y of `dtype` (tr::DType), the rest f32; all
-// contiguous and 16-byte aligned; C is 16, 32 or 64.
+// contiguous and 16-byte aligned; C is 16, 32, 64, 128 or 256. At C >= 128
+// passes 1 and 2 and the folded steps write no weight gradient: out is [S1,
+// S2] (2C) and the rows of part are 2C long; mode 1 and mode 5 write z2hat
+// (mode 5: c1), dw2's operand for csrc/bottleneck_wgrad.cu.
 //   Mode 0 (fwd) reads x, the weights and the folds s1, b1, s2, b2 in the
 //   g1, b1, g2, b2 places, writes y: with c1 given (the stats' c1 of the
 //   same x, w1, s1, b1) it reads c1, w2, s2, b2: one launch; else it writes
@@ -1293,7 +1369,8 @@ extern "C" int tr_block_tc(int mode, const void* const* p, int B, int H,
   if (err != cudaSuccess) return err;
   const long long P = (long long)B * H * W;
   const bool sums = mode != kFwd && mode != kBwd3;
-  if (B < 0 || H < 1 || W < 1 || (C != 16 && C != 32 && C != 64) ||
+  if (B < 0 || H < 1 || W < 1 ||
+      (C != 16 && C != 32 && C != 64 && C != 128 && C != 256) ||
       mode < kFwd || mode > kFold2 || P * C >= (1LL << 31) ||
       (sums && P > 0 && part_rows < 1))
     return cudaErrorInvalidValue;
@@ -1334,10 +1411,12 @@ extern "C" int tr_block_tc(int mode, const void* const* p, int B, int H,
   a.n = (float)P;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P == 0)
-    return sums ? cudaMemsetAsync(
-                      out, 0,
-                      (2 * C + (mode == kStats ? 0 : 9 * C * C)) * sizeof(float),
-                      st)
+    return sums ? cudaMemsetAsync(out, 0,
+                                  (2 * C + (mode != kStats && takes_taps(C)
+                                                ? 9 * C * C
+                                                : 0)) *
+                                      sizeof(float),
+                                  st)
                 : cudaSuccess;
   switch (dtype) {
     case tr::kFloat32:

@@ -267,11 +267,11 @@ __device__ __forceinline__ float sub(float a, float b) {
 }
 // relu(g*((v-mu)*i) + be), p = (g, be, mu, i): a BN and its ReLU.
 __device__ __forceinline__ float bn_relu(float v, float4 p) {
-  return fmaxf(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y), 0.f);
+  return tr::relu(add(mul(p.x, mul(sub(v, p.z), p.w)), p.y));
 }
 // relu((g*(v-mu))*i + be): the order of the reference's _stats_a_kernel.
 __device__ __forceinline__ float bn_relu_stats_a(float v, float4 p) {
-  return fmaxf(add(mul(mul(p.x, sub(v, p.z)), p.w), p.y), 0.f);
+  return tr::relu(add(mul(mul(p.x, sub(v, p.z)), p.w), p.y));
 }
 __device__ __forceinline__ float2 load2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));

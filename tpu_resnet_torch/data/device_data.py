@@ -145,9 +145,9 @@ WARMUP_STEPS = 2
 def launch_counters() -> List[Tuple[object, str]]:
     """(module, name) of every kernel launch counter of the port's ops."""
     from tpu_resnet_torch.ops import epilogue, fused_block, fused_bottleneck
-    from tpu_resnet_torch.ops import softmax_xent
+    from tpu_resnet_torch.ops import softmax_xent, wgrad
     return [(mod, name) for mod in (epilogue, fused_block, fused_bottleneck,
-                                    softmax_xent)
+                                    softmax_xent, wgrad)
             for name, value in sorted(vars(mod).items())
             if name.endswith("launches") and type(value) is int]
 

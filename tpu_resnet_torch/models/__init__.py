@@ -28,16 +28,19 @@ def build_model(cfg) -> ResNetV2:
     if cfg.data.dataset == "imagenet":
         # fused_blocks: the bottleneck sizes run their stride-1 identity
         # blocks of width 64-256 as the fused bottleneck kernel; the
-        # basic-block sizes (18/34) raise NotImplementedError.
+        # basic-block sizes (18/34) fuse the stages where the reference
+        # finds a plan at the configured image size.
         return imagenet_resnet_v2(
             cfg.model.resnet_size, cfg.data.num_classes, dtype=dtype,
             stem_space_to_depth=cfg.model.stem_space_to_depth,
             fused_blocks=cfg.model.fused_blocks, fused_epilogue=epilogue,
-            remat=cfg.model.remat)
+            remat=cfg.model.remat,
+            image_size=cfg.data.resolved_image_size)
     if cfg.model.fused_blocks and cfg.model.width_multiplier > 1:
         raise ValueError("model.fused_blocks is only measured/tiled for "
                          "width_multiplier=1 (16/32/64-channel stages)")
     return cifar_resnet_v2(cfg.model.resnet_size, cfg.data.num_classes,
                            width_multiplier=cfg.model.width_multiplier,
                            dtype=dtype, fused_blocks=cfg.model.fused_blocks,
-                           fused_epilogue=epilogue, remat=cfg.model.remat)
+                           fused_epilogue=epilogue, remat=cfg.model.remat,
+                           image_size=cfg.data.resolved_image_size)

@@ -12,11 +12,15 @@ other), so a block means the same thing in both packages:
   way and take the kernel only at shapes where the timed A/B chose it
   (``"auto"``, ``ep.scale_bias_relu_auto``; an unprobed shape runs the
   plain version);
-- with ``fused_blocks`` every stride-1 identity basic block runs as the
-  fused block kernel (``ops/fused_block.py``) and every stride-1 identity
-  bottleneck of width 64, 128 or 256 as the fused bottleneck kernel
-  (``ops/fused_bottleneck.py``); each stage's block0, the stride/projection
-  block, and the width-512 bottlenecks stay on ``F.conv2d``.
+- with ``fused_blocks`` every stride-1 identity basic block of a stage
+  where the reference finds a plan (``fb.reference_fuses`` of the stage
+  shape that block0 leaves, from the model's ``image_size``: the CIFAR
+  stages and ImageNet ResNet-18/34's 56²×64, 28²×128 and 14²×256 at 224²,
+  not its 7²×512) runs as the fused block kernel (``ops/fused_block.py``)
+  and every stride-1 identity bottleneck of width 64, 128 or 256 as the
+  fused bottleneck kernel (``ops/fused_bottleneck.py``); each stage's
+  block0, the stride/projection block, and the other stages stay on
+  ``F.conv2d``, as in the reference.
 
 Activations are NHWC tensors (channels_last storage) throughout, as at the
 reference's public functions. ``forward(x, train=True)`` normalises with the
@@ -297,18 +301,34 @@ def _remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class BlockLayer(nn.Module):
     """A stage: block0 strides and projects; blocks 1.. are stride-1
-    identity blocks, fused when ``fused`` (bottlenecks only at the widths
-    the fused kernel takes, ``fbn.WIDTHS``: f=512 stays on F.conv2d).
+    identity blocks, fused when ``fused`` where the reference fuses them:
+    bottlenecks at the widths the fused kernel takes (``fbn.WIDTHS``: f=512
+    stays on F.conv2d), basic blocks where ``fb.reference_fuses`` holds for
+    the stage shape that block0 leaves, ``size`` x ``size`` x ``filters``
+    (the 7²×512 ImageNet stage stays on F.conv2d); a basic stage that the
+    reference fuses at a width without kernels (``fb.CHANNELS``) raises.
+    The forward checks the shape it meets against that decision.
     ``remat``: each block recomputed in the backward pass."""
 
     def __init__(self, in_features: int, filters: int, blocks: int,
                  strides: int, fused: bool = False, epilogue: str = "off",
-                 bottleneck: bool = False, remat: bool = False):
+                 bottleneck: bool = False, remat: bool = False,
+                 size: int | None = None):
         super().__init__()
         self.remat = remat
         block_cls = BottleneckBlock if bottleneck else BuildingBlock
-        fuse = fused and (not bottleneck
-                          or filters in fbn.WIDTHS)
+        # Basic stages probe their shape, as the reference's BlockLayer.
+        self.probed = fused and not bottleneck and blocks > 1
+        if self.probed and size is None:
+            raise ValueError("a fused basic stage needs its spatial size")
+        fuse = fused and (filters in fbn.WIDTHS if bottleneck
+                          else fb.reference_fuses((1, size, size, filters)))
+        if fuse and not bottleneck and filters not in fb.CHANNELS:
+            raise NotImplementedError(
+                f"the reference fuses the basic blocks of a {size}x{size}x"
+                f"{filters} stage; the port's block kernels take C in "
+                f"{fb.CHANNELS}")
+        self.fuse = fuse
         fused_cls = FusedBottleneckBlock if bottleneck else FusedBuildingBlock
         out_features = 4 * filters if bottleneck else filters
         self.add_module("block0", block_cls(in_features, filters, strides,
@@ -320,7 +340,14 @@ class BlockLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         remat = self.remat and train and torch.is_grad_enabled()
-        for block in self.children():
+        for i, block in enumerate(self.children()):
+            if i == 1 and self.probed and (fb.reference_fuses(x.shape)
+                                           != self.fuse):
+                raise ValueError(
+                    f"stage built {'fused' if self.fuse else 'unfused'} "
+                    f"for another image size; the reference "
+                    f"{'does not fuse' if self.fuse else 'fuses'} its "
+                    f"blocks at {tuple(x.shape[1:])}")
             x = _remat_block(block, x) if remat else block(x, train)
         return x
 
@@ -372,7 +399,9 @@ def max_pool_same(x: torch.Tensor, window: int = 3,
 class ResNetV2(nn.Module):
     """Pre-activation ResNet-v2 over NHWC inputs. ``stem="cifar"``: 3x3/1
     conv, no max-pool; ``stem="imagenet"``: 7x7/2 conv (space-to-depth by
-    default) and a 3x3/2 SAME max-pool."""
+    default) and a 3x3/2 SAME max-pool. ``image_size`` (default 32, or 224
+    with the ImageNet stem) sizes each stage, where fused basic stages
+    probe the reference's plan."""
 
     def __init__(self, stage_filters: Sequence[int],
                  stage_blocks: Sequence[int], stage_strides: Sequence[int],
@@ -380,23 +409,28 @@ class ResNetV2(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  fused_blocks: bool = False, fused_epilogue: str = "off",
                  bottleneck: bool = False, stem: str = "cifar",
-                 stem_space_to_depth: bool = True, remat: bool = False):
+                 stem_space_to_depth: bool = True, remat: bool = False,
+                 image_size: int | None = None):
         super().__init__()
         self.dtype = dtype
         if stem == "cifar":
             self.initial_conv = ConvFixedPadding(3, stem_filters, 3, 1)
+            size = image_size or 32
         elif stem == "imagenet":
             self.initial_conv = ImagenetStem(3, stem_filters,
                                              stem_space_to_depth)
+            # The 7x7/2 conv, then the 3x3/2 SAME max-pool.
+            size = -(-(-(-(image_size or 224) // 2)) // 2)
         else:
             raise ValueError(f"unknown stem {stem!r}")
         self.stem = stem
         prev = stem_filters
         for i, (f, b, s) in enumerate(zip(stage_filters, stage_blocks,
                                           stage_strides)):
+            size = -(-size // s)   # the shape block0 leaves
             self.add_module(f"block_layer{i + 1}", BlockLayer(
                 prev, f, b, s, fused_blocks, fused_epilogue, bottleneck,
-                remat))
+                remat, size))
             prev = 4 * f if bottleneck else f
         self.final_bnrelu = BatchNormRelu(prev, fused_epilogue)
         self.final_dense = nn.Linear(prev, num_classes)
@@ -424,7 +458,8 @@ def cifar_resnet_v2(resnet_size: int, num_classes: int,
                     dtype: torch.dtype = torch.bfloat16,
                     fused_blocks: bool = False,
                     fused_epilogue: str = "off",
-                    remat: bool = False) -> ResNetV2:
+                    remat: bool = False,
+                    image_size: int = 32) -> ResNetV2:
     """6n+2 CIFAR ResNet-v2 ('ResNet-50' on CIFAR: n=8, stages 16/32/64).
     With ``width_multiplier`` > 1 the Wide-ResNet 6n+4 depth is accepted."""
     if resnet_size % 6 == 2:
@@ -442,7 +477,7 @@ def cifar_resnet_v2(resnet_size: int, num_classes: int,
                     stage_blocks=(n, n, n), stage_strides=(1, 2, 2),
                     num_classes=num_classes, stem_filters=16, dtype=dtype,
                     fused_blocks=fused_blocks, fused_epilogue=fused_epilogue,
-                    remat=remat)
+                    remat=remat, image_size=image_size)
 
 
 # size: (bottleneck, stage_blocks), as the reference's _IMAGENET_PARAMS.
@@ -461,26 +496,23 @@ def imagenet_resnet_v2(resnet_size: int, num_classes: int,
                        stem_space_to_depth: bool = True,
                        fused_blocks: bool = False,
                        fused_epilogue: str = "off",
-                       remat: bool = False) -> ResNetV2:
+                       remat: bool = False,
+                       image_size: int = 224) -> ResNetV2:
     """ImageNet ResNet-v2 18/34/50/101/152/200 (stages 64/128/256/512,
-    ImageNet stem). ``fused_blocks`` takes the bottleneck sizes only: the
-    port's basic-block kernels have no widths above 64."""
+    ImageNet stem). ``fused_blocks``: the bottleneck sizes fuse their
+    stages of width 64-256; ResNet-18/34 fuse the basic stages where the
+    reference finds a plan at ``image_size`` (at 224²: 56²×64, 28²×128,
+    14²×256; the 7²×512 stage stays on F.conv2d)."""
     if resnet_size not in IMAGENET_PARAMS:
         raise ValueError(f"invalid resnet_size {resnet_size}; have "
                          f"{sorted(IMAGENET_PARAMS)}")
     bottleneck, blocks = IMAGENET_PARAMS[resnet_size]
-    if fused_blocks and not bottleneck:
-        raise NotImplementedError(
-            f"fused_blocks for ImageNet ResNet-{resnet_size} (basic blocks "
-            f"at 56x56x64 and wider) needs the basic block's kernels at C "
-            f"128 and 256, a later slice of the port (ROADMAP Queue 1); use "
-            f"fused_blocks=false")
     return ResNetV2(stage_filters=(64, 128, 256, 512), stage_blocks=blocks,
                     stage_strides=(1, 2, 2, 2), num_classes=num_classes,
                     stem_filters=64, dtype=dtype, fused_blocks=fused_blocks,
                     fused_epilogue=fused_epilogue, bottleneck=bottleneck,
                     stem="imagenet", stem_space_to_depth=stem_space_to_depth,
-                    remat=remat)
+                    remat=remat, image_size=image_size)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

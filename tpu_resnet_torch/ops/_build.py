@@ -160,3 +160,20 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of x's device's current CUDA stream."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def pointers(kind: str, names, tensors) -> ctypes.Array:
+    """A ctypes array of the tensors' pointers in the order of ``names``
+    (null for a name not given), each tensor checked contiguous and 16-byte
+    aligned; ``kind`` names the caller in errors."""
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kind}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+    return (ctypes.c_void_p * len(names))(*(
+        tensors[n].data_ptr() if n in tensors else None for n in names))

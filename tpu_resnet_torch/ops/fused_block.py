@@ -53,30 +53,60 @@ its calls on the card (``stats_launches``, ``bwd1_launches``,
 ``bwd2_launches``, ``bwd3_launches``, ``bwd_launches``). The plain versions
 keep float64 inputs in float64 (the gradient check); every other input
 computes in float32.
+
+Widths: the kernels take C in :data:`CHANNELS`. At C in
+:data:`TAP_CHANNELS` the tile passes of passes 1 and 2 and of the folded
+steps take their weight gradients themselves; at C = 128 and 256 (the
+ImageNet ResNet-18/34 stages) they write their sums alone and each takes
+one call of ``ops/wgrad.py`` for dw2 or dw1 (:func:`_wide_wgrad`, counted
+in ``wgrad.launches``: two launches, the product on ``wgmma`` and the sum
+of its splits). :func:`reference_fuses` is the
+reference's plan test, which says where a model fuses a basic block.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from tpu_resnet_torch.ops import _build
+from tpu_resnet_torch.ops import _build, wgrad
+from tpu_resnet_torch.ops.wgrad import shifted_reference as _shifted
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 
 launches = 0        # block_fwd calls (CUDA tensors only; two launches each,
                     # one with c1=)
 stats_launches = 0  # block_stats calls (two launches each: c1 and the
                     # tiles' sums, their sum)
-bwd1_launches = 0   # block_bwd1 calls (two launches each)
-bwd2_launches = 0   # block_bwd2 calls (three launches each)
+bwd1_launches = 0   # block_bwd1 calls (two launches each; four at C = 128
+                    # and 256, dw2 apart)
+bwd2_launches = 0   # block_bwd2 calls (three launches each; five at C = 128
+                    # and 256, dw1 apart)
 bwd3_launches = 0   # block_bwd3 calls (one launch each)
-bwd_launches = 0    # block_bwd calls (four launches each: its two steps)
+bwd_launches = 0    # block_bwd calls (four launches each: its two steps;
+                    # eight at C = 128 and 256, with two weight gradients)
 
-CHANNELS = (16, 32, 64)  # the kernels' compiled widths
+CHANNELS = (16, 32, 64, 128, 256)  # the kernels' compiled widths
+TAP_CHANNELS = (16, 32, 64)   # widths whose tile passes take dw themselves
 EPS = 1e-5
+# The reference's plan budget (tpu_resnet/ops/fused_block.py
+# auto_batch_tile): a basic block fuses where both 3x3 weights and one batch
+# row of four float32 slabs fit in it.
+PLAN_BUDGET_BYTES = 10 * 2 ** 20
 _SUM_DIMS = (0, 1, 2)
+
+
+def reference_fuses(shape) -> bool:
+    """Whether the reference fuses a stride-1 basic block whose input is
+    ``shape`` (B, H, W, C): its ``auto_batch_tile`` finds a plan, i.e. the
+    weights (2·9·C²·4 bytes) and one batch row (H·W·C·4 bytes, four
+    slabs) fit in 10 MB. The reference's ``BlockLayer`` probes the stage
+    shape that block0 leaves and keeps the stage unfused where no plan
+    fits (the 7²×512 ImageNet stage: its weights alone are 18.9 MB). A copy
+    of its arithmetic; the CUDA plans are the port's own."""
+    _, h, w, c = shape
+    weight_bytes = 2 * 9 * c * c * 4
+    per_row = h * w * c * 4 * 4
+    return PLAN_BUDGET_BYTES - weight_bytes >= per_row
 
 
 def _fold(gamma, beta, mean, var, eps):
@@ -100,16 +130,6 @@ def _conv3x3_t(d: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
     """The transposed SAME 3x3 conv: taps over the spatially flipped,
     IO-swapped weights (the gradient of :func:`_conv3x3` in its input)."""
     return _conv3x3(d, w_hwio.flip(0, 1).transpose(2, 3))
-
-
-def _wgrad(r: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """dw[ky,kx,ci,co] = Σ over (b,y,x) of r_pad[b,y+ky,x+kx,ci]·d[b,y,x,co]
-    (the gradient of :func:`_conv3x3` in its weights, HWIO)."""
-    _, h, w, _ = r.shape
-    rp = F.pad(r, (0, 0, 1, 1, 1, 1))
-    return torch.stack([
-        torch.einsum("bhwi,bhwo->io", rp[:, ky:ky + h, kx:kx + w], d)
-        for ky in range(3) for kx in range(3)]).unflatten(0, (3, 3))
 
 
 def _n(x) -> float:
@@ -169,22 +189,6 @@ def _check_f32(kind: str, x, **tensors) -> None:
                              f"{x.device}")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _pointers(kind, names, tensors):
-    """A ctypes array of the tensors' pointers in the order of ``names``
-    (null for a name not given), each tensor checked contiguous and 16-byte
-    aligned."""
-    for name, t in tensors.items():
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{kind}: {name} must be contiguous and 16-byte "
-                             f"aligned")
-    return (ctypes.c_void_p * len(names))(*(
-        tensors[n].data_ptr() if n in tensors else None for n in names))
-
-
 def block_fwd(x, w1, w2, s1, b1, s2, b2, *, c1=None) -> torch.Tensor:
     """Fused v2 basic-block forward: x [B,H,W,C] float32/bfloat16 with C in
     :data:`CHANNELS`; w1, w2 [3,3,C,C] float32; s1, b1, s2, b2 [C] float32
@@ -229,7 +233,7 @@ def block_bwd_reference(x, gy, w1, w2, s1, b1, s2, b2, *,
     dc1 = da2 * s2
     da1 = torch.where(a1 > 0, _conv3x3_t(dc1, w1f), 0.0)
     dx = (gyf + da1 * s1).to(x.dtype)
-    return (dx, _wgrad(r1, f(dc1)), _wgrad(r2, f(gyf)),
+    return (dx, _shifted(r1, f(dc1)), _shifted(r2, f(gyf)),
             (f(da1) * f(xf)).sum(_SUM_DIMS), f(da1).sum(_SUM_DIMS),
             (f(da2) * f(c1)).sum(_SUM_DIMS), f(da2).sum(_SUM_DIMS))
 
@@ -244,7 +248,7 @@ def folded_bwd1_reference(x, gy, w1, w2, s1, b1, s2, b2):
     a2 = c1 * s2 + b2
     da2 = torch.where(a2 > 0, _conv3x3_t(gyf, w2.to(xf.dtype)), 0.0)
     return (da2.sum(_SUM_DIMS), (da2 * c1).sum(_SUM_DIMS),
-            _wgrad(torch.clamp_min(a2, 0.0), gyf), (da2 * s2).contiguous())
+            _shifted(torch.clamp_min(a2, 0.0), gyf), (da2 * s2).contiguous())
 
 
 def folded_bwd2_reference(x, gy, w1, w2, s1, b1, s2, b2, *, dc1):
@@ -255,7 +259,7 @@ def folded_bwd2_reference(x, gy, w1, w2, s1, b1, s2, b2, *, dc1):
     a1 = xf * s1 + b1
     da1 = torch.where(a1 > 0, _conv3x3_t(dc1, w1.to(xf.dtype)), 0.0)
     return (da1.sum(_SUM_DIMS), (da1 * xf).sum(_SUM_DIMS),
-            _wgrad(torch.clamp_min(a1, 0.0), dc1),
+            _shifted(torch.clamp_min(a1, 0.0), dc1),
             (_fp(gy) + da1 * s1).to(x.dtype))
 
 
@@ -272,16 +276,22 @@ def folded_bwd1(x, gy, w1, w2, s1, b1, s2, b2):
     ``csrc/fused_block_tc.cu`` (mode 5, :func:`block_bwd1`'s tile pass on
     the folds): c1, the convT of gy, da2, the sums, dw2 and dc1 over tiles
     of pixels on the tensor cores (:func:`block_fwd`'s plan), then the sum
-    of the rows."""
+    of the rows; at C = 128 and 256 the tile pass also writes c1 and takes
+    no dw2, which :func:`_wide_wgrad` computes from that c1 (two more
+    launches)."""
     c = _check_folded("folded_bwd1", x, gy, w1, w2, s1, b1, s2, b2)
     if x.device.type == "cpu":
         return folded_bwd1_reference(x, gy, w1, w2, s1, b1, s2, b2)
-    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+    out = torch.empty(_sums_len("folded_bwd1", c), dtype=torch.float32,
                       device=x.device)
     dc1 = _f32_like(x)
+    wide = c not in TAP_CHANNELS
+    c1 = {"z2hat": _f32_like(x)} if wide else {}
     _tc("folded_bwd1", x, gy=gy, w1=w1, w2=w2, g1=s1, b1=b1, g2=s2, b2=b2,
-        dc1=dc1, out=out)
-    return (*_split_sums(out, c), dc1)
+        dc1=dc1, out=out, **c1)
+    dw2 = (_wide_wgrad("folded_bwd1", c1["z2hat"], gy, x, (s2, b2))
+           if wide else None)
+    return (*_split_sums(out, c, dw2), dc1)
 
 
 def folded_bwd2(x, gy, w1, w2, s1, b1, s2, b2, *, dc1):
@@ -289,17 +299,21 @@ def folded_bwd2(x, gy, w1, w2, s1, b1, s2, b2, *, dc1):
     dx in x's dtype), given ``dc1=``, step 1's dc1 (required: no path
     recomputes it); arguments as :func:`folded_bwd1`. On CUDA, two launches
     of ``csrc/fused_block_tc.cu`` (mode 6, :func:`block_bwd2`'s tile pass on
-    the folds): da1, the sums, dw1 and dx, then the sum of the rows."""
+    the folds): da1, the sums, dw1 and dx, then the sum of the rows; at C =
+    128 and 256 the tile pass takes no dw1, which :func:`_wide_wgrad`
+    computes from x and dc1 (two more launches)."""
     c = _check_folded("folded_bwd2", x, gy, w1, w2, s1, b1, s2, b2)
     _check_handoff("folded_bwd2", "dc1", dc1, x)
     if x.device.type == "cpu":
         return folded_bwd2_reference(x, gy, w1, w2, s1, b1, s2, b2, dc1=dc1)
-    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+    out = torch.empty(_sums_len("folded_bwd2", c), dtype=torch.float32,
                       device=x.device)
     dx = torch.empty_like(x)
     _tc("folded_bwd2", x, gy=gy, w1=w1, g1=s1, b1=b1, dc1=dc1, dx=dx,
         out=out)
-    return (*_split_sums(out, c), dx)
+    dw1 = (None if c in TAP_CHANNELS
+           else _wide_wgrad("folded_bwd2", x, dc1, x, (s1, b1)))
+    return (*_split_sums(out, c, dw1), dx)
 
 
 def block_bwd(x, gy, w1, w2, s1, b1, s2, b2):
@@ -467,7 +481,7 @@ def train_bwd_pass1_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
     gyf = _fp(gy)
     dz2 = _dz2(z2, gyf, w2)
     return (f(dz2).sum(_SUM_DIMS), (f(dz2) * f(z2hat)).sum(_SUM_DIMS),
-            _wgrad(r2, f(gyf)), dz2.contiguous(), z2hat.contiguous())
+            _shifted(r2, f(gyf)), dz2.contiguous(), z2hat.contiguous())
 
 
 def _pass2_chain(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2
@@ -499,7 +513,7 @@ def train_bwd_pass2_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
     if magnitudes:
         out = torch.where(z1 > 0, _conv3x3_t(dc1.abs(), wt.abs()), 0.0)
     return (f(dz1).sum(_SUM_DIMS), (f(dz1) * f(z1hat)).sum(_SUM_DIMS),
-            _wgrad(r1, f(dc1)), out.contiguous())
+            _shifted(r1, f(dc1)), out.contiguous())
 
 
 def train_bwd_pass3_reference(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2,
@@ -542,7 +556,18 @@ _TC_MODES = {"block_fwd": 0, "block_bwd1": 1, "block_bwd2": 2,
              "block_bwd3": 3, "block_stats": 4, "folded_bwd1": 5,
              "folded_bwd2": 6}
 _TC_PART_ROWS = 512  # most blocks (rows of partial sums) of a pass's tiles
-_TC_PIXELS = {16: 256, 32: 128, 64: 64}  # pixels per tile, by C
+# Pixels per tile by C: the tile plan's, and the small plan's (block_fwd,
+# the stats and the folded steps take it where the tile plan fills under 3/4
+# of the SMs).
+_TC_PIXELS = {16: 256, 32: 128, 64: 64, 128: 32, 256: 32}
+_TC_SMALL_PIXELS = {16: 64, 32: 32, 64: 16, 128: 16, 256: 16}
+
+
+def _sums_len(kind, c) -> int:
+    """Floats of a kind's sums out of ``tr_block_tc`` (and of each row of
+    partial sums): [S1, S2], then the weight gradient at the tap widths."""
+    return 2 * c + (9 * c * c if kind != "block_stats"
+                    and c in TAP_CHANNELS else 0)
 
 
 def _f32_like(x) -> torch.Tensor:
@@ -553,28 +578,45 @@ def _f32_like(x) -> torch.Tensor:
 def _tc(kind, x, **tensors) -> None:
     """One call of ``csrc/fused_block_tc.cu`` on the named tensors; the
     stats, passes 1 and 2 and the folded steps get the scratch for their
-    rows of partial sums (tiles of 1024/C pixels where the small plan runs,
+    rows of partial sums (tiles of the small plan's pixels where it runs,
     for the kinds that take :func:`block_fwd`'s plan)."""
     b, h, w, c = x.shape
     rows = 0
     if kind not in ("block_fwd", "block_bwd3"):
-        stats = kind == "block_stats"
         pixels = (_TC_PIXELS[c] if kind in ("block_bwd1", "block_bwd2")
-                  else 1024 // c)
+                  else _TC_SMALL_PIXELS[c])
         rows = min(_TC_PART_ROWS, -(-b * h * w // pixels))
-        tensors["part"] = torch.empty(
-            rows * (2 * c + (0 if stats else 9 * c * c)),
-            dtype=torch.float32, device=x.device)
-    ptrs = _pointers(kind, _TC_PTRS, {"x": x, **tensors})
+        tensors["part"] = torch.empty(rows * _sums_len(kind, c),
+                                      dtype=torch.float32, device=x.device)
+    ptrs = _build.pointers(kind, _TC_PTRS, {"x": x, **tensors})
     err = _build.library("fused_block_tc").tr_block_tc(
         _TC_MODES[kind], ptrs, b, h, w, c, rows, _build.DTYPE_CODES[x.dtype],
-        x.device.index, _stream(x))
+        x.device.index, _build.stream(x))
     _build.check(err, kind)
 
 
-def _split_sums(out, c):
-    """[S1, S2, dw] flat → (S1, S2 [C], dw [3,3,C,C])."""
-    return out[:c], out[c:2 * c], out[2 * c:].view(3, 3, c, c)
+def _split_sums(out, c, dw=None):
+    """[S1, S2, dw] flat → (S1, S2 [C], dw [3,3,C,C]); ``dw``: the weight
+    gradient computed apart (:func:`_wide_wgrad`), out then [S1, S2]."""
+    if dw is None:
+        dw = out[2 * c:].view(3, 3, c, c)
+    return out[:c], out[c:2 * c], dw
+
+
+def _wide_wgrad(kind, a, d, x, bn):
+    """dw [3,3,C,C] = Σ over the pixels p of r(p + tap)ᵀ·d(p), r =
+    relu(g·((a − m)·i) + b) zero outside the image (SAME pads r): the
+    weight gradient of a pass at a width outside :data:`TAP_CHANNELS`, on
+    :func:`wgrad.weight_grad`'s shifted BN+ReLU mode (TF32×3 ``wgmma``,
+    split-K added in order). ``bn``: (g, b, m, i), or (g, b) for m = 0, i =
+    1. dw1 takes x with BN1 (the folds) against dc1, dw2 pass 1's ẑ2 (the
+    folded step's c1) with (γ2, β2) (the folds) against gy, each rounded as
+    the tile pass rounds r1 and r2."""
+    c = x.shape[-1]
+    if x.numel() == 0:
+        return torch.zeros(3, 3, c, c, dtype=torch.float32, device=x.device)
+    return wgrad.weight_grad(kind, wgrad.SHIFTED_BN_RELU, a, d, c, c, x, 9,
+                             bn).view(3, 3, c, c)
 
 
 def block_bwd1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2):
@@ -584,19 +626,23 @@ def block_bwd1(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2):
     the weights and the eight BN vectors float32; m, i are the saved means
     and 1/σ. On CUDA, two launches of ``csrc/fused_block_tc.cu``: c1, ẑ2,
     the convT of gy, dz2, the tile sums and dw2 over tiles of pixels on the
-    tensor cores, then the sum of the rows."""
+    tensor cores, then the sum of the rows; at C = 128 and 256 the tile pass
+    takes no dw2, which :func:`_wide_wgrad` computes from its ẑ2 (two more
+    launches)."""
     global bwd1_launches
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2)
     c = _check_bwd("block_bwd1", x, gy, w1, w2, vecs)
     if x.device.type == "cpu":
         return train_bwd_pass1_reference(x, gy, w1, w2, *vecs)
-    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+    out = torch.empty(_sums_len("block_bwd1", c), dtype=torch.float32,
                       device=x.device)
     dz2, z2hat = _f32_like(x), _f32_like(x)
     _tc("block_bwd1", x, gy=gy, w1=w1, w2=w2, **dict(zip(_VECS, vecs)),
         dz2=dz2, z2hat=z2hat, out=out)
+    dw2 = (None if c in TAP_CHANNELS
+           else _wide_wgrad("block_bwd1", z2hat, gy, x, (g2, b2)))
     bwd1_launches += 1
-    return (*_split_sums(out, c), dz2, z2hat)
+    return (*_split_sums(out, c, dw2), dz2, z2hat)
 
 
 def block_bwd2(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, *,
@@ -607,7 +653,9 @@ def block_bwd2(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, *,
     dz1 is pass 3's input. On CUDA, three launches of
     ``csrc/fused_block_tc.cu``: dc1 (elementwise from dz2 and ẑ2) into a
     scratch, then dz1 (the convT of dc1 on the tensor cores), the tile sums
-    and dw1, then the sum of the rows."""
+    and dw1, then the sum of the rows; at C = 128 and 256 the tile pass
+    takes no dw1, which :func:`_wide_wgrad` computes from x and that dc1
+    (two more launches)."""
     global bwd2_launches
     vecs = (g1, b1, g2, b2, m1, i1, m2, i2, t1, t2)
     c = _check_bwd("block_bwd2", x, gy, w1, w2, vecs)
@@ -616,13 +664,15 @@ def block_bwd2(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, *,
     if x.device.type == "cpu":
         return train_bwd_pass2_reference(x, gy, w1, w2, *vecs, dz2=dz2,
                                          z2hat=z2hat)
-    out = torch.empty(2 * c + 9 * c * c, dtype=torch.float32,
+    out = torch.empty(_sums_len("block_bwd2", c), dtype=torch.float32,
                       device=x.device)
-    dz1 = _f32_like(x)
+    dz1, dc1 = _f32_like(x), _f32_like(x)
     _tc("block_bwd2", x, w1=w1, **dict(zip(_VECS, vecs)), dz2=dz2,
-        z2hat=z2hat, dc1=_f32_like(x), dz1=dz1, out=out)
+        z2hat=z2hat, dc1=dc1, dz1=dz1, out=out)
+    dw1 = (None if c in TAP_CHANNELS
+           else _wide_wgrad("block_bwd2", x, dc1, x, (g1, b1, m1, i1)))
     bwd2_launches += 1
-    return (*_split_sums(out, c), dz1)
+    return (*_split_sums(out, c, dw1), dz1)
 
 
 def block_bwd3(x, gy, w1, w2, g1, b1, g2, b2, m1, i1, m2, i2, t1, t2, u1,

@@ -53,24 +53,22 @@ Training (port of the reference's ``bottleneck_train_fwd`` and
 Each wrapper launches its kernel for CUDA tensors, computes its plain version
 (``*_reference``) for CPU tensors and raises otherwise, and counts its
 launches (``launches``, ``stats_a_launches``, ``stats_b_launches``,
-``bwd1_launches`` .. ``bwd4_launches``, ``bwd_launches``, and
-``wgrad_launches`` for :func:`_weight_grad`, which passes 1-3 and
-:func:`bottleneck_bwd` call). The plain
-versions keep float64 inputs in float64 (the gradient check); every other
-input computes in
-float32.
+``bwd1_launches`` .. ``bwd4_launches``, ``bwd_launches``; the weight
+gradients of passes 1-3 and of :func:`bottleneck_bwd` are ``ops/wgrad.py``'s,
+counted there). The plain versions keep float64 inputs in float64 (the
+gradient check); every other input computes in float32.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_resnet_torch.ops import _build
+from tpu_resnet_torch.ops import _build, wgrad
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 from tpu_resnet_torch.ops.fused_block import (_check_handoff, _conv3x3,
                                               _conv3x3_t, _finish_moments,
-                                              _fp, _mag, _n, _pointers,
-                                              _stream, _wgrad)
+                                              _fp, _mag, _n)
+from tpu_resnet_torch.ops.wgrad import shifted_reference as _shifted
 
 launches = 0  # bottleneck_fwd calls on CUDA tensors (two launches each)
 stats_a_launches = 0  # bottleneck_stats_a calls (two launches each)
@@ -81,7 +79,6 @@ bwd3_launches = 0     # bottleneck_bwd3 calls (four launches each)
 bwd4_launches = 0     # bottleneck_bwd4 calls (one launch each)
 bwd_launches = 0      # bottleneck_bwd calls (eleven launches each: its
                       # two steps, three weight gradients among them)
-wgrad_launches = 0    # _weight_grad calls (two launches each)
 
 WIDTHS = (64, 128, 256)  # the kernels' compiled bottleneck widths f
 
@@ -270,7 +267,7 @@ def train_bwd_pass2_reference(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3,
     _, _, _, chat, m2, _ = _chain(x, w1, g1, be1, mu1, i1, g2, be2, mu2, i2)
     dm2 = f(torch.where(m2 > 0, _conv3x3_t(dmid, w2.to(dmid.dtype)), 0.0))
     out = (dm2.sum(_SUM_DIMS), (dm2 * f(chat)).sum(_SUM_DIMS),
-           _wgrad(f(p2), f(dmid)))
+           _shifted(f(p2), f(dmid)))
     if magnitudes:
         gyf = _fp(gy)
         dm3 = torch.where(g3 * mhat + be3 > 0, torch.einsum(
@@ -319,15 +316,6 @@ def train_bwd_pass4_reference(x, gy, w1, w2, w3, *vecs_t, dc1):
 
 
 # ------------------------------------------------------- training: kernels
-# csrc/bottleneck_wgrad.cu: blocks a launch aims at (two waves of one block
-# per SM on an H100's 132), and the fewest pixels a split takes.
-_WGRAD_BLOCKS = 264
-_WGRAD_MIN_PIXELS = 64
-# Its A operand: rows of a float32 matrix, a float32 map shifted by the 9
-# taps of a 3x3 (SAME zero fill), or relu(g·((v − μ)·i) + be) of v.
-WGRAD_ROWS, WGRAD_SHIFTED, WGRAD_BN_RELU = 0, 1, 2
-
-
 def _check_train(kind, x, gy, weights, vecs, ts=()) -> int:
     """Shapes, types and devices of a training kernel's arguments; returns
     f."""
@@ -357,57 +345,6 @@ def _check_train(kind, x, gy, weights, vecs, ts=()) -> int:
     if x.device.type == "cuda" and f not in WIDTHS:
         raise ValueError(f"{kind} has kernels for f in {WIDTHS}, got {f}")
     return f
-
-
-def weight_grad_reference(amode, a, bmat, bn1=(), *,
-                          magnitudes: bool = False):
-    """Plain version of :func:`_weight_grad`: Σ over the B·H·W pixels of
-    Aᵀ·bmat, flat [taps·ka·nb] (the 3x3's [3,3,ka,nb] HWIO for
-    ``WGRAD_SHIFTED``, its 9 taps; [ka,nb] else), with A of ``a`` [B,H,W,ka]
-    by ``amode`` and bmat [B,H,W,nb]: ``_wgrad`` or one einsum, float32
-    (float64 for float64 inputs). ``magnitudes``: of |A| and |bmat|."""
-    f = _mag(magnitudes)
-    af, bf = _fp(a), _fp(bmat)
-    if amode == WGRAD_SHIFTED:
-        return _wgrad(f(af), f(bf)).reshape(-1)
-    if amode == WGRAD_BN_RELU:
-        g, be, mu, i = bn1
-        af = torch.clamp_min(g * ((af - mu) * i) + be, 0.0)
-    return torch.einsum("bhwk,bhwn->kn", f(af), f(bf)).reshape(-1)
-
-
-def _weight_grad(kind, amode, a, bmat, ka, nb, x, taps, bn1=(),
-                 splits=None):
-    """Σ over the B·H·W pixels of Aᵀ·bmat ([taps·ka·nb] float32), A by
-    ``amode`` (csrc/bottleneck_wgrad.cu ``tr_bottleneck_wgrad``, TF32×3 on
-    the tensor cores), the pixels in ``splits`` chunks (by default a number
-    fixed by the shapes), added in order; :func:`weight_grad_reference` for
-    CPU tensors."""
-    global wgrad_launches
-    if a.device.type == "cpu":
-        return weight_grad_reference(amode, a, bmat, bn1)
-    if a.device.type != "cuda":
-        raise ValueError(f"{kind} runs on cpu or cuda, not {a.device}")
-    b, h, w, _ = x.shape
-    p = b * h * w
-    if splits is None:
-        tiles = taps * (ka // (128 if ka % 128 == 0 else 64)) * (
-            nb // (128 if nb % 128 == 0 else 64))
-        splits = max(1, min(_WGRAD_BLOCKS // tiles,
-                            -(-p // _WGRAD_MIN_PIXELS)))
-    part = torch.empty(splits * taps * ka * nb, dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty(taps * ka * nb, dtype=torch.float32, device=x.device)
-    names = ("a", "b", "g1", "be1", "mu1", "i1", "part", "out")
-    ptrs = _pointers(kind, names, {
-        "a": a, "b": bmat, "part": part, "out": out,
-        **dict(zip(names[2:6], bn1))})
-    err = _build.library("bottleneck_wgrad").tr_bottleneck_wgrad(
-        amode, ptrs, p, ka, nb, h, w, splits, _build.DTYPE_CODES[a.dtype],
-        x.device.index, _stream(x))
-    _build.check(err, kind)
-    wgrad_launches += 1
-    return out
 
 
 def _scratch(x):
@@ -446,10 +383,10 @@ def _tc(kind, x, **tensors):
         out = tensors["out"] = torch.empty(per_f * c4 // 4,
                                            dtype=torch.float32,
                                            device=x.device)
-    ptrs = _pointers(kind, _TC_PTRS, {"x": x, **tensors})
+    ptrs = _build.pointers(kind, _TC_PTRS, {"x": x, **tensors})
     err = _build.library("fused_bottleneck_tc").tr_bottleneck_tc(
         mode, ptrs, b, h, w, c4 // 4, rows, _build.DTYPE_CODES[x.dtype],
-        x.device.index, _stream(x))
+        x.device.index, _build.stream(x))
     _build.check(err, kind)
     return out
 
@@ -509,7 +446,7 @@ def bottleneck_bwd1(x, gy, w1, w2, w3, *vecs):
     float32 (μ, i: the saved means and 1/σ). On CUDA, five launches: the p2
     pass and the mid/dm3 pass of ``csrc/fused_bottleneck_tc.cu`` (c1, the
     3x3 and gy·W3ᵀ on the tensor cores), the sum of its rows, then dw3
-    (:func:`_weight_grad`, p3 from mid, and its sum)."""
+    (:func:`wgrad.weight_grad`, p3 from mid, and its sum)."""
     global bwd1_launches
     kind = "bottleneck_bwd1"
     ws = {"w1": w1, "w2": w2, "w3": w3}
@@ -521,8 +458,8 @@ def bottleneck_bwd1(x, gy, w1, w2, w3, *vecs):
               **_bwd_tensors(w1, w2, w3, vecs, ()))
     # p3 = relu(g3·((mid − μ3)·i3) + be3), rounded as the tile pass rounds
     # m3.
-    dw3 = _weight_grad(kind, WGRAD_BN_RELU, mid, gy, f, 4 * f, x, 1,
-                       vecs[8:])
+    dw3 = wgrad.weight_grad(kind, wgrad.BN_RELU, mid, gy, f, 4 * f, x, 1,
+                            vecs[8:])
     bwd1_launches += 1
     return out[:f], out[f:], dw3.view(f, 4 * f), p2, mid, dm3
 
@@ -534,8 +471,8 @@ def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3):
     them); arguments as :func:`bottleneck_bwd1`. dmid is pass 3's input. On
     CUDA, five launches of which ``csrc/fused_bottleneck_tc.cu`` runs three:
     dmid, the tile pass (c1 from x, convT of dmid, dm2 and the sums, on the
-    tensor cores) and the sum of its rows; then dw2 (:func:`_weight_grad` on
-    p2 and dmid, and its sum)."""
+    tensor cores) and the sum of its rows; then dw2
+    (:func:`wgrad.weight_grad` on p2 and dmid, and its sum)."""
     global bwd2_launches
     kind = "bottleneck_bwd2"
     vecs, ts = vecs_t[:12], vecs_t[12:]
@@ -550,7 +487,7 @@ def bottleneck_bwd2(x, gy, w1, w2, w3, *vecs_t, p2, mid, dm3):
     dmid = _scratch(x)
     out = _tc(kind, x, mid=mid, dm3=dm3, dmid=dmid,
               **_bwd_tensors(w1, w2, w3, vecs, ts))
-    dw2 = _weight_grad(kind, WGRAD_SHIFTED, p2, dmid, f, f, x, 9)
+    dw2 = wgrad.weight_grad(kind, wgrad.SHIFTED, p2, dmid, f, f, x, 9)
     bwd2_launches += 1
     return out[:f], out[f:], dw2.view(3, 3, f, f), dmid
 
@@ -561,7 +498,7 @@ def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
     path recomputes it); arguments as :func:`bottleneck_bwd1`. dc1 is pass
     4's input. On CUDA: one pass of ``csrc/fused_bottleneck_tc.cu`` (c1 from
     x, convT of dmid, dc1, dc1·W1ᵀ and the sums, on the tensor cores), the
-    sum of its rows, then dw1 (:func:`_weight_grad` and its sum): four
+    sum of its rows, then dw1 (:func:`wgrad.weight_grad` and its sum): four
     launches."""
     global bwd3_launches
     kind = "bottleneck_bwd3"
@@ -576,8 +513,8 @@ def bottleneck_bwd3(x, gy, w1, w2, w3, *vecs_t, dmid):
     dc1 = _scratch(x)
     out = _tc(kind, x, dmid=dmid, dc1=dc1,
               **_bwd_tensors(w1, w2, w3, vecs, ts))
-    dw1 = _weight_grad(kind, WGRAD_BN_RELU, x, dc1, 4 * f, f, x, 1,
-                       vecs[:4])
+    dw1 = wgrad.weight_grad(kind, wgrad.BN_RELU, x, dc1, 4 * f, f, x, 1,
+                            vecs[:4])
     bwd3_launches += 1
     return out[:4 * f], out[4 * f:], dw1.view(4 * f, f), dc1
 
@@ -758,7 +695,7 @@ def bottleneck_bwd_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *,
     dm1 = torch.where(m1 > 0, torch.einsum("bhwf,cf->bhwc", dc1, w1f), 0.0)
     dx = (gyf + dm1 * s1).to(x.dtype)
     return (dx, torch.einsum("bhwc,bhwf->cf", p1, f(dc1)),
-            _wgrad(p2, f(dmid)), torch.einsum("bhwf,bhwc->fc", p3, f(gyf)),
+            _shifted(p2, f(dmid)), torch.einsum("bhwf,bhwc->fc", p3, f(gyf)),
             *[t for dm, v in ((dm1, xf), (dm2, c1), (dm3, mid))
               for t in ((f(dm) * f(v)).sum(_SUM_DIMS), f(dm).sum(_SUM_DIMS))])
 
@@ -794,7 +731,7 @@ def folded_bwd2_reference(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, p2,
     dc1 = dm2 * s2
     dm1 = torch.where(m1 > 0, torch.einsum("bhwf,cf->bhwc", dc1,
                                            w1.to(xf.dtype)), 0.0)
-    return (dm2.sum(_SUM_DIMS), (dm2 * c1).sum(_SUM_DIMS), _wgrad(p2, dmid),
+    return (dm2.sum(_SUM_DIMS), (dm2 * c1).sum(_SUM_DIMS), _shifted(p2, dmid),
             dm1.sum(_SUM_DIMS), (dm1 * xf).sum(_SUM_DIMS),
             torch.einsum("bhwc,bhwf->cf", p1, dc1),
             (_fp(gy) + dm1 * s1).to(x.dtype))
@@ -825,7 +762,7 @@ def folded_bwd1(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
     of :func:`bottleneck_fwd`, writing c1 too, the tile pass of
     ``csrc/fused_bottleneck_tc.cu`` mode 7 (mid, gy·W3ᵀ, dm3, the sums and
     dmid on the tensor cores; p3 to a scratch), the sum of its rows, then
-    dW3 (:func:`_weight_grad` on p3's rows, and its sum)."""
+    dW3 (:func:`wgrad.weight_grad` on p3's rows, and its sum)."""
     kind = "folded_bwd1"
     args = (w1, w2, w3, s1, b1, s2, b2, s3, b3)
     f = _check_folded(kind, x, gy, args)
@@ -835,7 +772,7 @@ def folded_bwd1(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3):
     out = _tc(kind, x, gy=gy, w1=w1, w2=w2, w3t=w3.t().contiguous(), g1=s1,
               be1=b1, g2=s2, be2=b2, g3=s3, be3=b3, p2=p2, c1=c1, p3=p3,
               dmid=dmid)
-    dw3 = _weight_grad(kind, WGRAD_ROWS, p3, gy, f, 4 * f, x, 1)
+    dw3 = wgrad.weight_grad(kind, wgrad.ROWS, p3, gy, f, 4 * f, x, 1)
     del p3
     return out[:f], out[f:], dw3.view(f, 4 * f), p2, c1, dmid
 
@@ -849,7 +786,7 @@ def folded_bwd2(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, p2, c1,
     ``csrc/fused_bottleneck_tc.cu`` mode 8 (the convT of dmid, dm2, dc1 to
     a scratch, dc1·W1ᵀ, dm1, the sums and dx on the tensor cores), the sum
     of its rows, then dw2 on p2 and dmid and dW1 on x and dc1
-    (:func:`_weight_grad` and their sums)."""
+    (:func:`wgrad.weight_grad` and their sums)."""
     kind = "folded_bwd2"
     args = (w1, w2, w3, s1, b1, s2, b2, s3, b3)
     f = _check_folded(kind, x, gy, args)
@@ -861,10 +798,11 @@ def folded_bwd2(x, gy, w1, w2, w3, s1, b1, s2, b2, s3, b3, *, p2, c1,
     out = _tc(kind, x, gy=gy, w1t=w1.t().contiguous(),
               w2t=w2.flip(0, 1).transpose(2, 3).contiguous(), g1=s1, be1=b1,
               g2=s2, be2=b2, c1=c1, dmid=dmid, dc1=dc1, dx=dx)
-    dw2 = _weight_grad(kind, WGRAD_SHIFTED, p2, dmid, f, f, x, 9)
+    dw2 = wgrad.weight_grad(kind, wgrad.SHIFTED, p2, dmid, f, f, x, 9)
     # p1 = relu(s1·((x − 0)·1) + b1): relu(x·s1 + b1) bit for bit.
-    dw1 = _weight_grad(kind, WGRAD_BN_RELU, x, dc1, 4 * f, f, x, 1,
-                       (s1, b1, torch.zeros_like(s1), torch.ones_like(s1)))
+    dw1 = wgrad.weight_grad(kind, wgrad.BN_RELU, x, dc1, 4 * f, f, x, 1,
+                            (s1, b1, torch.zeros_like(s1),
+                             torch.ones_like(s1)))
     return (out[8 * f:9 * f], out[9 * f:], dw2.view(3, 3, f, f),
             out[:4 * f], out[4 * f:8 * f], dw1.view(4 * f, f), dx)
 

@@ -1,10 +1,12 @@
 """A/B the fused basic-block kernels against the plain PyTorch version of
 the identical math (cuDNN convolutions, autograd for the gradients), at the
-CIFAR ResNet's three stage shapes: the port of the reference's
-``tools/fused_block_ab.py``.
+CIFAR ResNet's three stage shapes, or ImageNet ResNet-18/34's three fused
+stage shapes (``--preset imagenet``: 56²×64, 28²×128, 14²×256): the port
+of the reference's ``tools/fused_block_ab.py``.
 
     python -m tpu_resnet_torch.tools.fused_block_ab [--out JSON]
         [--length 32] [--reps 5] [--dtype bfloat16|float32] [--device cpu]
+        [--preset cifar10|imagenet]
 
 Four arms per shape, as the reference's: ``fwd`` (``block_fwd``),
 ``fwd_bwd`` (``block_apply`` differentiated in x and all six parameters:
@@ -44,6 +46,9 @@ from tpu_resnet_torch.ops import fused_block as fb
 # 32@16x16, 64@8x8), as the reference's SHAPES without its tile columns:
 # the port's kernels have no batch tile.
 SHAPES = [(128, 32, 32, 16), (128, 16, 16, 32), (128, 8, 8, 64)]
+# ImageNet ResNet-18/34 at 224²: the stages the reference fuses (its
+# auto_batch_tile finds a plan; 7²×512 has none).
+IMAGENET_SHAPES = [(128, 56, 56, 64), (128, 28, 28, 128), (128, 14, 14, 256)]
 
 Arm = Callable[[torch.Tensor], object]
 
@@ -198,11 +203,16 @@ def parser(length: int, doc: str) -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = parser(32, __doc__).parse_args(argv)
+    ap = parser(32, __doc__)
+    ap.add_argument("--preset", default="cifar10",
+                    choices=["cifar10", "imagenet"],
+                    help="the model whose fused stage shapes to run")
+    args = ap.parse_args(argv)
     if args.length < 1 or args.reps < 1:
         raise SystemExit("--length and --reps must be >= 1")
+    shapes = SHAPES if args.preset == "cifar10" else IMAGENET_SHAPES
     device = resolve_device(args.device)
-    return run_shapes(SHAPES, shape_key, run_shape, args, device)
+    return run_shapes(shapes, shape_key, run_shape, args, device)
 
 
 if __name__ == "__main__":
