@@ -290,6 +290,22 @@ bit equal, and no mask of the first step ([a2 > 0], [m3 > 0], read from
 the dc1 or dmid it hands over) other than the plain version's
 (``mask_flips``).
 
+A ``cli`` line: the port's run tools through ``python -m tpu_resnet_torch``
+on the card. ``doctor --probe-timeout 60`` with every check ok (an H100 of
+capability 9.0, nvcc, every kernel library built, the empty launch
+made); ``info --preset imagenet`` printing 25,549,352 parameters; the
+graphed fused CIFAR ``train()`` (chunks of 10, 30 steps) unprofiled and
+with ``train.profile_steps`` 10:20 and 0:10 (warm-up and capture inside
+the window), the profiled runs' losses, end state and checkpoints bit for
+bit the unprofiled run's, launches exact; ``trace-export --device-trace``
+on each profiled dir, every kernel the counters saw named in the merged
+device lanes, every device event inside the ``profiler_trace`` span, the
+profiler's launches of each beside the counters'; the window's device
+busy time, idle share, idle gaps by size with the launches on either side
+of the longest, and the most frequent launch names; ``inspect`` on the
+checkpoint and ``plot --csv`` (its CSV; the PNG where matplotlib is
+installed).
+
 Then one ``{"kernels": [...]}`` line of the 20 kernels (times summed over
 the launches of one forward pass of each serve path and one train step that
 run the kernel, in bfloat16; for ``sbr_add`` over one call at each probe
@@ -3798,6 +3814,224 @@ def grad_phase(preset: str, counters, gpu: str) -> dict:
     return result
 
 
+# The cli phase: the port's run tools through ``python -m
+# tpu_resnet_torch``; the graphed fused CIFAR train that the profiler
+# window and trace-export read (30 steps, chunks of 10, the window steps
+# 10..20 and, in a second run, 0..10: the warm-up and the capture).
+CLI_TIMEOUT = 300
+CLI_STEPS, CLI_PER_CALL = 30, 10
+CLI_WINDOWS = ("10:20", "0:10")
+CLI_OVERRIDES = [*TRAIN_OVERRIDES, "model.fused_blocks=true",
+                 f"train.steps_per_call={CLI_PER_CALL}",
+                 f"train.train_steps={CLI_STEPS}", "train.log_every=10",
+                 "train.checkpoint_every=10"]
+CLI_PARAMS = "trainable params: 25,549,352"
+
+
+def run_cli(*args, timeout: int = CLI_TIMEOUT) -> tuple:
+    """(exit code, standard output) of ``python -m tpu_resnet_torch
+    *args`` run from the repository root."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_resnet_torch", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr[-2000:]
+
+
+def doctor_check() -> dict:
+    """``doctor --probe-timeout 60`` on the card: every check ok, an H100
+    of capability 9.0, nvcc found, every kernel library built, the empty
+    launch made."""
+    from tpu_resnet_torch.ops import _build
+    rc, out = run_cli("doctor", "--probe-timeout", "60")
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith("DOCTOR_JSON: ")), None)
+    check(line is not None, f"doctor printed no DOCTOR_JSON line:\n{out}")
+    summary = json.loads(line[len("DOCTOR_JSON: "):])
+    check(rc == 0 and summary["ok"], f"doctor failed (rc {rc}):\n{out}")
+    backend, kernels = summary["backend"], summary["kernels"]
+    check("H100" in backend["device_kind"]
+          and backend["capability"] == "9.0",
+          f"doctor's backend: {backend}")
+    check(kernels["nvcc"] and kernels["built"] == sorted(_build.SIGNATURES)
+          and kernels["noop"] == "launched", f"doctor's kernels: {kernels}")
+    return {"rc": rc, "backend": backend, "kernels": kernels,
+            "versions": summary["versions"]}
+
+
+def cli_train(train_dir: str, counters, window: str = "") -> dict:
+    """The graphed fused CIFAR ``train()`` of the cli phase (``window``:
+    its ``train.profile_steps``): its launches, metrics and end state."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.train.loop import train
+    cfg = load_config("cifar10", "", [
+        *CLI_OVERRIDES, f"train.train_dir={train_dir}",
+        f"train.profile_steps={window}"])
+    gc_collect()
+    zero_counts(counters)
+    state = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    check(state.step == CLI_STEPS, f"cli train stopped at {state.step}")
+    want = {k: n * CLI_STEPS
+            for k, n in PER_PASS["cifar10_fused_train"].items()}
+    check(counts == want, f"cli train ({window or 'unprofiled'}): launch "
+          f"counts {counts}, expected {want}")
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        losses = [(r["step"], r["loss"]) for r in map(json.loads, f)]
+    from tpu_resnet_torch.train import checkpoint
+    tensors = {n: t.detach().clone()
+               for n, t in state_tensors(state, []).items()}
+    for step in checkpoint.all_steps_in(train_dir):
+        saved = checkpoint.restore(train_dir, step)
+        for part in ("params", "batch_stats", "opt_state"):
+            tensors.update({f"checkpoint {step} {part}/{n}": t
+                            for n, t in saved[part].items()})
+    return {"counts": counts, "losses": losses, "tensors": tensors}
+
+
+def device_window(trace: dict) -> dict:
+    """The merged device lanes of an exported trace against its
+    ``profiler_trace`` span: events outside the span, busy time (union
+    over every lane), the lanes' extent and idle share, each lane's busy
+    time, and the longest gaps between busy intervals."""
+    from tpu_resnet_torch.tools.profiling import union_ms
+    events = trace["traceEvents"]
+    (span,) = [e for e in events if e["name"] == "profiler_trace"]
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    dev = [e for e in events if e.get("cat") == "device"]
+    lanes = {}
+    for e in events:
+        if e["ph"] == "M" and e["name"] == "thread_name" and \
+                e["pid"] >= 9000000:
+            lanes[(e["pid"], e["tid"])] = e["args"]["name"]
+    outside = [e["name"] for e in dev
+               if e["ts"] < lo or e["ts"] + e["dur"] > hi + 0.1]
+    ivs = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in dev)
+    extent_ms = (ivs[-1][1] - ivs[0][0]) / 1e3 if ivs else 0.0
+    busy_ms = union_ms((a, b) for a, b, _ in ivs)
+    # Idle gaps between busy intervals: (ms, the event that ended last
+    # before it, the event after it).
+    gaps, end, last = [], None, None
+    for a, b, name in ivs:
+        if end is not None and a > end:
+            gaps.append(((a - end) / 1e3, last[:60], name[:60]))
+        if end is None or b >= end:
+            end, last = b, name
+    bins = {"under_2us": (0, 0.002), "2_to_10us": (0.002, 0.01),
+            "10_to_100us": (0.01, 0.1), "over_100us": (0.1, 1e9)}
+    gap_bins = {k: {"gaps": sum(1 for g, _, _ in gaps if lo_ <= g < hi_),
+                    "ms": sum(g for g, _, _ in gaps if lo_ <= g < hi_)}
+                for k, (lo_, hi_) in bins.items()}
+    by_name = {}
+    for e in dev:
+        row = by_name.setdefault(e["name"][:60], [0, 0.0])
+        row[0] += 1
+        row[1] += e["dur"] / 1e3
+    by_lane = {}
+    for (pid, tid), name in sorted(lanes.items()):
+        mine = [(e["ts"], e["ts"] + e["dur"]) for e in dev
+                if e["pid"] == pid and e["tid"] == tid]
+        by_lane[name] = {"events": len(mine), "busy_ms": union_ms(mine)}
+    return {"span_ms": span["dur"] / 1e3, "device_events": len(dev),
+            "outside_span": outside[:10], "n_outside_span": len(outside),
+            "extent_ms": extent_ms, "busy_ms": busy_ms,
+            "idle_ms": extent_ms - busy_ms,
+            "idle_share": 1 - busy_ms / extent_ms if extent_ms else None,
+            "gap_bins": gap_bins,
+            "longest_gaps": sorted(gaps, reverse=True)[:8],
+            "top_names": sorted(([n, c, ms] for n, (c, ms)
+                                 in by_name.items()),
+                                key=lambda r: -r[1])[:12],
+            "by_lane": by_lane}
+
+
+def export_window(train_dir: str, counts: dict) -> dict:
+    """``trace-export --device-trace`` on a profiled run: every kernel the
+    counters saw is named in the merged device lanes, every device event
+    falls inside the ``profiler_trace`` span; the profiler's launches of
+    each kernel over the window beside the counters' per-step count times
+    the window's steps (the profiler drops launches now and then)."""
+    from tpu_resnet_torch.tools.profiling import TRAIN_KERNELS
+    rc, out = run_cli("trace-export", "--dir", train_dir, "--device-trace")
+    check(rc == 0, f"trace-export failed (rc {rc}):\n{out}")
+    with open(os.path.join(train_dir, "trace.json")) as f:
+        trace = json.load(f)
+    meta = trace["metadata"]["device_trace"]
+    check(meta["anchored_by"] == "profiler_trace_span"
+          and meta["device"] == "cuda", f"device trace: {meta}")
+    window = device_window(trace)
+    check(window["n_outside_span"] == 0, f"device events outside the "
+          f"profiler_trace span: {window['outside_span']}")
+    names = [e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "device"]
+    (span,) = [e for e in trace["traceEvents"]
+               if e["name"] == "profiler_trace"]
+    steps = span["args"]["stop_step"] - span["args"]["start_step"]
+    seen = {}
+    for kernel, n in counts.items():
+        if n:
+            key = TRAIN_KERNELS[kernel]
+            seen[kernel] = {
+                "profiled": sum(1 for name in names if key in name),
+                "counted": n // CLI_STEPS * steps
+                * LAUNCHES_PER_CALL[kernel]}
+    missing = [k for k, v in seen.items() if not v["profiled"]]
+    check(not missing, f"kernels the counters saw and the device lanes do "
+          f"not name: {missing}")
+    return {"device_trace": meta, "window": window, "launches": seen}
+
+
+def cli_phase(counters, gpu: str) -> dict:
+    """The port's run tools on the card: ``doctor``, ``info``; a graphed
+    fused CIFAR train profiled over steps 10..20, exported with its device
+    lanes, and again over 0..10 (warm-up and capture in the window), both
+    bit for bit an unprofiled run (losses, state); ``inspect`` and ``plot
+    --csv`` on the first."""
+    result = {"gpu": gpu, "doctor": doctor_check()}
+    rc, out = run_cli("info", "--preset", "imagenet")
+    check(rc == 0 and CLI_PARAMS in out, f"info (rc {rc}):\n{out}")
+    result["info"] = CLI_PARAMS
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        plain = cli_train(os.path.join(root, "plain"), counters)
+        for window in CLI_WINDOWS:
+            train_dir = os.path.join(root, window.replace(":", "_"))
+            run = cli_train(train_dir, counters, window)
+            check(run["losses"] == plain["losses"],
+                  f"profiled ({window}) losses differ: {run['losses']} vs "
+                  f"{plain['losses']}")
+            check(run["tensors"].keys() == plain["tensors"].keys(),
+                  f"profiled ({window}) checkpoints differ")
+            diff = [n for n, t in run["tensors"].items()
+                    if not torch.equal(t, plain["tensors"][n])]
+            check(not diff, f"profiled ({window}) state differs: {diff[:5]}")
+            result[f"window_{window}"] = export_window(train_dir,
+                                                       run["counts"])
+        train_dir = os.path.join(root, CLI_WINDOWS[0].replace(":", "_"))
+        rc, out = run_cli("inspect", "--dir", train_dir, "--peek",
+                          "params/initial_conv.weight")
+        check(rc == 0 and f"checkpoint step {CLI_STEPS}" in out,
+              f"inspect (rc {rc}):\n{out}")
+        # The CSV needs no matplotlib; the PNG does, and the card's
+        # machine may lack it: then the command says so and exits 1.
+        csv = os.path.join(root, "series.csv")
+        rc, out = run_cli("plot", "--dir", train_dir, "--csv", csv)
+        png = os.path.join(train_dir, "curves.png")
+        no_mpl = rc == 1 and "No module named 'matplotlib'" in out
+        check((rc == 0 and os.path.getsize(png) > 0) or no_mpl,
+              f"plot (rc {rc}):\n{out}")
+        with open(csv) as f:
+            rows = f.read().splitlines()
+        check(len(rows) == 1 + CLI_STEPS // 10, f"plot --csv rows: {rows}")
+        result.update(inspect_rc=0, plot_rc=rc, plot_png=not no_mpl,
+                      plot_csv_rows=len(rows) - 1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("cli", **result)
+    return result
+
+
 # Where a JPEG decoder for an ImageNet input pipeline could come from: the
 # CUDA toolkit's nvJPEG and the system's libjpeg, headers and libraries.
 JPEG_DIRS = {"cuda": ("/usr/local/cuda/include", "/usr/local/cuda/lib64",
@@ -3995,6 +4229,7 @@ def main() -> int:
     trained += ab_phase(counters, gpu)
     trained += [grad_phase(preset, counters, gpu)
                 for preset in ("cifar10", "imagenet")]
+    cli_phase(counters, gpu)
 
     kernels = kernel_entries(rows, served, trained)
     for entry in kernels:

@@ -1331,3 +1331,48 @@ def test_kernels_keep_a_nan(cuda):
     assert len(rows) == 20
     bad = [row for row in rows if not row["ok"]]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("window", ["0:4", "2:7"])
+def test_profiled_graphed_window_keeps_the_run(cuda, tmp_path, window):
+    """``train.profile_steps`` on the graphed fused loop (chunks of 4): a
+    window over the first chunk (warm-up and capture inside it) or across
+    chunks; the losses and the end checkpoint bit for bit an unprofiled
+    run's; ``trace-export --device-trace`` lays the capture's kernels,
+    the fused block's among them, inside the ``profiler_trace`` span."""
+    import json
+    from tpu_resnet_torch.obs import trace
+    from tpu_resnet_torch.train import checkpoint
+    from tpu_resnet_torch.train.loop import train
+
+    runs = {}
+    for spec in ("", window):
+        d = tmp_path / (spec.replace(":", "_") or "plain")
+        cfg = load_config("cifar10", "", [
+            "data.dataset=synthetic", "data.synthetic_learnable=true",
+            "data.synthetic_train_examples=256", "model.resnet_size=14",
+            "model.fused_blocks=true", "model.fused_epilogue=on",
+            "optim.use_pallas_xent=on", "train.global_batch_size=16",
+            "train.train_steps=8", "train.log_every=4",
+            "train.checkpoint_every=8", "train.steps_per_call=4",
+            f"train.profile_steps={spec}", f"train.train_dir={d}"])
+        assert train(cfg, device="cuda").step == 8
+        with open(d / "metrics.jsonl") as f:
+            losses = [(r["step"], r["loss"]) for r in map(json.loads, f)]
+        runs[spec] = (d, losses, checkpoint.restore(str(d), 8))
+    (_, plain, a), (d, losses, b) = runs[""], runs[window]
+    assert losses == plain
+    for part in ("params", "batch_stats", "opt_state"):
+        for n, t in a[part].items():
+            assert torch.equal(t, b[part][n]), n
+    got = trace.build_trace(str(d), device_trace=True)
+    assert got["metadata"]["device_trace"]["device"] == "cuda"
+    (span,) = [e for e in got["traceEvents"]
+               if e["name"] == "profiler_trace"]
+    dev = [e for e in got["traceEvents"] if e.get("cat") == "device"]
+    assert all(span["ts"] <= e["ts"] and e["ts"] + e["dur"] <=
+               span["ts"] + span["dur"] + 0.1 for e in dev)
+    names = {e["name"] for e in dev}
+    assert any("block_fwd_" in n for n in names)
+    assert any("sbr_bwd_kernel" in n for n in names)
+    assert trace.validate_trace(got) == []

@@ -50,6 +50,27 @@ def test_import_loads_no_jax_stack():
     assert out.strip() == "[]", out
 
 
+def test_run_tools_load_no_jax_stack():
+    """The run tools (``info``, ``inspect``, ``plot``, ``trace-export``,
+    ``doctor``) and the profiler window load no JAX stack and no PIL; the
+    file-only tools load no matplotlib until they draw."""
+    code = ("import sys, tpu_resnet_torch.obs.trace, "
+            "tpu_resnet_torch.tools.analysis, "
+            "tpu_resnet_torch.tools.inspect_ckpt, "
+            "tpu_resnet_torch.tools.plot_metrics, "
+            "tpu_resnet_torch.tools.doctor, "
+            "tpu_resnet_torch.tools.datasets, "
+            "tpu_resnet_torch.tools.profiling, "
+            "tpu_resnet_torch.data.jpeg_encode; "
+            "print(sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {PACKAGE_FORBIDDEN + ('matplotlib',)!r}"
+            "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]", out
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_port_file_imports_no_reference(rel):
     with open(os.path.join(REPO, rel)) as f:

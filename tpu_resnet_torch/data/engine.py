@@ -26,6 +26,9 @@ record's file and offset; a worker thread that dies raises within one
 poll; a set ``external_stop`` ends iteration within ``RESULT_POLL_SEC``;
 ``close()`` is idempotent. ``data.engine=process``, the reference's
 GIL-free CPU decode, is not ported: decode runs on the card.
+
+:func:`decode_scaling_probe` (``doctor --data-bench``) times the engine on
+synthetic JPEGs by worker count.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from __future__ import annotations
 # iterates it, which also runs close(). Workers communicate through the
 # task and result queues and the decode counter (its own lock).
 
+import os
 import queue
 import threading
 import time
@@ -391,3 +395,103 @@ class HostDataEngine:
             self.close()
         except Exception:
             pass
+
+
+def _cycled_orders(n_records: int, local_batch: int):
+    """Infinite order stream cycling over one probe shard's records."""
+    pos = 0
+    while True:
+        idxs = [(i % n_records) for i in range(pos, pos + local_batch)]
+        pos = (pos + local_batch) % n_records
+        yield idxs
+
+
+def decode_scaling_probe(worker_counts: Sequence[int] = (1, 0),
+                         seconds: float = 4.0, local_batch: int = 32,
+                         image_size: int = 224, n_records: int = 48,
+                         warmup_batches: int = 2, device="cuda",
+                         photo_size: Tuple[int, int] = (640, 480)) -> dict:
+    """Decode throughput by worker count (port of the reference's probe,
+    with worker threads where it has processes; a ``0`` in
+    ``worker_counts`` means ``os.cpu_count()``, at most 8): images/s
+    through :class:`HostDataEngine` on ``device`` over about ``seconds``
+    each, after ``warmup_batches``; beside them one :class:`DecodeStage`
+    run inline on the caller's thread, no engine. Each timing ends with
+    the device drained. The photos are :func:`synthetic_photo_jpeg`'s,
+    in one shard of ``n_records`` records.
+    ``implied_max_steps_per_sec_b128``: the train steps/s that the best
+    rate could feed at a global batch of 128. The keys are the
+    reference's (``engine_images_per_sec_by_procs`` counts threads)."""
+    import tempfile
+
+    from tpu_resnet_torch.data.jpeg_encode import synthetic_photo_jpeg
+
+    device = _indexed(resolve_device(str(device)))
+
+    def drain():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    cpu = os.cpu_count() or 1
+    counts = sorted({(c if c > 0 else min(8, cpu)) for c in worker_counts})
+    rng = np.random.default_rng(0)
+    jpegs = [synthetic_photo_jpeg(photo_size, rng=rng) for _ in range(4)]
+    out = {"cpu_count": cpu, "local_batch": local_batch,
+           "jpeg_kind": "synthetic_photo_%dx%d" % photo_size,
+           "mode": "thread", "device": str(device)}
+    with tempfile.TemporaryDirectory(prefix="tpures_databench_") as d:
+        shard = os.path.join(d, "probe-shard")
+        tfrecord.write_records(shard, [tfrecord.encode_example({
+            "image/encoded": [jpegs[i % 4]],
+            "image/class/label": [1 + (i % 1000)],
+        }) for i in range(n_records)])
+        index = tfrecord.record_index(shard)
+        params = dict(seed=0, train=True, resize_min=256, resize_max=512,
+                      eval_resize=256)
+        records = read_order([(0,) + index[i % n_records]
+                              for i in range(local_batch)], [shard])
+        stage = DecodeStage(device, image_size, local_batch)
+        try:  # the inline baseline: no engine, no worker thread
+            def inline():
+                _, _, event = stage.batch(
+                    records, order_draws(params, 0, len(records)))
+                if event is not None:
+                    event.synchronize()
+
+            for _ in range(warmup_batches):
+                inline()
+            t0, n = time.perf_counter(), 0
+            while time.perf_counter() - t0 < min(seconds, 3.0):
+                inline()
+                n += local_batch
+            base_rate = n / (time.perf_counter() - t0)
+        finally:
+            stage.close()
+        out["single_process_images_per_sec"] = round(base_rate, 1)
+        scaling = {}
+        for workers in counts:
+            orders = ([(0,) + index[i] for i in idxs]
+                      for idxs in _cycled_orders(len(index), local_batch))
+            eng = HostDataEngine(
+                orders, files=[shard], local_batch=local_batch,
+                image_size=image_size, seed=0, train=True, device=device,
+                mode="thread", workers=workers)
+            try:
+                for _ in range(warmup_batches):  # thread start, first IO
+                    next(eng)
+                drain()
+                t0, images = time.perf_counter(), 0
+                while time.perf_counter() - t0 < seconds:
+                    next(eng)
+                    images += local_batch
+                drain()
+                scaling[str(workers)] = round(
+                    images / (time.perf_counter() - t0), 1)
+            finally:
+                eng.close()
+        out["engine_images_per_sec_by_procs"] = scaling
+    best = max(scaling.values()) if scaling else base_rate
+    out["best_images_per_sec"] = best
+    out["scaling_vs_single_process"] = round(best / max(base_rate, 1e-9), 2)
+    out["implied_max_steps_per_sec_b128"] = round(best / 128.0, 2)
+    return out

@@ -8,10 +8,19 @@
     python -m tpu_resnet_torch serve --preset cifar10 \
         model.fused_blocks=true model.fused_epilogue=on \
         train.train_dir=/tmp/run
+    python -m tpu_resnet_torch info --preset imagenet [--layers]
+    python -m tpu_resnet_torch inspect --dir /tmp/run [--step N] [--peek P]
+    python -m tpu_resnet_torch plot --dir /tmp/run [--out F] [--csv F]
+    python -m tpu_resnet_torch trace-export --dir /tmp/run [--device-trace]
+    python -m tpu_resnet_torch doctor [--data-dir D --dataset N] \
+        [--train-dir D] [--data-bench] [--fault-drill]
 
 Same ``--preset``/``--config``/``section.field=value`` surface as
-``python -m tpu_resnet``; ``--device cpu`` runs on the CPU, otherwise the
-command needs CUDA and raises without it.
+``python -m tpu_resnet``; ``--device cpu`` runs ``train``, ``eval`` and
+``serve`` on the CPU, otherwise they need CUDA and raise without it.
+``info`` (the model on the ``meta`` device), ``inspect``, ``plot`` and
+``trace-export`` touch no device; ``doctor`` probes the card and fails
+its checks where there is none.
 """
 
 from __future__ import annotations
@@ -20,12 +29,21 @@ import argparse
 import logging
 import sys
 
+# The commands that take a run config.
+_RUN_COMMANDS = ("train", "eval", "serve", "info")
+
 
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
         datefmt="%H:%M:%S", stream=sys.stderr)
+    raw = sys.argv[1:] if argv is None else list(argv)
+    if raw[:1] == ["trace-export"]:
+        # Delegated whole, as the reference does: the exporter owns its
+        # flags and reads files only.
+        from tpu_resnet_torch.obs.trace import main as trace_main
+        return trace_main(raw[1:])
     parser = argparse.ArgumentParser(prog="tpu_resnet_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     for name, help_text in (
@@ -33,20 +51,92 @@ def main(argv=None) -> int:
                       "checkpoint in train.train_dir)"),
             ("eval", "checkpoint-polling evaluation (or --once)"),
             ("serve", "online inference: dynamic-batching HTTP predict "
-                      "server with checkpoint hot-reload")):
+                      "server with checkpoint hot-reload"),
+            ("info", "print resolved config, param count and forward "
+                     "FLOPs"),
+            ("inspect", "list the tensors of a checkpoint"),
+            ("plot", "render precision/loss/throughput curves from "
+                     "metrics.jsonl"),
+            ("trace-export", "merge a run's spans/metrics/eval/serve "
+                             "events (and a profiler capture) into one "
+                             "Chrome-trace JSON"),
+            ("doctor", "environment triage: versions, CUDA probe, kernel "
+                       "build and launch, dataset layout, run "
+                       "telemetry")):
         p = sub.add_parser(name, help=help_text)
-        p.add_argument("--preset", default="")
-        p.add_argument("--config", default="")
-        p.add_argument("--device", default=None,
-                       help="cuda (default) or cpu")
+        if name in _RUN_COMMANDS:
+            p.add_argument("--preset", default="")
+            p.add_argument("--config", default="")
+            if name != "info":
+                p.add_argument("--device", default=None,
+                               help="cuda (default) or cpu")
         if name == "eval":
             p.add_argument("--once", action="store_true",
                            help="evaluate the newest checkpoint and exit")
-        p.add_argument("overrides", nargs="*")
-    args = parser.parse_args(argv)
+        if name == "info":
+            p.add_argument("--layers", action="store_true",
+                           help="per-parameter table (tfprof-style dump)")
+        if name in _RUN_COMMANDS:
+            p.add_argument("overrides", nargs="*")
+        if name == "inspect":
+            p.add_argument("--dir", required=True, help="train/ckpt dir")
+            p.add_argument("--step", type=int, default=None)
+            p.add_argument("--peek", default=None,
+                           help="print stats+head of one tensor by path")
+        if name == "plot":
+            p.add_argument("--dir", required=True, help="train dir")
+            p.add_argument("--out", default=None, help="output PNG path")
+            p.add_argument("--csv", default=None,
+                           help="also export merged series as CSV")
+        if name == "doctor":
+            p.add_argument("--dataset", default="",
+                           help="with --data-dir: layout to validate")
+            p.add_argument("--data-dir", default="")
+            p.add_argument("--train-dir", default="",
+                           help="running run's dir: check its telemetry "
+                                "server answers /metrics + /healthz")
+            p.add_argument("--probe-timeout", type=int, default=60)
+            p.add_argument("--data-bench", action="store_true",
+                           help="~10 s synthetic-JPEG decode throughput "
+                                "probe on the card: images/sec at 1 vs N "
+                                "decode threads + implied max steps/sec")
+            p.add_argument("--fault-drill", action="store_true",
+                           help="live SIGTERM+resume drill of a small "
+                                "ResNet on the card: preemption exit "
+                                "code, checkpoint at the stop step, "
+                                "exact-step resume")
+    args = parser.parse_args(raw)
+
+    if args.command == "doctor":
+        from tpu_resnet_torch.tools.doctor import run_doctor
+        if args.dataset and not args.data_dir:
+            parser.error("doctor --dataset requires --data-dir")
+        summary = run_doctor(dataset=args.dataset, data_dir=args.data_dir,
+                             train_dir=args.train_dir,
+                             probe_timeout=args.probe_timeout,
+                             fault_drill=args.fault_drill,
+                             data_bench=args.data_bench)
+        return 0 if summary["ok"] else 1
+    if args.command == "inspect":
+        from tpu_resnet_torch.tools.inspect_ckpt import main as inspect_main
+        inspect_main(args.dir, step=args.step, peek=args.peek)
+        return 0
+    if args.command == "plot":
+        from tpu_resnet_torch.tools.plot_metrics import plot
+        try:
+            print(f"wrote {plot(args.dir, out=args.out, csv_out=args.csv)}")
+        except ImportError as e:
+            print(f"plot: no PNG ({e})" + (f"; wrote {args.csv}"
+                                           if args.csv else ""))
+            return 1
+        return 0
 
     from tpu_resnet_torch.config import load_config
     cfg = load_config(args.preset, args.config, args.overrides)
+    if args.command == "info":
+        from tpu_resnet_torch.tools.analysis import print_model_info
+        print_model_info(cfg, layers=args.layers)
+        return 0
     if args.command == "train":
         from tpu_resnet_torch.resilience.shutdown import Preempted
         from tpu_resnet_torch.train.loop import train

@@ -14,16 +14,29 @@ replays), each fed by any iterator of batches on the device (seeded ones
 copied in by :func:`host_batches`, or the decode engine's); figures are
 per step; ``tools/profile_torch_train.py`` and ``chip_smoke.py`` print
 them.
+
+:class:`StepTracer` is the train loop's profiler window
+(``train.profile_steps = "start:stop"``, :func:`parse_window`; port of the
+reference's ``StepTracer``): ``torch.profiler`` runs from the chunk that
+begins inside the window to the first step at or past its stop, and its
+Chrome trace lands in ``<train_dir>/profile/<timestamp>/trace.json.gz``,
+which ``trace-export --device-trace`` lays on the run's timeline
+(``obs/trace.py``).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
-from typing import Callable, Dict, Iterable, Iterator, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+log = logging.getLogger("tpu_resnet_torch")
 
 # The port's kernels on the train paths, by a substring of their names: the
 # fused block's stats are two launches on the tensor cores,
@@ -263,3 +276,93 @@ def _profile_calls(call: Callable[[], int], steps: int, iters: int,
             "port_kernels": ours, "kernels": kernels[:30],
             "decode_kernels": prof["decode_kernels"][:8],
             "streams": prof["streams"], "probe": probed}
+
+
+def parse_window(spec: str) -> Optional[Tuple[int, int]]:
+    """``"start:stop"`` -> (start, stop) step window, or None when empty."""
+    if not spec:
+        return None
+    try:
+        a, b = spec.split(":")
+        start, stop = int(a), int(b)
+    except ValueError:
+        raise ValueError(
+            f"train.profile_steps must be 'start:stop', got {spec!r}")
+    if not 0 <= start < stop:
+        raise ValueError(
+            f"bad profile window {spec!r}: need 0 <= start < stop")
+    return start, stop
+
+
+class StepTracer:
+    """Drives ``torch.profiler`` start and stop at training-step
+    boundaries.
+
+    The loop calls ``before(step)`` ahead of dispatching the chunk that
+    begins at ``step`` and ``after(step)`` once its step counter has
+    advanced past it. ``boundaries()`` feeds the loop's chunk clipper, so
+    that no chunk (no run of CUDA graph replays) straddles the window.
+    The profiler records the CPU's operators, and on a CUDA ``device`` the
+    device's kernels, copies and memsets too; ``after`` drains the device
+    before it stops the profiler, so that the window's device work is in
+    the trace. ``spans`` (an ``obs.SpanTracer``) gets a ``profiler_trace``
+    span that opens before the profiler starts and closes after its trace
+    is written: ``obs/trace.py`` anchors the trace on it.
+    """
+
+    FILE = "trace.json.gz"
+
+    def __init__(self, train_dir: str, spec: str = "", spans=None,
+                 device=None):
+        self.window = parse_window(spec)
+        self.dir = os.path.join(train_dir, "profile")
+        self.device = torch.device(device or "cpu")
+        self._spans = spans
+        self._prof = None
+        self._t0 = None
+
+    def boundaries(self) -> Tuple[int, ...]:
+        return self.window or ()
+
+    def before(self, step: int) -> None:
+        if (self.window and self._prof is None and
+                self.window[0] <= step < self.window[1]):
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._t0 = time.time()
+            self._prof = profile(activities=activities)
+            self._prof.start()
+            log.info("profiler: tracing steps %d..%d into %s",
+                     self.window[0], self.window[1], self.dir)
+
+    def _stop(self) -> str:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._prof = self._prof, None
+        prof.stop()
+        # Named by the start's UTC time to the microsecond: lexical order
+        # is capture order.
+        stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime(self._t0))
+        capture = os.path.join(
+            self.dir, f"{stamp}.{int(self._t0 * 1e6) % 1000000:06d}")
+        os.makedirs(capture, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(capture, self.FILE))
+        if self._spans is not None:
+            self._spans.record("profiler_trace", self._t0, time.time(),
+                               start_step=self.window[0],
+                               stop_step=self.window[1], dir=capture)
+        return capture
+
+    def after(self, step: int) -> bool:
+        """True when this call closed the window: the device is then
+        drained (the loop's device-backlog sampler takes ``step`` as its
+        new sync point)."""
+        if self._prof is not None and step >= self.window[1]:
+            log.info("profiler: trace written to %s", self._stop())
+            return True
+        return False
+
+    def close(self) -> None:
+        if self._prof is not None:  # training ended inside the window
+            self._stop()

@@ -72,6 +72,12 @@ Observability and drills, as the reference's loop has them:
   allocator's ``hbm_bytes_*``, into ``metrics.jsonl`` and the gauges. The
   device is read where the loop reads the metrics anyway; nothing runs in
   a capture and nothing is read per step;
+- ``train.profile_steps = "A:B"`` profiles the steps from A to B with
+  ``torch.profiler`` (``tools/profiling.py`` ``StepTracer``): no chunk
+  straddles the window's ends, the device is drained before the profiler
+  stops, the trace lands in ``<train_dir>/profile/`` and a
+  ``profiler_trace`` span on the run's timeline
+  (``trace-export --device-trace``);
 - ``resilience.watchdog_stall_sec`` > 0 watches the chunk boundaries
   (``resilience/watchdog.py``); the ``resilience.inject_*`` knobs and
   ``TPU_RESNET_FAULT_*`` drive the fault injector
@@ -79,7 +85,8 @@ Observability and drills, as the reference's loop has them:
   ``oom_report.json``.
 
 The reference loop's other features are not in this slice (ROADMAP lists
-them): summaries, the profiler, the comms ledger (one card has no
+them): summaries, the profiler server (``train.profiler_port``: PyTorch
+has no profiler service to attach to), the comms ledger (one card has no
 collective), the program cache and elastic resume. Their knobs are
 accepted and logged as ignored.
 """
@@ -113,6 +120,7 @@ from tpu_resnet_torch.resilience.sentinel import DivergenceError, NaNSentinel
 from tpu_resnet_torch.resilience.shutdown import (Preempted,
                                                   ShutdownCoordinator)
 from tpu_resnet_torch.resilience.watchdog import HangWatchdog
+from tpu_resnet_torch.tools.profiling import StepTracer
 from tpu_resnet_torch.train import schedule as sched_lib
 from tpu_resnet_torch.train.checkpoint import CheckpointManager
 from tpu_resnet_torch.train.metrics_io import MetricsWriter, ThroughputMeter
@@ -124,7 +132,7 @@ log = logging.getLogger("tpu_resnet_torch")
 # Knobs of the reference loop that this slice accepts and does not act on.
 IGNORED_KNOBS = (
     "train.summary_every", "train.image_summary_every",
-    "train.profiler_port", "train.profile_steps", "train.comms_ledger",
+    "train.profiler_port", "train.comms_ledger",
     "mesh.partition", "programs.cache", "data.use_native_loader")
 
 
@@ -330,7 +338,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
     # with nothing to fall back to, a bad config) still runs the closers
     # below, so that no server, watchdog, signal handler or file outlives
     # the call.
-    shutdown = watchdog = ckpt = metrics = runner = None
+    shutdown = watchdog = ckpt = metrics = runner = tracer = None
     host_iter = data_iter = ds = m = state = None
     stage = 1
     step = last_ckpt_step = 0
@@ -374,6 +382,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
         log.info("this slice ignores: %s", ", ".join(
             f"{k}={_knob(cfg, k)}" for k in IGNORED_KNOBS))
 
+        tracer = StepTracer(train_dir, cfg.train.profile_steps, spans=spans,
+                            device=device)
         metrics = MetricsWriter(train_dir)
         meter = ThroughputMeter(batch)
         # Where the interval's time goes (obs/breakdown.py): data waits,
@@ -407,10 +417,12 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
             injector.maybe_oom(step)
             if shutdown.requested:
                 break  # stop at the chunk boundary; final save below
+            tracer.before(step)
             if resident:
                 with breakdown.dispatch():
                     m = runner.run(state, step, _chunk_len(
-                        step, total, cfg.train, ds.steps_per_epoch))
+                        step, total, cfg.train, ds.steps_per_epoch,
+                        tracer.boundaries()))
             elif stage > 1:
                 if stage_buf is None:
                     try:
@@ -423,7 +435,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 gi, gl, n, off = stage_buf
                 # Up to the stage's end, clipped to the next log or
                 # checkpoint boundary (the reference's staged branch).
-                c = min(n - off, _chunk_len(step, total, cfg.train, 0))
+                c = min(n - off, _chunk_len(step, total, cfg.train, 0,
+                                            tracer.boundaries()))
                 try:  # the engine's stages take each batch as it comes
                     with breakdown.dispatch():
                         m = runner.run_staged(state, gi, gl, off, c)
@@ -447,6 +460,10 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
             step = state.step
             if watchdog is not None:
                 watchdog.progress(step)
+            if tracer.after(step):
+                # Closing the window drained the device: the next
+                # boundary's backlog covers only the steps since here.
+                last_sync = step
             if first:
                 # The first chunk pays the kernel builds, cuDNN's plan
                 # search and the capture: compile_seconds, kept out of the
@@ -614,6 +631,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                             "in-flight %s", state.step, exc_type.__name__)
 
             _close(_emergency_save)
+        if tracer is not None:
+            _close(tracer.close)
         if run_wall0 is not None:  # the loop started
             _close(lambda: spans.record(
                 "run", run_wall0, time.time(), start_step=start_step,
