@@ -290,6 +290,32 @@ bit equal, and no mask of the first step ([a2 > 0], [m3 > 0], read from
 the dc1 or dmid it hands over) other than the plain version's
 (``mask_flips``).
 
+Four ``data_parallel`` lines, after ``cli``: the port's data parallelism
+(``parallel/``) on the card, with a process group opened and ranks
+spawned (``torch.multiprocessing``, ``spawn``) by the script. (a) the
+fused CIFAR path of ``chunked_train`` (chunks of 10 graph replays) with
+an NCCL group of one rank open, whose step all-reduces its gradients
+inside the graph, against that phase's graphed run without a group: bit
+for bit the same run, the same launches a step, each run's loop ms a
+step. (b) two gloo ranks sharing the card (NCCL refuses two ranks on one
+card; gloo runs eager), 64 of the 128 rows each, the fused per-replica
+step (``model.sync_bn=false``): ``compare_step``'s float32 gate (kernels
+against plain versions, 4x the control), its launches equal to the
+one-card step's table, and the eager bfloat16 rank step's median ms.
+(c) on the same ranks, synced BN unfused: the 2-rank step against the
+1-rank step on the whole batch within the step limits or 4x the control
+(the 1-rank step on PyTorch's own convolutions), and zero1 against
+replicated at 2 ranks within ``ZERO1_TOL``. Then the ranks' ``train()``
+runs (``DP_TRAIN_RUNS``, resident data, eager): (b)'s fused per-replica
+20 steps, and (c)'s synced zero1 in float32, 2 steps, each with one
+checkpoint: both ranks end bit for bit equal, the run directory holds
+what a 1-rank run writes and one metrics record per logged step (rank 0
+alone wrote), (b)'s launches per rank the one-card table a step, and
+(c)'s run normwise within 4x its control of the 1-rank ``train()``
+(the control: that run on the plain versions and PyTorch's own
+convolutions). (d) two NCCL ranks on two cards where the machine has
+them, else the line ``{"data_parallel_nccl_2": "not run: 1 card"}``.
+
 A ``cli`` line: the port's run tools through ``python -m tpu_resnet_torch``
 on the card. ``doctor --probe-timeout 60`` with every check ok (an H100 of
 capability 9.0, nvcc, every kernel library built, the empty launch
@@ -1843,20 +1869,34 @@ def step_batch(cfg, batch: int) -> tuple:
     return x, torch.from_numpy(labels).to(cuda)
 
 
-def step_arms(cfg, counters, arms, x, y) -> dict:
-    """One float32 train step per arm from one seeded state and batch (x,
-    y): ``arms`` maps a name to a context factory the step runs under.
-    Returns {name: (state, metrics, launch counts)}."""
+def rank_step(cfg, state, mesh=None):
+    """The train step on preprocessed floats: one card's, or with ``mesh``
+    (a ``parallel.Mesh`` of an open process group) a rank's, with the
+    update of ``cfg.mesh.partition`` (zero1 takes over ``state``'s
+    momentum)."""
+    from tpu_resnet_torch.parallel import zero
     from tpu_resnet_torch.train import schedule as sched_lib
-    from tpu_resnet_torch.train.loop import build_state
+    from tpu_resnet_torch.train.loop import per_replica_bn
     from tpu_resnet_torch.train.step import make_train_step
 
+    update = zero.attach(state, cfg.mesh, mesh)
+    return make_train_step(cfg.optim, sched_lib.build_schedule(
+        cfg.optim, cfg.train), cfg.data.num_classes, mesh=mesh,
+        per_replica_bn=per_replica_bn(cfg, mesh), update=update)
+
+
+def step_arms(cfg, counters, arms, x, y, mesh=None) -> dict:
+    """One float32 train step per arm from one seeded state and batch (x,
+    y): ``arms`` maps a name to a context factory the step runs under;
+    with ``mesh`` each is a rank's step (:func:`rank_step`). Returns
+    {name: (state, metrics, launch counts)}."""
+    from tpu_resnet_torch.train.loop import build_state
+
     cuda = torch.device("cuda")
-    step_fn = make_train_step(cfg.optim, sched_lib.build_schedule(
-        cfg.optim, cfg.train), cfg.data.num_classes)
     runs = {}
     for arm, context in arms.items():
         state = build_state(cfg, cuda)
+        step_fn = rank_step(cfg, state, mesh)
         zero_counts(counters)
         with context():
             m = step_fn(state, x, y)
@@ -1897,12 +1937,13 @@ def plain_native_convs():
         yield
 
 
-def compare_step(cfg, counters, path: str, batch: int = TRAIN_BATCH
-                 ) -> dict:
+def compare_step(cfg, counters, path: str, batch: int = TRAIN_BATCH,
+                 mesh=None) -> dict:
     """One float32 train step from one seeded state through the kernels,
     and one through the plain versions; every metric and updated tensor
     compared against the step limits (``STEP_RTOL``, ``STATE_TOL``), and the
-    kernel step's launches against ``path``'s table.
+    kernel step's launches against ``path``'s table. With ``mesh`` the
+    steps are this rank's, on its rows of the ``batch``.
 
     Where the kernels replace convolutions (the fused blocks), the two
     steps sum their convolutions in different orders, and no two
@@ -1922,7 +1963,11 @@ def compare_step(cfg, counters, path: str, batch: int = TRAIN_BATCH
              > 0)
     if fused:
         arms["control"] = plain_native_convs
-    runs = step_arms(cfg, counters, arms, *step_batch(cfg, batch))
+    x, y = step_batch(cfg, batch)
+    if mesh is not None:
+        lo, hi = mesh.rank_rows(batch)
+        x, y, batch = x[lo:hi], y[lo:hi], hi - lo
+    runs = step_arms(cfg, counters, arms, x, y, mesh)
     (_, km, kc), (_, pm, pc) = runs["kernels"], runs["plain"]
     check(kc == PER_PASS[path], f"kernel step launches {kc}")
     check(not any(pc.values()), f"plain step launched kernels: {pc}")
@@ -2234,11 +2279,16 @@ def state_tensors(state, recs) -> dict:
     out = {f"state {n}": t for n, t in state.model.state_dict().items()}
     out.update({f"momentum {n}": t
                 for n, t in state.momentum_buffers().items()})
-    for r in recs:
-        for k in ("loss", "precision", "learning_rate", "grad_norm"):
-            out[f"metric {k}@{r['step']}"] = torch.tensor(r[k],
-                                                          dtype=torch.float64)
+    out.update(metric_tensors(recs))
     return out
+
+
+def metric_tensors(recs) -> dict:
+    """A run's logged metrics by name, as :func:`state_tensors` holds
+    them."""
+    return {f"metric {k}@{r['step']}": torch.tensor(r[k], dtype=torch.float64)
+            for r in recs
+            for k in ("loss", "precision", "learning_rate", "grad_norm")}
 
 
 def run_distance(got: dict, want: dict) -> dict:
@@ -2483,11 +2533,14 @@ def chunked_train_phase(counters, gpu: str) -> dict:
     loop speed, device busy time and idle share, capture seconds and peak
     memory; the counters against the profiler over a graphed window of the
     fused CIFAR path; the streamed runs (``streamed_arms``); and whether
-    ``torch.optim.SGD`` can be captured with a tensor learning rate."""
+    ``torch.optim.SGD`` can be captured with a tensor learning rate.
+    Returns the graphed fused CIFAR arm (its end state and figures), the
+    run without a process group that the data_parallel phase's part (a)
+    holds its grouped run against."""
     from tpu_resnet_torch.ops import epilogue as ep
 
     paths = {}
-    window_check = None
+    window_check = fused_graphed = None
     for path, (preset, _, steps) in CHUNK_PATHS.items():
         seeded = None
         if preset == "imagenet":
@@ -2510,6 +2563,7 @@ def chunked_train_phase(counters, gpu: str) -> dict:
                       f"{[t.nonzero().numel() for t in tickets]}")
                 if path == "cifar10_fused_train":
                     window_check = profiler_window(runs[name])
+                    fused_graphed = runs[name]
                 runner.close()
             gc_collect()
         eager = runs["eager"]
@@ -2538,7 +2592,7 @@ def chunked_train_phase(counters, gpu: str) -> dict:
               "profiler_window": window_check, "streamed": streamed,
               "sgd_tensor_lr_capture": sgd_tensor_lr_probe(), "gpu": gpu}
     emit("chunked_train", **result)
-    return result
+    return fused_graphed
 
 
 # The observability phase: ImageNet ResNet-50 fused, graphed, on seeded
@@ -4032,6 +4086,350 @@ def cli_phase(counters, gpu: str) -> dict:
     return result
 
 
+# The data_parallel phase: the fused CIFAR path's overrides per rank
+# (per-replica BN), the synced-BN path's (unfused, the cross-entropy
+# kernels on), the steps each part times, and zero1's limits against
+# replicated (the reference's test_zero1_replicated_step_parity_on_fakepod).
+DP_FUSED = [*TRAIN_OVERRIDES, "model.fused_blocks=true",
+            "model.sync_bn=false", "mesh.data=2"]
+DP_SYNCED = ["optim.use_pallas_xent=on", "data.dataset=synthetic",
+             "data.synthetic_learnable=true", "mesh.data=2"]
+DP_RANKS, DP_TIMED_STEPS = 2, 10
+ZERO1_TOL = (1e-6, 1e-6)
+# The 2-rank train() runs of parts (b) and (c): run: (overrides, steps,
+# log every); each checkpoints once, at its end. The synced zero1 run is
+# held against 1-rank train() runs of its config (DP_ONE_RANK) over 2
+# steps: these first steps carry a rounding difference across the whole
+# state within a few steps (after 4, 2 ranks and the control alike lay
+# 1.45 and 1.69 normwise from the 1-rank run on an H100), where no gate
+# tells a fault from rounding.
+DP_TRAIN_RUNS = {
+    "b_fused_per_replica": (DP_FUSED, 20, 10),
+    "c_zero1_synced": ([*DP_SYNCED, "model.compute_dtype=float32",
+                        "mesh.partition=zero1"], 2, 1)}
+DP_ONE_RANK = ["mesh.data=1"]
+
+
+def nccl_world1_part(counters, gpu: str, alone: dict) -> dict:
+    """(a) The fused CIFAR path through ``train()``, graphed, with an NCCL
+    group of one rank open (the step's all-reduce captured in its graph,
+    under NCCL's default asynchronous error handling), against ``alone``,
+    the chunked_train phase's graphed run of that path without a group:
+    bit for bit the same run, the same launches a step, and each run's
+    loop ms a step."""
+    from tpu_resnet_torch.parallel import multihost
+
+    path = "cifar10_fused_train"
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl1_")
+    try:
+        mesh = multihost.initialize(
+            f"file://{rendezvous}/store", 1, 0, device_type="cuda")
+        check(mesh is not None and mesh.size == 1
+              and torch.distributed.get_backend() == "nccl",
+              "no NCCL group of one rank")
+        grouped = chunk_arm(path, counters, CHUNK_PER_CALL, None,
+                            profiled=False)
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    dist = run_distance(grouped["tensors"], alone["tensors"])
+    check(dist["bit_equal"], f"(a) NCCL world 1 differs from no group: "
+          f"{dist}")
+    a, g = alone["arm"], grouped["arm"]
+    check(g["launches"] == a["launches"], "(a) launches differ")
+    return {"part": "a_nccl_world1", "path": path, "gpu": gpu,
+            "nccl_async_error_handling": os.environ.get(
+                "TORCH_NCCL_ASYNC_ERROR_HANDLING", "PyTorch's default"),
+            "steps": g["steps"], "steps_per_call": CHUNK_PER_CALL,
+            "bit_equal": dist["bit_equal"], "tensors": dist["tensors"],
+            "launches_per_step": {k: n / g["steps"]
+                                  for k, n in g["launches"].items() if n},
+            "launches_per_step_no_group": {
+                k: n / a["steps"] for k, n in a["launches"].items() if n},
+            "loop_ms_per_step": g["loop_ms_per_step"],
+            "loop_ms_per_step_no_group": a["loop_ms_per_step"],
+            "capture_seconds": g["capture_seconds"],
+            "capture_seconds_no_group": a["capture_seconds"]}
+
+
+def _timed_rank_steps(cfg, mesh, x, y) -> dict:
+    """Median ms of DP_TIMED_STEPS eager bfloat16 rank steps (after two),
+    by CUDA events around each step's host call (a rank's step reads its
+    collectives' results before it returns)."""
+    from tpu_resnet_torch.train.loop import build_state
+
+    state = build_state(cfg, torch.device("cuda"))
+    step = rank_step(cfg, state, mesh)
+    times = []
+    for i in range(DP_TIMED_STEPS + 2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        step(state, x, y)
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    return {"ms_per_step_median": statistics.median(times),
+            "ms_per_step_min": min(times), "steps": len(times)}
+
+
+def gloo_rank_parts(mesh, counters) -> dict:
+    """(b) and (c) on one rank of a gloo group whose ranks share the card.
+
+    (b) the fused per-replica step at this rank's 64 rows of 128: kernels
+    against the plain versions within ``compare_step``'s gates (its
+    control: 4x), the launches equal to the one-card step's table, and the
+    bfloat16 step's time. (c) synced BN, unfused: the 2-rank step against
+    the 1-rank step on the whole batch within the step limits or 4x the
+    control (the 1-rank step on PyTorch's own convolutions), and zero1
+    against replicated at 2 ranks within ZERO1_TOL."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.train.loop import build_state
+
+    cuda = torch.device("cuda")
+    f32 = ["model.compute_dtype=float32"]
+    fused = compare_step(load_config("cifar10", "", [*DP_FUSED, *f32]),
+                         counters, "cifar10_fused_train", mesh=mesh)
+    lo, hi = mesh.rank_rows(TRAIN_BATCH)
+    cfg = load_config("cifar10", "", DP_FUSED)
+    x, y = step_batch(cfg, TRAIN_BATCH)
+    fused["timed_bf16"] = _timed_rank_steps(cfg, mesh, x[lo:hi], y[lo:hi])
+
+    x, y = step_batch(load_config("cifar10", "", DP_SYNCED), TRAIN_BATCH)
+    runs = {}
+    for arm, rows, ctx, layout in (
+            ("two_ranks", (lo, hi), contextlib.nullcontext, mesh),
+            ("one_rank", (0, TRAIN_BATCH), contextlib.nullcontext, None),
+            ("control", (0, TRAIN_BATCH), plain_native_convs, None),
+            ("zero1", (lo, hi), contextlib.nullcontext, mesh)):
+        cfg = load_config("cifar10", "", [*DP_SYNCED, *f32, *(
+            ["mesh.partition=zero1"] if arm == "zero1" else [])])
+        state = build_state(cfg, cuda)
+        step = rank_step(cfg, state, layout)
+        zero_counts(counters)
+        with ctx():
+            m = step(state, x[rows[0]:rows[1]], y[rows[0]:rows[1]])
+        torch.cuda.synchronize()
+        runs[arm] = (state, {k: float(v) for k, v in m.items()},
+                     read_counts(counters))
+    two = step_diff(runs["two_ranks"], runs["one_rank"])
+    control = step_diff(runs["control"], runs["one_rank"])
+    ok = (all(two[f"{k}_rel_err"] <= STEP_RTOL for k in ("loss", "precision"))
+          and two["worst_err_over_limit"]
+          <= CONTROL_FACTOR * max(control["worst_err_over_limit"], 1.0))
+    check(ok, f"(c) 2-rank synced step beyond the step limits and "
+          f"{CONTROL_FACTOR} x the control: {two} / {control}")
+    (zs, zm, _), (rs, rm, _) = runs["zero1"], runs["two_ranks"]
+    atol, rtol = ZERO1_TOL
+    zb, rb = zs.momentum_buffers(), rs.momentum_buffers()
+    pairs = [*((zs.model.state_dict()[n], t)
+               for n, t in rs.model.state_dict().items()),
+             *((zb[n], rb[n]) for n in rb)]
+    zero1_excess = max(float(((g - w).abs() / (atol + rtol * w.abs())).max())
+                       for g, w in pairs)
+    zero1_metrics = {k: _rel(zm[k], rm[k])
+                     for k in ("loss", "precision", "grad_norm")}
+    check(zero1_excess <= 1 and max(zero1_metrics.values()) <= rtol,
+          f"(c) zero1 vs replicated: {zero1_excess} {zero1_metrics}")
+    return {"b": fused,
+            "c": {"two_vs_one_rank": two, "control_vs_one_rank": control,
+                  "control_factor": CONTROL_FACTOR,
+                  "launches_two_ranks": {
+                      k: n for k, n in runs["two_ranks"][2].items() if n},
+                  "zero1_vs_replicated_err_over_limit": zero1_excess,
+                  "zero1_vs_replicated_metrics_rel_err": zero1_metrics,
+                  "zero1_tol": ZERO1_TOL}}
+
+
+def dp_train(overrides, steps: int, log_every: int, train_dir: str,
+             counters, context=contextlib.nullcontext) -> dict:
+    """``train()`` of CIFAR-10 ResNet-50 with ``overrides`` into
+    ``train_dir``, eager (``train.steps_per_call=1``), one checkpoint at
+    its end: its end state by name (on the host; under zero1 the whole
+    momentum buffers, gathered by every rank), launch counts and
+    seconds."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.train.loop import train
+
+    cfg = load_config("cifar10", "", [
+        *overrides, f"train.train_dir={train_dir}",
+        f"train.train_steps={steps}", f"train.log_every={log_every}",
+        f"train.checkpoint_every={steps}", "train.steps_per_call=1"])
+    zero_counts(counters)
+    t0 = time.monotonic()
+    with context():
+        state = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    check(state.step == steps, f"train() stopped at {state.step}")
+    return {"tensors": {n: t.detach().cpu().clone()
+                        for n, t in state_tensors(state, []).items()},
+            "launches": read_counts(counters), "train_seconds": seconds}
+
+
+def gloo_rank(rank: int, store: str, out_dir: str) -> None:
+    """One spawned rank of parts (b) and (c): gloo on CUDA tensors, both
+    ranks on card 0, eager (gloo cannot be captured). After the steps,
+    the DP_TRAIN_RUNS through ``train()``: each rank's end state goes to
+    ``rank<r>_<run>.pt`` for the parent to compare."""
+    from tpu_resnet_torch.device import resolve_device
+    from tpu_resnet_torch.parallel import multihost
+
+    resolve_device("cuda")
+    mesh = multihost.initialize(f"file://{store}", 1, 0, local_rank=rank,
+                                local_world=DP_RANKS, device_type="cuda",
+                                backend="gloo", card=0, timeout_sec=600)
+    counters = kernel_counters()
+    try:
+        out = gloo_rank_parts(mesh, counters)
+        out["train"] = {}
+        for run, (overrides, steps, log_every) in DP_TRAIN_RUNS.items():
+            got = dp_train(overrides, steps, log_every,
+                           os.path.join(out_dir, run), counters)
+            torch.save(got.pop("tensors"),
+                       os.path.join(out_dir, f"rank{rank}_{run}.pt"))
+            out["train"][run] = got
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_train_check(ranks: list, out_dir: str, counters) -> dict:
+    """The gloo ranks' ``train()`` runs: both ranks end in the same state
+    bit for bit; each rank's launches are its steps times the one-card
+    step's table (the fused run); the run directory holds what a 1-rank
+    run's holds, one checkpoint, and one metrics record per logged step
+    (rank 0 wrote them, rank 1 nothing). The synced zero1 run against the
+    1-rank ``train()`` of its config (DP_ONE_RANK, replicated: one rank's
+    update is the plain one) within CONTROL_FACTOR times the normwise
+    distance of the control, that 1-rank run on the plain versions and
+    PyTorch's own convolutions."""
+    overrides, steps, log_every = DP_TRAIN_RUNS["c_zero1_synced"]
+    one_rank = {}
+    for arm, context in (("one_rank", contextlib.nullcontext),
+                         ("control", plain_native_convs)):
+        run_dir = os.path.join(out_dir, f"one_rank_{arm}")
+        one_rank[arm] = dp_train([*overrides, *DP_ONE_RANK], steps,
+                                 log_every, run_dir, counters, context)
+        one_rank[arm]["files"] = sorted(os.listdir(run_dir))
+        recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+        one_rank[arm]["tensors"].update(metric_tensors(recs))
+    own_files = [f for f in one_rank["one_rank"]["files"]
+                 if not f.isdigit()]
+    out = {}
+    for run, (_, steps, log_every) in DP_TRAIN_RUNS.items():
+        run_dir = os.path.join(out_dir, run)
+        got = [torch.load(os.path.join(out_dir, f"rank{r}_{run}.pt"))
+               for r in range(DP_RANKS)]
+        same = (set(got[0]) == set(got[1])
+                and all(torch.equal(t, got[1][n]) for n, t in got[0].items()))
+        check(same, f"{run}: the ranks end in different states")
+        recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+        logged = [r["step"] for r in recs]
+        files = sorted(os.listdir(run_dir))
+        check(logged == list(range(log_every, steps + 1, log_every)),
+              f"{run}: metrics.jsonl steps {logged}")
+        check(files == sorted([*own_files, str(steps)]),
+              f"{run}: files {files}, a 1-rank run writes {own_files}")
+        launches = [r["train"][run]["launches"] for r in ranks]
+        if "fused" in run:
+            want = {k: n * steps for k, n in
+                    PER_PASS["cifar10_fused_train"].items()}
+            check(all(c == want for c in launches),
+                  f"{run}: launches {launches}, expected {want} a rank")
+        out[run] = {"steps": steps, "files": files, "logged_steps": logged,
+                    "ranks_bit_equal": same,
+                    "launches": [{k: n for k, n in c.items() if n}
+                                 for c in launches],
+                    "train_seconds": [r["train"][run]["train_seconds"]
+                                      for r in ranks],
+                    "loop_ms_per_step": 1e3 * (recs[-1]["wall"]
+                                                - recs[0]["wall"])
+                    / (recs[-1]["step"] - recs[0]["step"])}
+        if run == "c_zero1_synced":
+            got[0].update(metric_tensors(recs))
+            two = run_distance(got[0], one_rank["one_rank"]["tensors"])
+            control = run_distance(one_rank["control"]["tensors"],
+                                   one_rank["one_rank"]["tensors"])
+            check(two["worst_rel"]
+                  <= CONTROL_FACTOR * control["worst_rel"],
+                  f"{run}: 2 ranks against 1 rank {two}, control {control}")
+            out[run].update(two_vs_one_rank=two,
+                            control_vs_one_rank=control,
+                            control_factor=CONTROL_FACTOR)
+    return out
+
+
+def nccl_rank(rank: int, store: str, out_dir: str) -> None:
+    """One spawned rank of part (d): NCCL, one card a rank, the fused
+    per-replica step gate and its eager bfloat16 time."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.device import resolve_device
+    from tpu_resnet_torch.parallel import multihost
+
+    resolve_device("cuda")
+    mesh = multihost.initialize(f"file://{store}", 1, 0, local_rank=rank,
+                                local_world=DP_RANKS, device_type="cuda",
+                                timeout_sec=600)
+    try:
+        fused = compare_step(load_config("cifar10", "", [
+            *DP_FUSED, "model.compute_dtype=float32"]), kernel_counters(),
+            "cifar10_fused_train", mesh=mesh)
+        lo, hi = mesh.rank_rows(TRAIN_BATCH)
+        cfg = load_config("cifar10", "", DP_FUSED)
+        x, y = step_batch(cfg, TRAIN_BATCH)
+        fused["timed_bf16"] = _timed_rank_steps(cfg, mesh, x[lo:hi],
+                                                y[lo:hi])
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(fused, f)
+
+
+def spawn_ranks(fn, out_dir: str) -> list:
+    """Run ``fn(rank, store, out_dir)`` on DP_RANKS spawned processes;
+    each rank's JSON. A rank that fails ends the others and raises."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(fn, args=(os.path.join(out_dir, "store"), out_dir),
+                       nprocs=DP_RANKS, join=True, start_method="spawn")
+    out = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def data_parallel_phase(counters, gpu: str, fused_graphed: dict) -> None:
+    """The port's data parallelism on the card: (a) NCCL at one rank,
+    graphed, bit for bit the chunked_train phase's run without a group
+    (``fused_graphed``); (b) and (c) two gloo ranks on the one card (NCCL
+    refuses two ranks on one card), their steps and ``train()`` runs;
+    (d) two NCCL ranks on two cards where there are two."""
+    t0 = time.monotonic()
+    emit("data_parallel", **nccl_world1_part(counters, gpu, fused_graphed),
+         part_seconds=time.monotonic() - t0)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+        ranks = spawn_ranks(gloo_rank, out_dir)
+        runs = dp_train_check(ranks, out_dir, counters)
+    emit("data_parallel", part="b_gloo_2_ranks_fused_per_replica", gpu=gpu,
+         ranks=[r["b"] for r in ranks], train=runs["b_fused_per_replica"],
+         part_seconds=time.monotonic() - t0)
+    emit("data_parallel", part="c_synced_bn_and_zero1", gpu=gpu,
+         ranks=[r["c"] for r in ranks], train=runs["c_zero1_synced"])
+    if torch.cuda.device_count() >= DP_RANKS:
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+            ranks = spawn_ranks(nccl_rank, out_dir)
+        emit("data_parallel", part="d_nccl_2_cards", gpu=gpu, ranks=ranks,
+             part_seconds=time.monotonic() - t0)
+    else:
+        print(json.dumps({"data_parallel_nccl_2": "not run: 1 card"}),
+              flush=True)
+
+
 # Where a JPEG decoder for an ImageNet input pipeline could come from: the
 # CUDA toolkit's nvJPEG and the system's libjpeg, headers and libraries.
 JPEG_DIRS = {"cuda": ("/usr/local/cuda/include", "/usr/local/cuda/lib64",
@@ -4223,13 +4621,14 @@ def main() -> int:
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))
     trained.append(imagenet_train_phase(counters, gpu,
                                         "imagenet34_fused_train"))
-    chunked_train_phase(counters, gpu)
+    fused_graphed = chunked_train_phase(counters, gpu)
     trained.append(observability_phase(counters, gpu))
     trained.append(autotune_phase(counters, gpu))
     trained += ab_phase(counters, gpu)
     trained += [grad_phase(preset, counters, gpu)
                 for preset in ("cifar10", "imagenet")]
     cli_phase(counters, gpu)
+    data_parallel_phase(counters, gpu, fused_graphed)
 
     kernels = kernel_entries(rows, served, trained)
     for entry in kernels:

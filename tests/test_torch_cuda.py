@@ -1376,3 +1376,49 @@ def test_profiled_graphed_window_keeps_the_run(cuda, tmp_path, window):
     assert any("block_fwd_" in n for n in names)
     assert any("sbr_bwd_kernel" in n for n in names)
     assert trace.validate_trace(got) == []
+
+
+# ------------------------------------------------ data parallelism
+def _chip_smoke():
+    """``chip_smoke.py``'s data_parallel parts (its spawned ranks import
+    it by name, from the repository root)."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def test_nccl_world1_graphed_run_is_bit_equal(cuda):
+    """Part (a): the fused CIFAR ResNet-50 through ``train()``, graphed,
+    with an NCCL group of one rank open (its all-reduce captured in the
+    step's graph, under NCCL's default error handling) equals the run
+    without a group bit for bit, with the same launches."""
+    cs = _chip_smoke()
+    counters = cs.kernel_counters()
+    alone = cs.chunk_arm("cifar10_fused_train", counters, cs.CHUNK_PER_CALL,
+                         None, profiled=False)
+    out = cs.nccl_world1_part(counters, "test", alone)
+    assert out["bit_equal"]
+    assert out["launches_per_step"] == out["launches_per_step_no_group"]
+
+
+def test_gloo_ranks_on_one_card_match_plain(cuda, tmp_path):
+    """Parts (b) and (c): two gloo ranks on the card. The fused
+    per-replica step at 64 rows a rank within the fused step gates of its
+    plain versions, its launches the one-card step's; the synced 2-rank
+    step against the 1-rank step; zero1 against replicated within 1e-6
+    (each checked inside the ranks: a failure raises there). Then their
+    ``train()`` runs: the ranks end bit for bit equal, rank 0 alone wrote
+    the run's files, and the synced zero1 run is held against 1-rank
+    ``train()`` (``dp_train_check``: a failure raises)."""
+    cs = _chip_smoke()
+    ranks = cs.spawn_ranks(cs.gloo_rank, str(tmp_path))
+    assert len(ranks) == cs.DP_RANKS
+    for r in ranks:
+        assert r["b"]["batch"] == cs.TRAIN_BATCH // cs.DP_RANKS
+        assert r["c"]["zero1_vs_replicated_err_over_limit"] <= 1
+    runs = cs.dp_train_check(ranks, str(tmp_path), cs.kernel_counters())
+    assert all(run["ranks_bit_equal"] for run in runs.values())

@@ -133,8 +133,8 @@ def test_train_feeds_the_reference_batches(tmp_path, monkeypatch):
         return {"loss": zero, "precision": zero, "learning_rate": 0.0,
                 "grad_norm": zero}
 
-    monkeypatch.setattr(loop, "build_step", lambda cfg, device:
-                        recording_step)
+    monkeypatch.setattr(loop, "build_step",
+                        lambda cfg, device, mesh, update: recording_step)
     loop.train(cfg, device="cpu")
     from tpu_resnet.data import load_split
     images, labels = load_split(ref_load_config("cifar10", "", [

@@ -552,3 +552,35 @@ def test_train_is_scraped_while_it_runs_and_leaves_nothing(tmp_path):
     with pytest.raises(RuntimeError, match="no restorable checkpoint"):
         train(cfg, device="cpu")
     assert _obs_threads() == []
+
+
+def test_watchdog_ends_a_rank_past_the_collective_timeout(tmp_path,
+                                                          monkeypatch):
+    """``abort_sec`` (a data-parallel rank's collective timeout): no
+    progress for that long dumps the stacks to ``abort_stacks.txt`` and
+    ends the process with ``ABORT_EXIT_CODE``, also where stall reports
+    are off; progress within it never ends it."""
+    from tpu_resnet_torch.resilience import watchdog as wd_mod
+
+    codes = []
+    monkeypatch.setattr(wd_mod.os, "_exit", codes.append)
+    assert HangWatchdog.maybe_start(0, str(tmp_path / "off")) is None
+    wd = HangWatchdog(0, str(tmp_path / "rank1"), poll_sec=0.02,
+                      abort_sec=0.3)
+    wd.start()
+    try:
+        for step in range(8):  # progress every 0.05 s: no abort
+            wd.progress(step)
+            time.sleep(0.05)
+        assert codes == []
+        deadline = time.monotonic() + 5
+        while not codes and time.monotonic() < deadline:
+            time.sleep(0.02)
+    finally:
+        wd.close()
+    assert codes == [wd_mod.ABORT_EXIT_CODE]
+    with open(tmp_path / "rank1" / "abort_stacks.txt") as f:
+        assert "collectives' timeout 0.3s" in f.read()
+    started = HangWatchdog.maybe_start(0, str(tmp_path), abort_sec=60)
+    assert started is not None and started.stall_sec == 0
+    started.close()

@@ -338,7 +338,7 @@ def test_preempted_in_process(tmp_path, monkeypatch):
      None),
     (["optim.use_pallas_xent=maybe"], ValueError, "auto|on|off"),
     ("fused ImageNet bottleneck", None, None),
-    (["mesh.data=4"], NotImplementedError, "one device"),
+    (["mesh.model=2"], NotImplementedError, "one device"),
     (["data.device_resident=on", "data.dataset=imagenet",
       "model.resnet_size=18", "data.image_size=32"], ValueError,
      "unsupported for dataset 'imagenet'"),

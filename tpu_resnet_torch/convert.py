@@ -18,6 +18,11 @@ mapping covers both. An unknown leaf raises.
 shape, ``opt_state[0].trace`` of ``optax.sgd(lr, momentum)``) onto the
 port's momentum buffers by the same rules, so a whole train state carries
 across (``TrainState.load_momentum_buffers``).
+
+``reference_layout`` runs the parameter rules backwards: a port parameter's
+reference path, its shape in the reference's layout and, for each
+reference axis, the port's axis, so that a rule stated over the
+reference's axes (the zero1 partition's) picks the same axis in the port.
 """
 
 from __future__ import annotations
@@ -55,6 +60,34 @@ def _map_leaf(collection: str, path: Tuple[str, ...],
             leaf in ("mean", "var"):
         return f"{name}.running_{leaf}", value
     raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
+
+
+# Port axis of each reference axis: HWIO → OIHW, (in, out) → (out, in).
+_CONV_AXES = (2, 3, 1, 0)
+_DENSE_AXES = (1, 0)
+
+
+def reference_layout(name: str, shape: Tuple[int, ...]
+                     ) -> Tuple[str, Tuple[int, ...], Tuple[int, ...]]:
+    """``(reference path, reference shape, port axis of each reference
+    axis)`` of the port parameter ``name`` of ``shape``: the inverse of
+    :func:`flax_opt_state_to_torch`'s mapping."""
+    head, _, leaf = name.rpartition(".")
+    shape = tuple(int(d) for d in shape)
+    if name == "final_dense.weight":
+        axes = _DENSE_AXES
+        path = "final_dense/kernel"
+    elif name == "final_dense.bias":
+        axes, path = (0,), "final_dense/bias"
+    elif leaf == "weight" and len(shape) == 4:
+        axes, path = _CONV_AXES, f"{head.replace('.', '/')}/conv/kernel"
+    elif leaf in ("weight", "bias") and len(shape) == 1:
+        axes = (0,)
+        path = (f"{head.replace('.', '/')}/bn/"
+                f"{'scale' if leaf == 'weight' else 'bias'}")
+    else:
+        raise KeyError(f"no reference leaf for {name} {shape}")
+    return path, tuple(shape[a] for a in axes), axes
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:

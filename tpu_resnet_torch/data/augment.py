@@ -152,8 +152,20 @@ class StepAugment:
                              f"{dataset!r}")
         self.seed = seed
 
-    def draws(self, step: int, b: int) -> Tuple[np.ndarray, ...]:
-        return tuple(self._draw(step_key(self.seed, step), b))
+    def draws(self, step: int, b: int, rank: int = 0, world: int = 1,
+              per_replica: bool = False) -> Tuple[np.ndarray, ...]:
+        """The draws of rank ``rank``'s ``b`` images of ``world`` ranks'
+        step: with ``per_replica`` (per-replica BN) ``b`` draws from
+        ``fold_in(step key, rank)``, as the reference's shard_map step
+        takes them, else rows ``[rank·b, (rank+1)·b)`` of the global
+        batch's draws."""
+        key = step_key(self.seed, step)
+        if world == 1:
+            return tuple(self._draw(key, b))
+        if per_replica:
+            return tuple(self._draw(prng.fold_in(key, rank), b))
+        return tuple(np.ascontiguousarray(d[rank * b:(rank + 1) * b])
+                     for d in self._draw(key, b * world))
 
 
 def get_train_augment(dataset: str):

@@ -43,6 +43,10 @@ inside the chunk:
   the increments made while capturing are taken back and added once per
   replay, so the counts mean launches as in the eager step.
 
+Across ranks the captured step holds its NCCL collectives (the warm-up
+steps open the communicators before the capture); gloo's cannot be
+captured, so a gloo group's ranks run their chunks eagerly.
+
 The metrics of a chunk are its last step's, copied out of the graph, as
 the reference's are the scan's last. A chunk never crosses an epoch
 boundary of the resident split (the loop's ``_chunk_len`` clips it; the
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 from tpu_resnet_torch.data import prng
+from tpu_resnet_torch.parallel import multihost
 from tpu_resnet_torch.train.step import TrainStep
 
 RESIDENT_DATASETS = ("cifar10", "cifar100", "synthetic")
@@ -89,10 +94,14 @@ def should_use(data_cfg) -> bool:
 
 class DeviceDataset:
     """A training split resident on ``device`` with the reference's
-    per-epoch order."""
+    per-epoch order. ``rows = (lo, hi)`` keeps a rank's rows of each
+    global batch of ``batch`` (``parallel.Mesh.rank_rows``): every rank
+    computes the epoch's order, a pure function of (seed, epoch), and its
+    epoch buffer holds its own rows only."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, batch: int,
-                 device: torch.device, seed: int = 0):
+                 device: torch.device, seed: int = 0,
+                 rows: Optional[Tuple[int, int]] = None):
         n = len(images)
         if n < batch:  # tile tiny (smoke/synthetic) splits up to one batch
             reps = -(-batch // n)
@@ -101,6 +110,7 @@ class DeviceDataset:
             n = len(images)
         self.n = n
         self.batch = batch
+        self.rows = rows or (0, batch)
         self.steps_per_epoch = n // batch
         self.seed = seed
         self.device = torch.device(device)
@@ -121,19 +131,22 @@ class DeviceDataset:
     def ensure_epoch(self, epoch: int) -> None:
         """(Re)build the shuffled epoch buffer if ``epoch`` changed."""
         if epoch != self._epoch:
-            idx = torch.from_numpy(self.order(epoch).astype(np.int64)).to(
+            lo, hi = self.rows
+            order = self.order(epoch).reshape(self.steps_per_epoch,
+                                              self.batch)[:, lo:hi]
+            idx = torch.from_numpy(order.reshape(-1).astype(np.int64)).to(
                 self.device)
             self.images = self._images.index_select(0, idx)
             self.labels = self._labels.index_select(0, idx)
             self._epoch = epoch
 
     def batch_at(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Step ``step``'s (uint8 images [B,H,W,3], int32 labels [B]) on
-        the device: views into the epoch buffer."""
+        """Step ``step``'s (uint8 images [b,H,W,3], int32 labels [b]) on
+        the device, this rank's ``b`` rows: views into the epoch buffer."""
         self.ensure_epoch(step // self.steps_per_epoch)
-        lo = (step % self.steps_per_epoch) * self.batch
-        return (self.images[lo:lo + self.batch],
-                self.labels[lo:lo + self.batch])
+        b = self.rows[1] - self.rows[0]
+        lo = (step % self.steps_per_epoch) * b
+        return self.images[lo:lo + b], self.labels[lo:lo + b]
 
 
 # Eager steps on the capture stream before the train step is captured: the
@@ -168,7 +181,8 @@ class ChunkRunner:
         self.steps_per_call = max(1, int(steps_per_call))
         self.ds = ds
         self.graphed = (self.device.type == "cuda"
-                        and self.steps_per_call > 1)
+                        and self.steps_per_call > 1
+                        and multihost.capturable_collectives())
         if self.graphed and not isinstance(train_step, TrainStep):
             raise ValueError(
                 f"train.steps_per_call={self.steps_per_call} on CUDA replays "

@@ -183,13 +183,16 @@ def read_order(entries: Sequence[Entry], files: Sequence[str],
 
 
 def order_draws(params: dict, seq: int, count: int) -> List[tuple]:
-    """(side, fx, fy) of each image of batch ``seq``."""
+    """(side, fx, fy) of each image of batch ``seq`` (its rows from
+    ``params["row_offset"]`` on)."""
     from tpu_resnet_torch.data.imagenet import crop_draws
+    first = params.get("row_offset", 0)
     return [crop_draws(params["train"],
                        np.random.default_rng((params["seed"], _DECODE_STREAM,
                                               seq, j)),
                        params["resize_min"], params["resize_max"],
-                       params["eval_resize"]) for j in range(count)]
+                       params["eval_resize"])
+            for j in range(first, first + count)]
 
 
 def _worker_loop(device, params, files, task_q, result_q, should_abort,
@@ -237,7 +240,9 @@ class HostDataEngine:
 
     ``orders``: iterator of entry lists (each at most ``local_batch``
     long), finite for eval, infinite for training. Pass the resume step as
-    ``first_seq`` so the draws line up with the uninterrupted run.
+    ``first_seq`` so the draws line up with the uninterrupted run, and a
+    rank's first row of each batch as ``row_offset`` where the orders hold
+    a rank's rows only.
     ``device``: where batches are decoded and returned (CUDA unless the
     caller asks for the CPU)."""
 
@@ -247,7 +252,8 @@ class HostDataEngine:
                  eval_resize: int = 256, verify_records: bool = False,
                  device="cuda", mode: str = "thread", workers: int = 2,
                  ring_slots: int = 0, first_seq: int = 0,
-                 external_stop: Optional[threading.Event] = None):
+                 external_stop: Optional[threading.Event] = None,
+                 row_offset: int = 0):
         if mode == "process":
             raise NotImplementedError(
                 "data.engine=process (GIL-free CPU decode processes) is not "
@@ -265,7 +271,8 @@ class HostDataEngine:
         self._params = dict(seed=seed, train=train, resize_min=resize_min,
                             resize_max=resize_max, eval_resize=eval_resize,
                             verify_records=verify_records,
-                            image_size=image_size, local_batch=local_batch)
+                            image_size=image_size, local_batch=local_batch,
+                            row_offset=row_offset)
         self._external_stop = external_stop
         self._next_dispatch = first_seq
         self._next_yield = first_seq

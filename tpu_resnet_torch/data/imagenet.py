@@ -118,7 +118,8 @@ class ImageNetIterator:
 
     @classmethod
     def from_config(cls, data_cfg, local_batch: int, *, seed: int = 0,
-                    start_step: int = 0) -> "ImageNetIterator":
+                    start_step: int = 0, process_index: int = 0,
+                    process_count: int = 1) -> "ImageNetIterator":
         """The training stream that ``data_cfg`` (the config's ``data``
         section) describes."""
         return cls(data_cfg.data_dir, local_batch, train=True, seed=seed,
@@ -126,6 +127,7 @@ class ImageNetIterator:
                    shuffle_buffer=min(data_cfg.shuffle_buffer, 65536),
                    resize_min=data_cfg.resize_min,
                    resize_max=data_cfg.resize_max, start_step=start_step,
+                   process_index=process_index, process_count=process_count,
                    image_size=data_cfg.resolved_image_size,
                    verify_records=data_cfg.verify_records)
 
@@ -198,14 +200,20 @@ class ImageNetIterator:
 
     def engine(self, *, device="cuda", mode: str = "thread",
                workers: Optional[int] = None, ring_slots: int = 0,
-               external_stop=None):
+               external_stop=None, rows=None):
         """The decode engine for this stream; callers own its lifecycle
-        (``close()``)."""
+        (``close()``). ``rows = (lo, hi)`` decodes rows ``lo:hi`` of each
+        batch only (a rank's), with the draws the whole batch's rows
+        get."""
         from tpu_resnet_torch.data.engine import HostDataEngine
 
+        lo, hi = rows or (0, self.local_batch)
+        orders = self.work_orders()
+        if (lo, hi) != (0, self.local_batch):
+            orders = (order[lo:hi] for order in orders)
         return HostDataEngine(
-            self.work_orders(), files=self.files,
-            local_batch=self.local_batch, image_size=self.image_size,
+            orders, files=self.files, row_offset=lo,
+            local_batch=hi - lo, image_size=self.image_size,
             seed=self.seed, train=self.train,
             resize_min=self.resize_min, resize_max=self.resize_max,
             eval_resize=self.eval_resize,

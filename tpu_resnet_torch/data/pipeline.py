@@ -44,13 +44,18 @@ ERROR_PUT_TIMEOUT_SEC = 2.0
 
 
 class ShardedBatcher:
-    """Infinite shuffled batches over an in-memory array source, in the
-    reference's order for process 0 of 1."""
+    """Infinite shuffled batches over a per-process shard of an in-memory
+    array source, in the reference's order: process ``i`` of ``n`` owns
+    records ``i, i+n, i+2n, …``. ``rows = (lo, hi)`` yields rows
+    ``lo:hi`` of each of the process's batches (a rank's rows)."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
-                 local_batch: int, seed: int = 0, start_step: int = 0):
-        self.images = images
-        self.labels = labels
+                 local_batch: int, seed: int = 0, start_step: int = 0,
+                 process_index: int = 0, process_count: int = 1,
+                 rows=None):
+        self.images = images[process_index::process_count]
+        self.labels = labels[process_index::process_count]
+        self.rows = rows or (0, local_batch)
         self.local_batch = local_batch
         self.seed = seed
         self.n = len(self.images)
@@ -73,7 +78,7 @@ class ShardedBatcher:
                     (self.seed, epoch)).permutation(self.n)
                 epoch += 1
                 pos = 0
-            idx = order[pos:pos + self.local_batch]
+            idx = order[pos:pos + self.local_batch][slice(*self.rows)]
             pos += self.local_batch
             yield self.images[idx], self.labels[idx]
 

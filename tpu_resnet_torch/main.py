@@ -21,23 +21,149 @@ Same ``--preset``/``--config``/``section.field=value`` surface as
 ``info`` (the model on the ``meta`` device), ``inspect``, ``plot`` and
 ``trace-export`` touch no device; ``doctor`` probes the card and fails
 its checks where there is none.
+
+Data parallelism: ``train`` with ``mesh.data=N`` > 1 (or ``-1`` with more
+than one visible card) starts one process per card with
+``torch.multiprocessing`` (``spawn``), joined in an NCCL process group
+(``parallel/multihost.py``); with ``--device cpu`` it starts N gloo ranks:
+
+    python -m tpu_resnet_torch train --device cpu --preset smoke \
+        mesh.data=2 model.sync_bn=false train.train_dir=/tmp/dp
+
+A multi-node run sets the reference's launcher variables on every node
+(``TPU_COORDINATOR_ADDRESS=host:port``, ``TPU_NUM_PROCESSES``,
+``TPU_PROCESS_ID``); each node then starts a rank per local card. A rank
+that fails ends the others and the run exits nonzero; a SIGTERM to the
+launcher reaches every rank, which stop together, save and exit 42, as one
+process does.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import signal
+import socket
 import sys
 
 # The commands that take a run config.
 _RUN_COMMANDS = ("train", "eval", "serve", "info")
 
 
-def main(argv=None) -> int:
+def _log_setup(prefix: str = "") -> None:
     logging.basicConfig(
         level=logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s: %(message)s",
+        format=f"%(asctime)s {prefix}%(name)s %(levelname)s: %(message)s",
         datefmt="%H:%M:%S", stream=sys.stderr)
+
+
+def _train_one(cfg, device) -> int:
+    from tpu_resnet_torch.resilience.shutdown import Preempted
+    from tpu_resnet_torch.train.loop import train
+    try:
+        train(cfg, device=device)
+    except Preempted as e:
+        logging.getLogger("tpu_resnet_torch").warning(
+            "%s — exiting %d", e, cfg.resilience.preempt_exit_code)
+        return cfg.resilience.preempt_exit_code
+    return 0
+
+
+def _rank_main(local_rank: int, cfg, device_type: str, coordinator: str,
+               num_processes: int, process_id: int, local_world: int) -> None:
+    """One spawned rank: join the group, train on its card, leave."""
+    _log_setup(f"[rank {process_id * local_world + local_rank}] ")
+    import torch
+
+    from tpu_resnet_torch.parallel import multihost
+    try:
+        multihost.initialize(coordinator, num_processes, process_id,
+                             local_rank=local_rank, local_world=local_world,
+                             device_type=device_type)
+        if device_type == "cpu":  # the node's cores, split over its ranks
+            torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                      // local_world))
+        device = (f"cuda:{torch.cuda.current_device()}"
+                  if device_type == "cuda" else "cpu")
+        code = _train_one(cfg, device)
+    finally:
+        multihost.shutdown()
+    if code:
+        sys.exit(code)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ranks_to_start(cfg, device_type: str, num_processes: int = 1) -> int:
+    """This node's rank count: ``mesh.data`` over the processes, fitted to
+    the visible cards on CUDA (``parallel.fit_mesh``: an explicit size
+    that does not fit is downsized, ``-1`` takes every card); on the CPU
+    ``mesh.data`` ranks (``-1``: one)."""
+    from tpu_resnet_torch.parallel import fit_mesh
+    if device_type == "cpu":
+        return max(1, cfg.mesh.data) // num_processes
+    import torch
+    cards = torch.cuda.device_count()
+    if cards == 0:
+        return 1  # train() raises the no-CUDA error
+    data, _, _ = fit_mesh(cfg.mesh, num_processes * cards)
+    return max(1, data // num_processes)
+
+
+def train_command(cfg, device=None) -> int:
+    """``train``: in this process for one rank and no cluster, else one
+    spawned process per rank of this node."""
+    import torch.multiprocessing as mp
+
+    device_type = "cpu" if str(device).startswith("cpu") else "cuda"
+    coordinator = os.environ.get("TPU_COORDINATOR_ADDRESS")
+    num_processes = int(os.environ.get("TPU_NUM_PROCESSES", "1"))
+    process_id = int(os.environ.get("TPU_PROCESS_ID", "0"))
+    n = ranks_to_start(cfg, device_type, num_processes)
+    if n == 1 and coordinator is None and num_processes == 1:
+        return _train_one(cfg, device)
+    # A layout the ranks would refuse is refused before any spawn.
+    from tpu_resnet_torch.resilience import elastic
+    from tpu_resnet_torch.train.step import check_step_config
+    check_step_config(cfg, elastic.resolve(cfg, n * num_processes).mesh.data)
+    coordinator = coordinator or f"127.0.0.1:{_free_port()}"
+    ctx = mp.start_processes(
+        _rank_main, args=(cfg, device_type, coordinator, num_processes,
+                          process_id, n),
+        nprocs=n, join=False, start_method="spawn")
+
+    def forward(signum, frame):
+        """A SIGTERM to the launcher is every rank's graceful stop."""
+        for proc in ctx.processes:
+            try:
+                os.kill(proc.pid, signum)
+            except ProcessLookupError:
+                pass
+
+    previous = signal.signal(signal.SIGTERM, forward)
+    try:
+        while not ctx.join():
+            pass
+    except mp.ProcessExitedException as e:
+        # join() ended every other rank.
+        code = e.exit_code if e.exit_code and e.exit_code > 0 else 1
+        logging.getLogger("tpu_resnet_torch").error("%s", e)
+        return code
+    except mp.ProcessRaisedException as e:
+        logging.getLogger("tpu_resnet_torch").error("%s", e)
+        return 1
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    return 0
+
+
+def main(argv=None) -> int:
+    _log_setup()
     raw = sys.argv[1:] if argv is None else list(argv)
     if raw[:1] == ["trace-export"]:
         # Delegated whole, as the reference does: the exporter owns its
@@ -138,15 +264,7 @@ def main(argv=None) -> int:
         print_model_info(cfg, layers=args.layers)
         return 0
     if args.command == "train":
-        from tpu_resnet_torch.resilience.shutdown import Preempted
-        from tpu_resnet_torch.train.loop import train
-        try:
-            train(cfg, device=args.device)
-        except Preempted as e:
-            logging.getLogger("tpu_resnet_torch").warning(
-                "%s — exiting %d", e, cfg.resilience.preempt_exit_code)
-            return cfg.resilience.preempt_exit_code
-        return 0
+        return train_command(cfg, args.device)
     if args.command == "eval":
         from tpu_resnet_torch.evaluation.evaluator import evaluate
         if args.once:

@@ -29,6 +29,14 @@ momentum 0.997, biased variance). A fused basic block trains through the
 live-BN fused kernels (``fb.block_train_apply``), a fused bottleneck
 through the live-BN fused bottleneck kernels (``fbn.bottleneck_train_apply``).
 
+Synced BN (``model.sync_bn=true``) across more than one rank: inside
+:func:`synced_batch_norm` the plain BN sites take their moments over the
+global batch, Σx and Σx² summed over the ranks in one differentiable
+all-reduce per site (its backward all-reduces the two sums' cotangents),
+in flax's E[x²] − E[x]² form; the running statistics then see the global
+moments. Outside it (one rank, or per-replica BN) the moments are the
+local batch's.
+
 ``remat`` recomputes each block's forward in the backward pass instead of
 keeping its activations (``torch.utils.checkpoint``, the reference's
 ``nn.remat`` per block); the recompute leaves the running statistics as
@@ -51,6 +59,8 @@ from tpu_resnet_torch.ops import fused_block as fb
 from tpu_resnet_torch.ops import fused_bottleneck as fbn
 
 _BATCH_NORM_MOMENTUM = 0.997
+# The rank count of the synced-BN moments, set by synced_batch_norm.
+_sync_world = 1
 _BATCH_NORM_EPSILON = 1e-5
 EPILOGUES = ("off", "on", "auto")
 
@@ -62,6 +72,27 @@ def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int,
     w = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+@contextlib.contextmanager
+def synced_batch_norm(world: int):
+    """Within it, the plain BN sites of a training forward take their
+    moments over ``world`` ranks' batches (the default process group)."""
+    global _sync_world
+    prev, _sync_world = _sync_world, int(world)
+    try:
+        yield
+    finally:
+        _sync_world = prev
+
+
+def _check_local_moments() -> None:
+    """The fused kernels take their moments over the batch they see."""
+    if _sync_world > 1:
+        raise ValueError(
+            "model.fused_blocks on a multi-chip data axis requires "
+            "model.sync_bn=false: the fused kernels take per-replica BN "
+            "moments")
 
 
 class BatchNormRelu(nn.Module):
@@ -99,9 +130,17 @@ class BatchNormRelu(nn.Module):
 
     def _batch_moments(self, x: torch.Tensor):
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp_min(torch.square(xf).mean(dim=(0, 1, 2))
-                              - torch.square(mean), 0.0)
+        if _sync_world > 1:
+            from tpu_resnet_torch.parallel.collectives import all_reduce_sum
+            sums = all_reduce_sum(torch.cat([
+                xf.sum(dim=(0, 1, 2)), torch.square(xf).sum(dim=(0, 1, 2))]))
+            count = xf[..., 0].numel() * _sync_world
+            mean, sq = (sums / count).chunk(2)
+            var = torch.clamp_min(sq - torch.square(mean), 0.0)
+        else:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp_min(torch.square(xf).mean(dim=(0, 1, 2))
+                                  - torch.square(mean), 0.0)
         self.update_running(mean, var)
         return mean, var
 
@@ -192,6 +231,7 @@ class FusedBuildingBlock(nn.Module):
         w1 = self.conv1.weight.permute(2, 3, 1, 0).contiguous()
         w2 = self.conv2.weight.permute(2, 3, 1, 0).contiguous()
         if train:
+            _check_local_moments()
             y, (m1, v1, m2, v2) = fb.block_train_apply(
                 x, w1, w2, self.preact.weight, self.preact.bias,
                 self.bnrelu1.weight, self.bnrelu1.bias, _BATCH_NORM_EPSILON)
@@ -256,6 +296,7 @@ class FusedBottleneckBlock(nn.Module):
         w3 = self.conv3.weight[:, :, 0, 0].t().contiguous()
         bns = (self.preact, self.bnrelu1, self.bnrelu2)
         if train:
+            _check_local_moments()
             y, moments = fbn.bottleneck_train_apply(
                 x, w1, w2, w3, *(p for bn in bns for p in (bn.weight,
                                                            bn.bias)),

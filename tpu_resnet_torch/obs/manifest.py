@@ -1,7 +1,9 @@
 """Run manifest: one ``<train_dir>/manifest.json`` a run, written at
 startup (port of ``tpu_resnet/obs/manifest.py``), with the reference's
-keys: the resolved config, the mesh (one card: ``{"data": 1}``), the
-device kinds and platform (``"gpu"`` or ``"cpu"``), the process count,
+keys: the resolved config (``mesh.partition`` in it), the mesh (one card:
+``{"data": 1}``; N ranks: ``{"data": N}``), the device count (the ranks),
+kinds and platform (``"gpu"`` or ``"cpu"``), the process (node) count and
+index,
 the versions (python, torch, CUDA, the port), the git revision where
 there is one, the host name and argv. Written atomically (a temporary
 file, then a rename). ``run_id.json`` holds the run's correlation id,
@@ -72,9 +74,9 @@ def _git_rev() -> Optional[str]:
 
 
 def build_manifest(cfg, device, run_id: Optional[str] = None,
-                   extra: Optional[dict] = None) -> dict:
+                   extra: Optional[dict] = None, mesh=None) -> dict:
     """The manifest dict for a run of ``cfg`` on ``device`` (no file
-    written)."""
+    written); ``mesh`` is the run's ``parallel.Mesh`` (None: one rank)."""
     import torch
 
     import tpu_resnet_torch
@@ -86,14 +88,16 @@ def build_manifest(cfg, device, run_id: Optional[str] = None,
         "run_id": run_id,
         "created_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
         "config": cfg.to_dict(),
-        "mesh": {"shape": {"data": 1}, "axis_names": ["data"]},
+        "mesh": {"shape": {"data": mesh.data if mesh else 1},
+                 "axis_names": ["data"]},
         "devices": {
-            "count": 1,
+            "count": mesh.size if mesh else 1,
             "kinds": [torch.cuda.get_device_name(device) if cuda
                       else "cpu"],
             "platform": "gpu" if cuda else "cpu",
         },
-        "processes": {"count": 1, "index": 0},
+        "processes": {"count": mesh.process_count if mesh else 1,
+                      "index": mesh.process_index if mesh else 0},
         "versions": {
             "tpu_resnet_torch": getattr(tpu_resnet_torch, "__version__",
                                         None),
@@ -112,13 +116,15 @@ def build_manifest(cfg, device, run_id: Optional[str] = None,
 
 def write_manifest(train_dir: str, cfg, device,
                    run_id: Optional[str] = None,
-                   extra: Optional[dict] = None) -> str:
-    """Write ``<train_dir>/manifest.json`` atomically; returns its path."""
+                   extra: Optional[dict] = None, mesh=None) -> str:
+    """Write ``<train_dir>/manifest.json`` atomically; returns its path.
+    Across ranks only the primary calls it."""
     os.makedirs(train_dir, exist_ok=True)
     path = os.path.join(train_dir, "manifest.json")
     tmp = path + f".tmp{os.getpid()}"
     with open(tmp, "w") as f:
-        json.dump(build_manifest(cfg, device, run_id=run_id, extra=extra),
+        json.dump(build_manifest(cfg, device, run_id=run_id, extra=extra,
+                                 mesh=mesh),
                   f, indent=1, default=list)
     os.replace(tmp, path)
     return path

@@ -122,13 +122,14 @@ def start_dispatch_measure(device) -> Optional[int]:
 
 def state_bytes(state) -> Dict[str, int]:
     """Parameter, BN-statistic and optimizer-state (momentum) bytes of a
-    ``TrainState``."""
+    ``TrainState`` on this rank (under zero1 its momentum shards)."""
     def nbytes(tensors):
         return int(sum(t.numel() * t.element_size() for t in tensors))
 
     return {"params_bytes": nbytes(state.model.parameters()),
             "batch_stats_bytes": nbytes(state.model.buffers()),
-            "opt_state_bytes": nbytes(state.momentum_buffers().values())}
+            "opt_state_bytes": nbytes(
+                state.momentum_buffers(local=True).values())}
 
 
 def account_train_step(cfg, state, device, baseline_bytes: Optional[int],

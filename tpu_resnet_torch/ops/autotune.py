@@ -243,6 +243,12 @@ def load(path: str) -> int:
             entries = json.load(f).get("decisions", {})
     except (OSError, ValueError, AttributeError):
         return 0
+    return install(entries)
+
+
+def install(entries: Dict[str, dict]) -> int:
+    """Add decisions in :func:`decisions`' form (the ranks of a run take
+    rank 0's); returns how many; a malformed entry is skipped."""
     n = 0
     for joint, rec in entries.items():
         op, _, key = joint.partition("|")

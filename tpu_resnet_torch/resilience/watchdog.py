@@ -13,6 +13,13 @@ When progress resumes the mark is cleared and a ``watchdog_recovered``
 span records the outage. The first ``progress()`` arms it, so the first
 dispatch (kernel builds, the CUDA graph capture) never trips it.
 ``stall_sec <= 0`` disables it.
+
+A rank of a data-parallel run also passes ``abort_sec``, its collectives'
+timeout: when no progress lands for that long, a peer is gone or hung and
+this rank waits on it for ever (a collective replayed in a CUDA graph has
+no timeout of its own), so the stacks go to ``abort_stacks.txt`` and the
+process ends with ``ABORT_EXIT_CODE``, from the watchdog's thread, which
+still runs while the loop's thread is blocked.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import traceback
 from typing import Optional
 
 log = logging.getLogger("tpu_resnet_torch")
+
+ABORT_EXIT_CODE = 1
 
 
 def dump_all_stacks(path: str, reason: str = "") -> None:
@@ -45,15 +54,20 @@ def dump_all_stacks(path: str, reason: str = "") -> None:
 
 
 class HangWatchdog:
-    """``maybe_start`` returns None when ``stall_sec <= 0`` (disabled)."""
+    """``maybe_start`` returns None when ``stall_sec <= 0`` and there is
+    no ``abort_sec`` (disabled)."""
 
     def __init__(self, stall_sec: float, train_dir: str, telemetry=None,
-                 spans=None, poll_sec: Optional[float] = None):
+                 spans=None, poll_sec: Optional[float] = None,
+                 abort_sec: Optional[float] = None):
         self.stall_sec = float(stall_sec)
+        self.abort_sec = abort_sec
         self.train_dir = train_dir
         self._telemetry = telemetry
         self._spans = spans
-        self._poll = poll_sec if poll_sec else min(self.stall_sec / 4, 5.0)
+        deadline = min(d for d in (self.stall_sec, abort_sec or 0.0,
+                                   float("inf")) if d > 0)
+        self._poll = poll_sec if poll_sec else min(deadline / 4, 5.0)
         self._lock = threading.Lock()
         self._last_wall: Optional[float] = None  # armed by first progress()
         self._last_step: Optional[int] = None
@@ -67,10 +81,13 @@ class HangWatchdog:
 
     @classmethod
     def maybe_start(cls, stall_sec: float, train_dir: str, telemetry=None,
-                    spans=None) -> Optional["HangWatchdog"]:
-        if stall_sec is None or stall_sec <= 0:
+                    spans=None, abort_sec: Optional[float] = None
+                    ) -> Optional["HangWatchdog"]:
+        stall_sec = stall_sec or 0.0
+        if stall_sec <= 0 and not abort_sec:
             return None
-        wd = cls(stall_sec, train_dir, telemetry=telemetry, spans=spans)
+        wd = cls(stall_sec, train_dir, telemetry=telemetry, spans=spans,
+                 abort_sec=abort_sec)
         wd.start()
         return wd
 
@@ -98,6 +115,11 @@ class HangWatchdog:
             if last_wall is None:  # not armed yet (still compiling)
                 continue
             stalled = time.monotonic() - last_wall
+            if self.abort_sec and stalled > self.abort_sec:
+                self._abort(last_step, stalled)
+                return
+            if self.stall_sec <= 0:
+                continue
             if stalled > self.stall_sec and self._stalled_since is None:
                 self._stalled_since = last_wall
                 self._on_stall(last_step, stalled)
@@ -127,6 +149,17 @@ class HangWatchdog:
         # Published last: pollers of ``stalls`` see the dump/telemetry/
         # span side effects already landed.
         self.stalls = n
+
+    def _abort(self, step, stalled_sec: float) -> None:
+        path = os.path.join(self.train_dir, "abort_stacks.txt")
+        reason = (f"no step progress for {stalled_sec:.1f}s (> the "
+                  f"collectives' timeout {self.abort_sec:.1f}s) at step "
+                  f"{step}: a peer rank is gone or hung")
+        log.error("watchdog: %s — ending this rank (stacks in %s)", reason,
+                  path)
+        os.makedirs(self.train_dir, exist_ok=True)
+        dump_all_stacks(path, reason=reason)
+        os._exit(ABORT_EXIT_CODE)
 
     def _on_recover(self, step, outage_sec: float) -> None:
         log.warning("watchdog: step progress resumed at step %s after a "

@@ -9,6 +9,13 @@ directory and renames it, so a reader sees a whole file or none; only step
 directories that hold ``state.pt`` count as checkpoints. Readers that serve
 (``load_state``) take ``params`` and ``batch_stats`` only, so a trained
 checkpoint serves as it is.
+
+Across ranks the file stays the one a one-card run writes: only the
+primary rank writes (and prunes), after a zero1 run has gathered the
+momentum shards (``TrainState.momentum_buffers``, a collective), and every
+rank then meets at a barrier; a restore reads the whole file on every rank
+and each keeps its shards. So a checkpoint moves across rank counts and
+``mesh.partition`` modes in both directions.
 """
 
 from __future__ import annotations
@@ -79,13 +86,20 @@ class CheckpointManager:
     newest ``keep`` checkpoints, restore the newest for resume. ``spans``
     (an ``obs.SpanTracer``) records ``checkpoint_save``,
     ``checkpoint_restore`` and ``checkpoint_restore_failed`` spans, as
-    the reference's manager does."""
+    the reference's manager does. Across ranks: ``primary`` says whether
+    this rank writes, ``barrier`` (every rank calls it) follows each save
+    and restore."""
 
-    def __init__(self, directory: str, keep: int = 5, spans=None):
+    def __init__(self, directory: str, keep: int = 5, spans=None,
+                 primary: bool = True, barrier=None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
         self._spans = spans
-        os.makedirs(self.directory, exist_ok=True)
+        self.primary = primary
+        self._barrier = barrier or (lambda: None)
+        if primary:
+            os.makedirs(self.directory, exist_ok=True)
+        self._barrier()
 
     def _span(self, kind: str, t0: float, **attrs) -> None:
         if self._spans is not None:
@@ -97,16 +111,19 @@ class CheckpointManager:
     def save(self, state) -> str:
         """Checkpoint ``state`` (a ``TrainState``) at its step, then prune
         to the newest ``keep``. The save is synchronous: its span covers
-        the write (``async: false``)."""
+        the write (``async: false``). Every rank calls it."""
         t0 = time.time()
-        path = save(self.directory, state.step, state.model,
-                    state.momentum_buffers())
-        self._span("checkpoint_save", t0, step=int(state.step),
-                   **{"async": False})
-        if self.keep > 0:
-            for old in all_steps_in(self.directory)[:-self.keep]:
-                shutil.rmtree(os.path.join(self.directory, str(old)),
-                              ignore_errors=True)
+        slots = state.momentum_buffers()
+        path = os.path.join(self.directory, str(int(state.step)), STATE_FILE)
+        if self.primary:
+            path = save(self.directory, state.step, state.model, slots)
+            self._span("checkpoint_save", t0, step=int(state.step),
+                       **{"async": False})
+            if self.keep > 0:
+                for old in all_steps_in(self.directory)[:-self.keep]:
+                    shutil.rmtree(os.path.join(self.directory, str(old)),
+                                  ignore_errors=True)
+        self._barrier()
         return path
 
     def restore(self, state, discard_failed: bool = False):
@@ -143,10 +160,11 @@ class CheckpointManager:
                           if failed else {}))
             if failed:
                 log.warning("restored step %d instead of %s", step, failed)
-                if discard_failed:
+                if discard_failed and self.primary:
                     for bad in failed:
                         shutil.rmtree(os.path.join(self.directory, str(bad)),
                                       ignore_errors=True)
+            self._barrier()
             return state
         raise RuntimeError(
             f"no restorable checkpoint in {self.directory}: all of {steps} "

@@ -1,5 +1,5 @@
 """The training loop (port of the core of ``tpu_resnet/train/loop.py``
-``train()``), on one device:
+``train()``), on one device or on each rank of a data-parallel run:
 
 - build the model (seeded from ``train.seed``), schedule and train state,
   and resume from the newest restorable checkpoint in ``train.train_dir``;
@@ -35,6 +35,30 @@
 
 The NaN guard, the checkpoint skip, the stop and the emergency save act
 at chunk boundaries, as in the reference.
+
+Across ranks (a process group opened by ``parallel.multihost.initialize``;
+``main.py`` spawns one rank per card):
+
+- the layout comes from ``resilience.elastic.resolve`` over the group's
+  ranks, and ``train/step.py``'s gate sees its data axis; each rank trains
+  on its rows of the global batch (``parallel.Mesh.rank_rows``) with the
+  step's collectives (``train/step.py``, ``parallel/zero.py``);
+- only the primary rank writes ``metrics.jsonl``, the manifest,
+  ``events.jsonl``, ``flops.json``, ``memory.json``, ``autotune.json`` and
+  ``topology.json`` (at the run's first save), and only it serves
+  telemetry; checkpoints are written by the primary after a zero1 run
+  gathers its momentum shards;
+- the ``auto`` probes run on rank 0, which hands its decisions to the
+  others, so that every rank runs the same kernels; under per-replica BN
+  they probe the local batch;
+- a stop request on any rank stops every rank at the same chunk boundary
+  (an agreement on the host's gloo group); the NaN guard reads the loss
+  averaged over the ranks, so every rank rolls back together; the
+  watchdog runs on every rank (a rank's stack dumps under
+  ``<train_dir>/rank<r>/``) and ends a rank whose chunk makes no progress
+  for the collectives' timeout (a dead peer); the emergency save is the
+  one-rank path's only, since a rank that failed alone cannot join a
+  collective save.
 
 What the reference's dispatch knobs mean here:
 
@@ -86,9 +110,9 @@ Observability and drills, as the reference's loop has them:
 
 The reference loop's other features are not in this slice (ROADMAP lists
 them): summaries, the profiler server (``train.profiler_port``: PyTorch
-has no profiler service to attach to), the comms ledger (one card has no
-collective), the program cache and elastic resume. Their knobs are
-accepted and logged as ignored.
+has no profiler service to attach to), the comms ledger, the program cache
+and the elastic supervisor. Their knobs are accepted and logged as
+ignored.
 """
 
 from __future__ import annotations
@@ -104,6 +128,7 @@ import torch
 
 from tpu_resnet_torch import data as data_lib
 from tpu_resnet_torch import obs
+from tpu_resnet_torch import parallel
 from tpu_resnet_torch.data import augment as aug_lib
 from tpu_resnet_torch.data import device_data, pipeline
 from tpu_resnet_torch.data.cifar import load_split
@@ -115,6 +140,8 @@ from tpu_resnet_torch.obs.server import CORE_HISTOGRAMS
 from tpu_resnet_torch.ops import autotune
 from tpu_resnet_torch.ops import epilogue as ep
 from tpu_resnet_torch.ops import softmax_xent as sx
+from tpu_resnet_torch.parallel import multihost, zero
+from tpu_resnet_torch.resilience import elastic
 from tpu_resnet_torch.resilience.faultinject import FaultInjector, FaultPlan
 from tpu_resnet_torch.resilience.sentinel import DivergenceError, NaNSentinel
 from tpu_resnet_torch.resilience.shutdown import (Preempted,
@@ -133,7 +160,7 @@ log = logging.getLogger("tpu_resnet_torch")
 IGNORED_KNOBS = (
     "train.summary_every", "train.image_summary_every",
     "train.profiler_port", "train.comms_ledger",
-    "mesh.partition", "programs.cache", "data.use_native_loader")
+    "programs.cache", "data.use_native_loader")
 
 
 def _knob(cfg, path: str):
@@ -149,18 +176,28 @@ def build_state(cfg, device: torch.device) -> TrainState:
     return create_state(model.to(device), cfg.optim)
 
 
-def make_loop_step(cfg, device: torch.device):
+def per_replica_bn(cfg, mesh) -> bool:
+    """The reference's rule: per-replica BN moments where
+    ``model.sync_bn=false`` on a data axis of more than one rank."""
+    return (not cfg.model.sync_bn) and mesh is not None and mesh.data > 1
+
+
+def make_loop_step(cfg, device: torch.device, mesh=None, update=None):
     """The loop's ``TrainStep`` on uint8 images and labels: the dataset's
     augmentation on ``device`` with the reference's draws for
     ``(train.seed, step)`` (``aug_lib.StepAugment``), then the train step
-    (whose ``use_pallas_xent=auto`` probe runs here)."""
+    (whose ``use_pallas_xent=auto`` probe runs here, at the batch the
+    kernel sees: this rank's). ``mesh`` (a ``parallel.Mesh``) and
+    ``update`` (``parallel.zero.attach``) make it a rank's step."""
+    local = cfg.train.global_batch_size // (mesh.data if mesh else 1)
     return make_train_step(cfg.optim,
                            sched_lib.build_schedule(cfg.optim, cfg.train),
                            cfg.data.num_classes,
                            aug_lib.StepAugment(cfg.data.dataset,
                                                cfg.train.seed),
-                           device=device,
-                           xent_probe_batch=cfg.train.global_batch_size)
+                           device=device, xent_probe_batch=local,
+                           mesh=mesh, per_replica_bn=per_replica_bn(cfg, mesh),
+                           update=update)
 
 
 # The launch counters that the autotune probes move.
@@ -181,24 +218,31 @@ def probe_launches_uncounted():
             setattr(mod, attr, n)
 
 
-def build_step(cfg, device: torch.device):
+def build_step(cfg, device: torch.device, mesh=None, update=None):
     """The loop's step, after the ``auto`` probes: under
     ``model.fused_epilogue=auto`` on CUDA every BN+ReLU shape of the model
-    is probed, and the cross-entropy probe runs as the step is built. The
-    decisions are written to the train dir when there are any."""
+    is probed (at this rank's batch), and the cross-entropy probe runs as
+    the step is built. Across ranks rank 0 probes and the others take its
+    decisions, so that every rank runs the same kernels. The decisions are
+    written to the train dir (by the primary) when there are any."""
+    local = cfg.train.global_batch_size // (mesh.data if mesh else 1)
     with probe_launches_uncounted():
-        if cfg.model.fused_epilogue == "auto" and device.type == "cuda":
-            ep.probe_model_epilogues(cfg, cfg.train.global_batch_size,
-                                     device=device)
-        train_step = make_loop_step(cfg, device)
-    if autotune.decisions():
+        if multihost.is_primary():
+            if cfg.model.fused_epilogue == "auto" and device.type == "cuda":
+                ep.probe_model_epilogues(cfg, local, device=device)
+            train_step = make_loop_step(cfg, device, mesh, update)
+        autotune.install(multihost.broadcast_object(autotune.decisions()))
+        if not multihost.is_primary():
+            train_step = make_loop_step(cfg, device, mesh, update)
+    if autotune.decisions() and multihost.is_primary():
         log.info("autotune decisions in %s",
                  autotune.dump(cfg.train.train_dir))
     return train_step
 
 
 def build_train_iterator(cfg, device: torch.device, start_step: int = 0,
-                         stop_event=None, injector=None, wait=None):
+                         stop_event=None, injector=None, wait=None,
+                         mesh=None):
     """The streaming input from ``start_step`` (reference
     ``build_train_iterator``): ``(data_iter, stage, host_iter)``.
     ``host_iter`` is the source the loop closes: the decode engine for
@@ -215,13 +259,18 @@ def build_train_iterator(cfg, device: torch.device, start_step: int = 0,
     the reference's does: the host batches before their background
     thread, the engine's as the loop takes them. ``wait`` wraps the
     engine's batches to time each as a data wait (the loop's breakdown:
-    the engine's stages are read while a chunk is issued)."""
+    the engine's stages are read while a chunk is issued). With ``mesh``
+    each batch is this rank's rows of its process's stream."""
     stage = max(1, cfg.data.transfer_stage)
     batch = cfg.train.global_batch_size
+    ranks = {}
+    if mesh is not None and mesh.size > 1:
+        batch = parallel.local_batch_size(batch, mesh)
+        ranks = {"mesh": mesh}
     if cfg.data.dataset == "imagenet":  # the engine: its own workers
         engine = data_lib.train_batches(
             cfg.data, batch, seed=cfg.train.seed, start_step=start_step,
-            device=device, external_stop=stop_event)
+            device=device, external_stop=stop_event, **ranks)
         stream = engine
         if injector is not None:
             stream = injector.wrap_host_batches(stream, start_step)
@@ -231,7 +280,7 @@ def build_train_iterator(cfg, device: torch.device, start_step: int = 0,
             return pipeline.device_stages(stream, stage), stage, engine
         return stream, 1, engine
     batches = data_lib.train_batches(cfg.data, batch, seed=cfg.train.seed,
-                                     start_step=start_step)
+                                     start_step=start_step, **ranks)
     if injector is not None:
         batches = injector.wrap_host_batches(batches, start_step)
     host_iter = BackgroundIterator(
@@ -315,24 +364,46 @@ def _memory_entry(cfg, state, device, baseline, runner, steps: int, spans,
 
 
 def train(cfg, device: Optional[str] = None) -> TrainState:
-    """Run training to ``cfg.train.train_steps``; returns the final state."""
+    """Run training to ``cfg.train.train_steps``; returns the final state.
+    In a process group (``parallel.multihost.initialize``) every rank calls
+    it, on its own card."""
     device = resolve_device(device)
-    check_step_config(cfg)
+    kind = obs.mfu.device_kind(device)
+    check_step_config(cfg)  # the model axis, before the layout
+    # The layout over the ranks that exist (the reference's elastic
+    # resolve): an explicit mesh.data that does not fit them is downsized.
+    group = multihost.layout()
+    elastic_ctx = elastic.resolve(cfg, group.size, layout=group,
+                                  device_kind=kind)
+    mesh = elastic_ctx.mesh
+    if mesh.size != group.size:
+        raise ValueError(
+            f"mesh {mesh.shape} does not cover the process group's "
+            f"{group.size} ranks; start as many ranks as mesh.data")
+    check_step_config(cfg, mesh.data)
+    primary = multihost.is_primary()
     resident = device_data.should_use(cfg.data)
     train_dir = cfg.train.train_dir
     rcfg = cfg.resilience
 
     # Observability (obs/): the run's id, spans and manifest, and the
-    # telemetry registry and server, alive from startup.
-    run_id = obs.ensure_run_id(train_dir)
-    spans = obs.SpanTracer(train_dir, run_id=run_id)
-    obs.write_manifest(train_dir, cfg, device, run_id=run_id)
+    # telemetry registry and server, alive from startup; the primary
+    # rank's alone.
+    run_id = obs.ensure_run_id(train_dir) if primary else None
+    run_id = multihost.broadcast_object(run_id)
+    spans = obs.SpanTracer(train_dir, enabled=primary, run_id=run_id)
+    if primary:
+        obs.write_manifest(
+            train_dir, cfg, device, run_id=run_id, mesh=mesh,
+            extra=({"topology_change": elastic_ctx.attrs()}
+                   if elastic_ctx.changed else None))
     telemetry = obs.TelemetryRegistry(
         stale_after_sec=cfg.train.telemetry_stale_sec,
         histograms=CORE_HISTOGRAMS)
     telemetry.heartbeat(0)
     server = obs.TelemetryServer.maybe_start(
-        cfg.train.telemetry_port, telemetry, train_dir=train_dir)
+        cfg.train.telemetry_port if primary else -1, telemetry,
+        train_dir=train_dir)
 
     # From here on a failure (a bad restore, an injected corrupt checkpoint
     # with nothing to fall back to, a bad config) still runs the closers
@@ -347,6 +418,17 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
     mem_ledger = obs.memory.MemoryLedger()
     mem_key = None
     mem_ring = obs.memory.MemorySampleRing()
+    stopping = False
+    topology_recorded = []
+
+    def record_topology():
+        """``topology.json`` names the layout that wrote the newest
+        checkpoints: written at this run's first save, not at startup."""
+        if not topology_recorded:
+            topology_recorded.append(True)
+            elastic.write_topology(train_dir, mesh, cfg.mesh.partition,
+                                   cfg.train.global_batch_size, kind)
+
     try:
         injector = FaultInjector(FaultPlan.from_config(rcfg),
                                  train_dir=train_dir)
@@ -356,35 +438,53 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
             enabled=rcfg.graceful_shutdown).install()
         sentinel = NaNSentinel(rcfg.nan_max_retries, enabled=rcfg.nan_guard)
         watchdog = HangWatchdog.maybe_start(
-            rcfg.watchdog_stall_sec, train_dir, telemetry=telemetry,
-            spans=spans)
+            rcfg.watchdog_stall_sec,
+            train_dir if primary else f"{train_dir}/rank{mesh.rank}",
+            telemetry=telemetry, spans=spans,
+            abort_sec=(multihost.collective_timeout() if mesh.size > 1
+                       else None))
 
         state = build_state(cfg, device)
-        injector.maybe_corrupt_checkpoint(train_dir)
+        update = zero.attach(state, cfg.mesh, mesh)
+        if primary:
+            injector.maybe_corrupt_checkpoint(train_dir)
         ckpt = CheckpointManager(train_dir, keep=cfg.train.keep_checkpoints,
-                                 spans=spans)
+                                 spans=spans, primary=primary,
+                                 barrier=multihost.barrier)
         if ckpt.latest_step() is not None:
             ckpt.restore(state, discard_failed=True)
             log.info("resumed from step %d in %s", state.step, train_dir)
+        if elastic_ctx.changed:
+            spans.event("topology_change", step=state.step,
+                        **elastic_ctx.attrs())
+            telemetry.set("topology_changes", 1.0)
         step = last_ckpt_step = state.step
-        train_step = build_step(cfg, device)
+        train_step = build_step(cfg, device, mesh, update)
         batch = cfg.train.global_batch_size
         per_call = max(1, cfg.train.steps_per_call)
-        graphed = device.type == "cuda" and per_call > 1
+        graphed = (device.type == "cuda" and per_call > 1
+                   and multihost.capturable_collectives())
         log.info("training %s-%d/%s to step %d on %s | params %.2fM | batch "
-                 "%d | input %s (data.device_resident=%s) | dispatch %s",
+                 "%d | mesh %s rank %d | partition %s | BN %s | input %s "
+                 "(data.device_resident=%s) | dispatch %s",
                  cfg.model.name, cfg.model.resnet_size, cfg.data.dataset,
                  total, device, param_count(state.model) / 1e6, batch,
+                 mesh.shape, mesh.rank,
+                 parallel.make_partitioner(cfg.mesh, mesh).describe(),
+                 "per-replica" if per_replica_bn(cfg, mesh) else "synced",
                  "device-resident" if resident else "streaming",
                  cfg.data.device_resident,
                  f"chunks of <= {per_call} CUDA graph replays" if graphed
-                 else f"eager, chunks of <= {per_call} steps")
+                 else f"eager, chunks of <= {per_call} steps"
+                 + (f" ({torch.distributed.get_backend()} collectives)"
+                    if mesh.size > 1 else ""))
         log.info("this slice ignores: %s", ", ".join(
             f"{k}={_knob(cfg, k)}" for k in IGNORED_KNOBS))
 
-        tracer = StepTracer(train_dir, cfg.train.profile_steps, spans=spans,
-                            device=device)
-        metrics = MetricsWriter(train_dir)
+        tracer = StepTracer(train_dir,
+                            cfg.train.profile_steps if primary else "",
+                            spans=spans, device=device)
+        metrics = MetricsWriter(train_dir, enabled=primary)
         meter = ThroughputMeter(batch)
         # Where the interval's time goes (obs/breakdown.py): data waits,
         # dispatch, and the device sampled at log boundaries only.
@@ -392,14 +492,13 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
         if resident:
             ds = device_data.DeviceDataset(
                 *load_split(cfg.data, train=True), batch, device,
-                seed=cfg.train.seed)
+                seed=cfg.train.seed, rows=mesh.rank_rows(batch))
         else:
             data_iter, stage, host_iter = build_train_iterator(
                 cfg, device, step, shutdown.event, injector=injector,
-                wait=breakdown.waited)
+                wait=breakdown.waited, mesh=mesh)
         runner = device_data.ChunkRunner(train_step, device, per_call, ds)
         step_flops = None
-        kind = obs.mfu.device_kind(device)
         telemetry.heartbeat(step)
         run_wall0, start_step = time.time(), step
         meter.rate(step)
@@ -407,7 +506,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
         # The memory ledger measures the first dispatch: the warm-up steps
         # and the capture of a graphed run are in it (obs/memory.py).
         mem_base = (obs.memory.start_dispatch_measure(device)
-                    if cfg.train.memory_ledger else None)
+                    if cfg.train.memory_ledger and primary else None)
         first = True
         capture_logged = False
         last_sync = last_log_step = step
@@ -415,7 +514,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
         while step < total:
             injector.maybe_sigterm(step)
             injector.maybe_oom(step)
-            if shutdown.requested:
+            stopping = multihost.agree_any(shutdown.requested)
+            if stopping:
                 break  # stop at the chunk boundary; final save below
             tracer.before(step)
             if resident:
@@ -429,7 +529,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                         with breakdown.data_wait():
                             stage_buf = (*next(data_iter), 0)
                     except StopIteration:
-                        if shutdown.requested:
+                        if multihost.agree_any(shutdown.requested):
+                            stopping = True
                             break
                         raise
                 gi, gl, n, off = stage_buf
@@ -441,7 +542,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     with breakdown.dispatch():
                         m = runner.run_staged(state, gi, gl, off, c)
                 except StopIteration:
-                    if shutdown.requested:
+                    if multihost.agree_any(shutdown.requested):
+                        stopping = True
                         break
                     raise
                 stage_buf = (None if off + c >= n
@@ -451,7 +553,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     with breakdown.data_wait():
                         host = next(data_iter)
                 except StopIteration:
-                    if shutdown.requested:
+                    if multihost.agree_any(shutdown.requested):
+                        stopping = True
                         break
                     raise
                 with breakdown.dispatch():
@@ -475,9 +578,9 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                 spans.record("compile", now - compile_s, now,
                              seconds=round(compile_s, 3), step=start_step)
                 telemetry.set("compile_seconds", compile_s)
-                if cfg.train.mfu_accounting:
+                if cfg.train.mfu_accounting and primary:
                     step_flops = _flops_entry(cfg, device, spans, train_dir)
-                if cfg.train.memory_ledger:
+                if cfg.train.memory_ledger and primary:
                     mem_key = _memory_entry(cfg, state, device, mem_base,
                                             runner, step - start_step,
                                             spans, mem_ledger, train_dir)
@@ -512,7 +615,8 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                         _close_input(data_iter, host_iter)
                         data_iter, stage, host_iter = build_train_iterator(
                             cfg, device, bad_step, shutdown.event,
-                            injector=injector, wait=breakdown.waited)
+                            injector=injector, wait=breakdown.waited,
+                            mesh=mesh)
                         stage_buf = None
                     m = None
                     breakdown.reset_interval()
@@ -536,7 +640,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                     if step_flops:
                         mfs = step_flops * rate["steps_per_sec"]
                         vals["model_flops_per_sec"] = mfs
-                        u = obs.mfu.mfu(mfs, kind, 1)
+                        u = obs.mfu.mfu(mfs, kind, mesh.size)
                         if u is not None:
                             vals["mfu"] = u
                 last_log_step = step
@@ -578,9 +682,10 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                                 step=step)
                 else:
                     ckpt.save(state)
+                    record_topology()
                     last_ckpt_step = step
                     telemetry.set("checkpoint_lag_steps", 0)
-        if shutdown.requested and step < total:
+        if stopping and step < total:
             log.warning("stop requested at step %d: saving a final "
                         "checkpoint before exit", step)
             spans.event("preempt_stop", step=step, signum=shutdown.signum)
@@ -590,6 +695,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
                               float(injector.burst_fired))
             if ckpt.latest_step() != step:
                 ckpt.save(state)
+                record_topology()
                 last_ckpt_step = step
     finally:
         # One shutdown path for clean exits and exceptions: each closer
@@ -616,6 +722,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
             _close(lambda: spans.event("oom", step=step,
                                        program_key=mem_key))
         if (rcfg.emergency_save and exc_type is not None
+                and mesh.size == 1
                 and ckpt is not None and state is not None
                 and not issubclass(exc_type, (DivergenceError,
                                               KeyboardInterrupt))
@@ -626,6 +733,7 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
             # abort.
             def _emergency_save():
                 ckpt.save(state)
+                record_topology()
                 spans.event("emergency_save", step=step)
                 log.warning("emergency checkpoint saved at step %d after "
                             "in-flight %s", state.step, exc_type.__name__)
@@ -651,6 +759,6 @@ def train(cfg, device: Optional[str] = None) -> TrainState:
             _close(shutdown.uninstall)
         if closer_errs and exc_type is None:
             raise closer_errs[0]
-    if shutdown.requested and step < total:
+    if stopping and step < total:
         raise Preempted(step, state=state, signum=shutdown.signum)
     return state

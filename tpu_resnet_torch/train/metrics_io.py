@@ -12,13 +12,16 @@ from typing import Dict, Optional
 
 class MetricsWriter:
     """Append-only ``<directory>/metrics.jsonl``: one JSON object per write,
-    ``{"step", "wall", <scalars>}``."""
+    ``{"step", "wall", <scalars>}``. ``enabled=False`` (a rank that is not
+    the primary) writes nothing."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, enabled: bool = True):
         self.directory = directory
-        os.makedirs(directory, exist_ok=True)
-        self._jsonl = open(os.path.join(directory, "metrics.jsonl"), "a",
-                           buffering=1)
+        self._jsonl = None
+        if enabled:
+            os.makedirs(directory, exist_ok=True)
+            self._jsonl = open(os.path.join(directory, "metrics.jsonl"), "a",
+                               buffering=1)
 
     def write(self, step: int, scalars: Dict[str, float]) -> None:
         if self._jsonl is None:

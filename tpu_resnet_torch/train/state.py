@@ -13,12 +13,18 @@ stays as the holder of the momentum buffers (``optimizer.state[p]
 ``torch.optim.SGD`` creates them) and of the momentum factor. Weight decay
 is not the optimizer's: the reference adds the L2 term to the loss
 (``train/step.py``), which interacts with momentum differently.
+
+Under ``mesh.partition=zero1`` on more than one rank the state's ``zero``
+(a ``parallel.zero.Zero1Update``) owns the momentum buffers: each rank
+holds its shards, :meth:`TrainState.momentum_buffers` gathers the whole
+ones (a collective: every rank calls it) and
+:meth:`TrainState.load_momentum_buffers` keeps this rank's shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -29,10 +35,16 @@ class TrainState:
     step: int                        # the reference's global_step
     model: nn.Module                 # parameters + BN running statistics
     optimizer: torch.optim.Optimizer
+    zero: Optional[object] = None    # zero1's owner of the buffers
 
-    def momentum_buffers(self) -> Dict[str, torch.Tensor]:
+    def momentum_buffers(self, local: bool = False
+                         ) -> Dict[str, torch.Tensor]:
         """{parameter name: momentum buffer} for the parameters that have
-        one (none before the first momentum step, none for plain sgd)."""
+        one (none before the first momentum step, none for plain sgd).
+        Under zero1 the whole buffers, gathered from every rank, or with
+        ``local`` this rank's shards."""
+        if self.zero is not None and not local:
+            return self.zero.full_slots(self)
         out = {}
         for name, p in self.model.named_parameters():
             buf = self.optimizer.state.get(p, {}).get("momentum_buffer")
@@ -48,12 +60,16 @@ class TrainState:
         that does not is created; an existing one that ``buffers`` lacks
         (a checkpoint saved before the first momentum step) is zeroed in
         place, and the next step then computes ``g + m·0 = g``, as it
-        would from no buffer."""
+        would from no buffer. Under zero1 each rank keeps its shards of
+        the whole ``buffers``."""
         params = dict(self.model.named_parameters())
         unknown = set(buffers) - set(params)
         if unknown:
             raise KeyError(f"momentum buffers for unknown parameters: "
                            f"{sorted(unknown)[:5]}")
+        if self.zero is not None:
+            self.zero.load_slots(self, buffers)
+            return
         with torch.no_grad():
             for name, p in params.items():
                 state = self.optimizer.state[p]
@@ -74,14 +90,22 @@ def sgd_update(state: TrainState, lr: torch.Tensor) -> None:
     on the host. A parameter without a momentum buffer gets ``clone(g)``
     (``torch.optim.SGD``'s first step; optax's ``g + m·0``); once every
     buffer exists, the update is ``v ← m·v + g``, ``p ← p + (−lr)·v``."""
-    momentum = state.optimizer.param_groups[0]["momentum"]
     params = [p for p in state.model.parameters() if p.grad is not None]
-    grads = [p.grad for p in params]
+    sgd_apply(params, [p.grad for p in params],
+              [state.optimizer.state[p] for p in params],
+              state.optimizer.param_groups[0]["momentum"], lr)
+
+
+def sgd_apply(params: List[torch.Tensor], grads: List[torch.Tensor],
+              slots: List[dict], momentum: float, lr: torch.Tensor) -> None:
+    """:func:`sgd_update`'s arithmetic on tensors: each of ``params``
+    (written in place; a view, such as a zero1 shard, is fine) takes its
+    ``grads`` entry, and ``slots`` holds each one's ``momentum_buffer``,
+    shaped as its parameter tensor."""
     with torch.no_grad():
         if momentum == 0:
             updates = grads
         else:
-            slots = [state.optimizer.state[p] for p in params]
             updates = [s.get("momentum_buffer") for s in slots]
             have = [i for i, buf in enumerate(updates) if buf is not None]
             if have:

@@ -1,4 +1,5 @@
-"""Train and eval steps on one device (port of ``tpu_resnet/train/step.py``).
+"""Train and eval steps (port of ``tpu_resnet/train/step.py``): on one
+device, or on each rank of a data-parallel run (:class:`TrainStep`).
 
 Step semantics, as the reference's:
 - loss = mean softmax cross-entropy + weight_decay · Σ sum(w²)/2 over the
@@ -28,8 +29,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpu_resnet_torch.models.resnet import synced_batch_norm
 from tpu_resnet_torch.ops import softmax_xent as sx
-from tpu_resnet_torch.train.state import TrainState, sgd_update
+from tpu_resnet_torch.parallel import zero
+from tpu_resnet_torch.parallel.mesh import Mesh
+from tpu_resnet_torch.parallel.partition import check_partition_mode
+from tpu_resnet_torch.train.state import TrainState
 
 XENT_MODES = {"true": "on", "1": "on", "yes": "on",
               "false": "off", "0": "off", "no": "off"}
@@ -64,22 +69,44 @@ def xent_mode(optim_cfg) -> str:
     return mode
 
 
-def check_step_config(cfg) -> None:
-    """The single-device part of the reference's step-config gate, plus
-    what the port does not train yet. ``model.fused_blocks=true`` trains
-    the CIFAR models through the live-BN fused block kernels and the
-    ImageNet ResNets through the live-BN fused bottleneck kernels. A
-    dataset's missing input pipeline is refused where the batches are read
+def check_step_config(cfg, data_axis: int = 1) -> None:
+    """The reference's step-config gate (``check_step_config``), word for
+    word, over a ``data_axis``-rank data axis, plus what the port does not
+    train: a ``model`` axis above 1. ``model.fused_blocks=true`` trains the
+    CIFAR models through the live-BN fused block kernels and the ImageNet
+    ResNets through the live-BN fused bottleneck kernels; across ranks the
+    fused kernels need per-replica BN, as the reference's do. A dataset's
+    missing input pipeline is refused where the batches are read
     (``data.train_batches``), not here."""
-    partition = getattr(cfg.mesh, "partition", "replicated")
-    if partition not in ("replicated", "zero1"):
-        raise ValueError(f"mesh.partition must be replicated|zero1, got "
-                         f"{partition!r}")
-    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
+    per_replica_bn = (not cfg.model.sync_bn) and data_axis > 1
+    partition = check_partition_mode(
+        getattr(cfg.mesh, "partition", "replicated"))
+    if cfg.mesh.model != 1:
         raise NotImplementedError(
-            f"the port trains on one device (mesh.data={cfg.mesh.data}, "
-            f"mesh.model={cfg.mesh.model}); data parallelism over NCCL is a "
-            f"later slice (ROADMAP Queue 1)")
+            f"mesh.model={cfg.mesh.model}: each rank of the port holds the "
+            f"whole model on one device; a model axis is a later slice "
+            f"(ROADMAP Queue 1)")
+    if partition == "zero1" and per_replica_bn:
+        raise ValueError(
+            "mesh.partition=zero1 on a multi-chip data axis requires "
+            "model.sync_bn=true: per-replica BN runs the step inside "
+            "shard_map, where the zero1 sharding annotations "
+            "(with_sharding_constraint over the mesh) cannot be applied "
+            "— the auto-sharded jit path is the supported dispatch for "
+            "cross-replica optimizer sharding (docs/PARALLELISM.md)")
+    if cfg.model.fused_blocks and data_axis > 1 and not per_replica_bn:
+        raise ValueError(
+            "model.fused_blocks on a multi-chip data axis requires "
+            "model.sync_bn=false (per-replica BN via shard_map — the "
+            "reference's BN semantics); global-batch sync-BN is not "
+            "implemented for the fused kernels")
+    if (getattr(cfg.model, "fused_epilogue", "off") != "off"
+            and data_axis > 1 and not per_replica_bn):
+        raise ValueError(
+            "model.fused_epilogue on a multi-chip data axis requires "
+            "model.sync_bn=false (per-replica BN via shard_map): the "
+            "epilogue pallas_call cannot be auto-partitioned by the "
+            "sharded jit — same dispatch rule as fused_blocks")
     xent_mode(cfg.optim)
 
 
@@ -89,12 +116,22 @@ class TrainStep:
     step replays (``data/device_data.py`` ``ChunkRunner``):
 
     - ``host_inputs(step, b)``: on the host, the step's learning rate
-      ``schedule(step)`` and its augmentation draws (numpy arrays);
+      ``schedule(step)`` and its augmentation draws (numpy arrays) for
+      this rank's ``b`` images;
     - ``core(state, images, labels, lr, *draws)``: on the device, with
       ``lr`` a 0-dim float32 tensor and the draws as tensors: augmentation,
-      forward, loss, backward, the global gradient norm and the SGD update
-      (``train/state.py`` ``sgd_update``). It reads nothing on the host and
-      leaves ``state.step`` to its caller.
+      forward, loss, backward, the collectives, the global gradient norm
+      and the update (``update``, ``parallel/zero.py``). It reads nothing
+      on the host and leaves ``state.step`` to its caller.
+
+    Across the ranks of ``mesh`` (the reference's step rules): with
+    ``per_replica_bn`` the BN moments are each rank's batch's and the
+    draws ``fold_in(step key, rank)``'s, and the loss, precision,
+    gradients and running statistics are averaged over the ranks;
+    otherwise (synced BN) the moments are the global batch's
+    (``models.resnet.synced_batch_norm``), the draws the global batch's,
+    this rank taking its rows, and the loss, precision and gradients are
+    averaged.
 
     The eager step runs ``core`` on ``lr`` and the draws copied to the
     images' device, so both compute the same thing. Metrics are 0-dim
@@ -102,14 +139,21 @@ class TrainStep:
     grad_norm."""
 
     def __init__(self, loss_fn: Callable, schedule: Callable[[int], float],
-                 augment=None):
+                 augment=None, mesh: Optional[Mesh] = None,
+                 per_replica_bn: bool = False, update: Callable = None):
         self.loss_fn = loss_fn
         self.schedule = schedule
         self.augment = augment
+        self.mesh = mesh or Mesh()
+        self.per_replica_bn = per_replica_bn
+        self.update = update or zero.plain_update
 
     def host_inputs(self, step: int, b: int) -> Tuple[float, tuple]:
-        draws = (self.augment.draws(step, b) if self.augment is not None
-                 else ())
+        draws = ()
+        if self.augment is not None:
+            draws = self.augment.draws(step, b, rank=self.mesh.rank,
+                                       world=self.mesh.data,
+                                       per_replica=self.per_replica_bn)
         return self.schedule(step), draws
 
     def core(self, state: TrainState, images: torch.Tensor,
@@ -118,16 +162,19 @@ class TrainStep:
         if self.augment is not None:
             images = self.augment.apply(images, *draws)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, logits = self.loss_fn(state.model, images, labels)
-        loss.backward()
-        grads = [p.grad for p in state.model.parameters()
-                 if p.grad is not None]
-        grad_norm = torch.sqrt(torch.stack(
-            [torch.square(g.float()).sum() for g in grads]).sum())
-        sgd_update(state, lr)
+        synced = 1 if self.per_replica_bn else self.mesh.data
+        with synced_batch_norm(synced):
+            loss, logits = self.loss_fn(state.model, images, labels)
+            loss.backward()
         with torch.no_grad():
             precision = (logits.argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "precision": precision,
+        stats = list(state.model.buffers()) if self.per_replica_bn else []
+        grad_norm, means = self.update(state, lr,
+                                       [loss.detach(), precision, *stats])
+        with torch.no_grad():
+            for buf, avg in zip(stats, means[2:]):
+                buf.copy_(avg)
+        return {"loss": means[0], "precision": means[1],
                 "learning_rate": lr, "grad_norm": grad_norm}
 
     def __call__(self, state: TrainState, images: torch.Tensor,
@@ -143,13 +190,17 @@ class TrainStep:
 
 def make_train_step(optim_cfg, schedule: Callable[[int], float],
                     num_classes: int, augment=None,
-                    device=None, xent_probe_batch: Optional[int] = None
-                    ) -> TrainStep:
+                    device=None, xent_probe_batch: Optional[int] = None,
+                    mesh: Optional[Mesh] = None,
+                    per_replica_bn: bool = False,
+                    update: Optional[Callable] = None) -> TrainStep:
     """The :class:`TrainStep`. ``images`` are raw uint8 with ``augment``
     (a ``data.augment.StepAugment``) applied on their device, or
     pre-processed floats (``augment=None``). Under
     ``use_pallas_xent=auto`` on a CUDA ``device`` the cross-entropy A/B
-    runs here, at (``xent_probe_batch``, ``num_classes``)."""
+    runs here, at (``xent_probe_batch``, ``num_classes``). ``mesh``,
+    ``per_replica_bn`` and ``update`` (``parallel.zero.attach``)
+    make it a step across ranks."""
     mode = xent_mode(optim_cfg)
     use_kernel = mode in ("on", "auto") and optim_cfg.label_smoothing == 0.0
     if use_kernel and mode == "auto":
@@ -170,7 +221,8 @@ def make_train_step(optim_cfg, schedule: Callable[[int], float],
             model, optim_cfg.weight_decay_on_bn)
         return xent + penalty, logits
 
-    return TrainStep(loss_fn, schedule, augment)
+    return TrainStep(loss_fn, schedule, augment, mesh=mesh,
+                     per_replica_bn=per_replica_bn, update=update)
 
 
 def make_eval_step(num_classes: int,
