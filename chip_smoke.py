@@ -107,6 +107,26 @@ Phases, each printing one JSON line:
    ``imagenet34``: ImageNet ResNet-34 (``model.resnet_size=34``) served
    the same way: 10 ``block_fwd`` (2, 3, 5 at 56²x64, 28²x128, 14²x256)
    and 13 ``sbr`` per forward pass, the 7²x512 stage on F.conv2d.
+   Then two ``serve_arms`` lines on the CIFAR and ImageNet ResNet-50
+   checkpoints of these phases: (a) the ImageNet one frozen by
+   ``export_from_checkpoint`` (``torch.export``, dynamic batch; seconds
+   and artifact MB printed) and served by ``serve.backend=export`` with
+   the serve phase's requests: the counters must read
+   ``PER_PASS["imagenet"]`` per forward (the kernels run inside the
+   artifact), the logits within ``LOGIT_TOL`` of the live checkpoint model
+   through the plain versions, p50 at N=1 and N=16 and images/s printed;
+   (c) that server's ``/metrics``: requests, images and batches as sent
+   and batched, every serve series present, each histogram's count its
+   samples; ``colocation_admission`` on the card (``mem_get_info``) must
+   admit 1 GiB and deny twice the card. (b) CIFAR-10 ResNet-50 fused with
+   ``serve.quantize=int8`` (calibrated on the synthetic eval split),
+   served the same way: ``PER_PASS["cifar10"]`` per forward, the logits
+   within ``LOGIT_TOL`` of the same int8 model through the plain versions,
+   weight bytes at most ``ARMS_WEIGHT_RATIO`` of the float32 arm's, then
+   exported quantized (the same digest and bytes in its manifest) and
+   served from the artifact within ``LOGIT_TOL`` of the live int8 arm,
+   its launches exact; the argmax agreement with the float32 twin is
+   printed, not gated (random weights leave near-ties).
 5. ``train``: CIFAR-10 ResNet-50 at full width, B=128 (``--preset cifar10
    model.fused_epilogue=on optim.use_pallas_xent=on data.dataset=synthetic
    data.synthetic_learnable=true``): (a) one float32 train step from one
@@ -338,7 +358,8 @@ run the kernel, in bfloat16; for ``sbr_add`` over one call at each probe
 shape, for ``block_bwd`` and ``bottleneck_bwd`` over one call at each A/B
 shape, and per path also over one backward of the grad phase;
 ``launches`` is the count over the phases that drive the main paths:
-both serve phases, the train and eval runs of both CIFAR train phases, the
+both serve phases and both serve arms, the train and eval runs of both
+CIFAR train phases, the
 ImageNet train steps, the JPEG-fed ImageNet train, resume and eval runs,
 the observability phase's ImageNet run with observability on,
 both parts of the autotune phase, the ``ab`` phase's counted calls and the
@@ -1715,7 +1736,9 @@ SERVE_PATHS = {
 N_IMAGES = 256
 
 
-def serve_phase(path: str, counters, gpu: str) -> dict:
+def serve_phase(path: str, counters, gpu: str, keep: bool = False) -> dict:
+    """One serve path (``SERVE_PATHS``); ``keep``: leave its checkpoint's
+    train dir for ``serve_arms_phase`` (in ``result["train_dir"]``)."""
     from tpu_resnet_torch.config import load_config
     from tpu_resnet_torch.models import build_model, init_weights
     from tpu_resnet_torch.serve.infer import make_serve_infer
@@ -1816,7 +1839,8 @@ def serve_phase(path: str, counters, gpu: str) -> dict:
     finally:
         clean = server.drain(timeout=60)
         server.close()
-        shutil.rmtree(train_dir, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(train_dir, ignore_errors=True)
     check(clean, "server did not drain cleanly")
     result = {
         "path": path,
@@ -1835,7 +1859,265 @@ def serve_phase(path: str, counters, gpu: str) -> dict:
         "gpu": gpu, "drained_clean": clean,
     }
     emit("serve", **result)
+    if keep:
+        result["train_dir"] = train_dir
     return result
+
+
+# The serve arms' request mix: the serve phase's check requests, and fewer
+# latency requests (the phase's budget).
+ARMS_LAT1 = 10
+ARMS_LAT16 = 8
+ARMS_WEIGHT_RATIO = 0.30   # int8 weight bytes over the float32 arm's
+ADMIT_BYTES = 1 << 30
+
+
+def _arm_requests(server, path: str, images) -> dict:
+    """``serve_phase``'s check requests, then the latency requests at N=1
+    and N=16; returns the served (images, logits), the latencies, and the
+    requests and images sent."""
+    size = images.shape[1]
+    spec = SERVE_PATHS[path]
+    served, sent = [], {"requests": 0, "images": 0}
+
+    def octet(n, off):
+        sent["requests"] += 1
+        sent["images"] += n
+        return post(server.port, images[off:off + n].tobytes(),
+                    "application/octet-stream", (n, size, size, 3))
+
+    for n, off in spec["octet"]:
+        out, _ = octet(n, off)
+        check(out["count"] == n, f"count {out['count']} != {n}")
+        served.append((images[off:off + n], np.asarray(out["logits"])))
+    js = images[20:20 + spec["json"]]
+    out, _ = post(server.port, json.dumps({"instances": js.tolist()}).encode(),
+                  "application/json")
+    sent["requests"] += 1
+    sent["images"] += len(js)
+    served.append((js, np.asarray(out["logits"])))
+    lat1 = [octet(1, i)[1] for i in range(ARMS_LAT1)]
+    lat16 = [octet(16, 16 * i)[1] for i in range(ARMS_LAT16)]
+    return {"served": served, "lat1": lat1, "lat16": lat16, **sent}
+
+
+def _against_plain(served, infer, model, tol_name: str) -> dict:
+    """The served logits against ``model`` run through the plain versions
+    on the same images: within ``LOGIT_TOL`` of the largest plain logit."""
+    with plain_versions():
+        want = np.concatenate([infer(model, im).float().cpu().numpy()
+                               for im, _ in served])
+    got = np.concatenate([lg for _, lg in served])
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{tol_name}: logits {got.shape}, finite={np.isfinite(got).all()}")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(err <= LOGIT_TOL * scale, f"{tol_name}: logits differ from the "
+          f"plain versions' by {err} (scale {scale})")
+    return {"logits_max_abs_err": err, "logits_scale": scale}
+
+
+def _scrape_check(server, sent: dict, batches: int) -> dict:
+    """``/metrics`` after the arm: requests, images and batches as sent
+    and batched, and each histogram's count as its samples."""
+    from tpu_resnet_torch import obs
+
+    text = urllib.request.urlopen(
+        f"http://127.0.0.1:{server.port}/metrics", timeout=30).read().decode()
+    gauges = obs.parse_prometheus(text)
+    hists = obs.parse_histograms(text)
+    ns = "tpu_resnet_"
+    got = {"requests": gauges[ns + "serve_requests_total"],
+           "images": gauges[ns + "serve_images_total"],
+           "batches": gauges[ns + "serve_batches_total"],
+           "latency_count": hists[ns + "serve_latency_ms"]["count"],
+           "queue_wait_count": hists[ns + "serve_queue_wait_ms"]["count"],
+           "pad_fraction_count": hists[ns + "serve_pad_fraction"]["count"],
+           "time_to_ready_count": hists[ns + "serve_time_to_ready_s"]["count"]}
+    want = {"requests": sent["requests"], "images": sent["images"],
+            "batches": batches, "latency_count": sent["requests"],
+            "queue_wait_count": sent["requests"],
+            "pad_fraction_count": batches, "time_to_ready_count": 1}
+    check(got == want, f"/metrics {got}, sent and batched {want}")
+    names = {line.split()[2] for line in text.splitlines()
+             if line.startswith("# TYPE")}
+    check(all(ns + name in names for name, _ in obs.SERVE_GAUGES)
+          and all(ns + name in names for name, _, _ in obs.SERVE_HISTOGRAMS),
+          "a serve series is missing from /metrics")
+    return got
+
+
+def serve_arms_phase(counters, gpu: str, served: list) -> list:
+    """The frozen and the int8 serve arms on the serve phase's checkpoints
+    (their train dirs are removed here): (a) the ImageNet ResNet-50
+    checkpoint exported with a dynamic batch and served with
+    ``serve.backend=export``; (c) its ``/metrics`` and
+    ``colocation_admission`` on the card; (b) CIFAR-10 ResNet-50 fused with
+    ``serve.quantize=int8``, calibrated on the synthetic eval split, served,
+    then exported quantized. Returns the two arms' results, which join the
+    ``kernels`` line."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.export import export_from_checkpoint, load_inference
+    from tpu_resnet_torch.models import build_model
+    from tpu_resnet_torch.resilience import elastic
+    from tpu_resnet_torch.serve.backend import CheckpointBackend
+    from tpu_resnet_torch.serve.infer import make_serve_infer
+    from tpu_resnet_torch.serve.server import PredictServer
+    from tpu_resnet_torch.train import checkpoint
+
+    cuda = torch.device("cuda")
+    dirs = {s["path"]: s["train_dir"] for s in served if "train_dir" in s}
+    results = []
+    try:
+        # (a) the export arm, ImageNet ResNet-50 at 224².
+        path, size = "imagenet", SERVE_PATHS["imagenet"]["size"]
+        export_dir = os.path.join(dirs[path], "export")
+        base = ["model.fused_blocks=true", "model.fused_epilogue=on",
+                f"train.train_dir={dirs[path]}", "serve.host=127.0.0.1",
+                "serve.port=0"]
+        cfg = load_config(path, "", base + ["serve.backend=export",
+                                            f"serve.export_dir={export_dir}"])
+        t0 = time.monotonic()
+        export_from_checkpoint(cfg, export_dir, device="cuda")
+        export_s = time.monotonic() - t0
+        artifact_mb = os.path.getsize(
+            os.path.join(export_dir, "inference.pt2")) / 2**20
+        server = PredictServer(cfg, device="cuda")
+        try:
+            t0 = time.monotonic()
+            server.start()
+            warm_s = time.monotonic() - t0
+            images = np.random.default_rng(0).integers(
+                0, 256, (N_IMAGES, size, size, 3), dtype=np.uint8)
+            batches0 = server.batcher.stats()["batches"]
+            zero_counts(counters)
+            sent = _arm_requests(server, path, images)
+            launches = read_counts(counters)
+            batches = server.batcher.stats()["batches"]
+            forwards = batches - batches0
+            want = {k: n * forwards for k, n in PER_PASS[path].items()}
+            check(forwards > 0 and launches == want,
+                  f"export arm: launches {launches} over {forwards} "
+                  f"forwards, expected {want}")
+            # Oracle: the live checkpoint model through the plain versions.
+            live = checkpoint.load_state(
+                build_model(cfg), checkpoint.restore(dirs[path], 1))
+            errs = _against_plain(sent["served"],
+                                  make_serve_infer(cfg, cuda),
+                                  live.to(cuda).eval(), "export arm")
+            scraped = _scrape_check(server, sent, batches)
+        finally:
+            clean = server.drain(timeout=60)
+            server.close()
+        check(clean, "export arm: server did not drain cleanly")
+        free, total = torch.cuda.mem_get_info()
+        admit = elastic.colocation_admission(ADMIT_BYTES, device=cuda)
+        deny = elastic.colocation_admission(2 * total, device=cuda)
+        check(admit["admit"] and not deny["admit"]
+              and admit["limit_bytes"] == total,
+              f"colocation admission: {admit} / {deny}")
+        result = {
+            "path": "imagenet_export", "arm": "serve.backend=export",
+            "export_s": export_s, "artifact_mb": artifact_mb,
+            "warmup_s": warm_s, "forwards": forwards, "launches": launches,
+            "per_forward": {k: v / forwards for k, v in launches.items()},
+            **errs, "logit_tol_fraction": LOGIT_TOL,
+            "p50_request_ms_n1": statistics.median(sent["lat1"]) * 1e3,
+            "p50_request_ms_n16": statistics.median(sent["lat16"]) * 1e3,
+            "images_per_s_n16": 16 * len(sent["lat16"]) / sum(sent["lat16"]),
+            "metrics": scraped,
+            "admission_1gib": admit, "admission_2x_card": deny,
+            "gpu": gpu, "drained_clean": clean}
+        emit("serve_arms", **result)
+        results.append(result)
+
+        # (b) the int8 arm, CIFAR-10 ResNet-50 fused, on synthetic data.
+        path, size = "cifar10", SERVE_PATHS["cifar10"]["size"]
+        base = ["model.fused_blocks=true", "model.fused_epilogue=on",
+                f"train.train_dir={dirs[path]}", "serve.host=127.0.0.1",
+                "serve.port=0", "data.dataset=synthetic"]
+        qcfg = load_config(path, "", base + ["serve.quantize=int8"])
+        fcfg = load_config(path, "", base)
+        images = np.random.default_rng(1).integers(
+            0, 256, (N_IMAGES, size, size, 3), dtype=np.uint8)
+        t0 = time.monotonic()
+        server = PredictServer(qcfg, device="cuda")
+        try:
+            server.start()
+            warm_s = time.monotonic() - t0
+            batches0 = server.batcher.stats()["batches"]
+            zero_counts(counters)
+            sent = _arm_requests(server, path, images)
+            launches = read_counts(counters)
+            forwards = server.batcher.stats()["batches"] - batches0
+            want = {k: n * forwards for k, n in PER_PASS[path].items()}
+            check(forwards > 0 and launches == want,
+                  f"int8 arm: launches {launches} over {forwards} "
+                  f"forwards, expected {want}")
+            qmodel = server.backend._model
+            infer = make_serve_infer(qcfg, cuda)
+            errs = _against_plain(sent["served"], infer, qmodel, "int8 arm")
+            q_bytes = server.backend.weight_argument_bytes()
+            digest = server.backend.calibration_digest
+        finally:
+            clean = server.drain(timeout=60)
+            server.close()
+        check(clean, "int8 arm: server did not drain cleanly")
+        f32 = CheckpointBackend(fcfg, cuda)
+        f_bytes = f32.weight_argument_bytes()
+        check(q_bytes <= ARMS_WEIGHT_RATIO * f_bytes,
+              f"int8 weight bytes {q_bytes} > {ARMS_WEIGHT_RATIO} x "
+              f"{f_bytes}")
+        agree = float(np.mean(np.concatenate([
+            infer(qmodel, images[i:i + 16]).float().cpu().numpy()
+            .argmax(-1) == f32.infer(images[i:i + 16]).argmax(-1)
+            for i in range(0, N_IMAGES, 16)])))
+        f32.close()
+        # The quantized export of the same checkpoint and calibration.
+        q_dir = os.path.join(dirs[path], "export_int8")
+        t0 = time.monotonic()
+        export_from_checkpoint(qcfg, q_dir, device="cuda")
+        q_export_s = time.monotonic() - t0
+        bundle = load_inference(q_dir, cuda)
+        check(bundle.manifest["calibration_digest"] == digest
+              and bundle.manifest["weight_bytes"] == q_bytes,
+              f"int8 manifest {bundle.manifest}, digest {digest}, "
+              f"bytes {q_bytes}")
+        zero_counts(counters)
+        got = np.concatenate([bundle(images[i:i + 16])
+                              for i in range(0, 64, 16)])
+        exported_launches = read_counts(counters)
+        check(exported_launches == {k: 4 * n for k, n in
+                                    PER_PASS[path].items()},
+              f"int8 export: launches {exported_launches} over 4 forwards")
+        live = np.concatenate([infer(qmodel, images[i:i + 16]).float().cpu()
+                               .numpy() for i in range(0, 64, 16)])
+        export_err = float(np.abs(got - live).max())
+        check(export_err <= LOGIT_TOL * float(np.abs(live).max()),
+              f"int8 export serves logits {export_err} from the live arm's")
+        result = {
+            "path": "cifar10_int8", "arm": "serve.quantize=int8",
+            "warmup_s": warm_s, "forwards": forwards, "launches": launches,
+            "per_forward": {k: v / forwards for k, v in launches.items()},
+            **errs, "logit_tol_fraction": LOGIT_TOL,
+            "weight_bytes_int8": q_bytes, "weight_bytes_f32": f_bytes,
+            "weight_ratio": q_bytes / f_bytes,
+            "calibration_digest": digest,
+            f"argmax_agreement_f32_{N_IMAGES}": agree,
+            "export_int8_s": q_export_s,
+            "export_int8_artifact_mb": os.path.getsize(
+                os.path.join(q_dir, "inference.pt2")) / 2**20,
+            "export_int8_max_abs_err": export_err,
+            "p50_request_ms_n1": statistics.median(sent["lat1"]) * 1e3,
+            "p50_request_ms_n16": statistics.median(sent["lat16"]) * 1e3,
+            "images_per_s_n16": 16 * len(sent["lat16"]) / sum(sent["lat16"]),
+            "gpu": gpu, "drained_clean": clean}
+        emit("serve_arms", **result)
+        results.append(result)
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    return results
 
 
 def _rel(got: float, want: float) -> float:
@@ -4615,7 +4897,10 @@ def main() -> int:
     emit("kernels", gpu=gpu, launch_floor_ms=floor, rows=rows)
     nan_phase(gpu)
     counters = kernel_counters()
-    served = [serve_phase(path, counters, gpu) for path in SERVE_PATHS]
+    served = [serve_phase(path, counters, gpu,
+                          keep=path in ("cifar10", "imagenet"))
+              for path in SERVE_PATHS]
+    served += serve_arms_phase(counters, gpu, served)
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))

@@ -1422,3 +1422,85 @@ def test_gloo_ranks_on_one_card_match_plain(cuda, tmp_path):
         assert r["c"]["zero1_vs_replicated_err_over_limit"] <= 1
     runs = cs.dp_train_check(ranks, str(tmp_path), cs.kernel_counters())
     assert all(run["ranks_bit_equal"] for run in runs.values())
+
+
+# ------------------------------------------------------------ serve arms
+def _plain_model_path(monkeypatch):
+    monkeypatch.setattr(fb, "block_apply", fb.block_apply_reference)
+    monkeypatch.setattr(fbn, "bottleneck_apply",
+                        fbn.bottleneck_apply_reference)
+    monkeypatch.setattr(ep, "scale_bias_relu", ep.scale_bias_relu_reference)
+
+
+@pytest.mark.parametrize("preset, overrides, per_forward", [
+    ("cifar10", ["model.resnet_size=14"],
+     {"sbr": 7, "block_fwd": 3, "bottleneck_fwd": 0}),
+    ("imagenet", ["data.image_size=64"],
+     {"sbr": 19, "block_fwd": 0, "bottleneck_fwd": 10}),
+], ids=["cifar10", "imagenet"])
+@pytest.mark.parametrize("quantize", ["off", "int8"])
+def test_exported_fused_artifact_launches_the_kernels(
+        cuda, monkeypatch, tmp_path, preset, overrides, per_forward,
+        quantize):
+    """A fused artifact exported and loaded on the card launches the
+    kernels from inside the program, each its count a forward, and serves
+    the live model's logits through the plain versions (float32, within
+    1e-3 of the largest)."""
+    from tpu_resnet_torch.export import load_inference, save_inference
+    from tpu_resnet_torch.serve.infer import make_serve_infer, serve_model
+
+    cfg = load_config(preset, "", [
+        "model.fused_blocks=true", "model.fused_epilogue=on",
+        "model.compute_dtype=float32", f"serve.quantize={quantize}",
+        *overrides])
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+    calibration = {"digest": "", "act_max": {"input": 2.5}}
+    save_inference(cfg, model.to(cuda), str(tmp_path),
+                   calibration=calibration)
+    bundle = load_inference(str(tmp_path), cuda)
+    size = cfg.data.resolved_image_size
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randint(0, 256, (5, size, size, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    counters = {"sbr": (ep, "launches"), "block_fwd": (fb, "launches"),
+                "bottleneck_fwd": (fbn, "launches")}
+    before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    for _ in range(2):
+        got = bundle.logits(images)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert {k: getattr(m, a) - before[k] for k, (m, a) in
+            counters.items()} == {k: 2 * n for k, n in per_forward.items()}
+    _plain_model_path(monkeypatch)
+    want = make_serve_infer(cfg, cuda)(
+        serve_model(cfg, model, cuda, act_max=2.5), images)
+    assert float((got - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())
+
+
+def test_int8_arm_kernels_match_the_plain_versions(cuda, monkeypatch):
+    """The live int8 arm of fused CIFAR ResNet-14 on the card: through the
+    kernels (sbr and block_fwd launched) and through the plain versions on
+    the same dequantized weights, within 1e-3 of the largest logit."""
+    from tpu_resnet_torch.ops import quant
+    from tpu_resnet_torch.serve.infer import make_serve_infer, serve_model
+
+    cfg = load_config("cifar10", "", [
+        "model.fused_blocks=true", "model.fused_epilogue=on",
+        "model.compute_dtype=float32", "model.resnet_size=14",
+        "serve.quantize=int8"])
+    model = init_weights(build_model(cfg), torch.Generator().manual_seed(1))
+    served = serve_model(cfg, model, cuda, act_max=2.0)
+    assert isinstance(served, quant.QuantizedModel)
+    infer = make_serve_infer(cfg, cuda)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.randint(0, 256, (16, 32, 32, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    before = (ep.launches, fb.launches)
+    got = infer(served, images)
+    torch.cuda.synchronize()
+    assert (ep.launches - before[0], fb.launches - before[1]) == (7, 3)
+    _plain_model_path(monkeypatch)
+    want = infer(served, images)
+    assert float((got - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())

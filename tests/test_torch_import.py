@@ -35,13 +35,18 @@ PACKAGE_FORBIDDEN = FORBIDDEN_ROOTS + ("PIL",)
 
 
 def test_import_loads_no_jax_stack():
+    """The package, the serve surface (export, int8 arm, predict) among it,
+    loads no JAX stack and no PIL."""
     code = ("import sys, tpu_resnet_torch, tpu_resnet_torch.main, "
             "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert, "
             "tpu_resnet_torch.ops.fused_bottleneck, "
             "tpu_resnet_torch.train.loop, "
             "tpu_resnet_torch.evaluation.evaluator, "
             "tpu_resnet_torch.data.imagenet, tpu_resnet_torch.data.engine, "
-            "tpu_resnet_torch.data.jpeg, tpu_resnet_torch.ops.jpeg_decode; "
+            "tpu_resnet_torch.data.jpeg, tpu_resnet_torch.ops.jpeg_decode, "
+            "tpu_resnet_torch.export, tpu_resnet_torch.ops.quant, "
+            "tpu_resnet_torch.serve.calibrate, tpu_resnet_torch.tools.predict, "
+            "tpu_resnet_torch.models.mlp, tpu_resnet_torch.resilience.exitcodes; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {PACKAGE_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -108,6 +113,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_main(["serve", "--preset", "cifar10",
                    f"train.train_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main(["export", "--preset", "cifar10",
+                   f"train.train_dir={tmp_path}", "--out",
+                   str(tmp_path / "export")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main(["predict", "--preset", "cifar10", "--export-dir",
+                   str(tmp_path / "export"), "--out", str(tmp_path / "p")])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")

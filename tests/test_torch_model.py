@@ -138,7 +138,8 @@ def test_init_weights_distributions():
     (["model.fused_epilogue=sometimes"], ValueError),
     (["data.dataset=imagenet", "model.resnet_size=18",
       "model.fused_blocks=true"], None),
-    (["model.name=mlp"], NotImplementedError),
+    (["model.name=mlp"], None),
+    (["model.name=transformer"], ValueError),
 ])
 def test_build_model_guards(overrides, exc):
     """The build guards; ImageNet ResNet-18/34 with fused_blocks=true (None)
@@ -150,6 +151,13 @@ def test_build_model_guards(overrides, exc):
     if exc is not None:
         with pytest.raises(exc):
             build_model(cfg)
+        return
+    if cfg.model.name == "mlp":  # the reference's MLP, its two dense layers
+        shapes = {n: tuple(p.shape)
+                  for n, p in build_model(cfg).named_parameters()}
+        assert shapes == {"hidden.weight": (100, 3072), "hidden.bias": (100,),
+                          "softmax_linear.weight": (10, 100),
+                          "softmax_linear.bias": (10,)}
         return
     from tpu_resnet_torch.models.resnet import (BuildingBlock,
                                                 FusedBuildingBlock)

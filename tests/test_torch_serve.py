@@ -190,7 +190,9 @@ def test_server_answers_like_reference(served):
         code, info = _get(srv.port, "/info")
         assert code == 200 and info["buckets"] == [1, 2, 4]
         assert info["device"] == "cpu" and info["model_step"] == 7
-        assert _get(srv.port, "/metrics")[0] == 404
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics",
+                                    timeout=30) as r:
+            assert r.status == 200 and b"serve_requests_total" in r.read()
 
         assert srv.drain(10.0) is True
         code, health = _get(srv.port, "/healthz")

@@ -6,7 +6,8 @@ each leaf by its path:
 
 - ``<path>/conv/kernel``, HWIO → ``<path>.weight``, OIHW;
 - ``final_dense/kernel``, (in, out) → ``final_dense.weight``, (out, in);
-  ``final_dense/bias`` → ``final_dense.bias``;
+  ``final_dense/bias`` → ``final_dense.bias``; the MLP's ``hidden`` and
+  ``softmax_linear`` likewise;
 - ``<path>/bn/scale``, ``bias`` → ``<path>.weight``, ``<path>.bias``;
 - batch_stats ``<path>/bn/mean``, ``var`` → ``<path>.running_mean``,
   ``<path>.running_var``.
@@ -51,17 +52,19 @@ def _map_leaf(collection: str, path: Tuple[str, ...],
             return f"{name}.weight", value.transpose(3, 2, 0, 1)
         if parent == "bn" and leaf in ("scale", "bias"):
             return f"{name}.{'weight' if leaf == 'scale' else 'bias'}", value
-        if parent == "final_dense" and not head:
+        if parent in _DENSE_LAYERS and not head:
             if leaf == "kernel":
-                return "final_dense.weight", value.T
+                return f"{parent}.weight", value.T
             if leaf == "bias":
-                return "final_dense.bias", value
+                return f"{parent}.bias", value
     if collection == "batch_stats" and parent == "bn" and \
             leaf in ("mean", "var"):
         return f"{name}.running_{leaf}", value
     raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
 
 
+# The dense layers at the top of the tree: the ResNets' head, the MLP's two.
+_DENSE_LAYERS = ("final_dense", "hidden", "softmax_linear")
 # Port axis of each reference axis: HWIO → OIHW, (in, out) → (out, in).
 _CONV_AXES = (2, 3, 1, 0)
 _DENSE_AXES = (1, 0)
@@ -74,11 +77,10 @@ def reference_layout(name: str, shape: Tuple[int, ...]
     :func:`flax_opt_state_to_torch`'s mapping."""
     head, _, leaf = name.rpartition(".")
     shape = tuple(int(d) for d in shape)
-    if name == "final_dense.weight":
-        axes = _DENSE_AXES
-        path = "final_dense/kernel"
-    elif name == "final_dense.bias":
-        axes, path = (0,), "final_dense/bias"
+    if head in _DENSE_LAYERS and leaf == "weight":
+        axes, path = _DENSE_AXES, f"{head}/kernel"
+    elif head in _DENSE_LAYERS and leaf == "bias":
+        axes, path = (0,), f"{head}/bias"
     elif leaf == "weight" and len(shape) == 4:
         axes, path = _CONV_AXES, f"{head.replace('.', '/')}/conv/kernel"
     elif leaf in ("weight", "bias") and len(shape) == 1:

@@ -102,10 +102,17 @@ def cifar_train_augment(images: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+def _vgg_means_cached(device: torch.device) -> torch.Tensor:
+    return torch.tensor(VGG_MEANS_01, device=device)
+
+
 def _vgg_means(device: torch.device) -> torch.Tensor:
     """The VGG means as a float32 [3] tensor on ``device``, made once (a
-    captured step may not copy them in)."""
-    return torch.tensor(VGG_MEANS_01, device=device)
+    captured step may not copy them in); made anew while ``torch.export``
+    traces, whose fake tensor must not outlive the trace in the cache."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(VGG_MEANS_01, device=device)
+    return _vgg_means_cached(device)
 
 
 def flip_mean_subtract(images: torch.Tensor,

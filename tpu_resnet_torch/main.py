@@ -7,7 +7,15 @@
         model.fused_epilogue=on train.train_dir=/tmp/run
     python -m tpu_resnet_torch serve --preset cifar10 \
         model.fused_blocks=true model.fused_epilogue=on \
+        train.train_dir=/tmp/run            # serve.quantize=int8: int8 arm
+    python -m tpu_resnet_torch export --preset cifar10 \
+        model.fused_blocks=true model.fused_epilogue=on \
+        train.train_dir=/tmp/run --out /tmp/run/export [--batch-size 0]
+    python -m tpu_resnet_torch serve --preset cifar10 \
+        serve.backend=export serve.export_dir=/tmp/run/export \
         train.train_dir=/tmp/run
+    python -m tpu_resnet_torch predict --preset cifar10 \
+        --export-dir /tmp/run/export --out /tmp/predict
     python -m tpu_resnet_torch info --preset imagenet [--layers]
     python -m tpu_resnet_torch inspect --dir /tmp/run [--step N] [--peek P]
     python -m tpu_resnet_torch plot --dir /tmp/run [--out F] [--csv F]
@@ -16,8 +24,9 @@
         [--train-dir D] [--data-bench] [--fault-drill]
 
 Same ``--preset``/``--config``/``section.field=value`` surface as
-``python -m tpu_resnet``; ``--device cpu`` runs ``train``, ``eval`` and
-``serve`` on the CPU, otherwise they need CUDA and raise without it.
+``python -m tpu_resnet``; ``--device cpu`` runs ``train``, ``eval``,
+``serve``, ``export`` and ``predict`` on the CPU, otherwise they need CUDA
+and raise without it.
 ``info`` (the model on the ``meta`` device), ``inspect``, ``plot`` and
 ``trace-export`` touch no device; ``doctor`` probes the card and fails
 its checks where there is none.
@@ -48,7 +57,7 @@ import socket
 import sys
 
 # The commands that take a run config.
-_RUN_COMMANDS = ("train", "eval", "serve", "info")
+_RUN_COMMANDS = ("train", "eval", "export", "predict", "serve", "info")
 
 
 def _log_setup(prefix: str = "") -> None:
@@ -176,6 +185,9 @@ def main(argv=None) -> int:
             ("train", "run the training loop (resumes from the newest "
                       "checkpoint in train.train_dir)"),
             ("eval", "checkpoint-polling evaluation (or --once)"),
+            ("export", "freeze a checkpoint into a serialized inference "
+                       "artifact"),
+            ("predict", "run a frozen artifact over the eval split"),
             ("serve", "online inference: dynamic-batching HTTP predict "
                       "server with checkpoint hot-reload"),
             ("info", "print resolved config, param count and forward "
@@ -202,6 +214,18 @@ def main(argv=None) -> int:
         if name == "info":
             p.add_argument("--layers", action="store_true",
                            help="per-parameter table (tfprof-style dump)")
+        if name == "export":
+            p.add_argument("--out", required=True,
+                           help="output directory for the frozen artifact")
+            p.add_argument("--step", type=int, default=None)
+            p.add_argument("--batch-size", type=int, default=0,
+                           help="0 = dynamic batch dimension")
+        if name == "predict":
+            p.add_argument("--export-dir", required=True)
+            p.add_argument("--out", default="/tmp/tpu_resnet_predict")
+            p.add_argument("--num-examples", type=int, default=256)
+            p.add_argument("--label-file", default="",
+                           help="imagenet idx→name map file")
         if name in _RUN_COMMANDS:
             p.add_argument("overrides", nargs="*")
         if name == "inspect":
@@ -270,6 +294,19 @@ def main(argv=None) -> int:
         if args.once:
             cfg.train.eval_once = True
         evaluate(cfg, device=args.device)
+        return 0
+    if args.command == "export":
+        from tpu_resnet_torch.export import export_from_checkpoint
+        out = export_from_checkpoint(cfg, args.out, step=args.step,
+                                     batch_size=args.batch_size,
+                                     device=args.device)
+        print(f"exported inference artifact to {out}")
+        return 0
+    if args.command == "predict":
+        from tpu_resnet_torch.tools.predict import predict_from_export
+        predict_from_export(cfg, args.export_dir, args.out,
+                            num_examples=args.num_examples,
+                            label_file=args.label_file, device=args.device)
         return 0
     from tpu_resnet_torch.serve.server import serve
     return serve(cfg, device=args.device)

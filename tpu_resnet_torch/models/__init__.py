@@ -5,20 +5,32 @@ from __future__ import annotations
 
 import torch
 
+from tpu_resnet_torch.models import resnet
+from tpu_resnet_torch.models.mlp import MLP
 from tpu_resnet_torch.models.resnet import (ResNetV2, cifar_resnet_v2,
-                                            imagenet_resnet_v2, init_weights)
+                                            imagenet_resnet_v2)
 
-__all__ = ["ResNetV2", "cifar_resnet_v2", "imagenet_resnet_v2",
+__all__ = ["MLP", "ResNetV2", "cifar_resnet_v2", "imagenet_resnet_v2",
            "init_weights", "build_model"]
 
 
-def build_model(cfg) -> ResNetV2:
+def init_weights(model: torch.nn.Module,
+                 generator: torch.Generator) -> torch.nn.Module:
+    """Seeded initialisation with the reference's distributions (the MLP's
+    own, or the ResNets' ``resnet.init_weights``), on the CPU."""
+    if isinstance(model, MLP):
+        return model.init_weights(generator)
+    return resnet.init_weights(model, generator)
+
+
+def build_model(cfg) -> torch.nn.Module:
     """The configured model, on the CPU with uninitialised weights (load a
     checkpoint or call :func:`init_weights`, then move it)."""
     dtype = getattr(torch, cfg.model.compute_dtype)
     if cfg.model.name == "mlp":
-        raise NotImplementedError("model.name=mlp is a later slice of the "
-                                  "port; it serves the ResNets")
+        return MLP(hidden_units=cfg.model.mlp_hidden_units,
+                   num_classes=cfg.data.num_classes,
+                   image_size=cfg.data.resolved_image_size)
     if cfg.model.name != "resnet":
         raise ValueError(f"unknown model {cfg.model.name!r}")
     epilogue = cfg.model.fused_epilogue

@@ -3,10 +3,12 @@
 ``breakdown``   ``StepBreakdown``: a log interval's data wait, dispatch and
                 sampled device backlog, and the first dispatch's
                 ``compile_seconds``.
-``spans``       ``SpanTracer``: lifecycle spans in ``events.jsonl``.
+``spans``       ``SpanTracer``: lifecycle spans in ``events.jsonl``;
+                ``TailSampler``: which request spans a server keeps.
 ``manifest``    ``manifest.json`` (config, device, versions, git
                 revision) and the run's ``run_id``.
-``server``      ``/metrics`` (Prometheus text) and ``/healthz`` over HTTP.
+``server``      ``/metrics`` (Prometheus text) and ``/healthz`` over HTTP;
+                the training and the serving series sets.
 ``mfu``         the step's model FLOPs (``flops.json``) and the live
                 ``model_flops_per_sec`` / ``mfu``.
 ``memory``      the step's memory ledger (``memory.json``), live
@@ -25,6 +27,8 @@ from tpu_resnet_torch.obs.manifest import (
     write_manifest,
 )
 from tpu_resnet_torch.obs.server import (
+    SERVE_GAUGES,
+    SERVE_HISTOGRAMS,
     Histogram,
     TelemetryRegistry,
     TelemetryServer,
@@ -35,13 +39,16 @@ from tpu_resnet_torch.obs.server import (
     read_telemetry_port,
     scrape,
 )
-from tpu_resnet_torch.obs.spans import SpanTracer
+from tpu_resnet_torch.obs.spans import SpanTracer, TailSampler
 
 __all__ = [
+    "SERVE_GAUGES",
+    "SERVE_HISTOGRAMS",
     "Histogram",
     "StepBreakdown",
     "SpanTracer",
     "TelemetryRegistry",
+    "TailSampler",
     "TelemetryServer",
     "build_manifest",
     "ensure_run_id",

@@ -1,5 +1,6 @@
 """Telemetry over HTTP: ``/metrics`` (Prometheus text) and ``/healthz``
-(port of ``tpu_resnet/obs/server.py`` for the training process).
+(port of ``tpu_resnet/obs/server.py`` for the training process and the
+predict server).
 
 ``GET /healthz``   JSON liveness: last heartbeat step, heartbeat age in
                    seconds, ``ok`` (age under the staleness threshold and
@@ -10,10 +11,13 @@
                    ``train_step_ms`` histogram (``CORE_HISTOGRAMS``), with
                    the reference's series names, so one scraper reads both.
 
+The predict server (``serve/server.py``) serves the same registry on its
+own port with the reference's serving sets, ``SERVE_GAUGES`` and
+``SERVE_HISTOGRAMS``, and a staleness of ``serve.healthz_stale_sec``.
+
 Standard library only: ``http.server`` on a daemon thread. The bound port
 is written to ``<train_dir>/telemetry.json`` (port 0 binds an ephemeral
-port) so that scrapers can find it. The serving gauge sets wait for the
-port's serving slice.
+port) so that scrapers can find it.
 """
 
 from __future__ import annotations
@@ -96,6 +100,57 @@ LATENCY_BUCKETS_MS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0,
 CORE_HISTOGRAMS = (
     ("train_step_ms", "Per-step wall time, observed once per step at "
                       "each log boundary", LATENCY_BUCKETS_MS),
+)
+
+# The predict server's gauges, the reference's names and help texts.
+SERVE_GAUGES = (
+    ("serve_requests_total", "Predict requests admitted"),
+    ("serve_requests_rejected", "Requests rejected by admission control "
+                                "(bounded queue full -> HTTP 429)"),
+    ("serve_requests_failed", "Requests that failed during inference"),
+    ("serve_images_total", "Images admitted across all requests"),
+    ("serve_batches_total", "Coalesced batches dispatched to the model"),
+    ("serve_queue_depth", "Requests currently queued for batching"),
+    ("serve_batch_size_last", "Images in the most recent batch"),
+    ("serve_batch_size_mean", "Mean images per batch since start"),
+    ("serve_pad_fraction", "Padded fraction of all bucket slots "
+                           "dispatched (compile-avoidance cost)"),
+    ("serve_latency_p50_ms", "p50 request latency over the recent ring"),
+    ("serve_latency_p95_ms", "p95 request latency over the recent ring"),
+    ("serve_latency_p99_ms", "p99 request latency over the recent ring"),
+    ("serve_model_step", "Checkpoint step being served (-1 = frozen "
+                         "export bundle)"),
+    ("serve_reloads_total", "Checkpoint hot-reloads completed"),
+    ("serve_time_to_ready_seconds", "Backend build + restore + bucket "
+                                    "warmup wall time until /healthz ok"),
+    ("serve_buckets_warm", "Bucket programs warmed so far (== bucket "
+                           "count once ready; partial during warmup)"),
+    ("serve_weight_bytes", "Weight-argument bytes per bucket program "
+                           "(int8 quantized arms ~0.25x of f32)"),
+    ("compile_cache_hits", "Bucket programs loaded from the persistent "
+                           "AOT executable cache instead of compiling"),
+    ("compile_cache_misses", "Bucket programs XLA-compiled because the "
+                             "cache had no trustworthy entry"),
+)
+
+# The 0..1 scale of the pad fraction, and seconds for once-per-process
+# durations (time-to-ready).
+FRACTION_BUCKETS = (0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.75, 1.0)
+READY_BUCKETS_S = (0.25, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 60.0, 120.0,
+                   300.0)
+
+SERVE_HISTOGRAMS = (
+    ("serve_latency_ms", "End-to-end predict latency (enqueue to "
+                         "result)", LATENCY_BUCKETS_MS),
+    ("serve_queue_wait_ms", "Time a request waited in the queue before "
+                            "its batch was formed", LATENCY_BUCKETS_MS),
+    ("serve_pad_fraction", "Padded fraction of each dispatched bucket "
+                           "(compile-avoidance cost per batch)",
+     FRACTION_BUCKETS),
+    ("serve_time_to_ready_s", "Time-to-ready per process start (backend "
+                              "build + restore + bucket warmup) — the "
+                              "series the cold-vs-warm restart gate "
+                              "reads", READY_BUCKETS_S),
 )
 
 

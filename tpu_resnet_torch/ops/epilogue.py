@@ -41,7 +41,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from tpu_resnet_torch.ops import _build, autotune
+from tpu_resnet_torch.ops import _build, _library, autotune
 
 # Autotune op ids: the keys the decisions persist under (the reference's).
 OP_SBR = "epilogue_sbr"
@@ -167,7 +167,16 @@ def _check_cuda(what: str, **tensors: torch.Tensor) -> None:
 
 def _sbr_kernel(x: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
-    """The forward: CPU → plain version, CUDA → ``tr_sbr``, else raise."""
+    """The forward: CPU → plain version, CUDA → ``tr_sbr``, else raise;
+    while tracing, the ``tpu_resnet_torch::sbr`` op, whose body is that
+    launch (``ops/_library.py``)."""
+    if torch.compiler.is_compiling():
+        return _library.sbr(x, scale, bias)
+    return _sbr_launch(x, scale, bias)
+
+
+def _sbr_launch(x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
     global launches
     c = _check(x, scale, bias)
     if x.device.type == "cpu":

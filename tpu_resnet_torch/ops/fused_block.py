@@ -69,7 +69,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpu_resnet_torch.ops import _build, wgrad
+from tpu_resnet_torch.ops import _build, _library, wgrad
 from tpu_resnet_torch.ops.wgrad import shifted_reference as _shifted
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 
@@ -195,7 +195,15 @@ def block_fwd(x, w1, w2, s1, b1, s2, b2, *, c1=None) -> torch.Tensor:
     (folded BN). Returns x + conv2(relu(sb2(conv1(relu(sb1(x)))))) in x's
     dtype. ``c1``: conv1's output of this x, w1, s1, b1, float32
     [B,H,W,C] contiguous (:func:`block_stats`'s, the training forward's
-    handoff); then only conv2 runs, one launch on the card."""
+    handoff); then only conv2 runs, one launch on the card. While
+    tracing, the ``tpu_resnet_torch::block_fwd`` op, whose body is this
+    launch (``ops/_library.py``)."""
+    if torch.compiler.is_compiling():
+        return _library.block_fwd(x, w1, w2, s1, b1, s2, b2, c1=c1)
+    return _block_fwd_launch(x, w1, w2, s1, b1, s2, b2, c1=c1)
+
+
+def _block_fwd_launch(x, w1, w2, s1, b1, s2, b2, *, c1=None) -> torch.Tensor:
     global launches
     _check_x(x, "block_fwd")
     _check_f32("block_fwd", x, w1=w1, w2=w2, s1=s1, b1=b1, s2=s2, b2=b2)

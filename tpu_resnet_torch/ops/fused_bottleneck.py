@@ -63,7 +63,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_resnet_torch.ops import _build, wgrad
+from tpu_resnet_torch.ops import _build, _library, wgrad
 from tpu_resnet_torch.ops.epilogue import scale_bias_relu_math
 from tpu_resnet_torch.ops.fused_block import (_check_handoff, _conv3x3,
                                               _conv3x3_t, _finish_moments,
@@ -130,7 +130,16 @@ def bottleneck_fwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3) -> torch.Tensor:
     ``csrc/fused_bottleneck_tc.cu``: p2 = relu(s2·(relu(s1·x + b1)·W1) + b2)
     into a [B,H,W,f] float32 scratch, then the 3x3 over p2 (zero outside
     the image, no halo), p3 and x + p3·W3, on the tensor cores. Returns the
-    block output in x's dtype."""
+    block output in x's dtype. While tracing, the
+    ``tpu_resnet_torch::bottleneck_fwd`` op, whose body is this launch
+    (``ops/_library.py``)."""
+    if torch.compiler.is_compiling():
+        return _library.bottleneck_fwd(x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    return _bottleneck_fwd_launch(x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+
+
+def _bottleneck_fwd_launch(x, w1, w2, w3, s1, b1, s2, b2, s3,
+                           b3) -> torch.Tensor:
     global launches
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
     _check(*args)

@@ -1,5 +1,5 @@
-"""The run's topology record and its resolution on (re)start (the part of
-``tpu_resnet/resilience/elastic.py`` the loop calls).
+"""The run's topology record and its resolution on (re)start, and serve
+colocation admission (port of ``tpu_resnet/resilience/elastic.py``).
 
 Every run records the layout it trains on in ``<train_dir>/topology.json``
 (:func:`write_topology`, the primary rank, at the run's first save) with
@@ -164,3 +164,64 @@ def resolve(cfg, n_devices: int, train_dir: Optional[str] = None,
             "; GLOBAL BATCH CHANGED: the deterministic (seed, step) batch "
             "stream does NOT continue bit-compatibly")
     return resume
+
+
+# ------------------------------------------------------ colocation admission
+HBM_BYTES_ENV = "TPU_RESNET_HBM_BYTES"
+
+
+def _env_limit_bytes() -> Optional[int]:
+    env = os.environ.get(HBM_BYTES_ENV)
+    if not env:
+        return None
+    try:
+        return int(float(env))
+    except ValueError:
+        log.warning("ignoring non-numeric %s=%r", HBM_BYTES_ENV, env)
+        return None
+
+
+def colocation_admission(required_bytes: int, device=None,
+                         reserve_frac: float = 0.05) -> dict:
+    """May a new workload (a serve replica) join this card? The
+    reference's verdict: ``{"admit", "reason", "required_bytes",
+    "headroom_bytes", "in_use_bytes", "limit_bytes"}``, with its reasons.
+
+    On CUDA the card's own counts: the incumbent is another process (a
+    trainer), which this process's allocator does not see, so in use is
+    ``total - free`` of ``torch.cuda.mem_get_info`` and the limit the
+    total. Elsewhere (the CPU) the limit is ``TPU_RESNET_HBM_BYTES`` and in
+    use 0; with no limit at all the workload is admitted with a "not
+    arbitrated" reason. ``reserve_frac`` of the limit is held back for the
+    allocator's slack and the incumbent's transient peaks."""
+    import torch
+
+    in_use, limit = 0, None
+    if device is not None and torch.device(device).type == "cuda":
+        free, total = torch.cuda.mem_get_info(torch.device(device))
+        in_use, limit = int(total - free), int(total)
+    else:
+        limit = _env_limit_bytes()
+    verdict = {"required_bytes": int(required_bytes),
+               "in_use_bytes": in_use,
+               "limit_bytes": int(limit) if limit else None,
+               "headroom_bytes": None}
+    if not limit:
+        verdict.update(admit=True,
+                       reason="no device memory limit known — admission "
+                              "not arbitrated (set TPU_RESNET_HBM_BYTES "
+                              "to arbitrate on this backend)")
+        return verdict
+    headroom = int(limit * (1.0 - reserve_frac)) - in_use
+    verdict["headroom_bytes"] = headroom
+    if required_bytes <= headroom:
+        verdict.update(admit=True,
+                       reason=f"fits: {int(required_bytes):,} B required "
+                              f"<= {headroom:,} B headroom")
+    else:
+        verdict.update(admit=False,
+                       reason=f"denied: {int(required_bytes):,} B required "
+                              f"> {headroom:,} B headroom "
+                              f"({in_use:,} B in use of {int(limit):,} B, "
+                              f"{reserve_frac:.0%} reserved)")
+    return verdict

@@ -1,11 +1,15 @@
-"""Deterministic fault injection for training drills (port of the training
-faults of ``tpu_resnet/resilience/faultinject.py``).
+"""Deterministic fault injection for drills (port of
+``tpu_resnet/resilience/faultinject.py``).
 
 Each planned fault fires once, at an exact step, so that a drill proves a
 recovery path end to end: a NaN batch → the sentinel's rollback; a data
 stall → the watchdog fires and the stream recovers; SIGTERM → a final
 save, ``Preempted`` and an exact resume; a corrupt newest checkpoint → the
 restore falls back; a synthetic ``RESOURCE_EXHAUSTED`` → the OOM report.
+The serve faults point the same idea at the predict server, counted in
+predict requests: slow inference (``serve_slow_ms`` a batch), accept then
+hang at request K, SIGKILL at request K, and a dropped connection at
+request K.
 Everything is off by default: an empty plan wraps nothing and costs
 nothing. Sources, in order of precedence: the ``TPU_RESNET_FAULT_*``
 environment variables, then the ``resilience.inject_*`` config fields.
@@ -48,19 +52,31 @@ class FaultPlan:
     oom_at_step: int = -1        # synthetic RESOURCE_EXHAUSTED at boundary
     preempt_burst: int = 0       # K SIGTERMs total across supervised runs
     preempt_burst_every: int = 10  # each fires this many steps after start
+    # The serve faults (serve/server.py).
+    serve_slow_ms: float = 0.0       # extra latency per inference batch
+    serve_hang_at_request: int = -1  # accept, then hang at request K
+    serve_kill_at_request: int = -1  # SIGKILL self at request K
+    serve_drop_at_request: int = -1  # close the connection at request K
 
     @property
     def active(self) -> bool:
         return (self.nan_at_step >= 0 or self.sigterm_at_step >= 0
                 or (self.stall_at_step >= 0 and self.stall_seconds > 0)
                 or self.corrupt_ckpt_at_start or self.oom_at_step >= 0
-                or self.preempt_burst > 0)
+                or self.preempt_burst > 0 or self.serves_faults)
+
+    @property
+    def serves_faults(self) -> bool:
+        return (self.serve_slow_ms > 0 or self.serve_hang_at_request >= 0
+                or self.serve_kill_at_request >= 0
+                or self.serve_drop_at_request >= 0)
 
     @classmethod
     def from_config(cls, resilience_cfg, env=None) -> "FaultPlan":
         """Config fields overridden by ``TPU_RESNET_FAULT_*``: NAN_STEP,
         STALL_STEP, STALL_SEC, SIGTERM_STEP, CORRUPT_CKPT, OOM_STEP,
-        PREEMPT_BURST, PREEMPT_BURST_EVERY."""
+        PREEMPT_BURST, PREEMPT_BURST_EVERY, SERVE_SLOW_MS, SERVE_HANG_REQ,
+        SERVE_KILL_REQ, SERVE_DROP_REQ."""
         env = os.environ if env is None else env
         r = resilience_cfg
 
@@ -82,6 +98,17 @@ class FaultPlan:
                                r.inject_preempt_burst, int),
             preempt_burst_every=pick("PREEMPT_BURST_EVERY",
                                      r.inject_preempt_burst_every, int),
+            serve_slow_ms=pick("SERVE_SLOW_MS",
+                               r.inject_serve_slow_ms, float),
+            serve_hang_at_request=pick("SERVE_HANG_REQ",
+                                       r.inject_serve_hang_at_request,
+                                       int),
+            serve_kill_at_request=pick("SERVE_KILL_REQ",
+                                       r.inject_serve_kill_at_request,
+                                       int),
+            serve_drop_at_request=pick("SERVE_DROP_REQ",
+                                       r.inject_serve_drop_at_request,
+                                       int),
         )
 
 
@@ -110,6 +137,9 @@ class FaultInjector:
         self._oom_fired = False
         self._burst_start_step = None  # first boundary this process saw
         self._burst_spent = False      # fired >= K (no more re-reads)
+        self._serve_requests = 0       # predict requests admitted so far
+        self._serve_hung = False
+        self._serve_dropped = False
         if plan.active:
             log.warning("FAULT INJECTION ACTIVE: %s", plan)
 
@@ -202,6 +232,60 @@ class FaultInjector:
         log.warning("injecting preemption burst SIGTERM %d/%d at step %d",
                     fired + 1, self.plan.preempt_burst, step)
         os.kill(os.getpid(), signal.SIGTERM)
+
+    # ---------------------------------------------------- serve faults
+    def wrap_serve_infer(self, infer_fn):
+        """The predict server's inference callable with the planned slow
+        and hang faults (the batcher thread is the one that sleeps or
+        hangs, so requests keep being accepted); ``infer_fn`` itself when
+        no serve fault is planned."""
+        if not self.plan.serves_faults:
+            return infer_fn
+
+        def wrapped(images):
+            if (self.plan.serve_hang_at_request >= 0
+                    and self._serve_requests
+                    >= self.plan.serve_hang_at_request):
+                if not self._serve_hung:
+                    self._serve_hung = True
+                    log.warning("injecting serve hang at request %d "
+                                "(batcher thread sleeps; requests keep "
+                                "being accepted and time out)",
+                                self._serve_requests)
+                while True:          # hung for good: the drill is about
+                    time.sleep(60)   # eviction, not recovery
+            if self.plan.serve_slow_ms > 0:
+                time.sleep(self.plan.serve_slow_ms / 1e3)
+            return infer_fn(images)
+
+        return wrapped
+
+    def note_serve_request(self) -> None:
+        """Count one admitted predict request; SIGKILL this process (no
+        drain, no exit handler) at the planned request K."""
+        self._serve_requests += 1
+        if (self.plan.serve_kill_at_request >= 0
+                and self._serve_requests
+                >= self.plan.serve_kill_at_request):
+            import signal
+
+            log.warning("injecting serve SIGKILL at request %d",
+                        self._serve_requests)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def should_drop_connection(self) -> bool:
+        """True once, for the first incoming predict request >= the planned
+        request K: the handler then closes the socket with no response
+        (before the request is admitted, so it is not counted)."""
+        if (self.plan.serve_drop_at_request < 0 or self._serve_dropped
+                or self._serve_requests + 1
+                < self.plan.serve_drop_at_request):
+            return False
+        self._serve_dropped = True
+        log.warning("injecting serve connection drop at request %d "
+                    "(no HTTP response; the client sees an abrupt "
+                    "disconnect)", self._serve_requests + 1)
+        return True
 
     def maybe_oom(self, step: int) -> None:
         """Raise a synthetic out-of-memory error, carrying the
