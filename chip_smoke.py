@@ -127,6 +127,40 @@ Phases, each printing one JSON line:
    served from the artifact within ``LOGIT_TOL`` of the live int8 arm,
    its launches exact; the argmax agreement with the float32 twin is
    printed, not gated (random weights leave near-ties).
+   Then two ``fleet`` lines: the serving fleet on the card. A seeded
+   ImageNet ResNet-50 checkpoint (fused blocks and epilogue) in a train
+   dir with a run id; ``python -m tpu_resnet_torch route`` (probe every
+   ``FLEET_PROBE_S``, one failure opens a circuit) and ``fleetmon``
+   (scrape every 0.5 s) started on it as processes of their own. (a) Two
+   ``PredictServer``s in this process, r0 and r1, each with its discovery
+   record; once the router holds both healthy, the counters zeroed and
+   ``FLEET_REQUESTS`` seeded requests of 1 or 16 images at 224² sent
+   through the router from ``FLEET_THREADS`` threads, the counters read:
+   every answer 200, both replicas answering, ``PER_PASS["imagenet"]``
+   launches times the forwards the replicas' ``/metrics`` report, the
+   logits (``?logits=1``, forwarded by the router) within ``LOGIT_TOL``
+   of the served model through the plain versions and the argmax on
+   every clear-margin image; fleetmon's merged count equal to the
+   replicas' own once a round has seen them, its merged p50/p99 beside
+   each replica's own p99; the router and fleetmon map neither
+   ``libcuda`` nor torch (``/proc/<pid>/maps``), and ``nvidia-smi
+   --query-compute-apps`` does not list them where it lists this
+   process. Its launches join the ``kernels`` line. (b) Two ``serve``
+   processes on the card with the same checkpoint, r0 and r1, re-resolved
+   by the router: they map ``libcuda`` (and ``nvidia-smi`` lists them
+   where it lists this process); ``FLEET_EXACT`` sequential requests of
+   16 images (one bucket) through the router bit for bit the in-process
+   ``CheckpointBackend``'s kernel forward of the same batch; sequential
+   HTTP latency at N=1 and N=16 straight to r0 and through the router
+   (p50, p99); fleetmon's merged p99 beside each replica's own; then the
+   port's loadgen, ``FLEET_LOAD`` closed-loop clients, ``replica_kill``
+   (r0 SIGKILLed at half time): every request 200, r0 out of rotation
+   within ``FLEET_EXCLUDE_S`` of its port refusing, the router's retries
+   and the slowest request around the kill printed; ``route --drain r1``
+   exits 0 and so does r1; SIGTERM: router and fleetmon exit 0;
+   ``trace-export`` of the dir holds ``route_request``, ``route_drain``,
+   ``replica_down``, ``serve_ready``, ``serve_drain`` and ``fleet_start``
+   with the router's and the replicas' run ids the minted one.
 5. ``train``: CIFAR-10 ResNet-50 at full width, B=128 (``--preset cifar10
    model.fused_epilogue=on optim.use_pallas_xent=on data.dataset=synthetic
    data.synthetic_learnable=true``): (a) one float32 train step from one
@@ -248,7 +282,7 @@ Phases, each printing one JSON line:
    ResNet-50 unfused and fused, ImageNet ResNet-50 at 224x224 fed seeded
    batches on the card in the decode engine's place; B=128, bf16),
    ``train()`` three times from the same seeded state over the same steps
-   (``CHUNK_PATHS``: 200 steps, log and checkpoint every 100; ImageNet 30,
+   (``CHUNK_PATHS``: 100 steps, log and checkpoint every 50; ImageNet 30,
    a log every 10): ``train.steps_per_call=1`` twice (eager; the second is
    the control) and ``=10`` (CUDA graph replays). The graphed run's end
    state (parameters, BN statistics, momentum buffers) and logged metrics
@@ -358,7 +392,8 @@ run the kernel, in bfloat16; for ``sbr_add`` over one call at each probe
 shape, for ``block_bwd`` and ``bottleneck_bwd`` over one call at each A/B
 shape, and per path also over one backward of the grad phase;
 ``launches`` is the count over the phases that drive the main paths:
-both serve phases and both serve arms, the train and eval runs of both
+both serve phases, both serve arms and the fleet's in-process replicas
+(part (a)), the train and eval runs of both
 CIFAR train phases, the
 ImageNet train steps, the JPEG-fed ImageNet train, resume and eval runs,
 the observability phase's ImageNet run with observability on,
@@ -380,6 +415,7 @@ import json
 import logging
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2510,14 +2546,14 @@ def _peak_profile(state, step_fn, batch, cuda) -> dict:
 # STREAM_STAGE with the double buffer on and off, against a stage of 1.
 CHUNK_PER_CALL = 10
 CHUNK_PATHS = {
-    "cifar10_train": ("cifar10", [*TRAIN_OVERRIDES], 200),
+    "cifar10_train": ("cifar10", [*TRAIN_OVERRIDES], 100),
     "cifar10_fused_train": ("cifar10", [*TRAIN_OVERRIDES,
-                                        "model.fused_blocks=true"], 200),
+                                        "model.fused_blocks=true"], 100),
     "imagenet_fused_train": ("imagenet", [*IMAGENET_OVERRIDES], 30),
 }
-CHUNK_LOG_EVERY = {"cifar10_train": 100, "cifar10_fused_train": 100,
+CHUNK_LOG_EVERY = {"cifar10_train": 50, "cifar10_fused_train": 50,
                    "imagenet_fused_train": 10}
-CHUNK_CHECKPOINT_EVERY = {"cifar10_train": 100, "cifar10_fused_train": 100,
+CHUNK_CHECKPOINT_EVERY = {"cifar10_train": 50, "cifar10_fused_train": 50,
                           "imagenet_fused_train": 100}
 CHUNK_PROFILE_STEPS = 10
 STREAM_STEPS, STREAM_LOG_EVERY, STREAM_STAGE = 100, 10, 8
@@ -4712,6 +4748,450 @@ def data_parallel_phase(counters, gpu: str, fused_graphed: dict) -> None:
               flush=True)
 
 
+# The fleet phase: the serving fleet on the card. ImageNet ResNet-50 fused
+# (10 bottleneck_fwd + 19 sbr a forward), a seeded checkpoint, two
+# replicas behind ``python -m tpu_resnet_torch route`` with ``fleetmon``
+# scraping them, both host processes of their own. (a) The replicas are
+# PredictServers in this process, so that the launch counters see their
+# forwards; (b) they are ``serve`` processes.
+FLEET_OVERRIDES = ["model.fused_blocks=true", "model.fused_epilogue=on",
+                   "serve.host=127.0.0.1", "serve.port=0"]
+FLEET_REQUESTS, FLEET_THREADS, FLEET_SIZES = 64, 8, (1, 16)
+FLEET_PROBE_S = 0.3          # the router's probe interval
+FLEET_EXCLUDE_S = 1.5        # (b): r0 out of rotation this soon after death
+FLEET_EXACT = 4              # (b): requests of one bucket (16), bit for bit
+FLEET_LAT = {1: 30, 16: 16}  # (b): sequential latency requests per N
+FLEET_LOAD = ["--clients", "8", "--duration", "8", "--deadline-ms", "30000"]
+FLEET_START_S = 300          # a process's readiness limit
+
+
+def fleet_spawn(d: str, name: str, args: list):
+    """A ``python -m tpu_resnet_torch`` child with its output in
+    ``<d>/<name>.log``."""
+    from tpu_resnet_torch.hostenv import REPO_ROOT, child_env
+    log = open(os.path.join(d, f"{name}.log"), "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpu_resnet_torch", *args], env=child_env(),
+        cwd=REPO_ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+
+def fleet_tail(d: str, name: str) -> list:
+    try:
+        with open(os.path.join(d, f"{name}.log")) as f:
+            return f.read().strip().splitlines()[-8:]
+    except OSError:
+        return []
+
+
+def get_json(url: str, timeout: float = 5.0) -> tuple:
+    """(HTTP status, JSON body) of a GET; (None, {}) when it cannot
+    connect."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+    except OSError:
+        return None, {}
+
+
+def route_post(port: int, images) -> tuple:
+    """POST /predict?logits=1 of uint8 images [N,H,W,3]; (status, body,
+    headers, seconds), HTTP errors returned, not raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/predict?logits=1", data=images.tobytes(),
+        headers={"Content-Type": "application/octet-stream",
+                 "X-Shape": ",".join(map(str, images.shape))})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            status, body, headers = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        status, body, headers = e.code, e.read(), e.headers
+    return status, json.loads(body), dict(headers), time.perf_counter() - t0
+
+
+def scrape_text(port: int) -> tuple:
+    """(gauges, histograms) of an endpoint's /metrics."""
+    from tpu_resnet_torch import obs
+    text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=10).read().decode()
+    return obs.parse_prometheus(text), obs.parse_histograms(text)
+
+
+def wait_until(cond, seconds: float, what: str, procs=()) -> None:
+    """Poll ``cond`` every 0.2 s; fail after ``seconds`` or when one of
+    ``procs`` (name, Popen, dir) has exited."""
+    deadline = time.monotonic() + seconds
+    while not cond():
+        for name, proc, d in procs:
+            check(proc.poll() is None, f"{what}: {name} exited "
+                  f"{proc.returncode}: {fleet_tail(d, name)}")
+        check(time.monotonic() < deadline, f"{what}: not within {seconds} s")
+        time.sleep(0.2)
+
+
+def maps_of(pid: int) -> dict:
+    """Whether the process maps the CUDA driver and torch's libraries."""
+    with open(f"/proc/{pid}/maps") as f:
+        text = f.read()
+    return {"libcuda": "libcuda.so" in text, "libtorch": "libtorch" in text}
+
+
+def compute_apps() -> dict:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: {pid: MiB}."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = mem.strip()
+    return apps
+
+
+def host_only(procs: dict, replicas: dict) -> dict:
+    """The router and fleetmon hold no CUDA context and load no torch; the
+    replicas map the driver. ``nvidia-smi`` lists the replicas' pids and
+    not the host processes' where its pids are this namespace's (it lists
+    this process, which holds a context)."""
+    maps = {name: maps_of(p.pid) for name, p in {**procs, **replicas}.items()}
+    for name in procs:
+        check(not any(maps[name].values()),
+              f"{name} maps {maps[name]}: a host process touched CUDA/torch")
+    for name in replicas:
+        check(maps[name]["libcuda"], f"replica {name} does not map libcuda")
+    apps = compute_apps()
+    visible = os.getpid() in apps
+    if visible:
+        check(not any(p.pid in apps for p in procs.values()),
+              f"nvidia-smi lists a host process: {apps}")
+        check(all(p.pid in apps for p in replicas.values()),
+              f"nvidia-smi misses a replica: {apps}")
+    return {"maps": maps, "compute_apps_mib": {str(k): v
+                                               for k, v in apps.items()},
+            "pids": {n: p.pid for n, p in {**procs, **replicas}.items()},
+            "pids_visible_to_nvidia_smi": visible}
+
+
+def fleet_view(fleet_port: int, replica_ports: dict, watched) -> dict:
+    """fleetmon's merged fleet percentiles, once a scrape round has seen
+    every request the replicas' own ``serve_latency_ms`` histograms
+    count, beside each replica's own p99."""
+    from tpu_resnet_torch.obs.server import histogram_quantile
+    ns = "tpu_resnet_"
+    own = {n: scrape_text(p)[1][ns + "serve_latency_ms"]
+           for n, p in replica_ports.items()}
+    total = sum(h["count"] for h in own.values())
+    fm = {}
+
+    def merged() -> bool:
+        fm.update(scrape_text(fleet_port)[0])
+        return fm.get(ns + "fleet_requests_total") == total
+
+    wait_until(merged, 10, "fleetmon's merged count", watched)
+    return {"fleet_requests_total": total,
+            "fleet_p50_ms": fm[ns + "fleet_serve_p50_ms"],
+            "fleet_p99_ms": fm[ns + "fleet_serve_p99_ms"],
+            "replica_p99_ms": {n: histogram_quantile(h, 0.99)
+                               for n, h in own.items()},
+            "replica_requests": {n: h["count"] for n, h in own.items()}}
+
+
+def lat_ms(samples: list) -> dict:
+    s = sorted(samples)
+    return {"n": len(s), "p50_ms": 1e3 * statistics.median(s),
+            "p99_ms": 1e3 * s[min(len(s) - 1, int(0.99 * len(s)))]}
+
+
+def fleet_phase(counters, gpu: str) -> dict:
+    """The serving fleet (``serve/router.py``, ``obs/fleet.py``,
+    ``tools/loadgen.py``) in front of ImageNet ResNet-50 replicas on the
+    card; the router and fleetmon are processes of their own, started
+    first. Returns (a)'s result, whose launches join the kernels line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.hostenv import run_subprocess
+    from tpu_resnet_torch.models import build_model, init_weights
+    from tpu_resnet_torch.obs.fleet import read_fleet_port
+    from tpu_resnet_torch.obs.manifest import ensure_run_id
+    from tpu_resnet_torch.obs.trace import export_trace
+    from tpu_resnet_torch.serve.backend import CheckpointBackend
+    from tpu_resnet_torch.serve.infer import make_serve_infer
+    from tpu_resnet_torch.serve.router import discover_replicas, \
+        read_route_port
+    from tpu_resnet_torch.serve.server import PredictServer, write_discovery
+    from tpu_resnet_torch.train import checkpoint
+
+    ns, cuda = "tpu_resnet_", torch.device("cuda")
+    size = SERVE_PATHS["imagenet"]["size"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    cfg = load_config("imagenet", "", [*FLEET_OVERRIDES,
+                                       f"train.train_dir={d}"])
+    run_id = ensure_run_id(d)
+    checkpoint.save(d, 1, init_weights(build_model(cfg),
+                                       torch.Generator().manual_seed(0)))
+    host = {"router": fleet_spawn(d, "router", [
+                "route", f"route.discover_dir={d}", "route.host=127.0.0.1",
+                "route.port=0", f"route.probe_interval_secs={FLEET_PROBE_S}",
+                "route.probe_timeout_secs=2", "route.fail_threshold=1",
+                "route.open_secs=2"]),
+            "fleetmon": fleet_spawn(d, "fleetmon", [
+                "fleetmon", f"fleet.discover_dir={d}", "fleet.host=127.0.0.1",
+                "fleet.port=0", "fleet.scrape_interval_secs=0.5"])}
+    watched = [(n, p, d) for n, p in host.items()]
+    servers, replicas = [], {}
+    try:
+        # ------------------------------------------- (a) in-process replicas
+        for name in ("r0", "r1"):
+            rcfg = load_config("imagenet", "", [
+                *FLEET_OVERRIDES, f"train.train_dir={d}",
+                f"serve.replica_name={name}"])
+            servers.append(PredictServer(rcfg, device="cuda").start())
+            write_discovery(d, servers[-1].port, run_id=run_id, name=name)
+        ports = {}
+
+        def ready(n: int) -> bool:
+            ports["route"] = ports.get("route") or read_route_port(d)
+            ports["fleet"] = ports.get("fleet") or read_fleet_port(d)
+            if not (ports["route"] and ports["fleet"]):
+                return False
+            _, info = get_json(f"http://127.0.0.1:{ports['route']}/info")
+            up = [r for r in info.get("replicas", [])
+                  if r["state"] == "closed" and not r["draining"]]
+            return (len(up) == n and info.get("image_shape") is not None
+                    and get_json(f"http://127.0.0.1:{ports['fleet']}"
+                                 "/healthz")[0] == 200)
+
+        wait_until(lambda: ready(2), FLEET_START_S, "(a) fleet readiness",
+                   watched)
+        rport = ports["route"]
+        rng = np.random.default_rng(0)
+        batches = [rng.integers(0, 256, (FLEET_SIZES[i % 2], size, size, 3),
+                                dtype=np.uint8)
+                   for i in range(FLEET_REQUESTS)]
+
+        def served_batches() -> float:
+            return sum(scrape_text(s.port)[0][ns + "serve_batches_total"]
+                       for s in servers)
+
+        before = served_batches()
+        zero_counts(counters)
+        with ThreadPoolExecutor(FLEET_THREADS) as pool:
+            answers = list(pool.map(lambda im: route_post(rport, im),
+                                    batches))
+        launches = read_counts(counters)
+        forwards = served_batches() - before
+        bad = [(i, a[0], a[1]) for i, a in enumerate(answers) if a[0] != 200]
+        check(not bad, f"(a) answers other than 200: {bad[:4]}")
+        by_replica = {}
+        for a in answers:
+            by_replica[a[2].get("X-Replica")] = \
+                by_replica.get(a[2].get("X-Replica"), 0) + 1
+        check(set(by_replica) == {"r0", "r1"},
+              f"(a) replicas answering: {by_replica}")
+        want = {k: n * int(forwards) for k, n in PER_PASS["imagenet"].items()}
+        check(forwards > 0 and launches == want,
+              f"(a) launches {launches} over {forwards} forwards the "
+              f"replicas' /metrics report, expected {want}")
+        # Oracle: the served model through the plain versions.
+        infer = make_serve_infer(cfg, cuda)
+        with plain_versions():
+            want_logits = [infer(servers[0].backend._model, im).float()
+                           .cpu().numpy() for im in batches]
+        got = np.concatenate([np.asarray(a[1]["logits"]) for a in answers])
+        ref = np.concatenate(want_logits)
+        check(got.shape == ref.shape and np.isfinite(got).all(),
+              f"(a) logits {got.shape}, finite={np.isfinite(got).all()}")
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        check(err <= LOGIT_TOL * scale, f"(a) routed logits differ from the "
+              f"plain versions' by {err} (scale {scale})")
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * err
+        check(bool(clear.any()) and bool(
+            (got.argmax(-1) == ref.argmax(-1))[clear].all()),
+            "(a) argmax differs on an image with a clear margin")
+        view = fleet_view(ports["fleet"], {s.cfg.serve.replica_name: s.port
+                                           for s in servers}, watched)
+        check(view["fleet_requests_total"] == FLEET_REQUESTS,
+              f"(a) the replicas' latency counts {view}")
+        part_a = {
+            "path": "imagenet_fleet", "requests": FLEET_REQUESTS,
+            "images": int(sum(b.shape[0] for b in batches)),
+            "threads": FLEET_THREADS, "answered_by": by_replica,
+            "forwards": forwards, "launches": launches,
+            "per_forward": {k: v / forwards for k, v in launches.items()},
+            "logits_max_abs_err": err, "logits_scale": scale,
+            "logit_tol_fraction": LOGIT_TOL,
+            "clear_margin_images": int(clear.sum()),
+            **view, "host_processes": host_only(host, {}), "gpu": gpu}
+        emit("fleet", part="a_in_process_replicas", **part_a)
+        for s in servers:
+            check(s.drain(timeout=60), "(a) a replica did not drain")
+            s.close()
+        servers = []
+        for name in ("r0", "r1"):
+            os.remove(os.path.join(d, f"serve-{name}.json"))
+
+        # ----------------------------------------- (b) replica processes
+        for name in ("r0", "r1"):
+            replicas[name] = fleet_spawn(d, name, [
+                "serve", "--preset", "imagenet", *FLEET_OVERRIDES,
+                f"train.train_dir={d}", f"serve.replica_name={name}"])
+        watched += [(n, p, d) for n, p in replicas.items()]
+        t0 = time.monotonic()
+        wait_until(lambda: len(discover_replicas(d)) == 2 and ready(2),
+                   FLEET_START_S, "(b) replica processes ready", watched)
+        start_s = time.monotonic() - t0
+        procs = host_only(host, replicas)
+        urls = {r["name"]: r for r in discover_replicas(d)}
+        check({n: urls[n]["pid"] for n in replicas}
+              == {n: p.pid for n, p in replicas.items()},
+              f"(b) discovery pids {urls}")
+        # One bucket's batch a request, sequential: the replica runs it
+        # as one forward at that bucket, as the in-process backend here.
+        exact_rng = np.random.default_rng(1)
+        local = CheckpointBackend(cfg, cuda)
+        exact = []
+        for _ in range(FLEET_EXACT):
+            im = exact_rng.integers(0, 256, (16, size, size, 3),
+                                    dtype=np.uint8)
+            status, out, _, _ = route_post(rport, im)
+            check(status == 200, f"(b) exact request: {status} {out}")
+            mine = local.infer(im)
+            lg = np.asarray(out["logits"], np.float32)
+            exact.append(bool(np.array_equal(lg, mine)))
+            check(exact[-1], f"(b) routed logits differ from the in-process "
+                  f"kernel forward by {float(np.abs(lg - mine).max())}")
+        local.close()
+        del local
+        lat = {}
+        r0_port = int(urls["r0"]["port"])
+        for n, reps in FLEET_LAT.items():
+            im = exact_rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+            for target, port in (("direct_r0", r0_port), ("router", rport)):
+                samples = []
+                for _ in range(reps):
+                    status, _, _, sec = route_post(port, im)
+                    check(status == 200, f"(b) latency request {status}")
+                    samples.append(sec)
+                lat[f"{target}_n{n}"] = lat_ms(samples)
+        view = fleet_view(ports["fleet"], {n: int(urls[n]["port"])
+                                           for n in replicas}, watched)
+        before_kill = scrape_text(rport)[0]
+        # replica_kill: loadgen SIGKILLs r0 (first record) at half time.
+        watch = {"dead_at": None, "excluded_at": None}
+        r0_url = urls["r0"]["url"]
+
+        def watcher():
+            """r0's death: its port refuses; its exclusion: the router's
+            route_replicas_healthy at 1."""
+            stop_at = time.monotonic() + 60
+            while time.monotonic() < stop_at and watch["excluded_at"] is None:
+                if watch["dead_at"] is None:
+                    try:
+                        urllib.request.urlopen(r0_url + "/healthz",
+                                               timeout=5).read()
+                    except urllib.error.URLError as e:
+                        if isinstance(e.reason, ConnectionRefusedError):
+                            watch["dead_at"] = time.monotonic()
+                    except (ConnectionError, OSError):
+                        pass
+                elif scrape_text(rport)[0].get(
+                        ns + "route_replicas_healthy") == 1.0:
+                    watch["excluded_at"] = time.monotonic()
+                time.sleep(0.05)
+
+        w = threading.Thread(target=watcher, daemon=True)
+        w.start()
+        out_json = os.path.join(d, "loadgen_replica_kill.json")
+        rc, out = run_subprocess(
+            [sys.executable, "-m", "tpu_resnet_torch.tools.loadgen",
+             "--url", f"http://127.0.0.1:{rport}", *FLEET_LOAD,
+             "--scenario", "replica_kill", "--fleet-dir", d,
+             "--out", out_json], timeout=120)
+        w.join(timeout=70)
+        check(rc == 0 and os.path.exists(out_json),
+              f"(b) loadgen exit {rc}: {out.strip().splitlines()[-5:]}")
+        with open(out_json) as f:
+            lg = json.load(f)
+        check(lg["failed"] + lg["timeouts"] + lg["connect_failures"] == 0
+              and lg["rejected_429"] == 0 and lg["requests_ok"] > 0,
+              f"(b) loadgen failures {lg}")
+        check((lg.get("chaos") or {}).get("killed", {}).get("replica")
+              == "r0", f"(b) the kill: {lg.get('chaos')}")
+        check(replicas["r0"].wait(timeout=30) == -9, "(b) r0 not SIGKILLed")
+        check(watch["dead_at"] is not None
+              and watch["excluded_at"] is not None,
+              f"(b) r0's exclusion was not seen: {watch}")
+        excluded_in = watch["excluded_at"] - watch["dead_at"]
+        check(excluded_in <= FLEET_EXCLUDE_S, f"(b) r0 out of rotation "
+              f"{excluded_in:.2f} s after its death")
+        after_kill = scrape_text(rport)[0]
+        # The rolling drain of the survivor through the router.
+        rc, out = run_subprocess(
+            [sys.executable, "-m", "tpu_resnet_torch", "route", "--drain",
+             "r1", f"route.discover_dir={d}"], timeout=120)
+        check(rc == 0, f"(b) route --drain r1 exit {rc}: "
+              f"{out.strip().splitlines()[-3:]}")
+        drain = json.loads(next(line for line in reversed(out.splitlines())
+                                if line.startswith("{")))
+        check(drain.get("ok") and drain.get("replica_gone"),
+              f"(b) the drain: {drain}")
+        check(replicas["r1"].wait(timeout=60) == 0, "(b) r1's drain exit "
+              f"{replicas['r1'].returncode}: {fleet_tail(d, 'r1')}")
+        rcs = {}
+        for name, proc in host.items():
+            proc.send_signal(signal.SIGTERM)
+        for name, proc in host.items():
+            rcs[name] = proc.wait(timeout=30)
+        check(rcs == {"router": 0, "fleetmon": 0},
+              f"(b) SIGTERM exits {rcs}")
+        _, trace = export_trace(d)
+        names = {e["name"] for e in trace["traceEvents"]}
+        need = {"route_request", "route_drain", "replica_down",
+                "serve_ready", "serve_drain", "fleet_start"}
+        check(need <= names, f"(b) trace lacks {sorted(need - names)}")
+        ids = trace["metadata"]["source_run_ids"]
+        check(ids.get("route") == ids.get("serve") == [run_id],
+              f"(b) run ids {ids}, minted {run_id}")
+        part_b = {
+            "path": "imagenet_fleet_processes", "replicas_ready_s": start_s,
+            "exact_requests": FLEET_EXACT, "exact_bit_equal": exact,
+            "latency": lat, "fleetmon_before_kill": view,
+            "processes": procs,
+            "loadgen": {k: lg[k] for k in (
+                "requests_ok", "failed", "timeouts", "connect_failures",
+                "rejected_429", "throughput_rps", "images_per_sec",
+                "latency_ms", "chaos", "router")},
+            "failover": {
+                "excluded_in_s": excluded_in,
+                "probe_interval_s": FLEET_PROBE_S,
+                "client_max_ms": lg["latency_ms"]["max"],
+                "retries": after_kill[ns + "route_retries_total"]
+                - before_kill[ns + "route_retries_total"],
+                "replica_errors": after_kill[
+                    ns + "route_replica_errors_total"]
+                - before_kill[ns + "route_replica_errors_total"]},
+            "drain": drain, "r1_rc": replicas["r1"].returncode,
+            "exit_codes": rcs,
+            "trace_run_ids": ids, "gpu": gpu}
+        emit("fleet", part="b_replica_processes", **part_b)
+    finally:
+        for s in servers:
+            s.close()
+        for proc in [*host.values(), *replicas.values()]:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(d, ignore_errors=True)
+    return part_a
+
+
 # Where a JPEG decoder for an ImageNet input pipeline could come from: the
 # CUDA toolkit's nvJPEG and the system's libjpeg, headers and libraries.
 JPEG_DIRS = {"cuda": ("/usr/local/cuda/include", "/usr/local/cuda/lib64",
@@ -4901,6 +5381,7 @@ def main() -> int:
                           keep=path in ("cifar10", "imagenet"))
               for path in SERVE_PATHS]
     served += serve_arms_phase(counters, gpu, served)
+    served.append(fleet_phase(counters, gpu))
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))

@@ -1504,3 +1504,90 @@ def test_int8_arm_kernels_match_the_plain_versions(cuda, monkeypatch):
     want = infer(served, images)
     assert float((got - want).abs().max()) <= 1e-3 * float(
         want.abs().max())
+
+
+def test_fleet_replicas_behind_the_router_launch_the_kernels(cuda, tmp_path):
+    """Two in-process replicas of fused ImageNet ResNet-50 on the card
+    behind the port's router, a process of its own (``route``): every
+    answer through the router is 200, both replicas answer, and the
+    ``bottleneck_fwd`` and ``sbr`` launches are 10 and 19 times the
+    forwards the replicas' ``/metrics`` report (``chip_smoke.py``'s fleet
+    phase, part (a))."""
+    import json
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    import numpy as np
+
+    from tpu_resnet_torch.hostenv import REPO_ROOT, child_env
+    from tpu_resnet_torch.obs.server import parse_prometheus
+    from tpu_resnet_torch.serve.router import read_route_port
+    from tpu_resnet_torch.serve.server import PredictServer, write_discovery
+    from tpu_resnet_torch.train import checkpoint
+
+    d = str(tmp_path)
+    over = ["model.fused_blocks=true", "model.fused_epilogue=on",
+            "serve.host=127.0.0.1", "serve.port=0", "serve.max_batch=4",
+            f"train.train_dir={d}"]
+    cfg = load_config("imagenet", "", over)
+    checkpoint.save(d, 1, init_weights(build_model(cfg),
+                                       torch.Generator().manual_seed(0)))
+    servers = []
+    router = subprocess.Popen(
+        [sys.executable, "-m", "tpu_resnet_torch", "route",
+         f"route.discover_dir={d}", "route.host=127.0.0.1", "route.port=0",
+         "route.probe_interval_secs=0.2"], env=child_env(), cwd=REPO_ROOT,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        for name in ("r0", "r1"):
+            servers.append(PredictServer(load_config(
+                "imagenet", "", over + [f"serve.replica_name={name}"]),
+                device="cuda").start())
+            write_discovery(d, servers[-1].port, name=name)
+
+        def get(port, path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=30) as r:
+                return r.read()
+
+        deadline = time.monotonic() + 60
+        while True:
+            port = read_route_port(d)
+            info = json.loads(get(port, "/info")) if port else {}
+            if sum(r["state"] == "closed"
+                   for r in info.get("replicas", [])) == 2:
+                break
+            assert time.monotonic() < deadline, info
+            time.sleep(0.2)
+
+        def batches():
+            return sum(parse_prometheus(get(s.port, "/metrics").decode())[
+                "tpu_resnet_serve_batches_total"] for s in servers)
+
+        rng = np.random.default_rng(0)
+        before, launches = batches(), (fbn.launches, ep.launches)
+        answered = set()
+        for i in range(12):
+            im = rng.integers(0, 256, (1 + 3 * (i % 2), 224, 224, 3),
+                              dtype=np.uint8)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=im.tobytes(),
+                headers={"Content-Type": "application/octet-stream",
+                         "X-Shape": ",".join(map(str, im.shape))})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert r.status == 200
+                answered.add(r.headers["X-Replica"])
+                assert json.loads(r.read())["count"] == im.shape[0]
+        forwards = batches() - before
+        assert answered == {"r0", "r1"} and forwards > 0
+        assert (fbn.launches - launches[0], ep.launches - launches[1]) == (
+            10 * forwards, 19 * forwards)
+    finally:
+        router.send_signal(signal.SIGTERM)
+        assert router.wait(timeout=30) == 0
+        for s in servers:
+            s.drain(timeout=30)
+            s.close()

@@ -135,9 +135,27 @@ def test_telemetry_check_against_the_port_server(tmp_path):
 # The reference's doctor flags whose probes run on its scenario conductor
 # (not ported): argparse refuses each.
 UNPORTED = ("--list-probes", "--check", "--serve-probe", "--coldstart-probe",
-            "--fleet-probe", "--fleetmon-probe", "--autoscale-probe",
-            "--trace-probe", "--perfwatch", "--sweep-probe", "--mem-probe",
-            "--partition-probe", "--reshape-drill", "--mesh-devices=8")
+            "--autoscale-probe", "--trace-probe", "--perfwatch",
+            "--sweep-probe", "--mem-probe", "--partition-probe",
+            "--reshape-drill", "--mesh-devices=8")
+
+
+@pytest.mark.parametrize("flag, name", [("--fleet-probe", "fleet_probe"),
+                                        ("--fleetmon-probe",
+                                         "fleetmon_probe")])
+def test_fleet_drills_join_the_summary(flag, name, monkeypatch, capsys):
+    """The two serving-fleet drills run on the card (their children are
+    the card's); here each flag is shown to run its drill and put its
+    result, under the reference's key, in the summary and its line."""
+    ran = []
+    for drill in ("_check_fleet_probe", "_check_fleetmon_probe"):
+        monkeypatch.setattr(doctor, drill, lambda drill=drill: ran.append(
+            drill) or {"ok": False, "phase": "readiness"})
+    rc, out, summary = _doctor(capsys, flag)
+    assert ran == [f"_check_{name}"]
+    assert summary[name] == {"ok": False, "phase": "readiness"}
+    assert rc == 1 and summary["ok"] is False
+    assert out[-2].split()[1:3] == [name, "FAIL"]
 
 
 @pytest.mark.parametrize("flag", UNPORTED)

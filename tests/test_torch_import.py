@@ -35,8 +35,8 @@ PACKAGE_FORBIDDEN = FORBIDDEN_ROOTS + ("PIL",)
 
 
 def test_import_loads_no_jax_stack():
-    """The package, the serve surface (export, int8 arm, predict) among it,
-    loads no JAX stack and no PIL."""
+    """The package, the serve surface (export, int8 arm, predict) and the
+    serving fleet's modules among it, loads no JAX stack and no PIL."""
     code = ("import sys, tpu_resnet_torch, tpu_resnet_torch.main, "
             "tpu_resnet_torch.serve.server, tpu_resnet_torch.convert, "
             "tpu_resnet_torch.ops.fused_bottleneck, "
@@ -46,7 +46,11 @@ def test_import_loads_no_jax_stack():
             "tpu_resnet_torch.data.jpeg, tpu_resnet_torch.ops.jpeg_decode, "
             "tpu_resnet_torch.export, tpu_resnet_torch.ops.quant, "
             "tpu_resnet_torch.serve.calibrate, tpu_resnet_torch.tools.predict, "
-            "tpu_resnet_torch.models.mlp, tpu_resnet_torch.resilience.exitcodes; "
+            "tpu_resnet_torch.models.mlp, "
+            "tpu_resnet_torch.resilience.exitcodes, "
+            "tpu_resnet_torch.serve.router, tpu_resnet_torch.obs.fleet, "
+            "tpu_resnet_torch.tools.obs_scrape, "
+            "tpu_resnet_torch.tools.loadgen, tpu_resnet_torch.hostenv; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {PACKAGE_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -70,6 +74,22 @@ def test_run_tools_load_no_jax_stack():
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {PACKAGE_FORBIDDEN + ('matplotlib',)!r}"
             "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]", out
+
+
+def test_fleet_host_modules_load_no_torch():
+    """The router, fleetmon, the scraper and the load generator are host
+    code in front of the replicas: importing them loads no torch (a router
+    holding a CUDA context would take card memory from the replicas),
+    nothing of JAX and nothing of the reference."""
+    code = ("import sys, tpu_resnet_torch.serve.router, "
+            "tpu_resnet_torch.obs.fleet, tpu_resnet_torch.tools.obs_scrape, "
+            "tpu_resnet_torch.tools.loadgen, tpu_resnet_torch.hostenv; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN_ROOTS!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout

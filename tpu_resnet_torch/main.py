@@ -21,15 +21,30 @@
     python -m tpu_resnet_torch plot --dir /tmp/run [--out F] [--csv F]
     python -m tpu_resnet_torch trace-export --dir /tmp/run [--device-trace]
     python -m tpu_resnet_torch doctor [--data-dir D --dataset N] \
-        [--train-dir D] [--data-bench] [--fault-drill]
+        [--train-dir D] [--data-bench] [--fault-drill] [--fleet-probe] \
+        [--fleetmon-probe]
+
+The serving fleet: replicas announce themselves in one directory
+(``serve.replica_name=r0`` writes ``serve-r0.json``), the router and the
+fleet monitor find them there:
+
+    python -m tpu_resnet_torch serve --preset imagenet \
+        model.fused_blocks=true model.fused_epilogue=on \
+        train.train_dir=/tmp/run serve.replica_name=r0 serve.port=0
+    python -m tpu_resnet_torch route route.discover_dir=/tmp/run \
+        [--watch-discovery]
+    python -m tpu_resnet_torch route --drain r0 route.discover_dir=/tmp/run
+    python -m tpu_resnet_torch fleetmon fleet.discover_dir=/tmp/run \
+        fleet.slo_ms=50
 
 Same ``--preset``/``--config``/``section.field=value`` surface as
 ``python -m tpu_resnet``; ``--device cpu`` runs ``train``, ``eval``,
 ``serve``, ``export`` and ``predict`` on the CPU, otherwise they need CUDA
 and raise without it.
-``info`` (the model on the ``meta`` device), ``inspect``, ``plot`` and
-``trace-export`` touch no device; ``doctor`` probes the card and fails
-its checks where there is none.
+``info`` (the model on the ``meta`` device), ``inspect``, ``plot``,
+``trace-export``, ``route`` and ``fleetmon`` touch no device (the last
+two import no torch: host code in front of the replicas); ``doctor``
+probes the card and fails its checks where there is none.
 
 Data parallelism: ``train`` with ``mesh.data=N`` > 1 (or ``-1`` with more
 than one visible card) starts one process per card with
@@ -50,14 +65,18 @@ process does.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
 import socket
 import sys
 
-# The commands that take a run config.
-_RUN_COMMANDS = ("train", "eval", "export", "predict", "serve", "info")
+# The commands that take a run config, and those of them that run on a
+# device.
+_RUN_COMMANDS = ("train", "eval", "export", "predict", "serve", "info",
+                 "route", "fleetmon")
+_DEVICE_COMMANDS = ("train", "eval", "export", "predict", "serve")
 
 
 def _log_setup(prefix: str = "") -> None:
@@ -190,6 +209,15 @@ def main(argv=None) -> int:
             ("predict", "run a frozen artifact over the eval split"),
             ("serve", "online inference: dynamic-batching HTTP predict "
                       "server with checkpoint hot-reload"),
+            ("route", "serving-fleet front router: spread /predict over N "
+                      "serve replicas with health-probed failover, "
+                      "SLO-aware load shedding and rolling drains"),
+            ("fleetmon", "fleet telemetry aggregator: discover every "
+                         "serve/route/train endpoint in a dir, scrape all "
+                         "/metrics on an interval into an on-disk "
+                         "timeseries, merge per-replica latency histograms "
+                         "into true fleet p50/p95/p99, page on SLO "
+                         "error-budget burn"),
             ("info", "print resolved config, param count and forward "
                      "FLOPs"),
             ("inspect", "list the tensors of a checkpoint"),
@@ -205,12 +233,30 @@ def main(argv=None) -> int:
         if name in _RUN_COMMANDS:
             p.add_argument("--preset", default="")
             p.add_argument("--config", default="")
-            if name != "info":
+            if name in _DEVICE_COMMANDS:
                 p.add_argument("--device", default=None,
                                help="cuda (default) or cpu")
         if name == "eval":
             p.add_argument("--once", action="store_true",
                            help="evaluate the newest checkpoint and exit")
+        if name == "route":
+            p.add_argument("--drain", default="",
+                           help="rolling operations: ask a RUNNING "
+                                "router to drain replica NAME (exclude "
+                                "from rotation, wait out in-flight, "
+                                "SIGTERM per the drain contract) and "
+                                "exit — instead of starting a router")
+            p.add_argument("--router-url", default="",
+                           help="with --drain: the running router's "
+                                "base url (default: discovered from "
+                                "route.json in route.discover_dir)")
+            p.add_argument("--watch-discovery", action="store_true",
+                           help="merit-gated dynamic membership: a "
+                                "replica whose discovery record appears "
+                                "after boot enters rotation only after "
+                                "its first successful health probe "
+                                "(shorthand for "
+                                "route.watch_discovery=true)")
         if name == "info":
             p.add_argument("--layers", action="store_true",
                            help="per-parameter table (tfprof-style dump)")
@@ -255,6 +301,21 @@ def main(argv=None) -> int:
                                 "ResNet on the card: preemption exit "
                                 "code, checkpoint at the stop step, "
                                 "exact-step resume")
+            p.add_argument("--fleet-probe", action="store_true",
+                           help="serving-fleet resilience drill on the "
+                                "card: 2 serve replicas behind the "
+                                "router, one SIGKILLed under loadgen "
+                                "traffic (zero client failures, circuit "
+                                "opens), hot-reload on the survivor, "
+                                "rolling admin drain, router exit 0, "
+                                "merged trace with router+replica lanes")
+            p.add_argument("--fleetmon-probe", action="store_true",
+                           help="fleet-observability drill on the card: "
+                                "2 replicas + router + fleetmon, one "
+                                "replica fault-slowed -> fleet p99 above "
+                                "the healthy replica's own, burn alert "
+                                "fires, slow traces attribute to the "
+                                "slowed replica")
     args = parser.parse_args(raw)
 
     if args.command == "doctor":
@@ -265,7 +326,9 @@ def main(argv=None) -> int:
                              train_dir=args.train_dir,
                              probe_timeout=args.probe_timeout,
                              fault_drill=args.fault_drill,
-                             data_bench=args.data_bench)
+                             data_bench=args.data_bench,
+                             fleet_probe=args.fleet_probe,
+                             fleetmon_probe=args.fleetmon_probe)
         return 0 if summary["ok"] else 1
     if args.command == "inspect":
         from tpu_resnet_torch.tools.inspect_ckpt import main as inspect_main
@@ -283,6 +346,29 @@ def main(argv=None) -> int:
 
     from tpu_resnet_torch.config import load_config
     cfg = load_config(args.preset, args.config, args.overrides)
+    if args.command == "route":
+        # Host code in front of the replicas: no torch, no device.
+        from tpu_resnet_torch.serve.router import (read_route_port,
+                                                   request_drain, route)
+        if args.drain:
+            url = args.router_url
+            if not url:
+                port = read_route_port(cfg.route.discover_dir
+                                       or cfg.train.train_dir)
+                if port is None:
+                    parser.error("route --drain: no route.json found; "
+                                 "pass --router-url or "
+                                 "route.discover_dir=<dir>")
+                url = f"http://127.0.0.1:{port}"
+            result = request_drain(url, args.drain)
+            print(json.dumps(result))
+            return 0 if result.get("ok") else 1
+        if args.watch_discovery:
+            cfg.route.watch_discovery = True
+        return route(cfg)
+    if args.command == "fleetmon":
+        from tpu_resnet_torch.obs.fleet import fleetmon
+        return fleetmon(cfg)
     if args.command == "info":
         from tpu_resnet_torch.tools.analysis import print_model_info
         print_model_info(cfg, layers=args.layers)

@@ -13,7 +13,10 @@ predict server).
 
 The predict server (``serve/server.py``) serves the same registry on its
 own port with the reference's serving sets, ``SERVE_GAUGES`` and
-``SERVE_HISTOGRAMS``, and a staleness of ``serve.healthz_stale_sec``.
+``SERVE_HISTOGRAMS``, and a staleness of ``serve.healthz_stale_sec``; the
+router (``serve/router.py``) with ``ROUTE_GAUGES`` and
+``ROUTE_HISTOGRAMS``, the fleet aggregator (``obs/fleet.py``) with
+``FLEET_GAUGES``.
 
 Standard library only: ``http.server`` on a daemon thread. The bound port
 is written to ``<train_dir>/telemetry.json`` (port 0 binds an ephemeral
@@ -151,6 +154,81 @@ SERVE_HISTOGRAMS = (
                               "build + restore + bucket warmup) — the "
                               "series the cold-vs-warm restart gate "
                               "reads", READY_BUCKETS_S),
+)
+
+# The router's histograms, the reference's.
+ROUTE_HISTOGRAMS = (
+    ("route_latency_ms", "End-to-end router latency (accept to client "
+                         "response, retries/hedges included)",
+     LATENCY_BUCKETS_MS),
+    ("route_upstream_ms", "Single upstream attempt latency per replica "
+                          "send", LATENCY_BUCKETS_MS),
+)
+
+# The front router's gauges (serve/router.py), the reference's names and
+# help texts; /healthz on the router's port is 503 while no replica is
+# healthy.
+ROUTE_GAUGES = (
+    ("route_requests_total", "Predict requests accepted by the router"),
+    ("route_requests_ok", "Requests answered 2xx end to end"),
+    ("route_requests_failed", "Requests that exhausted replicas/retries "
+                              "or blew the deadline budget"),
+    ("route_retries_total", "Failover retries sent to a second replica "
+                            "(connect failure / 5xx / deadline)"),
+    ("route_hedges_total", "Hedged duplicate sends fired (requests "
+                           "sitting past the hedge threshold)"),
+    ("route_hedge_wins_total", "Hedged sends whose duplicate answered "
+                               "first"),
+    ("route_shed_total", "Requests shed by SLO admission (rolling p99 "
+                         "over route.slo_ms) -> HTTP 429"),
+    ("route_shed_batch_total", "Batch-lane requests shed (lowest "
+                               "priority sheds first)"),
+    ("route_shed_interactive_total", "Interactive-lane requests shed "
+                                     "(p99 past slo*shed_hard_factor)"),
+    ("route_replica_errors_total", "Passive replica failures observed "
+                                   "(connect/5xx/timeout)"),
+    ("route_replicas_total", "Replicas known to the router (static + "
+                             "discovered)"),
+    ("route_replicas_healthy", "Replicas currently in rotation (circuit "
+                               "closed, not draining)"),
+    ("route_inflight", "Requests currently in flight across replicas"),
+    ("route_p50_ms", "Rolling p50 end-to-end router latency"),
+    ("route_p99_ms", "Rolling p99 end-to-end router latency (the shed/"
+                     "hedge signal)"),
+    ("route_slo_ms", "Configured p99 SLO target (0 = shedding off)"),
+    ("route_lane_interactive_total", "Interactive-lane requests routed"),
+    ("route_lane_batch_total", "Batch-lane requests routed"),
+)
+
+# The fleet aggregator's gauges (obs/fleet.py), the reference's names and
+# help texts; the fleet_serve_p* series are pooled quantiles of the
+# bucket-wise histogram merge (merge_histograms), never an average of
+# per-replica percentiles.
+FLEET_GAUGES = (
+    ("fleet_endpoints_total", "Endpoints found in the discovery dir on "
+                              "the last scrape round"),
+    ("fleet_endpoints_up", "Endpoints whose /metrics answered on the "
+                           "last round"),
+    ("fleet_scrapes_total", "Scrape rounds completed since start"),
+    ("fleet_scrape_errors_total", "Individual endpoint scrapes that "
+                                  "failed (cumulative)"),
+    ("fleet_requests_total", "Requests admitted across all serve "
+                             "replicas (summed serve_latency_ms count)"),
+    ("fleet_serve_p50_ms", "Fleet-wide p50 predict latency (bucket-"
+                           "merged across replicas)"),
+    ("fleet_serve_p95_ms", "Fleet-wide p95 predict latency (bucket-"
+                           "merged across replicas)"),
+    ("fleet_serve_p99_ms", "Fleet-wide p99 predict latency (bucket-"
+                           "merged across replicas)"),
+    ("fleet_slo_ms", "Configured fleet latency SLO threshold (0 = burn "
+                     "tracking off)"),
+    ("fleet_burn_rate_fast", "Error-budget burn rate over the fast "
+                             "window (1.0 = burning exactly the "
+                             "budget)"),
+    ("fleet_burn_rate_slow", "Error-budget burn rate over the slow "
+                             "window"),
+    ("fleet_alerts_total", "Burn-rate alerts fired since start"),
+    ("fleet_alert_active", "1 while a burn-rate alert condition holds"),
 )
 
 
