@@ -161,6 +161,44 @@ Phases, each printing one JSON line:
    ``trace-export`` of the dir holds ``route_request``, ``route_drain``,
    ``replica_down``, ``serve_ready``, ``serve_drain`` and ``fleet_start``
    with the router's and the replicas' run ids the minted one.
+   Then three ``autopilot`` lines: the fleet's control plane
+   (``python -m tpu_resnet_torch autopilot``) and the port's supervisor
+   (``python -m tpu_resnet_torch.tools.supervise``) on the card, with a
+   seeded ImageNet ResNet-50 checkpoint. (a) r0, a ``serve`` process
+   slowed by ``AP_SLOW_MS`` a batch (the serve fault), the router with
+   watch-discovery probation, fleetmon and the autopilot (replicas 1..2,
+   ``AP_SLO_MS``; its spawns ``serve`` processes of the same model under
+   the supervisor): the port's loadgen's ``burst`` through the router
+   (``AP_BURST``) makes the autopilot spawn ap0, which the router admits:
+   every request 200, one spawn, two healthy replicas, the scale-up
+   latency; ap0 maps ``libcuda`` and the port's kernel libraries, the
+   autopilot and ap0's supervisor map neither ``libcuda`` nor torch;
+   ``FLEET_EXACT`` B=16 requests straight to ap0 bit for bit the
+   in-process ``CheckpointBackend``'s kernel forward of the same batches
+   (19 ``sbr`` and 10 ``bottleneck_fwd`` a forward, counted); then
+   ``AP_CALM`` (one closed-loop client): the autopilot drains ap0 through
+   the router (its supervisor exits 0), ``capacity_lease.json`` granted to
+   the trainer, ``autopilot_status.json`` at target 1 with one scale-up,
+   one scale-down, one drain and no failed spawn, the ledger's spawn,
+   drain and grant, the router's ``replica_admitted``, ``trace-export``'s
+   autopilot lane under the minted run id; the burst's and calm's
+   p50/p99, ``slo_violation_seconds``, ``replica_seconds`` and
+   ``utilization``. (b) A second autopilot whose spawns carry
+   ``serve.admission_hbm_bytes`` = a replica's measured footprint; the
+   script takes card memory until less headroom than half that footprint
+   is left once r0's is back, SIGKILLs r0: the floor's restore spawns at
+   once, the spawn exits 3 (colocation admission denied) and its
+   supervisor with it, unrestarted; one ``admission_denied``; the memory
+   freed, the next spawn comes no sooner than ``AP_BACKOFF_S`` after the
+   denial, is admitted and answers the same B=16 batches bit for bit;
+   SIGTERM: autopilot, router and fleetmon exit 0 and the spawn drains.
+   (c) The supervisor over ``train --preset cifar10`` fused, graphed, at
+   full width (``AP_TRAIN``) with a preemption burst of 2 every
+   ``AP_BURST_EVERY`` steps: children exit 42, 42, 0, the supervisor 0,
+   the last checkpoint at step ``AP_TRAIN_STEPS``, the burst's state 2
+   fired; every logged loss within ``AP_LOSS_RTOL`` relative of an
+   uninterrupted in-process ``train()`` of the same steps, whose launches
+   (``PER_PASS`` a step) join the ``kernels`` line. Each part's seconds.
 5. ``train``: CIFAR-10 ResNet-50 at full width, B=128 (``--preset cifar10
    model.fused_epilogue=on optim.use_pallas_xent=on data.dataset=synthetic
    data.synthetic_learnable=true``): (a) one float32 train step from one
@@ -282,7 +320,7 @@ Phases, each printing one JSON line:
    ResNet-50 unfused and fused, ImageNet ResNet-50 at 224x224 fed seeded
    batches on the card in the decode engine's place; B=128, bf16),
    ``train()`` three times from the same seeded state over the same steps
-   (``CHUNK_PATHS``: 100 steps, log and checkpoint every 50; ImageNet 30,
+   (``CHUNK_PATHS``: 50 steps, log and checkpoint every 25; ImageNet 30,
    a log every 10): ``train.steps_per_call=1`` twice (eager; the second is
    the control) and ``=10`` (CUDA graph replays). The graphed run's end
    state (parameters, BN statistics, momentum buffers) and logged metrics
@@ -393,7 +431,8 @@ shape, for ``block_bwd`` and ``bottleneck_bwd`` over one call at each A/B
 shape, and per path also over one backward of the grad phase;
 ``launches`` is the count over the phases that drive the main paths:
 both serve phases, both serve arms and the fleet's in-process replicas
-(part (a)), the train and eval runs of both
+(part (a)), the autopilot phase's uninterrupted fused CIFAR run (part
+(c)), the train and eval runs of both
 CIFAR train phases, the
 ImageNet train steps, the JPEG-fed ImageNet train, resume and eval runs,
 the observability phase's ImageNet run with observability on,
@@ -2546,17 +2585,17 @@ def _peak_profile(state, step_fn, batch, cuda) -> dict:
 # STREAM_STAGE with the double buffer on and off, against a stage of 1.
 CHUNK_PER_CALL = 10
 CHUNK_PATHS = {
-    "cifar10_train": ("cifar10", [*TRAIN_OVERRIDES], 100),
+    "cifar10_train": ("cifar10", [*TRAIN_OVERRIDES], 50),
     "cifar10_fused_train": ("cifar10", [*TRAIN_OVERRIDES,
-                                        "model.fused_blocks=true"], 100),
+                                        "model.fused_blocks=true"], 50),
     "imagenet_fused_train": ("imagenet", [*IMAGENET_OVERRIDES], 30),
 }
-CHUNK_LOG_EVERY = {"cifar10_train": 50, "cifar10_fused_train": 50,
+CHUNK_LOG_EVERY = {"cifar10_train": 25, "cifar10_fused_train": 25,
                    "imagenet_fused_train": 10}
-CHUNK_CHECKPOINT_EVERY = {"cifar10_train": 50, "cifar10_fused_train": 50,
+CHUNK_CHECKPOINT_EVERY = {"cifar10_train": 25, "cifar10_fused_train": 25,
                           "imagenet_fused_train": 100}
 CHUNK_PROFILE_STEPS = 10
-STREAM_STEPS, STREAM_LOG_EVERY, STREAM_STAGE = 100, 10, 8
+STREAM_STEPS, STREAM_LOG_EVERY, STREAM_STAGE = 50, 10, 8
 # Launches of one wrapper call on the fused CIFAR train path, as the
 # profiler counts kernels (``tools/profiling.py`` TRAIN_KERNELS): block_fwd
 # from the stats' c1 one, block_stats two, block_bwd1 two, block_bwd2
@@ -4765,14 +4804,15 @@ FLEET_LOAD = ["--clients", "8", "--duration", "8", "--deadline-ms", "30000"]
 FLEET_START_S = 300          # a process's readiness limit
 
 
-def fleet_spawn(d: str, name: str, args: list):
+def fleet_spawn(d: str, name: str, args: list, extra_env=None):
     """A ``python -m tpu_resnet_torch`` child with its output in
-    ``<d>/<name>.log``."""
+    ``<d>/<name>.log`` (``extra_env``: a fault plan's variables)."""
     from tpu_resnet_torch.hostenv import REPO_ROOT, child_env
     log = open(os.path.join(d, f"{name}.log"), "w")
     return subprocess.Popen(
-        [sys.executable, "-m", "tpu_resnet_torch", *args], env=child_env(),
-        cwd=REPO_ROOT, stdout=log, stderr=subprocess.STDOUT)
+        [sys.executable, "-m", "tpu_resnet_torch", *args],
+        env=child_env(extra_env), cwd=REPO_ROOT, stdout=log,
+        stderr=subprocess.STDOUT)
 
 
 def fleet_tail(d: str, name: str) -> list:
@@ -5192,6 +5232,470 @@ def fleet_phase(counters, gpu: str) -> dict:
     return part_a
 
 
+# The autopilot phase: the fleet's control plane on the card. The seeded
+# ImageNet ResNet-50 checkpoint of the fleet phase; r0 a ``serve`` process
+# slowed by the serve fault (scenarios/autoscale_burst.json's), the router
+# (watch-discovery probation), fleetmon and ``python -m tpu_resnet_torch
+# autopilot``, whose spawns are ``serve`` processes under the port's
+# supervisor. (a) a burst scales the fleet up and calm traffic back down;
+# (b) a colocation denial (exit 3) backs the floor's restore off; (c) the
+# port's supervisor carries the fused CIFAR trainer across a preemption
+# burst.
+AP_SLOW_MS = 150        # r0's injected latency a batch (max_batch 2)
+AP_SLO_MS = 500         # up band 450 ms (r0 queueing), down band 250 (idle)
+AP_BACKOFF_S = 8.0      # (b): the scale-up hold after exit 3
+# The router's p99 is over its last 50 answers, so it follows the traffic
+# within seconds; a drain waits 30 s after the spawn, past the burst.
+AP_ROUTER = ["route.host=127.0.0.1", "route.port=0",
+             "route.probe_interval_secs=0.3", "route.probe_timeout_secs=2",
+             "route.fail_threshold=2", "route.open_secs=2",
+             "route.latency_ring=50"]
+AP_CONTROL = [f"autopilot.slo_ms={AP_SLO_MS}", "autopilot.host=127.0.0.1",
+              "autopilot.port=0", "autopilot.poll_interval_secs=0.4",
+              "autopilot.min_replicas=1", "autopilot.max_replicas=2",
+              "autopilot.up_rounds=2", "autopilot.down_rounds=4",
+              "autopilot.scale_up_cooldown_secs=5",
+              "autopilot.scale_down_cooldown_secs=30",
+              f"autopilot.admission_backoff_secs={AP_BACKOFF_S}",
+              "autopilot.ready_timeout_secs=240"]
+# The loadgen's burst: an open-loop square wave of 0.25x and 2x 16 qps from
+# 8 clients in quarters of 6 s (r0 alone serves ~12 requests/s); calm: one
+# closed-loop client, so no replica ever queues.
+AP_BURST = ["--scenario", "burst", "--clients", "8", "--qps", "16",
+            "--duration", "24", "--deadline-ms", "30000"]
+AP_CALM = ["--scenario", "steady", "--clients", "1", "--duration", "15",
+           "--deadline-ms", "30000"]
+AP_TRAIN_STEPS, AP_BURST_EVERY, AP_LOG_EVERY = 60, 20, 10
+AP_TRAIN = ["--preset", "cifar10", "model.fused_blocks=true",
+            "model.fused_epilogue=on", "optim.use_pallas_xent=on",
+            "data.dataset=synthetic", "data.synthetic_learnable=true",
+            f"train.train_steps={AP_TRAIN_STEPS}", "train.steps_per_call=10",
+            f"train.log_every={AP_LOG_EVERY}"]
+AP_BURST_TRAIN = ["resilience.inject_preempt_burst=2",
+                  f"resilience.inject_preempt_burst_every={AP_BURST_EVERY}"]
+AP_LOSS_RTOL = 1e-6     # the reference's reshape-drill bound
+
+
+def ap_events(d: str, kind: str = "", name: str = "") -> list:
+    """The autopilot's ledger records of ``kind`` (and replica ``name``)."""
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.obs.trace import AUTOPILOT_EVENTS_FILE
+    return [s for s in load_spans(os.path.join(d, AUTOPILOT_EVENTS_FILE))
+            if (not kind or s["span"] == kind)
+            and (not name or s.get("name") == name)]
+
+
+def ap_status(d: str) -> dict:
+    try:
+        with open(os.path.join(d, "autopilot_status.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def ap_gauges(d: str) -> dict:
+    """The autopilot's ``/metrics`` gauges, without the namespace."""
+    from tpu_resnet_torch.autopilot.cli import read_autopilot_port
+    gauges, _ = scrape_text(read_autopilot_port(d))
+    return {k[len("tpu_resnet_"):]: v for k, v in gauges.items()
+            if k.startswith("tpu_resnet_autopilot_")}
+
+
+def kernel_libraries(pid: int) -> list:
+    """The port's kernel libraries (``build/tpu_resnet_torch/lib*.so``) that
+    the process maps."""
+    from tpu_resnet_torch.ops._build import BUILD_DIR
+    with open(f"/proc/{pid}/maps") as f:
+        paths = {line.split()[-1] for line in f if BUILD_DIR in line}
+    return sorted(os.path.basename(p) for p in paths)
+
+
+def loadgen(url: str, args: list, out_json: str) -> dict:
+    """The port's loadgen through the router; every request 200."""
+    from tpu_resnet_torch.hostenv import run_subprocess
+    rc, out = run_subprocess(
+        [sys.executable, "-m", "tpu_resnet_torch.tools.loadgen", "--url",
+         url, *args, "--out", out_json], timeout=180)
+    check(rc == 0 and os.path.exists(out_json),
+          f"loadgen {args[1]} exit {rc}: {out.strip().splitlines()[-5:]}")
+    with open(out_json) as f:
+        lg = json.load(f)
+    check(lg["failed"] + lg["timeouts"] + lg["connect_failures"]
+          + lg["rejected_429"] == 0 and lg["requests_ok"] > 0,
+          f"loadgen {args[1]}: failures {lg}")
+    return {k: lg[k] for k in ("requests_ok", "failed", "timeouts",
+                               "connect_failures", "rejected_429",
+                               "throughput_rps", "latency_ms")}
+
+
+def exact_answers(port: int, images, want, what: str) -> list:
+    """B=16 requests straight to a replica, each bit for bit ``want``."""
+    equal = []
+    for im, mine in zip(images, want):
+        status, out, _, _ = route_post(port, im)
+        check(status == 200, f"{what}: {status} {out}")
+        got = np.asarray(out["logits"], np.float32)
+        equal.append(bool(np.array_equal(got, mine)))
+        check(equal[-1], f"{what}: logits differ from the in-process kernel "
+              f"forward by {float(np.abs(got - mine).max())}")
+    return equal
+
+
+def supervised_train_part(counters, gpu: str) -> dict:
+    """(c): ``python -m tpu_resnet_torch.tools.supervise`` over the fused
+    CIFAR trainer with a preemption burst of 2, against an uninterrupted
+    in-process ``train()`` of the same steps from the same seed."""
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.hostenv import run_subprocess
+    from tpu_resnet_torch.train import checkpoint
+    from tpu_resnet_torch.train.loop import train
+
+    cut = tempfile.mkdtemp(prefix="chip_smoke_supervised_")
+    whole = tempfile.mkdtemp(prefix="chip_smoke_uninterrupted_")
+    try:
+        t0 = time.monotonic()
+        rc, out = run_subprocess(
+            [sys.executable, "-m", "tpu_resnet_torch.tools.supervise", "--",
+             sys.executable, "-m", "tpu_resnet_torch", "train", *AP_TRAIN,
+             *AP_BURST_TRAIN, f"train.train_dir={cut}"], timeout=600)
+        supervised_s = time.monotonic() - t0
+        children = [int(line.rsplit(" ", 1)[1]) for line in out.splitlines()
+                    if "supervised run_id=" in line and " exited " in line]
+        check(rc == 0 and children == [42, 42, 0]
+              and "command exited 0 after 2 restart(s)" in out,
+              f"(c) supervisor exit {rc}, children {children}: "
+              f"{out.strip().splitlines()[-6:]}")
+        with open(os.path.join(cut, "fault_burst_state.json")) as f:
+            burst = json.load(f)
+        saved = checkpoint.all_steps_in(cut)
+        check(burst == {"fired": 2, "of": 2} and saved[-1] == AP_TRAIN_STEPS,
+              f"(c) burst state {burst}, checkpoints {saved}")
+        got = {}
+        for rec in read_jsonl(os.path.join(cut, "metrics.jsonl")):
+            got[rec["step"]] = rec["loss"]
+        zero_counts(counters)
+        t0 = time.monotonic()
+        state = train(load_config("cifar10", "", [*AP_TRAIN[2:],
+                                                  f"train.train_dir={whole}"]),
+                      device="cuda")
+        torch.cuda.synchronize()
+        whole_s = time.monotonic() - t0
+        launches = read_counts(counters)
+        check(state.step == AP_TRAIN_STEPS, f"(c) train() at {state.step}")
+        del state
+        want = {rec["step"]: rec["loss"]
+                for rec in read_jsonl(os.path.join(whole, "metrics.jsonl"))}
+    finally:
+        shutil.rmtree(cut, ignore_errors=True)
+        shutil.rmtree(whole, ignore_errors=True)
+    per_step = {k: n * AP_TRAIN_STEPS
+                for k, n in PER_PASS["cifar10_fused_train"].items()}
+    check(launches == per_step, f"(c) uninterrupted launches {launches}, "
+          f"expected {per_step}")
+    check(sorted(got) == sorted(want) and len(want) >= 6,
+          f"(c) logged steps {sorted(got)} against {sorted(want)}")
+    rel = {s: abs(got[s] - want[s]) / max(abs(want[s]), 1e-30) for s in want}
+    worst = max(rel.values())
+    check(all(np.isfinite(list(want.values()))) and worst <= AP_LOSS_RTOL,
+          f"(c) supervised losses against uninterrupted: {rel}")
+    gc_collect()
+    return {"path": "cifar10_fused_supervised", "children_exit": children,
+            "supervisor_exit": rc, "burst": burst, "checkpoints": saved,
+            "losses": {str(s): got[s] for s in sorted(got)},
+            "uninterrupted_losses": {str(s): want[s] for s in sorted(want)},
+            "loss_max_rel_diff": worst, "loss_rtol": AP_LOSS_RTOL,
+            "bit_equal": all(got[s] == want[s] for s in want),
+            "supervised_s": supervised_s, "uninterrupted_s": whole_s,
+            "launches": launches, "eval_launches": {k: 0 for k in KERNELS},
+            "launches_per_step": {k: n / AP_TRAIN_STEPS
+                                  for k, n in launches.items()}, "gpu": gpu}
+
+
+def autopilot_phase(counters, gpu: str) -> dict:
+    """The autopilot (``autopilot/``) and the supervisor
+    (``tools/supervise.py``) on the card: parts (a), (b) and (c) above the
+    constants. Returns (c)'s uninterrupted run, whose launches join the
+    ``kernels`` line."""
+    from tpu_resnet_torch.autopilot.cli import read_autopilot_port
+    from tpu_resnet_torch.config import load_config
+    from tpu_resnet_torch.models import build_model, init_weights
+    from tpu_resnet_torch.obs.fleet import read_fleet_port
+    from tpu_resnet_torch.obs.manifest import ensure_run_id
+    from tpu_resnet_torch.obs.spans import load_spans
+    from tpu_resnet_torch.obs.trace import ROUTE_EVENTS_FILE, export_trace
+    from tpu_resnet_torch.serve.backend import CheckpointBackend
+    from tpu_resnet_torch.serve.router import read_route_port
+    from tpu_resnet_torch.train import checkpoint
+
+    cuda = torch.device("cuda")
+    size = SERVE_PATHS["imagenet"]["size"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
+    cfg = load_config("imagenet", "", [*FLEET_OVERRIDES,
+                                       f"train.train_dir={d}"])
+    run_id = ensure_run_id(d)
+    checkpoint.save(d, 1, init_weights(build_model(cfg),
+                                       torch.Generator().manual_seed(0)))
+    gc_collect()
+    template = " ".join([
+        "{python} -m tpu_resnet_torch serve --preset imagenet",
+        *FLEET_OVERRIDES, f"train.train_dir={d}",
+        "serve.replica_name={name}"])
+    procs, seconds, hold, done = {}, {}, None, False
+
+    def watched():
+        return [(n, p, d) for n, p in procs.items()]
+
+    def start_autopilot(name: str, extra: list):
+        """An autopilot process, once it has announced itself and written
+        its first round (a predecessor's files removed first)."""
+        for fn in ("autopilot.json", "autopilot_status.json"):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(os.path.join(d, fn))
+        procs[name] = fleet_spawn(d, name, [
+            "autopilot", f"autopilot.discover_dir={d}", *AP_CONTROL, *extra])
+        wait_until(lambda: read_autopilot_port(d) and ap_status(d), 60,
+                   f"{name}'s first round", watched())
+
+    def stop(name: str) -> int:
+        procs[name].send_signal(signal.SIGTERM)
+        return procs.pop(name).wait(timeout=60)
+
+    def healthy() -> list:
+        _, info = get_json(f"http://127.0.0.1:{read_route_port(d)}/info")
+        return sorted(r["name"] for r in info.get("replicas", [])
+                      if r["state"] == "closed" and not r["draining"]
+                      and not r["pending"])
+
+    def replica_port(name: str):
+        try:
+            with open(os.path.join(d, f"serve-{name}.json")) as f:
+                rec = json.load(f)
+            return int(rec["port"]), int(rec["pid"])
+        except (OSError, ValueError, KeyError):
+            return None
+
+    try:
+        # ------------------------------- (a) scale up on a burst, back down
+        t_a = time.monotonic()
+        free0, total = torch.cuda.mem_get_info()
+        procs["r0"] = fleet_spawn(d, "r0", [
+            "serve", "--preset", "imagenet", *FLEET_OVERRIDES,
+            f"train.train_dir={d}", "serve.replica_name=r0",
+            "serve.max_batch=2"],
+            extra_env={"TPU_RESNET_FAULT_SERVE_SLOW_MS": str(AP_SLOW_MS)})
+        procs["router"] = fleet_spawn(d, "router", [
+            "route", "--watch-discovery", f"route.discover_dir={d}",
+            *AP_ROUTER])
+        procs["fleetmon"] = fleet_spawn(d, "fleetmon", [
+            "fleetmon", f"fleet.discover_dir={d}", "fleet.host=127.0.0.1",
+            "fleet.port=0", "fleet.scrape_interval_secs=0.5"])
+        wait_until(lambda: read_route_port(d) and read_fleet_port(d)
+                   and healthy() == ["r0"], FLEET_START_S, "(a) r0 ready",
+                   watched())
+        r0_mem = free0 - torch.cuda.mem_get_info()[0]
+        rport = read_route_port(d)
+        start_autopilot("autopilot", [f"autopilot.spawn_cmd={template}"])
+        free_before_spawn = torch.cuda.mem_get_info()[0]
+        t0 = time.monotonic()
+        burst = loadgen(f"http://127.0.0.1:{rport}", AP_BURST,
+                        os.path.join(d, "burst.json"))
+        check(len(ap_events(d, "autopilot_spawn")) == 1,
+              f"(a) spawns during the burst: {ap_events(d, 'autopilot_spawn')}")
+        wait_until(lambda: healthy() == ["ap0", "r0"], FLEET_START_S,
+                   "(a) ap0 admitted", watched())
+        seconds["burst"] = time.monotonic() - t0
+        ap0_mem = free_before_spawn - torch.cuda.mem_get_info()[0]
+        gauges = ap_gauges(d)
+        check(gauges["autopilot_spawns_total"] == 1
+              and gauges["autopilot_replicas_healthy"] == 2
+              and gauges["autopilot_spawn_failures_total"] == 0,
+              f"(a) gauges after the burst {gauges}")
+        latency = ap_status(d)["scale_up_latency_ms"]
+        check(latency > 0, f"(a) no scale-up latency: {ap_status(d)}")
+        ap0_port, ap0_pid = replica_port("ap0")
+        spawn = ap_events(d, "autopilot_spawn", "ap0")[0]
+        host = {"autopilot": maps_of(procs["autopilot"].pid),
+                "supervisor": maps_of(spawn["pid_target"]),
+                "router": maps_of(procs["router"].pid)}
+        check(not any(v for m in host.values() for v in m.values()),
+              f"(a) a host process maps CUDA/torch: {host}")
+        libs = kernel_libraries(ap0_pid)
+        check(maps_of(ap0_pid)["libcuda"]
+              and any(x.startswith("libfused_bottleneck_tc") for x in libs)
+              and any(x.startswith("libepilogue") for x in libs),
+              f"(a) ap0 maps {maps_of(ap0_pid)}, kernel libraries {libs}")
+        # The kernel forward of FLEET_EXACT batches of 16, counted; (b)'s
+        # admitted replica answers the same batches.
+        exact_rng = np.random.default_rng(2)
+        exact = [exact_rng.integers(0, 256, (16, size, size, 3),
+                                    dtype=np.uint8)
+                 for _ in range(FLEET_EXACT)]
+        local = CheckpointBackend(cfg, cuda)
+        zero_counts(counters)
+        oracle = [local.infer(im) for im in exact]
+        oracle_launches = read_counts(counters)
+        local.close()
+        del local
+        gc_collect()
+        want = {k: n * FLEET_EXACT for k, n in PER_PASS["imagenet"].items()}
+        check(oracle_launches == want, f"(a) oracle launches "
+              f"{oracle_launches}, expected {want}")
+        ap0_exact = exact_answers(ap0_port, exact, oracle, "(a) ap0")
+        t0 = time.monotonic()
+        calm = loadgen(f"http://127.0.0.1:{rport}", AP_CALM,
+                       os.path.join(d, "calm.json"))
+        wait_until(lambda: ap_status(d).get("counters", {}).get("drains")
+                   == 1 and ap_events(d, "autopilot_replica_gone", "ap0"),
+                   60, "(a) calm drains ap0", watched())
+        seconds["calm"] = time.monotonic() - t0
+        gone = ap_events(d, "autopilot_replica_gone", "ap0")
+        drain = ap_events(d, "autopilot_drain")
+        with open(os.path.join(d, "capacity_lease.json")) as f:
+            lease = json.load(f)
+        status = ap_status(d)
+        c = status["counters"]
+        check(gone[0]["rc"] == 0 and len(drain) == 1 and drain[0]["ok"]
+              and drain[0]["name"] == "ap0",
+              f"(a) ap0's supervisor {gone}, drain {drain}")
+        check({k: lease[k] for k in ("state", "holder")}
+              == {"state": "granted", "holder": "trainer"},
+              f"(a) capacity lease {lease}")
+        check(status["target"] == 1 and (c["scale_ups"], c["scale_downs"],
+                                          c["drains"], c["spawn_failures"])
+              == (1, 1, 1, 0), f"(a) autopilot status {status}")
+        check(ap_events(d, "autopilot_capacity_grant"),
+              "(a) no autopilot_capacity_grant in the ledger")
+        admitted = [s.get("replica") for s in load_spans(os.path.join(
+            d, ROUTE_EVENTS_FILE)) if s["span"] == "replica_admitted"]
+        check("ap0" in admitted, f"(a) router admissions {admitted}")
+        gauges = ap_gauges(d)
+        _, trace = export_trace(d)
+        ids = trace["metadata"]["source_run_ids"]
+        lanes = [e["args"]["name"] for e in trace["traceEvents"]
+                 if e.get("name") == "process_name"]
+        check(ids.get("autopilot") == [run_id]
+              and any(x.startswith("autopilot") for x in lanes),
+              f"(a) trace run ids {ids}, lanes {lanes}, minted {run_id}")
+        seconds["a"] = time.monotonic() - t_a
+        part_a = {
+            "path": "imagenet_autopilot", "slo_ms": AP_SLO_MS,
+            "r0_slow_ms": AP_SLOW_MS, "burst": burst, "calm": calm,
+            "scale_up_latency_ms": latency, "status": status,
+            "slo_violation_seconds":
+                gauges["autopilot_slo_violation_seconds"],
+            "replica_seconds": gauges["autopilot_replica_seconds"],
+            "utilization": gauges["autopilot_utilization"],
+            "ap0_exact_bit_equal": ap0_exact,
+            "oracle_launches": oracle_launches, "ap0_kernel_libraries": libs,
+            "host_maps": host, "lease": lease, "drain": drain[0],
+            "r0_bytes": r0_mem, "ap0_bytes": ap0_mem,
+            "trace_run_ids": ids, "seconds": dict(seconds), "gpu": gpu}
+        emit("autopilot", part="a_scale_up_and_down", **part_a)
+
+        # ------------------ (b) colocation denied, then the floor restored
+        t_b = time.monotonic()
+        check(stop("autopilot") == 0, "(a) the autopilot's SIGTERM exit")
+        footprint = max(r0_mem, ap0_mem)
+        start_autopilot("autopilot_b", [
+            "autopilot.replica_prefix=apb", "autopilot.spawn_cmd="
+            f"{template} serve.admission_hbm_bytes={footprint}"])
+        # Leave the card less headroom than a replica's footprint once r0's
+        # memory is back: admission's headroom is 0.95 of the card less
+        # what is in use.
+        gc_collect()
+        free, total = torch.cuda.mem_get_info()
+        take = free + r0_mem - int(0.05 * total) - footprint // 2
+        check(0 < take < free - (256 << 20), f"(b) cannot take {take} of "
+              f"{free} free bytes (footprint {footprint})")
+        hold = torch.empty(take, dtype=torch.uint8, device=cuda)
+        t_kill = time.time()
+        procs["r0"].kill()
+        check(procs.pop("r0").wait(timeout=30) == -9, "(b) r0 not SIGKILLed")
+        wait_until(lambda: ap_events(d, "autopilot_admission_denied"), 120,
+                   "(b) apb0's admission denial", watched())
+        first = ap_events(d, "autopilot_spawn", "apb0")[0]
+        denied = ap_events(d, "autopilot_admission_denied")
+        headroom_left = torch.cuda.mem_get_info()[0] - int(0.05 * total)
+        del hold
+        hold = None
+        gc_collect()
+        with open(os.path.join(d, "autopilot_spawn_apb0.log")) as f:
+            spawn_log = f.read()
+        check(len(denied) == 1 and denied[0]["name"] == "apb0"
+              and denied[0]["rc"] == 3
+              and spawn_log.count("serve: colocation admission denied")
+              == 1
+              and "is a stop code" in spawn_log,
+              f"(b) denial {denied}: {spawn_log.strip().splitlines()[-4:]}")
+        restore_s = first["start"] - t_kill
+        check(restore_s < 5.0, f"(b) the floor's restore came "
+              f"{restore_s:.2f} s after r0's death")
+        wait_until(lambda: ap_events(d, "autopilot_spawn", "apb1"),
+                   AP_BACKOFF_S + 30, "(b) the spawn after the backoff",
+                   watched())
+        again = ap_events(d, "autopilot_spawn", "apb1")[0]
+        backoff = again["start"] - denied[0]["start"]
+        check(backoff >= AP_BACKOFF_S - 0.5 and len(ap_events(
+            d, "autopilot_spawn")) == 3, f"(b) respawn {backoff:.2f} s after "
+            f"the denial (backoff {AP_BACKOFF_S} s)")
+        wait_until(lambda: healthy() == ["apb1"], FLEET_START_S,
+                   "(b) apb1 admitted", watched())
+        apb1_port, apb1_pid = replica_port("apb1")
+        apb1_exact = exact_answers(apb1_port, exact, oracle, "(b) apb1")
+        gauges = ap_gauges(d)
+        check(gauges["autopilot_admission_denied_total"] == 1
+              and gauges["autopilot_spawns_total"] == 2
+              and gauges["autopilot_spawn_failures_total"] == 0,
+              f"(b) gauges {gauges}")
+        rcs = {"autopilot_b": stop("autopilot_b")}
+        wait_until(lambda: not _pid_alive(apb1_pid), 60,
+                   "(b) apb1's drain after the autopilot's SIGTERM")
+        for name in ("router", "fleetmon"):
+            rcs[name] = stop(name)
+        check(rcs == {"autopilot_b": 0, "router": 0, "fleetmon": 0},
+              f"(b) SIGTERM exits {rcs}")
+        seconds["b"] = time.monotonic() - t_b
+        part_b = {
+            "path": "imagenet_autopilot_admission",
+            "admission_hbm_bytes": footprint, "taken_bytes": take,
+            "headroom_left_bytes": headroom_left,
+            "restore_after_kill_s": restore_s, "denied": denied[0],
+            "respawn_after_denial_s": backoff,
+            "backoff_s": AP_BACKOFF_S, "apb1_exact_bit_equal": apb1_exact,
+            "gauges": {k: gauges[k] for k in (
+                "autopilot_admission_denied_total", "autopilot_spawns_total",
+                "autopilot_spawn_failures_total",
+                "autopilot_scale_up_latency_ms")},
+            "exit_codes": rcs, "seconds": dict(seconds), "gpu": gpu}
+        emit("autopilot", part="b_admission_backoff", **part_b)
+        done = True
+    finally:
+        hold = None
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+        if not done:  # an autopilot killed here left its spawns' groups
+            for spawn in ap_events(d, "autopilot_spawn"):
+                with contextlib.suppress(OSError):
+                    os.killpg(spawn["pid_target"], signal.SIGKILL)
+        shutil.rmtree(d, ignore_errors=True)
+    t_c = time.monotonic()
+    part_c = supervised_train_part(counters, gpu)
+    seconds["c"] = time.monotonic() - t_c
+    emit("autopilot", part="c_supervised_preempt_burst",
+         **{**part_c, "seconds": dict(seconds)})
+    return part_c
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 # Where a JPEG decoder for an ImageNet input pipeline could come from: the
 # CUDA toolkit's nvJPEG and the system's libjpeg, headers and libraries.
 JPEG_DIRS = {"cuda": ("/usr/local/cuda/include", "/usr/local/cuda/lib64",
@@ -5382,7 +5886,9 @@ def main() -> int:
               for path in SERVE_PATHS]
     served += serve_arms_phase(counters, gpu, served)
     served.append(fleet_phase(counters, gpu))
+    supervised = autopilot_phase(counters, gpu)
     trained = [train_phase(path, counters, gpu) for path in TRAIN_PATHS]
+    trained.append(supervised)
     trained.append(imagenet_train_phase(counters, gpu))
     trained.append(imagenet_input_phase(counters, gpu, trained[-1]))
     trained.append(imagenet_train_phase(counters, gpu,

@@ -81,13 +81,20 @@ def test_run_tools_load_no_jax_stack():
 
 
 def test_fleet_host_modules_load_no_torch():
-    """The router, fleetmon, the scraper and the load generator are host
-    code in front of the replicas: importing them loads no torch (a router
-    holding a CUDA context would take card memory from the replicas),
-    nothing of JAX and nothing of the reference."""
+    """The router, fleetmon, the scraper, the load generator, the autopilot
+    and the supervisor are host code in front of the replicas: importing
+    them loads no torch (a router holding a CUDA context would take card
+    memory from the replicas), nothing of JAX and nothing of the
+    reference."""
     code = ("import sys, tpu_resnet_torch.serve.router, "
             "tpu_resnet_torch.obs.fleet, tpu_resnet_torch.tools.obs_scrape, "
-            "tpu_resnet_torch.tools.loadgen, tpu_resnet_torch.hostenv; "
+            "tpu_resnet_torch.tools.loadgen, tpu_resnet_torch.hostenv, "
+            "tpu_resnet_torch.autopilot, tpu_resnet_torch.autopilot.signals, "
+            "tpu_resnet_torch.autopilot.policy, "
+            "tpu_resnet_torch.autopilot.actuator, "
+            "tpu_resnet_torch.autopilot.controller, "
+            "tpu_resnet_torch.autopilot.cli, "
+            "tpu_resnet_torch.tools.supervise; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{('torch',) + FORBIDDEN_ROOTS!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

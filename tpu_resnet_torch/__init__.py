@@ -11,10 +11,13 @@ names follow the reference's. ``python -m tpu_resnet_torch``:
   kernels (``csrc/``), from TFRecord shards of JPEGs decoded on the card;
 - ``serve``, ``export``, ``predict``: the predict server (checkpoint or
   frozen ``torch.export`` artifact, float32 or int8) running the kernels;
-- ``route``, ``fleetmon``: the serving fleet in front of the replicas —
-  the router (failover, SLO shedding, hedging, rolling drain) and the
-  fleet monitor (merged percentiles, burn-rate alerts), host processes
-  that import no torch; ``tools/loadgen.py`` drives them;
+- ``route``, ``fleetmon``, ``autopilot``: the serving fleet in front of
+  the replicas — the router (failover, SLO shedding, hedging, rolling
+  drain), the fleet monitor (merged percentiles, burn-rate alerts) and
+  the autopilot (replicas spawned and drained with the traffic), host
+  processes that import no torch; ``tools/loadgen.py`` drives them and
+  ``tools/supervise.py`` restarts preempted trainers and crashed
+  replicas;
 - ``info``, ``inspect``, ``plot``, ``trace-export``, ``doctor``: the run
   tools.
 

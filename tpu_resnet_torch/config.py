@@ -355,7 +355,8 @@ class ResilienceConfig:
     never; injection is OFF by default and costs nothing when off."""
 
     # SIGTERM/SIGINT → stop at the next chunk boundary, save a final
-    # checkpoint, exit with preempt_exit_code (tools/supervise.py resumes).
+    # checkpoint, exit with preempt_exit_code (python -m
+    # tpu_resnet_torch.tools.supervise resumes).
     graceful_shutdown: bool = True
     preempt_exit_code: int = 42  # resilience/exitcodes.py PREEMPTED
     # Non-finite loss at a log boundary (already host-synced there — zero
@@ -666,9 +667,10 @@ class AutopilotConfig:
     # replica name the actuator minted (serve.replica_name={name} makes
     # the new replica discoverable), {i} -> the spawn ordinal.
     spawn_cmd: str = ""
-    # Wrap spawns in tools/supervise.py --stop-codes 3 so crashes
-    # restart with decorrelated-jitter backoff while the admission
-    # verdict stays terminal (and observable as the wrapper's exit 3).
+    # Wrap spawns in tpu_resnet_torch.tools.supervise --stop-codes 3 so
+    # crashes restart with decorrelated-jitter backoff while the
+    # admission verdict stays terminal (and observable as the wrapper's
+    # exit 3).
     spawn_supervised: bool = True
     # Names minted for autopilot-spawned replicas: <prefix><ordinal>.
     replica_prefix: str = "ap"

@@ -36,14 +36,27 @@ fleet monitor find them there:
     python -m tpu_resnet_torch route --drain r0 route.discover_dir=/tmp/run
     python -m tpu_resnet_torch fleetmon fleet.discover_dir=/tmp/run \
         fleet.slo_ms=50
+    python -m tpu_resnet_torch autopilot --preset imagenet \
+        autopilot.discover_dir=/tmp/run autopilot.max_replicas=2 \
+        autopilot.spawn_cmd='{python} -m tpu_resnet_torch serve --preset
+        imagenet model.fused_blocks=true model.fused_epilogue=on
+        train.train_dir=/tmp/run serve.replica_name={name} serve.port=0'
+
+The autopilot scales the replicas with the traffic: it spawns each under
+the port's restart supervisor, which also resumes a preempted trainer:
+
+    python -m tpu_resnet_torch.tools.supervise -- \
+        python -m tpu_resnet_torch train --preset cifar10 \
+        train.train_dir=/tmp/run
 
 Same ``--preset``/``--config``/``section.field=value`` surface as
 ``python -m tpu_resnet``; ``--device cpu`` runs ``train``, ``eval``,
 ``serve``, ``export`` and ``predict`` on the CPU, otherwise they need CUDA
 and raise without it.
 ``info`` (the model on the ``meta`` device), ``inspect``, ``plot``,
-``trace-export``, ``route`` and ``fleetmon`` touch no device (the last
-two import no torch: host code in front of the replicas); ``doctor``
+``trace-export``, ``route``, ``fleetmon`` and ``autopilot`` touch no
+device (the last three import no torch: host code in front of the
+replicas); ``doctor``
 probes the card and fails its checks where there is none.
 
 Data parallelism: ``train`` with ``mesh.data=N`` > 1 (or ``-1`` with more
@@ -75,7 +88,7 @@ import sys
 # The commands that take a run config, and those of them that run on a
 # device.
 _RUN_COMMANDS = ("train", "eval", "export", "predict", "serve", "info",
-                 "route", "fleetmon")
+                 "route", "fleetmon", "autopilot")
 _DEVICE_COMMANDS = ("train", "eval", "export", "predict", "serve")
 
 
@@ -218,6 +231,13 @@ def main(argv=None) -> int:
                          "timeseries, merge per-replica latency histograms "
                          "into true fleet p50/p95/p99, page on SLO "
                          "error-budget burn"),
+            ("autopilot", "traffic-driven autoscaling control plane: "
+                          "scrape the router + fleetmon signals, run the "
+                          "deterministic target-replica policy "
+                          "(hysteresis bands, cooldowns, min/max), spawn "
+                          "replicas via supervise/discovery gated by "
+                          "colocation admission, drain via the router's "
+                          "rolling contract"),
             ("info", "print resolved config, param count and forward "
                      "FLOPs"),
             ("inspect", "list the tensors of a checkpoint"),
@@ -369,6 +389,10 @@ def main(argv=None) -> int:
     if args.command == "fleetmon":
         from tpu_resnet_torch.obs.fleet import fleetmon
         return fleetmon(cfg)
+    if args.command == "autopilot":
+        # Host code too: the replicas it spawns hold the card.
+        from tpu_resnet_torch.autopilot.cli import autopilot
+        return autopilot(cfg)
     if args.command == "info":
         from tpu_resnet_torch.tools.analysis import print_model_info
         print_model_info(cfg, layers=args.layers)

@@ -16,7 +16,8 @@ own port with the reference's serving sets, ``SERVE_GAUGES`` and
 ``SERVE_HISTOGRAMS``, and a staleness of ``serve.healthz_stale_sec``; the
 router (``serve/router.py``) with ``ROUTE_GAUGES`` and
 ``ROUTE_HISTOGRAMS``, the fleet aggregator (``obs/fleet.py``) with
-``FLEET_GAUGES``.
+``FLEET_GAUGES``, the autopilot (``autopilot/controller.py``) with
+``AUTOPILOT_GAUGES``.
 
 Standard library only: ``http.server`` on a daemon thread. The bound port
 is written to ``<train_dir>/telemetry.json`` (port 0 binds an ephemeral
@@ -229,6 +230,53 @@ FLEET_GAUGES = (
                              "window"),
     ("fleet_alerts_total", "Burn-rate alerts fired since start"),
     ("fleet_alert_active", "1 while a burn-rate alert condition holds"),
+)
+
+# The autopilot's gauges (autopilot/controller.py), the reference's names
+# and help texts; each mirrors a field of the decision records the
+# controller appends to autopilot_events.jsonl.
+AUTOPILOT_GAUGES = (
+    ("autopilot_rounds_total", "Control-loop rounds completed (one "
+                               "snapshot + one policy decision each)"),
+    ("autopilot_signal_errors_total", "Rounds whose signal scrape failed "
+                                      "(router unreachable etc.) — the "
+                                      "policy holds on a blind round"),
+    ("autopilot_scale_ups_total", "Scale-up decisions actuated"),
+    ("autopilot_scale_downs_total", "Scale-down decisions actuated"),
+    ("autopilot_holds_total", "Rounds the policy decided to do nothing"),
+    ("autopilot_spawns_total", "Replica spawns launched (supervise/"
+                               "discovery path)"),
+    ("autopilot_spawn_failures_total", "Spawns that crashed or blew "
+                                       "ready_timeout_secs"),
+    ("autopilot_admission_denied_total", "Spawns denied by colocation "
+                                         "admission (exit 3) — each "
+                                         "arms the scale-up backoff"),
+    ("autopilot_drains_total", "Replicas drained via the router's "
+                               "/admin/drain rolling contract"),
+    ("autopilot_target_replicas", "The policy's current target replica "
+                                  "count"),
+    ("autopilot_replicas_total", "Replicas the router knows (from the "
+                                 "last signal snapshot)"),
+    ("autopilot_replicas_healthy", "Replicas in rotation (from the last "
+                                   "signal snapshot)"),
+    ("autopilot_p99_ms", "Router rolling p99 from the last snapshot "
+                         "(the primary pressure signal)"),
+    ("autopilot_slo_ms", "Effective SLO the hysteresis bands are "
+                         "anchored to"),
+    ("autopilot_burn_rate_fast", "fleetmon fast-window burn rate from "
+                                 "the last snapshot"),
+    ("autopilot_scale_up_latency_ms", "Last observed spawn -> healthy-"
+                                      "in-router latency (the series "
+                                      "the autoscale scenarios gate)"),
+    ("autopilot_slo_violation_seconds", "Integrated seconds the fleet "
+                                        "p99 sat above the SLO while "
+                                        "the autopilot watched"),
+    ("autopilot_replica_seconds", "Integrated healthy-replica x seconds "
+                                  "(the capacity-spend denominator)"),
+    ("autopilot_utilization", "Router requests served per healthy "
+                              "replica-second (capacity efficiency)"),
+    ("autopilot_capacity_granted", "1 while the capacity lease is "
+                                   "granted to the colocated trainer"),
 )
 
 
